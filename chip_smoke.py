@@ -6,16 +6,29 @@ Phases (any failure exits non-zero, before the result line):
  1. print the card (`nvidia-smi` name, power limit) and the torch / CUDA
     versions; refuse to run without CUDA;
  2. build the CUDA kernel library from `tpu264_torch/csrc` (timed);
- 3. hold each kernel (K1 CABAC engine, K2 DCT + quant, K3 DCT, K4 luma
-    deblock lines) to its plain torch version on the card, at the shapes
-    of the 720p main path, with exact equality, and time both;
+ 3. hold each kernel (K1 CABAC engine, K2 I4x4 wave body, the standalone
+    DCT + quant entry, K3 DCT, K4 luma deblock lines) to its plain torch
+    version on the card, at the shapes of the 720p main path and on
+    seeded corner cases, with exact equality, and time both;
  4. encode two 1280x720 frames (all-intra, CABAC, deblock, QP 28)
-    through `Encoder(cfg, device="cuda").encode_sequence`, check that
-    every kernel was launched, and hold the stream's SHA-256 to
+    through `Encoder(cfg).encode_sequence` (the default device is the
+    card), check that every kernel of the path was launched (K2 once a
+    wave), and hold the stream's SHA-256 to
     `tests/data/torch_golden.json` (made by the JAX reference encoder).
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
+
+`bound_ms` of a kernel is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its integer operations over
+the card's int32 issue rate (132 SMs x 64 int32 lanes x 1.98 GHz, about
+16.7 TOP/s; the data sheet's 67 TFLOP/s counts a float32 multiply-add
+on 128 lanes as two), both counted from this run's inputs.  K1 and K2
+are bound by neither but by a chain of dependent steps, which `PERF.md`
+models; K1's row also carries `bins`, counted from this run's records.
+`library_ms` is null throughout: no single PyTorch call computes a CABAC
+coder, an H.264 intra search, the H.264 integer transform with its
+quantiser, or the deblocking line filter.
 """
 
 from __future__ import annotations
@@ -33,16 +46,29 @@ import torch
 ROOT = Path(__file__).resolve().parent
 W, H, QP = 1280, 720, 28
 
+# count key -> (name, source, TPU kernel it replaces, on the main path)
 KERNELS = {
     "K1": ("cabac_engine", "tpu264_torch/csrc/cabac_engine.cu",
-           "tpu264/entropy/cabac_pallas.py:44"),
-    "K2": ("dct_quant", "tpu264_torch/csrc/dct_quant.cu",
-           "tpu264/kernels/pallas_kernels.py:55"),
+           "tpu264/entropy/cabac_pallas.py:44", True),
+    "K2": ("i4x4_wave", "tpu264_torch/csrc/i4x4_wave.cu",
+           "tpu264/kernels/pallas_kernels.py:55", True),
+    "K2_blocks": ("dct_quant", "tpu264_torch/csrc/dct_quant.cu",
+                  "tpu264/kernels/pallas_kernels.py:55", False),
     "K3": ("dct", "tpu264_torch/csrc/dct_quant.cu",
-           "tpu264/kernels/pallas_kernels.py:66"),
+           "tpu264/kernels/pallas_kernels.py:66", True),
     "K4": ("deblock_luma_lines", "tpu264_torch/csrc/deblock_luma.cu",
-           "tpu264/kernels/pallas_kernels.py:142"),
+           "tpu264/kernels/pallas_kernels.py:142", True),
 }
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+INT_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """Least time for the work: bytes over the memory rate or operations
+    over the peak rate, whichever is larger."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / INT_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
 def fail(msg: str) -> None:
@@ -94,7 +120,7 @@ def phase_build() -> None:
 
 def check_dct(dev, rng) -> dict:
     from tpu264_torch.kernels import dct_quant as dq
-    err = {"K2": 0, "K3": 0}
+    err = {"K2_blocks": 0, "K3": 0}
     times = {}
     for n in (40, 640, 57600):
         x = torch.as_tensor(rng.integers(-255, 256, size=(n, 4, 4)),
@@ -108,14 +134,64 @@ def check_dct(dev, rng) -> dict:
             for intra in (True, False):
                 got = dq.fdct_quant4x4(x, qp, intra)
                 want = dq.fdct_quant4x4_plain(x, qp, intra)
-                err["K2"] = max(err["K2"], max_abs_err(got, want))
-        times[("K2", n)] = (
+                err["K2_blocks"] = max(err["K2_blocks"],
+                                       max_abs_err(got, want))
+        times[("K2_blocks", n)] = (
             time_ms(lambda: dq.fdct_quant4x4(x, QP, True), 200),
             time_ms(lambda: dq.fdct_quant4x4_plain(x, QP, True), 200))
     for (k, n), (ms, pms) in sorted(times.items()):
         print(f"{k} {n:6d} blocks: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    return {"K2": (err["K2"], *times[("K2", 40)]),
-            "K3": (err["K3"], *times[("K3", 640)])}
+    # a block: 64 B in, 64 B out; 64 adds/shifts for the two butterfly
+    # passes, and 5 operations a coefficient for the quantiser
+    return {"K2_blocks": dict(err=err["K2_blocks"],
+                              ms=times[("K2_blocks", 40)][0],
+                              plain_ms=times[("K2_blocks", 40)][1],
+                              **bound(40 * 128, 40 * (64 + 80))),
+            "K3": dict(err=err["K3"], ms=times[("K3", 640)][0],
+                       plain_ms=times[("K3", 640)][1],
+                       **bound(640 * 128, 640 * 64))}
+
+
+def random_lanes(seed: int, dev):
+    """Seeded `eval_i4x4` inputs on the card: all 16 availability
+    combinations, neighbour modes over -2..8, noise, smooth and flat
+    content (`tpu264_torch.tools.synth_inputs`)."""
+    from tpu264_torch.tools.synth_inputs import random_i4x4_lanes
+    arrs = random_i4x4_lanes(seed, reps=3)
+    ints = [torch.as_tensor(a, dtype=torch.int32, device=dev)
+            for a in arrs[:5]]
+    flags = torch.as_tensor(np.stack(arrs[5:], 1), device=dev).unbind(1)
+    return (*ints, *flags)
+
+
+def check_i4x4_wave(dev, wave_args) -> dict:
+    """K2: the wave kernel against `eval_i4x4_plain` on the card, all five
+    outputs: the widest wave of the 720p frame, and seeded lanes at QP 0,
+    28 and 51."""
+    from tpu264_torch.coding import intra_frame as tif
+    err = 0
+    cases = [(wave_args[:9], QP)] + [(random_lanes(7 + qp, dev), qp)
+                                     for qp in (0, 28, 51)]
+    for args, qp in cases:
+        lam4, lam24 = tif.LAMBDA_TABLE[qp]
+        got = tif.eval_i4x4(*args, qp, lam4, lam24)
+        torch.cuda.synchronize()
+        want = tif.eval_i4x4_plain(*args, qp, lam4, lam24)
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail("K2 output shape or type differs from the plain one")
+            err = max(err, max_abs_err(g, w))
+    n_mbs = wave_args[0].shape[0]
+    ms = time_ms(lambda: tif.eval_i4x4(*wave_args), 200)
+    pms = time_ms(lambda: tif.eval_i4x4_plain(*wave_args), 3)
+    print(f"K2 wave of {n_mbs} MBs: kernel {ms:.4f} ms, plain {pms:.3f} ms")
+    # a macroblock: 305 int32 + 4 flags in, 545 int32 out; a block step:
+    # 144 samples x (6 predict + 8 Hadamard + 9 reduce) and about 400 for
+    # choose, transform, quantise and reconstruct
+    n_bytes = n_mbs * (305 * 4 + 4 + 545 * 4)
+    n_ops = n_mbs * 16 * (144 * 23 + 400)
+    return {"K2": dict(err=err, ms=ms, plain_ms=pms,
+                       **bound(n_bytes, n_ops))}
 
 
 def check_deblock(dev, rng) -> dict:
@@ -148,21 +224,43 @@ def check_deblock(dev, rng) -> dict:
     pms = time_ms(lambda: dl.filter_luma_lines_plain(smooth, bs, a, b, tc0),
                   200)
     print(f"K4 {hm * 16} lines: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    return {"K4": (err, ms, pms)}
+    # a line: 8 samples + bS in, 8 samples out; about 60 operations
+    return {"K4": dict(err=err, ms=ms, plain_ms=pms,
+                       **bound(hm * 16 * 68, hm * 16 * 60))}
 
 
-def check_cabac(dev, frame) -> dict:
+def frame_records(dev, frame, slices: int, spy=None):
+    """CABAC records of one 720p frame through the port's own stages ->
+    (records, counts, init, word cap).  `spy(args)` sees every
+    `eval_i4x4` call of the wave loop."""
+    from tpu264_torch.coding import intra_frame as tif
     from tpu264_torch.coding.encoder import Encoder
-    from tpu264_torch.coding.intra_frame import reorder_wave_outputs
     from tpu264_torch.config import EncoderConfig
     from tpu264_torch.entropy import cabac_engine_cuda as k1
-    enc = Encoder(EncoderConfig(width=W, height=H, qp=QP,
-                                symbol_mode="CABAC"), device=dev)
+    enc = Encoder(EncoderConfig(width=W, height=H, qp=QP, symbol_mode="CABAC",
+                                slices_per_frame=slices), device=dev)
     y, u, v = (torch.as_tensor(p, device=dev) for p in frame)
-    _, ys = enc._encode_frame(y, u, v, QP)
-    recs, counts = enc._cabac_records(reorder_wave_outputs(enc.sched, ys))
+    inner = tif.eval_i4x4
+
+    def seen(*args):
+        spy(args)
+        return inner(*args)
+
+    if spy is not None:
+        tif.eval_i4x4 = seen
+    try:
+        _, ys = enc._encode_frame(y, u, v, QP)
+    finally:
+        tif.eval_i4x4 = inner
+    recs, counts = enc._cabac_records(tif.reorder_wave_outputs(enc.sched, ys))
     init = torch.as_tensor(k1.init_packed_states(0, QP), device=dev)
-    cap_words = enc._cap_words
+    return recs, counts, init, enc._cap_words
+
+
+def engine_err(recs, counts, init, cap_words, what: str):
+    """K1 against its plain version on one input -> (max abs err of the
+    words, the plain version's host milliseconds)."""
+    from tpu264_torch.entropy import cabac_engine_cuda as k1
     words, nbytes = k1.encode_slices(recs, counts, init, cap_words)
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -170,36 +268,93 @@ def check_cabac(dev, frame) -> dict:
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.monotonic() - t0)
     if not torch.equal(nbytes, pnb):
-        fail(f"K1 nbytes {nbytes.tolist()} != plain {pnb.tolist()}")
-    err = max_abs_err(words, pw)
-    ms = time_ms(lambda: k1.encode_slices(recs, counts, init, cap_words), 3)
-    print(f"K1 {int(counts.sum())} records -> {int(nbytes.sum())} bytes: "
-          f"kernel {ms:.3f} ms, plain (host loop) {plain_ms:.1f} ms")
-    return {"K1": (err, ms, plain_ms)}
+        fail(f"K1 {what}: nbytes {nbytes.tolist()} != plain {pnb.tolist()}")
+    if int(nbytes.min()) <= 0:
+        fail(f"K1 {what}: empty or overflowed payload {nbytes.tolist()}")
+    return max_abs_err(words, pw), plain_ms
+
+
+def check_cabac(dev, frame) -> tuple[dict, tuple]:
+    """K1 against `encode_slices_plain`: the 720p frame as one slice (the
+    main path's shape, timed) and as three, and seeded records with long
+    bypass runs, runs of up to 8191 bins in one context, and piles of
+    outstanding bits resolved with and without a carry.  Also returns the
+    `eval_i4x4` arguments of the frame's widest wave for the K2 check."""
+    from tpu264_torch.entropy import cabac_binarize as cbz
+    from tpu264_torch.entropy import cabac_engine_cuda as k1
+    from tpu264_torch.tools import synth_inputs as si
+    waves = []
+    recs, counts, init, cap_words = frame_records(dev, frame, 1, waves.append)
+    err, plain_ms = engine_err(recs, counts, init, cap_words, "720p, 1 slice")
+    ms = time_ms(lambda: k1.encode_slices(recs, counts, init, cap_words), 10)
+    n = int(counts[0])
+    kind, _, b = cbz.unpack_records(recs[0, :n].cpu().numpy())
+    bins = int(np.where(kind == 0, b >> 1, np.where(kind == 1, b, 1)).sum())
+    nbytes = int(k1.encode_slices(recs, counts, init, cap_words)[1].sum())
+    print(f"K1 {n} records, {bins} bins -> {nbytes} bytes: kernel "
+          f"{ms:.3f} ms, plain (host loop) {plain_ms:.1f} ms")
+    err = max(err, engine_err(*frame_records(dev, frame, 3),
+                              "720p, 3 slices")[0])
+    rng = np.random.default_rng(5)
+    long_bypass = (np.ones(4000, np.int32),
+                   rng.integers(0, 1 << 16, size=4000).astype(np.int32),
+                   np.full(4000, 16, np.int32))
+    slices = [si.carry_records(s, runs=(3, 9, 40, 130, 700, 5000),
+                               tail=300 + 2500 * s) for s in range(3)]
+    slices.append(tuple(np.concatenate(p) for p in
+                        zip(long_bypass, si.random_records(6, 3000))))
+    slices.append(si.long_run_records(9, n=40, tail=500))
+    srecs, scounts = si.pack_record_slices(slices)
+    serr, _ = engine_err(torch.as_tensor(srecs, device=dev),
+                         torch.as_tensor(scounts, device=dev), init, 8192,
+                         "seeded carry and bypass records")
+    err = max(err, serr)
+    # records after a terminate bin 1: the kernel reports them (-2)
+    stray = [tuple(np.concatenate(p) for p in
+                   zip(si.random_records(8, 40), si.random_records(9, 30)))]
+    strecs, stcounts = si.pack_record_slices(stray)
+    refused = k1.encode_slices(torch.as_tensor(strecs, device=dev),
+                               torch.as_tensor(stcounts, device=dev), init,
+                               512)[1].tolist()
+    if refused != [-2]:
+        fail(f"K1: records after the final terminate gave nbytes {refused}, "
+             f"not [-2]")
+    # bytes: records and contexts in, payload and its size out;
+    # operations: about 43 a bin (the coding loop's instruction count)
+    bound_ = bound(4 * n + 4 * 460 + nbytes + 4, 43 * bins)
+    # the middle wave of the frame has the most valid lanes
+    return ({"K1": dict(err=err, ms=ms, plain_ms=plain_ms, bins=bins,
+                        **bound_)}, waves[len(waves) // 2])
+
+
+def launch_counts() -> list:
+    """The wrappers' launch counters (one dict a module)."""
+    from tpu264_torch.entropy import cabac_engine_cuda as k1
+    from tpu264_torch.kernels import dct_quant as dq, deblock_lines as dl, \
+        i4x4_wave as k2w
+    return [k1.launches, k2w.launches, dq.launches, dl.launches]
 
 
 def reset_counts() -> None:
-    from tpu264_torch.entropy import cabac_engine_cuda as k1
-    from tpu264_torch.kernels import dct_quant as dq, deblock_lines as dl
-    for c in (k1.launches, dq.launches, dl.launches):
+    for c in launch_counts():
         for k in c:
             c[k] = 0
 
 
 def read_counts() -> dict:
-    from tpu264_torch.entropy import cabac_engine_cuda as k1
-    from tpu264_torch.kernels import dct_quant as dq, deblock_lines as dl
-    return {**k1.launches, **dq.launches, **dl.launches}
+    return {k: v for c in launch_counts() for k, v in c.items()}
 
 
-def phase_encode(dev, frames) -> dict:
+def phase_encode(frames) -> dict:
     from tpu264_torch.coding.encoder import Encoder
     from tpu264_torch.config import EncoderConfig
     golden = json.loads((ROOT / "tests" / "data" / "torch_golden.json")
                         .read_text())
     cfg = EncoderConfig(width=W, height=H, qp=QP, symbol_mode="CABAC",
                         deblock=True)
-    enc = Encoder(cfg, device=dev)
+    enc = Encoder(cfg)              # no device named: the card
+    if enc.device.type != "cuda":
+        fail(f"Encoder(cfg) chose {enc.device}, not the card")
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -208,9 +363,15 @@ def phase_encode(dev, frames) -> dict:
     secs = time.monotonic() - t0
     counts = read_counts()
     print(f"launches on the main path: {counts}")
-    for k in KERNELS:
-        if counts[k] <= 0:
-            fail(f"kernel {k} was not launched on the main path")
+    for k, (name, _, _, on_path) in KERNELS.items():
+        if on_path and counts[k] <= 0:
+            fail(f"kernel {k} ({name}) was not launched on the main path")
+    n_waves = enc.sched.n_waves
+    if counts["K2"] != n_waves * len(frames):
+        fail(f"K2 ran {counts['K2']} times, not once for each of the "
+             f"{n_waves} waves of {len(frames)} frames")
+    print(f"launches a frame: " + ", ".join(
+        f"{k} {counts[k] / len(frames):g}" for k in KERNELS))
     for i, st in enumerate(enc.stats):
         print(f"frame {i}: {st.bits} bits, PSNR-Y {st.psnr_y:.3f} dB, "
               f"PSNR-U {st.psnr_u:.3f}, PSNR-V {st.psnr_v:.3f}, "
@@ -242,18 +403,28 @@ def main() -> int:
     results = {}
     results.update(check_dct(dev, rng))
     results.update(check_deblock(dev, rng))
-    results.update(check_cabac(dev, frames[0]))
-    for k, (err, _, _) in sorted(results.items()):
-        if err != 0:
+    k1_result, wave_args = check_cabac(dev, frames[0])
+    results.update(k1_result)
+    results.update(check_i4x4_wave(dev, wave_args))
+    for k, r in sorted(results.items()):
+        if r["err"] != 0:
             fail(f"kernel {k} differs from its plain version "
-                 f"(max abs err {err})")
+                 f"(max abs err {r['err']})")
     print("kernels equal their plain versions (tolerance 0)")
-    counts = phase_encode(dev, frames)
-    print(json.dumps({"kernels": [
-        {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
-         "replaces": KERNELS[k][2], "launches": counts[k],
-         "max_abs_err": results[k][0], "ms": results[k][1],
-         "plain_ms": results[k][2]} for k in sorted(KERNELS)]}))
+    counts = phase_encode(frames)
+    rows = []
+    for k in sorted(KERNELS):
+        name, source, replaces, _ = KERNELS[k]
+        r = results[k]
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": counts[k],
+               "max_abs_err": r["err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": None}
+        if "bins" in r:
+            row["bins"] = r["bins"]
+        rows.append(row)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -61,6 +61,19 @@ def test_records_match_reference(qp, slices):
         assert got[s] == want
 
 
+def test_final_terminate_is_each_slices_last_record():
+    """A slice's records hold one terminate bin 1, at their end: what the
+    CUDA range coder relies on (it refuses records after one)."""
+    mb, rows = _mb(28, 3)
+    k, a, b, v = tcb.binarize_frame(mb, WM, HM, rows)
+    recs, counts = tcb.compact_slices(k, a, b, v, WM, rows, HM,
+                                      WM * HM // 3 * 768)
+    for s, c in enumerate(to_np(counts)):
+        kk, aa, _ = tcb.unpack_records(to_np(recs)[s, :c])
+        final = np.flatnonzero((kk == 2) & (aa != 0))
+        assert final.tolist() == [c - 1], s
+
+
 def test_compaction_keeps_true_count_past_cap():
     mb, rows = _mb(28, 1)
     k, a, b, v = tcb.binarize_frame(mb, WM, HM, rows)

@@ -11,15 +11,20 @@ installed:
 import numpy as np
 import pytest
 
+import torch
+
+from tpu264_torch.coding import intra_frame as tif
 from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.config import EncoderConfig
 from tpu264_torch.kernels import dct_quant as dq
 from tpu264_torch.kernels import deblock_lines as dl
+from tpu264_torch.kernels import i4x4_wave as k2w
 from tpu264_torch.media.synth import synth_frame
 from tpu264_torch.ref import deblock as rd
 
-from torch_util import assert_equal, cuda_device, random_records, \
-    run_engine, t32, to_np
+from torch_util import assert_equal, carry_records, cuda_device, \
+    long_run_records, random_i4x4_lanes, random_records, run_engine, t32, \
+    to_np
 
 rng = np.random.default_rng(11)
 
@@ -28,15 +33,58 @@ rng = np.random.default_rng(11)
 @pytest.mark.parametrize("qp", [0, 28, 51])
 def test_cuda_dct_quant_matches_plain(qp):
     dev = cuda_device()
-    before = dict(dq.launches)
+    before = {**dq.launches, **k2w.launches}
     for n in (40, 640, 57600):
         x = t32(rng.integers(-255, 256, size=(n, 4, 4)), dev)
         for intra in (True, False):
             assert_equal(dq.fdct_quant4x4(x, qp, intra),
                          dq.fdct_quant4x4_plain(x, qp, intra))
         assert_equal(dq.fdct4x4(x), dq.fdct4x4_plain(x))
-    assert dq.launches["K2"] == before["K2"] + 6
+    assert dq.launches["K2_blocks"] == before["K2_blocks"] + 6
+    assert k2w.launches["K2"] == before["K2"]
     assert dq.launches["K3"] == before["K3"] + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp", [0, 17, 28, 51])
+def test_cuda_i4x4_wave_matches_plain(qp):
+    """The I4x4 wave kernel against `eval_i4x4_plain` on the CPU and on
+    the card: all five outputs, every availability combination, -1/-2
+    neighbour modes, flat lanes; one launch, counted as K2."""
+    dev = cuda_device()
+    arrs = random_i4x4_lanes(100 + qp, reps=3)
+    lam4, lam24 = tif.LAMBDA_TABLE[qp]
+    ints = [t32(a, dev) for a in arrs[:5]]
+    # the flags as the wave loop passes them: strided views of one tensor
+    flags = torch.as_tensor(np.stack(arrs[5:], 1), device=dev).unbind(1)
+    before = {**dq.launches, **k2w.launches}
+    got = tif.eval_i4x4(*ints, *flags, qp, lam4, lam24)
+    torch.cuda.synchronize()
+    assert k2w.launches["K2"] == before["K2"] + 1
+    assert dq.launches["K2_blocks"] == before["K2_blocks"]
+    on_card = tif.eval_i4x4_plain(*ints, *flags, qp, lam4, lam24)
+    on_cpu = tif.eval_i4x4(*(t32(a) for a in arrs[:5]),
+                           *(torch.as_tensor(a) for a in arrs[5:]),
+                           qp, lam4, lam24)
+    for name, g, w, c in zip(("recon", "mode grid", "modes", "levels",
+                              "cost"), got, on_card, on_cpu):
+        assert g.dtype == torch.int32 and g.shape == w.shape, name
+        assert_equal(g, w, name)
+        assert_equal(g, c, name)
+
+
+@pytest.mark.cuda
+def test_cuda_i4x4_wave_rejects_bad_input():
+    dev = cuda_device()
+    arrs = random_i4x4_lanes(5, reps=1)
+    ints = [t32(a, dev) for a in arrs[:5]]
+    flags = [torch.as_tensor(a, device=dev) for a in arrs[5:]]
+    with pytest.raises(TypeError):
+        tif.eval_i4x4(ints[0].to(torch.int64), *ints[1:], *flags, 28, 23, 140)
+    with pytest.raises(ValueError):
+        tif.eval_i4x4(ints[0].transpose(1, 2), *ints[1:], *flags, 28, 23, 140)
+    with pytest.raises(ValueError):
+        tif.eval_i4x4(*ints, *flags[:3], flags[3].cpu(), 28, 23, 140)
 
 
 @pytest.mark.cuda
@@ -72,10 +120,66 @@ def test_cuda_engine_matches_plain():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 9000])
+def test_cuda_engine_chunk_edges(n):
+    """Record counts around the kernel's chunk of 128 records."""
+    dev = cuda_device()
+    slices = [random_records(30 + n, n - 1)]      # + the terminating record
+    w_gpu, nb_gpu, p_gpu = run_engine(slices, 1, 35, device=dev)
+    w_cpu, nb_cpu, p_cpu = run_engine(slices, 1, 35)
+    assert_equal(nb_gpu, nb_cpu)
+    assert_equal(w_gpu, w_cpu)
+    assert p_gpu == p_cpu
+
+
+@pytest.mark.cuda
+def test_cuda_engine_carry_and_outstanding_runs():
+    """Long runs of pending 0xFF bytes resolved with and without a carry,
+    three slices in one launch: the byte-wise kernel equals the bit-wise
+    plain version."""
+    dev = cuda_device()
+    slices = [carry_records(s, tail=200 + 900 * s) for s in range(3)]
+    w_gpu, nb_gpu, p_gpu = run_engine(slices, 0, 28, device=dev)
+    w_cpu, nb_cpu, p_cpu = run_engine(slices, 0, 28)
+    assert_equal(nb_gpu, nb_cpu)
+    assert_equal(w_gpu, w_cpu)
+    assert p_gpu == p_cpu
+    assert b"\x00" * 80 in p_gpu[0] and b"\xff" * 15 in p_gpu[0]
+
+
+@pytest.mark.cuda
+def test_cuda_engine_long_runs():
+    """Runs of up to 8191 bins (the kernel codes a run of more than four
+    bins as one operation) beside short ones, two slices."""
+    dev = cuda_device()
+    slices = [long_run_records(s, n=24, tail=400) for s in range(2)]
+    w_gpu, nb_gpu, p_gpu = run_engine(slices, 2, 40, device=dev)
+    w_cpu, nb_cpu, p_cpu = run_engine(slices, 2, 40)
+    assert_equal(nb_gpu, nb_cpu)
+    assert_equal(w_gpu, w_cpu)
+    assert p_gpu == p_cpu
+
+
+@pytest.mark.cuda
 def test_cuda_engine_reports_overflow():
     dev = cuda_device()
     with pytest.raises(RuntimeError, match="overflowed"):
         run_engine([random_records(4, 2000)], 0, 28, out_cap=8, device=dev)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_refuses_records_after_final_terminate():
+    """The kernel pads to a byte at a terminate bin 1; records after one
+    (the second slice here) are reported, not coded differently from the
+    plain version."""
+    dev = cuda_device()
+    good = random_records(8, 300)
+    stray = tuple(np.concatenate(p) for p in zip(random_records(8, 40),
+                                                 random_records(9, 30)))
+    _, nbytes, _ = run_engine([good], 0, 28, device=dev)
+    assert int(nbytes[0]) > 0
+    with pytest.raises(ValueError, match="final terminate"):
+        run_engine([good, stray], 0, 28, device=dev)
 
 
 @pytest.mark.cuda
@@ -89,7 +193,7 @@ def test_cuda_encoder_matches_cpu(deblock, slices):
     frames = [synth_frame(176, 144, t) for t in range(2)]
     cfg = EncoderConfig(width=176, height=144, qp=28, symbol_mode="CABAC",
                         deblock=deblock, slices_per_frame=slices)
-    counts = (k1.launches, dq.launches, dl.launches)
+    counts = (k1.launches, dq.launches, k2w.launches, dl.launches)
     before = [dict(c) for c in counts]
     gpu = Encoder(cfg, device=dev)
     got = gpu.encode_sequence(frames)

@@ -1,7 +1,9 @@
 """The port's encoder end to end on the CPU: its Annex-B stream equals the
 JAX reference encoder's byte for byte (QCIF, 2 frames, all-intra CABAC,
-deblock on and off, 1 and 3 slices), and its recon equals what the
-reference decoder reconstructs from the port's stream."""
+deblock on and off, 1 and 3 slices, and with a slice over the CABAC
+record cap), and its recon equals what the reference decoder
+reconstructs from the port's stream.  Every port encoder here is built
+with `device="cpu"`: without it the port asks for the CUDA card."""
 
 import dataclasses
 
@@ -22,6 +24,7 @@ W, H = 176, 144
 FRAMES = [synth_frame(W, H, t) for t in range(2)]
 CASES = [(True, 1), (True, 3), (False, 1), (False, 3)]
 _REF = {}
+_PORT = {}
 
 
 def _ref_cfg(deblock, slices, **kw):
@@ -31,29 +34,37 @@ def _ref_cfg(deblock, slices, **kw):
 
 @pytest.fixture(scope="module")
 def reference():
-    """Reference stream + stats per case, each encoder built once."""
+    """Reference (stream, stats, recons, encoder) per case, each encoder
+    built (and its programs compiled) once for the module."""
     def get(deblock, slices):
         key = (deblock, slices)
         if key not in _REF:
             enc = RefEncoder(_ref_cfg(deblock, slices))
             stream = enc.encode_sequence(FRAMES)
-            _REF[key] = (stream, enc.stats,
+            _REF[key] = (stream, list(enc.stats),
                          [tuple(np.asarray(p) for p in r)
-                          for r in enc.recons])
+                          for r in enc.recons], enc)
         return _REF[key]
     return get
 
 
-def _port(deblock, slices):
-    cfg = EncoderConfig.from_reference(
+def _port_cfg(deblock, slices):
+    return EncoderConfig.from_reference(
         dataclasses.asdict(_ref_cfg(deblock, slices)))
-    enc = Encoder(cfg, device="cpu")
-    return enc.encode_sequence(FRAMES), enc
+
+
+def _port(deblock, slices):
+    """The port's (stream, encoder) per case, encoded once for the module."""
+    key = (deblock, slices)
+    if key not in _PORT:
+        enc = Encoder(_port_cfg(deblock, slices), device="cpu")
+        _PORT[key] = (enc.encode_sequence(FRAMES), enc)
+    return _PORT[key]
 
 
 @pytest.mark.parametrize("deblock,slices", CASES)
 def test_stream_bytes_equal_reference(reference, deblock, slices):
-    want, ref_stats, ref_recons = reference(deblock, slices)
+    want, ref_stats, ref_recons, _ = reference(deblock, slices)
     got, enc = _port(deblock, slices)
     assert got == want
     assert [s.bits for s in enc.stats] == [s.bits for s in ref_stats]
@@ -85,12 +96,43 @@ def test_unported_options_raise(kwargs, what):
     base = dict(width=W, height=H, qp=28, symbol_mode="CABAC")
     base.update(kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Encoder(EncoderConfig(**base))
+        Encoder(EncoderConfig(**base), device="cpu")
 
 
-def test_record_cap_overflow_raises():
-    enc = Encoder(EncoderConfig(width=W, height=H, qp=28,
-                                symbol_mode="CABAC"))
-    enc._cabac_cap = 100
-    with pytest.raises(RuntimeError, match="CABAC records"):
-        enc.encode_sequence(FRAMES[:1])
+def test_default_device_is_cuda():
+    """`Encoder(cfg)` asks for the card: where there is none it raises and
+    names the device, and does not carry on on the CPU."""
+    import torch
+    cfg = EncoderConfig(width=W, height=H, qp=28, symbol_mode="CABAC")
+    if torch.cuda.is_available():
+        assert Encoder(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            Encoder(cfg)
+
+
+def test_record_cap_overflow_recompacts():
+    """A slice over the record cap raises nothing: the encoder compacts
+    the slice again at its true size and the stream is the one the full
+    buffer gives."""
+    enc = Encoder(_port_cfg(True, 1), device="cpu", records_per_mb=1)
+    assert enc._cabac_cap == (W // 16) * (H // 16)
+    assert enc.encode_sequence(FRAMES[:1]) == \
+        Encoder(_port_cfg(True, 1), device="cpu").encode_sequence(FRAMES[:1])
+
+
+@pytest.mark.parametrize("deblock,slices", [(True, 1), (False, 3)])
+def test_record_cap_overflow_equals_reference(reference, deblock, slices):
+    """Every slice needs more records than the cap (1 a MB): the port's
+    stream equals the reference's, both from its device record path and
+    from the host path the reference takes past its own cap."""
+    want, _, _, ref_enc = reference(deblock, slices)
+    enc = Encoder(_port_cfg(deblock, slices), device="cpu", records_per_mb=1)
+    got = enc.encode_sequence(FRAMES)
+    assert got == want
+    cap = ref_enc._cabac_cap
+    ref_enc._cabac_cap = enc._cabac_cap
+    try:
+        assert RefEncoder.encode_sequence(ref_enc, FRAMES) == got
+    finally:
+        ref_enc._cabac_cap = cap

@@ -13,7 +13,7 @@ from tpu264.media.synth import synth_frame
 from tpu264_torch.coding import intra_frame as tif
 from tpu264_torch.coding.wavefront import build_schedule
 
-from torch_util import assert_equal, t32, to_np
+from torch_util import assert_equal, random_i4x4_lanes, t32, to_np
 
 W, H = 176, 144
 _REF = {}
@@ -115,3 +115,22 @@ def test_eval_i16_and_chroma_random_lanes(qp):
     for go, wo in zip(gouts, wouts):
         for g, w in zip(go, wo):
             assert_equal(g, w)
+
+
+@pytest.mark.parametrize("qp", [0, 17, 36, 51])
+def test_eval_i4x4_random_lanes(qp):
+    """eval_i4x4 (on the CPU: the plain version the wave kernel is held
+    to) against the reference on lanes over all availability combinations,
+    -1/-2 neighbour modes and flat content: all five outputs equal."""
+    ints, flags = random_i4x4_lanes(qp)[:5], random_i4x4_lanes(qp)[5:]
+    lam4, lam24 = tif.LAMBDA_TABLE[qp]
+    want = rif.eval_i4x4(*(jnp.asarray(a, jnp.int32) for a in ints),
+                         *(jnp.asarray(a) for a in flags), qp, lam4, lam24)
+    got = tif.eval_i4x4(*(t32(a) for a in ints),
+                        *(torch.as_tensor(a) for a in flags), qp, lam4, lam24)
+    assert len(got) == len(want) == 5
+    for name, g, w in zip(("recon", "mode grid", "modes", "levels", "cost"),
+                          got, want):
+        assert_equal(g, w, name)
+    modes = to_np(got[2])
+    assert len(np.unique(modes)) >= 5          # the search is exercised

@@ -16,10 +16,12 @@ from tpu264.kernels import pallas_kernels as pk
 from tpu264.ref import deblock as rd
 
 from tpu264_torch.entropy import cabac_binarize as tcb
+from tpu264_torch.entropy import cabac_engine_cuda as k1
 from tpu264_torch.kernels import dct_quant as dq
 from tpu264_torch.kernels import deblock_lines as dl
 
-from torch_util import assert_equal, random_records, run_engine, t32, to_np
+from torch_util import assert_equal, carry_records, long_run_records, \
+    random_records, run_engine, t32, to_np
 
 rng = np.random.default_rng(7)
 
@@ -129,6 +131,30 @@ def test_engine_plain_matches_python_engine(seed, n):
     assert got[0] == _replay_python(k, a, b, 0, 28)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_engine_plain_carry_and_outstanding_runs(seed):
+    """Hand-made records that pile up 3 to 700 outstanding bits and
+    resolve them with and without a carry (runs of 0x00 and of 0xFF
+    payload bytes): the plain version against the reference's Python
+    coder."""
+    k, a, b = carry_records(seed)
+    _, nbytes, got = run_engine([(k, a, b)], 0, 28)
+    assert got[0] == _replay_python(k, a, b, 0, 28)
+    assert int(nbytes[0]) == len(got[0])
+    assert b"\x00" * 80 in got[0] and b"\xff" * 15 in got[0]
+
+
+def test_engine_plain_long_runs():
+    """Runs of up to 8191 bins in one context, the bin value changing from
+    record to record: the plain version against the reference's Python
+    coder."""
+    k, a, b = long_run_records(4, n=8, tail=30)
+    assert int((b[:8] >> 1).max()) == 8191
+    _, nbytes, got = run_engine([(k, a, b)], 1, 30)
+    assert got[0] == _replay_python(k, a, b, 1, 30)
+    assert int(nbytes[0]) == len(got[0])
+
+
 def test_engine_plain_matches_pallas_kernel():
     k, a, b = random_records(3, 120)
     cap = len(k) + 4
@@ -143,6 +169,37 @@ def test_engine_plain_matches_pallas_kernel():
     # the Pallas kernel rounds its word buffer up; the rest is zero
     assert_equal(words, np.asarray(w_ref)[:, :512])
     assert not np.asarray(w_ref)[:, 512:].any()
+
+
+def test_engine_plain_codes_on_after_final_terminate():
+    """Records after a terminate bin 1 (no slice has any): the plain
+    version goes on coding after the stop bit, as the reference's Pallas
+    kernel does."""
+    k, a, b = (np.concatenate(p) for p in zip(random_records(8, 40),
+                                              random_records(9, 30)))
+    assert k[40] == 2 and a[40] == 1 and len(k) == 72
+    cap = len(k) + 4
+    rec = np.zeros((1, cap), np.int32)
+    rec[0, :len(k)] = np.asarray(ref_pack(jnp.asarray(k), jnp.asarray(a),
+                                          jnp.asarray(b)))
+    run = cabac_pallas.make_slice_encoder(cap, 512, interpret=True)
+    w_ref, nb_ref = run(jnp.asarray(rec), jnp.asarray([len(k)], jnp.int32),
+                        jnp.asarray(cabac_pallas.init_packed_states(0, 28)))
+    words, nbytes, _ = run_engine([(k, a, b)], 0, 28, pad=4, out_cap=512)
+    assert_equal(nbytes, nb_ref)
+    assert_equal(words, np.asarray(w_ref)[:, :512])
+    head = run_engine([(k[:41], a[:41], b[:41])], 0, 28)[2][0]
+    assert len(head) < int(nbytes[0])
+
+
+def test_payloads_refuse_stray_record_report():
+    """nbytes = -2 is how the CUDA kernel reports records after a final
+    terminate bin; -1 an overflowed word buffer."""
+    words = t32(np.zeros((2, 4)))
+    with pytest.raises(ValueError, match="final terminate"):
+        k1.payloads_from_words(words, t32([3, -2]))
+    with pytest.raises(RuntimeError, match="overflowed"):
+        k1.payloads_from_words(words, t32([-1, 3]))
 
 
 def test_engine_plain_several_slices():

@@ -14,6 +14,8 @@ import torch
 
 from tpu264_torch.entropy import cabac_binarize as tcb
 from tpu264_torch.entropy import cabac_engine_cuda as k1
+from tpu264_torch.tools.synth_inputs import (  # noqa: F401  (re-exported)
+    carry_records, long_run_records, random_i4x4_lanes, random_records)
 
 
 def to_np(x) -> np.ndarray:
@@ -37,32 +39,6 @@ def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the GPU machine)")
     return torch.device("cuda")
-
-
-def random_records(seed, n):
-    """n random packed-record triples (kind, a, b) ending in a terminate."""
-    r = np.random.default_rng(seed)
-    kinds, aa, bb = [], [], []
-    for _ in range(n):
-        kk = int(r.integers(0, 3))
-        if kk == 0:
-            kinds.append(0)
-            aa.append(int(r.integers(0, 460)))
-            bb.append(int(r.integers(0, 2)) | (int(r.integers(1, 14)) << 1))
-        elif kk == 1:
-            nb = int(r.integers(1, 17))
-            kinds.append(1)
-            aa.append(int(r.integers(0, 1 << nb)))
-            bb.append(nb)
-        else:
-            kinds.append(2)
-            aa.append(0)
-            bb.append(0)
-    kinds.append(2)
-    aa.append(1)
-    bb.append(0)
-    return (np.array(kinds, np.int32), np.array(aa, np.int32),
-            np.array(bb, np.int32))
 
 
 def run_engine(slices, table, qp, pad=5, out_cap=8192, device="cpu"):

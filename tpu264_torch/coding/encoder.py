@@ -3,7 +3,8 @@
 
 Parameter-set emission, per-frame device encode (wavefront mode decision
 with kernels K2/K3, the skewed deblocker with K4, CABAC binarization and
-the range coder K1), Annex-B assembly and per-frame stats.
+the range coder K1), Annex-B assembly and per-frame stats.  The encoder
+runs on the CUDA card unless the caller asks for `device="cpu"`.
 
 Not ported yet; the constructor raises `NotImplementedError` naming the
 ROADMAP item that brings each: P and B GOPs, CAVLC (and with it the
@@ -73,15 +74,23 @@ def build_params(cfg: EncoderConfig):
 class Encoder:
     """All-intra CABAC H.264 encoder with optional in-loop deblocking.
 
-    `device`: where the frame encode runs ("cpu" runs every kernel's
-    plain torch version, "cuda" the CUDA kernels).
+    `device`: where the frame encode runs: "cuda" (the default) runs the
+    CUDA kernels and raises where there is no card; "cpu", which a caller
+    must ask for, runs every kernel's plain torch version.
+    `records_per_mb`: room of a slice's CABAC record buffer per MB; a
+    slice that needs more is compacted again at its true size.
     """
 
     def __init__(self, cfg: EncoderConfig, gop_mode: str | None = None,
-                 device="cpu"):
+                 device="cuda", records_per_mb: int = RECORDS_PER_MB):
         cfg.validate()
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Encoder: device {str(self.device)!r} asked for, but "
+                "torch.cuda.is_available() is False; pass device=\"cpu\" to "
+                "run the plain torch versions on the CPU")
         if gop_mode is None:
             if cfg.num_b_frames > 0 and cfg.intra_period != 1:
                 gop_mode = "bgop"
@@ -118,27 +127,30 @@ class Encoder:
                 self.sched, filter_across_slices=(self.deblock_idc == 0))
         self.stats: list[FrameStats] = []
         per_slice = (cfg.width_mbs * cfg.height_mbs) // cfg.slices_per_frame
-        self._cabac_cap = per_slice * RECORDS_PER_MB
+        self._cabac_cap = per_slice * records_per_mb
         self._cap_words = per_slice * WORDS_PER_MB
 
     def _cabac_records(self, mbd):
-        """Binarize + compact on device: packed records [S, cap], counts."""
+        """Binarize + compact on device: packed records [S, cap], counts.
+
+        A slice over the record cap (pathological content) keeps every
+        record: the same record grids are compacted again with room for
+        the largest slice, so the stream is the one an unbounded buffer
+        gives (the reference re-binarizes such a frame on the host)."""
         cfg = self.cfg
         rows = self.sched.slice_starts.tolist()
         k, a, b, v = cbz.binarize_frame(mbd, cfg.width_mbs, cfg.height_mbs,
                                         rows)
-        return cbz.compact_slices(k, a, b, v, cfg.width_mbs, rows,
-                                  cfg.height_mbs, self._cabac_cap)
+        recs, counts = cbz.compact_slices(k, a, b, v, cfg.width_mbs, rows,
+                                          cfg.height_mbs, self._cabac_cap)
+        need = int(counts.max())
+        if need > self._cabac_cap:
+            recs, counts = cbz.compact_slices(k, a, b, v, cfg.width_mbs,
+                                              rows, cfg.height_mbs, need)
+        return recs, counts
 
     def _cabac_payloads(self, recs, counts, qp: int) -> list:
         """CABAC slice payloads through the range coder (kernel K1)."""
-        need = int(counts.max())
-        if need > self._cabac_cap:
-            # the reference re-binarizes such a slice on the host; that
-            # path is not ported (ROADMAP Queue 1, CABAC overflow path)
-            raise RuntimeError(
-                f"a slice needs {need} CABAC records, over the cap of "
-                f"{self._cabac_cap} ({RECORDS_PER_MB} per MB)")
         init = torch.as_tensor(k1.init_packed_states(0, qp),
                                device=recs.device)
         words, nbytes = k1.encode_slices(recs, counts, init, self._cap_words)

@@ -7,8 +7,9 @@ blocks stay sequential (the standard's reconstruction dependency).
 Mode decision is SATD + lambda * mode bits, with transform/quant/recon
 applied once per selected mode.
 
-Kernels on this path: K2 (fused DCT + quant) in the I4x4 body, K3 (DCT)
-in I16x16 and chroma, both through `kernels.dct_quant`.
+Kernels on this path: K2 as the I4x4 wave kernel (`kernels.i4x4_wave`:
+the whole 16-block I4x4 body of a wave in one launch, DCT + quant
+included), and K3 (DCT) in I16x16 and chroma through `kernels.dct_quant`.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from tpu264_torch.kernels import dct_quant as dq
+from tpu264_torch.kernels import i4x4_wave as k2w
 from tpu264_torch.kernels import intra as ki
 from tpu264_torch.kernels import transform as kt
 from tpu264_torch.ref.transform import chroma_qp
@@ -25,6 +27,7 @@ from .wavefront import BLK_ORDER, WaveSchedule, block_availability
 I32 = torch.int32
 BIG = 1 << 28
 BLK_RULES = [block_availability(i) for i in range(16)]
+_K2_RULES = k2w.rule_codes(BLK_RULES)
 # block spatial position (brow, bcol) per zig-zag idx
 ZZ_ROWS = np.array([r for r, _ in BLK_ORDER])
 ZZ_COLS = np.array([c for _, c in BLK_ORDER])
@@ -66,7 +69,21 @@ def eval_i4x4(orig, ltop, lleft, modes_top, modes_left, at, al, atl, atr,
 
     Returns (recon mb [B,16,16], mode grid [B,4,4], modes in zig-zag order
     [B,16], scanned levels [B,16,16], total cost [B]).
+
+    CUDA tensors go through the wave kernel (K2, one launch for the whole
+    body, or it raises); CPU tensors through `eval_i4x4_plain`.
     """
+    if orig.device.type == "cpu":
+        return eval_i4x4_plain(orig, ltop, lleft, modes_top, modes_left,
+                               at, al, atl, atr, qp, lam4, lam24)
+    return k2w.i4x4_wave(orig, ltop, lleft, modes_top, modes_left,
+                         at, al, atl, atr, qp, lam4, lam24, _K2_RULES)
+
+
+def eval_i4x4_plain(orig, ltop, lleft, modes_top, modes_left, at, al, atl,
+                    atr, qp: int, lam4: int, lam24: int):
+    """Plain torch version of `eval_i4x4` (what the wave kernel is held
+    to): a Python loop over the 16 blocks in coding order."""
     b = orig.shape[0]
     dev = orig.device
     # MB buffers, filled in place block by block
@@ -134,14 +151,14 @@ def eval_i4x4(orig, ltop, lleft, modes_top, modes_left, at, al, atl, atr,
         cost = cost + j.amin(dim=1)
         modebuf[:, by, bx] = best.to(I32)
         modes_out.append(best.to(I32))
-        # --- transform / quant / recon (kernel K2) ---
+        # --- transform / quant / recon ---
         pred = _take_mode(preds, best)
-        lev = dq.fdct_quant4x4((oblk - pred).contiguous(), qp, intra=True)
+        lev = dq.fdct_quant4x4_plain(oblk - pred, qp, intra=True)
         coeffs.append(kt.zigzag_scan(lev))
         rec = kt.clip1(pred + kt.block_recon(lev, qp))
         mbbuf[:, y0:y0 + 4, x0:x0 + 4] = rec
     return (mbbuf, modebuf, torch.stack(modes_out, dim=1),
-            torch.stack(coeffs, dim=1), cost + lam24)
+            torch.stack(coeffs, dim=1), (cost + lam24).to(I32))
 
 
 def eval_i16(orig, ltop, lleft, at, al, atl, qp: int):

@@ -15,10 +15,16 @@
 // an I4x4 step, <= 720 for I16x16 at 720p) a call is a launch; the bytes
 // moved (128 per block) are negligible.  The design keeps one launch per
 // call with no staging through shared memory and no second pass; K3 is
-// the same kernel with `quantize` = 0.
+// the same kernel with `quantize` = 0.  The butterfly and the quantiser are
+// the device functions of `transform4x4.cuh`, which the I4x4 wave kernel
+// (`i4x4_wave.cu`) uses too: on the all-intra path that kernel does the
+// I4x4 body's transform, and this entry stays for callers that hold whole
+// slabs of blocks (the P and B wave bodies).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "transform4x4.cuh"
 
 namespace {
 
@@ -28,17 +34,6 @@ struct QuantParams {
   int32_t f;          // rounding offset: 2^qbits / 3 (intra) or / 6
   int32_t qbits;      // 15 + qp / 6
 };
-
-__device__ __forceinline__ void cf1d(int32_t& x0, int32_t& x1, int32_t& x2,
-                                     int32_t& x3) {
-  // rows of Cf: [1 1 1 1], [2 1 -1 -2], [1 -1 -1 1], [1 -2 2 -1]
-  const int32_t s03 = x0 + x3, d03 = x0 - x3;
-  const int32_t s12 = x1 + x2, d12 = x1 - x2;
-  x0 = s03 + s12;
-  x1 = 2 * d03 + d12;
-  x2 = s03 - s12;
-  x3 = d03 - 2 * d12;
-}
 
 __global__ void dct_quant_kernel(const int32_t* __restrict__ x,
                                  int32_t* __restrict__ out, int n_blocks,
@@ -55,21 +50,11 @@ __global__ void dct_quant_kernel(const int32_t* __restrict__ x,
     w[4 * r + 2] = v.z;
     w[4 * r + 3] = v.w;
   }
-  // Cf X: transform each column
-#pragma unroll
-  for (int c = 0; c < 4; ++c) cf1d(w[c], w[4 + c], w[8 + c], w[12 + c]);
-  // (Cf X) Cf^T: transform each row
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-    cf1d(w[4 * r], w[4 * r + 1], w[4 * r + 2], w[4 * r + 3]);
+  t4x4::fdct4x4(w);
   if (quantize) {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int32_t a = w[i] < 0 ? -w[i] : w[i];
-      int32_t lev = (a * qp.mf[i] + qp.f) >> qp.qbits;
-      lev = lev < qp.lim[i] ? lev : qp.lim[i];
-      w[i] = w[i] < 0 ? -lev : (w[i] > 0 ? lev : 0);
-    }
+    for (int i = 0; i < 16; ++i)
+      w[i] = t4x4::quant1(w[i], qp.mf[i], qp.f, qp.qbits, qp.lim[i]);
   }
   int4* dst = reinterpret_cast<int4*>(out + 16 * (int64_t)blk);
 #pragma unroll

@@ -3,13 +3,24 @@
 Counterpart of `tpu264.entropy.cabac_pallas` (`make_slice_encoder`,
 `init_packed_states`).  `encode_slices` runs the CUDA kernel in
 `csrc/cabac_engine.cu` for CUDA tensors and the plain version (a Python
-loop over the unpacked records, spec 9.3.4) for CPU tensors.  The coder
-is serial within a slice: on the card a slice is one thread.
+loop over the unpacked records, spec 9.3.4, bit by bit) for CPU tensors.
+The coder is serial within a slice: on the card a slice is one coding
+thread, fed through shared memory by the rest of its block, that writes
+whole bytes with carry propagation; the plain version is what holds
+that byte-wise output to the spec's bit-wise procedure.
 
 Record format (see `cabac_binarize`): kind << 30 | a << 14 | b with
   kind 0: a = ctxIdx, b = bin | (count << 1)   — count bins, same ctx
   kind 1: a = bypass value (MSB first), b = nbits <= 16
-  kind 2: a = terminate bin
+  kind 2: a = terminate bin; a != 0 flushes and writes the stop bit
+
+Every slice's records end with a terminate bin 1 and hold no other
+(`tests/test_torch_cabac.py` holds the binarizer to that).  The plain
+version keeps the spec's and the reference kernel's behaviour for records
+that follow one all the same (it goes on coding after the stop bit); the
+CUDA kernel refuses such a slice with nbytes = -2, as it reports a payload
+that overflows the word buffer with nbytes = -1, and `payloads_from_words`
+raises on both.
 
 `launches["K1"]` counts kernel launches.
 """
@@ -179,6 +190,8 @@ def encode_slices_plain(records: torch.Tensor, counts: torch.Tensor,
 def payloads_from_words(words: torch.Tensor, nbytes: torch.Tensor) -> list:
     """Per-slice payload bytes from `encode_slices` output."""
     nb = nbytes.cpu().tolist()
+    if min(nb) == -2:
+        raise ValueError("CABAC records follow a slice's final terminate bin")
     if min(nb) < 0:
         raise RuntimeError("CABAC payload overflowed its word buffer")
     need = -(-max(nb) // 4)

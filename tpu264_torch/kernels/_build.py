@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernel library.
 
-All kernels (K1 CABAC engine, K2/K3 DCT + quant, K4 luma deblock line
-filter) are CUDA C++ under `tpu264_torch/csrc/` with a plain C
-interface.  At first use `nvcc` compiles them into one shared library,
+All kernels (K1 CABAC engine, K2 I4x4 wave body, K2/K3 DCT + quant, K4
+luma deblock line filter) are CUDA C++ under `tpu264_torch/csrc/` with a
+plain C interface.  At first use `nvcc` compiles each source to an object
+file, all sources at once in parallel, links them into one shared library,
 `build/tpu264_torch/libtpu264_kernels_<hash>.so` beside the package, keyed
 by a hash of the sources and flags, and `ctypes` loads it.  Only the
 sources in the repository are compiled; nothing else is needed.
@@ -25,12 +26,16 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tpu264_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 P, I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # (x, out, n_blocks, quantize, mf16*, lim16*, f, qbits, stream)
     "tpu264_dct_quant": [P, P, I, I, P, P, I, I, P],
+    # (orig, ltop, lleft, modes_top, modes_left, 4 x (flag, stride), params*,
+    #  recon, mode_grid, modes_zz, coeffs, cost, n_mbs, stream)
+    "tpu264_i4x4_wave": [P, P, P, P, P, P, I, P, I, P, I, P, I, P,
+                         P, P, P, P, P, I, P],
     # (win, bs, out, n_lines, alpha, beta, tc0_3*, stream)
     "tpu264_deblock_luma": [P, P, P, I, I, I, P, P],
     # (records, rec_stride, counts, init, tables*, words, out_cap, nbytes,
@@ -69,14 +74,35 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.monotonic()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
+    # one nvcc per source, all started together, then one link
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failures = []
+    for cmd, _, proc in jobs:
+        so, se = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}):\n"
+                            f"{' '.join(cmd)}\n{so}\n{se}")
+    objs = [obj for _, obj, _ in jobs]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)       # atomic: a concurrent loader sees all or none
     build_seconds = time.monotonic() - t0
     return out

@@ -1,4 +1,5 @@
-"""Kernels K2 (fused forward 4x4 DCT + quant) and K3 (forward 4x4 DCT).
+"""Kernels K2 (fused forward 4x4 DCT + quant, standalone entry over slabs
+of blocks) and K3 (forward 4x4 DCT).
 
 Counterparts of `tpu264.kernels.pallas_kernels.fdct_quant4x4` and
 `fdct4x4`.  Both run the CUDA kernel in `csrc/dct_quant.cu` (K3 is K2
@@ -7,7 +8,13 @@ plain torch versions `quant4x4(fdct4x4(x))` and `fdct4x4(x)`.  There is
 no fallback from the card to the plain version: a kernel that does not
 build or launch raises.
 
-`launches` counts kernel launches (not plain-version calls) per kernel.
+On the all-intra path K2 runs in its wave form (`i4x4_wave.py`: the whole
+I4x4 body of a wave, DCT + quant included, in one launch); the standalone
+`fdct_quant4x4` here is for callers that hold whole slabs of blocks.
+
+`launches` counts kernel launches (not plain-version calls): "K2_blocks"
+the standalone `fdct_quant4x4`'s, "K3" `fdct4x4`'s.  The wave kernel keeps
+its own count, `i4x4_wave.launches["K2"]`.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import torch
 from . import _build
 from . import transform as kt
 
-launches = {"K2": 0, "K3": 0}
+launches = {"K2_blocks": 0, "K3": 0}
 
 
 def _check(x: torch.Tensor) -> None:
@@ -49,13 +56,14 @@ def _launch(x: torch.Tensor, qp: int | None, intra: bool) -> torch.Tensor:
 
 
 def fdct_quant4x4(x: torch.Tensor, qp: int, intra: bool) -> torch.Tensor:
-    """Levels of W = Cf X Cf^T over [..., 4, 4] int32 blocks (kernel K2)."""
+    """Levels of W = Cf X Cf^T over [..., 4, 4] int32 blocks (kernel K2,
+    standalone entry)."""
     _check(x)
     if x.device.type == "cpu":
         return fdct_quant4x4_plain(x, qp, intra)
     if x.device.type != "cuda":
         raise ValueError(f"dct_quant: unsupported device {x.device}")
-    launches["K2"] += 1
+    launches["K2_blocks"] += 1
     return _launch(x, qp, intra)
 
 
