@@ -6,15 +6,17 @@ Phases (any failure exits non-zero, before the result line):
  1. print the card (`nvidia-smi` name, power limit) and the torch / CUDA
     versions; refuse to run without CUDA;
  2. build the CUDA kernel library from `tpu264_torch/csrc` (timed);
- 3. hold each kernel (K1 CABAC engine, K2 I4x4 wave body, the standalone
-    DCT + quant entry, K3 DCT, K4 luma deblock lines) to its plain torch
-    version on the card, at the shapes of the 720p main path and on
-    seeded corner cases, with exact equality, and time both;
+ 3. hold each kernel (K1 CABAC engine, K2 I4x4 wave body, K3 I16x16 +
+    chroma wave body, K4 deblock wave, and the entries on slabs: DCT +
+    quant, DCT, luma deblock lines) to its plain torch version on the
+    card, at the shapes of the 720p main path and on seeded corner cases,
+    with exact equality, and time both;
  4. encode two 1280x720 frames (all-intra, CABAC, deblock, QP 28)
     through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
-    wave), and hold the stream's SHA-256 to
-    `tests/data/torch_golden.json` (made by the JAX reference encoder).
+    wave, K3 and K4 at most once a wave, the slab entries never), and
+    hold the stream's SHA-256 to `tests/data/torch_golden.json` (made by
+    the JAX reference encoder).
 
 The line before the last is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.
@@ -23,12 +25,12 @@ the last line is {"ok": true, "device": {...}}.
 each output written once) over 3.35 TB/s and its integer operations over
 the card's int32 issue rate (132 SMs x 64 int32 lanes x 1.98 GHz, about
 16.7 TOP/s; the data sheet's 67 TFLOP/s counts a float32 multiply-add
-on 128 lanes as two), both counted from this run's inputs.  K1 and K2
+on 128 lanes as two), both counted from this run's inputs.  K1 to K4
 are bound by neither but by a chain of dependent steps, which `PERF.md`
 models; K1's row also carries `bins`, counted from this run's records.
 `library_ms` is null throughout: no single PyTorch call computes a CABAC
 coder, an H.264 intra search, the H.264 integer transform with its
-quantiser, or the deblocking line filter.
+quantiser, or the deblocking filter.
 """
 
 from __future__ import annotations
@@ -54,10 +56,14 @@ KERNELS = {
            "tpu264/kernels/pallas_kernels.py:55", True),
     "K2_blocks": ("dct_quant", "tpu264_torch/csrc/dct_quant.cu",
                   "tpu264/kernels/pallas_kernels.py:55", False),
-    "K3": ("dct", "tpu264_torch/csrc/dct_quant.cu",
+    "K3": ("i16_chroma_wave", "tpu264_torch/csrc/i16_chroma_wave.cu",
            "tpu264/kernels/pallas_kernels.py:66", True),
-    "K4": ("deblock_luma_lines", "tpu264_torch/csrc/deblock_luma.cu",
+    "K3_blocks": ("dct", "tpu264_torch/csrc/dct_quant.cu",
+                  "tpu264/kernels/pallas_kernels.py:66", False),
+    "K4": ("deblock_wave", "tpu264_torch/csrc/deblock_wave.cu",
            "tpu264/kernels/pallas_kernels.py:142", True),
+    "K4_lines": ("deblock_luma_lines", "tpu264_torch/csrc/deblock_luma.cu",
+                 "tpu264/kernels/pallas_kernels.py:142", False),
 }
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
@@ -120,15 +126,15 @@ def phase_build() -> None:
 
 def check_dct(dev, rng) -> dict:
     from tpu264_torch.kernels import dct_quant as dq
-    err = {"K2_blocks": 0, "K3": 0}
+    err = {"K2_blocks": 0, "K3_blocks": 0}
     times = {}
     for n in (40, 640, 57600):
         x = torch.as_tensor(rng.integers(-255, 256, size=(n, 4, 4)),
                             dtype=torch.int32, device=dev)
         got = dq.fdct4x4(x)
         want = dq.fdct4x4_plain(x)
-        err["K3"] = max(err["K3"], max_abs_err(got, want))
-        times[("K3", n)] = (time_ms(lambda: dq.fdct4x4(x), 200),
+        err["K3_blocks"] = max(err["K3_blocks"], max_abs_err(got, want))
+        times[("K3_blocks", n)] = (time_ms(lambda: dq.fdct4x4(x), 200),
                             time_ms(lambda: dq.fdct4x4_plain(x), 200))
         for qp in (0, 28, 51):
             for intra in (True, False):
@@ -147,9 +153,10 @@ def check_dct(dev, rng) -> dict:
                               ms=times[("K2_blocks", 40)][0],
                               plain_ms=times[("K2_blocks", 40)][1],
                               **bound(40 * 128, 40 * (64 + 80))),
-            "K3": dict(err=err["K3"], ms=times[("K3", 640)][0],
-                       plain_ms=times[("K3", 640)][1],
-                       **bound(640 * 128, 640 * 64))}
+            "K3_blocks": dict(err=err["K3_blocks"],
+                              ms=times[("K3_blocks", 640)][0],
+                              plain_ms=times[("K3_blocks", 640)][1],
+                              **bound(640 * 128, 640 * 64))}
 
 
 def random_lanes(seed: int, dev):
@@ -164,11 +171,16 @@ def random_lanes(seed: int, dev):
     return (*ints, *flags)
 
 
-def check_i4x4_wave(dev, wave_args) -> dict:
+def check_i4x4_wave(dev, wave) -> dict:
     """K2: the wave kernel against `eval_i4x4_plain` on the card, all five
-    outputs: the widest wave of the 720p frame, and seeded lanes at QP 0,
-    28 and 51."""
+    outputs: the widest wave of the 720p frame (`wave`: the arguments of
+    its `wave_body` call), and seeded lanes at QP 0, 28 and 51."""
     from tpu264_torch.coding import intra_frame as tif
+    qp, _, lam4, lam24, bd, coords, avail, gy = wave[:8]
+    ltop, lleft, _, _, _, _, modes_top, modes_left = tif.gather_border_ctx(
+        bd, coords[:, 0].long(), coords[:, 1].long())
+    wave_args = (gy, ltop, lleft, modes_top, modes_left, *avail.unbind(1),
+                 qp, lam4, lam24)
     err = 0
     cases = [(wave_args[:9], QP)] + [(random_lanes(7 + qp, dev), qp)
                                      for qp in (0, 28, 51)]
@@ -194,7 +206,7 @@ def check_i4x4_wave(dev, wave_args) -> dict:
                        **bound(n_bytes, n_ops))}
 
 
-def check_deblock(dev, rng) -> dict:
+def check_deblock_lines(dev, rng) -> dict:
     from tpu264_torch.kernels import deblock_lines as dl
     from tpu264_torch.ref import deblock as rd
     err = 0
@@ -223,16 +235,199 @@ def check_deblock(dev, rng) -> dict:
     ms = time_ms(lambda: dl.filter_luma_lines(smooth, bs, a, b, tc0), 200)
     pms = time_ms(lambda: dl.filter_luma_lines_plain(smooth, bs, a, b, tc0),
                   200)
-    print(f"K4 {hm * 16} lines: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    print(f"K4_lines {hm * 16} lines: kernel {ms:.4f} ms, plain {pms:.4f} ms")
     # a line: 8 samples + bS in, 8 samples out; about 60 operations
+    return {"K4_lines": dict(err=err, ms=ms, plain_ms=pms,
+                             **bound(hm * 16 * 68, hm * 16 * 60))}
+
+
+def clone_bd(bd: dict) -> dict:
+    return {k: v.clone() for k, v in bd.items()}
+
+
+def check_wave_body(dev, wave) -> dict:
+    """K3: the I16x16 + chroma wave kernel against `i16_chroma_wave_plain`
+    on the card, on the same I4x4 results: every output and the border
+    buffers after the scatter.  Cases: the widest wave of the 720p frame
+    (`wave`: the arguments of its `wave_body` call) and seeded waves over
+    every availability combination, with padding lanes, at QP 0, 28 and
+    51.  The whole `wave_body` (K2 reading its context from the border
+    buffers, then K3) is held to `wave_body_plain` on the same cases."""
+    from tpu264_torch.coding import intra_frame as tif
+    from tpu264_torch.kernels import i16_chroma_wave as k3w
+    from tpu264_torch.kernels import i4x4_wave as k2w
+    from tpu264_torch.ref.transform import chroma_qp
+    from tpu264_torch.tools.synth_inputs import random_wave
+
+    def seeded(qp):
+        bd, coords, avail, gy, gu, gv = random_wave(40 + qp, W // 16, H // 16)
+        i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+        return (qp, chroma_qp(qp), *tif.LAMBDA_TABLE[qp],
+                {k: i32(v) for k, v in bd.items()}, i32(coords),
+                torch.as_tensor(avail, device=dev), i32(gy), i32(gu), i32(gv))
+
+    def differ(got: dict, want: dict, what: str) -> int:
+        if set(got) != set(want):
+            fail(f"K3 {what}: keys {sorted(got)} != plain {sorted(want)}")
+        worst = 0
+        for k, w in want.items():
+            if got[k].shape != w.shape or got[k].dtype != w.dtype:
+                fail(f"K3 {what} {k}: shape or type differs from the plain "
+                     f"one")
+            e = max_abs_err(got[k], w)
+            if e:
+                rows = (got[k] != w).reshape(w.shape[0], -1).any(1)
+                print(f"K3 {what} {k}: max abs err {e}, rows "
+                      f"{rows.nonzero().flatten().tolist()[:12]}")
+            worst = max(worst, e)
+        return worst
+
+    err = 0
+    combos = set()
+    chose = []                      # (I16x16 lanes, lanes) per case
+    for case in [wave] + [seeded(qp) for qp in (0, 28, 51)]:
+        qp, cqp, lam4, lam24, bd, coords, avail, gy, gu, gv = case
+        combos |= {tuple(f) for f in avail[:, :3].tolist()}
+        # the whole body: two launches against the plain body
+        bd_k, bd_p = clone_bd(bd), clone_bd(bd)
+        got = tif.wave_body(qp, cqp, lam4, lam24, bd_k, coords, avail, gy,
+                            gu, gv)
+        torch.cuda.synchronize()
+        want = tif.wave_body_plain(qp, cqp, lam4, lam24, bd_p, coords, avail,
+                                   gy, gu, gv)
+        err = max(err, differ(got, want, "wave body"),
+                  differ(bd_k, bd_p, "wave body borders"))
+        # K3 alone, on the plain I4x4 results
+        at, al, atl, atr = avail.unbind(1)
+        ltop, lleft, _, _, _, _, mtop, mleft = tif.gather_border_ctx(
+            bd, coords[:, 0].long(), coords[:, 1].long())
+        mb4, modebuf, _, coeffs4, j4 = tif.eval_i4x4_plain(
+            gy, ltop, lleft, mtop, mleft, at, al, atl, atr, qp, lam4, lam24)
+        k3_args = (coords, avail, gy, gu, gv, mb4, modebuf, coeffs4, j4, qp,
+                   cqp)
+        bd_k, bd_p = clone_bd(bd), clone_bd(bd)
+        out = k3w.alloc_outputs((gy.shape[0],), dev)
+        k3w.i16_chroma_wave(bd_k, *k3_args, tif._BLK_ORDER, out)
+        torch.cuda.synchronize()
+        del out["modes"]
+        want = tif.i16_chroma_wave_plain(bd_p, *k3_args)
+        err = max(err, differ(out, want, "K3"),
+                  differ(bd_k, bd_p, "K3 borders"))
+        chose.append((int(want["sel16"].sum()), want["sel16"].numel()))
+    if len(combos) != 8:
+        fail(f"K3: only {len(combos)} of the 8 combinations of top, left "
+             f"and top-left availability occurred")
+    print("K3 lanes that chose I16x16, per case: "
+          + ", ".join(f"{a} of {n}" for a, n in chose))
+    if not any(a for a, _ in chose) or not any(a < n for a, n in chose):
+        fail("K3: the cases do not exercise both I16x16 and I4x4 lanes")
+    # time the frame's wave: K3 alone, and K2 + K3 as the loop runs them
+    qp, cqp, lam4, lam24, bd, coords, avail, gy, gu, gv = wave
+    n_mbs = gy.shape[0]
+    bd_t = clone_bd(bd)
+    mb4, modebuf, _, coeffs4, j4 = k2w.i4x4_wave_bd(
+        gy, bd_t, coords, avail, qp, lam4, lam24, tif._K2_RULES)
+    k3_args = (coords, avail, gy, gu, gv, mb4, modebuf, coeffs4, j4, qp, cqp)
+    out = k3w.alloc_outputs((n_mbs,), dev)
+    before = dict(k3w.launches)
+    ms = time_ms(lambda: k3w.i16_chroma_wave(bd_t, *k3_args, tif._BLK_ORDER,
+                                             out), 200)
+    if k3w.launches["K3"] != before["K3"] + 201:
+        fail("K3's launch count is not one a call")
+    pms = time_ms(lambda: tif.i16_chroma_wave_plain(bd_t, *k3_args), 5)
+    body_ms = time_ms(lambda: tif.wave_body(qp, cqp, lam4, lam24, bd_t,
+                                            coords, avail, gy, gu, gv,
+                                            out=out), 200)
+    print(f"K3 wave of {n_mbs} MBs: kernel {ms:.4f} ms, plain {pms:.3f} ms; "
+          f"the wave body (K2 + K3) {body_ms:.4f} ms")
+    # a macroblock: 58 context samples, 384 source samples, 529 int32 of
+    # I4x4 results and 3 flags in; 1 flag, 2 modes, 256 + 16 + 8 + 128
+    # levels, 384 samples and 58 border values out.  Operations: 256
+    # samples x 4 modes x (4 predict + 8 Hadamard + 10 reduce), the same
+    # over 128 chroma samples, and about 300 a 4x4 block for transform,
+    # quantiser and reconstruction over 24 blocks
+    n_bytes = n_mbs * (4 * (58 + 384 + 529) + 3 + 1 + 4 * (2 + 408 + 384 + 58))
+    n_ops = n_mbs * (384 * 4 * 22 + 24 * 300)
+    return {"K3": dict(err=err, ms=ms, plain_ms=pms,
+                       **bound(n_bytes, n_ops))}
+
+
+def check_deblock_wave(dev, frame_case) -> dict:
+    """K4: the deblock wave kernel (one launch a wave over the raster
+    planes) against the plain skewed deblocker on the card, whole planes:
+    the 720p frame's reconstruction with its all-intra inputs
+    (`frame_case`), and seeded pictures with mixed intra and inter MBs (bS
+    0 to 4 all occur) at QP 10, 28 and 51, with 1 slice and with 3 slices
+    with and without filtering across them, at 720p and at 5 x 3 MBs."""
+    from tpu264_torch.coding.wavefront import build_schedule
+    from tpu264_torch.kernels import deblock as kd
+    from tpu264_torch.kernels import deblock_wave as k4w
+    from tpu264_torch.ref.transform import chroma_qp
+    from tpu264_torch.tools.synth_inputs import random_deblock_picture
+
+    def run(sched, across, args, what):
+        got = kd.make_deblocker_skewed(sched, across)(*args)
+        torch.cuda.synchronize()
+        want = kd.make_deblocker_skewed(sched, across, plain=True)(*args)
+        worst = 0
+        for g, w, o in zip(got, want, args[:3]):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"K4 {what}: plane shape or type differs from the "
+                     f"plain one")
+            worst = max(worst, max_abs_err(g, w))
+            if args[7] >= 16 and not (w != o.to(w.dtype)).any():
+                fail(f"K4 {what}: the deblocker changed nothing")
+        return worst
+
+    sched_720 = build_schedule(W // 16, H // 16, 1)
+    before = k4w.launches["K4"]
+    err = run(sched_720, True, frame_case, "720p frame")
+    if k4w.launches["K4"] != before + sched_720.n_waves:
+        fail("K4's launch count is not one a wave")
+    for wm, hm in ((W // 16, H // 16), (5, 3)):
+        for qp in (10, 28, 51):
+            arrs = random_deblock_picture(qp + wm, wm, hm)
+            y, u, v, intra_mb, tc, mv, ref = (
+                torch.as_tensor(a, device=dev) for a in arrs)
+            bs = torch.cat(kd.compute_bs_maps(intra_mb, tc, mv, ref))
+            if sorted(set(bs.unique().tolist())) != [0, 1, 2, 3, 4]:
+                fail(f"K4: the seeded {wm}x{hm} picture lacks a bS value")
+            args = (y, u, v, intra_mb, tc, mv, ref, qp, chroma_qp(qp))
+            for slices, across in ((1, True), (3, True), (3, False)):
+                err = max(err, run(build_schedule(wm, hm, slices), across,
+                                   args, f"{wm}x{hm} QP {qp} {slices} "
+                                         f"slices across={across}"))
+    # time: the kernel's launches of a frame against the whole plain
+    # deblocker (which also derives bS and skews the planes), per wave
+    y, u, v, intra_mb, tc, mv, ref, qp, cqp = frame_case
+    bs_v, bs_h = kd.compute_bs_maps(intra_mb, tc, mv, ref)
+    planes = [p.to(torch.int32, copy=True).contiguous() for p in (y, u, v)]
+    n_waves = sched_720.n_waves
+
+    def kernel_frame():
+        for cp in range(n_waves):
+            k4w.deblock_wave(*planes, bs_v, bs_h, cp, qp, cqp)
+
+    ms = time_ms(kernel_frame, 10) / n_waves
+    plain = kd.make_deblocker_skewed(sched_720, True, plain=True)
+    pms = time_ms(lambda: plain(*frame_case), 2) / n_waves
+    print(f"K4 720p frame, a wave of {n_waves}: kernel {ms:.4f} ms, plain "
+          f"{pms:.3f} ms")
+    # a frame: every sample and every bS read once, every sample written
+    # once; 16 lines x 8 luma edges x 60 operations and 8 lines x 8 chroma
+    # edges x 30 a macroblock; a wave is 1 / n_waves of it
+    n_bytes = (2 * 4 * (W * H * 3 // 2) + 2 * 4 * (W // 4) * (H // 4))
+    n_ops = (W // 16) * (H // 16) * (16 * 8 * 60 + 8 * 8 * 30)
     return {"K4": dict(err=err, ms=ms, plain_ms=pms,
-                       **bound(hm * 16 * 68, hm * 16 * 60))}
+                       **bound(n_bytes / n_waves, n_ops / n_waves))}
 
 
-def frame_records(dev, frame, slices: int, spy=None):
+def frame_records(dev, frame, slices: int, spy=None, deblock_case=None):
     """CABAC records of one 720p frame through the port's own stages ->
-    (records, counts, init, word cap).  `spy(args)` sees every
-    `eval_i4x4` call of the wave loop."""
+    (records, counts, init, word cap).  `spy(args)` sees the arguments of
+    every `wave_body` call of the wave loop, the border buffers as they
+    are before the call; `deblock_case`, a list, takes the deblocker's
+    arguments for the frame."""
     from tpu264_torch.coding import intra_frame as tif
     from tpu264_torch.coding.encoder import Encoder
     from tpu264_torch.config import EncoderConfig
@@ -240,19 +435,25 @@ def frame_records(dev, frame, slices: int, spy=None):
     enc = Encoder(EncoderConfig(width=W, height=H, qp=QP, symbol_mode="CABAC",
                                 slices_per_frame=slices), device=dev)
     y, u, v = (torch.as_tensor(p, device=dev) for p in frame)
-    inner = tif.eval_i4x4
+    inner = tif.wave_body
 
-    def seen(*args):
-        spy(args)
-        return inner(*args)
+    def seen(*args, **kw):
+        spy((*args[:4], clone_bd(args[4]), *args[5:]))
+        return inner(*args, **kw)
 
     if spy is not None:
-        tif.eval_i4x4 = seen
+        tif.wave_body = seen
     try:
-        _, ys = enc._encode_frame(y, u, v, QP)
+        dev_out, ys = enc._encode_frame(y, u, v, QP)
     finally:
-        tif.eval_i4x4 = inner
-    recs, counts = enc._cabac_records(tif.reorder_wave_outputs(enc.sched, ys))
+        tif.wave_body = inner
+    mbd = tif.reorder_wave_outputs(enc.sched, ys)
+    if deblock_case is not None:
+        from tpu264_torch.ref.transform import chroma_qp
+        deblock_case += [dev_out["recon_y"], dev_out["recon_u"],
+                         dev_out["recon_v"], *enc._deblock_inputs(mbd), QP,
+                         chroma_qp(QP)]
+    recs, counts = enc._cabac_records(mbd)
     init = torch.as_tensor(k1.init_packed_states(0, QP), device=dev)
     return recs, counts, init, enc._cap_words
 
@@ -274,17 +475,19 @@ def engine_err(recs, counts, init, cap_words, what: str):
     return max_abs_err(words, pw), plain_ms
 
 
-def check_cabac(dev, frame) -> tuple[dict, tuple]:
+def check_cabac(dev, frame) -> tuple[dict, tuple, list]:
     """K1 against `encode_slices_plain`: the 720p frame as one slice (the
     main path's shape, timed) and as three, and seeded records with long
     bypass runs, runs of up to 8191 bins in one context, and piles of
     outstanding bits resolved with and without a carry.  Also returns the
-    `eval_i4x4` arguments of the frame's widest wave for the K2 check."""
+    `wave_body` arguments of the frame's widest wave (for the K2 and K3
+    checks) and the deblocker's arguments for the frame (for K4's)."""
     from tpu264_torch.entropy import cabac_binarize as cbz
     from tpu264_torch.entropy import cabac_engine_cuda as k1
     from tpu264_torch.tools import synth_inputs as si
-    waves = []
-    recs, counts, init, cap_words = frame_records(dev, frame, 1, waves.append)
+    waves, deblock_case = [], []
+    recs, counts, init, cap_words = frame_records(dev, frame, 1, waves.append,
+                                                  deblock_case)
     err, plain_ms = engine_err(recs, counts, init, cap_words, "720p, 1 slice")
     ms = time_ms(lambda: k1.encode_slices(recs, counts, init, cap_words), 10)
     n = int(counts[0])
@@ -324,15 +527,16 @@ def check_cabac(dev, frame) -> tuple[dict, tuple]:
     bound_ = bound(4 * n + 4 * 460 + nbytes + 4, 43 * bins)
     # the middle wave of the frame has the most valid lanes
     return ({"K1": dict(err=err, ms=ms, plain_ms=plain_ms, bins=bins,
-                        **bound_)}, waves[len(waves) // 2])
+                        **bound_)}, waves[len(waves) // 2], deblock_case)
 
 
 def launch_counts() -> list:
     """The wrappers' launch counters (one dict a module)."""
     from tpu264_torch.entropy import cabac_engine_cuda as k1
     from tpu264_torch.kernels import dct_quant as dq, deblock_lines as dl, \
-        i4x4_wave as k2w
-    return [k1.launches, k2w.launches, dq.launches, dl.launches]
+        deblock_wave as k4w, i16_chroma_wave as k3w, i4x4_wave as k2w
+    return [k1.launches, k2w.launches, k3w.launches, k4w.launches,
+            dq.launches, dl.launches]
 
 
 def reset_counts() -> None:
@@ -363,13 +567,22 @@ def phase_encode(frames) -> dict:
     secs = time.monotonic() - t0
     counts = read_counts()
     print(f"launches on the main path: {counts}")
+    n_waves = enc.sched.n_waves
     for k, (name, _, _, on_path) in KERNELS.items():
         if on_path and counts[k] <= 0:
             fail(f"kernel {k} ({name}) was not launched on the main path")
-    n_waves = enc.sched.n_waves
+        if not on_path and counts[k] != 0:
+            fail(f"{k} ({name}) ran {counts[k]} times on the main path, "
+                 f"which holds its wave form")
+    if counts["K1"] != len(frames):
+        fail(f"K1 ran {counts['K1']} times for {len(frames)} frames")
     if counts["K2"] != n_waves * len(frames):
         fail(f"K2 ran {counts['K2']} times, not once for each of the "
              f"{n_waves} waves of {len(frames)} frames")
+    for k in ("K3", "K4"):
+        if not len(frames) <= counts[k] <= n_waves * len(frames):
+            fail(f"{k} ran {counts[k]} times for {len(frames)} frames of "
+                 f"{n_waves} waves: more than once a wave")
     print(f"launches a frame: " + ", ".join(
         f"{k} {counts[k] / len(frames):g}" for k in KERNELS))
     for i, st in enumerate(enc.stats):
@@ -402,14 +615,16 @@ def main() -> int:
     rng = np.random.default_rng(0)
     results = {}
     results.update(check_dct(dev, rng))
-    results.update(check_deblock(dev, rng))
-    k1_result, wave_args = check_cabac(dev, frames[0])
+    results.update(check_deblock_lines(dev, rng))
+    k1_result, wave, deblock_case = check_cabac(dev, frames[0])
     results.update(k1_result)
-    results.update(check_i4x4_wave(dev, wave_args))
-    for k, r in sorted(results.items()):
-        if r["err"] != 0:
-            fail(f"kernel {k} differs from its plain version "
-                 f"(max abs err {r['err']})")
+    results.update(check_i4x4_wave(dev, wave))
+    results.update(check_wave_body(dev, wave))
+    results.update(check_deblock_wave(dev, deblock_case))
+    wrong = {k: r["err"] for k, r in sorted(results.items()) if r["err"]}
+    if wrong:
+        fail(f"kernels differ from their plain versions (max abs err): "
+             f"{wrong}")
     print("kernels equal their plain versions (tolerance 0)")
     counts = phase_encode(frames)
     rows = []

@@ -1,6 +1,7 @@
-"""The port's skewed-wavefront deblocker (luma edges through kernel K4's
-plain version) against the JAX reference deblocker and the scalar
-`ref/deblock` oracle, exact."""
+"""The port's wavefront deblocker on the CPU (the plain version that kernel
+K4's wave form is held to on the card) against the JAX reference deblocker
+and the scalar `ref/deblock` oracle, exact; and what the wave kernel's
+wrapper computes in Python: the lanes of a wave and the packed parameters."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -16,6 +17,8 @@ from tpu264.ref.transform import chroma_qp
 
 from tpu264_torch.coding.wavefront import build_schedule
 from tpu264_torch.kernels import deblock as tkd
+from tpu264_torch.kernels import deblock_wave as k4w
+from tpu264_torch.tools.synth_inputs import random_deblock_picture
 
 from torch_util import assert_equal, t32
 
@@ -120,3 +123,95 @@ def test_chroma_lines_match_reference(qp):
                                    jnp.asarray(bs, jnp.int32), a, b,
                                    jnp.asarray(tc0, jnp.int32))
     assert_equal(got, want)
+
+
+@pytest.mark.parametrize("wm,hm", [(11, 9), (5, 3), (80, 45)])
+def test_wave_lanes_cover_picture_in_dependency_order(wm, hm):
+    """The wave kernel's lanes: every MB in exactly one wave, after its
+    left, top and top-right neighbours."""
+    wave_of = np.full((hm, wm), -1)
+    for cp in range(wm + 2 * (hm - 1)):
+        r0, n = k4w.wave_lanes(cp, wm, hm)
+        assert n >= 1 and 0 <= r0 and r0 + n <= hm
+        for r in range(r0, r0 + n):
+            c = cp - 2 * r
+            assert 0 <= c < wm and wave_of[r, c] == -1
+            wave_of[r, c] = cp
+        # no row outside the lanes has an MB on this wave
+        for r in list(range(r0)) + list(range(r0 + n, hm)):
+            assert not 0 <= cp - 2 * r < wm
+    assert (wave_of >= 0).all()
+    for r in range(hm):
+        for c in range(wm):
+            for nr, nc in ((r, c - 1), (r - 1, c), (r - 1, c + 1)):
+                if 0 <= nr and 0 <= nc < wm:
+                    assert wave_of[nr, nc] < wave_of[r, c]
+
+
+@pytest.mark.parametrize("slices,across", [(1, True), (3, False), (3, True)])
+@pytest.mark.parametrize("qp", [22, 36, 51])
+def test_mixed_deblock_matches_reference(qp, slices, across):
+    """Intra and inter MBs with motion and coded blocks, so that bS 0 to 4
+    all occur: the port's deblocker against the JAX one and the oracle."""
+    y, u, v, intra, tc, mv, ref = random_deblock_picture(qp, WM, HM)
+    cqp = chroma_qp(qp)
+    bs = torch.cat(tkd.compute_bs_maps(torch.as_tensor(intra), t32(tc),
+                                       t32(mv), t32(ref)))
+    assert sorted(bs.unique().tolist()) == [0, 1, 2, 3, 4]
+    want = _ref_deblocker(slices, across)(
+        jnp.asarray(y), jnp.asarray(u), jnp.asarray(v), jnp.asarray(intra),
+        jnp.asarray(tc, jnp.int32), jnp.asarray(mv), jnp.asarray(ref),
+        np.int32(qp), np.int32(cqp))
+    got = tkd.make_deblocker_skewed(build_schedule(WM, HM, slices),
+                                    filter_across_slices=across)(
+        torch.as_tensor(y), torch.as_tensor(u), torch.as_tensor(v),
+        torch.as_tensor(intra), t32(tc), t32(mv), t32(ref), qp, cqp)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        assert_equal(g, w)
+    assert (got[0].numpy() != y).any() and (got[1].numpy() != u).any()
+    left = np.ones((HM, WM), bool)
+    left[:, 0] = False
+    top = np.ones((HM, WM), bool)
+    top[0] = False
+    if not across:
+        top[::HM // slices] = False
+    oracle = rd.deblock_frame(y, u, v, qp, cqp, intra, tc, mv, ref, left, top)
+    for g, o in zip(got, oracle):
+        assert_equal(g, o)
+
+
+def test_plain_flag_is_the_cpu_path():
+    """`plain=True` (what the wave kernel is held to on the card) is the
+    version a CPU tensor gets, and the input planes stay as they were."""
+    y, u, v, intra, tc, mv, ref = random_deblock_picture(3, 5, 3)
+    args = (torch.as_tensor(y), torch.as_tensor(u), torch.as_tensor(v),
+            torch.as_tensor(intra), t32(tc), t32(mv), t32(ref), 30,
+            chroma_qp(30))
+    sched = build_schedule(5, 3, 1)
+    before = dict(k4w.launches)
+    got = tkd.make_deblocker_skewed(sched)(*args)
+    want = tkd.make_deblocker_skewed(sched, plain=True)(*args)
+    for g, w in zip(got, want):
+        assert_equal(g, w)
+    assert_equal(args[0], y)
+    assert k4w.launches == before           # no kernel ran on the CPU
+
+
+@pytest.mark.parametrize("qp,cqp", [(0, 0), (28, 28), (51, 39), (60, -3)])
+def test_deblock_wave_params(qp, cqp):
+    """alpha, beta, tc0[1..3] for luma then chroma, QPs clipped to 0..51."""
+    vals = list(k4w.pack_params(qp, cqp))
+    assert len(vals) == 10
+    for q, five in ((qp, vals[:5]), (cqp, vals[5:])):
+        qi = min(max(q, 0), 51)
+        assert five == [int(rd.ALPHA_TABLE[qi]), int(rd.BETA_TABLE[qi]),
+                        *(int(t) for t in rd.TC0_TABLE[qi])]
+
+
+def test_deblock_wave_refuses_cpu_tensors():
+    z = torch.zeros((48, 80), dtype=torch.int32)
+    c = torch.zeros((24, 40), dtype=torch.int32)
+    b = torch.zeros((12, 20), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        k4w.deblock_wave(z, c, c.clone(), b, b.clone(), 0, 28, 28)

@@ -1,5 +1,7 @@
 """The port's wavefront intra encoder (`make_intra_encoder`) against the
-JAX reference: every per-MB output and the recon planes, exact."""
+JAX reference: every per-MB output and the recon planes, exact; and one
+wave of `wave_body` (on the CPU: the plain version the two wave kernels
+are held to) against the reference's wave body composed from its parts."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -12,6 +14,10 @@ from tpu264.media.synth import synth_frame
 
 from tpu264_torch.coding import intra_frame as tif
 from tpu264_torch.coding.wavefront import build_schedule
+from tpu264_torch.kernels import i16_chroma_wave as k3w
+from tpu264_torch.kernels import i4x4_wave as k2w
+from tpu264_torch.ref.transform import chroma_qp
+from tpu264_torch.tools.synth_inputs import random_wave
 
 from torch_util import assert_equal, random_i4x4_lanes, t32, to_np
 
@@ -134,3 +140,138 @@ def test_eval_i4x4_random_lanes(qp):
         assert_equal(g, w, name)
     modes = to_np(got[2])
     assert len(np.unique(modes)) >= 5          # the search is exercised
+
+
+def _ref_wave_body(qp, cqp, lam4, lam24, bd, coords, avail, gy, gu, gv):
+    """The reference's `wave_body` closure, composed from its module-level
+    parts -> (border buffers after the wave, the wave's results)."""
+    from tpu264.kernels import transform as rkt
+    r, c = coords[:, 0], coords[:, 1]
+    at, al, atl, atr = (avail[:, i] for i in range(4))
+    (ltop, lleft, tctx_u, lctx_u, tctx_v, lctx_v,
+     modes_top, modes_left) = rif.gather_border_ctx(bd, r, c)
+    mb4, modebuf, modes_zz, coeffs4, j4 = rif.eval_i4x4(
+        gy, ltop, lleft, modes_top, modes_left, at, al, atl, atr,
+        qp, lam4, lam24)
+    m16, j16, rec16, dc_lev, ac_lev = rif.eval_i16(
+        gy, ltop, lleft, at, al, atl, qp)
+    sel16 = j16 < j4
+    recon_mb = jnp.where(sel16[:, None, None], rec16, mb4)
+    ac16_zz = rkt.zigzag_scan(ac_lev[:, rif.ZZ_ROWS, rif.ZZ_COLS])
+    luma_ac = jnp.where(sel16[:, None, None], ac16_zz, coeffs4)
+    luma_dc = jnp.where(sel16[:, None], rkt.zigzag_scan(dc_lev), 0)
+    cmode, ((rec_u, dc_u, ac_u), (rec_v, dc_v, ac_v)) = rif.eval_chroma(
+        gu, gv, tctx_u, lctx_u, tctx_v, lctx_v, at, al, atl, cqp)
+    mode_tiles = jnp.where(sel16[:, None, None], -1, modebuf)
+    bd = rif.update_border_ctx(bd, r, c, recon_mb, rec_u, rec_v, mode_tiles)
+    return bd, dict(sel16=sel16, i16mode=m16, modes=modes_zz, cmode=cmode,
+                    luma_ac=luma_ac, luma_dc=luma_dc,
+                    chroma_dc=jnp.stack([dc_u, dc_v], axis=1),
+                    chroma_ac=jnp.stack([ac_u, ac_v], axis=1),
+                    recon_mb=recon_mb, rec_u=rec_u, rec_v=rec_v)
+
+
+@pytest.mark.parametrize("qp", [0, 24, 36, 51])
+def test_wave_body_matches_reference(qp):
+    """One wave of seeded lanes with padding lanes: every result and the
+    border buffers after the scatter."""
+    wm, hm = 11, 9
+    bd, coords, avail, gy, gu, gv = random_wave(qp, wm, hm)
+    cqp = chroma_qp(qp)
+    lam4, lam24 = tif.LAMBDA_TABLE[qp]
+    j32 = lambda a: jnp.asarray(a, jnp.int32)
+    want_bd, want = _ref_wave_body(
+        qp, cqp, lam4, lam24, {k: j32(v) for k, v in bd.items()},
+        j32(coords), jnp.asarray(avail), j32(gy), j32(gu), j32(gv))
+    got_bd = {k: t32(v) for k, v in bd.items()}
+    got = tif.wave_body(qp, cqp, lam4, lam24, got_bd, t32(coords),
+                        torch.as_tensor(avail), t32(gy), t32(gu), t32(gv))
+    assert list(got) == list(want) == list(k3w.OUTPUTS)
+    for k, (shape, dtype) in k3w.OUTPUTS.items():
+        assert got[k].dtype == dtype and got[k].shape[1:] == shape, k
+        assert_equal(got[k], want[k], k)
+    assert set(got_bd) == set(want_bd) == set(k3w.BORDERS)
+    for k in want_bd:
+        assert_equal(got_bd[k], want_bd[k], k)
+        assert (to_np(got_bd[k]) != bd[k]).any(), k     # the scatter ran
+    sel = to_np(got["sel16"])
+    # both luma families occur (at QP 51 the I4x4 mode bits cost too much)
+    assert sel.any() and ((~sel).any() or qp == 51)
+
+
+def test_wave_body_plain_parts_compose():
+    """`i16_chroma_wave_plain` (the plain version of K3) on the I4x4
+    results is the rest of `wave_body_plain`."""
+    qp, (wm, hm) = 30, (11, 9)
+    bd, coords, avail, gy, gu, gv = random_wave(5, wm, hm)
+    lam4, lam24 = tif.LAMBDA_TABLE[qp]
+    args = (t32(coords), torch.as_tensor(avail), t32(gy), t32(gu), t32(gv))
+    bd_a = {k: t32(v) for k, v in bd.items()}
+    want = tif.wave_body_plain(qp, qp, lam4, lam24, bd_a, *args)
+    bd_b = {k: t32(v) for k, v in bd.items()}
+    r, c = args[0][:, 0].long(), args[0][:, 1].long()
+    ltop, lleft, _, _, _, _, mtop, mleft = tif.gather_border_ctx(bd_b, r, c)
+    mb4, modebuf, modes, coeffs4, j4 = tif.eval_i4x4(
+        args[2], ltop, lleft, mtop, mleft, *args[1].unbind(1), qp, lam4,
+        lam24)
+    got = tif.i16_chroma_wave_plain(bd_b, *args, mb4, modebuf, coeffs4, j4,
+                                    qp, qp)
+    assert "modes" not in got
+    assert_equal(modes, want["modes"])
+    for k in got:
+        assert_equal(got[k], want[k], k)
+    for k in bd_a:
+        assert_equal(bd_a[k], bd_b[k], k)
+
+
+@pytest.mark.parametrize("qp,cqp", [(0, 0), (28, 28), (51, 39)])
+def test_i16_chroma_wave_params(qp, cqp):
+    """The K3 wrapper's by-value tables against the reference's: two
+    quantiser sets, the scan and the block order."""
+    from tpu264.coding.wavefront import BLK_ORDER as REF_BLK_ORDER
+    from tpu264.kernels import transform as rkt
+    vals = list(k3w.pack_params(qp, cqp, tuple(tif.BLK_ORDER)))
+    assert len(vals) == 2 * 55 + 32
+    for base, q, lim_dc in ((0, qp, rkt.LIMIT_DC), (55, cqp, rkt.LIMIT_CDC)):
+        for i, table in enumerate((rkt.MF_TABLE[q % 6], rkt.LIMIT_AC[q],
+                                   rkt.V_TABLE[q % 6])):
+            assert vals[base + 16 * i:base + 16 * i + 16] == \
+                np.asarray(table).reshape(16).tolist()
+        qbits = 15 + q // 6
+        assert vals[base + 48:base + 55] == [
+            (1 << qbits) // 3, qbits, q // 6, int(rkt.MF00[q % 6]),
+            int(rkt.V00[q % 6]), int(lim_dc[q]), q]
+    assert vals[110:126] == np.asarray(rkt.ZIGZAG_4x4).tolist()
+    assert [divmod(v, 4) for v in vals[126:]] == list(REF_BLK_ORDER)
+
+
+@pytest.mark.parametrize("wm,hm", [(11, 9), (80, 45)])
+def test_border_layout_matches_kernel_table(wm, hm):
+    """The wave kernels compute the border buffers' row lengths from the
+    picture width: the wrappers' table agrees with what the loop makes."""
+    bd = tif.init_border_buffers(hm, wm, "cpu")
+    assert list(bd) == list(k3w.BORDERS)
+    for name, (extra, a, b) in k3w.BORDERS.items():
+        assert tuple(bd[name].shape) == (hm + extra, a * wm + b), name
+
+
+def test_alloc_outputs_shapes():
+    out = k3w.alloc_outputs((3, 7), "cpu")
+    assert list(out) == list(k3w.OUTPUTS)
+    assert out["chroma_ac"].shape == (3, 7, 2, 4, 16)
+    assert out["sel16"].dtype == torch.bool and out["sel16"].shape == (3, 7)
+
+
+def test_wave_kernels_refuse_cpu_tensors():
+    bd, coords, avail, gy, gu, gv = random_wave(1, 5, 3)
+    bd = {k: t32(v) for k, v in bd.items()}
+    with pytest.raises(ValueError, match="CUDA"):
+        k2w.i4x4_wave_bd(t32(gy), bd, t32(coords), torch.as_tensor(avail),
+                         28, 23, 140, tif._K2_RULES)
+    b = len(coords)
+    with pytest.raises(ValueError, match="CUDA"):
+        k3w.i16_chroma_wave(
+            bd, t32(coords), torch.as_tensor(avail), t32(gy), t32(gu),
+            t32(gv), t32(gy), t32(np.zeros((b, 4, 4))), t32(gy),
+            t32(np.zeros(b)), 28, 28, tuple(tif.BLK_ORDER),
+            k3w.alloc_outputs((b,), "cpu"))

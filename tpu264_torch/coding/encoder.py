@@ -2,7 +2,7 @@
 `tpu264.coding.encoder` restricted to all-intra GOPs with CABAC.
 
 Parameter-set emission, per-frame device encode (wavefront mode decision
-with kernels K2/K3, the skewed deblocker with K4, CABAC binarization and
+with kernels K2/K3, the wavefront deblocker with K4, CABAC binarization and
 the range coder K1), Annex-B assembly and per-frame stats.  The encoder
 runs on the CUDA card unless the caller asks for `device="cpu"`.
 
@@ -156,9 +156,9 @@ class Encoder:
         words, nbytes = k1.encode_slices(recs, counts, init, self._cap_words)
         return k1.payloads_from_words(words, nbytes)
 
-    def _apply_deblock(self, dev_out, mbd, qp: int):
-        """In-loop filter of an all-intra picture: bS inputs derived on
-        device from the raster MB dict; filtered planes stay on device."""
+    def _deblock_inputs(self, mbd):
+        """The deblocker's bS inputs (intra_mb, tc_luma, mv, ref) of an
+        all-intra picture, derived on device from the raster MB dict."""
         cfg = self.cfg
         wm, hm = cfg.width_mbs, cfg.height_mbs
         cbp_luma, _, _ = compute_cbp(mbd["sel16"].to(torch.bool),
@@ -166,10 +166,14 @@ class Encoder:
                                      mbd["chroma_ac"])
         tc = luma_tc_grid(mbd, cbp_luma, wm, hm)
         intra_mb = torch.ones((hm, wm), dtype=torch.bool, device=self.device)
-        mv, ref = intra_motion(hm, wm, self.device)
+        return (intra_mb, tc, *intra_motion(hm, wm, self.device))
+
+    def _apply_deblock(self, dev_out, mbd, qp: int):
+        """In-loop filter of an all-intra picture; the filtered planes stay
+        on device."""
         fy, fu, fv = self._deblock(
             dev_out["recon_y"], dev_out["recon_u"], dev_out["recon_v"],
-            intra_mb, tc, mv, ref, qp, chroma_qp(qp))
+            *self._deblock_inputs(mbd), qp, chroma_qp(qp))
         return (fy.to(torch.uint8), fu.to(torch.uint8), fv.to(torch.uint8))
 
     @staticmethod

@@ -7,9 +7,15 @@ blocks stay sequential (the standard's reconstruction dependency).
 Mode decision is SATD + lambda * mode bits, with transform/quant/recon
 applied once per selected mode.
 
-Kernels on this path: K2 as the I4x4 wave kernel (`kernels.i4x4_wave`:
-the whole 16-block I4x4 body of a wave in one launch, DCT + quant
-included), and K3 (DCT) in I16x16 and chroma through `kernels.dct_quant`.
+Kernels on this path, two launches a wave (`wave_body`): K2 as the I4x4
+wave kernel (`kernels.i4x4_wave`: the whole 16-block I4x4 body of a wave,
+DCT + quant included) and K3 as the I16x16 + chroma wave kernel
+(`kernels.i16_chroma_wave`: both mode searches with their transforms, the
+merge with the I4x4 result and the border scatter).  Both read the
+neighbour context straight from the border buffers.  The plain version,
+which the CPU takes, is `wave_body_plain`: `gather_border_ctx`,
+`eval_i4x4_plain`, then `i16_chroma_wave_plain` (`eval_i16`,
+`eval_chroma`, the merge, `update_border_ctx`).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from tpu264_torch.kernels import dct_quant as dq
+from tpu264_torch.kernels import i16_chroma_wave as k3w
 from tpu264_torch.kernels import i4x4_wave as k2w
 from tpu264_torch.kernels import intra as ki
 from tpu264_torch.kernels import transform as kt
@@ -28,6 +35,7 @@ I32 = torch.int32
 BIG = 1 << 28
 BLK_RULES = [block_availability(i) for i in range(16)]
 _K2_RULES = k2w.rule_codes(BLK_RULES)
+_BLK_ORDER = tuple(BLK_ORDER)
 # block spatial position (brow, bcol) per zig-zag idx
 ZZ_ROWS = np.array([r for r, _ in BLK_ORDER])
 ZZ_COLS = np.array([c for _, c in BLK_ORDER])
@@ -163,7 +171,10 @@ def eval_i4x4_plain(orig, ltop, lleft, modes_top, modes_left, at, al, atl,
 
 def eval_i16(orig, ltop, lleft, at, al, atl, qp: int):
     """I16x16 mode search + recon. Returns (mode, cost, recon, dc levels
-    [B,4,4], ac levels [B,4,4,4,4] with position 0 zeroed)."""
+    [B,4,4], ac levels [B,4,4,4,4] with position 0 zeroed).
+
+    Plain torch on any device: it is part of `wave_body_plain`, which the
+    I16x16 + chroma wave kernel (K3) is held to."""
     b = orig.shape[0]
     top16 = ltop[:, 1:17]
     tl = ltop[:, 0]
@@ -181,7 +192,7 @@ def eval_i16(orig, ltop, lleft, at, al, atl, qp: int):
     pred = _take_mode(preds, best)
     resid = orig - pred
     blk = resid.reshape(b, 4, 4, 4, 4).permute(0, 1, 3, 2, 4)  # [B,br,bc,4,4]
-    wcoef = dq.fdct4x4(blk.contiguous())                # kernel K3
+    wcoef = dq.fdct4x4_plain(blk)
     dc_lev = kt.hadamard4x4_fwd_quant_dc(wcoef[..., 0, 0], qp)
     dc_deq = kt.hadamard4x4_inv_dequant_dc(dc_lev, qp)
     ac_lev = kt.quant4x4(wcoef, qp, intra=True)
@@ -193,7 +204,8 @@ def eval_i16(orig, ltop, lleft, at, al, atl, qp: int):
 
 def eval_chroma(orig_u, orig_v, tctx_u, lctx_u, tctx_v, lctx_v, at, al, atl,
                 cqp: int):
-    """Chroma mode decision + recon for both components.
+    """Chroma mode decision + recon for both components (plain torch on
+    any device, part of `wave_body_plain`).
 
     Returns (mode [B], [(rec, dc [B,4], ac [B,4,16]) for U, V]).
     """
@@ -223,7 +235,7 @@ def chroma_residual_recon(orig, pred, cqp: int, intra: bool = True):
     b = orig.shape[0]
     resid = orig - pred
     blk = resid.reshape(b, 2, 4, 2, 4).permute(0, 1, 3, 2, 4)
-    wcoef = dq.fdct4x4(blk.contiguous())                # kernel K3
+    wcoef = dq.fdct4x4_plain(blk)
     dc_lev = kt.hadamard2x2_fwd_quant_dc(wcoef[..., 0, 0], cqp, intra)
     dc_deq = kt.hadamard2x2_inv_dequant_dc(dc_lev, cqp)
     ac_lev = kt.quant4x4(wcoef, cqp, intra=intra)
@@ -294,6 +306,80 @@ def update_border_ctx(bd, r, c, recon_mb, rec_u, rec_v, mode_tiles):
     bd["modes_col"][r] = mode_tiles[:, :, 3]
 
 
+def i16_chroma_wave_plain(bd, coords, avail, gy, gu, gv, mb4, modebuf,
+                          coeffs4, j4, qp: int, cqp: int) -> dict:
+    """Plain torch version of the I16x16 + chroma wave kernel (K3,
+    `kernels.i16_chroma_wave.i16_chroma_wave`, same inputs): the I16x16 and
+    chroma searches with their transforms, the merge with the I4x4 results
+    (recon, mode grid, scanned levels, cost) and the border scatter into
+    `bd`.  Returns every result of the wave but "modes"."""
+    r, c = coords[:, 0].long(), coords[:, 1].long()
+    at, al, atl, _ = avail.unbind(1)
+    ltop, lleft, tctx_u, lctx_u, tctx_v, lctx_v, _, _ = gather_border_ctx(
+        bd, r, c)
+    m16, j16, rec16, dc_lev, ac_lev = eval_i16(
+        gy, ltop, lleft, at, al, atl, qp)
+    sel16 = j16 < j4
+
+    recon_mb = torch.where(sel16[:, None, None], rec16, mb4)
+    ac16_zz = kt.zigzag_scan(ac_lev[:, ZZ_ROWS, ZZ_COLS])     # [B,16,16]
+    luma_ac = torch.where(sel16[:, None, None], ac16_zz, coeffs4)
+    luma_dc = torch.where(sel16[:, None], kt.zigzag_scan(dc_lev), 0)
+
+    cmode, ((rec_u, dc_u, ac_u), (rec_v, dc_v, ac_v)) = eval_chroma(
+        gu, gv, tctx_u, lctx_u, tctx_v, lctx_v, at, al, atl, cqp)
+
+    mode_tiles = torch.where(sel16[:, None, None], -1, modebuf)
+    update_border_ctx(bd, r, c, recon_mb, rec_u, rec_v, mode_tiles)
+
+    return dict(sel16=sel16, i16mode=m16, cmode=cmode,
+                luma_ac=luma_ac, luma_dc=luma_dc,
+                chroma_dc=torch.stack([dc_u, dc_v], dim=1),
+                chroma_ac=torch.stack([ac_u, ac_v], dim=1),
+                recon_mb=recon_mb, rec_u=rec_u, rec_v=rec_v)
+
+
+def wave_body_plain(qp, cqp, lam4, lam24, bd, coords, avail, gy, gu, gv):
+    """Plain torch version of `wave_body` (what the two wave kernels are
+    held to): gather, the I4x4 search, then `i16_chroma_wave_plain`."""
+    r, c = coords[:, 0].long(), coords[:, 1].long()
+    at, al, atl, atr = avail.unbind(1)
+    ltop, lleft, _, _, _, _, modes_top, modes_left = gather_border_ctx(
+        bd, r, c)
+    mb4, modebuf, modes_zz, coeffs4, j4 = eval_i4x4_plain(
+        gy, ltop, lleft, modes_top, modes_left, at, al, atl, atr,
+        qp, lam4, lam24)
+    res = i16_chroma_wave_plain(bd, coords, avail, gy, gu, gv, mb4, modebuf,
+                                coeffs4, j4, qp, cqp)
+    return {k: modes_zz if k == "modes" else res[k] for k in k3w.OUTPUTS}
+
+
+def wave_body(qp, cqp, lam4, lam24, bd, coords, avail, gy, gu, gv, out=None):
+    """One wave of B lanes: mode decision, transform, quantisation and
+    reconstruction of the MBs at coords [B,2] = (r, c) (int32; padding
+    lanes at (hm, 0)) with avail [B,4] = (top, left, top-left, top-right)
+    and source tiles gy [B,16,16], gu, gv [B,8,8]; the border buffers `bd`
+    give the neighbour context and take the finished MBs' borders, in
+    place.  Returns the wave's results, a dict of [B, ...] tensors.
+
+    CUDA tensors go through the two wave kernels (K2, then K3 on the same
+    stream, or it raises), which write into `out` when it is given (rows
+    of the frame's arrays, `kernels.i16_chroma_wave.alloc_outputs`); CPU
+    tensors through `wave_body_plain`.
+    """
+    if gy.device.type == "cpu":
+        return wave_body_plain(qp, cqp, lam4, lam24, bd, coords, avail,
+                               gy, gu, gv)
+    if out is None:
+        out = k3w.alloc_outputs((gy.shape[0],), gy.device)
+    mb4, modebuf, _, coeffs4, j4 = k2w.i4x4_wave_bd(
+        gy, bd, coords, avail, qp, lam4, lam24, _K2_RULES,
+        modes_zz=out["modes"])
+    k3w.i16_chroma_wave(bd, coords, avail, gy, gu, gv, mb4, modebuf, coeffs4,
+                        j4, qp, cqp, _BLK_ORDER, out)
+    return out
+
+
 def tile_origin_xs(sched: WaveSchedule, y, u, v):
     """Original MB tiles per (wave, lane) [n_waves, max_wave, px, px],
     gathered once with the static schedule indices."""
@@ -327,36 +413,6 @@ def make_intra_encoder(sched: WaveSchedule, chroma_qp_offset: int = 0):
     """
     wm, hm = sched.width_mbs, sched.height_mbs
 
-    def wave_body(qp, cqp, lam4, lam24, bd, coords, avail, gy, gu, gv):
-        r, c = coords[:, 0], coords[:, 1]
-        at, al, atl, atr = avail.unbind(1)
-        (ltop, lleft, tctx_u, lctx_u, tctx_v, lctx_v,
-         modes_top, modes_left) = gather_border_ctx(bd, r, c)
-
-        mb4, modebuf, modes_zz, coeffs4, j4 = eval_i4x4(
-            gy, ltop, lleft, modes_top, modes_left, at, al, atl, atr,
-            qp, lam4, lam24)
-        m16, j16, rec16, dc_lev, ac_lev = eval_i16(
-            gy, ltop, lleft, at, al, atl, qp)
-        sel16 = j16 < j4
-
-        recon_mb = torch.where(sel16[:, None, None], rec16, mb4)
-        ac16_zz = kt.zigzag_scan(ac_lev[:, ZZ_ROWS, ZZ_COLS])     # [B,16,16]
-        luma_ac = torch.where(sel16[:, None, None], ac16_zz, coeffs4)
-        luma_dc = torch.where(sel16[:, None], kt.zigzag_scan(dc_lev), 0)
-
-        cmode, ((rec_u, dc_u, ac_u), (rec_v, dc_v, ac_v)) = eval_chroma(
-            gu, gv, tctx_u, lctx_u, tctx_v, lctx_v, at, al, atl, cqp)
-
-        mode_tiles = torch.where(sel16[:, None, None], -1, modebuf)
-        update_border_ctx(bd, r, c, recon_mb, rec_u, rec_v, mode_tiles)
-
-        return dict(sel16=sel16, i16mode=m16, modes=modes_zz, cmode=cmode,
-                    luma_ac=luma_ac, luma_dc=luma_dc,
-                    chroma_dc=torch.stack([dc_u, dc_v], dim=1),
-                    chroma_ac=torch.stack([ac_u, ac_v], dim=1),
-                    recon_mb=recon_mb, rec_u=rec_u, rec_v=rec_v)
-
     def encode(y, u, v, qp: int):
         """y: [H,W] uint8/int32, u/v: [H/2, W/2]. Returns (recon, per-wave ys)."""
         dev = y.device
@@ -365,13 +421,23 @@ def make_intra_encoder(sched: WaveSchedule, chroma_qp_offset: int = 0):
         cqp = chroma_qp(qp, chroma_qp_offset)
         lam4, lam24 = LAMBDA_TABLE[qp]
         gy_all, gu_all, gv_all = tile_origin_xs(sched, y, u, v)
-        coords = torch.as_tensor(sched.coords, dtype=torch.int64, device=dev)
+        coords = torch.as_tensor(sched.coords, dtype=I32, device=dev)
         avail = torch.as_tensor(sched.avail, device=dev)
         bd = init_border_buffers(hm, wm, dev)
-        per_wave = [wave_body(qp, cqp, lam4, lam24, bd, coords[wi],
-                              avail[wi], gy_all[wi], gu_all[wi], gv_all[wi])
-                    for wi in range(sched.n_waves)]
-        ys = {k: torch.stack([w[k] for w in per_wave]) for k in per_wave[0]}
+        # per wave: (coords, avail, gy, gu, gv) rows
+        xs = list(zip(*(t.unbind(0) for t in (coords, avail, gy_all, gu_all,
+                                              gv_all))))
+        if dev.type == "cpu":
+            per_wave = [wave_body(qp, cqp, lam4, lam24, bd, *x) for x in xs]
+            ys = {k: torch.stack([w[k] for w in per_wave])
+                  for k in per_wave[0]}
+        else:
+            # the kernels write each wave's results into its row
+            ys = k3w.alloc_outputs((sched.n_waves, sched.max_wave), dev)
+            rows = {k: v.unbind(0) for k, v in ys.items()}
+            for wi, x in enumerate(xs):
+                wave_body(qp, cqp, lam4, lam24, bd, *x,
+                          out={k: v[wi] for k, v in rows.items()})
         out = dict(
             recon_y=assemble_plane(sched, ys.pop("recon_mb"), 16),
             recon_u=assemble_plane(sched, ys.pop("rec_u"), 8),

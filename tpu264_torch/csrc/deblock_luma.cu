@@ -5,77 +5,36 @@
 // gate |p0-q0| < alpha, |p1-p0| < beta, |q1-q0| < beta and bS > 0; bS < 4
 // the normal filter with tc = tc0 + ap + aq; bS = 4 the strong or weak
 // filter.  The TPU kernel lays lines on lanes and p3..q3 on sublanes;
-// here each thread owns one line and keeps its 8 samples in registers.
+// here each thread owns one line and keeps its 8 samples in registers
+// (the filter itself is `dbf::luma_line` of `deblock_filter.cuh`).
 //
-// What bounds it on the card: the skewed deblocker calls it with one
-// column of MB edges at a time (hm * 16 lines: 720 at 720p), so a call is
-// a launch plus 64 bytes in and 32 out per line.  The design is a single
-// pass with two 16-byte loads and two 16-byte stores per line.
+// This is the entry on slabs of lines, for callers that hold per-line bS
+// (the P and B paths); the all-intra deblocker runs the wave kernel of
+// `deblock_wave.cu` instead.  What bounds it on the card: at a few hundred
+// lines a call is a launch plus 64 bytes in and 32 out per line.  The
+// design is a single pass with two 16-byte loads and two 16-byte stores
+// per line.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "deblock_filter.cuh"
+
 namespace {
-
-struct LumaParams {
-  int32_t alpha, beta;
-  int32_t tc0[3];     // TC0_TABLE[indexA][bS - 1] for bS = 1..3
-};
-
-__device__ __forceinline__ int32_t iabs(int32_t v) { return v < 0 ? -v : v; }
-__device__ __forceinline__ int32_t clip3(int32_t lo, int32_t hi, int32_t v) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
 
 __global__ void deblock_luma_kernel(const int32_t* __restrict__ win,
                                     const int32_t* __restrict__ bs_lines,
                                     int32_t* __restrict__ out, int n_lines,
-                                    LumaParams prm) {
+                                    dbf::EdgeParams prm) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_lines) return;
   const int4* src = reinterpret_cast<const int4*>(win + 8 * (int64_t)i);
-  const int4 lo = src[0], hi = src[1];
-  const int32_t p3 = lo.x, p2 = lo.y, p1 = lo.z, p0 = lo.w;
-  const int32_t q0 = hi.x, q1 = hi.y, q2 = hi.z, q3 = hi.w;
-  const int32_t bs = bs_lines[i];
-  const int32_t alpha = prm.alpha, beta = prm.beta;
-
-  int32_t o_p2 = p2, o_p1 = p1, o_p0 = p0, o_q0 = q0, o_q1 = q1, o_q2 = q2;
-  const bool fflag = iabs(p0 - q0) < alpha && iabs(p1 - p0) < beta &&
-                     iabs(q1 - q0) < beta && bs > 0;
-  if (fflag) {
-    const bool ap = iabs(p2 - p0) < beta;
-    const bool aq = iabs(q2 - q0) < beta;
-    if (bs < 4) {
-      const int32_t tc0 = prm.tc0[clip3(1, 3, bs) - 1];
-      const int32_t tc = tc0 + (ap ? 1 : 0) + (aq ? 1 : 0);
-      const int32_t delta =
-          clip3(-tc, tc, (((q0 - p0) * 4) + (p1 - q1) + 4) >> 3);
-      o_p0 = clip3(0, 255, p0 + delta);
-      o_q0 = clip3(0, 255, q0 - delta);
-      if (ap) o_p1 = p1 + clip3(-tc0, tc0, (p2 + ((p0 + q0 + 1) >> 1) - 2 * p1) >> 1);
-      if (aq) o_q1 = q1 + clip3(-tc0, tc0, (q2 + ((p0 + q0 + 1) >> 1) - 2 * q1) >> 1);
-    } else if (bs == 4) {
-      const bool strong = iabs(p0 - q0) < ((alpha >> 2) + 2);
-      if (strong && ap) {
-        o_p0 = (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3;
-        o_p1 = (p2 + p1 + p0 + q0 + 2) >> 2;
-        o_p2 = (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3;
-      } else {
-        o_p0 = (2 * p1 + p0 + q1 + 2) >> 2;
-      }
-      if (strong && aq) {
-        o_q0 = (q2 + 2 * q1 + 2 * q0 + 2 * p0 + p1 + 4) >> 3;
-        o_q1 = (q2 + q1 + q0 + p0 + 2) >> 2;
-        o_q2 = (2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3;
-      } else {
-        o_q0 = (2 * q1 + q0 + p1 + 2) >> 2;
-      }
-    }
-  }
+  int4 lo = src[0], hi = src[1];
+  dbf::luma_line(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w, bs_lines[i],
+                 prm);
   int4* dst = reinterpret_cast<int4*>(out + 8 * (int64_t)i);
-  dst[0] = make_int4(p3, o_p2, o_p1, o_p0);
-  dst[1] = make_int4(o_q0, o_q1, o_q2, q3);
+  dst[0] = lo;
+  dst[1] = hi;
 }
 
 }  // namespace
@@ -84,7 +43,7 @@ extern "C" int tpu264_deblock_luma(const int32_t* win, const int32_t* bs,
                                    int32_t* out, int n_lines, int alpha,
                                    int beta, const int32_t* tc0_3,
                                    void* stream) {
-  LumaParams prm;
+  dbf::EdgeParams prm;
   prm.alpha = alpha;
   prm.beta = beta;
   for (int k = 0; k < 3; ++k) prm.tc0[k] = tc0_3[k];

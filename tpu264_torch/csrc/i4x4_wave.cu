@@ -29,6 +29,11 @@
 //     `transform4x4.cuh`.
 // All arithmetic is int32 with arithmetic shifts, equal to the plain torch
 // version `eval_i4x4_plain` bit for bit.
+//
+// Two C entries launch the same kernel: `tpu264_i4x4_wave` takes a lane's
+// neighbour context as gathered per-lane arrays, `tpu264_i4x4_wave_bd`
+// (what the wave loop calls) lets the lane read it from the loop's border
+// buffers at its own coordinates (`CtxLayout`), which saves the gather.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -71,12 +76,23 @@ __device__ __forceinline__ bool rule_flag(int code, bool at, bool al, bool atl,
   }
 }
 
+// Where a lane's context lies.  Without `coords` the four context inputs
+// are per-lane arrays ([B,25], [B,16], [B,4], [B,4]).  With `coords` [B,2] =
+// (r, c) they are the wave loop's border buffers, and the lane reads what
+// `gather_border_ctx` would gather: row_y[r, 16c : 16c + 25], col_y[r],
+// modes_row[r, 4c + 1 : 4c + 5], modes_col[r].
+struct CtxLayout {
+  const int32_t* coords;
+  int row_stride, mrow_stride;    // row lengths of row_y and modes_row
+};
+
 __global__ void __launch_bounds__(kThreads) i4x4_wave_kernel(
     const int32_t* __restrict__ orig,         // [B,16,16]
-    const int32_t* __restrict__ ltop,         // [B,25]
-    const int32_t* __restrict__ lleft,        // [B,16]
-    const int32_t* __restrict__ modes_top,    // [B,4]
-    const int32_t* __restrict__ modes_left,   // [B,4]
+    const int32_t* __restrict__ ltop,         // [B,25] or row_y
+    const int32_t* __restrict__ lleft,        // [B,16] or col_y
+    const int32_t* __restrict__ modes_top,    // [B,4] or modes_row
+    const int32_t* __restrict__ modes_left,   // [B,4] or modes_col
+    CtxLayout ctx,
     const uint8_t* __restrict__ at, int at_stride,
     const uint8_t* __restrict__ al, int al_stride,
     const uint8_t* __restrict__ atl, int atl_stride,
@@ -105,11 +121,23 @@ __global__ void __launch_bounds__(kThreads) i4x4_wave_kernel(
   const int p = tid & 15;            // sample within the 4x4 block
   const int py = p >> 2, px = p & 3;
 
+  if (ctx.coords != nullptr) {
+    const int mr = ctx.coords[2 * b], mc = ctx.coords[2 * b + 1];
+    ltop += mr * ctx.row_stride + 16 * mc;
+    lleft += mr * 16;
+    modes_top += mr * ctx.mrow_stride + 4 * mc + 1;
+    modes_left += mr * 4;
+  } else {
+    ltop += b * 25;
+    lleft += b * 16;
+    modes_top += b * 4;
+    modes_left += b * 4;
+  }
   for (int i = tid; i < 17 * 25; i += kThreads) {
     const int r = i / 25, c = i % 25;
     int32_t val = 0;
-    if (r == 0) val = ltop[b * 25 + c];
-    else if (c == 0) val = lleft[b * 16 + r - 1];
+    if (r == 0) val = ltop[c];
+    else if (c == 0) val = lleft[r - 1];
     pix[r][c] = val;
   }
   if (tid < 64) {
@@ -121,8 +149,8 @@ __global__ void __launch_bounds__(kThreads) i4x4_wave_kernel(
   }
   if (tid < 16) mgrid[tid] = -1;
   if (tid < 4) {
-    mtop[tid] = modes_top[b * 4 + tid];
-    mleft[tid] = modes_left[b * 4 + tid];
+    mtop[tid] = modes_top[tid];
+    mleft[tid] = modes_left[tid];
   }
   const bool mb_at = at[(int64_t)b * at_stride] != 0;
   const bool mb_al = al[(int64_t)b * al_stride] != 0;
@@ -300,13 +328,14 @@ __global__ void __launch_bounds__(kThreads) i4x4_wave_kernel(
 // `params` is the host int32 array that `kernels/i4x4_wave.py` packs:
 // mf[16] lim[16] v[16] f qbits qshift lam4 lam24 zigzag[16] tap_idx[384]
 // tap_w[384] rules[96] needs[9].
-extern "C" int tpu264_i4x4_wave(
+static int launch_i4x4_wave(
     const int32_t* orig, const int32_t* ltop, const int32_t* lleft,
-    const int32_t* modes_top, const int32_t* modes_left, const uint8_t* at,
-    int at_stride, const uint8_t* al, int al_stride, const uint8_t* atl,
-    int atl_stride, const uint8_t* atr, int atr_stride, const int32_t* params,
-    int32_t* recon, int32_t* mode_grid, int32_t* modes_zz, int32_t* coeffs,
-    int32_t* cost, int n_mbs, void* stream) {
+    const int32_t* modes_top, const int32_t* modes_left, CtxLayout ctx,
+    const uint8_t* at, int at_stride, const uint8_t* al, int al_stride,
+    const uint8_t* atl, int atl_stride, const uint8_t* atr, int atr_stride,
+    const int32_t* params, int32_t* recon, int32_t* mode_grid,
+    int32_t* modes_zz, int32_t* coeffs, int32_t* cost, int n_mbs,
+    void* stream) {
   WaveParams prm;
   const int32_t* q = params;
   for (int i = 0; i < 16; ++i) prm.mf[i] = *q++;
@@ -325,9 +354,40 @@ extern "C" int tpu264_i4x4_wave(
   for (int i = 0; i < 9; ++i) prm.needs[i] = (uint8_t)*q++;
   if (n_mbs > 0) {
     i4x4_wave_kernel<<<n_mbs, kThreads, 0, (cudaStream_t)stream>>>(
-        orig, ltop, lleft, modes_top, modes_left, at, at_stride, al, al_stride,
-        atl, atl_stride, atr, atr_stride, prm, recon, mode_grid, modes_zz,
-        coeffs, cost);
+        orig, ltop, lleft, modes_top, modes_left, ctx, at, at_stride, al,
+        al_stride, atl, atl_stride, atr, atr_stride, prm, recon, mode_grid,
+        modes_zz, coeffs, cost);
   }
   return (int)cudaGetLastError();
+}
+
+// The context as per-lane arrays.
+extern "C" int tpu264_i4x4_wave(
+    const int32_t* orig, const int32_t* ltop, const int32_t* lleft,
+    const int32_t* modes_top, const int32_t* modes_left, const uint8_t* at,
+    int at_stride, const uint8_t* al, int al_stride, const uint8_t* atl,
+    int atl_stride, const uint8_t* atr, int atr_stride, const int32_t* params,
+    int32_t* recon, int32_t* mode_grid, int32_t* modes_zz, int32_t* coeffs,
+    int32_t* cost, int n_mbs, void* stream) {
+  return launch_i4x4_wave(orig, ltop, lleft, modes_top, modes_left,
+                          CtxLayout{nullptr, 0, 0}, at, at_stride, al,
+                          al_stride, atl, atl_stride, atr, atr_stride, params,
+                          recon, mode_grid, modes_zz, coeffs, cost, n_mbs,
+                          stream);
+}
+
+// The context read from the wave loop's border buffers of a picture `wm`
+// macroblocks wide: coords [B,2] = (r, c) and avail [B,4] = (top, left,
+// top-left, top-right) of the wave's lanes.
+extern "C" int tpu264_i4x4_wave_bd(
+    const int32_t* orig, const int32_t* row_y, const int32_t* col_y,
+    const int32_t* modes_row, const int32_t* modes_col, const int32_t* coords,
+    const uint8_t* avail, int wm, const int32_t* params, int32_t* recon,
+    int32_t* mode_grid, int32_t* modes_zz, int32_t* coeffs, int32_t* cost,
+    int n_mbs, void* stream) {
+  return launch_i4x4_wave(orig, row_y, col_y, modes_row, modes_col,
+                          CtxLayout{coords, 1 + 16 * wm + 8, 1 + 4 * wm + 4},
+                          avail, 4, avail + 1, 4, avail + 2, 4, avail + 3, 4,
+                          params, recon, mode_grid, modes_zz, coeffs, cost,
+                          n_mbs, stream);
 }

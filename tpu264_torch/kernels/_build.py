@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernel library.
 
-All kernels (K1 CABAC engine, K2 I4x4 wave body, K2/K3 DCT + quant, K4
-luma deblock line filter) are CUDA C++ under `tpu264_torch/csrc/` with a
+All kernels (K1 CABAC engine, K2 I4x4 wave body, K3 I16x16 + chroma wave
+body, K4 deblock wave, and the K2/K3 DCT + quant and K4 luma line filter
+entries on slabs) are CUDA C++ under `tpu264_torch/csrc/` with a
 plain C interface.  At first use `nvcc` compiles each source to an object
 file, all sources at once in parallel, links them into one shared library,
 `build/tpu264_torch/libtpu264_kernels_<hash>.so` beside the package, keyed
@@ -36,6 +37,13 @@ _SIGNATURES = {
     #  recon, mode_grid, modes_zz, coeffs, cost, n_mbs, stream)
     "tpu264_i4x4_wave": [P, P, P, P, P, P, I, P, I, P, I, P, I, P,
                          P, P, P, P, P, I, P],
+    # (orig, row_y, col_y, modes_row, modes_col, coords, avail, wm, params*,
+    #  recon, mode_grid, modes_zz, coeffs, cost, n_mbs, stream)
+    "tpu264_i4x4_wave_bd": [P, P, P, P, P, P, P, I, P, P, P, P, P, P, I, P],
+    # (ptrs[27]*, params*, n_mbs, wm, stream)
+    "tpu264_i16_chroma_wave": [P, P, I, I, P],
+    # (y, u, v, bs_v, bs_h, wm, cp, r0, n_rows, params*, stream)
+    "tpu264_deblock_wave": [P, P, P, P, P, I, I, I, I, P, P],
     # (win, bs, out, n_lines, alpha, beta, tc0_3*, stream)
     "tpu264_deblock_luma": [P, P, P, I, I, I, P, P],
     # (records, rec_stride, counts, init, tables*, words, out_cap, nbytes,
@@ -124,6 +132,19 @@ def lib() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def check_tensor(who: str, name: str, t, shape, dtype, dev) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `dev`."""
+    if t.dtype != dtype:
+        raise TypeError(f"{who}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{who}: {name} must be {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if t.device != dev:
+        raise ValueError(f"{who}: {name} is on {t.device}, not {dev}")
+    if not t.is_contiguous():
+        raise ValueError(f"{who}: {name} must be contiguous")
 
 
 def stream_of(t) -> ctypes.c_void_p:

@@ -8,13 +8,15 @@ plain torch versions `quant4x4(fdct4x4(x))` and `fdct4x4(x)`.  There is
 no fallback from the card to the plain version: a kernel that does not
 build or launch raises.
 
-On the all-intra path K2 runs in its wave form (`i4x4_wave.py`: the whole
-I4x4 body of a wave, DCT + quant included, in one launch); the standalone
-`fdct_quant4x4` here is for callers that hold whole slabs of blocks.
+On the all-intra path both run in their wave forms: K2 in `i4x4_wave.py`
+(the whole I4x4 body of a wave, DCT + quant included, in one launch) and
+K3 in `i16_chroma_wave.py` (the I16x16 and chroma part of the wave body).
+The entries here are for callers that hold whole slabs of blocks.
 
 `launches` counts kernel launches (not plain-version calls): "K2_blocks"
-the standalone `fdct_quant4x4`'s, "K3" `fdct4x4`'s.  The wave kernel keeps
-its own count, `i4x4_wave.launches["K2"]`.
+`fdct_quant4x4`'s, "K3_blocks" `fdct4x4`'s.  The wave kernels keep their
+own counts, `i4x4_wave.launches["K2"]` and
+`i16_chroma_wave.launches["K3"]`.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 from . import _build
 from . import transform as kt
 
-launches = {"K2_blocks": 0, "K3": 0}
+launches = {"K2_blocks": 0, "K3_blocks": 0}
 
 
 def _check(x: torch.Tensor) -> None:
@@ -68,13 +70,14 @@ def fdct_quant4x4(x: torch.Tensor, qp: int, intra: bool) -> torch.Tensor:
 
 
 def fdct4x4(x: torch.Tensor) -> torch.Tensor:
-    """W = Cf X Cf^T over [..., 4, 4] int32 blocks (kernel K3)."""
+    """W = Cf X Cf^T over [..., 4, 4] int32 blocks (kernel K3, the entry on
+    slabs of blocks)."""
     _check(x)
     if x.device.type == "cpu":
         return fdct4x4_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"dct_quant: unsupported device {x.device}")
-    launches["K3"] += 1
+    launches["K3_blocks"] += 1
     return _launch(x, None, True)
 
 

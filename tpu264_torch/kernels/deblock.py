@@ -4,10 +4,11 @@
 The normative filter is sequential (each edge reads already-filtered
 samples, MB raster order), but MB (r, c) depends only on MBs (r, c-1),
 (r-1, c) and (r-1, c+1): the same anti-diagonal wavefront d = 2r + c as
-the encode engine.  The skewed deblocker stores MB (r, c) at skewed
-column c + 2r, so each wave is one column strip of MBs, filtered with
-all MB rows at once.  Luma edges go through kernel K4
-(`deblock_lines.filter_luma_lines`).
+the encode engine.  On the card each wave is one launch of kernel K4 in
+its wave form (`deblock_wave.deblock_wave`: every MB of the wave, luma and
+chroma, on the raster planes in place).  The plain version, which the CPU
+takes, stores MB (r, c) at skewed column c + 2r, so that each wave is one
+column strip of MBs, filtered with all MB rows at once in torch.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 from tpu264_torch.ref import deblock as rd
 from tpu264_torch.coding.wavefront import WaveSchedule
 from tpu264_torch.coding.mvpred import INTRA
-from .deblock_lines import filter_luma_lines
+from .deblock_lines import filter_luma_lines_plain
+from .deblock_wave import deblock_wave
 from .transform import I32
 
 ALPHA = [int(v) for v in rd.ALPHA_TABLE]
@@ -84,15 +86,20 @@ def compute_bs_maps(intra_mb, tc_luma, mv, ref):
 
 
 def make_deblocker_skewed(sched: WaveSchedule,
-                          filter_across_slices: bool = True):
-    """Skewed-wavefront picture deblocker (bit-exact with `ref.deblock`).
+                          filter_across_slices: bool = True,
+                          plain: bool = False):
+    """Wavefront picture deblocker (bit-exact with `ref.deblock`).
+
+    fn(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp) -> filtered int32
+    planes.  CUDA planes go through the wave kernel (K4, one launch a
+    wave, or it raises); CPU planes, and any planes when `plain` is set
+    (the kernel's checks), through the plain version:
 
     MB (r, c) is stored at skewed MB column c' = c + 2r, so every 2:1
     anti-diagonal wave becomes one contiguous column strip: a wave step is
     a few slices + edge filters over all MB rows at once.  Neighbor
     windows stay local in skew space (left -> c'-1, top/top-right -> band
     above at c'-2).
-    fn(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp) -> filtered planes.
     """
     wm, hm = sched.width_mbs, sched.height_mbs
     n_waves = wm + 2 * (hm - 1)
@@ -124,17 +131,31 @@ def make_deblocker_skewed(sched: WaveSchedule,
         rr = torch.arange(hm * mb_px, device=buf.device)[:, None]
         return buf[rr, _skew_cols(mb_px, buf.device)]
 
-    def deblock(y, u, v, intra_mb, tc_luma, mv, ref, qp: int, cqp: int):
-        qi = min(max(int(qp), 0), 51)
-        ci = min(max(int(cqp), 0), 51)
-        alpha, beta, tc0_row = ALPHA[qi], BETA[qi], TC0[qi]
-        calpha, cbeta = ALPHA[ci], BETA[ci]
-        ctc0_row = torch.as_tensor(TC0[ci], dtype=I32, device=y.device)
+    def bs_maps(intra_mb, tc_luma, mv, ref):
         bs_v, bs_h = compute_bs_maps(intra_mb.to(torch.bool),
                                      tc_luma.to(I32), mv.to(I32),
                                      ref.to(I32))
         for r in zero_top_rows:
             bs_h[r * 4, :] = 0
+        return bs_v, bs_h
+
+    def deblock(y, u, v, intra_mb, tc_luma, mv, ref, qp: int, cqp: int):
+        if plain or y.device.type == "cpu":
+            return deblock_plain(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp)
+        bs_v, bs_h = bs_maps(intra_mb, tc_luma, mv, ref)
+        # raster planes, filtered in place wave by wave
+        yb, ub, vb = (p.to(I32, copy=True).contiguous() for p in (y, u, v))
+        for cp in range(n_waves):
+            deblock_wave(yb, ub, vb, bs_v, bs_h, cp, qp, cqp)
+        return yb, ub, vb
+
+    def deblock_plain(y, u, v, intra_mb, tc_luma, mv, ref, qp: int, cqp: int):
+        qi = min(max(int(qp), 0), 51)
+        ci = min(max(int(cqp), 0), 51)
+        alpha, beta, tc0_row = ALPHA[qi], BETA[qi], TC0[qi]
+        calpha, cbeta = ALPHA[ci], BETA[ci]
+        ctc0_row = torch.as_tensor(TC0[ci], dtype=I32, device=y.device)
+        bs_v, bs_h = bs_maps(intra_mb, tc_luma, mv, ref)
         yb = _skew(y, 16)
         ub = _skew(u, 8)
         vb = _skew(v, 8)
@@ -160,7 +181,7 @@ def make_deblocker_skewed(sched: WaveSchedule,
                 b_lines = BV[:, :, k].repeat_interleave(4, 1).contiguous()
                 e = 4 + 4 * k
                 seg = win[:, 4:20, e - 4:e + 4].contiguous()
-                win[:, 4:20, e - 4:e + 4] = filter_luma_lines(
+                win[:, 4:20, e - 4:e + 4] = filter_luma_lines_plain(
                     seg, b_lines, alpha, beta, tc0_row)
             # horizontal: the same filter on the transposed window
             winT = win.transpose(1, 2)                    # a view of win
@@ -168,7 +189,7 @@ def make_deblocker_skewed(sched: WaveSchedule,
                 b_lines = BH[:, k, :].repeat_interleave(4, 1).contiguous()
                 e = 4 + 4 * k
                 seg = winT[:, 4:20, e - 4:e + 4].contiguous()
-                winT[:, 4:20, e - 4:e + 4] = filter_luma_lines(
+                winT[:, 4:20, e - 4:e + 4] = filter_luma_lines_plain(
                     seg, b_lines, alpha, beta, tc0_row)
             yb[:, base - 4:base + 16] = win[:, 4:20].reshape(hm * 16, 20)
             A[:-1, 12:16] = win[1:, 0:4]      # A views yb: writes through

@@ -6,7 +6,13 @@ tensors the plain torch version `filter_luma_lines_plain` (the torch
 translation of `tpu264.kernels.deblock.filter_luma_lines`).  There is no
 fallback from the card to the plain version.
 
-`launches["K4"]` counts kernel launches.
+This is the entry on slabs of lines, for callers that hold per-line bS.
+The all-intra deblocker runs K4 in its wave form (`deblock_wave.py`: a
+whole MB wave, luma and chroma, in one launch), whose plain version uses
+`filter_luma_lines_plain`.
+
+`launches["K4_lines"]` counts kernel launches; the wave kernel keeps its
+own count, `deblock_wave.launches["K4"]`.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import torch
 
 from . import _build
 
-launches = {"K4": 0}
+launches = {"K4_lines": 0}
 
 
 def _clip3(lo, hi, x):
@@ -81,7 +87,7 @@ def filter_luma_lines(win, bs, alpha: int, beta: int, tc0_row):
     bs_lines = torch.broadcast_to(bs, win.shape[:-1]).contiguous()
     out = torch.empty_like(win)
     tc0 = [int(v) for v in tc0_row]
-    launches["K4"] += 1
+    launches["K4_lines"] += 1
     err = _build.lib().tpu264_deblock_luma(
         _build.ptr(win), _build.ptr(bs_lines), _build.ptr(out),
         win.numel() // 8, int(alpha), int(beta), _build.host_i32(tc0),

@@ -2,7 +2,10 @@
 one CUDA launch (`csrc/i4x4_wave.cu`).
 
 `i4x4_wave` is what `coding.intra_frame.eval_i4x4` runs for CUDA tensors;
-the plain version is `coding.intra_frame.eval_i4x4_plain`.  The kernel
+the plain version is `coding.intra_frame.eval_i4x4_plain`.  The wave loop
+calls the same kernel through `i4x4_wave_bd`, which reads the lanes'
+neighbour context straight from the loop's border buffers instead of
+gathered per-lane arrays.  The kernel
 takes its constant tables (quantiser rows for the QP, the zig-zag scan,
 the three-tap form of the eight directional predictors, the modes'
 neighbour needs) by value, packed here from the same Python tables the
@@ -10,7 +13,7 @@ plain version uses; the per-block availability rules come from the caller
 (`rule_codes`).  There is no fallback to the plain version: a kernel that
 does not build or launch raises.
 
-`launches["K2"]` counts kernel launches.
+`launches["K2"]` counts kernel launches (of either entry).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from . import _build
 from . import intra as ki
 from . import transform as kt
+from .i16_chroma_wave import check_wave_inputs
 
 I32 = torch.int32
 _RULE_CODE = {False: 0, True: 1, "mb_top": 2, "mb_left": 3, "mb_tl": 4,
@@ -109,3 +113,36 @@ def i4x4_wave(orig, ltop, lleft, modes_top, modes_left, at, al, atl, atr,
     _build.check(err, "tpu264_i4x4_wave")
     return recon, mode_grid, modes_zz, coeffs, cost
 
+
+
+def i4x4_wave_bd(orig, bd: dict, coords, avail, qp: int, lam4: int,
+                 lam24: int, rules: tuple, modes_zz=None):
+    """`i4x4_wave` for one wave of the wave loop: the lanes' context is read
+    from the border buffers `bd` (`init_border_buffers`) at coords [B,2]
+    (int32 (r, c)), as `gather_border_ctx` would gather it, and the four
+    availability flags are the columns of avail [B,4] (bool).  `modes_zz`
+    [B,16], when given, takes the modes in zig-zag order.  Same returns."""
+    who = "i4x4_wave_bd"
+    dev = orig.device
+    b, wm, _ = check_wave_inputs(who, bd, coords, avail, dev)
+    _build.check_tensor(who, "orig", orig, (b, 16, 16), I32, dev)
+    if orig.data_ptr() % 16:
+        raise ValueError("i4x4_wave_bd: orig must be 16-byte aligned")
+    if modes_zz is None:
+        modes_zz = torch.empty((b, 16), dtype=I32, device=dev)
+    else:
+        _build.check_tensor(who, "modes_zz", modes_zz, (b, 16), I32, dev)
+    recon = torch.empty((b, 16, 16), dtype=I32, device=dev)
+    mode_grid = torch.empty((b, 4, 4), dtype=I32, device=dev)
+    coeffs = torch.empty((b, 16, 16), dtype=I32, device=dev)
+    cost = torch.empty((b,), dtype=I32, device=dev)
+    launches["K2"] += 1
+    err = _build.lib().tpu264_i4x4_wave_bd(
+        _build.ptr(orig), _build.ptr(bd["row_y"]), _build.ptr(bd["col_y"]),
+        _build.ptr(bd["modes_row"]), _build.ptr(bd["modes_col"]),
+        _build.ptr(coords), _build.ptr(avail), wm,
+        pack_params(int(qp), int(lam4), int(lam24), rules),
+        _build.ptr(recon), _build.ptr(mode_grid), _build.ptr(modes_zz),
+        _build.ptr(coeffs), _build.ptr(cost), b, _build.stream_of(orig))
+    _build.check(err, "tpu264_i4x4_wave_bd")
+    return recon, mode_grid, modes_zz, coeffs, cost

@@ -10,12 +10,13 @@ one JSON object with, for warm frames:
 - `stages`: host clock around each stage of a frame with a
   `torch.cuda.synchronize()` on both sides (wave loop, reorder,
   binarize + compact, deblock, K1 + payload pull);
-- `eval_i4x4`: seconds inside `eval_i4x4` over the frame's waves
-  (synchronised on both sides of every call) beside that frame's wave
-  loop seconds, and the calls;
 - `profile`: `torch.profiler` over one more frame: kernel launches in
-  all and inside `eval_i4x4`, device busy seconds, the frame's seconds
-  under the profiler;
+  all and by stage (`launches_by_stage`: wave loop, reorder, binarize +
+  compact, deblock, K1 + payload pull; the rest is the frame's upload,
+  PSNR and bookkeeping), device busy seconds (the union of the device
+  events' intervals), the ten kernels with the most device time
+  (`top_kernels`: name, launches, seconds), the frame's seconds under the
+  profiler;
 - `cabac`: records, bins (a kind-0 record counts its run, a bypass
   record its bits, a terminate 1) and payload bytes of the frame.
 
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import contextlib
 import json
 import subprocess
 import sys
@@ -39,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from tpu264_torch.coding import encoder as encoder_mod
 from tpu264_torch.coding import intra_frame
 from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.config import EncoderConfig
@@ -90,69 +93,83 @@ def stage_times(enc: Encoder, frame) -> tuple[dict, dict]:
     return st, cabac
 
 
-def i4x4_share(enc: Encoder, frame) -> dict:
-    """Seconds inside `eval_i4x4` beside the same frame's wave loop."""
-    inner = intra_frame.eval_i4x4
-    acc: dict = {}
-    calls = 0
+@contextlib.contextmanager
+def tagged_stages(enc: Encoder):
+    """Within the block every stage of `enc`'s frame encode runs inside a
+    `record_function` span named after the stage."""
+    from torch.profiler import record_function
 
-    def timed(*args, **kw):
-        nonlocal calls
-        calls += 1
-        with Clock(acc, "eval_i4x4"):
-            return inner(*args, **kw)
+    def tag(name, fn):
+        def tagged(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return tagged
 
-    y, u, v = (torch.as_tensor(np.asarray(p), device=enc.device)
-               for p in frame)
-    intra_frame.eval_i4x4 = timed
+    reorder = encoder_mod.reorder_wave_outputs
+    encoder_mod.reorder_wave_outputs = tag("reorder", reorder)
+    names = {"_encode_frame": "wave_loop",
+             "_cabac_records": "binarize_compact",
+             "_apply_deblock": "deblock", "_cabac_payloads": "k1_and_pull"}
+    own = {a: vars(enc).get(a) for a in names}    # None: a method of the class
+    for attr, name in names.items():
+        setattr(enc, attr, tag(name, getattr(enc, attr)))
     try:
-        with Clock(acc, "wave_loop"):
-            enc._encode_frame(y, u, v, QP)
+        yield sorted(names.values()) + ["reorder"]
     finally:
-        intra_frame.eval_i4x4 = inner
-    return {"seconds": acc["eval_i4x4"], "calls": calls,
-            "wave_loop_seconds": acc["wave_loop"],
-            "share_of_wave_loop": acc["eval_i4x4"] / acc["wave_loop"]}
+        encoder_mod.reorder_wave_outputs = reorder
+        for attr, fn in own.items():
+            if fn is None:
+                delattr(enc, attr)
+            else:
+                setattr(enc, attr, fn)
 
 
 def profiled_frame(enc: Encoder, frame) -> dict:
-    """Launch counts of one frame from `torch.profiler`."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-    inner = intra_frame.eval_i4x4
-
-    def tagged(*args, **kw):
-        with record_function("eval_i4x4"):
-            return inner(*args, **kw)
-
-    intra_frame.eval_i4x4 = tagged
-    try:
-        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    """Launch counts of one frame, in all and by stage, and the card's
+    busy time, from `torch.profiler`."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with tagged_stages(enc) as stages:
         torch.cuda.synchronize()
         t0 = time.monotonic()
         with profile(activities=acts) as prof:
             enc.encode_sequence([frame])
             torch.cuda.synchronize()
         secs = time.monotonic() - t0
-    finally:
-        intra_frame.eval_i4x4 = inner
-    spans, launch_at = [], []
-    device_us = 0.0
-    n_kernels = 0
+    spans: dict = {name: [] for name in stages}
+    launch_at = []
+    on_device = []              # (start, end) of every device event
+    by_kernel: dict = {}        # name -> [events, microseconds]
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n_kernels += 1
-            device_us += e.time_range.end - e.time_range.start
-        elif e.name == "eval_i4x4":
-            spans.append((e.time_range.start, e.time_range.end))
+        on_card = e.device_type == torch.autograd.DeviceType.CUDA
+        if e.name in spans:
+            # the profiler mirrors a `record_function` span onto the device
+            # timeline, from its first kernel to its last: no device work
+            if not on_card:
+                spans[e.name].append((e.time_range.start, e.time_range.end))
+        elif on_card:
+            on_device.append((e.time_range.start, e.time_range.end))
+            acc = by_kernel.setdefault(e.name, [0, 0.0])
+            acc[0] += 1
+            acc[1] += e.time_range.end - e.time_range.start
         elif e.name.startswith("cudaLaunchKernel"):
             launch_at.append(e.time_range.start)
     launch_at.sort()
-    inside = sum(bisect.bisect_right(launch_at, hi)
-                 - bisect.bisect_left(launch_at, lo) for lo, hi in spans)
-    return {"frame_seconds_profiled": secs, "device_events": n_kernels,
-            "device_busy_seconds": device_us * 1e-6,
-            "launches": len(launch_at), "launches_in_eval_i4x4": inside,
-            "eval_i4x4_calls": len(spans)}
+    by_stage = {name: sum(bisect.bisect_right(launch_at, hi)
+                          - bisect.bisect_left(launch_at, lo)
+                          for lo, hi in ranges)
+                for name, ranges in spans.items()}
+    by_stage["other"] = len(launch_at) - sum(by_stage.values())
+    busy_us, busy_until = 0.0, float("-inf")
+    for lo, hi in sorted(on_device):
+        busy_us += max(0.0, hi - max(lo, busy_until))
+        busy_until = max(busy_until, hi)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"frame_seconds_profiled": secs, "device_events": len(on_device),
+            "device_busy_seconds": busy_us * 1e-6,
+            "launches": len(launch_at), "launches_by_stage": by_stage,
+            "top_kernels": [[name[:80], n, us * 1e-6]
+                            for name, (n, us) in top]}
 
 
 def main() -> int:
@@ -185,7 +202,6 @@ def main() -> int:
         enc.encode_sequence(frames[1:])
     res["frame_seconds"] = warm["frame"]
     res["stages"], res["cabac"] = stage_times(enc, frames[1])
-    res["eval_i4x4"] = i4x4_share(enc, frames[1])
     res["profile"] = profiled_frame(enc, frames[1])
     text = json.dumps(res, indent=1)
     print(text)
