@@ -11,15 +11,31 @@ Phases (any failure exits non-zero, before the result line):
     quant, DCT, luma deblock lines) to its plain torch version on the
     card, at the shapes of the 720p main path and on seeded corner cases,
     with exact equality, and time both;
- 4. encode two 1280x720 frames (all-intra, CABAC, deblock, QP 28)
-    through `Encoder(cfg).encode_sequence` (the default device is the
+ 4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
+    28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
     wave, K3 and K4 at most once a wave, the slab entries never), and
     hold the stream's SHA-256 to `tests/data/torch_golden.json` (made by
-    the JAX reference encoder).
+    the JAX reference encoder);
+ 5. config 1: five QCIF frames, all-intra CAVLC, through the batched
+    entry; the SHA-256 equals the per-frame path's on the card and the
+    golden;
+ 6. config 2: CIF IPPP CAVLC (1 IDR + 2 P, deblock, full-search and
+    quarter-pel ME, no partitions) against its golden;
+ 7. IPPP at 720p: the same at 1280x720 against its golden, with the
+    launches of every frame asserted: a P frame runs K2 once a wave, the
+    slab entries `K2_blocks` once and `K3_blocks` five times a wave (the
+    inter residual; I16x16, intra U and V, inter U and V), K4 at most
+    once a wave, and K1 and K3's wave form never;
+ 8. one CIF P frame's `make_inter_encoder` output on the card against
+    the same call on the CPU, every key, tolerance 0: this holds the slab
+    entries in their callers to the plain versions.
 
-The line before the last is a JSON object with one entry per kernel;
-the last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with one entry per kernel
+(`launches`: the sum over the two 720p paths, phases 4 and 7, each driven
+with the counts set to 0 just before and read just after;
+`launches_by_path` splits it); the last line is
+{"ok": true, "device": {...}}.
 
 `bound_ms` of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its integer operations over
@@ -48,7 +64,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 W, H, QP = 1280, 720, 28
 
-# count key -> (name, source, TPU kernel it replaces, on the main path)
+# count key -> (name, source, TPU kernel it replaces, on the all-intra
+# CABAC path (config 3); the IPPP path's launches are asserted frame by
+# frame in `phase_ippp_720p`)
 KERNELS = {
     "K1": ("cabac_engine", "tpu264_torch/csrc/cabac_engine.cu",
            "tpu264/entropy/cabac_pallas.py:44", True),
@@ -65,6 +83,11 @@ KERNELS = {
     "K4_lines": ("deblock_luma_lines", "tpu264_torch/csrc/deblock_luma.cu",
                  "tpu264/kernels/pallas_kernels.py:142", False),
 }
+# `K3_blocks` launches of one P wave: I16x16, intra U, intra V, inter U,
+# inter V (`eval_i16`, `eval_chroma`, two `chroma_residual_recon`)
+K3_BLOCKS_PER_P_WAVE = 5
+IPPP = dict(symbol_mode="CAVLC", intra_period=0, deblock=True,
+            inter_partitions=False, transform_8x8=False)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
 
@@ -128,7 +151,9 @@ def check_dct(dev, rng) -> dict:
     from tpu264_torch.kernels import dct_quant as dq
     err = {"K2_blocks": 0, "K3_blocks": 0}
     times = {}
-    for n in (40, 640, 57600):
+    # slabs of a 720p P wave (40 lanes): 640 luma blocks (the inter and
+    # the I16x16 residual), 160 blocks of one chroma plane; and a frame
+    for n in (160, 640, 57600):
         x = torch.as_tensor(rng.integers(-255, 256, size=(n, 4, 4)),
                             dtype=torch.int32, device=dev)
         got = dq.fdct4x4(x)
@@ -143,16 +168,16 @@ def check_dct(dev, rng) -> dict:
                 err["K2_blocks"] = max(err["K2_blocks"],
                                        max_abs_err(got, want))
         times[("K2_blocks", n)] = (
-            time_ms(lambda: dq.fdct_quant4x4(x, QP, True), 200),
-            time_ms(lambda: dq.fdct_quant4x4_plain(x, QP, True), 200))
+            time_ms(lambda: dq.fdct_quant4x4(x, QP, False), 200),
+            time_ms(lambda: dq.fdct_quant4x4_plain(x, QP, False), 200))
     for (k, n), (ms, pms) in sorted(times.items()):
         print(f"{k} {n:6d} blocks: kernel {ms:.4f} ms, plain {pms:.4f} ms")
     # a block: 64 B in, 64 B out; 64 adds/shifts for the two butterfly
     # passes, and 5 operations a coefficient for the quantiser
     return {"K2_blocks": dict(err=err["K2_blocks"],
-                              ms=times[("K2_blocks", 40)][0],
-                              plain_ms=times[("K2_blocks", 40)][1],
-                              **bound(40 * 128, 40 * (64 + 80))),
+                              ms=times[("K2_blocks", 640)][0],
+                              plain_ms=times[("K2_blocks", 640)][1],
+                              **bound(640 * 128, 640 * (64 + 80))),
             "K3_blocks": dict(err=err["K3_blocks"],
                               ms=times[("K3_blocks", 640)][0],
                               plain_ms=times[("K3_blocks", 640)][1],
@@ -185,7 +210,7 @@ def check_i4x4_wave(dev, wave) -> dict:
     cases = [(wave_args[:9], QP)] + [(random_lanes(7 + qp, dev), qp)
                                      for qp in (0, 28, 51)]
     for args, qp in cases:
-        lam4, lam24 = tif.LAMBDA_TABLE[qp]
+        lam4, lam24, _ = tif.LAMBDA_TABLE[qp]
         got = tif.eval_i4x4(*args, qp, lam4, lam24)
         torch.cuda.synchronize()
         want = tif.eval_i4x4_plain(*args, qp, lam4, lam24)
@@ -262,7 +287,7 @@ def check_wave_body(dev, wave) -> dict:
     def seeded(qp):
         bd, coords, avail, gy, gu, gv = random_wave(40 + qp, W // 16, H // 16)
         i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
-        return (qp, chroma_qp(qp), *tif.LAMBDA_TABLE[qp],
+        return (qp, chroma_qp(qp), *tif.LAMBDA_TABLE[qp][:2],
                 {k: i32(v) for k, v in bd.items()}, i32(coords),
                 torch.as_tensor(avail, device=dev), i32(gy), i32(gu), i32(gv))
 
@@ -550,10 +575,11 @@ def read_counts() -> dict:
 
 
 def phase_encode(frames) -> dict:
+    """Config 3 at 720p: all-intra CABAC + deblock -> launch counts."""
     from tpu264_torch.coding.encoder import Encoder
     from tpu264_torch.config import EncoderConfig
     golden = json.loads((ROOT / "tests" / "data" / "torch_golden.json")
-                        .read_text())
+                        .read_text())   # top level: config 3
     cfg = EncoderConfig(width=W, height=H, qp=QP, symbol_mode="CABAC",
                         deblock=True)
     enc = Encoder(cfg)              # no device named: the card
@@ -566,7 +592,7 @@ def phase_encode(frames) -> dict:
     torch.cuda.synchronize()
     secs = time.monotonic() - t0
     counts = read_counts()
-    print(f"launches on the main path: {counts}")
+    print(f"config 3 at 720p, launches on the path: {counts}")
     n_waves = enc.sched.n_waves
     for k, (name, _, _, on_path) in KERNELS.items():
         if on_path and counts[k] <= 0:
@@ -605,6 +631,173 @@ def phase_encode(frames) -> dict:
     return counts
 
 
+def golden(name: str) -> dict:
+    return json.loads((ROOT / "tests" / "data" / "torch_golden.json")
+                      .read_text())[name]
+
+
+def encode_golden(name: str, what: str, **enc_kw):
+    """Encode the frames of golden `name` through `Encoder(cfg)` (no
+    device named: the card) and hold stream and frame sizes to it ->
+    (encoder, stream, seconds)."""
+    from tpu264_torch.coding.encoder import Encoder
+    from tpu264_torch.config import EncoderConfig
+    from tpu264_torch.media.synth import synth_frame
+    g = golden(name)
+    cfg = EncoderConfig(**g["config"])
+    frames = [synth_frame(cfg.width, cfg.height, t)
+              for t in range(g["frames"])]
+    enc = Encoder(cfg, **enc_kw)
+    if enc.device.type != "cuda":
+        fail(f"{what}: Encoder(cfg) chose {enc.device}, not the card")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    stream = enc.encode_sequence(frames)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    sha = hashlib.sha256(stream).hexdigest()
+    print(f"{what}: {len(frames)} frames in {secs:.3f} s = "
+          f"{len(frames) / secs:.4f} frames/s (eager, first run); "
+          f"{len(stream)} bytes, sha256 {sha}")
+    for i, st in enumerate(enc.stats):
+        print(f"  frame {i} {st.slice_type}: {st.bits} bits, PSNR-Y "
+              f"{st.psnr_y:.3f} dB, {st.seconds:.3f} s")
+    if [st.bits for st in enc.stats] != g["frame_bits"]:
+        fail(f"{what}: frame bits {[st.bits for st in enc.stats]} != golden "
+             f"{g['frame_bits']}")
+    if sha != g["sha256"] or len(stream) != g["bytes"]:
+        fail(f"{what}: stream differs from the reference golden")
+    return enc, stream, secs
+
+
+def phase_config1() -> None:
+    """Config 1: QCIF all-intra CAVLC, 5 frames through the batched entry;
+    the per-frame path on the card gives the same stream."""
+    enc, batched, _ = encode_golden("config1_qcif", "config 1 (batched)")
+    if enc.cabac or enc.intra_batch < 2:
+        fail("config 1 did not take the batched CAVLC entry")
+    _, per_frame, _ = encode_golden("config1_qcif", "config 1 (per frame)",
+                                    intra_batch=1)
+    if per_frame != batched:
+        fail("config 1: the batched entry and the per-frame path differ")
+
+
+def phase_config2() -> None:
+    """Config 2: CIF IPPP CAVLC, 1 IDR + 2 P, deblock on."""
+    enc, _, _ = encode_golden("config2_cif", "config 2 (CIF IPPP)")
+    if [st.slice_type for st in enc.stats] != ["IDR", "P", "P"]:
+        fail("config 2: not an IDR and two P frames")
+
+
+def phase_ippp_720p() -> dict:
+    """IPPP CAVLC at 1280x720 against its golden, the launches of each
+    frame asserted -> launch counts of the whole path."""
+    from tpu264_torch.coding.encoder import Encoder
+    per_frame = []
+    queued = []     # seconds of each frame's device work, synchronised
+    real = {}
+
+    def counted(kind, fn):
+        def run(*a, **kw):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            queued.append(time.monotonic() - t0)
+            after = read_counts()
+            per_frame.append((kind, {k: after[k] - before[k]
+                                     for k in after}))
+            return out
+        return run
+
+    for kind, attr in (("IDR", "encode_intra_frame"), ("P", "encode_p_frame")):
+        real[attr] = getattr(Encoder, attr)
+        setattr(Encoder, attr, counted(kind, real[attr]))
+    reset_counts()
+    try:
+        enc, _, secs = encode_golden("ippp_720p", "IPPP at 720p")
+    finally:
+        for attr, fn in real.items():
+            setattr(Encoder, attr, fn)
+    counts = read_counts()
+    n_waves = enc.sched.n_waves
+    print(f"IPPP at 720p, launches on the path: {counts}")
+    if [k for k, _ in per_frame] != ["IDR", "P", "P"]:
+        fail(f"IPPP at 720p: frames {[k for k, _ in per_frame]}")
+    for i, (kind, c) in enumerate(per_frame):
+        print(f"  frame {i} {kind} launches: {c}")
+        want = ({"K1": 0, "K2": n_waves, "K2_blocks": 0, "K3_blocks": 0}
+                if kind == "IDR" else
+                {"K1": 0, "K2": n_waves, "K3": 0, "K2_blocks": n_waves,
+                 "K3_blocks": K3_BLOCKS_PER_P_WAVE * n_waves})
+        for k, n in want.items():
+            if c[k] != n:
+                fail(f"IPPP at 720p frame {i} ({kind}): {k} ran {c[k]} "
+                     f"times, not {n} ({n_waves} waves)")
+        at_most_a_wave = ("K3", "K4") if kind == "IDR" else ("K4",)
+        for k in at_most_a_wave:
+            if not 1 <= c[k] <= n_waves:
+                fail(f"IPPP at 720p frame {i} ({kind}): {k} ran {c[k]} "
+                     f"times for {n_waves} waves")
+    if sum(sum(c.values()) for _, c in per_frame) != sum(counts.values()):
+        fail("IPPP at 720p: launches outside the frames' encode calls")
+    # `FrameStats.seconds` of a pipelined frame runs until the next frame
+    # is queued, so the frames' own times are taken around their calls
+    print(f"IPPP at 720p (eager, first run), device work of a frame: IDR "
+          f"{queued[0]:.3f} s, P frames "
+          f"{', '.join(f'{t:.3f}' for t in queued[1:])} s; "
+          f"{len(enc.stats) / secs:.4f} frames/s with pull and NAL assembly")
+    return counts
+
+
+def phase_p_wave_body_vs_cpu(dev) -> None:
+    """One CIF P frame through `make_inter_encoder` on the card and on the
+    CPU: every per-wave output and the recon planes are equal.  On the
+    card the body runs K2 (wave form) and the slab entries K2_blocks and
+    K3_blocks; on the CPU their plain versions."""
+    from tpu264_torch.coding.inter_frame import make_inter_encoder
+    from tpu264_torch.coding.wavefront import build_schedule
+    from tpu264_torch.media.synth import synth_frame
+    w, h = 352, 288
+    sched = build_schedule(w // 16, h // 16, 3)
+    cur = [p.copy() for p in synth_frame(w, h, 3)]
+    ref = synth_frame(w, h, 2)
+    # a patch no motion vector explains: intra MBs among the inter ones
+    cur[0][96:160, 128:224] = np.random.default_rng(1).integers(
+        0, 256, (64, 96), dtype=np.uint8)
+    planes = [torch.as_tensor(p) for p in cur + list(ref)]
+    encode = make_inter_encoder(sched)
+    before = read_counts()
+    out_d, ys_d = encode(*(p.to(dev) for p in planes), QP)
+    torch.cuda.synchronize()
+    after = read_counts()
+    ran = {k: after[k] - before[k] for k in ("K2", "K2_blocks", "K3_blocks")}
+    want = {"K2": sched.n_waves, "K2_blocks": sched.n_waves,
+            "K3_blocks": K3_BLOCKS_PER_P_WAVE * sched.n_waves}
+    if ran != want:
+        fail(f"P wave body on the card launched {ran}, not {want}")
+    out_c, ys_c = encode(*planes, QP)
+    if read_counts() != after:
+        fail("P wave body on the CPU launched a kernel")
+    worst = {}
+    for k, c in {**ys_c, **out_c}.items():
+        d = {**ys_d, **out_d}[k]
+        if d.shape != c.shape or d.dtype != c.dtype:
+            fail(f"P wave body {k}: shape or type differs between card and "
+                 f"CPU")
+        worst[k] = max_abs_err(d.cpu(), c)
+    if any(worst.values()):
+        fail(f"P wave body on the card differs from the CPU (max abs err): "
+             f"{ {k: e for k, e in worst.items() if e} }")
+    inter = ys_c["is_inter"][torch.as_tensor(sched.valid)]
+    print(f"P wave body, CIF frame of {sched.n_waves} waves: card equals CPU "
+          f"on {len(worst)} outputs (tolerance 0); {int(inter.sum())} inter "
+          f"and {int((~inter).sum())} intra MBs")
+    if not inter.any() or inter.all():
+        fail("P wave body check: the frame does not mix inter and intra MBs")
+
+
 def main() -> int:
     kind = phase_device()
     dev = torch.device("cuda")
@@ -627,12 +820,18 @@ def main() -> int:
              f"{wrong}")
     print("kernels equal their plain versions (tolerance 0)")
     counts = phase_encode(frames)
+    phase_config1()
+    phase_config2()
+    counts_p = phase_ippp_720p()
+    phase_p_wave_body_vs_cpu(dev)
     rows = []
     for k in sorted(KERNELS):
         name, source, replaces, _ = KERNELS[k]
         r = results[k]
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": counts[k],
+               "replaces": replaces, "launches": counts[k] + counts_p[k],
+               "launches_by_path": {"config3_720p": counts[k],
+                                    "ippp_720p": counts_p[k]},
                "max_abs_err": r["err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None}

@@ -60,7 +60,7 @@ def test_cuda_i4x4_wave_matches_plain(qp):
     neighbour modes, flat lanes; one launch, counted as K2."""
     dev = cuda_device()
     arrs = random_i4x4_lanes(100 + qp, reps=3)
-    lam4, lam24 = tif.LAMBDA_TABLE[qp]
+    lam4, lam24, _ = tif.LAMBDA_TABLE[qp]
     ints = [t32(a, dev) for a in arrs[:5]]
     # the flags as the wave loop passes them: strided views of one tensor
     flags = torch.as_tensor(np.stack(arrs[5:], 1), device=dev).unbind(1)
@@ -185,7 +185,7 @@ def test_cuda_wave_body_matches_plain(qp):
     buffers after the scatter, padding lanes included; one launch each."""
     dev = cuda_device()
     cqp = chroma_qp(qp)
-    lam4, lam24 = tif.LAMBDA_TABLE[qp]
+    lam4, lam24, _ = tif.LAMBDA_TABLE[qp]
     before = {**k2w.launches, **k3w.launches, **dq.launches}
     bd_k, *args = _wave_on(dev, 60 + qp, 22, 18)
     got = tif.wave_body(qp, cqp, lam4, lam24, bd_k, *args)

@@ -86,17 +86,55 @@ def test_recon_equals_reference_decoder(deblock, slices):
             assert_equal(to_np(g), d)
 
 
+_IPPP_OK = dict(intra_period=0, symbol_mode="CAVLC", inter_partitions=False,
+                transform_8x8=False)
+
+
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(intra_period=0), "P and B GOPs"),
-    (dict(symbol_mode="CAVLC"), "CAVLC"),
+    (dict(intra_period=0), "CABAC P path"),
+    (dict(_IPPP_OK, symbol_mode="CABAC"), "CABAC P path"),
+    (dict(intra_period=0, symbol_mode="CAVLC"),
+     "inter_partitions, transform_8x8 on.*default IPPP tools"),
+    (dict(_IPPP_OK, inter_partitions=None), "inter_partitions on"),
+    (dict(_IPPP_OK, inter_partitions=True), "inter_partitions on"),
+    (dict(_IPPP_OK, transform_8x8=None), "transform_8x8 on"),
+    (dict(_IPPP_OK, transform_8x8=True), "transform_8x8 on"),
+    (dict(_IPPP_OK, weighted_pred=True), "weighted_pred on"),
+    (dict(_IPPP_OK, num_b_frames=1), "hierarchical-B"),
     (dict(rate_control=True, bitrate=100000), "rate control"),
+    (dict(symbol_mode="CAVLC", rate_control=True, bitrate=100000),
+     "rate control"),
     (dict(sei_messages=True), "SEI"),
 ])
 def test_unported_options_raise(kwargs, what):
     base = dict(width=W, height=H, qp=28, symbol_mode="CABAC")
     base.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
         Encoder(EncoderConfig(**base), device="cpu")
+    import re
+    assert re.search(what, str(exc.value)), str(exc.value)
+
+
+def test_ippp_refusal_says_how_to_ask():
+    """The reference turns partitions and the 8x8 transform on by default
+    for IPPP; the message names the two fields to pass as False."""
+    cfg = EncoderConfig(width=W, height=H, intra_period=0,
+                        symbol_mode="CAVLC")
+    with pytest.raises(NotImplementedError,
+                       match="inter_partitions=False, transform_8x8=False"):
+        Encoder(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kwargs,mode", [
+    (dict(symbol_mode="CAVLC"), "intra"),
+    (dict(symbol_mode="CABAC"), "intra"),
+    (_IPPP_OK, "ippp"),
+    (dict(_IPPP_OK, intra_period=3), "ippp"),
+])
+def test_ported_options_construct(kwargs, mode):
+    enc = Encoder(EncoderConfig(width=W, height=H, **kwargs), device="cpu")
+    assert enc.gop_mode == mode
+    assert enc.cabac == (kwargs["symbol_mode"] == "CABAC")
 
 
 def test_default_device_is_cuda():

@@ -129,7 +129,7 @@ def test_eval_i4x4_random_lanes(qp):
     to) against the reference on lanes over all availability combinations,
     -1/-2 neighbour modes and flat content: all five outputs equal."""
     ints, flags = random_i4x4_lanes(qp)[:5], random_i4x4_lanes(qp)[5:]
-    lam4, lam24 = tif.LAMBDA_TABLE[qp]
+    lam4, lam24, _ = tif.LAMBDA_TABLE[qp]
     want = rif.eval_i4x4(*(jnp.asarray(a, jnp.int32) for a in ints),
                          *(jnp.asarray(a) for a in flags), qp, lam4, lam24)
     got = tif.eval_i4x4(*(t32(a) for a in ints),
@@ -178,7 +178,7 @@ def test_wave_body_matches_reference(qp):
     wm, hm = 11, 9
     bd, coords, avail, gy, gu, gv = random_wave(qp, wm, hm)
     cqp = chroma_qp(qp)
-    lam4, lam24 = tif.LAMBDA_TABLE[qp]
+    lam4, lam24, _ = tif.LAMBDA_TABLE[qp]
     j32 = lambda a: jnp.asarray(a, jnp.int32)
     want_bd, want = _ref_wave_body(
         qp, cqp, lam4, lam24, {k: j32(v) for k, v in bd.items()},
@@ -204,7 +204,7 @@ def test_wave_body_plain_parts_compose():
     results is the rest of `wave_body_plain`."""
     qp, (wm, hm) = 30, (11, 9)
     bd, coords, avail, gy, gu, gv = random_wave(5, wm, hm)
-    lam4, lam24 = tif.LAMBDA_TABLE[qp]
+    lam4, lam24, _ = tif.LAMBDA_TABLE[qp]
     args = (t32(coords), torch.as_tensor(avail), t32(gy), t32(gu), t32(gv))
     bd_a = {k: t32(v) for k, v in bd.items()}
     want = tif.wave_body_plain(qp, qp, lam4, lam24, bd_a, *args)

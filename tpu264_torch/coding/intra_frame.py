@@ -40,21 +40,32 @@ _BLK_ORDER = tuple(BLK_ORDER)
 ZZ_ROWS = np.array([r for r, _ in BLK_ORDER])
 ZZ_COLS = np.array([c for _, c in BLK_ORDER])
 
-# (lam4, lam24) per QP 0..51: the values `tpu264.coding.intra_frame.
-# lambda_terms_j` computes in float32 (round(k * sqrt(0.85) *
-# 2^((qp-12)/6)), at least 1).  Held as integers so a last-ulp
-# difference between float libraries cannot flip a mode decision; the
-# tests compare every entry with the reference.
+# (lam4, lam24, lam_me) per QP 0..51: the values `tpu264.coding.
+# intra_frame.lambda_terms_j` computes in float32 (round(k * sqrt(0.85) *
+# 2^((qp-12)/6)) for k = 4, 24, 1, at least 1).  Held as integers so a
+# last-ulp difference between float libraries cannot flip a mode
+# decision; the tests compare every entry with the reference.
 LAMBDA_TABLE = (
-    (1, 6), (1, 6), (1, 7), (1, 8), (1, 9), (2, 10), (2, 11), (2, 12),
-    (2, 14), (3, 16), (3, 18), (3, 20), (4, 22), (4, 25), (5, 28), (5, 31),
-    (6, 35), (7, 39), (7, 44), (8, 50), (9, 56), (10, 63), (12, 70),
-    (13, 79), (15, 89), (17, 99), (19, 112), (21, 125), (23, 140),
-    (26, 158), (30, 177), (33, 199), (37, 223), (42, 250), (47, 281),
-    (53, 315), (59, 354), (66, 397), (74, 446), (83, 501), (94, 562),
-    (105, 631), (118, 708), (132, 795), (149, 892), (167, 1001),
-    (187, 1124), (210, 1262), (236, 1416), (265, 1590), (297, 1784),
-    (334, 2003))
+    (1, 6, 1), (1, 6, 1), (1, 7, 1), (1, 8, 1), (1, 9, 1), (2, 10, 1),
+    (2, 11, 1), (2, 12, 1), (2, 14, 1), (3, 16, 1), (3, 18, 1), (3, 20, 1),
+    (4, 22, 1), (4, 25, 1), (5, 28, 1), (5, 31, 1), (6, 35, 1), (7, 39, 2),
+    (7, 44, 2), (8, 50, 2), (9, 56, 2), (10, 63, 3), (12, 70, 3), (13, 79, 3),
+    (15, 89, 4), (17, 99, 4), (19, 112, 5), (21, 125, 5), (23, 140, 6),
+    (26, 158, 7), (30, 177, 7), (33, 199, 8), (37, 223, 9), (42, 250, 10),
+    (47, 281, 12), (53, 315, 13), (59, 354, 15), (66, 397, 17), (74, 446, 19),
+    (83, 501, 21), (94, 562, 23), (105, 631, 26), (118, 708, 30),
+    (132, 795, 33), (149, 892, 37), (167, 1001, 42), (187, 1124, 47),
+    (210, 1262, 53), (236, 1416, 59), (265, 1590, 66), (297, 1784, 74),
+    (334, 2003, 83))
+
+
+def _fdct4x4(blk, plain: bool):
+    """W = Cf X Cf^T over the blocks of a slab: kernel K3's entry on slabs
+    for CUDA tensors (or it raises); the plain version for CPU tensors,
+    and on any device where `plain` is set (the wave kernels' checks)."""
+    if plain or blk.device.type == "cpu":
+        return dq.fdct4x4_plain(blk)
+    return dq.fdct4x4(blk.contiguous())
 
 
 def _blk_avail(rule_key, rule, at, al, atl, atr):
@@ -169,12 +180,13 @@ def eval_i4x4_plain(orig, ltop, lleft, modes_top, modes_left, at, al, atl,
             torch.stack(coeffs, dim=1), (cost + lam24).to(I32))
 
 
-def eval_i16(orig, ltop, lleft, at, al, atl, qp: int):
+def eval_i16(orig, ltop, lleft, at, al, atl, qp: int, plain: bool = False):
     """I16x16 mode search + recon. Returns (mode, cost, recon, dc levels
     [B,4,4], ac levels [B,4,4,4,4] with position 0 zeroed).
 
-    Plain torch on any device: it is part of `wave_body_plain`, which the
-    I16x16 + chroma wave kernel (K3) is held to."""
+    The forward DCT of the residual is kernel K3's entry on slabs for
+    CUDA tensors; `plain` keeps it plain torch on any device, as
+    `wave_body_plain` (what the wave kernel K3 is held to) needs it."""
     b = orig.shape[0]
     top16 = ltop[:, 1:17]
     tl = ltop[:, 0]
@@ -192,7 +204,7 @@ def eval_i16(orig, ltop, lleft, at, al, atl, qp: int):
     pred = _take_mode(preds, best)
     resid = orig - pred
     blk = resid.reshape(b, 4, 4, 4, 4).permute(0, 1, 3, 2, 4)  # [B,br,bc,4,4]
-    wcoef = dq.fdct4x4_plain(blk)
+    wcoef = _fdct4x4(blk, plain)
     dc_lev = kt.hadamard4x4_fwd_quant_dc(wcoef[..., 0, 0], qp)
     dc_deq = kt.hadamard4x4_inv_dequant_dc(dc_lev, qp)
     ac_lev = kt.quant4x4(wcoef, qp, intra=True)
@@ -203,9 +215,9 @@ def eval_i16(orig, ltop, lleft, at, al, atl, qp: int):
 
 
 def eval_chroma(orig_u, orig_v, tctx_u, lctx_u, tctx_v, lctx_v, at, al, atl,
-                cqp: int):
-    """Chroma mode decision + recon for both components (plain torch on
-    any device, part of `wave_body_plain`).
+                cqp: int, plain: bool = False):
+    """Chroma mode decision + recon for both components; `plain` as in
+    `eval_i16`.
 
     Returns (mode [B], [(rec, dc [B,4], ac [B,4,16]) for U, V]).
     """
@@ -222,20 +234,23 @@ def eval_chroma(orig_u, orig_v, tctx_u, lctx_u, tctx_v, lctx_v, at, al, atl,
         satd = satd + kt.satd4x4(dblk).sum(dim=(-2, -1), dtype=I32)
     jcost = torch.where(valid, satd, BIG)
     best = torch.argmin(jcost, dim=1)
-    outs = [chroma_residual_recon(orig, _take_mode(preds, best), cqp)
+    outs = [chroma_residual_recon(orig, _take_mode(preds, best), cqp,
+                                  plain=plain)
             for orig, preds in ((orig_u, preds_u), (orig_v, preds_v))]
     return best.to(I32), outs
 
 
-def chroma_residual_recon(orig, pred, cqp: int, intra: bool = True):
-    """Chroma residual transform path for a given prediction.
+def chroma_residual_recon(orig, pred, cqp: int, intra: bool = True,
+                          plain: bool = False):
+    """Chroma residual transform path for a given prediction; `plain` as
+    in `eval_i16`.
 
     Returns (recon [B,8,8], dc levels [B,4] raster, ac scanned [B,4,16]
     with position 0 zeroed)."""
     b = orig.shape[0]
     resid = orig - pred
     blk = resid.reshape(b, 2, 4, 2, 4).permute(0, 1, 3, 2, 4)
-    wcoef = dq.fdct4x4_plain(blk)
+    wcoef = _fdct4x4(blk, plain)
     dc_lev = kt.hadamard2x2_fwd_quant_dc(wcoef[..., 0, 0], cqp, intra)
     dc_deq = kt.hadamard2x2_inv_dequant_dc(dc_lev, cqp)
     ac_lev = kt.quant4x4(wcoef, cqp, intra=intra)
@@ -318,7 +333,7 @@ def i16_chroma_wave_plain(bd, coords, avail, gy, gu, gv, mb4, modebuf,
     ltop, lleft, tctx_u, lctx_u, tctx_v, lctx_v, _, _ = gather_border_ctx(
         bd, r, c)
     m16, j16, rec16, dc_lev, ac_lev = eval_i16(
-        gy, ltop, lleft, at, al, atl, qp)
+        gy, ltop, lleft, at, al, atl, qp, plain=True)
     sel16 = j16 < j4
 
     recon_mb = torch.where(sel16[:, None, None], rec16, mb4)
@@ -327,7 +342,8 @@ def i16_chroma_wave_plain(bd, coords, avail, gy, gu, gv, mb4, modebuf,
     luma_dc = torch.where(sel16[:, None], kt.zigzag_scan(dc_lev), 0)
 
     cmode, ((rec_u, dc_u, ac_u), (rec_v, dc_v, ac_v)) = eval_chroma(
-        gu, gv, tctx_u, lctx_u, tctx_v, lctx_v, at, al, atl, cqp)
+        gu, gv, tctx_u, lctx_u, tctx_v, lctx_v, at, al, atl, cqp,
+        plain=True)
 
     mode_tiles = torch.where(sel16[:, None, None], -1, modebuf)
     update_border_ctx(bd, r, c, recon_mb, rec_u, rec_v, mode_tiles)
@@ -419,7 +435,7 @@ def make_intra_encoder(sched: WaveSchedule, chroma_qp_offset: int = 0):
         y, u, v = y.to(I32), u.to(I32), v.to(I32)
         qp = int(qp)
         cqp = chroma_qp(qp, chroma_qp_offset)
-        lam4, lam24 = LAMBDA_TABLE[qp]
+        lam4, lam24, _ = LAMBDA_TABLE[qp]
         gy_all, gu_all, gv_all = tile_origin_xs(sched, y, u, v)
         coords = torch.as_tensor(sched.coords, dtype=I32, device=dev)
         avail = torch.as_tensor(sched.avail, device=dev)

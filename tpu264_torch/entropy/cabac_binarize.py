@@ -26,7 +26,8 @@ import torch
 from tpu264_torch.coding.wavefront import BLK_ORDER
 from .cabac_ctx import CBF_CAT_OFF, LVL_CAT_OFF, SIG_CAT_OFF, K_I4, K_I16, \
     K_SKIP
-from .device_cavlc import blk_grid_index, compute_cbp, mpm_grid
+from .device_cavlc import (bit_length_minus1, blk_grid_index, compute_cbp,
+                           mpm_grid)
 
 K_CTX, K_BYP, K_TERM = 0, 1, 2
 I32 = torch.int32
@@ -75,17 +76,6 @@ class RecordRows:
     def stacked(self):
         return (torch.cat(self.ks, 0), torch.cat(self.as_, 0),
                 torch.cat(self.bs, 0), torch.cat(self.vs, 0))
-
-
-def bit_length_minus1(t: torch.Tensor) -> torch.Tensor:
-    """floor(log2(t)) for int32 t >= 1, exact: a 5-step binary search on
-    shifts.  The reference takes floor(log2(float32(t))), which on the
-    XLA CPU backend is one low at t = 2^13 and 2^15; the escape values an
-    8-bit encode produces stay below 6600, where the two agree."""
-    m = torch.zeros_like(t)
-    for s in (16, 8, 4, 2, 1):
-        m = m + s * ((t >> (m + s)) > 0).to(I32)
-    return m
 
 
 def eg_parts(v: torch.Tensor, k0: int):
