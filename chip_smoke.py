@@ -10,14 +10,16 @@ Phases (any failure exits non-zero, before the result line):
     chroma wave body, KP P wave body, K4 deblock wave, and the entries on
     slabs: DCT + quant, DCT, luma deblock lines) to its plain torch
     version on the card, at the shapes of the 720p main paths and on
-    seeded corner cases, with exact equality, and time both;
+    seeded corner cases, with exact equality, and time both; KP with and
+    without the reference's default P tools (16x8/8x16, P_8x8, the 8x8
+    transform), on seeded waves where every partition type and both
+    transforms are chosen;
  4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
     28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
     wave, K3 and K4 at most once a wave, KP and the slab entries never),
-    and
-    hold the stream's SHA-256 to `tests/data/torch_golden.json` (made by
-    the JAX reference encoder);
+    and hold the stream's SHA-256 to `tests/data/torch_golden.json` (made
+    by the JAX reference encoder);
  5. config 1: five QCIF frames, all-intra CAVLC, through the batched
     entry; the SHA-256 equals the per-frame path's on the card and the
     golden;
@@ -27,13 +29,19 @@ Phases (any failure exits non-zero, before the result line):
     launches of every frame asserted: a P frame runs K2 and KP once a
     wave, K4 at most once a wave, and K1, K3's wave form and the slab
     entries never;
- 8. one CIF P frame's `make_inter_encoder` output on the card against
-    the same call on the CPU, every key, tolerance 0.
+ 8. config 2 at `bench.py`'s settings (CIF, QP 28, the default P tools,
+    1 IDR + 3 P) and IPPP at 720p with the default P tools (1 IDR + 2 P),
+    each against its golden with the launches of every frame asserted as
+    in 7;
+ 9. one CIF P frame's `make_inter_encoder` output on the card against
+    the same call on the CPU, every key, tolerance 0, without and with the
+    default P tools.
 
 The line before the last is a JSON object with one entry per kernel
-(`launches`: the sum over the two 720p main paths, phases 4 and 7, each driven
-with the counts set to 0 just before and read just after;
-`launches_by_path` splits it); the last line is
+(`launches`: the sum over the three 720p main paths, phases 4, 7 and 8,
+each driven with the counts set to 0 just before and read just after;
+`launches_by_path` splits it; KP's `ms` is a wave of the default P tools,
+`ms_tools_off` one without them); the last line is
 {"ok": true, "device": {...}}.
 
 `bound_ms` of a kernel is the larger of its bytes (each input read once,
@@ -65,8 +73,8 @@ ROOT = Path(__file__).resolve().parent
 W, H, QP = 1280, 720, 28
 
 # count key -> (name, source, TPU kernel it replaces, on the all-intra
-# CABAC path (config 3); the IPPP path's launches are asserted frame by
-# frame in `phase_ippp_720p`)
+# CABAC path (config 3); the IPPP paths' launches are asserted frame by
+# frame in `phase_ippp`)
 KERNELS = {
     "K1": ("cabac_engine", "tpu264_torch/csrc/cabac_engine.cu",
            "tpu264/entropy/cabac_pallas.py:44", True),
@@ -87,8 +95,6 @@ KERNELS = {
     "KP": ("p_wave", "tpu264_torch/csrc/p_wave.cu",
            "tpu264/kernels/pallas_kernels.py:55,66", False),
 }
-IPPP = dict(symbol_mode="CAVLC", intra_period=0, deblock=True,
-            inter_partitions=False, transform_8x8=False)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
 
@@ -380,11 +386,13 @@ def check_wave_body(dev, wave) -> dict:
                        **bound(n_bytes, n_ops))}
 
 
-def p_frame_wave(dev) -> tuple:
+def p_frame_wave(dev, tools) -> tuple:
     """The arguments of the `wave_body` call of the widest wave of a 720p
-    P frame (synth frames 1 over 0, QP 28, one slice) through
-    `make_inter_encoder` on the card, the border buffers and maps as they
-    are before the call."""
+    P frame (synth frames 1 over 0, QP 28, one slice, the P `tools`)
+    through `make_inter_encoder` on the card, the border buffers and maps
+    as they are before the call: (planes, cu_pad, cv_pad, qp, cqp, lam4,
+    lam24, lam_me, bd, mv_map, ref_map, coords, avail, mv_me, gy, gu, gv,
+    mv_parts, tools)."""
     from tpu264_torch.coding import inter_frame as tinter
     from tpu264_torch.coding.wavefront import build_schedule
     from tpu264_torch.media.synth import synth_frame
@@ -402,36 +410,47 @@ def p_frame_wave(dev) -> tuple:
 
     tinter.wave_body = spy
     try:
-        tinter.make_inter_encoder(sched)(*planes, QP)
+        tinter.make_inter_encoder(sched, partitions=tools.partitions,
+                                  p8x8=tools.p8x8, t8=tools.t8)(*planes, QP)
     finally:
         tinter.wave_body = inner
-    if len(calls) != sched.n_waves or not seen:
+    if len(calls) != sched.n_waves or len(seen) != 19:
         fail(f"720p P frame: {len(calls)} wave body calls for "
              f"{sched.n_waves} waves")
     return tuple(seen)
 
 
-def check_p_wave(dev, wave) -> dict:
+def check_p_wave(dev, waves) -> dict:
     """KP: the P wave kernel against `p_wave_plain` on the card, on the
-    same I4x4 results: every output, the border buffers and both maps
-    after the wave.  Cases: the widest wave of a 720p P frame (`wave`: the
-    arguments of its `wave_body` call) and seeded 720p waves over every
-    availability combination, with padding lanes, neighbours that agree
-    with the search vector and ones that do not, and search vectors past
-    the padded plane's edges, at QP 0, 28 and 51 with chroma QP offsets 0
-    and -2.  The whole `wave_body` (K2's wave form, then KP) is held to
-    `wave_body_plain` on the same cases."""
+    same I4x4 results: every output, the border buffers and the three map
+    channels after the wave.  Cases: the widest wave of a 720p P frame
+    without the P tools and with the reference's default ones (`waves`:
+    the arguments of their `wave_body` calls), seeded 720p waves over
+    every availability combination, with padding lanes, neighbours that
+    agree with the search vector and ones that do not, and search vectors
+    past the padded plane's edges, at QP 0, 28 and 51 with chroma QP
+    offsets 0 and -2; and seeded waves with the default tools at QP 0, 28
+    and 51 (and with 16x8/8x16 alone, and the 8x8 transform alone, at 28),
+    whose source tiles steer lanes to every partition type and both
+    transforms.  The whole `wave_body` (K2's wave form, then KP) is held
+    to `wave_body_plain` on the same cases."""
     from tpu264_torch.coding import inter_frame as tinter
     from tpu264_torch.coding import intra_frame as tif
     from tpu264_torch.kernels import i4x4_wave as k2w
     from tpu264_torch.kernels import interp as kint
     from tpu264_torch.kernels import p_wave as kp
     from tpu264_torch.ref.transform import chroma_qp
-    from tpu264_torch.tools.synth_inputs import random_p_wave
+    from tpu264_torch.tools.synth_inputs import (random_p_wave,
+                                                 random_p_wave_tools)
 
-    def seeded(qp, offset):
+    def seeded(qp, offset, tools=kp.NO_TOOLS):
+        if tools.partitions or tools.t8:
+            *arrs, mvp = random_p_wave_tools(70 + qp - offset, W // 16,
+                                             H // 16)
+        else:
+            arrs, mvp = random_p_wave(50 + qp - offset, W // 16, H // 16), None
         (bd, mv_map, ref_map, ry, ru, rv, coords, avail, mv_me, gy, gu,
-         gv) = random_p_wave(50 + qp - offset, W // 16, H // 16)
+         gv) = arrs
         i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
         pad = tinter.PAD
         return (kint.luma_planes(kint.pad_plane(i32(ry), pad)),
@@ -440,7 +459,8 @@ def check_p_wave(dev, wave) -> dict:
                 *tif.LAMBDA_TABLE[qp], {k: i32(v) for k, v in bd.items()},
                 i32(mv_map), i32(ref_map), i32(coords),
                 torch.as_tensor(avail, device=dev), i32(mv_me), i32(gy),
-                i32(gu), i32(gv))
+                i32(gu), i32(gv),
+                i32(mvp) if tools.partitions else None, tools)
 
     def state(case):
         return clone_bd(case[8]), case[9].clone(), case[10].clone()
@@ -453,85 +473,121 @@ def check_p_wave(dev, wave) -> dict:
         return tif.eval_i4x4_plain(gy, ltop, lleft, mtop, mleft,
                                    *avail.unbind(1), qp, lam4, lam24)
 
-    err, seen = 0, []
-    cases = [wave] + [seeded(qp, off) for qp, off in
-                      ((0, 0), (28, 0), (28, -2), (51, -2))]
-    for i, case in enumerate(cases):
+    def kp_inputs(case, i4):
         planes, cu, cv, qp, cqp, lam4, lam24, lam_me = case[:8]
-        xs = case[11:]
+        mb4, modebuf, _, coeffs4, j4 = i4
+        return (planes, cu, cv, *case[11:17], mb4, modebuf, coeffs4, j4, qp,
+                cqp, lam4, lam24, lam_me)
+
+    full = kp.Tools(True, True, True)
+    err, seen = 0, []
+    cases = (list(waves)
+             + [seeded(qp, off) for qp, off in
+                ((0, 0), (28, 0), (28, -2), (51, -2))]
+             + [seeded(qp, 0, full) for qp in (0, 28, 51)]
+             + [seeded(28, 0, kp.Tools(True, False, False)),
+                seeded(28, 0, kp.Tools(False, False, True))])
+    for i, case in enumerate(cases):
+        mvp, tools = case[17:]
         # the whole body: two launches against the plain body
         st_k, st_p = state(case), state(case)
-        got = tinter.wave_body(*case[:8], *st_k, *xs)
+        got = tinter.wave_body(*case[:8], *st_k, *case[11:])
         torch.cuda.synchronize()
-        want = tinter.wave_body_plain(*case[:8], *st_p, *xs)
+        want = tinter.wave_body_plain(*case[:8], *st_p, *case[11:])
         err = max(err, differ(got, want, f"P wave body {i}"),
                   differ(st_k[0], st_p[0], f"P wave body {i} borders"),
                   differ({"mv_map": st_k[1], "ref_map": st_k[2]},
                          {"mv_map": st_p[1], "ref_map": st_p[2]},
                          f"P wave body {i} maps"))
         # KP alone, on the plain I4x4 results
-        mb4, modebuf, _, coeffs4, j4 = i4x4(case)
-        kp_in = (planes, cu, cv, *xs, mb4, modebuf, coeffs4, j4, qp, cqp,
-                 lam4, lam24, lam_me)
+        kp_in = kp_inputs(case, i4x4(case))
         st_k, st_p = state(case), state(case)
-        out = kp.alloc_outputs((xs[0].shape[0],), dev)
-        kp.p_wave(*st_k, *kp_in, tif._BLK_ORDER, out)
+        out = kp.alloc_outputs((case[11].shape[0],), dev, tools)
+        kp.p_wave(*st_k, *kp_in, tif._BLK_ORDER, out, mvp, tools)
         torch.cuda.synchronize()
         del out["modes"]
-        want = tinter.p_wave_plain(*st_p, *kp_in)
+        want = tinter.p_wave_plain(*st_p, *kp_in, mvp, tools)
         err = max(err, differ(out, want, f"KP {i}"),
                   differ(st_k[0], st_p[0], f"KP {i} borders"),
                   differ({"mv_map": st_k[1], "ref_map": st_k[2]},
                          {"mv_map": st_p[1], "ref_map": st_p[2]},
                          f"KP {i} maps"))
-        n = int((xs[0][:, 0] < H // 16).sum())
+        n = int((case[11][:, 0] < H // 16).sum())
         inter = want["is_inter"][:n]
-        seen.append((int(inter.sum()), int(want["sel16"][:n].sum()), n))
-    print("KP lanes inter / I16x16 / all, per case (the frame's wave "
-          "first): " + ", ".join(f"{a} / {b} / {n}" for a, b, n in seen))
-    if not all(0 < a < n for a, _, n in seen[1:]):
+        ptypes = (sorted(set(want["ptype"][:n][inter].tolist()))
+                  if "ptype" in want else [])
+        n_t8 = int(want["t8"][:n].sum()) if "t8" in want else -1
+        seen.append((tools, int(inter.sum()), int(want["sel16"][:n].sum()),
+                     n, ptypes, n_t8))
+    print("KP lanes inter / I16x16 / all, partition types, 8x8 transform, "
+          "per case (the frames' waves first): " + "; ".join(
+              f"{a} / {b} / {n} {pt} t8 {t}" for _, a, b, n, pt, t in seen))
+    if not all(0 < a < n for _, a, _, n, _, _ in seen[len(waves):]):
         fail("KP: a seeded case does not mix inter and intra lanes")
-    # time the frame's wave: KP alone, and K2 + KP as the loop runs them
-    planes, cu, cv, qp, cqp, lam4, lam24, lam_me = wave[:8]
-    xs = wave[11:]
-    coords, avail, mv_me, gy = xs[:4]
-    n_mbs = gy.shape[0]
-    st = state(wave)
-    mb4, modebuf, _, coeffs4, j4 = k2w.i4x4_wave_bd(
-        gy, st[0], coords, avail, qp, lam4, lam24, tif._K2_RULES)
-    kp_in = (planes, cu, cv, *xs, mb4, modebuf, coeffs4, j4, qp, cqp, lam4,
-             lam24, lam_me)
-    out = kp.alloc_outputs((n_mbs,), dev)
-    before = kp.launches["KP"]
-    ms = time_ms(lambda: kp.p_wave(*st, *kp_in, tif._BLK_ORDER, out), 200)
-    if kp.launches["KP"] != before + 201:
-        fail("KP's launch count is not one a call")
-    pms = time_ms(lambda: tinter.p_wave_plain(*st, *kp_in), 5)
-    body_ms = time_ms(lambda: tinter.wave_body(*wave[:8], *st, *xs, out=out),
-                      200)
-    print(f"KP wave of {n_mbs} MBs: kernel {ms:.4f} ms, plain {pms:.3f} ms; "
-          f"the P wave body (K2 + KP) {body_ms:.4f} ms")
-    # what this wave reads and does, from its own vectors and decisions
-    want = tinter.p_wave_plain(*state(wave), *kp_in)
+    full_seen = [x for x in seen[len(waves):] if x[0] == full]
+    if set().union(*(set(x[4]) for x in full_seen)) != {0, 1, 2, 3}:
+        fail("KP: the seeded waves with the default tools do not choose "
+             "every partition type")
+    # t8 chosen on some lanes, and inter lanes that keep the 4x4 transform
+    if not any(x[5] > 0 for x in full_seen) or \
+            not any(0 <= x[5] < x[1] for x in full_seen):
+        fail("KP: the seeded waves do not choose both transforms")
+    # time the frames' waves: KP alone, and K2 + KP as the loop runs them
+    timed = {}
+    for wave in waves:
+        tools = wave[18]
+        coords, avail, mv_me, gy = wave[11:15]
+        n_mbs = gy.shape[0]
+        st = state(wave)
+        i4 = k2w.i4x4_wave_bd(gy, st[0], coords, avail, wave[3], wave[5],
+                              wave[6], tif._K2_RULES)
+        kp_in = kp_inputs(wave, i4)
+        out = kp.alloc_outputs((n_mbs,), dev, tools)
+        before = kp.launches["KP"]
+        ms = time_ms(lambda: kp.p_wave(*st, *kp_in, tif._BLK_ORDER, out,
+                                       wave[17], tools), 200)
+        if kp.launches["KP"] != before + 201:
+            fail("KP's launch count is not one a call")
+        pms = time_ms(lambda: tinter.p_wave_plain(*st, *kp_in, wave[17],
+                                                  tools), 5)
+        body_ms = time_ms(lambda: tinter.wave_body(*wave[:8], *st,
+                                                   *wave[11:], out=out), 200)
+        print(f"KP wave of {n_mbs} MBs, {tools}: kernel {ms:.4f} ms, plain "
+              f"{pms:.3f} ms; the P wave body (K2 + KP) {body_ms:.4f} ms")
+        timed[tools] = (ms, pms, kp_in, st, wave)
+    # the row: the wave of the default tools, the main path of this slice;
+    # what it reads and does, from its own vectors and decisions
+    ms, pms, kp_in, st, wave = timed[full]
+    n_mbs = wave[14].shape[0]
+    want = tinter.p_wave_plain(*state(wave), *kp_in, wave[17], full)
     avg = kint.QPEL_TABLE[:, 6].tolist()
     frac = lambda mv: [avg[(y & 3) * 4 + (x & 3)] for y, x in mv.tolist()]
-    mc_reads = 256 * sum(1 + a for a in frac(mv_me) + frac(want["mv_skip"]))
+    parts = wave[17].reshape(n_mbs, 8, 2)
+    # luma reads of every candidate: 256 samples of the MB's two, 128 of
+    # each half, 64 of each quadrant, one or two planes a sample
+    mc_reads = (256 * sum(1 + a for a in frac(wave[13])
+                          + frac(want["mv_skip"]))
+                + 128 * sum(1 + a for a in frac(parts[:, :4].reshape(-1, 2)))
+                + 64 * sum(1 + a for a in frac(parts[:, 4:].reshape(-1, 2))))
     n_inter = int(want["is_inter"].sum())
+    n_t8 = int(((want["ptype"] == 0) & want["is_inter"]).sum())
     # a macroblock: 58 context samples, 384 source samples, 529 int32 of
-    # I4x4 results, coords, vector, 4 map cells and 4 flags in; 800 int32
-    # of results, 2 flags, 66 border values and 3 map cells out; the
-    # luma reads of both candidates (one or two planes a sample) and the
-    # 9x9 chroma windows of an inter lane.  Operations: K3's intra costs
-    # (384 samples x 4 modes x 22), 256 samples x 2 candidates x 20 (two
-    # reads and an average, Hadamard, sum), about 300 a 4x4 block for
-    # transform, quantiser and reconstruction over 24 blocks, and 12 a
-    # chroma sample of an inter lane's interpolation
-    n_bytes = (n_mbs * (4 * (58 + 384 + 529 + 2 + 2 + 12) + 4
-                        + 4 * (800 + 66 + 9) + 2)
+    # I4x4 results, coords, 9 vectors, 4 map cells and 4 flags in; 815
+    # int32 of results, 3 flags, 66 border values and 3 map cells out; the
+    # candidates' luma reads and the chroma windows of an inter lane.
+    # Operations: K3's intra costs (384 samples x 4 modes x 22), 256
+    # samples x 5 candidates x 20 (two reads and an average, Hadamard,
+    # sum), about 300 a 4x4 block for transform, quantiser and
+    # reconstruction over 24 blocks, 12 a chroma sample of an inter lane's
+    # interpolation, and on a 16x16 inter lane the 8x8 transform's 64
+    # samples x (2 x 16 butterfly + 6 quantiser) + 256 x 8 for the costs
+    n_bytes = (n_mbs * (4 * (58 + 384 + 529 + 2 + 18 + 12) + 4
+                        + 4 * (815 + 66 + 9) + 3)
                + 4 * mc_reads + n_inter * 2 * 81 * 4)
-    n_ops = n_mbs * (384 * 4 * 22 + 256 * 2 * 20 + 24 * 300) \
-        + n_inter * 128 * 12
+    n_ops = (n_mbs * (384 * 4 * 22 + 256 * 5 * 20 + 24 * 300)
+             + n_inter * 128 * 12 + n_t8 * (256 * 38 + 256 * 8))
     return {"KP": dict(err=err, ms=ms, plain_ms=pms,
+                       ms_tools_off=timed[kp.NO_TOOLS][0],
                        **bound(n_bytes, n_ops))}
 
 
@@ -634,7 +690,7 @@ def frame_records(dev, frame, slices: int, spy=None, deblock_case=None):
     if deblock_case is not None:
         from tpu264_torch.ref.transform import chroma_qp
         deblock_case += [dev_out["recon_y"], dev_out["recon_u"],
-                         dev_out["recon_v"], *enc._deblock_inputs(mbd), QP,
+                         dev_out["recon_v"], *enc._deblock_inputs(mbd)[:4], QP,
                          chroma_qp(QP)]
     recs, counts = enc._cabac_records(mbd)
     init = torch.as_tensor(k1.init_packed_states(0, QP), device=dev)
@@ -848,13 +904,15 @@ def phase_config2() -> None:
         fail("config 2: not an IDR and two P frames")
 
 
-def phase_ippp_720p() -> dict:
-    """IPPP CAVLC at 1280x720 against its golden, the launches of each
-    frame asserted -> launch counts of the whole path."""
+def phase_ippp(name: str, what: str) -> dict:
+    """An IPPP CAVLC golden through `Encoder(cfg)`, the launches of each
+    frame asserted: an IDR frame runs K2 once a wave and K3, K4 at most once
+    a wave; a P frame K2 and KP once a wave, K4 at most once a wave; K1,
+    the slab entries and (in a P frame) K3's wave form never -> launch
+    counts of the whole run."""
     from tpu264_torch.coding.encoder import Encoder
     per_frame = []
     queued = []     # seconds of each frame's device work, synchronised
-    real = {}
 
     def counted(kind, fn):
         def run(*a, **kw):
@@ -870,52 +928,54 @@ def phase_ippp_720p() -> dict:
             return out
         return run
 
+    real = {}
     for kind, attr in (("IDR", "encode_intra_frame"), ("P", "encode_p_frame")):
         real[attr] = getattr(Encoder, attr)
         setattr(Encoder, attr, counted(kind, real[attr]))
     reset_counts()
     try:
-        enc, _, secs = encode_golden("ippp_720p", "IPPP at 720p")
+        enc, _, secs = encode_golden(name, what)
     finally:
         for attr, fn in real.items():
             setattr(Encoder, attr, fn)
     counts = read_counts()
     n_waves = enc.sched.n_waves
-    print(f"IPPP at 720p, launches on the path: {counts}")
-    if [k for k, _ in per_frame] != ["IDR", "P", "P"]:
-        fail(f"IPPP at 720p: frames {[k for k, _ in per_frame]}")
+    print(f"{what}, launches on the path: {counts}")
+    kinds = ["IDR"] + ["P"] * (golden(name)["frames"] - 1)
+    if [k for k, _ in per_frame] != kinds:
+        fail(f"{what}: frames {[k for k, _ in per_frame]}")
     for i, (kind, c) in enumerate(per_frame):
         print(f"  frame {i} {kind} launches: {c}")
         want = ({"K1": 0, "K2": n_waves, "KP": 0, "K2_blocks": 0,
-                 "K3_blocks": 0}
+                 "K3_blocks": 0, "K4_lines": 0}
                 if kind == "IDR" else
                 {"K1": 0, "K2": n_waves, "K3": 0, "KP": n_waves,
-                 "K2_blocks": 0, "K3_blocks": 0})
+                 "K2_blocks": 0, "K3_blocks": 0, "K4_lines": 0})
         for k, n in want.items():
             if c[k] != n:
-                fail(f"IPPP at 720p frame {i} ({kind}): {k} ran {c[k]} "
+                fail(f"{what} frame {i} ({kind}): {k} ran {c[k]} "
                      f"times, not {n} ({n_waves} waves)")
         at_most_a_wave = ("K3", "K4") if kind == "IDR" else ("K4",)
         for k in at_most_a_wave:
             if not 1 <= c[k] <= n_waves:
-                fail(f"IPPP at 720p frame {i} ({kind}): {k} ran {c[k]} "
+                fail(f"{what} frame {i} ({kind}): {k} ran {c[k]} "
                      f"times for {n_waves} waves")
     if sum(sum(c.values()) for _, c in per_frame) != sum(counts.values()):
-        fail("IPPP at 720p: launches outside the frames' encode calls")
+        fail(f"{what}: launches outside the frames' encode calls")
     # `FrameStats.seconds` of a pipelined frame runs until the next frame
     # is queued, so the frames' own times are taken around their calls
-    print(f"IPPP at 720p (eager, first run), device work of a frame: IDR "
+    print(f"{what} (eager, first run), device work of a frame: IDR "
           f"{queued[0]:.3f} s, P frames "
           f"{', '.join(f'{t:.3f}' for t in queued[1:])} s; "
           f"{len(enc.stats) / secs:.4f} frames/s with pull and NAL assembly")
     return counts
 
 
-def phase_p_wave_body_vs_cpu(dev) -> None:
-    """One CIF P frame through `make_inter_encoder` on the card and on the
-    CPU: every per-wave output and the recon planes are equal.  On the
-    card the body runs K2's wave form and KP once a wave; on the CPU their
-    plain versions."""
+def phase_p_wave_body_vs_cpu(dev, tools) -> None:
+    """One CIF P frame through `make_inter_encoder` with the P `tools` on
+    the card and on the CPU: every per-wave output and the recon planes are
+    equal.  On the card the body runs K2's wave form and KP once a wave; on
+    the CPU their plain versions."""
     from tpu264_torch.coding.inter_frame import make_inter_encoder
     from tpu264_torch.coding.wavefront import build_schedule
     from tpu264_torch.media.synth import synth_frame
@@ -927,7 +987,8 @@ def phase_p_wave_body_vs_cpu(dev) -> None:
     cur[0][96:160, 128:224] = np.random.default_rng(1).integers(
         0, 256, (64, 96), dtype=np.uint8)
     planes = [torch.as_tensor(p) for p in cur + list(ref)]
-    encode = make_inter_encoder(sched)
+    encode = make_inter_encoder(sched, partitions=tools.partitions,
+                                p8x8=tools.p8x8, t8=tools.t8)
     before = read_counts()
     out_d, ys_d = encode(*(p.to(dev) for p in planes), QP)
     torch.cuda.synchronize()
@@ -952,9 +1013,9 @@ def phase_p_wave_body_vs_cpu(dev) -> None:
         fail(f"P wave body on the card differs from the CPU (max abs err): "
              f"{ {k: e for k, e in worst.items() if e} }")
     inter = ys_c["is_inter"][torch.as_tensor(sched.valid)]
-    print(f"P wave body, CIF frame of {sched.n_waves} waves: card equals CPU "
-          f"on {len(worst)} outputs (tolerance 0); {int(inter.sum())} inter "
-          f"and {int((~inter).sum())} intra MBs")
+    print(f"P wave body, CIF frame of {sched.n_waves} waves, {tools}: card "
+          f"equals CPU on {len(worst)} outputs (tolerance 0); "
+          f"{int(inter.sum())} inter and {int((~inter).sum())} intra MBs")
     if not inter.any() or inter.all():
         fail("P wave body check: the frame does not mix inter and intra MBs")
 
@@ -974,7 +1035,10 @@ def main() -> int:
     results.update(k1_result)
     results.update(check_i4x4_wave(dev, wave))
     results.update(check_wave_body(dev, wave))
-    results.update(check_p_wave(dev, p_frame_wave(dev)))
+    from tpu264_torch.kernels.p_wave import NO_TOOLS, Tools
+    results.update(check_p_wave(
+        dev, [p_frame_wave(dev, NO_TOOLS),
+              p_frame_wave(dev, Tools(True, True, True))]))
     results.update(check_deblock_wave(dev, deblock_case))
     wrong = {k: r["err"] for k, r in sorted(results.items()) if r["err"]}
     if wrong:
@@ -984,21 +1048,29 @@ def main() -> int:
     counts = phase_encode(frames)
     phase_config1()
     phase_config2()
-    counts_p = phase_ippp_720p()
-    phase_p_wave_body_vs_cpu(dev)
+    counts_p = phase_ippp("ippp_720p", "IPPP at 720p")
+    phase_ippp("config2_bench_cif", "config 2 at bench.py's settings (CIF, "
+               "default P tools)")
+    counts_t = phase_ippp("ippp_720p_tools", "IPPP at 720p with the default "
+                          "P tools")
+    phase_p_wave_body_vs_cpu(dev, NO_TOOLS)
+    phase_p_wave_body_vs_cpu(dev, Tools(True, True, True))
     rows = []
     for k in sorted(KERNELS):
         name, source, replaces, _ = KERNELS[k]
         r = results[k]
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": counts[k] + counts_p[k],
+               "replaces": replaces,
+               "launches": counts[k] + counts_p[k] + counts_t[k],
                "launches_by_path": {"config3_720p": counts[k],
-                                    "ippp_720p": counts_p[k]},
+                                    "ippp_720p": counts_p[k],
+                                    "ippp_720p_tools": counts_t[k]},
                "max_abs_err": r["err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None}
-        if "bins" in r:
-            row["bins"] = r["bins"]
+        for extra in ("bins", "ms_tools_off"):
+            if extra in r:
+                row[extra] = r[extra]
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -160,12 +160,18 @@ def test_serialize_frame_matches_reference(intra_mbd, slices):
     assert sel16.any() and (~sel16).any()
 
 
-@pytest.mark.parametrize("key", ["ptype", "mvq", "t8"])
-def test_serializers_refuse_unported_mb_fields(intra_mbd, key):
-    sched, mbd = intra_mbd(1)
-    bad = dict(mbd)
-    bad[key] = torch.zeros(sched.n_mbs, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdc.serialize_frame(bad, W // 16, H // 16, [0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdc.serialize_frame_p(bad, W // 16, H // 16, [0])
+@pytest.mark.parametrize("slices", [1, 3])
+def test_serialize_frame_with_t8_mode(intra_mbd, slices):
+    """In a PPS with the 8x8 transform (IPPP with the default tools), an
+    I_NxN MB carries transform_size_8x8_flag = 0 right after mb_type."""
+    sched, mbd = intra_mbd(slices)
+    rows = sched.slice_starts.tolist()
+    wm, hm = W // 16, H // 16
+    want_v, want_l = rdc.serialize_frame_j(
+        {k: jnp.asarray(to_np(v)) for k, v in mbd.items()}, wm, hm, rows,
+        t8_mode=True)
+    got_v, got_l = tdc.serialize_frame(mbd, wm, hm, rows, t8_mode=True)
+    assert tuple(got_v.shape) == (wm * hm, tdc.MB_SLOTS + 1)
+    assert_equal(got_l, want_l, "lengths")
+    assert_equal(got_v, want_v, "values")
+    assert_equal(got_l[:, 1], ~mbd["sel16"].to(torch.bool), "flag slot")

@@ -30,7 +30,7 @@ from tpu264_torch.media.synth import synth_frame
 from tpu264_torch.ref import deblock as rd
 from tpu264_torch.ref.transform import chroma_qp
 from tpu264_torch.tools.synth_inputs import random_deblock_picture, \
-    random_p_wave, random_wave
+    random_p_wave, random_p_wave_tools, random_wave
 
 from torch_util import assert_equal, carry_records, cuda_device, \
     long_run_records, random_i4x4_lanes, random_records, run_engine, t32, \
@@ -347,6 +347,71 @@ def test_cuda_p_frame_matches_cpu():
         d = {**ys_d, **out_d}[k]
         assert d.dtype == c.dtype and d.shape == c.shape, k
         assert_equal(d, c, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp,tools", [
+    (0, kp.Tools(True, True, True)), (28, kp.Tools(True, True, True)),
+    (51, kp.Tools(True, True, True)), (28, kp.Tools(True, False, False)),
+    (28, kp.Tools(False, False, True))])
+def test_cuda_p_wave_tools_match_plain(qp, tools):
+    """The P wave body with the default P tools on the card against
+    `wave_body_plain` on the CPU: every result, the borders and the three
+    map channels; every partition type and both transforms chosen."""
+    dev = cuda_device()
+    consts = (qp, chroma_qp(qp), *tif.LAMBDA_TABLE[qp])
+    *arrs, mvp = random_p_wave_tools(90 + qp, 40, 20)
+    (bd, mv_map, ref_map, ry, ru, rv, coords, avail, mv_me, gy, gu,
+     gv) = arrs
+
+    def on(d):
+        planes = kint.luma_planes(kint.pad_plane(t32(ry, d), tinter.PAD))
+        cu, cv = (kint.pad_plane(t32(p, d), tinter.PAD // 2)
+                  for p in (ru, rv))
+        return ((planes, cu, cv, *consts),
+                ({k: t32(v, d) for k, v in bd.items()}, t32(mv_map, d),
+                 t32(ref_map, d)),
+                (t32(coords, d), torch.as_tensor(avail, device=d),
+                 t32(mv_me, d), t32(gy, d), t32(gu, d), t32(gv, d),
+                 t32(mvp, d) if tools.partitions else None, tools))
+
+    head, st_k, xs = on(dev)
+    got = tinter.wave_body(*head, *st_k, *xs)
+    torch.cuda.synchronize()
+    head, st_c, xs = on("cpu")
+    want = tinter.wave_body(*head, *st_c, *xs)
+    assert list(got) == list(want) == list(kp.outputs(tools))
+    for k in want:
+        assert_equal(got[k], want[k], k)
+    for k in st_c[0]:
+        assert_equal(st_k[0][k], st_c[0][k], k)
+    assert_equal(st_k[1], st_c[1])
+    assert_equal(st_k[2], st_c[2])
+    if qp < 51 and tools.p8x8:
+        inter = to_np(want["is_inter"]).astype(bool)
+        assert set(to_np(want["ptype"])[inter]) == {0, 1, 2, 3}
+    if qp < 51 and tools.t8:
+        assert to_np(want["t8"]).any()
+
+
+@pytest.mark.cuda
+def test_cuda_default_tools_stream_matches_cpu():
+    """112x80 IPPP CAVLC with the default P tools, 5 frames: the stream
+    and recon on the card equal the CPU run's; K2 and KP once a wave of
+    each P frame."""
+    dev = cuda_device()
+    frames = [synth_frame(112, 80, t) for t in range(5)]
+    cfg = EncoderConfig(width=112, height=80, qp=30, intra_period=0)
+    before = (dict(k2w.launches), dict(kp.launches))
+    gpu = Encoder(cfg, device=dev)
+    got = gpu.encode_sequence(frames)
+    assert kp.launches["KP"] - before[1]["KP"] == 4 * gpu.sched.n_waves
+    assert k2w.launches["K2"] - before[0]["K2"] == 5 * gpu.sched.n_waves
+    cpu = Encoder(cfg, device="cpu")
+    assert got == cpu.encode_sequence(frames)
+    for g_rec, c_rec in zip(gpu.recons, cpu.recons):
+        for g, c in zip(g_rec, c_rec):
+            assert_equal(to_np(g), to_np(c))
 
 
 @pytest.mark.cuda

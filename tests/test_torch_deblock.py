@@ -111,6 +111,72 @@ def test_bs_maps_single_list_motion(seed):
         assert_equal(g, w)
 
 
+def _partitioned_motion(seed):
+    """Per-4x4 single-list motion of a P picture with partitioned MBs:
+    (intra [HM, WM], mv [4HM, 4WM, 2], ref [4HM, 4WM], t8 [HM, WM]); each
+    inter MB is 16x16, 16x8, 8x16 or P_8x8 with its own vectors, a few of
+    them a quarter-pel step apart (bS 0) and the rest far apart (bS 1),
+    and the 16x16 inter MBs use the 8x8 transform at random."""
+    rng = np.random.default_rng(seed)
+    intra = rng.random((HM, WM)) < 0.2
+    ptype = rng.integers(0, 4, size=(HM, WM))
+    vec = rng.integers(-8, 9, size=(HM, WM, 4, 2)) * rng.integers(
+        1, 3, size=(HM, WM, 4, 1))
+    quad = ((np.arange(4 * HM)[:, None] % 4 >= 2) * 2
+            + (np.arange(4 * WM)[None, :] % 4 >= 2))  # a cell's quadrant
+    pt4 = np.repeat(np.repeat(ptype, 4, 0), 4, 1)
+    r4, c4 = np.mgrid[0:4 * HM, 0:4 * WM] // 4
+    # the vector of a cell: the MB's, its half's or its quadrant's
+    idx = np.select([pt4 == 1, pt4 == 2, pt4 == 3],
+                    [quad // 2, quad % 2, quad], 0)
+    mv = vec[r4, c4, idx]
+    intra4 = np.repeat(np.repeat(intra, 4, 0), 4, 1)
+    mv = np.where(intra4[..., None], 0, mv)
+    ref = np.where(intra4, INTRA, 0)
+    t8 = ~intra & (ptype == 0) & (rng.random((HM, WM)) < 0.6)
+    return intra, mv, ref, t8
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bs_maps_per_4x4_motion(seed):
+    """compute_bs_maps on per-4x4 grids (partitioned MBs) matches the
+    reference."""
+    intra, mv, ref, _ = _partitioned_motion(seed)
+    tc = _inputs(seed)
+    want = rkd.compute_bs_maps(jnp.asarray(intra), jnp.asarray(tc, jnp.int32),
+                               jnp.asarray(mv, jnp.int32),
+                               jnp.asarray(ref, jnp.int32))
+    got = tkd.compute_bs_maps(torch.as_tensor(intra), t32(tc), t32(mv),
+                              t32(ref))
+    for g, w in zip(got, want):
+        assert_equal(g, w)
+    assert sorted(torch.cat(got).unique().tolist()) == [0, 1, 2, 3, 4]
+
+
+@pytest.mark.parametrize("qp", [24, 36])
+def test_t8_mask_deblock_matches_reference(qp):
+    """The whole deblocker with partitioned motion and MBs coded with the
+    8x8 transform (whose inner 4x4 luma edges are left alone)."""
+    intra, mv, ref, t8 = _partitioned_motion(qp)
+    tc = _inputs(qp)
+    y, u, v = _blocky(qp)
+    cqp = chroma_qp(qp)
+    want = _ref_deblocker(1, True)(
+        jnp.asarray(y), jnp.asarray(u), jnp.asarray(v), jnp.asarray(intra),
+        jnp.asarray(tc, jnp.int32), jnp.asarray(mv, jnp.int32),
+        jnp.asarray(ref, jnp.int32), np.int32(qp), np.int32(cqp),
+        t8_mb=jnp.asarray(t8))
+    args = (torch.as_tensor(y), torch.as_tensor(u), torch.as_tensor(v),
+            torch.as_tensor(intra), t32(tc), t32(mv), t32(ref), qp, cqp)
+    deblock = tkd.make_deblocker_skewed(build_schedule(WM, HM, 1))
+    got = deblock(*args, t8_mb=torch.as_tensor(t8))
+    for g, w in zip(got, want):
+        assert_equal(g, w)
+    # the mask changed the picture
+    assert t8.any()
+    assert any((g != w).any() for g, w in zip(got, deblock(*args)))
+
+
 @pytest.mark.parametrize("qp", [20, 40])
 def test_chroma_lines_match_reference(qp):
     rng = np.random.default_rng(qp)

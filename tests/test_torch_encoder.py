@@ -88,22 +88,19 @@ def test_recon_equals_reference_decoder(deblock, slices):
 
 _IPPP_OK = dict(intra_period=0, symbol_mode="CAVLC", inter_partitions=False,
                 transform_8x8=False)
+_IPPP = dict(intra_period=0, symbol_mode="CAVLC")
 
 
 @pytest.mark.parametrize("kwargs,what", [
     (dict(intra_period=0), "CABAC P path"),
     (dict(_IPPP_OK, symbol_mode="CABAC"), "CABAC P path"),
-    (dict(intra_period=0, symbol_mode="CAVLC"),
-     "inter_partitions, transform_8x8 on.*default IPPP tools"),
-    (dict(_IPPP_OK, inter_partitions=None), "inter_partitions on"),
-    (dict(_IPPP_OK, inter_partitions=True), "inter_partitions on"),
-    (dict(_IPPP_OK, transform_8x8=None), "transform_8x8 on"),
-    (dict(_IPPP_OK, transform_8x8=True), "transform_8x8 on"),
+    (dict(_IPPP, weighted_pred=True), "weighted_pred on.*weighted pred"),
     (dict(_IPPP_OK, weighted_pred=True), "weighted_pred on"),
     (dict(_IPPP_OK, num_b_frames=1), "hierarchical-B"),
     (dict(rate_control=True, bitrate=100000), "rate control"),
     (dict(symbol_mode="CAVLC", rate_control=True, bitrate=100000),
      "rate control"),
+    (dict(_IPPP, rate_control=True, bitrate=1), "rate control"),
     (dict(sei_messages=True), "SEI"),
 ])
 def test_unported_options_raise(kwargs, what):
@@ -115,26 +112,52 @@ def test_unported_options_raise(kwargs, what):
     assert re.search(what, str(exc.value)), str(exc.value)
 
 
-def test_ippp_refusal_says_how_to_ask():
-    """The reference turns partitions and the 8x8 transform on by default
-    for IPPP; the message names the two fields to pass as False."""
-    cfg = EncoderConfig(width=W, height=H, intra_period=0,
-                        symbol_mode="CAVLC")
-    with pytest.raises(NotImplementedError,
-                       match="inter_partitions=False, transform_8x8=False"):
-        Encoder(cfg, device="cpu")
-
-
 @pytest.mark.parametrize("kwargs,mode", [
     (dict(symbol_mode="CAVLC"), "intra"),
     (dict(symbol_mode="CABAC"), "intra"),
     (_IPPP_OK, "ippp"),
     (dict(_IPPP_OK, intra_period=3), "ippp"),
+    (_IPPP, "ippp"),
+    (dict(_IPPP, inter_partitions=True), "ippp"),
+    (dict(_IPPP, transform_8x8=True), "ippp"),
+    (dict(_IPPP, rate_control=True), "ippp"),
+    (dict(symbol_mode="CABAC", rate_control=True, bitrate=0), "intra"),
 ])
 def test_ported_options_construct(kwargs, mode):
     enc = Encoder(EncoderConfig(width=W, height=H, **kwargs), device="cpu")
     assert enc.gop_mode == mode
     assert enc.cabac == (kwargs["symbol_mode"] == "CABAC")
+
+
+@pytest.mark.parametrize("kwargs,tools", [
+    (_IPPP, (True, True, True)),
+    (dict(_IPPP, inter_partitions=False), (False, False, True)),
+    (dict(_IPPP, transform_8x8=False), (True, True, False)),
+    (_IPPP_OK, (False, False, False)),
+    (dict(symbol_mode="CAVLC"), (False, False, False)),
+])
+def test_p_tools_follow_the_reference(kwargs, tools):
+    """The P tools as the reference sets them (on for IPPP unless the
+    config says False, never for all-intra), and the parameter sets: High
+    profile and transform_8x8_mode_flag with the 8x8 transform."""
+    from tpu264.coding.encoder import build_params as ref_build_params
+    from tpu264.config import EncoderConfig as RefConfig
+    cfg = EncoderConfig(width=W, height=H, **kwargs)
+    enc = Encoder(cfg, device="cpu")
+    assert (enc.partitions, enc.p8x8, enc.t8_mode) == tools
+    ref_cfg = RefConfig(width=W, height=H, **kwargs)
+    sps, pps, _ = ref_build_params(ref_cfg, enc.gop_mode, t8=enc.t8_mode)
+    assert enc.sps.write_rbsp() == sps.write_rbsp()
+    assert enc.pps.write_rbsp() == pps.write_rbsp()
+
+
+def test_tools_asked_for_all_intra_warn():
+    """As in the reference: asked for in an all-intra GOP, the tools are
+    left off with a warning."""
+    with pytest.warns(UserWarning, match="inter_partitions"):
+        enc = Encoder(EncoderConfig(width=W, height=H, symbol_mode="CAVLC",
+                                    inter_partitions=True), device="cpu")
+    assert not enc.partitions
 
 
 def test_default_device_is_cuda():

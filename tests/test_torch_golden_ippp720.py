@@ -1,8 +1,10 @@
 """`tests/data/torch_golden.json` holds, under "ippp_720p", the JAX
 reference encoder's stream for IPPP CAVLC at 1280x720 (1 IDR + 2 P,
-deblock on, QP 28, no partitions, 4x4 transform); `chip_smoke.py` holds
-the port's stream on the card to it.  This test recomputes it from the
-reference on the CPU."""
+deblock on, QP 28, no partitions, 4x4 transform), and under
+"ippp_720p_tools" the same with the reference's default P tools
+(16x8/8x16 and P_8x8 partitions, the 8x8 transform); `chip_smoke.py`
+holds the port's streams on the card to them.  These tests recompute them
+from the reference on the CPU."""
 
 import pytest
 
@@ -17,3 +19,10 @@ NAME = "ippp_720p"
 def test_golden_matches_reference_encoder():
     cfg = check_reference(NAME)
     assert (cfg.width, cfg.height, cfg.intra_period) == (1280, 720, 0)
+
+
+@pytest.mark.slow
+def test_tools_golden_matches_reference_encoder():
+    cfg = check_reference("ippp_720p_tools")
+    assert (cfg.width, cfg.height, cfg.intra_period) == (1280, 720, 0)
+    assert cfg.inter_partitions is None and cfg.transform_8x8 is None

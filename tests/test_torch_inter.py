@@ -1,7 +1,8 @@
 """The port's wavefront P-frame encoder (`make_inter_encoder`) against
 the JAX reference's: every per-MB output and the three recon planes at
 QCIF for QP 20/28/40 with 1 and 3 slices, and the P-slice CAVLC
-serializer on the resulting MB dict.  Tolerance 0."""
+serializer on the resulting MB dict and on random MB dicts with the
+default P tools' fields.  Tolerance 0."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -112,12 +113,95 @@ def test_neighbor_mvs_match_np_oracle(slices):
         assert_equal(got[k], want[k], k)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(partitions=True), dict(partitions=True, p8x8=True), dict(t8=True),
-    dict(weighted=True)])
-def test_unported_tools_raise(kwargs):
+def test_unported_tools_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinter.make_inter_encoder(build_schedule(WM, HM, 1), **kwargs)
+        tinter.make_inter_encoder(build_schedule(WM, HM, 1), weighted=True)
+
+
+def test_p8x8_needs_partitions():
+    with pytest.raises(ValueError, match="partitions"):
+        tinter.make_inter_encoder(build_schedule(WM, HM, 1), p8x8=True)
+
+
+N = WM * HM
+
+
+def _levels(r, shape, density):
+    """Sparse levels: mostly small, a few large."""
+    lev = r.integers(-3, 4, size=shape) * (r.random(shape) < density)
+    big = r.random(shape) < density / 20
+    return np.where(big, r.integers(-300, 301, size=shape), lev)
+
+
+def random_mbs(seed, p_slice=True, tools=("ptype", "mvq", "t8")):
+    """A seeded MB dict: intra (I16x16 and I4x4) and inter MBs, every
+    partition type, skippable MBs (vector = skip vector, no residual),
+    coded and uncoded blocks; numpy."""
+    r = np.random.default_rng(seed)
+    is_inter = (r.random(N) < 0.7) if p_slice else np.zeros(N, bool)
+    sel16 = r.random(N) < 0.4
+    ptype = np.where(is_inter, r.integers(0, 4, N), 0)
+    if "mvq" not in tools:
+        ptype = np.where(ptype == 3, 1, ptype)
+    mv = r.integers(-64, 65, size=(N, 2))
+    mv_skip = np.where((r.random(N) < 0.5)[:, None], mv,
+                       r.integers(-64, 65, size=(N, 2)))
+    density = np.where(r.random(N) < 0.3, 0.0, r.choice([0.05, 0.3], N))
+    luma_ac = _levels(r, (N, 16, 16), density[:, None, None])
+    luma_ac[sel16 & ~is_inter, :, 0] = 0
+    chroma_ac = _levels(r, (N, 2, 4, 16), density[:, None, None, None] / 2)
+    chroma_ac[..., 0] = 0
+    mb = dict(
+        is_inter=is_inter, sel16=sel16, mv=mv, mv_skip=mv_skip,
+        mv_pred=r.integers(-64, 65, size=(N, 2)),
+        i16mode=r.integers(0, 4, N), modes=r.integers(0, 9, size=(N, 16)),
+        cmode=r.integers(0, 4, N), luma_ac=luma_ac,
+        luma_dc=_levels(r, (N, 16), 0.3) * (sel16 & ~is_inter)[:, None],
+        chroma_dc=_levels(r, (N, 2, 4), density[:, None, None]),
+        chroma_ac=chroma_ac)
+    if "ptype" in tools:
+        mb["mv2"] = r.integers(-64, 65, size=(N, 2))
+    if "mvq" in tools:
+        mb["mvq"] = r.integers(-64, 65, size=(N, 4, 2))
+    # every fifth MB a P_Skip: 16x16 at the skip vector, nothing coded
+    skip = np.arange(N) % 5 == 0
+    if p_slice:
+        is_inter[skip], ptype[skip], mv_skip[skip] = True, 0, mv[skip]
+        for k in ("luma_ac", "chroma_dc", "chroma_ac"):
+            mb[k][skip] = 0
+    if "ptype" in tools:
+        mb["ptype"] = ptype
+    if "t8" in tools:
+        mb["t8"] = is_inter & (ptype == 0) & (r.random(N) < 0.5)
+    return {k: np.asarray(v, np.int32) if v.dtype != bool else v
+            for k, v in mb.items()}
+
+
+@pytest.mark.parametrize("slices", [1, 3])
+@pytest.mark.parametrize("tools", [("ptype",), ("ptype", "mvq"),
+                                   ("ptype", "mvq", "t8"), ("t8",)])
+def test_serialize_frame_p_with_tools(tools, slices):
+    """`serialize_frame_p` on seeded random MB dicts with the fields of the
+    default P tools: 16x8/8x16 ("ptype", "mv2"), P_8x8 ("mvq"), the 8x8
+    transform ("t8"); every mb_type, P_Skip runs, coded and uncoded
+    blocks.  The picture has this module's geometry, so the reference's
+    serializer reuses the operations compiled above."""
+    rows = build_schedule(WM, HM, slices).slice_starts.tolist()
+    mb = random_mbs(10 * slices + len(tools), tools=tools)
+    want_v, want_l, want_s = rdc.serialize_frame_p_j(
+        {k: jnp.asarray(v) for k, v in mb.items()}, WM, HM, rows)
+    got_v, got_l, got_s = tdc.serialize_frame_p(
+        {k: torch.as_tensor(v) for k, v in mb.items()}, WM, HM, rows)
+    assert got_v.shape == want_v.shape
+    assert_equal(got_s, want_s, "skipped")
+    assert_equal(got_l, want_l, "lengths")
+    assert_equal(got_v, want_v, "values")
+    skipped = to_np(got_s)
+    assert skipped.any() and (~skipped).any()
+    if "ptype" in tools:
+        coded = mb["is_inter"] & ~skipped
+        assert set(mb["ptype"][coded]) >= ({0, 1, 2, 3} if "mvq" in tools
+                                           else {0, 1, 2})
 
 
 def test_ref_prepadded_equals_edge_padding():

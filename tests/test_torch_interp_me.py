@@ -167,6 +167,49 @@ def test_subpel_refine_on_an_8x8_partition():
     assert_equal(got, want)
 
 
+@pytest.mark.parametrize("lam", [1, 30])
+@pytest.mark.parametrize("kind", ["motion", "flat", "noise"])
+def test_full_search_blocks_match_parts_and_quads(kind, lam):
+    """The halves' and quadrants' searches from the one quadrant sweep
+    against the reference's `full_search_parts` and `full_search_quads`
+    (flat content: every offset ties, the first in dy-major order wins);
+    the whole MB's against `full_search_16x16`."""
+    cur, ref = _me_frames(kind)
+    ref_pad = rki.pad_plane(jnp.asarray(ref), PAD)
+    args = (PAD, 16, lam, WM, HM)
+    want = {"16x16": rme.full_search_16x16(jnp.asarray(cur), ref_pad,
+                                           *args)[0],
+            **rme.full_search_parts(jnp.asarray(cur), ref_pad, *args),
+            **rme.full_search_quads(jnp.asarray(cur), ref_pad, *args)}
+    got = tme.full_search_blocks(torch.as_tensor(cur),
+                                 tki.pad_plane(torch.as_tensor(ref), PAD),
+                                 *args)
+    assert sorted(got) == sorted(want) == sorted(tme.SEARCH_BLOCKS)
+    for k in want:
+        assert_equal(got[k], want[k], k)
+    if kind == "flat":
+        assert not any(v.any() for v in got.values())
+
+
+def test_subpel_refine_of_a_shape_in_one_pass():
+    """The four quadrants refined in one call equal four calls of the
+    reference, one a quadrant."""
+    cur, ref = _me_frames("motion")
+    ref_pad = rki.pad_plane(jnp.asarray(ref), PAD)
+    mv_int = np.random.default_rng(9).integers(-6, 7, (4, WM * HM, 2)).astype(
+        np.int32)
+    got = tme.subpel_refine(
+        torch.as_tensor(cur),
+        tki.luma_planes(tki.pad_plane(torch.as_tensor(ref), PAD)), PAD,
+        t32(mv_int.reshape(-1, 2)), 4, WM, HM, oy=(0, 0, 8, 8),
+        ox=(0, 8, 0, 8), bh=8, bw=8)
+    for q in range(4):
+        want = rme.subpel_refine(jnp.asarray(cur), rki.luma_planes(ref_pad),
+                                 PAD, jnp.asarray(mv_int[q]), 4, WM, HM,
+                                 oy=8 * (q // 2), ox=8 * (q % 2), bh=8, bw=8)
+        assert_equal(got[q * WM * HM:(q + 1) * WM * HM], want, f"q{q}")
+
+
 def _mv_neighbours(seed, n=500):
     rng = np.random.default_rng(seed)
     refs = [rng.choice([tmv.UNAVAIL, tmv.INTRA, 0], n) for _ in range(3)]

@@ -4,8 +4,9 @@ CAVLC stream (full-search 16x16 ME, quarter-pel refinement, P_Skip /
 QCIF with deblocking on and off (5 frames) and with a periodic IDR
 (`intra_period=3`, 7 frames: the IDR/P schedule, `frame_num` restarting
 after each IDR, `idr_pic_id` alternating by IDR count), and decodes to the
-port's recon.  The three cases share the reference's programs, so they
-live in one module (three slices: `test_torch_ippp_slices.py`)."""
+port's recon; rate control asked for without a bitrate encodes at fixed
+QP, as the reference does.  The cases share the reference's programs, so
+they live in one module (three slices: `test_torch_ippp_slices.py`)."""
 
 import pytest
 
@@ -50,6 +51,17 @@ def test_periodic_idr_stream_equals_reference(case):
     assert [s.slice_type for s in port.stats] == \
         ["IDR", "P", "P", "IDR", "P", "P", "IDR"]
     assert_decodes_to_recon(port, got, 7)
+
+
+def test_rate_control_without_bitrate_is_fixed_qp():
+    """`rate_control=True` with `bitrate=0` (what a JM file with
+    RateControlEnable = 1 and no Bitrate parses to): the reference runs no
+    rate controller, and neither does the port."""
+    ref, want, port, got = encode_both(FRAMES[:3], deblock=True,
+                                       slices_per_frame=1, rate_control=True,
+                                       bitrate=0)
+    assert ref.rc is None
+    assert_same_encode(ref, want, port, got)
 
 
 def test_frame_num_wraps():

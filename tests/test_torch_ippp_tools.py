@@ -1,0 +1,56 @@
+"""Config 2 with the reference's default P tools on the CPU: the port's
+IPPP CAVLC stream with 16x8/8x16 partitions, P_8x8 and the 8x8 transform
+(the config leaves `inter_partitions` and `transform_8x8` at their
+defaults, which turn them on for IPPP) equals the JAX reference encoder's
+byte for byte, with deblocking on, and each partition type and the 8x8
+transform are chosen in it.  The geometry and settings are those of
+`tests/test_ippp.py::test_p8x8_sub_mb_tree_roundtrip` (112x80, QP 30,
+5 frames), whose compiled programs the reference encoder here takes from
+the persistent compile cache."""
+
+import dataclasses
+
+import numpy as np
+
+from tpu264.config import EncoderConfig as RefConfig
+from tpu264.media.synth import synth_frame
+
+from tpu264_torch.coding.encoder import Encoder
+from tpu264_torch.coding.intra_frame import reorder_wave_outputs
+from tpu264_torch.config import EncoderConfig
+
+from torch_util import assert_decodes_to_recon, assert_same_encode, \
+    reference_encoder, to_np
+
+W, H = 112, 80
+
+
+def test_default_tools_stream_equals_reference():
+    frames = [synth_frame(W, H, t) for t in range(5)]
+    cfg = RefConfig(width=W, height=H, qp=30, intra_period=0, deblock=True,
+                    symbol_mode="CAVLC")
+    ref = reference_encoder(cfg)
+    assert ref.partitions and ref.p8x8 and ref.t8_mode
+    want = ref.encode_sequence(frames)
+    port = Encoder(EncoderConfig.from_reference(dataclasses.asdict(cfg)),
+                   device="cpu")
+    assert port.partitions and port.p8x8 and port.t8_mode
+    assert port.sps.profile_idc == 100 and port.pps.transform_8x8_mode_flag
+    chosen = []
+    inner = port._encode_p
+
+    def spy(*args):
+        out, ys = inner(*args)
+        mb = reorder_wave_outputs(port.sched, ys)
+        inter = to_np(mb["is_inter"]).astype(bool)
+        chosen.append((to_np(mb["ptype"])[inter], to_np(mb["t8"])[inter]))
+        return out, ys
+
+    port._encode_p = spy
+    got = port.encode_sequence(frames)
+    assert_same_encode(ref, want, port, got)
+    assert_decodes_to_recon(port, got, len(frames))
+    ptypes = np.concatenate([p for p, _ in chosen])
+    t8 = np.concatenate([t for _, t in chosen])
+    assert set(ptypes) == {0, 1, 2, 3}
+    assert t8.any() and (~t8 & (ptypes == 0)).any()

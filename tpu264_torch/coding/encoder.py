@@ -1,6 +1,7 @@
 """Sequence-level encoder (torch), counterpart of
 `tpu264.coding.encoder` for all-intra GOPs (CABAC or CAVLC) and for IPPP
-GOPs with CAVLC and the 16x16 partition.
+GOPs with CAVLC and the reference's default P tools (16x8/8x16 and P_8x8
+partitions, the 8x8 transform).
 
 Parameter-set emission, per-frame device encode (wavefront mode decision
 with kernels K2/K3, motion search and the P wave body, the wavefront
@@ -11,9 +12,8 @@ pulls a chunk of frames' payloads from the device at once.  The encoder
 runs on the CUDA card unless the caller asks for `device="cpu"`.
 
 Not ported yet; the constructor raises `NotImplementedError` naming the
-ROADMAP item that brings each: IPPP with CABAC, the default IPPP tools
-(16x8/8x16 and P_8x8 partitions, the 8x8 transform, weighted
-prediction), B GOPs, rate control and SEI messages.
+ROADMAP item that brings each: IPPP with CABAC, weighted prediction, B
+GOPs, rate control with a target bitrate and SEI messages.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -34,7 +35,7 @@ from tpu264_torch.entropy import cabac_engine_cuda as k1
 from tpu264_torch.entropy import device_cavlc as dcav
 from tpu264_torch.entropy.device_cavlc import compute_cbp, luma_tc_grid
 from tpu264_torch.entropy.slice_writer import trailing_skip_run
-from tpu264_torch.kernels.deblock import make_deblocker_skewed
+from tpu264_torch.kernels.deblock import make_deblocker_skewed, up4
 from tpu264_torch.ref.transform import chroma_qp
 from . import mvpred
 from .inter_frame import make_inter_encoder
@@ -56,10 +57,12 @@ class FrameStats:
     seconds: float
 
 
-def build_params(cfg: EncoderConfig, gop_mode: str = "intra"):
+def build_params(cfg: EncoderConfig, gop_mode: str = "intra",
+                 t8: bool = False):
     """SPS/PPS of an all-intra or IPPP stream (the parameter sets the
-    reference's `build_params` writes for these GOP modes without the 8x8
-    transform and weighted prediction) -> (sps, pps, cabac)."""
+    reference's `build_params` writes for these GOP modes without weighted
+    prediction) -> (sps, pps, cabac).  `t8`: the 8x8 transform is used,
+    which needs High profile and transform_8x8_mode_flag."""
     if gop_mode not in ("intra", "ippp"):
         raise NotImplementedError(
             f"build_params: gop_mode {gop_mode!r} is not ported yet "
@@ -78,10 +81,14 @@ def build_params(cfg: EncoderConfig, gop_mode: str = "intra"):
         # CABAC requires Main/High (spec A.2.1); signal Main instead
         sps.profile_idc = 77
         sps.constraint_flags = 0
+    if t8:
+        sps.profile_idc = 100            # High (transform_8x8 needs it)
+        sps.constraint_flags = 0
     pps = PPS(
         entropy_coding_mode_flag=1 if cabac else 0,
         pic_init_qp=26,
         deblocking_filter_control_present_flag=1,
+        transform_8x8_mode_flag=1 if t8 else 0,
     )
     return sps, pps, cabac
 
@@ -94,16 +101,16 @@ def _psnr3(sse, sizes):
 
 class Encoder:
     """H.264 encoder: all-intra GOPs with CABAC or CAVLC, IPPP GOPs with
-    CAVLC (P_Skip / P_L0_16x16 / I16x16 / I4x4 per MB, full-search ME
-    with quarter-pel refinement, periodic IDR), optional in-loop
-    deblocking, 1 or several slices.
+    CAVLC (P_Skip / P_L0_16x16 / P_L0_16x8 / P_L0_8x16 / P_8x8 / I16x16 /
+    I4x4 per MB, full-search ME with quarter-pel refinement for the MB
+    and each partition, the 8x8 transform of 16x16 inter MBs, periodic
+    IDR), optional in-loop deblocking, 1 or several slices.
 
     `gop_mode`: "intra" = every frame IDR; "ippp" = first frame IDR, rest
     P (`cfg.intra_period > 1` inserts periodic IDR frames).  The default
-    follows `cfg.intra_period` as in the reference.  IPPP needs
-    `cfg.inter_partitions=False` and `cfg.transform_8x8=False` (the
-    reference turns both on by default for IPPP) and no weighted
-    prediction, until those tools are ported.
+    follows `cfg.intra_period` as in the reference, and so do the P tools:
+    `cfg.inter_partitions` (16x8/8x16 and P_8x8) and `cfg.transform_8x8`
+    are on for IPPP unless the config says False.
     `device`: where the frame encode runs: "cuda" (the default) runs the
     CUDA kernels and raises where there is no card; "cpu", which a caller
     must ask for, runs every kernel's plain torch version.
@@ -139,20 +146,13 @@ class Encoder:
                 raise NotImplementedError(
                     "IPPP with CABAC is not ported yet (ROADMAP Queue 1: "
                     "CABAC P path); IPPP runs with symbol_mode=\"CAVLC\"")
-            # the reference's defaults for IPPP: partitions and the 8x8
-            # transform on unless the config says False
-            unported = [name for name, on in (
-                ("inter_partitions", cfg.inter_partitions is not False),
-                ("transform_8x8", cfg.transform_8x8 is not False),
-                ("weighted_pred", bool(cfg.weighted_pred))) if on]
-            if unported:
+            if cfg.weighted_pred:
                 raise NotImplementedError(
-                    f"IPPP with {', '.join(unported)} on is not ported yet "
-                    "(ROADMAP Queue 1: default IPPP tools).  The reference "
-                    "turns inter_partitions and transform_8x8 on by default "
-                    "for IPPP: pass inter_partitions=False, "
-                    "transform_8x8=False (and weighted_pred=False)")
-        if cfg.rate_control:
+                    "IPPP with weighted_pred on is not ported yet (ROADMAP "
+                    "Queue 1: weighted prediction)")
+        # as in the reference, rate control runs only with a target
+        # bitrate; without one the encode is at fixed QP
+        if cfg.rate_control and cfg.bitrate > 0:
             raise NotImplementedError(
                 "rate control is not ported yet (ROADMAP Queue 1: "
                 "hierarchical-B GOPs with rate control)")
@@ -164,12 +164,26 @@ class Encoder:
         self.intra_batch = max(1, int(intra_batch))
         self.sched = build_schedule(cfg.width_mbs, cfg.height_mbs,
                                     cfg.slices_per_frame)
-        self.sps, self.pps, self.cabac = build_params(cfg, gop_mode)
+        # the P tools: the reference's defaults (on for IPPP unless the
+        # config says False; asked for in an all-intra GOP, a warning)
+        ippp = gop_mode == "ippp"
+        for field in ("inter_partitions", "transform_8x8"):
+            if getattr(cfg, field) and not ippp:
+                warnings.warn(f"{field} requested but only supported for "
+                              "IPPP / B GOPs; encoding without it",
+                              stacklevel=2)
+        self.partitions = ippp and cfg.inter_partitions is not False
+        self.t8_mode = ippp and cfg.transform_8x8 is not False
+        self.p8x8 = self.partitions
+        self.sps, self.pps, self.cabac = build_params(cfg, gop_mode,
+                                                      t8=self.t8_mode)
         self._encode_frame = make_intra_encoder(self.sched)
         self._encode_p = None
-        if gop_mode == "ippp":
+        if ippp:
             self._encode_p = make_inter_encoder(
-                self.sched, search_range=cfg.search_range)
+                self.sched, search_range=cfg.search_range,
+                partitions=self.partitions, t8=self.t8_mode,
+                p8x8=self.p8x8)
         # in-loop deblocking: idc 0 (on) single-slice, idc 2 (slice-local)
         # multi-slice, idc 1 (off) when disabled
         self.deblock_idc = (1 if not cfg.deblock
@@ -209,45 +223,80 @@ class Encoder:
         words, nbytes = k1.encode_slices(recs, counts, init, self._cap_words)
         return k1.payloads_from_words(words, nbytes)
 
-    def _deblock_inputs(self, mbd, is_inter=None, mv=None):
-        """The deblocker's bS inputs (intra_mb, tc_luma, mv, ref), derived
-        on device from the raster MB dict; `is_inter` [n] and `mv` [n, 2]
-        give a P picture's single-list motion (an all-intra picture
-        without them)."""
+    def _deblock_inputs(self, mbd, p_slice: bool = False):
+        """The deblocker's bS inputs (intra_mb, tc_luma, mv, ref, t8_mb),
+        derived on device from the raster MB dict: a P picture's
+        single-list motion from its "is_inter" and "mv", per 4x4 block
+        where it has partitions ("ptype", "mv2", "mvq"); an all-intra
+        picture has none.  The coefficient condition of an 8x8-transform
+        MB counts the covering 8x8 block's coefficients on every 4x4
+        block."""
         cfg = self.cfg
         wm, hm = cfg.width_mbs, cfg.height_mbs
         n = wm * hm
-        if is_inter is None:
-            is_inter = torch.zeros(n, dtype=torch.bool, device=self.device)
-        if mv is None:
-            mv = torch.zeros((n, 2), dtype=torch.int32, device=self.device)
+        dev = self.device
+        is_inter = (mbd["is_inter"].to(torch.bool) if p_slice
+                    else torch.zeros(n, dtype=torch.bool, device=dev))
         cbp_luma, _, _ = compute_cbp(mbd["sel16"].to(torch.bool),
                                      mbd["luma_ac"], mbd["chroma_dc"],
                                      mbd["chroma_ac"])
         tc = luma_tc_grid(mbd, cbp_luma, wm, hm)
+        t8_mb = None
+        if "t8" in mbd:
+            t8_mb = mbd["t8"].to(torch.bool).reshape(hm, wm)
+            tc8 = tc.reshape(hm * 2, 2, wm * 2, 2).sum(dim=(1, 3),
+                                                       dtype=torch.int32)
+            tc = torch.where(up4(t8_mb), tc8.repeat_interleave(2, 0)
+                             .repeat_interleave(2, 1), tc)
+        mv = (mbd["mv"].to(torch.int32) if p_slice
+              else torch.zeros((n, 2), dtype=torch.int32, device=dev))
         mv_grid = torch.where(is_inter[:, None], mv, 0).reshape(hm, wm, 2)
         ref_grid = torch.where(is_inter, 0, mvpred.INTRA).to(torch.int32) \
             .reshape(hm, wm)
-        return (~is_inter).reshape(hm, wm), tc, mv_grid, ref_grid
+        if p_slice and "ptype" in mbd:
+            # partitions: per-4x4 grids (part1 covers the bottom rows of a
+            # 16x8 MB, the right columns of an 8x16 one; a P_8x8 MB's
+            # blocks take their quadrant's vector)
+            pt4 = up4(mbd["ptype"].to(torch.int32).reshape(hm, wm))
+            rsel = (torch.arange(hm * 4, device=dev) % 4 >= 2)[:, None]
+            csel = (torch.arange(wm * 4, device=dev) % 4 >= 2)[None, :]
+            use2 = torch.where(pt4 == 1, rsel, (pt4 == 2) & csel)
+            mv2 = torch.where(is_inter[:, None], mbd["mv2"].to(torch.int32),
+                              0).reshape(hm, wm, 2)
+            mv_grid = torch.where(use2[..., None], up4(mv2), up4(mv_grid))
+            if "mvq" in mbd:
+                mq = torch.where(is_inter[:, None, None],
+                                 mbd["mvq"].to(torch.int32), 0)
+                q4 = up4(mq.reshape(hm, wm, 4, 2))       # [4hm, 4wm, 4, 2]
+                qsel = (rsel.long() * 2 + csel.long()).expand(hm * 4, wm * 4)
+                mvq_grid = torch.gather(
+                    q4, 2, qsel[..., None, None].expand(-1, -1, 1, 2))[..., 0, :]
+                mv_grid = torch.where((pt4 == 3)[..., None], mvq_grid,
+                                      mv_grid)
+            ref_grid = up4(ref_grid)
+        return (~is_inter).reshape(hm, wm), tc, mv_grid, ref_grid, t8_mb
 
-    def _apply_deblock(self, dev_out, mbd, qp: int, is_inter=None, mv=None):
+    def _apply_deblock(self, dev_out, mbd, qp: int, p_slice: bool = False):
         """In-loop filter of a picture; the filtered planes stay on
         device."""
+        *inputs, t8_mb = self._deblock_inputs(mbd, p_slice)
         fy, fu, fv = self._deblock(
             dev_out["recon_y"], dev_out["recon_u"], dev_out["recon_v"],
-            *self._deblock_inputs(mbd, is_inter, mv), qp, chroma_qp(qp))
+            *inputs, qp, chroma_qp(qp), t8_mb=t8_mb)
         return (fy.to(torch.uint8), fu.to(torch.uint8), fv.to(torch.uint8))
 
-    def _recon(self, dev_out, mbd, qp: int, is_inter=None, mv=None):
+    def _recon(self, dev_out, mbd, qp: int, p_slice: bool = False):
         """The picture that is output and referenced: deblocked where the
         config asks for it."""
         if self.cfg.deblock:
-            return self._apply_deblock(dev_out, mbd, qp, is_inter, mv)
+            return self._apply_deblock(dev_out, mbd, qp, p_slice)
         return tuple(dev_out[k].to(torch.uint8)
                      for k in ("recon_y", "recon_u", "recon_v"))
 
     def _serialize(self, mbd, p_slice: bool):
-        """CAVLC serialize + pack on device -> (words, nbits, skipped)."""
+        """CAVLC serialize + pack on device -> (words, nbits, skipped).  In
+        a PPS with the 8x8 transform, I_NxN MBs of I slices carry its
+        flag too."""
         cfg = self.cfg
         rows = self.sched.slice_starts.tolist()
         if p_slice:
@@ -255,7 +304,7 @@ class Encoder:
                 mbd, cfg.width_mbs, cfg.height_mbs, rows)
         else:
             v, ln = dcav.serialize_frame(mbd, cfg.width_mbs, cfg.height_mbs,
-                                         rows)
+                                         rows, t8_mode=self.t8_mode)
             skipped = None
         words, nbits = dcav.pack_slices(v, ln, cfg.slices_per_frame,
                                         self._cap_words)
@@ -482,9 +531,7 @@ class Encoder:
 
         mbd = reorder_wave_outputs(self.sched, ys)
         words, nbits, skipped = self._serialize(mbd, p_slice=True)
-        recon = self._recon(dev_out, mbd, qp,
-                            is_inter=mbd["is_inter"].to(torch.bool),
-                            mv=mbd["mv"].to(torch.int32))
+        recon = self._recon(dev_out, mbd, qp, p_slice=True)
 
         def finish():
             nbits_np = nbits.cpu().numpy()

@@ -1,4 +1,4 @@
-"""Wavefront P-frame encoder (torch): IPPP with full-search 16x16 ME +
+"""Wavefront P-frame encoder (torch): IPPP with full-search ME +
 quarter-pel refinement, counterpart of `tpu264.coding.inter_frame`.
 
 Motion estimation runs outside the serial MB order: every MB full-searches
@@ -18,8 +18,11 @@ border scatter and the map writes).  The plain version, which the CPU
 takes, is `wave_body_plain`: `gather_border_ctx`, `eval_i4x4_plain`, then
 `p_wave_plain`.
 
-Not ported yet (each raises): 16x8/8x16 partitions, P_8x8, the 8x8
-transform, weighted prediction.
+With the reference's default IPPP tools (`partitions`, `p8x8`, `t8`) a
+wave also weighs P_L0_16x8, P_L0_8x16 and P_8x8 (each partition with its
+own full-search and sub-pel vector) and picks the transform of a 16x16
+inter MB, still in the same two launches.  Not ported yet (raises):
+weighted prediction.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from tpu264_torch.kernels import interp as kint
 from tpu264_torch.kernels import me as kme
 from tpu264_torch.kernels import p_wave as kp
 from tpu264_torch.kernels import transform as kt
+from tpu264_torch.kernels import transform8 as kt8
 from tpu264_torch.ref.transform import chroma_qp
 from . import mvpred
 from .intra_frame import (_BLK_ORDER, _K2_RULES, I32, LAMBDA_TABLE, ZZ_COLS,
@@ -68,20 +72,31 @@ def _from_blocks(blk):
     return blk.permute(0, 1, 3, 2, 4).reshape(b, 16, 16)
 
 
+def _satd16(gy, pred):
+    """SATD (DC included) of a 16x16 prediction's residual, per lane."""
+    return kt.satd4x4(_to_blocks(gy - pred)).sum(dim=(1, 2), dtype=I32)
+
+
 def p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
                  mv_me, gy, gu, gv, mb4, modebuf, coeffs4, j4, qp: int,
-                 cqp: int, lam4: int, lam24: int, lam_me: int) -> dict:
+                 cqp: int, lam4: int, lam24: int, lam_me: int,
+                 mv_parts=None, tools: kp.Tools = kp.NO_TOOLS) -> dict:
     """Plain torch version of the P wave kernel (KP, `kernels.p_wave.
     p_wave`, same inputs): for B lanes at coords [B,2] (int32 (r, c);
     padding lanes at (hm, 0)) with avail [B,4] = (top, left, top-left,
     top-right), the neighbour vectors from the maps, the median and skip
-    predictions, the two inter candidates (MC from the half-pel `planes`
-    of the reference, SATD + lam_me * vector bits), the I16x16 and chroma
-    searches, the decision against the I4x4 results (recon, mode grid,
-    scanned levels, cost), the chosen residuals, the border scatter into
-    `bd` and the map writes, in place.  Returns every result but
-    "modes"."""
+    predictions, the inter candidates (MC from the half-pel `planes` of the
+    reference, SATD + lam_me * vector bits): P_Skip and P_L0_16x16, and
+    with `tools` on the 16x8 / 8x16 partitions and P_8x8 from the
+    partitions' own vectors mv_parts [B, 8, 2] (`kernels.p_wave.PARTS`);
+    the I16x16 and chroma searches, the decision against the I4x4 results
+    (recon, mode grid, scanned levels, cost), the chosen residuals (for a
+    16x16 inter MB with `tools.t8`, the 8x8 transform where it is cheaper
+    by SSD + lambda x coefficient bits), the border scatter into `bd` and
+    the map writes, in place.  Returns every result of
+    `kernels.p_wave.outputs(tools)` but "modes"."""
     r, c = coords[:, 0].long(), coords[:, 1].long()
+    b = gy.shape[0]
     at, al, atl, atr = avail.unbind(1)
     ltop, lleft, tctx_u, lctx_u, tctx_v, lctx_v, _, _ = gather_border_ctx(
         bd, r, c)
@@ -119,8 +134,7 @@ def p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
 
     def inter_cost(mv):
         pred = kint.mc_luma(planes, y0, x0, mv)
-        satd = kt.satd4x4(_to_blocks(gy - pred)).sum(dim=(1, 2), dtype=I32)
-        return pred, satd + lam_me * mvd_bits(mv - mv_pred)
+        return pred, _satd16(gy, pred) + lam_me * mvd_bits(mv - mv_pred)
 
     pred_me, j_me = inter_cost(mv_me)
     pred_skip, j_skip_raw = inter_cost(mv_skip)
@@ -130,6 +144,58 @@ def p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
     mv_sel = torch.where(use_skip_mv[:, None], mv_skip, mv_me)
     pred_inter = torch.where(use_skip_mv[:, None, None], pred_skip, pred_me)
     j_inter = torch.minimum(j_skip, j_me)
+
+    ptype = torch.zeros(b, dtype=I32, device=gy.device)
+    mv2_sel = mv_sel
+    if tools.partitions:
+        # ---- 16x8 / 8x16 candidates (per-half refined MVs) ----
+        mv_t, mv_bt, mv_l, mv_r = mv_parts[:, :4].unbind(1)
+        p16x8 = torch.cat(
+            [kint.mc_luma(planes, y0, x0, mv_t, bh=8, bw=16),
+             kint.mc_luma(planes, y0 + 8, x0, mv_bt, bh=8, bw=16)], dim=1)
+        p8x16 = torch.cat(
+            [kint.mc_luma(planes, y0, x0, mv_l, bh=16, bw=8),
+             kint.mc_luma(planes, y0, x0 + 8, mv_r, bh=16, bw=8)], dim=2)
+        # rate estimate: part0 vs the MB predictor, part1 vs part0 (the
+        # exact per-partition predictors are recomputed by the serializer
+        # from the final maps) + ue(mb_type)
+        j_16x8 = _satd16(gy, p16x8) + lam_me * (
+            mvd_bits(mv_t - mv_pred) + mvd_bits(mv_bt - mv_t) + 3)
+        j_8x16 = _satd16(gy, p8x16) + lam_me * (
+            mvd_bits(mv_l - mv_pred) + mvd_bits(mv_r - mv_l) + 3)
+        use_16x8 = (j_16x8 < j_inter) & (j_16x8 <= j_8x16)
+        use_8x16 = (j_8x16 < j_inter) & (j_8x16 < j_16x8)
+        ptype = torch.where(use_16x8, 1, torch.where(use_8x16, 2, 0)).to(I32)
+        pred_inter = torch.where(
+            use_16x8[:, None, None], p16x8,
+            torch.where(use_8x16[:, None, None], p8x16, pred_inter))
+        j_inter = torch.minimum(j_inter, torch.minimum(j_16x8, j_8x16))
+        mv_sel = torch.where(use_16x8[:, None], mv_t,
+                             torch.where(use_8x16[:, None], mv_l, mv_sel))
+        mv2_sel = torch.where(use_16x8[:, None], mv_bt,
+                              torch.where(use_8x16[:, None], mv_r, mv2_sel))
+
+    if tools.p8x8:
+        # ---- P_8x8 candidate: one MV per 8x8 quadrant ----
+        mv_q = mv_parts[:, 4:].unbind(1)
+        p8 = torch.cat([torch.cat(
+            [kint.mc_luma(planes, y0 + 8 * qy, x0 + 8 * qx, mv_q[2 * qy + qx],
+                          bh=8, bw=8) for qx in (0, 1)], dim=2)
+            for qy in (0, 1)], dim=1)
+        # rate estimate: q0 vs the MB predictor, later quadrants vs their
+        # raster-order sibling (the exact spec-8.4.1.3 predictors are
+        # recomputed by the serializer); + ue(mb_type=3) + 4x
+        # ue(sub_mb_type=0) = 9 header bits
+        j_p8 = _satd16(gy, p8) + lam_me * (
+            mvd_bits(mv_q[0] - mv_pred) + mvd_bits(mv_q[1] - mv_q[0])
+            + mvd_bits(mv_q[2] - mv_q[0]) + mvd_bits(mv_q[3] - mv_q[1])
+            + 9)
+        use_p8 = j_p8 < j_inter
+        ptype = torch.where(use_p8, 3, ptype).to(I32)
+        pred_inter = torch.where(use_p8[:, None, None], p8, pred_inter)
+        j_inter = torch.minimum(j_inter, j_p8)
+        mv_sel = torch.where(use_p8[:, None], mv_q[0], mv_sel)
+        mv2_sel = torch.where(use_p8[:, None], mv_q[1], mv2_sel)
 
     # ---- intra candidates (shared machinery) ----
     m16, j16, rec16, dc_lev, ac_lev = eval_i16(
@@ -148,6 +214,30 @@ def p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
         pred_inter + _from_blocks(kt.block_recon(lev_inter, qp)))
     inter_zz = kt.zigzag_scan(lev_inter[:, ZZ_ROWS, ZZ_COLS])  # [B,16,16]
 
+    t8_sel = torch.zeros(b, dtype=torch.bool, device=gy.device)
+    if tools.t8:
+        # ---- 8x8-transform candidate (High profile, 16x16 MBs) ----
+        blk8 = (gy - pred_inter).reshape(b, 2, 8, 2, 8).permute(0, 1, 3, 2, 4)
+        lev8 = kt8.quant8x8(kt8.fdct8x8(blk8), qp, intra=False)
+        rec8 = kt.clip1(pred_inter + kt8.idct8x8(kt8.dequant8x8(lev8, qp))
+                        .permute(0, 1, 3, 2, 4).reshape(b, 16, 16))
+        # SSD + lambda x coefficient bits over the exact reconstructions
+        def cost(rec, lev):
+            ssd = ((gy - rec) ** 2).sum(dim=(1, 2), dtype=I32)
+            bits = kt8.coeff_bits(lev).reshape(b, -1).sum(dim=1, dtype=I32)
+            return kt8.choice_cost(ssd, bits, qp)
+
+        t8_sel = (is_inter & (ptype == 0)
+                  & (cost(rec8, lev8) < cost(rec_inter, lev_inter))
+                  & (lev8 != 0).flatten(1).any(dim=1))
+        # CAVLC interleave: coefficient 4k+i of the 8x8 scan becomes
+        # coefficient k of pseudo-4x4 block i (spec 7.4.5.3.3); the pseudo
+        # blocks land at BLK_ORDER rows 4n..4n+3 of luma_ac
+        pseudo = kt8.zigzag_scan8(lev8).reshape(b, 4, 16, 4).transpose(2, 3)
+        inter_zz = torch.where(t8_sel[:, None, None], pseudo.reshape(b, 16, 16),
+                               inter_zz)
+        rec_inter = torch.where(t8_sel[:, None, None], rec8, rec_inter)
+
     # ---- select luma outputs ----
     recon_mb = torch.where(
         is_inter[:, None, None], rec_inter,
@@ -163,10 +253,31 @@ def p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
         gu, gv, tctx_u, lctx_u, tctx_v, lctx_v, at, al, atl, cqp)
     cy0 = r * 8 + PAD // 2
     cx0 = c * 8 + PAD // 2
-    cpred_u = kint.mc_chroma(cu_pad, cy0, cx0, mv_sel)
-    cpred_v = kint.mc_chroma(cv_pad, cy0, cx0, mv_sel)
-    inter_u = chroma_residual_recon(gu, cpred_u, cqp, intra=False)
-    inter_v = chroma_residual_recon(gv, cpred_v, cqp, intra=False)
+
+    def cpred_of(cpad):
+        pred = kint.mc_chroma(cpad, cy0, cx0, mv_sel)
+        if tools.partitions:
+            c16x8 = torch.cat(
+                [kint.mc_chroma(cpad, cy0, cx0, mv_t, bh=4, bw=8),
+                 kint.mc_chroma(cpad, cy0 + 4, cx0, mv_bt, bh=4, bw=8)], dim=1)
+            c8x16 = torch.cat(
+                [kint.mc_chroma(cpad, cy0, cx0, mv_l, bh=8, bw=4),
+                 kint.mc_chroma(cpad, cy0, cx0 + 4, mv_r, bh=8, bw=4)], dim=2)
+            pred = torch.where(
+                use_16x8[:, None, None], c16x8,
+                torch.where(use_8x16[:, None, None], c8x16, pred))
+        if tools.p8x8:
+            # per-quadrant 4x4 chroma MC overrides the two-partition chain
+            # (ptype == 3 is decided after 16x8/8x16)
+            cquad = torch.cat([torch.cat(
+                [kint.mc_chroma(cpad, cy0 + 4 * qy, cx0 + 4 * qx,
+                                mv_q[2 * qy + qx], bh=4, bw=4)
+                 for qx in (0, 1)], dim=2) for qy in (0, 1)], dim=1)
+            pred = torch.where((ptype == 3)[:, None, None], cquad, pred)
+        return pred
+
+    inter_u = chroma_residual_recon(gu, cpred_of(cu_pad), cqp, intra=False)
+    inter_v = chroma_residual_recon(gv, cpred_of(cv_pad), cqp, intra=False)
     chroma = []
     for (i_rec, i_dc, i_ac), (p_rec, p_dc, p_ac) in (
             (intra_outs[0], inter_u), (intra_outs[1], inter_v)):
@@ -179,22 +290,41 @@ def p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
     mode_tiles = torch.where((is_inter | sel16)[:, None, None], -1, modebuf)
     update_border_ctx(bd, r, c, recon_mb, chroma[0][0], chroma[1][0],
                       mode_tiles)
-    # row hm + 1 of the maps takes the padding lanes' writes
-    mv_map[:, r + 1, c + 1] = torch.where(is_inter[:, None], mv_sel, 0)
+    # channel cell values (which partition covers each boundary cell):
+    #   tr (rows 0-1, right col): 16x8 -> part0, 8x16 -> part1
+    #   bl (bottom row, col 0-1): 16x8 -> part1, 8x16 -> part0
+    #   br (bottom row, right col): part1 for both shapes
+    # and for P_8x8 tr <- q1, bl <- q2, br <- q3; row hm + 1 of the maps
+    # takes the padding lanes' writes
+    for ch, second, quad in ((CH_TR, ptype == 2, 1), (CH_BL, ptype == 1, 2),
+                             (CH_BR, ptype > 0, 3)):
+        mvv = torch.where(second[:, None], mv2_sel, mv_sel)
+        if tools.p8x8:
+            mvv = torch.where((ptype == 3)[:, None], mv_q[quad], mvv)
+        mv_map[ch, r + 1, c + 1] = torch.where(is_inter[:, None], mvv, 0)
     ref_map[:, r + 1, c + 1] = torch.where(is_inter, 0, mvpred.INTRA) \
         .to(I32)
 
-    return dict(is_inter=is_inter, mv=mv_sel, mv_pred=mv_pred,
-                mv_skip=mv_skip, sel16=is_i16, i16mode=m16, cmode=cmode,
-                luma_ac=luma_ac, luma_dc=luma_dc,
-                chroma_dc=torch.stack([chroma[0][1], chroma[1][1]], dim=1),
-                chroma_ac=torch.stack([chroma[0][2], chroma[1][2]], dim=1),
-                recon_mb=recon_mb, rec_u=chroma[0][0], rec_v=chroma[1][0])
+    out = dict(is_inter=is_inter, mv=mv_sel, mv_pred=mv_pred,
+               mv_skip=mv_skip, sel16=is_i16, i16mode=m16, cmode=cmode,
+               luma_ac=luma_ac, luma_dc=luma_dc,
+               chroma_dc=torch.stack([chroma[0][1], chroma[1][1]], dim=1),
+               chroma_ac=torch.stack([chroma[0][2], chroma[1][2]], dim=1),
+               recon_mb=recon_mb, rec_u=chroma[0][0], rec_v=chroma[1][0])
+    if tools.partitions:
+        out["ptype"] = torch.where(is_inter, ptype, 0).to(I32)
+        out["mv2"] = mv2_sel
+    if tools.p8x8:
+        out["mvq"] = mv_parts[:, 4:].contiguous()
+    if tools.t8:
+        out["t8"] = t8_sel
+    return out
 
 
 def wave_body_plain(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
                     lam24: int, lam_me: int, bd, mv_map, ref_map, coords,
-                    avail, mv_me, gy, gu, gv) -> dict:
+                    avail, mv_me, gy, gu, gv, mv_parts=None,
+                    tools: kp.Tools = kp.NO_TOOLS) -> dict:
     """Plain torch version of `wave_body` (what K2's wave form and KP are
     held to): gather, the I4x4 search, then `p_wave_plain`."""
     r, c = coords[:, 0].long(), coords[:, 1].long()
@@ -206,21 +336,25 @@ def wave_body_plain(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
         qp, lam4, lam24)
     res = p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords,
                        avail, mv_me, gy, gu, gv, mb4, modebuf, coeffs4, j4,
-                       qp, cqp, lam4, lam24, lam_me)
-    return {k: modes_zz if k == "modes" else res[k] for k in kp.OUTPUTS}
+                       qp, cqp, lam4, lam24, lam_me, mv_parts, tools)
+    return {k: modes_zz if k == "modes" else res[k]
+            for k in kp.outputs(tools)}
 
 
 def wave_body(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
               lam24: int, lam_me: int, bd, mv_map, ref_map, coords, avail,
-              mv_me, gy, gu, gv, out=None) -> dict:
-    """One P wave of B lanes: the decision among P_Skip, P_L0_16x16,
-    I16x16 and I4x4, transform, quantisation and reconstruction of the MBs
-    at coords [B,2] (int32; padding lanes at (hm, 0)) with avail [B,4],
-    full-search vectors mv_me [B,2] and source tiles gy [B,16,16], gu, gv
-    [B,8,8], against the reference's half-pel `planes` and padded chroma;
-    the border buffers `bd` and the maps give the neighbour context and
-    take the finished MBs' borders and vectors, in place.  Returns the
-    wave's results, a dict of [B, ...] tensors.
+              mv_me, gy, gu, gv, mv_parts=None,
+              tools: kp.Tools = kp.NO_TOOLS, out=None) -> dict:
+    """One P wave of B lanes: the decision among P_Skip, P_L0_16x16 (with
+    `tools`: P_L0_16x8, P_L0_8x16, P_8x8 and the 8x8 transform), I16x16
+    and I4x4, transform, quantisation and reconstruction of the MBs at
+    coords [B,2] (int32; padding lanes at (hm, 0)) with avail [B,4],
+    full-search vectors mv_me [B,2] (and the partitions' mv_parts
+    [B,8,2]) and source tiles gy [B,16,16], gu, gv [B,8,8], against the
+    reference's half-pel `planes` and padded chroma; the border buffers
+    `bd` and the maps give the neighbour context and take the finished
+    MBs' borders and vectors, in place.  Returns the wave's results, a
+    dict of [B, ...] tensors (`kernels.p_wave.outputs(tools)`).
 
     CUDA tensors go through two kernels (K2's wave form, then KP on the
     same stream, or it raises), which write into `out` when it is given
@@ -230,15 +364,15 @@ def wave_body(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
     if gy.device.type == "cpu":
         return wave_body_plain(planes, cu_pad, cv_pad, qp, cqp, lam4, lam24,
                                lam_me, bd, mv_map, ref_map, coords, avail,
-                               mv_me, gy, gu, gv)
+                               mv_me, gy, gu, gv, mv_parts, tools)
     if out is None:
-        out = kp.alloc_outputs((gy.shape[0],), gy.device)
+        out = kp.alloc_outputs((gy.shape[0],), gy.device, tools)
     mb4, modebuf, _, coeffs4, j4 = k2w.i4x4_wave_bd(
         gy, bd, coords, avail, qp, lam4, lam24, _K2_RULES,
         modes_zz=out["modes"])
     kp.p_wave(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
               mv_me, gy, gu, gv, mb4, modebuf, coeffs4, j4, qp, cqp, lam4,
-              lam24, lam_me, _BLK_ORDER, out)
+              lam24, lam_me, _BLK_ORDER, out, mv_parts, tools)
     return out
 
 
@@ -254,26 +388,54 @@ def make_inter_encoder(sched: WaveSchedule,
 
     `ref_prepadded`: ref planes arrive already PAD-extended (a tiled
     caller supplies real rows of the neighbour tiles instead of edge
-    replication).  `partitions`, `p8x8`, `t8`, `weighted`: the tools of
-    the reference that are not ported yet; asking for one raises.
+    replication).  `partitions`: the 16x8 / 8x16 candidates (per-half ME;
+    the outputs gain "ptype" and "mv2").  `p8x8`: the P_8x8 candidate
+    (per-quadrant ME; "mvq" and ptype 3), which needs `partitions`.
+    `t8`: the High-profile 8x8 transform of 16x16 inter MBs, where it is
+    cheaper by SSD + lambda x coefficient bits ("t8"; luma_ac carries the
+    CAVLC-interleaved pseudo-4x4 blocks).  `weighted` (explicit weighted
+    prediction) is not ported yet and raises.
     """
-    for flag, item in ((partitions, "16x8/8x16 partitions"),
-                       (p8x8, "P_8x8"), (t8, "the 8x8 transform"),
-                       (weighted, "weighted prediction")):
-        if flag:
-            raise NotImplementedError(
-                f"make_inter_encoder: {item} is not ported yet (ROADMAP "
-                "Queue 1: default IPPP tools)")
+    if weighted:
+        raise NotImplementedError(
+            "make_inter_encoder: weighted prediction is not ported yet "
+            "(ROADMAP Queue 1: weighted prediction)")
+    if p8x8 and not partitions:
+        raise ValueError("p8x8 requires partitions")
+    tools = kp.Tools(partitions, p8x8, t8)
     wm, hm = sched.width_mbs, sched.height_mbs
     # clamp search so windows stay inside the padded plane
     rng = min(search_range, PAD - 8)
+    # the partitions' searches, refined a shape at a time: (blocks of
+    # kme.SEARCH_BLOCKS, their offsets in the MB, height, width)
+    shapes = [(("16x16",), (0,), (0,), 16, 16)]
+    if partitions:
+        shapes += [(("top", "bot"), (0, 8), (0, 0), 8, 16),
+                   (("left", "right"), (0, 0), (0, 8), 16, 8)]
+    if p8x8:
+        shapes.append((("q0", "q1", "q2", "q3"), (0, 0, 8, 8), (0, 8, 0, 8),
+                       8, 8))
 
     def motion_search(y, ref_pad, planes, lam_me):
-        """Phase 1, parallel over all MBs: full search + sub-pel
-        refinement -> quarter-pel mv [n_mbs, 2]."""
-        mv_int, _ = kme.full_search_16x16(y, ref_pad, PAD, rng, lam_me,
-                                          wm, hm)
-        return kme.subpel_refine(y, planes, PAD, mv_int, lam_me, wm, hm)
+        """Phase 1, parallel over all MBs: one integer SSD sweep, then the
+        sub-pel refinement of each block shape -> quarter-pel vectors of
+        the MB [n_mbs, 2] and of the partitions [n_mbs, 8, 2] (zeros where
+        a tool is off; None without partitions)."""
+        names = [n for sh in shapes for n in sh[0]]
+        mv_int = kme.full_search_blocks(y, ref_pad, PAD, rng, lam_me, wm, hm,
+                                        names)
+        mv_q = {}
+        for blocks, oys, oxs, bh, bw in shapes:
+            ref = kme.subpel_refine(y, planes, PAD,
+                                    torch.cat([mv_int[n] for n in blocks]),
+                                    lam_me, wm, hm, oy=oys, ox=oxs, bh=bh,
+                                    bw=bw)
+            mv_q.update(zip(blocks, ref.chunk(len(blocks))))
+        if not partitions:
+            return mv_q["16x16"], None
+        zero = torch.zeros_like(mv_q["16x16"])
+        return mv_q["16x16"], torch.stack(
+            [mv_q.get(n, zero) for n in kp.PARTS], dim=1)
 
     def encode(y, u, v, ref_y, ref_u, ref_v, qp: int):
         dev = y.device
@@ -290,11 +452,12 @@ def make_inter_encoder(sched: WaveSchedule,
             cv_pad = kint.pad_plane(ref_v, PAD // 2)
         planes = kint.luma_planes(ref_pad)
 
-        mv_q = motion_search(y, ref_pad, planes, lam_me)
-        # rearrange per wave: [n_waves, Bmax, 2]
+        mv_q, mv_parts = motion_search(y, ref_pad, planes, lam_me)
+        # rearrange per wave: [n_waves, Bmax, ...]
         idx = torch.as_tensor(np.minimum(sched.mb_index, sched.n_mbs - 1),
                               dtype=torch.int64, device=dev)
-        mv_wave = mv_q[idx]
+        parts = ([None] * sched.n_waves if mv_parts is None
+                 else mv_parts[idx].unbind(0))
 
         bd = init_border_buffers(hm, wm, dev)
         mv_map = torch.zeros((3, hm + 2, wm + 2, 2), dtype=I32, device=dev)
@@ -306,17 +469,18 @@ def make_inter_encoder(sched: WaveSchedule,
         consts = (planes, cu_pad, cv_pad, qp, cqp, lam4, lam24, lam_me, bd,
                   mv_map, ref_map)
         xs = list(zip(*(t.unbind(0) for t in (
-            coords, avail, mv_wave, gy_all, gu_all, gv_all))))
+            coords, avail, mv_q[idx], gy_all, gu_all, gv_all))))
         if dev.type == "cpu":
-            per_wave = [wave_body(*consts, *x) for x in xs]
-            ys = {k: torch.stack([w[k] for w in per_wave])
-                  for k in per_wave[0]}
+            waves = [wave_body(*consts, *x, mvp, tools)
+                     for x, mvp in zip(xs, parts)]
+            ys = {k: torch.stack([w[k] for w in waves]) for k in waves[0]}
         else:
             # the kernels write each wave's results into its row
-            ys = kp.alloc_outputs((sched.n_waves, sched.max_wave), dev)
+            ys = kp.alloc_outputs((sched.n_waves, sched.max_wave), dev,
+                                  tools)
             rows = {k: v.unbind(0) for k, v in ys.items()}
-            for wi, x in enumerate(xs):
-                wave_body(*consts, *x,
+            for wi, (x, mvp) in enumerate(zip(xs, parts)):
+                wave_body(*consts, *x, mvp, tools,
                           out={k: v[wi] for k, v in rows.items()})
         out = dict(
             recon_y=assemble_plane(sched, ys.pop("recon_mb"), 16),

@@ -396,44 +396,40 @@ def _i4_mode_slots(vals, lens, slot0, mb, is_i4, wm, hm, slice_rows):
         lens[slot0 + k] = ln[:, k]
 
 
-def _reject_unported(mb):
-    for key, item in (("ptype", "16x8/8x16 partitions"), ("mvq", "P_8x8"),
-                      ("t8", "the 8x8 transform")):
-        if key in mb:
-            raise NotImplementedError(
-                f"CAVLC serializer: MB dict carries {key!r}; {item} is not "
-                "ported yet (ROADMAP Queue 1: default IPPP tools)")
-
-
-def serialize_frame(mb, wm: int, hm: int, slice_rows):
-    """I-frame grids (mirror of `serialize_frame_j` without the 8x8
-    transform's flag slot, and of slice_writer.serialize_frame_mbs).
-    Returns (values [n, MB_SLOTS] int32, lengths [n, MB_SLOTS] int32)."""
-    _reject_unported(mb)
+def serialize_frame(mb, wm: int, hm: int, slice_rows,
+                    t8_mode: bool = False):
+    """I-frame grids (mirror of `serialize_frame_j`, and of
+    slice_writer.serialize_frame_mbs).  `t8_mode`: the PPS has
+    transform_8x8_mode_flag set, so an Intra_4x4 MB carries a
+    transform_size_8x8_flag bit (0) right after mb_type (spec 7.3.5).
+    Returns (values [n, MB_SLOTS (+1)] int32, lengths)."""
     n = wm * hm
+    ioff = int(t8_mode)
     sel16 = mb["sel16"].to(torch.bool)
     dev = sel16.device
     zero = torch.zeros(n, dtype=I32, device=dev)
-    vals = [zero] * HDR_SLOTS
-    lens = [zero] * HDR_SLOTS
+    vals = [zero] * (HDR_SLOTS + ioff)
+    lens = [zero] * (HDR_SLOTS + ioff)
     cbp_luma, cbp_chroma, cbp = compute_cbp(
         sel16, mb["luma_ac"], mb["chroma_dc"], mb["chroma_ac"])
 
     mbt = torch.where(sel16, 1 + mb["i16mode"].to(I32) + 4 * cbp_chroma
                       + 12 * (cbp_luma > 0), 0)
     vals[0], lens[0] = ue_code(mbt)
+    if t8_mode:
+        lens[1] = (~sel16).to(I32)              # the flag, 0 for I_NxN
 
-    _i4_mode_slots(vals, lens, 1, mb, ~sel16, wm, hm, slice_rows)
+    _i4_mode_slots(vals, lens, 1 + ioff, mb, ~sel16, wm, hm, slice_rows)
 
-    vals[17], lens[17] = ue_code(mb["cmode"].to(I32))
+    vals[17 + ioff], lens[17 + ioff] = ue_code(mb["cmode"].to(I32))
 
     cbp_code, cbp_len = ue_code(_tab("cbpi", dev)[cbp.long()])
-    vals[18] = torch.where(~sel16, cbp_code, 0)
-    lens[18] = torch.where(~sel16, cbp_len, 0)
+    vals[18 + ioff] = torch.where(~sel16, cbp_code, 0)
+    lens[18 + ioff] = torch.where(~sel16, cbp_len, 0)
 
     has_delta = (sel16 | (cbp > 0)).to(I32)       # ue(se_to_ue(0)) = '1'
-    vals[19] = has_delta
-    lens[19] = has_delta
+    vals[19 + ioff] = has_delta
+    lens[19 + ioff] = has_delta
 
     rv, rl = _residual_slots(mb, sel16, cbp_luma, cbp_chroma, wm, hm,
                              slice_rows)
@@ -464,10 +460,7 @@ def _neighbor_mvs(mv_map, ref_map, wm, hm, slice_rows):
         mv_c[1:, wm - 1] = mv_map[:-1, wm - 2]
         ref_c[1:, wm - 1] = ref_map[:-1, wm - 2]
     # slice starts: top row neighbors unavailable
-    mask = np.zeros((hm, 1), dtype=bool)
-    for r in slice_rows:
-        mask[int(r)] = True
-    mask = torch.as_tensor(mask, device=dev)
+    mask = _slice_top_mask(hm, slice_rows, dev)
     ref_b = torch.where(mask, UN, ref_b)
     ref_c = torch.where(mask, UN, ref_c)
     mv_b = torch.where(mask[..., None], 0, mv_b)
@@ -478,33 +471,199 @@ def _neighbor_mvs(mv_map, ref_map, wm, hm, slice_rows):
                  mv_c=mv_c, ref_c=ref_c).items()}
 
 
-def serialize_frame_p(mb, wm: int, hm: int, slice_rows):
-    """P-frame grids for MBs without partitions (mirror of
-    `serialize_frame_p_j` in that case, and of
-    slice_writer.serialize_frame_mbs_p).  An MB dict that carries "ptype",
-    "mvq" or "t8" raises.  Returns (values [n, MB_SLOTS_P], lengths,
-    skipped [n] bool)."""
-    _reject_unported(mb)
+def _slice_top_mask(hm: int, slice_rows, device):
+    """[hm, 1] bool: the MB rows that start a slice."""
+    mask = np.zeros((hm, 1), dtype=bool)
+    for r in slice_rows:
+        mask[int(r)] = True
+    return torch.as_tensor(mask, device=device)
+
+
+def _cell_grids2(ptype, mv_p0, mv_p1, use_p0, use_p1, is_inter, wm: int,
+                 hm: int, mvq=None):
+    """Per-list boundary-cell grids with per-channel refs (mirror of
+    `_cell_grids2_j`): (tr, ref_tr, bl, ref_bl, br, ref_br), mv grids
+    [hm, wm, 2] and ref grids [hm, wm].  A cell covered by a partition that
+    uses the list carries (mv, ref 0); by one that does not, or by an intra
+    MB, (0, INTRA).  `mvq` [n, 4, 2]: P_8x8 quadrant mvs; on ptype 3 the
+    cells are tr <- q1, bl <- q2, br <- q3."""
+    out = []
+    for sel2, qi in ((ptype == 2, 1), (ptype == 1, 2), (ptype > 0, 3)):
+        m = torch.where(sel2[:, None], mv_p1, mv_p0)
+        if mvq is not None:
+            m = torch.where((ptype == 3)[:, None], mvq[:, qi], m)
+        use = torch.where(sel2, use_p1, use_p0) & is_inter
+        out.append(torch.where(use[:, None], m, 0).reshape(hm, wm, 2))
+        out.append(torch.where(use, 0, mvpred.INTRA).to(I32).reshape(hm, wm))
+    return tuple(out)
+
+
+def _partition_mvds_core(ptype, mv_p0, mv_p1, p0_ref, tr, ref_tr, bl, ref_bl,
+                         br, ref_br, wm: int, hm: int, slice_rows, mvq=None):
+    """Per-partition mvds from per-list channel grids: the decoder's
+    spec-8.4.1.3 derivation with the 16x8/8x16 directional shortcuts
+    (mirror of `_partition_mvds_core_j`).  `p0_ref` [n]: the MB's part0
+    ref for this list (0 when it uses the list, INTRA otherwise), which
+    part1's within-MB neighbours read.  Returns (mvd0 [n, 2], mvd1 [n, 2],
+    pred16); with `mvq` [n, 4, 2] (P_8x8) the quadrant predictors take the
+    general median rule with raster-order sibling neighbours, ptype 3
+    rows of mvd0/mvd1 become q0/q1's mvds, and mvdq [n, 4, 2] comes
+    before pred16."""
+    UN = mvpred.UNAVAIL
     n = wm * hm
+    dev = ptype.device
+    top = _slice_top_mask(hm, slice_rows, dev)
+
+    def shifted(g, rg, dr: int, dc: int):
+        """The grids' values of the MB at offset (dr, dc) of each MB, as
+        [n, 2] / [n]: (0, UNAVAIL) outside the picture and, for the rows
+        above, across a slice start."""
+        mv = torch.zeros_like(g)
+        ref = torch.full_like(rg, UN)
+        dst_r = slice(1, None) if dr else slice(None)
+        src_r = slice(None, -1) if dr else slice(None)
+        dst_c, src_c = {0: (slice(None), slice(None)),
+                        -1: (slice(1, None), slice(None, -1)),
+                        1: (slice(None, -1), slice(1, None))}[dc]
+        mv[dst_r, dst_c] = g[src_r, src_c]
+        ref[dst_r, dst_c] = rg[src_r, src_c]
+        if dr:
+            ref = torch.where(top, UN, ref)
+            mv = torch.where(top[..., None], 0, mv)
+        return mv.reshape(n, 2), ref.reshape(n)
+
+    pm = mvpred.predict_mv
+    # 16x16 neighbours: A = left MB tr cell, B = top MB bl cell,
+    # C = top-right MB bl cell (D-subst -> top-left MB br cell)
+    mv_a, ref_a = shifted(tr, ref_tr, 0, -1)
+    mv_b, ref_b = shifted(bl, ref_bl, -1, 0)
+    mv_c, ref_c = shifted(bl, ref_bl, -1, 1)
+    mv_d, ref_d = shifted(br, ref_br, -1, -1)
+    use_d = ref_c == UN
+    mv_c16 = torch.where(use_d[:, None], mv_d, mv_c)
+    ref_c16 = torch.where(use_d, ref_d, ref_c)
+    pred16 = pm(mv_a, ref_a, mv_b, ref_b, mv_c16, ref_c16)
+    # 8x16 left half: its C is the top MB's col-2 cell (br channel), with
+    # D-substitution to the top-left MB's br cell
+    mv_tbr, ref_tbr = shifted(br, ref_br, -1, 0)
+    use_d0 = ref_tbr == UN
+    mv_c0 = torch.where(use_d0[:, None], mv_d, mv_tbr)
+    ref_c0 = torch.where(use_d0, ref_d, ref_tbr)
+    pred_8x16_0 = pm(mv_a, ref_a, mv_b, ref_b, mv_c0, ref_c0)
+    pred_8x16_0 = torch.where((ref_a == 0)[:, None], mv_a, pred_8x16_0)
+    # part0: 16x8 top prefers B (ref 0), else the 16-wide median
+    pred0 = torch.where((ptype == 2)[:, None], pred_8x16_0,
+                        torch.where(((ptype == 1) & (ref_b == 0))[:, None],
+                                    mv_b, pred16))
+    # ---- part1 ----
+    # own part0 as a neighbour: predict_mv expects mv already zeroed for
+    # neighbours whose refIdx != 0 (a part0 not using this list)
+    mv_p0n = torch.where((p0_ref == 0)[:, None], mv_p0, 0)
+    # 16x8 bottom: A = left MB rows 2-3 (br channel); shortcut on A; B =
+    # own part0; C unavailable -> D = left MB rows 0-1 (tr channel)
+    mv_lbr, ref_lbr = shifted(br, ref_br, 0, -1)
+    p1_16x8 = pm(mv_lbr, ref_lbr, mv_p0n, p0_ref, mv_a, ref_a)
+    p1_16x8 = torch.where((ref_lbr == 0)[:, None], mv_lbr, p1_16x8)
+    # 8x16 right: A = own part0; B = top MB col-2 cell (br channel); C =
+    # top-right MB bottom-left (bl), D-subst -> top MB bl; shortcut on C
+    use_d1 = ref_c == UN
+    mv_c1 = torch.where(use_d1[:, None], mv_b, mv_c)
+    ref_c1 = torch.where(use_d1, ref_b, ref_c)
+    p1_8x16 = pm(mv_p0n, p0_ref, mv_tbr, ref_tbr, mv_c1, ref_c1)
+    p1_8x16 = torch.where((ref_c1 == 0)[:, None], mv_c1, p1_8x16)
+    pred1 = torch.where((ptype == 1)[:, None], p1_16x8, p1_8x16)
+    mvd0 = mv_p0 - pred0
+    mvd1 = mv_p1 - pred1
+    if mvq is None:
+        return mvd0, mvd1, pred16
+    # ---- P_8x8 quadrant predictors (general rule, 8x8 shapes) ----
+    zref = torch.zeros(n, dtype=I32, device=dev)   # siblings: ref 0
+    q0, q1, q2, q3 = mvq.unbind(1)
+    # q0: A = left tr, B = top bl, C = top br (D-subst -> top-left br)
+    pred_q0 = pm(mv_a, ref_a, mv_b, ref_b, mv_c0, ref_c0)
+    # q1: A = q0, B = top br, C = top-right bl (D-subst -> top MB col 1,
+    # the bl channel)
+    pred_q1 = pm(q0, zref, mv_tbr, ref_tbr, mv_c1, ref_c1)
+    # q2: A = left br, B = q0, C = q1
+    pred_q2 = pm(mv_lbr, ref_lbr, q0, zref, q1, zref)
+    # q3: A = q2, B = q1, C always unavailable -> D = q0
+    pred_q3 = pm(q2, zref, q1, zref, q0, zref)
+    on8 = (ptype == 3)[:, None]
+    mvdq = torch.stack([q0 - pred_q0, q1 - pred_q1, q2 - pred_q2,
+                        q3 - pred_q3], dim=1)
+    mvd0 = torch.where(on8, mvdq[:, 0], mvd0)
+    mvd1 = torch.where(on8, mvdq[:, 1], mvd1)
+    return mvd0, mvd1, mvdq, pred16
+
+
+def _partition_mvds(mb, wm: int, hm: int, slice_rows):
+    """Per-partition mvds of a P frame's MBs with ptype / mv2 (every inter
+    partition uses list 0, ref 0; mirror of `_partition_mvds_j`): (mvd0
+    [n, 2], mvd1 [n, 2], pred16), with mvdq [n, 4, 2] before pred16 when
+    `mb` carries "mvq" (P_8x8)."""
+    ptype = mb["ptype"].to(I32)
+    mv = mb["mv"].to(I32)
+    mv2 = mb["mv2"].to(I32)
+    mvq = mb["mvq"].to(I32) if "mvq" in mb else None
+    is_inter = mb["is_inter"].to(torch.bool)
+    ones = torch.ones_like(is_inter)
+    grids = _cell_grids2(ptype, mv, mv2, ones, ones, is_inter, wm, hm,
+                         mvq=mvq)
+    p0_ref = torch.where(is_inter, 0, mvpred.INTRA).to(I32)
+    return _partition_mvds_core(ptype, mv, mv2, p0_ref, *grids, wm, hm,
+                                slice_rows, mvq=mvq)
+
+
+def _ue_slots(vals, lens, slot: int, v, on):
+    """ue(v) at `slot` of the MBs where `on`, nothing elsewhere."""
+    code, ln = ue_code(v)
+    vals[slot] = torch.where(on, code, 0)
+    lens[slot] = torch.where(on, ln, 0)
+
+
+def serialize_frame_p(mb, wm: int, hm: int, slice_rows):
+    """P-frame grids (mirror of `serialize_frame_p_j`, and of
+    slice_writer.serialize_frame_mbs_p).
+
+    With "ptype"/"mv2" in `mb` (16x8 / 8x16 partitions) the header gains
+    the second partition's mvd slots and mb_type follows Table 7-13; with
+    "mvq" (P_8x8, sub_mb_type P_L0_8x8 on every quadrant) also the
+    sub_mb_type slot (four ue(0) bits) and the quadrants' mvd slots; with
+    "t8" (a PPS with transform_8x8_mode_flag) the flag bit of I_NxN MBs
+    after mb_type and of inter MBs with a luma residual after the cbp.
+    Returns (values [n, slots], lengths, skipped [n] bool)."""
+    n = wm * hm
+    parts_mode = "ptype" in mb
+    p8x8_mode = parts_mode and "mvq" in mb
+    t8_mode = "t8" in mb
+    ioff, poff = int(t8_mode), int(p8x8_mode)
     is_inter = mb["is_inter"].to(torch.bool)
     dev = is_inter.device
     sel16 = mb["sel16"].to(torch.bool) & ~is_inter
     zero = torch.zeros(n, dtype=I32, device=dev)
-    vals = [zero] * HDR_SLOTS_P
-    lens = [zero] * HDR_SLOTS_P
+    n_hdr = HDR_SLOTS_P + 2 * int(parts_mode) + 2 * ioff + 5 * poff
+    vals = [zero] * n_hdr
+    lens = [zero] * n_hdr
     cbp_luma, cbp_chroma, cbp = compute_cbp(
         sel16, mb["luma_ac"], mb["chroma_dc"], mb["chroma_ac"])
 
     mv = mb["mv"].to(I32)
-    mv_map = torch.where(is_inter[:, None], mv, 0).reshape(hm, wm, 2)
-    ref_map = torch.where(is_inter, 0, mvpred.INTRA).to(I32).reshape(hm, wm)
-    nb = _neighbor_mvs(mv_map, ref_map, wm, hm, slice_rows)
-    mv_pred = mvpred.predict_mv(nb["mv_a"], nb["ref_a"], nb["mv_b"],
-                                nb["ref_b"], nb["mv_c"], nb["ref_c"])
-    mvd = mv - mv_pred
+    if parts_mode:
+        ptype = mb["ptype"].to(I32)
+        mvds = _partition_mvds(mb, wm, hm, slice_rows)
+        mvd, mvd1 = mvds[:2]
+    else:
+        ptype = torch.zeros(n, dtype=I32, device=dev)
+        mv_map = torch.where(is_inter[:, None], mv, 0).reshape(hm, wm, 2)
+        ref_map = torch.where(is_inter, 0, mvpred.INTRA).to(I32) \
+            .reshape(hm, wm)
+        nb = _neighbor_mvs(mv_map, ref_map, wm, hm, slice_rows)
+        mvd = mv - mvpred.predict_mv(nb["mv_a"], nb["ref_a"], nb["mv_b"],
+                                     nb["ref_b"], nb["mv_c"], nb["ref_c"])
 
     mv_skip = mb["mv_skip"].to(I32)
-    skipped = is_inter & (mv == mv_skip).all(dim=1) & (cbp == 0)
+    skipped = (is_inter & (ptype == 0) & (mv == mv_skip).all(dim=1)
+               & (cbp == 0))
 
     # mb_skip_run per coded MB: distance to previous coded MB in the slice
     pos = torch.arange(n, dtype=I32, device=dev)
@@ -519,38 +678,55 @@ def serialize_frame_p(mb, wm: int, hm: int, slice_rows):
     prev_excl = torch.cat([torch.full((1,), -1, dtype=I32, device=dev),
                            prev_coded[:-1]])
     prev_excl = torch.maximum(prev_excl, slice_first - 1)
-    src, srl = ue_code(pos - prev_excl - 1)
-    vals[0] = torch.where(coded, src, 0)
-    lens[0] = torch.where(coded, srl, 0)
+    _ue_slots(vals, lens, 0, pos - prev_excl - 1, coded)
 
     mbt_intra = 5 + torch.where(sel16, 1 + mb["i16mode"].to(I32)
                                 + 4 * cbp_chroma + 12 * (cbp_luma > 0), 0)
-    tc_, tl_ = ue_code(torch.where(is_inter, 0, mbt_intra))
-    vals[1] = torch.where(coded, tc_, 0)
-    lens[1] = torch.where(coded, tl_, 0)
+    _ue_slots(vals, lens, 1, torch.where(is_inter, ptype, mbt_intra), coded)
 
     is_i4 = coded & ~is_inter & ~sel16
     inter_coded = coded & is_inter
-    _i4_mode_slots(vals, lens, 2, mb, is_i4, wm, hm, slice_rows)
+    if p8x8_mode:
+        # sub_mb_type x4, each ue(0) = '1' (P_L0_8x8), directly after
+        # mb_type (spec 7.3.5.2)
+        on8 = inter_coded & (ptype == 3)
+        vals[2] = torch.where(on8, 15, 0).to(I32)          # 0b1111
+        lens[2] = torch.where(on8, 4, 0).to(I32)
+    if t8_mode:
+        lens[2 + poff] = is_i4.to(I32)          # the flag, 0 for I_NxN
+    h = ioff + poff                  # slots added before the mode slots
+    _i4_mode_slots(vals, lens, 2 + h, mb, is_i4, wm, hm, slice_rows)
 
-    cmc, cml = ue_code(mb["cmode"].to(I32))
-    intra_coded = coded & ~is_inter
-    vals[18] = torch.where(intra_coded, cmc, 0)
-    lens[18] = torch.where(intra_coded, cml, 0)
-
-    for k, comp in ((19, 1), (20, 0)):
-        code, ln = ue_code(se_to_ue(mvd[:, comp]))
-        vals[k] = torch.where(inter_coded, code, 0)
-        lens[k] = torch.where(inter_coded, ln, 0)
+    _ue_slots(vals, lens, 18 + h, mb["cmode"].to(I32), coded & ~is_inter)
+    # mvds (x then y): part0's, then with partitions part1's (q1 on
+    # P_8x8), then with P_8x8 q2's and q3's
+    mvd_slots = [(mvd, inter_coded)]
+    if parts_mode:
+        mvd_slots.append((mvd1, inter_coded & (ptype > 0)))
+    if p8x8_mode:
+        mvd_slots += [(mvds[2][:, 2], on8), (mvds[2][:, 3], on8)]
+    slot = 19 + h
+    for d, on in mvd_slots:
+        for comp in (1, 0):
+            _ue_slots(vals, lens, slot, se_to_ue(d[:, comp]), on)
+            slot += 1
 
     ci, li_ = ue_code(_tab("cbpi", dev)[cbp.long()])
     cp, lp_ = ue_code(_tab("cbpp", dev)[cbp.long()])
-    vals[21] = torch.where(inter_coded, cp, torch.where(is_i4, ci, 0))
-    lens[21] = torch.where(inter_coded, lp_, torch.where(is_i4, li_, 0))
+    vals[slot] = torch.where(inter_coded, cp, torch.where(is_i4, ci, 0))
+    lens[slot] = torch.where(inter_coded, lp_, torch.where(is_i4, li_, 0))
+    slot += 1
+    if t8_mode:
+        # transform_size_8x8_flag after the cbp of inter MBs with a luma
+        # residual (spec 7.3.5; 16x16 / 16x8 / 8x16 all qualify)
+        flag_on = inter_coded & (cbp_luma > 0)
+        vals[slot] = (flag_on & mb["t8"].to(torch.bool)).to(I32)
+        lens[slot] = flag_on.to(I32)
+        slot += 1
 
     has_delta = (coded & (sel16 | (cbp > 0))).to(I32)
-    vals[22] = has_delta
-    lens[22] = has_delta
+    vals[slot] = has_delta
+    lens[slot] = has_delta
 
     rv, rl = _residual_slots(mb, sel16, cbp_luma, cbp_chroma, wm, hm,
                              slice_rows)

@@ -49,16 +49,23 @@ def filter_chroma_lines(win, bs, alpha: int, beta: int, tc0_row):
     return torch.stack([p1, o_p0, o_q0, q1], dim=-1)
 
 
+def up4(a):
+    """[hm, wm, ...] -> [4hm, 4wm, ...]: each MB's value on its 4x4
+    blocks."""
+    return a.repeat_interleave(4, 0).repeat_interleave(4, 1)
+
+
 def compute_bs_maps(intra_mb, tc_luma, mv, ref):
-    """Boundary strengths (bs_v, bs_h) [4hm, 4wm] for single-list motion
-    at MB granularity: mv [hm, wm, 2], ref [hm, wm] (-1 = intra).  The
-    two-list (B) and per-4x4 (partitioned) forms of the reference come
-    with the P/B slices."""
+    """Boundary strengths (bs_v, bs_h) [4hm, 4wm] for single-list motion,
+    at MB granularity (mv [hm, wm, 2], ref [hm, wm]) or per 4x4 block (mv
+    [4hm, 4wm, 2], ref [4hm, 4wm], as partitioned MBs need); ref -1 =
+    intra.  The two-list (B) form of the reference comes with the B
+    slices."""
     hm, wm = intra_mb.shape
-    intra4 = intra_mb.repeat_interleave(4, 0).repeat_interleave(4, 1)
-    mv4 = mv.repeat_interleave(4, 0).repeat_interleave(4, 1)
-    use4 = (ref >= 0).repeat_interleave(4, 0).repeat_interleave(4, 1)
-    ref4 = ref.repeat_interleave(4, 0).repeat_interleave(4, 1)
+    intra4 = up4(intra_mb)
+    if mv.shape[0] == hm:
+        mv, ref = up4(mv), up4(ref)
+    mv4, ref4, use4 = mv, ref, ref >= 0
     dev = intra_mb.device
 
     def edge_bs(p, q, mb_edge):
@@ -90,8 +97,9 @@ def make_deblocker_skewed(sched: WaveSchedule,
                           plain: bool = False):
     """Wavefront picture deblocker (bit-exact with `ref.deblock`).
 
-    fn(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp) -> filtered int32
-    planes.  CUDA planes go through the wave kernel (K4, one launch a
+    fn(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp, t8_mb=None) ->
+    filtered int32 planes; `t8_mb` [hm, wm] marks the MBs coded with the
+    8x8 transform, whose inner 4x4 luma edges are not filtered.  CUDA planes go through the wave kernel (K4, one launch a
     wave, or it raises); CPU planes, and any planes when `plain` is set
     (the kernel's checks), through the plain version:
 
@@ -131,31 +139,43 @@ def make_deblocker_skewed(sched: WaveSchedule,
         rr = torch.arange(hm * mb_px, device=buf.device)[:, None]
         return buf[rr, _skew_cols(mb_px, buf.device)]
 
-    def bs_maps(intra_mb, tc_luma, mv, ref):
+    def bs_maps(intra_mb, tc_luma, mv, ref, t8_mb):
         bs_v, bs_h = compute_bs_maps(intra_mb.to(torch.bool),
                                      tc_luma.to(I32), mv.to(I32),
                                      ref.to(I32))
+        if t8_mb is not None:
+            # transform-8x8 MBs have no internal 4x4 edges: their luma
+            # edges at x/y = 4 and 12 within the MB are not filtered
+            t8r = up4(t8_mb.to(torch.bool))
+            dev = t8r.device
+            odd_c = torch.arange(4 * wm, device=dev) % 2 == 1
+            odd_r = torch.arange(4 * hm, device=dev) % 2 == 1
+            bs_v = torch.where(t8r & odd_c[None, :], 0, bs_v)
+            bs_h = torch.where(t8r & odd_r[:, None], 0, bs_h)
         for r in zero_top_rows:
             bs_h[r * 4, :] = 0
         return bs_v, bs_h
 
-    def deblock(y, u, v, intra_mb, tc_luma, mv, ref, qp: int, cqp: int):
+    def deblock(y, u, v, intra_mb, tc_luma, mv, ref, qp: int, cqp: int,
+                t8_mb=None):
         if plain or y.device.type == "cpu":
-            return deblock_plain(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp)
-        bs_v, bs_h = bs_maps(intra_mb, tc_luma, mv, ref)
+            return deblock_plain(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp,
+                                 t8_mb)
+        bs_v, bs_h = bs_maps(intra_mb, tc_luma, mv, ref, t8_mb)
         # raster planes, filtered in place wave by wave
         yb, ub, vb = (p.to(I32, copy=True).contiguous() for p in (y, u, v))
         for cp in range(n_waves):
             deblock_wave(yb, ub, vb, bs_v, bs_h, cp, qp, cqp)
         return yb, ub, vb
 
-    def deblock_plain(y, u, v, intra_mb, tc_luma, mv, ref, qp: int, cqp: int):
+    def deblock_plain(y, u, v, intra_mb, tc_luma, mv, ref, qp: int, cqp: int,
+                      t8_mb=None):
         qi = min(max(int(qp), 0), 51)
         ci = min(max(int(cqp), 0), 51)
         alpha, beta, tc0_row = ALPHA[qi], BETA[qi], TC0[qi]
         calpha, cbeta = ALPHA[ci], BETA[ci]
         ctc0_row = torch.as_tensor(TC0[ci], dtype=I32, device=y.device)
-        bs_v, bs_h = bs_maps(intra_mb, tc_luma, mv, ref)
+        bs_v, bs_h = bs_maps(intra_mb, tc_luma, mv, ref, t8_mb)
         yb = _skew(y, 16)
         ub = _skew(u, 8)
         vb = _skew(v, 8)

@@ -1,11 +1,14 @@
 """Full-search + sub-pel motion estimation (torch), counterpart of
-`tpu264.kernels.me` for the 16x16 partition.
+`tpu264.kernels.me`.
 
 All macroblocks search in parallel.  The reference writes the candidate
 sweep as SSD(dy,dx) = sum(W^2) - 2*corr(W, O) + sum(O^2) with float32
-convolutions, exact because every intermediate sum is an integer below
-2^24; here the same SSD is summed directly in int32, one row of offsets
-at a time, so no float precision mode of the card can change a decision.
+convolutions, one sweep for each block it searches (the MB, its four
+halves, its four quadrants), exact because every intermediate sum is an
+integer below 2^24; here the SSD is summed directly in int32, one row of
+offsets at a time, so no float precision mode of the card can change a
+decision, and in one sweep: the four quadrants' maps, whose sums are the
+halves' and the MB's maps.
 
 Sub-pel refinement: the 8 half-pel neighbours of the best integer
 position, then the 8 quarter-pel neighbours of the best half position,
@@ -42,16 +45,13 @@ def _mb_origins(width_mbs: int, height_mbs: int, device):
     return idx // width_mbs, idx % width_mbs
 
 
-def full_search_16x16(orig_y, ref_pad, pad: int, search_range: int,
-                      lam: int, width_mbs: int, height_mbs: int):
-    """Integer full search for every MB of a frame at once.
-
-    orig_y: [H, W]; ref_pad: [H+2p, W+2p] edge-padded reference.
-    Returns mv_int [nMB, 2] (full-pel, y/x) and its cost [nMB] (SSD +
-    lam * bits of the mv against (0, 0)), int32.  Of equal costs the first
-    in (dy, dx) raster order wins.
-    """
-    r = search_range
+def _quad_ssd(orig_y, ref_pad, pad: int, r: int, width_mbs: int,
+              height_mbs: int):
+    """SSD maps [n, 4, span, span] int32 (span = 2r + 1, dy-major) of the
+    four 8x8 quadrants of every MB (raster quadrant order) against its
+    search window: quadrant (qy, qx) at candidate (dy, dx) reads the window
+    at row dy + 8 qy, column dx + 8 qx, as the 16x16 block does at (dy, dx).
+    A half's or the whole MB's map is the sum of its quadrants' maps."""
     n = width_mbs * height_mbs
     dev = orig_y.device
     mb_r, mb_c = _mb_origins(width_mbs, height_mbs, dev)
@@ -63,41 +63,95 @@ def full_search_16x16(orig_y, ref_pad, pad: int, search_range: int,
     # [n, win, span, 16]: every 16-wide run of every window row (a view)
     runs = windows.unfold(2, 16, 1)
     o = origs[:, :, None, :]
+    # one row of offsets dy at a time: [n, 16, span(dx), 16] squared
+    # differences, summed over each quadrant's 8 rows and 8 columns
     ssd = torch.stack(
-        [((runs[:, dy:dy + 16] - o) ** 2).sum(dim=(1, 3), dtype=I32)
-         for dy in range(span)], dim=1)              # [n, span(dy), span(dx)]
+        [((runs[:, dy:dy + 16] - o) ** 2).reshape(n, 2, 8, span, 2, 8)
+         .sum(dim=(2, 5), dtype=I32) for dy in range(span)],
+        dim=2)                              # [n, 2(qy), span(dy), span(dx), 2(qx)]
+    return ssd.permute(0, 1, 4, 2, 3).reshape(n, 4, span, span)
 
-    # mv-rate prior centered on (0,0) (the wavefront pass re-rates
-    # against the true predictor)
-    bits = torch.as_tensor(mv_bits_table(r), dtype=I32, device=dev)
-    cost = ssd + int(lam) * (bits[None, :, None] + bits[None, None, :])
-    flat = cost.reshape(n, -1)
-    best = torch.argmin(flat, dim=1)
-    mv = torch.stack([best // span - r, best % span - r], dim=1).to(I32)
-    return mv, flat.amin(dim=1)
+
+def _best(ssd, lam: int, r: int):
+    """Cheapest candidate of SSD maps [..., span, span]: SSD + lam * bits of
+    the mv against (0, 0) (the wavefront pass re-rates against the true
+    predictor); of equal costs the first in (dy, dx) raster order wins, as
+    the reference's argmin takes it.  -> (mv_int [..., 2], cost [...])."""
+    span = 2 * r + 1
+    bits = torch.as_tensor(mv_bits_table(r), dtype=I32, device=ssd.device)
+    cost = ssd + int(lam) * (bits[:, None] + bits[None, :])
+    flat = cost.flatten(-2)
+    best = torch.argmin(flat, dim=-1)
+    mv = torch.stack([best // span - r, best % span - r], dim=-1).to(I32)
+    return mv, flat.amin(dim=-1)
+
+
+def full_search_16x16(orig_y, ref_pad, pad: int, search_range: int,
+                      lam: int, width_mbs: int, height_mbs: int):
+    """Integer full search for every MB of a frame at once.
+
+    orig_y: [H, W]; ref_pad: [H+2p, W+2p] edge-padded reference.
+    Returns mv_int [nMB, 2] (full-pel, y/x) and its cost [nMB] (SSD +
+    lam * bits of the mv against (0, 0)), int32.  Of equal costs the first
+    in (dy, dx) raster order wins.
+    """
+    q = _quad_ssd(orig_y, ref_pad, pad, search_range, width_mbs, height_mbs)
+    return _best(q.sum(dim=1, dtype=I32), lam, search_range)
+
+
+# the blocks of an MB that have a search of their own: name -> the
+# quadrants (raster) whose SSD maps add up to its map
+SEARCH_BLOCKS = {"16x16": (0, 1, 2, 3), "top": (0, 1), "bot": (2, 3),
+                 "left": (0, 2), "right": (1, 3),
+                 "q0": (0,), "q1": (1,), "q2": (2,), "q3": (3,)}
+
+
+def full_search_blocks(orig_y, ref_pad, pad: int, search_range: int,
+                       lam: int, width_mbs: int, height_mbs: int,
+                       names=tuple(SEARCH_BLOCKS)):
+    """Integer full search of the blocks `names` of `SEARCH_BLOCKS` for
+    every MB, from one SSD sweep: {name: mv_int [nMB, 2]}.  The whole MB's
+    search equals `full_search_16x16`, the halves' the reference's
+    `full_search_parts` (top, bot, left, right) and the quadrants' its
+    `full_search_quads` (q0..q3): each block stays anchored to the MB
+    origin, so a candidate reads the same window at the same
+    displacement, and the SSD of a half is the sum of two quadrants'."""
+    q = _quad_ssd(orig_y, ref_pad, pad, search_range, width_mbs, height_mbs)
+    out = {}
+    for name in names:
+        parts = SEARCH_BLOCKS[name]
+        ssd = q[:, parts[0]]
+        for i in parts[1:]:
+            ssd = ssd + q[:, i]
+        out[name] = _best(ssd, lam, search_range)[0]
+    return out
 
 
 def subpel_refine(orig_y, planes, pad: int, mv_int, lam: int,
                   width_mbs: int, height_mbs: int,
-                  oy: int = 0, ox: int = 0, bh: int = 16, bw: int = 16):
+                  oy=0, ox=0, bh: int = 16, bw: int = 16):
     """Half- then quarter-pel refinement with SATD cost.
 
     mv_int: [nMB, 2] full-pel. Returns mv_q [nMB, 2] quarter-pel.
     (oy, ox, bh, bw) select a partition of each MB (default: whole MB).
-    A candidate replaces the best so far only where it is strictly
-    cheaper, in the fixed order dy, dx over (-step, 0, step).
+    `oy` and `ox` may also be sequences of P offsets, P partitions of one
+    shape refined in one pass: mv_int and the result are then [P * nMB, 2],
+    partition after partition.  A candidate replaces the best so far only
+    where it is strictly cheaper, in the fixed order dy, dx over
+    (-step, 0, step).
     """
-    n = width_mbs * height_mbs
     dev = orig_y.device
+    oys = [oy] if isinstance(oy, int) else list(oy)
+    oxs = [ox] if isinstance(ox, int) else list(ox)
     mb_r, mb_c = _mb_origins(width_mbs, height_mbs, dev)
-    y0 = mb_r * 16 + oy + pad
-    x0 = mb_c * 16 + ox + pad
-    origs = ki.gather_blocks(orig_y.to(I32), mb_r * 16 + oy, mb_c * 16 + ox,
-                             bh, bw)
+    by = torch.cat([mb_r * 16 + o for o in oys])
+    bx = torch.cat([mb_c * 16 + o for o in oxs])
+    n = by.shape[0]
+    origs = ki.gather_blocks(orig_y.to(I32), by, bx, bh, bw)
     lam = int(lam)
 
     def cost_at(mv_q):
-        pred = ki.mc_luma(planes, y0, x0, mv_q, bh=bh, bw=bw)
+        pred = ki.mc_luma(planes, by + pad, bx + pad, mv_q, bh=bh, bw=bw)
         diff = origs - pred
         blk = diff.reshape(n, bh // 4, 4, bw // 4, 4).permute(0, 1, 3, 2, 4)
         return kt.satd4x4(blk).sum(dim=(1, 2), dtype=I32) + lam * mv_cost(mv_q)

@@ -1,9 +1,10 @@
 """Stage profile of one warm 720p frame on the card: an all-intra CABAC +
 deblock frame (the default), or a P frame of an IPPP CAVLC + deblock
-sequence (`--config ippp720`).
+sequence with the reference's default P tools (`--config ippp720`) or
+without them (`--config ippp720_notools`).
 
-    python -m tpu264_torch.tools.profile_frame [--config intra720|ippp720]
-                                               [--out FILE.json]
+    python -m tpu264_torch.tools.profile_frame
+        [--config intra720|ippp720|ippp720_notools] [--out FILE.json]
 
 Encodes `synth_frame(1280, 720, t)` frames (QP 28, one slice) and prints
 one JSON object with, for warm frames:
@@ -24,11 +25,14 @@ one JSON object with, for warm frames:
   record its bits, a terminate 1) and payload bytes of the frame.
 
 With `--config ippp720` the frame is the third of an IDR + P + P
-sequence (full-search 16x16 ME with quarter-pel refinement, no
-partitions, 4x4 transform), encoded against the second's reconstruction
-by `Encoder.encode_p_frame`; the stages are upload, the half-pel planes,
-the full search, the sub-pel refinement, the wave loop (the rest of the P
-encoder), reorder, serialize + pack, deblock, and pull + NAL assembly;
+sequence (full-search ME with quarter-pel refinement of the MB, its
+16x8/8x16 halves and its quadrants; P_L0_16x8, P_L0_8x16, P_8x8 and the
+8x8 transform weighed in every MB), encoded against the second's
+reconstruction by `Encoder.encode_p_frame`; `ippp720_notools` is the same
+with the 16x16 partition and the 4x4 transform alone.  The stages are
+upload, the half-pel planes, the full search, the sub-pel refinement, the
+wave loop (the rest of the P encoder), reorder, serialize + pack,
+deblock, and pull + NAL assembly;
 `kernel_launches` gives the hand-written kernels' launches of the frame,
 `stream` its bits and `idr_frame_seconds` a warm IDR frame of the same
 encoder (CAVLC, pull and NAL assembly included).  There is no `cabac`
@@ -130,7 +134,7 @@ def ippp_patches(enc: Encoder) -> list:
     return [(encoder_mod, "reorder_wave_outputs", "reorder"),
             (enc, "_encode_p", "p_encode"),
             (kint, "luma_planes", "half_pel_planes"),
-            (kme, "full_search_16x16", "me_full_search"),
+            (kme, "full_search_blocks", "me_full_search"),
             (kme, "subpel_refine", "me_subpel"),
             (enc, "_serialize", "serialize_pack"),
             (enc, "_recon", "deblock"),
@@ -276,18 +280,20 @@ def profile_intra(res: dict) -> None:
         intra_patches(enc), lambda: enc.encode_sequence([frames[1]]))
 
 
-def profile_ippp(res: dict) -> None:
+def profile_ippp(res: dict, tools: bool) -> None:
     from tpu264_torch.entropy import cabac_engine_cuda as k1
     from tpu264_torch.kernels import dct_quant as dq, deblock_wave as k4w, \
         i16_chroma_wave as k3w, i4x4_wave as k2w, p_wave as kp
+    off = {} if tools else dict(inter_partitions=False, transform_8x8=False)
     cfg = EncoderConfig(width=W, height=H, qp=QP, symbol_mode="CAVLC",
-                        intra_period=0, deblock=True, inter_partitions=False,
-                        transform_8x8=False)
+                        intra_period=0, deblock=True, **off)
     enc = Encoder(cfg)
     frames = [synth_frame(W, H, t) for t in range(3)]
     stream = enc.encode_sequence(frames)            # cold: build + warm-up
+    what = ("16x8/8x16, P_8x8, 8x8 transform" if tools
+            else "16x16 partition, 4x4 transform")
     res.update(device=str(enc.device),
-               config=f"{W}x{H} IPPP CAVLC deblock QP {QP}, 16x16 partition, "
+               config=f"{W}x{H} IPPP CAVLC deblock QP {QP}, {what}, "
                       f"P frame 2 of IDR + P + P",
                cold_frame_seconds=[s.seconds for s in enc.stats],
                stream={"bytes": len(stream),
@@ -315,10 +321,12 @@ def profile_ippp(res: dict) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("intra720", "ippp720"),
+    ap.add_argument("--config",
+                    choices=("intra720", "ippp720", "ippp720_notools"),
                     default="intra720",
                     help="the frame to profile: all-intra CABAC (default) "
-                         "or a P frame of IPPP CAVLC")
+                         "or a P frame of IPPP CAVLC, with the default P "
+                         "tools or without them")
     ap.add_argument("--out", help="also write the JSON object to this file")
     ap.add_argument("--k1-stages", action="store_true",
                     help="build with -DK1_PROFILE: the CABAC coder prints "
@@ -335,8 +343,8 @@ def main() -> int:
         from tpu264_torch.kernels import _build
         _build.NVCC_FLAGS.append("-DK1_PROFILE")
     res: dict = {"card": card, "torch": torch.__version__}
-    if args.config == "ippp720":
-        profile_ippp(res)
+    if args.config.startswith("ippp720"):
+        profile_ippp(res, tools=args.config == "ippp720")
     else:
         profile_intra(res)
     text = json.dumps(res, indent=1)

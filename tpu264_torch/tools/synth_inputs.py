@@ -2,7 +2,8 @@
 `chip_smoke.py`: random and hand-steered CABAC record sequences for K1,
 macroblock lanes for the I4x4 wave kernel (K2), whole waves with their
 border buffers for the wave body (K2 + K3), P waves with their motion
-vector maps and reference picture for the P wave body (K2 + KP), and
+vector maps and reference picture for the P wave body (K2 + KP), with the
+partitions' vectors for its default tools, and
 pictures with mixed intra and inter macroblocks for the deblocker (K4).
 numpy only."""
 
@@ -181,6 +182,53 @@ def random_p_wave(seed, wm, hm, n_pad=2, pad=24):
     mv_me[n_lanes:] = mv_me[n_lanes]
     return (bd, mv_map, ref_map, ref_y, ref_u, ref_v, coords, avail, mv_me,
             gy, gu, gv)
+
+
+def random_p_wave_tools(seed, wm, hm, n_pad=2, pad=24):
+    """`random_p_wave`'s wave with the partitions' own vectors: (bd,
+    mv_map, ref_map, ref_y, ref_u, ref_v, coords, avail, mv_me, gy, gu, gv,
+    mv_parts [B, 8, 2]), mv_parts in `kernels.p_wave.PARTS` order (top,
+    bot, left, right, q0..q3), quarter-pel.  The partitions' vectors are
+    random, but every third lane takes a source tile built from the
+    reference by halves or quadrants, in turn: the top and bottom halves
+    at two whole-sample vectors (a 16x8 prediction matches), the left and
+    right halves (8x16), the four quadrants at four vectors (P_8x8), each
+    vector given to its partition and each block start clamped as the
+    reads are; and every third lane of the rest whose source is a copy of
+    the reference at its search vector gains a smooth ramp, a residual
+    that the 8x8 transform codes in fewer bits."""
+    (bd, mv_map, ref_map, ref_y, ref_u, ref_v, coords, avail, mv_me, gy, gu,
+     gv) = random_p_wave(seed, wm, hm, n_pad, pad)
+    r = np.random.default_rng(seed + 2000)
+    b = len(coords)
+    mv_parts = r.integers(-40, 41, size=(b, 8, 2))
+    plane = np.pad(ref_y, pad, mode="edge")
+    shapes = {1: ((0, 0, 8, 16), (8, 0, 8, 16)),          # top, bot
+              2: ((0, 0, 16, 8), (0, 8, 16, 8)),          # left, right
+              3: tuple((8 * (q // 2), 8 * (q % 2), 8, 8) for q in range(4))}
+    slot0 = {1: 0, 2: 2, 3: 4}
+    yy, xx = np.mgrid[0:16, 0:16]
+    for i in range(b - n_pad):
+        rr, cc = (int(v) for v in coords[i])
+        if i % 3 == 1:
+            ptype = 1 + (i // 3) % 3
+            for k, (oy, ox, bh, bw) in enumerate(shapes[ptype]):
+                v = 4 * r.integers(-12, 13, size=2)      # whole samples
+                mv_parts[i, slot0[ptype] + k] = v
+                s0 = [rr * 16 + pad + oy + v[0] // 4,
+                      cc * 16 + pad + ox + v[1] // 4]
+                s0 = [min(max(x + (plane.shape[d] if x < 0 else 0), 0),
+                          plane.shape[d] - n)
+                      for d, (x, n) in enumerate(zip(s0, (bh, bw)))]
+                gy[i, oy:oy + bh, ox:ox + bw] = np.clip(
+                    plane[s0[0]:s0[0] + bh, s0[1]:s0[1] + bw]
+                    + r.integers(-1, 2, size=(bh, bw)), 0, 255)
+        elif i % 3 == 2 and (i + i // 4) % 4 in (0, 2):
+            # a source copied at the search vector: add a smooth ramp
+            ramp = np.round(6 * np.sin((xx + 2 * yy) / 9.0 + i)).astype(int)
+            gy[i] = np.clip(gy[i] + ramp, 0, 255)
+    return (bd, mv_map, ref_map, ref_y, ref_u, ref_v, coords, avail, mv_me,
+            gy, gu, gv, mv_parts)
 
 
 def random_deblock_picture(seed, wm, hm):
