@@ -10,10 +10,12 @@ Phases (any failure exits non-zero, before the result line):
     chroma wave body, KP P wave body, K4 deblock wave, and the entries on
     slabs: DCT + quant, DCT, luma deblock lines) to its plain torch
     version on the card, at the shapes of the 720p main paths and on
-    seeded corner cases, with exact equality, and time both; KP with and
-    without the reference's default P tools (16x8/8x16, P_8x8, the 8x8
-    transform), on seeded waves where every partition type and both
-    transforms are chosen;
+    seeded corner cases, with exact equality, and time both; K1 on the
+    records of a 720p I frame and of a 720p P frame with the default P
+    tools (init table 1), 1 and 3 slices; KP with and without the
+    reference's default P tools (16x8/8x16, P_8x8, the 8x8 transform), on
+    seeded waves where every partition type and both transforms are
+    chosen;
  4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
     28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
@@ -33,15 +35,20 @@ Phases (any failure exits non-zero, before the result line):
     1 IDR + 3 P) and IPPP at 720p with the default P tools (1 IDR + 2 P),
     each against its golden with the launches of every frame asserted as
     in 7;
- 9. one CIF P frame's `make_inter_encoder` output on the card against
+ 9. IPPP with CABAC at 720p (the default P tools, 1 IDR + 2 P) against its
+    golden, the launches of every frame asserted as in 7 but with K1 once
+    a frame; and at CIF with JVT-G012 rate control at 1 Mb/s (1 IDR + 5
+    P) against its golden and the reference's per-frame QPs;
+10. one CIF P frame's `make_inter_encoder` output on the card against
     the same call on the CPU, every key, tolerance 0, without and with the
     default P tools.
 
 The line before the last is a JSON object with one entry per kernel
-(`launches`: the sum over the three 720p main paths, phases 4, 7 and 8,
+(`launches`: the sum over the four 720p main paths, phases 4, 7, 8 and 9,
 each driven with the counts set to 0 just before and read just after;
 `launches_by_path` splits it; KP's `ms` is a wave of the default P tools,
-`ms_tools_off` one without them); the last line is
+`ms_tools_off` one without them; K1's `ms`, `bins` and bound are the P
+frame's, `ms_i_frame` and `bins_i_frame` the I frame's); the last line is
 {"ok": true, "device": {...}}.
 
 `bound_ms` of a kernel is the larger of its bytes (each input read once,
@@ -662,7 +669,7 @@ def check_deblock_wave(dev, frame_case) -> dict:
 
 
 def frame_records(dev, frame, slices: int, spy=None, deblock_case=None):
-    """CABAC records of one 720p frame through the port's own stages ->
+    """CABAC records of one 720p I frame through the port's own stages ->
     (records, counts, init, word cap).  `spy(args)` sees the arguments of
     every `wave_body` call of the wave loop, the border buffers as they
     are before the call; `deblock_case`, a list, takes the deblocker's
@@ -697,6 +704,36 @@ def frame_records(dev, frame, slices: int, spy=None, deblock_case=None):
     return recs, counts, init, enc._cap_words
 
 
+def p_frame_records(dev, cur, ref, slices: int):
+    """CABAC records of one 720p P frame (`cur` against the reference
+    planes `ref`, QP 28, the default P tools) through the port's own
+    stages -> (records, counts, init of table 1, word cap)."""
+    from tpu264_torch.coding import intra_frame as tif
+    from tpu264_torch.coding.encoder import Encoder
+    from tpu264_torch.config import EncoderConfig
+    from tpu264_torch.entropy import cabac_engine_cuda as k1
+    enc = Encoder(EncoderConfig(width=W, height=H, qp=QP, symbol_mode="CABAC",
+                                intra_period=0, slices_per_frame=slices),
+                  device=dev)
+    if not (enc.partitions and enc.p8x8 and enc.t8_mode):
+        fail("720p CABAC P frame: the default P tools are off")
+    planes = [torch.as_tensor(p, device=dev) for p in (*cur, *ref)]
+    _, ys = enc._encode_p(*planes, QP)
+    recs, counts = enc._cabac_records(
+        tif.reorder_wave_outputs(enc.sched, ys), p_slice=True)
+    init = torch.as_tensor(k1.init_packed_states(1, QP), device=dev)
+    return recs, counts, init, enc._cap_words
+
+
+def record_bins(recs, counts) -> tuple[int, int]:
+    """(records, bins) of slice 0: a context record codes its run count of
+    bins, a bypass record its bit count, a terminate record one."""
+    from tpu264_torch.entropy import cabac_binarize as cbz
+    n = int(counts[0])
+    kind, _, b = cbz.unpack_records(recs[0, :n].cpu().numpy())
+    return n, int(np.where(kind == 0, b >> 1, np.where(kind == 1, b, 1)).sum())
+
+
 def engine_err(recs, counts, init, cap_words, what: str):
     """K1 against its plain version on one input -> (max abs err of the
     words, the plain version's host milliseconds)."""
@@ -714,29 +751,49 @@ def engine_err(recs, counts, init, cap_words, what: str):
     return max_abs_err(words, pw), plain_ms
 
 
-def check_cabac(dev, frame) -> tuple[dict, tuple, list]:
-    """K1 against `encode_slices_plain`: the 720p frame as one slice (the
-    main path's shape, timed) and as three, and seeded records with long
-    bypass runs, runs of up to 8191 bins in one context, and piles of
+def check_cabac(dev, frames) -> tuple[dict, tuple, list]:
+    """K1 against `encode_slices_plain`: the records of the 720p I frame
+    (`frames[0]`) and of a 720p P frame with the default P tools
+    (`frames[1]` against `frames[0]`, init table 1), each as one slice
+    (the main paths' shape, timed) and as three, and seeded records with
+    long bypass runs, runs of up to 8191 bins in one context, and piles of
     outstanding bits resolved with and without a carry.  Also returns the
-    `wave_body` arguments of the frame's widest wave (for the K2 and K3
+    `wave_body` arguments of the I frame's widest wave (for the K2 and K3
     checks) and the deblocker's arguments for the frame (for K4's)."""
     from tpu264_torch.entropy import cabac_binarize as cbz
     from tpu264_torch.entropy import cabac_engine_cuda as k1
     from tpu264_torch.tools import synth_inputs as si
     waves, deblock_case = [], []
-    recs, counts, init, cap_words = frame_records(dev, frame, 1, waves.append,
-                                                  deblock_case)
-    err, plain_ms = engine_err(recs, counts, init, cap_words, "720p, 1 slice")
-    ms = time_ms(lambda: k1.encode_slices(recs, counts, init, cap_words), 10)
-    n = int(counts[0])
-    kind, _, b = cbz.unpack_records(recs[0, :n].cpu().numpy())
-    bins = int(np.where(kind == 0, b >> 1, np.where(kind == 1, b, 1)).sum())
-    nbytes = int(k1.encode_slices(recs, counts, init, cap_words)[1].sum())
-    print(f"K1 {n} records, {bins} bins -> {nbytes} bytes: kernel "
-          f"{ms:.3f} ms, plain (host loop) {plain_ms:.1f} ms")
-    err = max(err, engine_err(*frame_records(dev, frame, 3),
-                              "720p, 3 slices")[0])
+    cases = {"I": (frame_records(dev, frames[0], 1, waves.append,
+                                 deblock_case),
+                   frame_records(dev, frames[0], 3)),
+             "P": (p_frame_records(dev, frames[1], frames[0], 1),
+                   p_frame_records(dev, frames[1], frames[0], 3))}
+    timed = {}
+    for what, (case, case3) in cases.items():
+        recs, counts, init, cap_words = case
+        e1, plain_ms = engine_err(*case, f"720p {what} frame, 1 slice")
+        e3, _ = engine_err(*case3, f"720p {what} frame, 3 slices")
+        ms = time_ms(lambda: k1.encode_slices(recs, counts, init, cap_words),
+                     10)
+        n, bins = record_bins(recs, counts)
+        if what == "P":
+            # the records new to K1: the mvds' contexts 40-53 and the
+            # cat-5 8x8 residual's 402-435
+            kind, a, _ = cbz.unpack_records(recs[0, :n].cpu().numpy())
+            ctx = a[kind == 0]
+            if not (((ctx >= 40) & (ctx <= 53)).any()
+                    and ((ctx >= 402) & (ctx <= 435)).any()):
+                fail("K1: the 720p P frame's records hold no mvd or no "
+                     "8x8 residual contexts")
+        nbytes = int(k1.encode_slices(recs, counts, init, cap_words)[1].sum())
+        print(f"K1 720p {what} frame: {n} records, {bins} bins -> {nbytes} "
+              f"bytes: kernel {ms:.3f} ms, plain (host loop) "
+              f"{plain_ms:.1f} ms; 3 slices: {case3[1].tolist()} records")
+        timed[what] = (max(e1, e3), ms, plain_ms, n, bins, nbytes)
+    err = max(timed["I"][0], timed["P"][0])
+    # seeded records, with the I slices' contexts
+    init = torch.as_tensor(k1.init_packed_states(0, QP), device=dev)
     rng = np.random.default_rng(5)
     long_bypass = (np.ones(4000, np.int32),
                    rng.integers(0, 1 << 16, size=4000).astype(np.int32),
@@ -761,12 +818,16 @@ def check_cabac(dev, frame) -> tuple[dict, tuple, list]:
     if refused != [-2]:
         fail(f"K1: records after the final terminate gave nbytes {refused}, "
              f"not [-2]")
-    # bytes: records and contexts in, payload and its size out;
-    # operations: about 43 a bin (the coding loop's instruction count)
+    # the row: the P frame's records, the main path of this slice; bytes:
+    # records and contexts in, payload and its size out; operations: about
+    # 43 a bin (the coding loop's instruction count)
+    _, ms, plain_ms, n, bins, nbytes = timed["P"]
     bound_ = bound(4 * n + 4 * 460 + nbytes + 4, 43 * bins)
     # the middle wave of the frame has the most valid lanes
     return ({"K1": dict(err=err, ms=ms, plain_ms=plain_ms, bins=bins,
-                        **bound_)}, waves[len(waves) // 2], deblock_case)
+                        ms_i_frame=timed["I"][1],
+                        bins_i_frame=timed["I"][4], **bound_)},
+            waves[len(waves) // 2], deblock_case)
 
 
 def launch_counts() -> list:
@@ -875,8 +936,8 @@ def encode_golden(name: str, what: str, **enc_kw):
           f"{len(frames) / secs:.4f} frames/s (eager, first run); "
           f"{len(stream)} bytes, sha256 {sha}")
     for i, st in enumerate(enc.stats):
-        print(f"  frame {i} {st.slice_type}: {st.bits} bits, PSNR-Y "
-              f"{st.psnr_y:.3f} dB, {st.seconds:.3f} s")
+        print(f"  frame {i} {st.slice_type}: QP {st.qp}, {st.bits} bits, "
+              f"PSNR-Y {st.psnr_y:.3f} dB, {st.seconds:.3f} s")
     if [st.bits for st in enc.stats] != g["frame_bits"]:
         fail(f"{what}: frame bits {[st.bits for st in enc.stats]} != golden "
              f"{g['frame_bits']}")
@@ -904,12 +965,13 @@ def phase_config2() -> None:
         fail("config 2: not an IDR and two P frames")
 
 
-def phase_ippp(name: str, what: str) -> dict:
-    """An IPPP CAVLC golden through `Encoder(cfg)`, the launches of each
-    frame asserted: an IDR frame runs K2 once a wave and K3, K4 at most once
-    a wave; a P frame K2 and KP once a wave, K4 at most once a wave; K1,
-    the slab entries and (in a P frame) K3's wave form never -> launch
-    counts of the whole run."""
+def phase_ippp(name: str, what: str) -> tuple[dict, object]:
+    """An IPPP golden through `Encoder(cfg)`, the launches of each frame
+    asserted (those of its deferred entropy finish included): an IDR frame
+    runs K2 once a wave and K3, K4 at most once a wave; a P frame K2 and KP
+    once a wave, K4 at most once a wave; K1 once a frame with CABAC and
+    never with CAVLC; the slab entries and (in a P frame) K3's wave form
+    never -> (launch counts of the whole run, the encoder)."""
     from tpu264_torch.coding.encoder import Encoder
     per_frame = []
     queued = []     # seconds of each frame's device work, synchronised
@@ -919,13 +981,20 @@ def phase_ippp(name: str, what: str) -> dict:
             before = read_counts()
             torch.cuda.synchronize()
             t0 = time.monotonic()
-            out = fn(*a, **kw)
+            fin, recon = fn(*a, **kw)
             torch.cuda.synchronize()
             queued.append(time.monotonic() - t0)
             after = read_counts()
-            per_frame.append((kind, {k: after[k] - before[k]
-                                     for k in after}))
-            return out
+            ran = {k: after[k] - before[k] for k in after}
+            per_frame.append((kind, ran))
+
+            def finish():
+                b = read_counts()
+                nalus = fin()
+                a2 = read_counts()
+                ran.update({k: v + a2[k] - b[k] for k, v in ran.items()})
+                return nalus
+            return finish, recon
         return run
 
     real = {}
@@ -944,12 +1013,13 @@ def phase_ippp(name: str, what: str) -> dict:
     kinds = ["IDR"] + ["P"] * (golden(name)["frames"] - 1)
     if [k for k, _ in per_frame] != kinds:
         fail(f"{what}: frames {[k for k, _ in per_frame]}")
+    k1_a_frame = int(enc.cabac)
     for i, (kind, c) in enumerate(per_frame):
         print(f"  frame {i} {kind} launches: {c}")
-        want = ({"K1": 0, "K2": n_waves, "KP": 0, "K2_blocks": 0,
+        want = ({"K1": k1_a_frame, "K2": n_waves, "KP": 0, "K2_blocks": 0,
                  "K3_blocks": 0, "K4_lines": 0}
                 if kind == "IDR" else
-                {"K1": 0, "K2": n_waves, "K3": 0, "KP": n_waves,
+                {"K1": k1_a_frame, "K2": n_waves, "K3": 0, "KP": n_waves,
                  "K2_blocks": 0, "K3_blocks": 0, "K4_lines": 0})
         for k, n in want.items():
             if c[k] != n:
@@ -961,14 +1031,27 @@ def phase_ippp(name: str, what: str) -> dict:
                 fail(f"{what} frame {i} ({kind}): {k} ran {c[k]} "
                      f"times for {n_waves} waves")
     if sum(sum(c.values()) for _, c in per_frame) != sum(counts.values()):
-        fail(f"{what}: launches outside the frames' encode calls")
+        fail(f"{what}: launches outside the frames' encode and finish "
+             f"calls")
     # `FrameStats.seconds` of a pipelined frame runs until the next frame
     # is queued, so the frames' own times are taken around their calls
     print(f"{what} (eager, first run), device work of a frame: IDR "
           f"{queued[0]:.3f} s, P frames "
           f"{', '.join(f'{t:.3f}' for t in queued[1:])} s; "
           f"{len(enc.stats) / secs:.4f} frames/s with pull and NAL assembly")
-    return counts
+    return counts, enc
+
+
+def phase_rate_control(name: str, what: str) -> None:
+    """An IPPP golden encoded with rate control (`phase_ippp`): the QP of
+    every frame is the one the reference's rate controller chose, and
+    they move."""
+    _, enc = phase_ippp(name, what)
+    qps = [st.qp for st in enc.stats]
+    want = golden(name)["frame_qps"]
+    print(f"{what}: QPs {qps} (reference {want})")
+    if enc.rc is None or qps != want or len(set(qps)) < 2:
+        fail(f"{what}: QPs {qps}, not the reference's {want}, or constant")
 
 
 def phase_p_wave_body_vs_cpu(dev, tools) -> None:
@@ -1031,7 +1114,7 @@ def main() -> int:
     results = {}
     results.update(check_dct(dev, rng))
     results.update(check_deblock_lines(dev, rng))
-    k1_result, wave, deblock_case = check_cabac(dev, frames[0])
+    k1_result, wave, deblock_case = check_cabac(dev, frames)
     results.update(k1_result)
     results.update(check_i4x4_wave(dev, wave))
     results.update(check_wave_body(dev, wave))
@@ -1048,11 +1131,15 @@ def main() -> int:
     counts = phase_encode(frames)
     phase_config1()
     phase_config2()
-    counts_p = phase_ippp("ippp_720p", "IPPP at 720p")
+    counts_p, _ = phase_ippp("ippp_720p", "IPPP at 720p")
     phase_ippp("config2_bench_cif", "config 2 at bench.py's settings (CIF, "
                "default P tools)")
-    counts_t = phase_ippp("ippp_720p_tools", "IPPP at 720p with the default "
-                          "P tools")
+    counts_t, _ = phase_ippp("ippp_720p_tools", "IPPP at 720p with the "
+                             "default P tools")
+    counts_c, _ = phase_ippp("ippp_720p_cabac", "IPPP CABAC at 720p with "
+                             "the default P tools")
+    phase_rate_control("ippp_cif_cabac_rc", "IPPP CABAC at CIF with rate "
+                       "control at 1 Mb/s")
     phase_p_wave_body_vs_cpu(dev, NO_TOOLS)
     phase_p_wave_body_vs_cpu(dev, Tools(True, True, True))
     rows = []
@@ -1061,14 +1148,16 @@ def main() -> int:
         r = results[k]
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
-               "launches": counts[k] + counts_p[k] + counts_t[k],
+               "launches": counts[k] + counts_p[k] + counts_t[k]
+               + counts_c[k],
                "launches_by_path": {"config3_720p": counts[k],
                                     "ippp_720p": counts_p[k],
-                                    "ippp_720p_tools": counts_t[k]},
+                                    "ippp_720p_tools": counts_t[k],
+                                    "ippp_720p_cabac": counts_c[k]},
                "max_abs_err": r["err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None}
-        for extra in ("bins", "ms_tools_off"):
+        for extra in ("bins", "ms_i_frame", "bins_i_frame", "ms_tools_off"):
             if extra in r:
                 row[extra] = r[extra]
         rows.append(row)

@@ -5,7 +5,9 @@ frames in chunks of 4, so the last chunk is short) and with the batched
 entry turned off, and the recon equals what the reference decoder
 reconstructs from the port's stream.  (Three slices a picture are in
 test_torch_cavlc_slices; a single frame, which both encoders send down the
-per-frame path, is in test_torch_cavlc_single.)"""
+per-frame path, is in test_torch_cavlc_single.)  With rate control and a
+bitrate both encoders leave the batched entry and encode frame by frame,
+with the same stream and QPs."""
 
 import dataclasses
 import hashlib
@@ -17,8 +19,9 @@ import pytest
 from tpu264.config import EncoderConfig as RefConfig
 
 from torch_util import (assert_batched_stream_equals_reference,
-                        assert_port_decodes_to_recon, cavlc_frames,
-                        cavlc_port, cavlc_reference)
+                        assert_port_decodes_to_recon, assert_same_encode,
+                        cavlc_frames, cavlc_port, cavlc_ref_cfg,
+                        cavlc_reference, encode_both_rc)
 
 CASES = [(True, 1), (False, 1)]
 
@@ -57,3 +60,17 @@ def test_per_frame_path_equals_batched(deblock, slices):
 @pytest.mark.parametrize("deblock,slices", [(False, 1)])
 def test_recon_equals_reference_decoder(deblock, slices):
     assert_port_decodes_to_recon(deblock, slices)
+
+
+def test_rate_control_stream_equals_reference():
+    """All-intra with rate control: the controller keeps every I frame at
+    its initial QP (the reference's `frame_qp("I")`), and the port, like
+    the reference, takes the per-frame path, whose programs this module's
+    reference encoder already holds."""
+    cfg = dataclasses.replace(cavlc_ref_cfg(True, 1), rate_control=True,
+                              bitrate=200_000)
+    ref, want, qps, port, got = encode_both_rc(cfg, cavlc_frames())
+    assert_same_encode(ref, want, port, got)
+    assert qps == [s.qp for s in port.stats] == [28] * 5
+    # a frame at a time: each frame has a time of its own
+    assert len({s.seconds for s in port.stats}) == 5

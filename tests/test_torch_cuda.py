@@ -29,8 +29,10 @@ from tpu264_torch.kernels import p_wave as kp
 from tpu264_torch.media.synth import synth_frame
 from tpu264_torch.ref import deblock as rd
 from tpu264_torch.ref.transform import chroma_qp
+from tpu264_torch.entropy import cabac_binarize as tcb
+from tpu264_torch.entropy import cabac_engine_cuda as k1
 from tpu264_torch.tools.synth_inputs import random_deblock_picture, \
-    random_p_wave, random_p_wave_tools, random_wave
+    random_mbs, random_p_wave, random_p_wave_tools, random_wave
 
 from torch_util import assert_equal, carry_records, cuda_device, \
     long_run_records, random_i4x4_lanes, random_records, run_engine, t32, \
@@ -520,13 +522,73 @@ def test_cuda_engine_refuses_records_after_final_terminate():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("slices", [1, 3])
+@pytest.mark.parametrize("tools", [(), ("ptype", "mvq", "t8")])
+def test_cuda_engine_p_records_match_plain(tools, slices):
+    """P-slice records of a seeded CIF MB dict (skips, intra MBs, every
+    partition type and the 8x8 transform with the tools; the mvd's UEG3
+    bypass suffixes, the cat-5 contexts 402-435): the binarizer on the
+    card gives the CPU's records, and K1 with init table 1, in one launch
+    for all slices, the plain version's payloads."""
+    dev = cuda_device()
+    wm, hm = 22, 18
+    mb = random_mbs(60 + slices + len(tools), wm, hm, tools=tools)
+    rows = build_schedule(wm, hm, slices).slice_starts.tolist()
+    cap = wm * hm // slices * 768
+    out = []
+    for d in (dev, torch.device("cpu")):
+        k, a, b, v = tcb.binarize_frame(
+            {key: torch.as_tensor(val, device=d) for key, val in mb.items()},
+            wm, hm, rows, p_slice=True)
+        out.append(tcb.compact_slices(k, a, b, v, wm, rows, hm, cap))
+    (recs, counts), (c_recs, c_counts) = out
+    assert_equal(counts, c_counts)
+    assert_equal(recs, c_recs)
+    assert int(c_counts.max()) <= cap
+    init = t32(k1.init_packed_states(1, 28), dev)
+    before = k1.launches["K1"]
+    words, nbytes = k1.encode_slices(recs, counts, init, cap // 4)
+    assert k1.launches["K1"] == before + 1
+    p_words, p_nbytes = k1.encode_slices(c_recs, c_counts, init.cpu(),
+                                         cap // 4)
+    assert_equal(nbytes, p_nbytes)
+    assert_equal(words, p_words)
+    assert k1.payloads_from_words(words, nbytes) == \
+        k1.payloads_from_words(p_words, p_nbytes)
+
+
+@pytest.mark.cuda
+def test_cuda_ippp_cabac_rc_stream_matches_cpu():
+    """112x80 IPPP with CABAC, the default P tools and rate control, 5
+    frames: stream, recon and every frame's QP on the card equal the CPU
+    run's; K1 once a frame, K2 and KP once a wave of each P frame."""
+    dev = cuda_device()
+    frames = [synth_frame(112, 80, t) for t in range(5)]
+    cfg = EncoderConfig(width=112, height=80, qp=30, intra_period=0,
+                        symbol_mode="CABAC", rate_control=True,
+                        bitrate=100_000)
+    before = (dict(k1.launches), dict(k2w.launches), dict(kp.launches))
+    gpu = Encoder(cfg, device=dev)
+    got = gpu.encode_sequence(frames)
+    assert k1.launches["K1"] - before[0]["K1"] == 5
+    assert k2w.launches["K2"] - before[1]["K2"] == 5 * gpu.sched.n_waves
+    assert kp.launches["KP"] - before[2]["KP"] == 4 * gpu.sched.n_waves
+    cpu = Encoder(cfg, device="cpu")
+    assert got == cpu.encode_sequence(frames)
+    assert [s.qp for s in gpu.stats] == [s.qp for s in cpu.stats]
+    assert len({s.qp for s in gpu.stats}) >= 2
+    for g_rec, c_rec in zip(gpu.recons, cpu.recons):
+        for g, c in zip(g_rec, c_rec):
+            assert_equal(to_np(g), to_np(c))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("deblock,slices",
                          [(True, 1), (True, 3), (False, 1), (False, 3)])
 def test_cuda_encoder_matches_cpu(deblock, slices):
     """QCIF, 2 frames, all-intra CABAC: the stream and recon on the card
     equal the CPU run's, and every kernel of the path was launched."""
     dev = cuda_device()
-    from tpu264_torch.entropy import cabac_engine_cuda as k1
     frames = [synth_frame(176, 144, t) for t in range(2)]
     cfg = EncoderConfig(width=176, height=144, qp=28, symbol_mode="CABAC",
                         deblock=deblock, slices_per_frame=slices)

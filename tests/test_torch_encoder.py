@@ -92,15 +92,11 @@ _IPPP = dict(intra_period=0, symbol_mode="CAVLC")
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(intra_period=0), "CABAC P path"),
-    (dict(_IPPP_OK, symbol_mode="CABAC"), "CABAC P path"),
     (dict(_IPPP, weighted_pred=True), "weighted_pred on.*weighted pred"),
     (dict(_IPPP_OK, weighted_pred=True), "weighted_pred on"),
     (dict(_IPPP_OK, num_b_frames=1), "hierarchical-B"),
-    (dict(rate_control=True, bitrate=100000), "rate control"),
-    (dict(symbol_mode="CAVLC", rate_control=True, bitrate=100000),
-     "rate control"),
-    (dict(_IPPP, rate_control=True, bitrate=1), "rate control"),
+    (dict(_IPPP, num_b_frames=2, rate_control=True, bitrate=100000),
+     "with rate control.*hierarchical-B"),
     (dict(sei_messages=True), "SEI"),
 ])
 def test_unported_options_raise(kwargs, what):
@@ -122,11 +118,19 @@ def test_unported_options_raise(kwargs, what):
     (dict(_IPPP, transform_8x8=True), "ippp"),
     (dict(_IPPP, rate_control=True), "ippp"),
     (dict(symbol_mode="CABAC", rate_control=True, bitrate=0), "intra"),
+    (dict(_IPPP, symbol_mode="CABAC"), "ippp"),
+    (dict(_IPPP_OK, symbol_mode="CABAC"), "ippp"),
+    (dict(symbol_mode="CABAC", rate_control=True, bitrate=100000), "intra"),
+    (dict(symbol_mode="CAVLC", rate_control=True, bitrate=100000), "intra"),
+    (dict(_IPPP, rate_control=True, bitrate=1), "ippp"),
 ])
 def test_ported_options_construct(kwargs, mode):
     enc = Encoder(EncoderConfig(width=W, height=H, **kwargs), device="cpu")
     assert enc.gop_mode == mode
     assert enc.cabac == (kwargs["symbol_mode"] == "CABAC")
+    # rate control runs only with a target bitrate, as in the reference
+    assert (enc.rc is not None) == (kwargs.get("rate_control", False)
+                                    and kwargs.get("bitrate", 0) > 0)
 
 
 @pytest.mark.parametrize("kwargs,tools", [

@@ -6,7 +6,9 @@ deblock on, QP 28, no partitions, 4x4 transform), and under
 on, 16x8/8x16 and P_8x8 partitions and the 8x8 transform; 1 IDR + 3 P);
 `chip_smoke.py` holds the port's streams on the card to them.  These
 tests recompute them from the reference on the CPU, and hold the port on
-the CPU to them as well."""
+the CPU to them as well.  "ippp_cif_cabac_rc" is IPPP with CABAC, the
+default P tools and JVT-G012 rate control at 1 Mb/s (1 IDR + 5 P), with
+the QP the reference's rate controller chose for each frame."""
 
 import pytest
 
@@ -37,3 +39,14 @@ def test_bench_golden_matches_reference_encoder():
 
 def test_port_on_cpu_matches_bench_golden():
     check_port_on_cpu("config2_bench_cif")
+
+
+@pytest.mark.slow
+def test_cabac_rc_golden_matches_reference_encoder():
+    cfg = check_reference("ippp_cif_cabac_rc")
+    assert (cfg.width, cfg.height, cfg.symbol_mode) == (352, 288, "CABAC")
+    assert cfg.rate_control and cfg.bitrate == 1_000_000
+
+
+def test_port_on_cpu_matches_cabac_rc_golden():
+    check_port_on_cpu("ippp_cif_cabac_rc")

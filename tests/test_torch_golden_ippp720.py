@@ -2,8 +2,9 @@
 reference encoder's stream for IPPP CAVLC at 1280x720 (1 IDR + 2 P,
 deblock on, QP 28, no partitions, 4x4 transform), and under
 "ippp_720p_tools" the same with the reference's default P tools
-(16x8/8x16 and P_8x8 partitions, the 8x8 transform); `chip_smoke.py`
-holds the port's streams on the card to them.  These tests recompute them
+(16x8/8x16 and P_8x8 partitions, the 8x8 transform), and under
+"ippp_720p_cabac" that with CABAC; `chip_smoke.py` holds the port's
+streams on the card to them.  These tests recompute them
 from the reference on the CPU."""
 
 import pytest
@@ -26,3 +27,10 @@ def test_tools_golden_matches_reference_encoder():
     cfg = check_reference("ippp_720p_tools")
     assert (cfg.width, cfg.height, cfg.intra_period) == (1280, 720, 0)
     assert cfg.inter_partitions is None and cfg.transform_8x8 is None
+
+
+@pytest.mark.slow
+def test_cabac_golden_matches_reference_encoder():
+    cfg = check_reference("ippp_720p_cabac")
+    assert (cfg.width, cfg.height, cfg.intra_period) == (1280, 720, 0)
+    assert cfg.symbol_mode == "CABAC" and cfg.transform_8x8 is None

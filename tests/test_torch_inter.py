@@ -19,6 +19,7 @@ from tpu264_torch.coding import inter_frame as tinter
 from tpu264_torch.coding import intra_frame as tif
 from tpu264_torch.coding.wavefront import build_schedule
 from tpu264_torch.entropy import device_cavlc as tdc
+from tpu264_torch.tools.synth_inputs import random_mbs
 
 from torch_util import assert_equal, to_np
 
@@ -123,60 +124,6 @@ def test_p8x8_needs_partitions():
         tinter.make_inter_encoder(build_schedule(WM, HM, 1), p8x8=True)
 
 
-N = WM * HM
-
-
-def _levels(r, shape, density):
-    """Sparse levels: mostly small, a few large."""
-    lev = r.integers(-3, 4, size=shape) * (r.random(shape) < density)
-    big = r.random(shape) < density / 20
-    return np.where(big, r.integers(-300, 301, size=shape), lev)
-
-
-def random_mbs(seed, p_slice=True, tools=("ptype", "mvq", "t8")):
-    """A seeded MB dict: intra (I16x16 and I4x4) and inter MBs, every
-    partition type, skippable MBs (vector = skip vector, no residual),
-    coded and uncoded blocks; numpy."""
-    r = np.random.default_rng(seed)
-    is_inter = (r.random(N) < 0.7) if p_slice else np.zeros(N, bool)
-    sel16 = r.random(N) < 0.4
-    ptype = np.where(is_inter, r.integers(0, 4, N), 0)
-    if "mvq" not in tools:
-        ptype = np.where(ptype == 3, 1, ptype)
-    mv = r.integers(-64, 65, size=(N, 2))
-    mv_skip = np.where((r.random(N) < 0.5)[:, None], mv,
-                       r.integers(-64, 65, size=(N, 2)))
-    density = np.where(r.random(N) < 0.3, 0.0, r.choice([0.05, 0.3], N))
-    luma_ac = _levels(r, (N, 16, 16), density[:, None, None])
-    luma_ac[sel16 & ~is_inter, :, 0] = 0
-    chroma_ac = _levels(r, (N, 2, 4, 16), density[:, None, None, None] / 2)
-    chroma_ac[..., 0] = 0
-    mb = dict(
-        is_inter=is_inter, sel16=sel16, mv=mv, mv_skip=mv_skip,
-        mv_pred=r.integers(-64, 65, size=(N, 2)),
-        i16mode=r.integers(0, 4, N), modes=r.integers(0, 9, size=(N, 16)),
-        cmode=r.integers(0, 4, N), luma_ac=luma_ac,
-        luma_dc=_levels(r, (N, 16), 0.3) * (sel16 & ~is_inter)[:, None],
-        chroma_dc=_levels(r, (N, 2, 4), density[:, None, None]),
-        chroma_ac=chroma_ac)
-    if "ptype" in tools:
-        mb["mv2"] = r.integers(-64, 65, size=(N, 2))
-    if "mvq" in tools:
-        mb["mvq"] = r.integers(-64, 65, size=(N, 4, 2))
-    # every fifth MB a P_Skip: 16x16 at the skip vector, nothing coded
-    skip = np.arange(N) % 5 == 0
-    if p_slice:
-        is_inter[skip], ptype[skip], mv_skip[skip] = True, 0, mv[skip]
-        for k in ("luma_ac", "chroma_dc", "chroma_ac"):
-            mb[k][skip] = 0
-    if "ptype" in tools:
-        mb["ptype"] = ptype
-    if "t8" in tools:
-        mb["t8"] = is_inter & (ptype == 0) & (r.random(N) < 0.5)
-    return {k: np.asarray(v, np.int32) if v.dtype != bool else v
-            for k, v in mb.items()}
-
-
 @pytest.mark.parametrize("slices", [1, 3])
 @pytest.mark.parametrize("tools", [("ptype",), ("ptype", "mvq"),
                                    ("ptype", "mvq", "t8"), ("t8",)])
@@ -187,7 +134,7 @@ def test_serialize_frame_p_with_tools(tools, slices):
     blocks.  The picture has this module's geometry, so the reference's
     serializer reuses the operations compiled above."""
     rows = build_schedule(WM, HM, slices).slice_starts.tolist()
-    mb = random_mbs(10 * slices + len(tools), tools=tools)
+    mb = random_mbs(10 * slices + len(tools), WM, HM, tools=tools)
     want_v, want_l, want_s = rdc.serialize_frame_p_j(
         {k: jnp.asarray(v) for k, v in mb.items()}, WM, HM, rows)
     got_v, got_l, got_s = tdc.serialize_frame_p(

@@ -76,7 +76,7 @@ def test_frame_num_wraps():
                                 transform_8x8=False), device="cpu")
     seen = []
 
-    def stub(y, u, v, ref, frame_num):
+    def stub(y, u, v, ref, frame_num, qp):
         seen.append(frame_num)
         return (lambda: []), ref
 

@@ -6,7 +6,9 @@ byte for byte, with deblocking on, and each partition type and the 8x8
 transform are chosen in it.  The geometry and settings are those of
 `tests/test_ippp.py::test_p8x8_sub_mb_tree_roundtrip` (112x80, QP 30,
 5 frames), whose compiled programs the reference encoder here takes from
-the persistent compile cache."""
+the persistent compile cache.  With JVT-G012 rate control at a bitrate
+where the reference's QPs move, the stream and every frame's QP are the
+reference's too (QP is a traced argument of its programs)."""
 
 import dataclasses
 
@@ -20,7 +22,7 @@ from tpu264_torch.coding.intra_frame import reorder_wave_outputs
 from tpu264_torch.config import EncoderConfig
 
 from torch_util import assert_decodes_to_recon, assert_same_encode, \
-    reference_encoder, to_np
+    assert_same_rc_encode, encode_both_rc, reference_encoder, to_np
 
 W, H = 112, 80
 
@@ -54,3 +56,10 @@ def test_default_tools_stream_equals_reference():
     t8 = np.concatenate([t for _, t in chosen])
     assert set(ptypes) == {0, 1, 2, 3}
     assert t8.any() and (~t8 & (ptypes == 0)).any()
+
+
+def test_rate_control_stream_equals_reference():
+    frames = [synth_frame(W, H, t) for t in range(5)]
+    cfg = RefConfig(width=W, height=H, qp=30, intra_period=0, deblock=True,
+                    symbol_mode="CAVLC", rate_control=True, bitrate=100_000)
+    assert_same_rc_encode(*encode_both_rc(cfg, frames))

@@ -146,6 +146,43 @@ def assert_same_encode(ref, want, port, got):
             assert_equal(g, np.asarray(w))
 
 
+def record_qps(enc) -> list:
+    """The list that the QPs `enc`'s rate controller chooses from now on
+    are appended to, frame by frame (either package's encoder)."""
+    qps = []
+    choose = enc.rc.frame_qp
+
+    def spy(*a, **kw):
+        qps.append(choose(*a, **kw))
+        return qps[-1]
+
+    enc.rc.frame_qp = spy
+    return qps
+
+
+def encode_both_rc(ref_cfg, frames, **port_kw):
+    """The reference's and the port's (on the CPU) encodes of `frames` with
+    `ref_cfg`, which asks for rate control -> (reference encoder, its
+    stream, the QPs its rate controller chose, port encoder, its
+    stream)."""
+    from tpu264_torch.coding.encoder import Encoder
+    from tpu264_torch.config import EncoderConfig
+    ref = reference_encoder(ref_cfg)
+    qps = record_qps(ref)
+    want = ref.encode_sequence(frames)
+    port = Encoder(EncoderConfig.from_reference(dataclasses.asdict(ref_cfg)),
+                   device="cpu", **port_kw)
+    return ref, want, qps, port, port.encode_sequence(frames)
+
+
+def assert_same_rc_encode(ref, want, qps, port, got):
+    """`assert_same_encode`, and the port's per-frame QPs are the
+    reference's, which move."""
+    assert_same_encode(ref, want, port, got)
+    assert [s.qp for s in port.stats] == qps
+    assert len(set(qps)) >= 2, qps
+
+
 def assert_decodes_to_recon(port, stream, n_frames: int):
     """Closed loop: the reference decoder reconstructs the port's recon."""
     from tpu264.decode import Decoder
@@ -257,22 +294,29 @@ def _check_golden(name: str, encoder_cls, config_cls, **enc_kw):
     frames = [synth_frame(cfg.width, cfg.height, t)
               for t in range(golden["frames"])]
     enc = encoder_cls(cfg, **enc_kw)
+    qps = record_qps(enc) if "frame_qps" in golden else []
     stream = enc.encode_sequence(frames)
     assert hashlib.sha256(stream).hexdigest() == golden["sha256"]
     assert len(stream) == golden["bytes"]
     assert [s.bits for s in enc.stats] == golden["frame_bits"]
-    return cfg
+    assert qps == golden.get("frame_qps", [])
+    return cfg, enc
 
 
 def check_golden_reference(name: str):
     """Recompute golden `name` with the reference encoder -> its config."""
     from tpu264.coding.encoder import Encoder
     from tpu264.config import EncoderConfig
-    return _check_golden(name, Encoder, EncoderConfig)
+    return _check_golden(name, Encoder, EncoderConfig)[0]
 
 
 def check_golden_port_on_cpu(name: str):
-    """Hold the port's encoder on the CPU to golden `name`."""
+    """Hold the port's encoder on the CPU to golden `name` -> its config;
+    with rate control, its per-frame QPs too."""
     from tpu264_torch.coding.encoder import Encoder
     from tpu264_torch.config import EncoderConfig
-    return _check_golden(name, Encoder, EncoderConfig, device="cpu")
+    cfg, enc = _check_golden(name, Encoder, EncoderConfig, device="cpu")
+    qps = json.loads(GOLDEN.read_text())[name].get("frame_qps")
+    if qps is not None:
+        assert [s.qp for s in enc.stats] == qps
+    return cfg

@@ -1,19 +1,20 @@
 """Sequence-level encoder (torch), counterpart of
-`tpu264.coding.encoder` for all-intra GOPs (CABAC or CAVLC) and for IPPP
-GOPs with CAVLC and the reference's default P tools (16x8/8x16 and P_8x8
-partitions, the 8x8 transform).
+`tpu264.coding.encoder` for all-intra and IPPP GOPs, CABAC or CAVLC, with
+the reference's default P tools (16x8/8x16 and P_8x8 partitions, the 8x8
+transform) and JVT-G012 frame rate control.
 
 Parameter-set emission, per-frame device encode (wavefront mode decision
 with kernels K2/K3, motion search and the P wave body, the wavefront
 deblocker with K4, then either CABAC binarization and the range coder K1
 or the CAVLC serializer and bit packer), Annex-B assembly and per-frame
-stats.  All-intra CAVLC sequences go through the batched entry, which
-pulls a chunk of frames' payloads from the device at once.  The encoder
-runs on the CUDA card unless the caller asks for `device="cpu"`.
+stats.  All-intra CAVLC sequences at a fixed QP go through the batched
+entry, which pulls a chunk of frames' payloads from the device at once.
+The encoder runs on the CUDA card unless the caller asks for
+`device="cpu"`.
 
 Not ported yet; the constructor raises `NotImplementedError` naming the
-ROADMAP item that brings each: IPPP with CABAC, weighted prediction, B
-GOPs, rate control with a target bitrate and SEI messages.
+ROADMAP item that brings each: weighted prediction, B GOPs (with or
+without rate control) and SEI messages.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from tpu264_torch.entropy.device_cavlc import compute_cbp, luma_tc_grid
 from tpu264_torch.entropy.slice_writer import trailing_skip_run
 from tpu264_torch.kernels.deblock import make_deblocker_skewed, up4
 from tpu264_torch.ref.transform import chroma_qp
+from tpu264_torch.runtime.ratectl import RateController
 from . import mvpred
 from .inter_frame import make_inter_encoder
 from .intra_frame import make_intra_encoder, reorder_wave_outputs
@@ -55,6 +57,7 @@ class FrameStats:
     psnr_u: float
     psnr_v: float
     seconds: float
+    qp: int             # the slice QP (rate control's choice where it runs)
 
 
 def build_params(cfg: EncoderConfig, gop_mode: str = "intra",
@@ -100,11 +103,12 @@ def _psnr3(sse, sizes):
 
 
 class Encoder:
-    """H.264 encoder: all-intra GOPs with CABAC or CAVLC, IPPP GOPs with
-    CAVLC (P_Skip / P_L0_16x16 / P_L0_16x8 / P_L0_8x16 / P_8x8 / I16x16 /
-    I4x4 per MB, full-search ME with quarter-pel refinement for the MB
-    and each partition, the 8x8 transform of 16x16 inter MBs, periodic
-    IDR), optional in-loop deblocking, 1 or several slices.
+    """H.264 encoder: all-intra and IPPP GOPs with CABAC or CAVLC (P_Skip /
+    P_L0_16x16 / P_L0_16x8 / P_L0_8x16 / P_8x8 / I16x16 / I4x4 per MB,
+    full-search ME with quarter-pel refinement for the MB and each
+    partition, the 8x8 transform of 16x16 inter MBs, periodic IDR),
+    optional in-loop deblocking, 1 or several slices, and JVT-G012 rate
+    control when `cfg.rate_control` and `cfg.bitrate > 0`.
 
     `gop_mode`: "intra" = every frame IDR; "ippp" = first frame IDR, rest
     P (`cfg.intra_period > 1` inserts periodic IDR frames).  The default
@@ -136,26 +140,18 @@ class Encoder:
                 gop_mode = "bgop"
             else:
                 gop_mode = "intra" if cfg.intra_period == 1 else "ippp"
-        cabac = cfg.symbol_mode.upper() == "CABAC"
-        if gop_mode not in ("intra", "ippp"):
-            raise NotImplementedError(
-                f"gop_mode {gop_mode!r}: B GOPs are not ported yet "
-                "(ROADMAP Queue 1: hierarchical-B GOPs)")
-        if gop_mode == "ippp":
-            if cabac:
-                raise NotImplementedError(
-                    "IPPP with CABAC is not ported yet (ROADMAP Queue 1: "
-                    "CABAC P path); IPPP runs with symbol_mode=\"CAVLC\"")
-            if cfg.weighted_pred:
-                raise NotImplementedError(
-                    "IPPP with weighted_pred on is not ported yet (ROADMAP "
-                    "Queue 1: weighted prediction)")
         # as in the reference, rate control runs only with a target
         # bitrate; without one the encode is at fixed QP
-        if cfg.rate_control and cfg.bitrate > 0:
+        rc_on = cfg.rate_control and cfg.bitrate > 0
+        if gop_mode not in ("intra", "ippp"):
             raise NotImplementedError(
-                "rate control is not ported yet (ROADMAP Queue 1: "
-                "hierarchical-B GOPs with rate control)")
+                f"gop_mode {gop_mode!r}: B GOPs"
+                f"{' with rate control' if rc_on else ''} are not ported "
+                "yet (ROADMAP Queue 1: hierarchical-B GOPs)")
+        if gop_mode == "ippp" and cfg.weighted_pred:
+            raise NotImplementedError(
+                "IPPP with weighted_pred on is not ported yet (ROADMAP "
+                "Queue 1: weighted prediction)")
         if cfg.sei_messages:
             raise NotImplementedError(
                 "SEI messages are not ported yet (ROADMAP Queue 1: host "
@@ -192,22 +188,34 @@ class Encoder:
         if cfg.deblock:
             self._deblock = make_deblocker_skewed(
                 self.sched, filter_across_slices=(self.deblock_idc == 0))
+        # rate control (JVT-G012 quadratic model, host side)
+        self.rc = None
+        if rc_on:
+            self.rc = RateController(
+                bitrate=cfg.bitrate, frame_rate=cfg.frame_rate,
+                n_mbs=cfg.width_mbs * cfg.height_mbs, init_qp=cfg.qp)
         self.stats: list[FrameStats] = []
         per_slice = (cfg.width_mbs * cfg.height_mbs) // cfg.slices_per_frame
         self._cabac_cap = per_slice * records_per_mb
         self._cap_words = per_slice * WORDS_PER_MB
 
-    def _cabac_records(self, mbd):
+    def _cabac_records(self, mbd, p_slice: bool = False):
         """Binarize + compact on device: packed records [S, cap], counts.
 
-        A slice over the record cap (pathological content) keeps every
-        record: the same record grids are compacted again with room for
-        the largest slice, so the stream is the one an unbounded buffer
-        gives (the reference re-binarizes such a frame on the host)."""
+        In a PPS with the 8x8 transform, I_NxN MBs of I slices carry its
+        flag too (a zero t8 map).  A slice over the record cap
+        (pathological content) keeps every record: the same record grids
+        are compacted again with room for the largest slice, so the stream
+        is the one an unbounded buffer gives (the reference re-binarizes
+        such a frame on the host)."""
         cfg = self.cfg
         rows = self.sched.slice_starts.tolist()
+        if self.t8_mode and "t8" not in mbd:
+            mbd = dict(mbd, t8=torch.zeros(cfg.width_mbs * cfg.height_mbs,
+                                           dtype=torch.bool,
+                                           device=self.device))
         k, a, b, v = cbz.binarize_frame(mbd, cfg.width_mbs, cfg.height_mbs,
-                                        rows)
+                                        rows, p_slice=p_slice)
         recs, counts = cbz.compact_slices(k, a, b, v, cfg.width_mbs, rows,
                                           cfg.height_mbs, self._cabac_cap)
         need = int(counts.max())
@@ -216,12 +224,27 @@ class Encoder:
                                               rows, cfg.height_mbs, need)
         return recs, counts
 
-    def _cabac_payloads(self, recs, counts, qp: int) -> list:
-        """CABAC slice payloads through the range coder (kernel K1)."""
-        init = torch.as_tensor(k1.init_packed_states(0, qp),
+    def _cabac_payloads(self, recs, counts, qp: int,
+                        p_slice: bool = False) -> list:
+        """CABAC slice payloads through the range coder (kernel K1, one
+        launch for all slices), with the contexts of init table 0 in an I
+        slice and of table 1 (cabac_init_idc 0) in a P slice."""
+        init = torch.as_tensor(k1.init_packed_states(int(p_slice), qp),
                                device=recs.device)
         words, nbytes = k1.encode_slices(recs, counts, init, self._cap_words)
         return k1.payloads_from_words(words, nbytes)
+
+    @staticmethod
+    def _cabac_nalus(payloads, hdr, nal_ref_idc, nal_type) -> list:
+        """One frame's NAL units: each slice's payload after its header
+        `hdr(s)` and the alignment bits."""
+        nalus = []
+        for s, payload in enumerate(payloads):
+            sink = hdr(s)
+            sink.cabac_align()
+            nalus.append(nal.make_nalu(nal_ref_idc, nal_type,
+                                       sink.to_bytes() + payload))
+        return nalus
 
     def _deblock_inputs(self, mbd, p_slice: bool = False):
         """The deblocker's bS inputs (intra_mb, tc_luma, mv, ref, t8_mb),
@@ -341,10 +364,12 @@ class Encoder:
 
     @staticmethod
     def _sse3(orig, recon):
-        """[SSE Y, SSE U, SSE V] of the frame, an int64 tensor on the
-        device."""
-        return torch.stack([((o.to(torch.int64) - r.to(torch.int64)) ** 2)
-                            .sum() for o, r in zip(orig, recon)])
+        """[SSE Y, SSE U, SSE V, sum |Y - Y'|] of the frame, an int64
+        tensor on the device (the last entry is the rate controller's
+        MAD numerator)."""
+        d = [o.to(torch.int64) - r.to(torch.int64)
+             for o, r in zip(orig, recon)]
+        return torch.stack([(x * x).sum() for x in d] + [d[0].abs().sum()])
 
     def _header_nalus(self) -> list:
         """SPS + PPS that open every stream."""
@@ -402,13 +427,13 @@ class Encoder:
                 bits = sum(8 * len(x) for x in nalus)
                 ps = _psnr3(sse_np[b], (y.size, u.size, v.size))
                 self.stats.append(FrameStats(
-                    i, "IDR", bits, ps[0], ps[1], ps[2], per_frame_s))
+                    i, "IDR", bits, ps[0], ps[1], ps[2], per_frame_s, qp))
             c0 += len(chunk)
         return b"".join(out)
 
     def encode_sequence(self, frames) -> bytes:
         """frames: iterable of (y, u, v) uint8 planes. Returns Annex-B."""
-        if (self.gop_mode == "intra" and not self.cabac
+        if (self.gop_mode == "intra" and self.rc is None and not self.cabac
                 and self.intra_batch > 1):
             # batched entry: consume the iterable in chunks (frames stay
             # streamed); a single frame takes the per-frame path
@@ -423,42 +448,56 @@ class Encoder:
         frame_num = 0
         idr_count = 0
         # frame pipelining: the entropy pull + NAL assembly of frame k
-        # runs after frame k+1's device work has been queued
-        pending = None     # (index, is_idr, finish, sse, sizes, t0)
+        # runs after frame k+1's device work has been queued.  Not under
+        # rate control: frame k's bits choose frame k+1's QP.
+        pipeline = self.rc is None
+        pending = None     # (index, is_idr, qp, finish, sse, sizes, t0)
 
         def drain():
             nonlocal pending
             if pending is None:
                 return
-            i0, idr0, fin, sse, sizes, t0 = pending
+            i0, idr0, qp0, fin, sse, sizes, t0 = pending
             pending = None
             nalus = fin()
             out.extend(nalus)
             bits = sum(8 * len(b) for b in nalus)
-            ps = _psnr3(sse.tolist(), sizes)
+            st = sse.tolist()
+            if self.rc is not None:
+                self.rc.update("I" if idr0 else "P", bits,
+                               float(st[3]) / sizes[0])
+            ps = _psnr3(st, sizes)
             self.stats.append(FrameStats(
                 i0, "IDR" if idr0 else "P", bits, ps[0], ps[1], ps[2],
-                time.monotonic() - t0))
+                time.monotonic() - t0, qp0))
 
         period = self.cfg.intra_period
         for i, (y, u, v) in enumerate(frames):
             t0 = time.monotonic()
             is_idr = (self.gop_mode == "intra" or i == 0
                       or (period > 1 and i % period == 0))
+            if self.rc is not None:
+                qp = self.rc.frame_qp("I" if is_idr else "P")
+            else:
+                qp = self.cfg.qp if is_idr else self.cfg.qp_inter
             if is_idr:
                 fin, recon = self.encode_intra_frame(
-                    y, u, v, idr_pic_id=idr_count % 2)
+                    y, u, v, idr_pic_id=idr_count % 2, qp=qp)
                 idr_count += 1
                 frame_num = 1
             else:
                 fin, recon = self.encode_p_frame(
-                    y, u, v, self.recons[-1], frame_num=frame_num)
+                    y, u, v, self.recons[-1], frame_num=frame_num, qp=qp)
                 frame_num = (frame_num + 1) % (
                     1 << self.sps.log2_max_frame_num)
             self.recons.append(recon)
             sse = self._sse3(self._dev_orig, recon)
-            drain()
-            pending = (i, is_idr, fin, sse, (y.size, u.size, v.size), t0)
+            if pipeline:
+                drain()
+            pending = (i, is_idr, qp, fin, sse, (y.size, u.size, v.size),
+                       t0)
+            if not pipeline:
+                drain()
         drain()
         return b"".join(out)
 
@@ -493,19 +532,13 @@ class Encoder:
         recon = self._recon(dev_out, mbd, qp)
 
         def finish():
-            if not self.cabac:
-                nbits_np = nbits.cpu().numpy()
-                return self._cavlc_nalus(_pull_words(words, nbits_np),
-                                         nbits_np, None, hdr_sink, 3,
-                                         nal.NAL_IDR)
-            payloads = self._cabac_payloads(recs, counts, qp)
-            nalus = []
-            for s in range(cfg.slices_per_frame):
-                sink = hdr_sink(s)
-                sink.cabac_align()
-                nalus.append(nal.make_nalu(
-                    3, nal.NAL_IDR, sink.to_bytes() + payloads[s]))
-            return nalus
+            if self.cabac:
+                return self._cabac_nalus(
+                    self._cabac_payloads(recs, counts, qp), hdr_sink, 3,
+                    nal.NAL_IDR)
+            nbits_np = nbits.cpu().numpy()
+            return self._cavlc_nalus(_pull_words(words, nbits_np), nbits_np,
+                                     None, hdr_sink, 3, nal.NAL_IDR)
 
         return finish, recon
 
@@ -513,9 +546,10 @@ class Encoder:
                        qp: int | None = None, poc_lsb: int = 0,
                        reorder_l0: tuple = (), mmco: tuple = ()):
         """Queue one P frame's device work against `ref` = (y, u, v) recon
-        planes -> (finish, recon).  `finish()` pulls the packed words and
-        the skip map and returns the frame's NAL units.  `reorder_l0` and
-        `mmco` go into the slice header as given (B GOPs will use them)."""
+        planes -> (finish, recon).  `finish()` runs K1 (CABAC) or pulls the
+        packed words and the skip map (CAVLC) and returns the frame's NAL
+        units.  `reorder_l0` and `mmco` go into the slice header as given
+        (B GOPs will use them)."""
         cfg = self.cfg
         if qp is None:
             qp = cfg.qp_inter
@@ -530,10 +564,17 @@ class Encoder:
                 reorder_l0=reorder_l0, mmco=mmco)
 
         mbd = reorder_wave_outputs(self.sched, ys)
-        words, nbits, skipped = self._serialize(mbd, p_slice=True)
+        if self.cabac:
+            recs, counts = self._cabac_records(mbd, p_slice=True)
+        else:
+            words, nbits, skipped = self._serialize(mbd, p_slice=True)
         recon = self._recon(dev_out, mbd, qp, p_slice=True)
 
         def finish():
+            if self.cabac:
+                return self._cabac_nalus(
+                    self._cabac_payloads(recs, counts, qp, p_slice=True),
+                    hdr_sink, 2, nal.NAL_SLICE)
             nbits_np = nbits.cpu().numpy()
             return self._cavlc_nalus(_pull_words(words, nbits_np), nbits_np,
                                      skipped.cpu().numpy(), hdr_sink, 2,

@@ -1,2 +1,2 @@
-"""Entropy coding: CABAC tables, the I-slice binarizer and the range
-coder (kernel K1)."""
+"""Entropy coding: CAVLC serializer and packer, CABAC tables, the I- and
+P-slice binarizer and the range coder (kernel K1)."""

@@ -1,12 +1,15 @@
-"""CABAC binarization of I slices on device (torch).
+"""CABAC binarization of I and P slices on device (torch).
 
-Counterpart of the I-slice path of `tpu264.entropy.cabac_binarize_j`
-(`binarize_frame_j`, `RecordRows`, `_residual_group_j`, `pack_records`,
-`unpack_records_np`, `compact_slices_j`) and of the record kinds of
-`tpu264.entropy.cabac_binarize`.  It builds the (kind, a, b) record
-grids for a whole frame from the final syntax maps and compacts them per
-slice into the packed streams kernel K1 replays.  The P/B and 8x8
-transform branches are not ported yet.
+Counterpart of the I- and P-slice paths of `tpu264.entropy.cabac_binarize_j`
+(`binarize_frame_j`, `RecordRows`, `_residual_group_j`,
+`_residual_group8_j`, `pack_records`, `unpack_records_np`,
+`compact_slices_j`) and of the record kinds of
+`tpu264.entropy.cabac_binarize`.  It builds the (kind, a, b) record grids
+for a whole frame from the final syntax maps and compacts them per slice
+into the packed streams kernel K1 replays.  P slices carry the reference's
+default P tools: 16x8/8x16 and P_8x8 partitions ("ptype", "mv2", "mvq")
+and the 8x8 transform ("t8", whose flag also goes on the I_NxN MBs of an
+I slice in the same PPS).  The B branch is not ported yet.
 
 The per-coefficient loops are emitted as blocked rows ([15, n]
 significance maps, [16, 6, n] level groups, ...); the row order inside
@@ -24,10 +27,10 @@ import numpy as np
 import torch
 
 from tpu264_torch.coding.wavefront import BLK_ORDER
-from .cabac_ctx import CBF_CAT_OFF, LVL_CAT_OFF, SIG_CAT_OFF, K_I4, K_I16, \
-    K_SKIP
-from .device_cavlc import (bit_length_minus1, blk_grid_index, compute_cbp,
-                           mpm_grid)
+from .cabac_ctx import CBF_CAT_OFF, LAST8_MAP, LVL_CAT_OFF, SIG8_MAP, \
+    SIG_CAT_OFF, K_I4, K_I16, K_INTER, K_SKIP
+from .device_cavlc import (_partition_mvds, bit_length_minus1,
+                           blk_grid_index, compute_cbp, mpm_grid, mvd_16x16)
 
 K_CTX, K_BYP, K_TERM = 0, 1, 2
 I32 = torch.int32
@@ -69,6 +72,16 @@ class RecordRows:
         self.put_block(K_CTX, self._row(ctx), self._row(b),
                        self._row(valid, torch.bool))
 
+    def ctx_run(self, ctx, binv: int, count, valid):
+        """`count` bins of value `binv` on context `ctx` (one record)."""
+        self.put_block(K_CTX, self._row(ctx),
+                       self._row((binv & 1) | (count << 1)),
+                       self._row(valid & (count > 0), torch.bool))
+
+    def bypass(self, value, nbits, valid):
+        self.put_block(K_BYP, self._row(value), self._row(nbits),
+                       self._row(valid & (nbits > 0), torch.bool))
+
     def terminate(self, binv, valid):
         self.put_block(K_TERM, self._row(binv), self._row(0),
                        self._row(valid, torch.bool))
@@ -100,6 +113,67 @@ def _top2(g, mask, fill=0):
     return torch.where(mask, fill, out)
 
 
+def _level_rows(grid: RecordRows, scanned, on_res, lvl_base):
+    """Levels and signs of a block group, last coefficient first: six rows
+    a coefficient (the first bin, the run of ones, the closing zero, the
+    EG0 escape's prefix and suffix, the sign).  scanned [n, m]; lvl_base
+    [n] or an int."""
+    n, m = scanned.shape
+    dev = scanned.device
+    nz = scanned != 0
+    absv = scanned.abs()
+    gt1 = (absv > 1) & nz
+    eq1 = (absv == 1) & nz
+
+    def sfx(msk):
+        c = msk.to(I32)
+        return torch.cumsum(c.flip(1), dim=1, dtype=I32).flip(1) - c
+
+    num_gt1 = sfx(gt1)
+    num_eq1 = sfx(eq1)
+    lvl_b = _full(n, lvl_base, I32, dev)
+    ctx0 = lvl_b[:, None] + torch.where(num_gt1 > 0, 0,
+                                        torch.clamp(1 + num_eq1, max=4))
+    ctxn = lvl_b[:, None] + 5 + torch.clamp(num_gt1, max=4)
+    onT = on_res[None, :] & nz.T.flip(0)                      # [m, n]
+    a_abs = torch.where(onT, absv.T.flip(0) - 1, 0)           # [m, n]
+    ctx0T = ctx0.T.flip(0)
+    ctxnT = ctxn.T.flip(0)
+    egp, egpb, egs, egsb = eg_parts(torch.clamp(a_abs - 14, min=0), 0)
+    sgn = (scanned.T.flip(0) < 0).to(I32)
+    run_cnt = torch.clamp(a_abs, max=14) - 1
+    rows_a = torch.stack([ctx0T, ctxnT, ctxnT, egp, egs, sgn], 1)
+    rows_b = torch.stack([(a_abs > 0).to(I32) | 2,
+                          1 | (run_cnt << 1),
+                          torch.full_like(a_abs, 2),
+                          egpb, egsb, torch.ones_like(a_abs)], 1)
+    rows_v = torch.stack([onT,
+                          onT & (a_abs >= 2) & (run_cnt > 0),
+                          onT & (a_abs >= 1) & (a_abs < 14),
+                          onT & (a_abs >= 14) & (egpb > 0),
+                          onT & (a_abs >= 14) & (egsb > 0),
+                          onT], 1)
+    kinds = torch.tensor([K_CTX] * 3 + [K_BYP] * 3, dtype=I32)
+    grid.ks.append(kinds.to(dev)[None, :, None].expand(m, 6, n)
+                   .reshape(6 * m, n))
+    grid.as_.append(rows_a.reshape(6 * m, n))
+    grid.bs.append(rows_b.reshape(6 * m, n))
+    grid.vs.append(rows_v.reshape(6 * m, n))
+
+
+def _sig_last_rows(grid: RecordRows, nz, last, sig_a, last_a, on_i):
+    """The interleaved significance / last rows [2 m, n] of a block group:
+    sig_a, last_a, on_i [m, n]; nz [n, > m]."""
+    m, n = on_i.shape
+    sig = nz.T[:m]
+    is_last = torch.arange(m, dtype=I32, device=nz.device)[:, None] \
+        == last[None, :]
+    grid.put_block(K_CTX, torch.stack([sig_a, last_a], 1).reshape(2 * m, n),
+                   torch.stack([sig.to(I32) | 2, is_last.to(I32) | 2],
+                               1).reshape(2 * m, n),
+                   torch.stack([on_i, on_i & sig], 1).reshape(2 * m, n))
+
+
 def _residual_group(grid: RecordRows, scanned, mc, sig_base, last_base,
                     lvl_base, cbf_ctx, coded, cdc_inc: bool):
     """Blocked residual block (127 rows): coded_block_flag, significance
@@ -120,65 +194,50 @@ def _residual_group(grid: RecordRows, scanned, mc, sig_base, last_base,
     inc = torch.clamp(i_arr, max=2) if cdc_inc else i_arr      # [15]
     on_i = (on_res[None, :] & (i_arr[:, None] <= last[None, :])
             & (i_arr[:, None] <= (mc - 2)[None, :]))          # [15, n]
-    sig = nz.T[:15]                                           # [15, n]
-    sig_a = _full(n, sig_base, I32, dev)[None, :] + inc[:, None]
-    last_a = _full(n, last_base, I32, dev)[None, :] + inc[:, None]
-    is_last = i_arr[:, None] == last[None, :]
-    a_blk = torch.stack([sig_a, last_a], 1).reshape(30, n)
-    b_blk = torch.stack([sig.to(I32) | 2, is_last.to(I32) | 2],
-                        1).reshape(30, n)
-    v_blk = torch.stack([on_i, on_i & sig], 1).reshape(30, n)
-    grid.put_block(K_CTX, a_blk, b_blk, v_blk)
-
+    _sig_last_rows(grid, nz, last,
+                   _full(n, sig_base, I32, dev)[None, :] + inc[:, None],
+                   _full(n, last_base, I32, dev)[None, :] + inc[:, None],
+                   on_i)
     # ---- levels + signs, i = 15..0 (6 rows per coefficient) ----
-    absv = scanned.abs()
-    gt1 = (absv > 1) & nz
-    eq1 = (absv == 1) & nz
-
-    def sfx(msk):
-        m = msk.to(I32)
-        return torch.cumsum(m.flip(1), dim=1, dtype=I32).flip(1) - m
-
-    num_gt1 = sfx(gt1)
-    num_eq1 = sfx(eq1)
-    lvl_b = _full(n, lvl_base, I32, dev)
-    ctx0 = lvl_b[:, None] + torch.where(num_gt1 > 0, 0,
-                                        torch.clamp(1 + num_eq1, max=4))
-    ctxn = lvl_b[:, None] + 5 + torch.clamp(num_gt1, max=4)
-    onT = on_res[None, :] & nz.T.flip(0)                     # [16, n]
-    a_abs = torch.where(onT, absv.T.flip(0) - 1, 0)          # [16, n]
-    ctx0T = ctx0.T.flip(0)
-    ctxnT = ctxn.T.flip(0)
-    egp, egpb, egs, egsb = eg_parts(torch.clamp(a_abs - 14, min=0), 0)
-    sgn = (scanned.T.flip(0) < 0).to(I32)
-    run_cnt = torch.clamp(a_abs, max=14) - 1
-    rows_a = torch.stack([ctx0T, ctxnT, ctxnT, egp, egs, sgn], 1)
-    rows_b = torch.stack([(a_abs > 0).to(I32) | 2,
-                          1 | (run_cnt << 1),
-                          torch.full_like(a_abs, 2),
-                          egpb, egsb, torch.ones_like(a_abs)], 1)
-    rows_v = torch.stack([onT,
-                          onT & (a_abs >= 2) & (run_cnt > 0),
-                          onT & (a_abs >= 1) & (a_abs < 14),
-                          onT & (a_abs >= 14) & (egpb > 0),
-                          onT & (a_abs >= 14) & (egsb > 0),
-                          onT], 1)
-    kinds = torch.tensor([K_CTX] * 3 + [K_BYP] * 3, dtype=I32)
-    grid.ks.append(kinds.to(dev)[None, :, None].expand(16, 6, n)
-                   .reshape(96, n))
-    grid.as_.append(rows_a.reshape(96, n))
-    grid.bs.append(rows_b.reshape(96, n))
-    grid.vs.append(rows_v.reshape(96, n))
+    _level_rows(grid, scanned, on_res, lvl_base)
 
 
-def binarize_frame(mb, wm: int, hm: int, slice_rows):
-    """I-slice records of a frame from its raster MB dict.
+_SIG8 = torch.as_tensor(402 + np.asarray(SIG8_MAP), dtype=I32)
+_LAST8 = torch.as_tensor(417 + np.asarray(LAST8_MAP[:63]), dtype=I32)
 
-    Returns (kind [S, n] int32, a, b, valid [S, n] bool): slot-major,
-    the same record semantics and order as `binarize_frame_j`."""
+
+def _residual_group8(grid: RecordRows, scan64, on_res):
+    """Blocked cat-5 luma 8x8 residual (spec Table 9-43 context maps): 63
+    significance / last row pairs and 64 x 6 level rows, no
+    coded_block_flag (its presence is the cbp bit, `on_res`)."""
+    scan64 = scan64.to(I32)
+    n = scan64.shape[0]
+    dev = scan64.device
+    nz = scan64 != 0
+    pos = torch.arange(64, dtype=I32, device=dev)
+    last = (nz * (pos + 1)[None, :]).amax(dim=1) - 1
+    i_arr = torch.arange(63, dtype=I32, device=dev)
+    on_i = on_res[None, :] & (i_arr[:, None] <= last[None, :])
+    _sig_last_rows(grid, nz, last,
+                   _SIG8.to(dev)[:, None].expand(63, n),
+                   _LAST8.to(dev)[:, None].expand(63, n), on_i)
+    _level_rows(grid, scan64, on_res, 426)
+
+
+def binarize_frame(mb, wm: int, hm: int, slice_rows, p_slice: bool = False):
+    """I- or P-slice records of a frame from its raster MB dict.
+
+    A P dict carries "is_inter", "mv" and "mv_skip"; with "ptype" and
+    "mv2" the 16x8/8x16 partitions, with "mvq" also P_8x8; with "t8" (a
+    PPS with transform_8x8_mode_flag, in I slices too) the 8x8 transform.
+    Returns (kind [S, n] int32, a, b, valid [S, n] bool): slot-major, the
+    same record semantics and order as `binarize_frame_j`."""
     n = wm * hm
     dev = mb["luma_ac"].device
-    sel16 = mb["sel16"].to(torch.bool)
+    t8_mode = "t8" in mb
+    is_inter = (mb["is_inter"].to(torch.bool) if p_slice
+                else torch.zeros(n, dtype=torch.bool, device=dev))
+    sel16 = mb["sel16"].to(torch.bool) & ~is_inter
     luma_ac = mb["luma_ac"].to(I32)
     luma_dc = mb["luma_dc"].to(I32)
     chroma_dc = mb["chroma_dc"].to(I32)
@@ -191,19 +250,41 @@ def binarize_frame(mb, wm: int, hm: int, slice_rows):
 
     mb_r = np.arange(n) // wm
     mb_c = np.arange(n) % wm
-    is_i4 = ~sel16
+    is_i4 = ~sel16 & ~is_inter
     g_rows, g_cols = blk_grid_index(wm, hm, dev)
     modes_grid = torch.full((hm * 4, wm * 4), -1, dtype=I32, device=dev)
     modes_grid[g_rows, g_cols] = torch.where(is_i4[:, None], modes, -1)
     mpm = mpm_grid(modes_grid, [int(r) * 4 for r in slice_rows])
     mpm_mb = mpm[g_rows, g_cols]                              # [n, 16]
 
-    # ---- final-state neighbor grids (2D [hm, wm]); every MB is coded
-    # and intra in an I slice ----
-    kind_g = torch.where(sel16, K_I16, K_I4).to(I32).reshape(hm, wm)
-    cbp_l_g = cbp_luma.reshape(hm, wm)
-    cbp_c_g = cbp_chroma.reshape(hm, wm)
-    cpm_g = cmode.reshape(hm, wm)
+    # ---- the mvds (part0 / q0, part1 / q1, P_8x8 q2 and q3) and skips
+    parts_mode = p_slice and "ptype" in mb
+    p8x8_mode = parts_mode and "mvq" in mb
+    ptype = torch.zeros(n, dtype=I32, device=dev)
+    if p_slice:
+        mv = mb["mv"].to(I32)
+        if parts_mode:
+            ptype = mb["ptype"].to(I32)
+            mvds = _partition_mvds(mb, wm, hm, slice_rows)
+            mvd0, mvd1 = mvds[:2]
+            mvdq = mvds[2] if p8x8_mode else None
+        else:
+            mvd0 = mvd_16x16(mv, is_inter, wm, hm, slice_rows)
+        skipped = (is_inter & (ptype == 0)
+                   & (mv == mb["mv_skip"].to(I32)).all(dim=1) & (cbp == 0))
+    else:
+        skipped = torch.zeros(n, dtype=torch.bool, device=dev)
+    coded = ~skipped
+    intra_cur = ~is_inter
+
+    # ---- final-state neighbor grids (2D [hm, wm]) ----
+    kind_g = torch.where(skipped, K_SKIP,
+                         torch.where(is_inter, K_INTER,
+                                     torch.where(sel16, K_I16, K_I4))) \
+        .to(I32).reshape(hm, wm)
+    cbp_l_g = torch.where(coded, cbp_luma, 0).reshape(hm, wm)
+    cbp_c_g = torch.where(coded, cbp_chroma, 0).reshape(hm, wm)
+    cpm_g = torch.where(is_i4 | sel16, cmode, 0).reshape(hm, wm)
 
     av_l = np.zeros((hm, wm), dtype=bool)
     av_l[:, 1:] = True
@@ -224,24 +305,62 @@ def binarize_frame(mb, wm: int, hm: int, slice_rows):
     def top(g, fill=0):
         return _top2(g, top_mask, fill)
 
+    def nb_sum(g_l, g_t):
+        """Left neighbour's value in `g_l` plus top's in `g_t`, 0 where
+        unavailable -> [n]."""
+        return (torch.where(av_l, left(g_l), 0)
+                + torch.where(av_t, top(g_t), 0)).reshape(n)
+
     grid = RecordRows(n, dev)
     ones = torch.ones(n, dtype=torch.bool, device=dev)
+    t8v = torch.zeros(n, dtype=torch.bool, device=dev)
+    if t8_mode:
+        # the flag's context counts the left and top MBs' coded t8
+        t8v = mb["t8"].to(torch.bool) & is_inter & coded & (cbp_luma > 0)
+        t8_g = t8v.to(I32).reshape(hm, wm)
+        t8_inc = nb_sum(t8_g, t8_g)
 
-    # ---- mb_type (I slice) ----
-    i16_l = (av_l & (left(kind_g, -1) == K_I16)).to(I32)
-    i16_t = (av_t & (top(kind_g, -1) == K_I16)).to(I32)
-    first_ctx = (3 + i16_l + i16_t).reshape(n)
-    grid.ctx_bin(first_ctx, sel16.to(I32), ones)
-    on16 = sel16
+    # ---- mb_skip_flag ----
+    if p_slice:
+        nskip = (kind_g != K_SKIP).to(I32)
+        grid.ctx_bin(11 + nb_sum(nskip, nskip), skipped.to(I32), ones)
+
+    # ---- mb_type ----
+    intra_coded = coded & intra_cur
+    if p_slice:
+        grid.ctx_bin(14, intra_cur.to(I32), coded)
+        inter_coded = coded & is_inter
+        # Table 9-37 P prefix: '000' 16x16, '011' 16x8, '010' 8x16, '001'
+        # P_8x8 (the third bin's ctx is 16 after a second bin 0, else 17)
+        pb1 = (ptype == 1) | (ptype == 2)
+        grid.ctx_bin(15, pb1.to(I32), inter_coded)
+        grid.ctx_bin(torch.where(pb1, 17, 16),
+                     ((ptype == 1) | (ptype == 3)).to(I32), inter_coded)
+        if p8x8_mode:
+            # sub_mb_type x4: P_L0_8x8 = '1' (ctx 21, Table 9-38)
+            on_sub = inter_coded & (ptype == 3)
+            for _ in range(4):
+                grid.ctx_bin(21, 1, on_sub)
+        first_ctx = 17
+        rest = (18, 19, 19, 20, 20)
+    else:
+        is_i16 = (kind_g == K_I16).to(I32)
+        first_ctx = 3 + nb_sum(is_i16, is_i16)
+        rest = (6, 7, 8, 9, 10)
+    grid.ctx_bin(first_ctx, sel16.to(I32), intra_coded)
+    on16 = intra_coded & sel16
     grid.terminate(0, on16)
-    grid.ctx_bin(6, (cbp_luma > 0).to(I32), on16)
-    grid.ctx_bin(7, (cbp_chroma != 0).to(I32), on16)
-    grid.ctx_bin(8, torch.clamp(cbp_chroma - 1, min=0), on16 & (cbp_chroma != 0))
-    grid.ctx_bin(9, i16mode >> 1, on16)
-    grid.ctx_bin(10, i16mode & 1, on16)
+    grid.ctx_bin(rest[0], (cbp_luma > 0).to(I32), on16)
+    grid.ctx_bin(rest[1], (cbp_chroma != 0).to(I32), on16)
+    grid.ctx_bin(rest[2], torch.clamp(cbp_chroma - 1, min=0),
+                 on16 & (cbp_chroma != 0))
+    grid.ctx_bin(rest[3], i16mode >> 1, on16)
+    grid.ctx_bin(rest[4], i16mode & 1, on16)
 
     # ---- intra 4x4 pred modes (16 x 4 rows) ----
-    on_i4 = is_i4
+    on_i4 = coded & is_i4
+    if t8_mode:
+        grid.ctx_bin(399 + t8_inc, 0, on_i4)     # I_NxN: the 4x4 transform
     for idx in range(16):
         m = modes[:, idx]
         p = mpm_mb[:, idx]
@@ -254,19 +373,88 @@ def binarize_frame(mb, wm: int, hm: int, slice_rows):
         grid.ctx_bin(69, (rem >> 2) & 1, onr)
 
     # ---- intra_chroma_pred_mode ----
-    cpm_l = left(kind_g, K_SKIP)
-    cpm_t = top(kind_g, K_SKIP)
-    nb_l = (av_l & ((cpm_l == K_I4) | (cpm_l == K_I16))
-            & (left(cpm_g) != 0)).to(I32)
-    nb_t = (av_t & ((cpm_t == K_I4) | (cpm_t == K_I16))
-            & (top(cpm_g) != 0)).to(I32)
-    cpm_ctx = (64 + nb_l + nb_t).reshape(n)
-    grid.ctx_bin(cpm_ctx, (cmode != 0).to(I32), ones)
-    grid.ctx_bin(67, (cmode > 1).to(I32), cmode != 0)
-    grid.ctx_bin(67, (cmode == 3).to(I32), cmode > 1)
+    cpm_nb = (((kind_g == K_I4) | (kind_g == K_I16)) & (cpm_g != 0)).to(I32)
+    grid.ctx_bin(64 + nb_sum(cpm_nb, cpm_nb), (cmode != 0).to(I32),
+                 intra_coded)
+    grid.ctx_bin(67, (cmode > 1).to(I32), intra_coded & (cmode != 0))
+    grid.ctx_bin(67, (cmode == 3).to(I32), intra_coded & (cmode > 1))
+
+    # ---- mvd: x (comp 1, base 40) then y (comp 0, base 47); with
+    # partitions part0 then part1 (7.3.5.1 order), then P_8x8's q2 and q3;
+    # the contexts sum |mvd| of the left and top 4x4 cells (spec
+    # 9.3.3.1.1.7), a skipped or intra neighbour adding 0 ----
+    if p_slice:
+        def emit_mvd(vals, s_of_comp, on_mv):
+            for comp, base in ((1, 40), (0, 47)):
+                s = s_of_comp(comp)
+                inc = torch.where(s < 3, 0, torch.where(s <= 32, 1, 2))
+                a = vals[:, comp].abs()
+                grid.ctx_bin(base + inc, (a > 0).to(I32), on_mv)
+                for k in (1, 2, 3):
+                    grid.ctx_bin(base + k + 2, (a > k).to(I32),
+                                 on_mv & (a >= k))
+                grid.ctx_run(base + 6, 1, torch.clamp(a, max=9) - 4,
+                             on_mv & (a >= 5))
+                grid.ctx_bin(base + 6, 0, on_mv & (a >= 4) & (a < 9))
+                egp, egpb, egs, egsb = eg_parts(torch.clamp(a - 9, min=0), 3)
+                on_eg = on_mv & (a >= 9)
+                grid.bypass(egp, egpb, on_eg)
+                grid.bypass(egs, egsb, on_eg & (egsb > 0))
+                grid.bypass((vals[:, comp] < 0).to(I32), 1, on_mv & (a > 0))
+
+        on0 = coded & is_inter
+        a0 = torch.where(on0[:, None], mvd0.abs(), 0)
+        if parts_mode:
+            on1 = on0 & (ptype > 0)
+            a1 = torch.where(on1[:, None], mvd1.abs(), 0)
+            # |mvd| at the boundary 4x4 cells a later partition or MB
+            # reads: tr (row 0, right column), bl (bottom row, column 0),
+            # br (bottom row, right column); P_8x8: tr <- q1, bl <- q2,
+            # br <- q3
+            tr_g = torch.where(((ptype == 2) | (ptype == 3))[:, None],
+                               a1, a0).reshape(hm, wm, 2)
+            bl_cell = torch.where((ptype == 1)[:, None], a1, a0)
+            br_cell = torch.where((ptype > 0)[:, None], a1, a0)
+            if p8x8_mode:
+                onq = on0 & (ptype == 3)
+                a2 = torch.where(onq[:, None], mvdq[:, 2].abs(), 0)
+                a3 = torch.where(onq[:, None], mvdq[:, 3].abs(), 0)
+                bl_cell = torch.where((ptype == 3)[:, None], a2, bl_cell)
+                br_cell = torch.where((ptype == 3)[:, None], a3, br_cell)
+            bl_g = bl_cell.reshape(hm, wm, 2)
+            br_g = br_cell.reshape(hm, wm, 2)
+
+            def lbr(comp):
+                # the left MB's bottom-right cell (its rows 2-3)
+                g = br_g[:, :, comp]
+                return torch.where(av_l, left(g), 0).reshape(n)
+
+            def s_p0(comp):
+                # part0 / q0: A = left MB's tr cell, B = top MB's bl cell
+                return nb_sum(tr_g[:, :, comp], bl_g[:, :, comp])
+
+            def s_p1(comp):
+                # 16x8 bottom: A = left MB's br cell, B = own part0;
+                # 8x16 right and q1: A = own part0 / q0, B = top MB's br
+                tbr = torch.where(av_t, top(br_g[:, :, comp]), 0).reshape(n)
+                own = a0[:, comp]
+                return torch.where(ptype == 1, lbr(comp) + own, own + tbr)
+
+            emit_mvd(mvd0, s_p0, on0)
+            emit_mvd(mvd1, s_p1, on1)
+            if p8x8_mode:
+                # q2: A = left MB's br cell, B = own q0; q3: A = q2, B = q1
+                emit_mvd(mvdq[:, 2], lambda comp: lbr(comp) + a0[:, comp],
+                         onq)
+                emit_mvd(mvdq[:, 3], lambda comp: a2[:, comp] + a1[:, comp],
+                         onq)
+        else:
+            a0_g = a0.reshape(hm, wm, 2)
+            emit_mvd(mvd0, lambda comp: nb_sum(a0_g[:, :, comp],
+                                               a0_g[:, :, comp]), on0)
 
     # ---- coded_block_pattern ----
-    on_cbp = ~sel16
+    on_cbp = coded & ~sel16
 
     def cbp_cond_l(bit):
         v = ((left(cbp_l_g) >> bit) & 1) == 0
@@ -284,33 +472,44 @@ def binarize_frame(mb, wm: int, hm: int, slice_rows):
     grid.ctx_bin(73 + cbp_cond_l(3) + 2 * own(0), (cbp >> 2) & 1, on_cbp)
     grid.ctx_bin(73 + own(2) + 2 * own(1), (cbp >> 3) & 1, on_cbp)
     cc = cbp >> 4
-    ccl = torch.where(av_l, (left(cbp_c_g) != 0).to(I32), 0).reshape(n)
-    cct = torch.where(av_t, (top(cbp_c_g) != 0).to(I32), 0).reshape(n)
-    grid.ctx_bin(77 + ccl + 2 * cct, (cc != 0).to(I32), on_cbp)
-    ccl2 = torch.where(av_l, (left(cbp_c_g) == 2).to(I32), 0).reshape(n)
-    cct2 = torch.where(av_t, (top(cbp_c_g) == 2).to(I32), 0).reshape(n)
-    grid.ctx_bin(81 + ccl2 + 2 * cct2, torch.clamp(cc - 1, min=0),
-                 on_cbp & (cc != 0))
+    cc_nz = (cbp_c_g != 0).to(I32)
+    cc_2 = (cbp_c_g == 2).to(I32)
+    grid.ctx_bin(77 + torch.where(av_l, left(cc_nz), 0).reshape(n)
+                 + 2 * torch.where(av_t, top(cc_nz), 0).reshape(n),
+                 (cc != 0).to(I32), on_cbp)
+    grid.ctx_bin(81 + torch.where(av_l, left(cc_2), 0).reshape(n)
+                 + 2 * torch.where(av_t, top(cc_2), 0).reshape(n),
+                 torch.clamp(cc - 1, min=0), on_cbp & (cc != 0))
+
+    if t8_mode:
+        # transform_size_8x8_flag: inter MBs with a luma residual
+        grid.ctx_bin(399 + t8_inc, t8v.to(I32),
+                     coded & is_inter & (cbp_luma > 0))
 
     # ---- mb_qp_delta (always 0 in this encoder) ----
-    grid.ctx_bin(60, 0, sel16 | (cbp > 0))
+    grid.ctx_bin(60, 0, coded & (sel16 | (cbp > 0)))
 
-    # ---- residual blocks ----
-    cbf_ldc = (sel16 & (luma_dc != 0).any(dim=1)).reshape(hm, wm)
+    # ---- residual blocks; an unavailable neighbour counts as coded for
+    # an intra MB and as not coded for an inter one ----
+    ic = intra_cur.to(I32)
+    cbf_ldc = (sel16 & coded & (luma_dc != 0).any(dim=1)).reshape(hm, wm)
     l4_i16 = (luma_ac[:, :, 1:] != 0).any(dim=2) & (cbp_luma > 0)[:, None]
     bit_of_idx = torch.arange(16, dtype=I32, device=dev) // 4
-    l4_reg = (luma_ac != 0).any(dim=2) \
-        & (((cbp_luma[:, None] >> bit_of_idx[None, :]) & 1) > 0)
-    l4 = torch.where(sel16[:, None], l4_i16, l4_reg)
+    bit8 = ((cbp_luma[:, None] >> bit_of_idx[None, :]) & 1) > 0
+    l4_reg = (luma_ac != 0).any(dim=2) & bit8
+    l4 = torch.where(sel16[:, None], l4_i16, l4_reg) & coded[:, None]
+    # a t8 MB's 4x4 coded_block_flag neighbours take its cbp bits
+    l4 = torch.where(t8v[:, None], bit8, l4)
     cbf_l4_g = torch.zeros((hm * 4, wm * 4), dtype=I32, device=dev)
     cbf_l4_g[g_rows, g_cols] = l4.to(I32)
     cbf_cdc_g = torch.zeros((2, hm, wm), dtype=I32, device=dev)
     cbf_cac_g = torch.zeros((2, hm * 2, wm * 2), dtype=I32, device=dev)
     for comp in range(2):
         cbf_cdc_g[comp] = ((chroma_dc[:, comp] != 0).any(dim=1)
-                           & (cbp_chroma >= 1)).reshape(hm, wm).to(I32)
+                           & (cbp_chroma >= 1) & coded).reshape(hm, wm) \
+            .to(I32)
         cac_nz = (chroma_ac[:, comp, :, 1:] != 0).any(dim=2) \
-            & (cbp_chroma == 2)[:, None]
+            & ((cbp_chroma == 2) & coded)[:, None]
         for idx in range(4):
             cbf_cac_g[comp, mb_r * 2 + idx // 2, mb_c * 2 + idx % 2] = \
                 cac_nz[:, idx].to(I32)
@@ -325,9 +524,10 @@ def binarize_frame(mb, wm: int, hm: int, slice_rows):
     _residual_group(grid, luma_dc, 16,
                     105 + SIG_CAT_OFF[0], 166 + SIG_CAT_OFF[0],
                     227 + LVL_CAT_OFF[0],
-                    85 + CBF_CAT_OFF[0] + ca + 2 * cb, sel16, cdc_inc=False)
+                    85 + CBF_CAT_OFF[0] + ca + 2 * cb, coded & sel16,
+                    cdc_inc=False)
 
-    # 16 luma blocks
+    # 16 luma blocks (a t8 MB's come in its 8x8 groups below)
     sig_b = torch.where(sel16, 105 + SIG_CAT_OFF[1], 105 + SIG_CAT_OFF[2])
     last_b = torch.where(sel16, 166 + SIG_CAT_OFF[1], 166 + SIG_CAT_OFF[2])
     lvl_b = torch.where(sel16, 227 + LVL_CAT_OFF[1], 227 + LVL_CAT_OFF[2])
@@ -345,28 +545,40 @@ def binarize_frame(mb, wm: int, hm: int, slice_rows):
         ca = cbf_l4_g[g4r, np.maximum(g4c - 1, 0)]
         cb = cbf_l4_g[np.maximum(g4r - 1, 0), g4c]
         if bx == 0:
-            ca = torch.where(av_l_flat, ca, 1)
+            ca = torch.where(av_l_flat, ca, ic)
         if by == 0:
-            cb = torch.where(av_t_flat, cb, 1)
-        coded_blk = (sel16 & (cbp_luma > 0)) \
-            | (~sel16 & (((cbp_luma >> (idx // 4)) & 1) > 0))
+            cb = torch.where(av_t_flat, cb, ic)
+        coded_blk = coded & ~t8v & (
+            (sel16 & (cbp_luma > 0))
+            | (~sel16 & (((cbp_luma >> (idx // 4)) & 1) > 0)))
         _residual_group(grid, lac16[:, idx], mc_l, sig_b, last_b, lvl_b,
                         85 + cbf_off + ca + 2 * cb, coded_blk,
                         cdc_inc=False)
 
+    if t8_mode:
+        # cat-5 8x8 residual of t8 MBs: the pseudo 4x4 blocks of the CAVLC
+        # interleave back into the 8x8 scan (block i, coefficient k ->
+        # position 4k + i)
+        scan64 = luma_ac.reshape(n, 4, 4, 16).transpose(2, 3) \
+            .reshape(n, 4, 64)
+        for b8 in range(4):
+            _residual_group8(grid, scan64[:, b8],
+                             t8v & (((cbp_luma >> b8) & 1) > 0))
+
     # chroma DC (cat 3)
+    ic2 = ic.reshape(hm, wm)
     for comp in range(2):
         v_l = torch.where(left(cbp_c_g) != 0, left(cbf_cdc_g[comp]), 0)
         v_t = torch.where(top(cbp_c_g) != 0, top(cbf_cdc_g[comp]), 0)
-        ca = torch.where(av_l, v_l, 1).reshape(n)
-        cb = torch.where(av_t, v_t, 1).reshape(n)
+        ca = torch.where(av_l, v_l, ic2).reshape(n)
+        cb = torch.where(av_t, v_t, ic2).reshape(n)
         cdc16 = torch.cat([chroma_dc[:, comp],
                            torch.zeros((n, 12), dtype=I32, device=dev)], 1)
         _residual_group(grid, cdc16, 4,
                         105 + SIG_CAT_OFF[3], 166 + SIG_CAT_OFF[3],
                         227 + LVL_CAT_OFF[3],
                         85 + CBF_CAT_OFF[3] + ca + 2 * cb,
-                        cbp_chroma >= 1, cdc_inc=True)
+                        coded & (cbp_chroma >= 1), cdc_inc=True)
 
     # chroma AC (cat 4)
     zero1 = torch.zeros((n, 1), dtype=I32, device=dev)
@@ -377,15 +589,15 @@ def binarize_frame(mb, wm: int, hm: int, slice_rows):
             ca = cbf_cac_g[comp, g2r, np.maximum(g2c - 1, 0)]
             cb = cbf_cac_g[comp, np.maximum(g2r - 1, 0), g2c]
             if bx == 0:
-                ca = torch.where(av_l_flat, ca, 1)
+                ca = torch.where(av_l_flat, ca, ic)
             if by == 0:
-                cb = torch.where(av_t_flat, cb, 1)
+                cb = torch.where(av_t_flat, cb, ic)
             cac16 = torch.cat([chroma_ac[:, comp, idx, 1:], zero1], 1)
             _residual_group(grid, cac16, 15,
                             105 + SIG_CAT_OFF[4], 166 + SIG_CAT_OFF[4],
                             227 + LVL_CAT_OFF[4],
                             85 + CBF_CAT_OFF[4] + ca + 2 * cb,
-                            cbp_chroma == 2, cdc_inc=False)
+                            coded & (cbp_chroma == 2), cdc_inc=False)
 
     # ---- end_of_slice_flag ----
     rows = [int(r) for r in slice_rows] + [hm]

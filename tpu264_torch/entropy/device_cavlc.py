@@ -1,8 +1,8 @@
 """On-device CAVLC serialization + bit packing (torch), and the per-MB
 syntax helpers shared by the CABAC binarizer and the deblocker.
 
-Counterpart of `tpu264.entropy.device_cavlc` for I slices and for P slices
-without partitions, P_8x8 or the 8x8 transform: per-block token/length
+Counterpart of `tpu264.entropy.device_cavlc` for I and P slices (with the
+default P tools: partitions, P_8x8, the 8x8 transform): per-block token/length
 computation is parallel over blocks, packing is a prefix sum plus a
 scatter-add, so only the packed slice payloads cross to the host.  Every
 function mirrors its reference twin bit for bit; the tests hold them to
@@ -471,6 +471,16 @@ def _neighbor_mvs(mv_map, ref_map, wm, hm, slice_rows):
                  mv_c=mv_c, ref_c=ref_c).items()}
 
 
+def mvd_16x16(mv, is_inter, wm: int, hm: int, slice_rows):
+    """mv - its median prediction (spec 8.4.1.3) for MBs of one 16x16
+    partition each; an intra MB is an INTRA neighbour -> [n, 2]."""
+    mv_map = torch.where(is_inter[:, None], mv, 0).reshape(hm, wm, 2)
+    ref_map = torch.where(is_inter, 0, mvpred.INTRA).to(I32).reshape(hm, wm)
+    nb = _neighbor_mvs(mv_map, ref_map, wm, hm, slice_rows)
+    return mv - mvpred.predict_mv(nb["mv_a"], nb["ref_a"], nb["mv_b"],
+                                  nb["ref_b"], nb["mv_c"], nb["ref_c"])
+
+
 def _slice_top_mask(hm: int, slice_rows, device):
     """[hm, 1] bool: the MB rows that start a slice."""
     mask = np.zeros((hm, 1), dtype=bool)
@@ -654,12 +664,7 @@ def serialize_frame_p(mb, wm: int, hm: int, slice_rows):
         mvd, mvd1 = mvds[:2]
     else:
         ptype = torch.zeros(n, dtype=I32, device=dev)
-        mv_map = torch.where(is_inter[:, None], mv, 0).reshape(hm, wm, 2)
-        ref_map = torch.where(is_inter, 0, mvpred.INTRA).to(I32) \
-            .reshape(hm, wm)
-        nb = _neighbor_mvs(mv_map, ref_map, wm, hm, slice_rows)
-        mvd = mv - mvpred.predict_mv(nb["mv_a"], nb["ref_a"], nb["mv_b"],
-                                     nb["ref_b"], nb["mv_c"], nb["ref_c"])
+        mvd = mvd_16x16(mv, is_inter, wm, hm, slice_rows)
 
     mv_skip = mb["mv_skip"].to(I32)
     skipped = (is_inter & (ptype == 0) & (mv == mv_skip).all(dim=1)

@@ -1,10 +1,12 @@
 """Stage profile of one warm 720p frame on the card: an all-intra CABAC +
-deblock frame (the default), or a P frame of an IPPP CAVLC + deblock
-sequence with the reference's default P tools (`--config ippp720`) or
-without them (`--config ippp720_notools`).
+deblock frame (the default), or a P frame of an IPPP + deblock sequence:
+CAVLC with the reference's default P tools (`--config ippp720`) or
+without them (`--config ippp720_notools`), or CABAC with the default P
+tools (`--config ippp720_cabac`).
 
     python -m tpu264_torch.tools.profile_frame
-        [--config intra720|ippp720|ippp720_notools] [--out FILE.json]
+        [--config intra720|ippp720|ippp720_notools|ippp720_cabac]
+        [--out FILE.json]
 
 Encodes `synth_frame(1280, 720, t)` frames (QP 28, one slice) and prints
 one JSON object with, for warm frames:
@@ -29,14 +31,16 @@ sequence (full-search ME with quarter-pel refinement of the MB, its
 16x8/8x16 halves and its quadrants; P_L0_16x8, P_L0_8x16, P_8x8 and the
 8x8 transform weighed in every MB), encoded against the second's
 reconstruction by `Encoder.encode_p_frame`; `ippp720_notools` is the same
-with the 16x16 partition and the 4x4 transform alone.  The stages are
-upload, the half-pel planes, the full search, the sub-pel refinement, the
-wave loop (the rest of the P encoder), reorder, serialize + pack,
-deblock, and pull + NAL assembly;
+with the 16x16 partition and the 4x4 transform alone, `ippp720_cabac`
+the default tools' frame with CABAC.  The stages are upload, the half-pel
+planes, the full search, the sub-pel refinement, the wave loop (the rest
+of the P encoder), reorder, serialize + pack (CAVLC) or binarize +
+compact and K1 + payload pull (CABAC), deblock, and pull + NAL assembly
+(CAVLC) or NAL assembly (CABAC);
 `kernel_launches` gives the hand-written kernels' launches of the frame,
 `stream` its bits and `idr_frame_seconds` a warm IDR frame of the same
-encoder (CAVLC, pull and NAL assembly included).  There is no `cabac`
-entry.
+encoder (pull and NAL assembly included); with CABAC `cabac` counts the P
+frame's records, bins and bytes as above.
 
 With `--k1-stages` the kernel library is built with `-DK1_PROFILE`, and
 every launch of the CABAC coder prints, per slice and stage (warp 0 the
@@ -87,6 +91,17 @@ class Clock:
                                + time.monotonic() - self.t0)
 
 
+def cabac_counts(recs, counts, payloads) -> dict:
+    """Records, bins and payload bytes of a frame's first slice."""
+    n = int(counts[0])
+    kind, _, b = cbz.unpack_records(recs[0, :n].cpu().numpy())
+    bins = int(np.where(kind == 0, b >> 1, np.where(kind == 1, b, 1)).sum())
+    return {"records": n, "bins": bins,
+            "ctx_bins": int((b >> 1)[kind == 0].sum()),
+            "bypass_bins": int(b[kind == 1].sum()),
+            "payload_bytes": sum(len(p) for p in payloads)}
+
+
 def stage_times(enc: Encoder, frame) -> tuple[dict, dict]:
     """One frame stage by stage -> (stage seconds, cabac counts)."""
     st: dict = {}
@@ -103,14 +118,7 @@ def stage_times(enc: Encoder, frame) -> tuple[dict, dict]:
         enc._apply_deblock(dev_out, mbd, QP)
     with Clock(st, "k1_and_pull"):
         payloads = enc._cabac_payloads(recs, counts, QP)
-    n = int(counts[0])
-    kind, _, b = cbz.unpack_records(recs[0, :n].cpu().numpy())
-    bins = int(np.where(kind == 0, b >> 1, np.where(kind == 1, b, 1)).sum())
-    cabac = {"records": n, "bins": bins,
-             "ctx_bins": int((b >> 1)[kind == 0].sum()),
-             "bypass_bins": int(b[kind == 1].sum()),
-             "payload_bytes": sum(len(p) for p in payloads)}
-    return st, cabac
+    return st, cabac_counts(recs, counts, payloads)
 
 
 def intra_patches(enc: Encoder) -> list:
@@ -129,17 +137,23 @@ P_INNER = ("half_pel_planes", "me_full_search", "me_subpel")
 
 
 def ippp_patches(enc: Encoder) -> list:
-    """(owner, attribute, stage) of every stage of a P frame; the pull and
-    NAL assembly run in the `finish` that `encode_p_frame` returns."""
+    """(owner, attribute, stage) of every stage of a P frame; the pull (K1
+    with CABAC) and NAL assembly run in the `finish` that
+    `encode_p_frame` returns."""
+    if enc.cabac:
+        entropy = [(enc, "_cabac_records", "binarize_compact"),
+                   (enc, "_cabac_payloads", "k1_and_pull"),
+                   (enc, "_cabac_nalus", "pull_nal")]
+    else:
+        entropy = [(enc, "_serialize", "serialize_pack"),
+                   (encoder_mod, "_pull_words", "pull_nal"),
+                   (enc, "_cavlc_nalus", "pull_nal")]
     return [(encoder_mod, "reorder_wave_outputs", "reorder"),
             (enc, "_encode_p", "p_encode"),
             (kint, "luma_planes", "half_pel_planes"),
             (kme, "full_search_blocks", "me_full_search"),
             (kme, "subpel_refine", "me_subpel"),
-            (enc, "_serialize", "serialize_pack"),
-            (enc, "_recon", "deblock"),
-            (encoder_mod, "_pull_words", "pull_nal"),
-            (enc, "_cavlc_nalus", "pull_nal")]
+            (enc, "_recon", "deblock")] + entropy
 
 
 @contextlib.contextmanager
@@ -280,12 +294,12 @@ def profile_intra(res: dict) -> None:
         intra_patches(enc), lambda: enc.encode_sequence([frames[1]]))
 
 
-def profile_ippp(res: dict, tools: bool) -> None:
+def profile_ippp(res: dict, tools: bool, symbol_mode: str) -> None:
     from tpu264_torch.entropy import cabac_engine_cuda as k1
     from tpu264_torch.kernels import dct_quant as dq, deblock_wave as k4w, \
         i16_chroma_wave as k3w, i4x4_wave as k2w, p_wave as kp
     off = {} if tools else dict(inter_partitions=False, transform_8x8=False)
-    cfg = EncoderConfig(width=W, height=H, qp=QP, symbol_mode="CAVLC",
+    cfg = EncoderConfig(width=W, height=H, qp=QP, symbol_mode=symbol_mode,
                         intra_period=0, deblock=True, **off)
     enc = Encoder(cfg)
     frames = [synth_frame(W, H, t) for t in range(3)]
@@ -293,7 +307,7 @@ def profile_ippp(res: dict, tools: bool) -> None:
     what = ("16x8/8x16, P_8x8, 8x8 transform" if tools
             else "16x16 partition, 4x4 transform")
     res.update(device=str(enc.device),
-               config=f"{W}x{H} IPPP CAVLC deblock QP {QP}, {what}, "
+               config=f"{W}x{H} IPPP {symbol_mode} deblock QP {QP}, {what}, "
                       f"P frame 2 of IDR + P + P",
                cold_frame_seconds=[s.seconds for s in enc.stats],
                stream={"bytes": len(stream),
@@ -301,10 +315,19 @@ def profile_ippp(res: dict, tools: bool) -> None:
     job = p_frame_job(enc, frames[2], enc.recons[1])
     counters = [k1.launches, k2w.launches, k3w.launches, kp.launches,
                 k4w.launches, dq.launches]
+    kept = {}                   # the warm frame's CABAC records
+
+    def keep(stage, fn):
+        def run(*a, **kw):
+            kept[stage] = fn(*a, **kw)
+            return kept[stage]
+        return run
+
     before = {k: v for c in counters for k, v in c.items()}
     warm = {}
-    with Clock(warm, "frame"):
-        nalus = job()
+    with patched([(enc, "_cabac_records", "records")], keep):
+        with Clock(warm, "frame"):
+            nalus = job()
     res["frame_seconds"] = warm["frame"]
     res["kernel_launches"] = {k: v - before[k] for c in counters
                               for k, v in c.items()}
@@ -317,16 +340,22 @@ def profile_ippp(res: dict, tools: bool) -> None:
     res["idr_frame_seconds"] = idr["frame"]
     res["stages"] = p_stage_times(enc, job)
     res["profile"] = profiled_frame(ippp_patches(enc), job)
+    if enc.cabac:
+        recs, counts = kept["records"]
+        res["cabac"] = cabac_counts(
+            recs, counts, enc._cabac_payloads(recs, counts, QP, p_slice=True))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config",
-                    choices=("intra720", "ippp720", "ippp720_notools"),
+                    choices=("intra720", "ippp720", "ippp720_notools",
+                             "ippp720_cabac"),
                     default="intra720",
                     help="the frame to profile: all-intra CABAC (default) "
                          "or a P frame of IPPP CAVLC, with the default P "
-                         "tools or without them")
+                         "tools or without them, or of IPPP CABAC with "
+                         "them")
     ap.add_argument("--out", help="also write the JSON object to this file")
     ap.add_argument("--k1-stages", action="store_true",
                     help="build with -DK1_PROFILE: the CABAC coder prints "
@@ -344,7 +373,9 @@ def main() -> int:
         _build.NVCC_FLAGS.append("-DK1_PROFILE")
     res: dict = {"card": card, "torch": torch.__version__}
     if args.config.startswith("ippp720"):
-        profile_ippp(res, tools=args.config == "ippp720")
+        profile_ippp(res, tools=args.config != "ippp720_notools",
+                     symbol_mode=("CABAC" if args.config == "ippp720_cabac"
+                                  else "CAVLC"))
     else:
         profile_intra(res)
     text = json.dumps(res, indent=1)

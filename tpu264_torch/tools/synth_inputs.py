@@ -3,9 +3,10 @@
 macroblock lanes for the I4x4 wave kernel (K2), whole waves with their
 border buffers for the wave body (K2 + K3), P waves with their motion
 vector maps and reference picture for the P wave body (K2 + KP), with the
-partitions' vectors for its default tools, and
-pictures with mixed intra and inter macroblocks for the deblocker (K4).
-numpy only."""
+partitions' vectors for its default tools,
+pictures with mixed intra and inter macroblocks for the deblocker (K4),
+and raster MB dicts of I and P frames for the entropy coders' front ends
+(the CAVLC serializer, the CABAC binarizer).  numpy only."""
 
 from __future__ import annotations
 
@@ -229,6 +230,62 @@ def random_p_wave_tools(seed, wm, hm, n_pad=2, pad=24):
             gy[i] = np.clip(gy[i] + ramp, 0, 255)
     return (bd, mv_map, ref_map, ref_y, ref_u, ref_v, coords, avail, mv_me,
             gy, gu, gv, mv_parts)
+
+
+def _levels(r, shape, density):
+    """Sparse levels: mostly small, a few large."""
+    lev = r.integers(-3, 4, size=shape) * (r.random(shape) < density)
+    big = r.random(shape) < density / 20
+    return np.where(big, r.integers(-300, 301, size=shape), lev)
+
+
+def random_mbs(seed, wm, hm, p_slice=True, tools=("ptype", "mvq", "t8")):
+    """A seeded raster MB dict of a wm x hm frame, numpy: intra (I16x16 and
+    I4x4) and, in a P frame, inter MBs of every partition type the `tools`
+    allow ("ptype": 16x8/8x16 with "mv2", "mvq": P_8x8, "t8": the 8x8
+    transform on some 16x16 inter MBs), skippable MBs (vector = skip
+    vector, no residual), coded and uncoded blocks.  An I frame (p_slice
+    False) has no inter MB; "t8" then adds the all-zero map an I slice of
+    a PPS with the 8x8 transform carries."""
+    n = wm * hm
+    r = np.random.default_rng(seed)
+    is_inter = (r.random(n) < 0.7) if p_slice else np.zeros(n, bool)
+    sel16 = r.random(n) < 0.4
+    ptype = np.where(is_inter, r.integers(0, 4, n), 0)
+    if "mvq" not in tools:
+        ptype = np.where(ptype == 3, 1, ptype)
+    mv = r.integers(-64, 65, size=(n, 2))
+    mv_skip = np.where((r.random(n) < 0.5)[:, None], mv,
+                       r.integers(-64, 65, size=(n, 2)))
+    density = np.where(r.random(n) < 0.3, 0.0, r.choice([0.05, 0.3], n))
+    luma_ac = _levels(r, (n, 16, 16), density[:, None, None])
+    luma_ac[sel16 & ~is_inter, :, 0] = 0
+    chroma_ac = _levels(r, (n, 2, 4, 16), density[:, None, None, None] / 2)
+    chroma_ac[..., 0] = 0
+    mb = dict(
+        is_inter=is_inter, sel16=sel16, mv=mv, mv_skip=mv_skip,
+        mv_pred=r.integers(-64, 65, size=(n, 2)),
+        i16mode=r.integers(0, 4, n), modes=r.integers(0, 9, size=(n, 16)),
+        cmode=r.integers(0, 4, n), luma_ac=luma_ac,
+        luma_dc=_levels(r, (n, 16), 0.3) * (sel16 & ~is_inter)[:, None],
+        chroma_dc=_levels(r, (n, 2, 4), density[:, None, None]),
+        chroma_ac=chroma_ac)
+    if "ptype" in tools:
+        mb["mv2"] = r.integers(-64, 65, size=(n, 2))
+    if "mvq" in tools:
+        mb["mvq"] = r.integers(-64, 65, size=(n, 4, 2))
+    # every fifth MB a P_Skip: 16x16 at the skip vector, nothing coded
+    skip = np.arange(n) % 5 == 0
+    if p_slice:
+        is_inter[skip], ptype[skip], mv_skip[skip] = True, 0, mv[skip]
+        for k in ("luma_ac", "chroma_dc", "chroma_ac"):
+            mb[k][skip] = 0
+    if "ptype" in tools:
+        mb["ptype"] = ptype
+    if "t8" in tools:
+        mb["t8"] = is_inter & (ptype == 0) & (r.random(n) < 0.5)
+    return {k: np.asarray(v, np.int32) if v.dtype != bool else v
+            for k, v in mb.items()}
 
 
 def random_deblock_picture(seed, wm, hm):
