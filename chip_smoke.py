@@ -7,15 +7,19 @@ Phases (any failure exits non-zero, before the result line):
     versions; refuse to run without CUDA;
  2. build the CUDA kernel library from `tpu264_torch/csrc` (timed);
  3. hold each kernel (K1 CABAC engine, K2 I4x4 wave body, K3 I16x16 +
-    chroma wave body, KP P wave body, K4 deblock wave, and the entries on
-    slabs: DCT + quant, DCT, luma deblock lines) to its plain torch
-    version on the card, at the shapes of the 720p main paths and on
-    seeded corner cases, with exact equality, and time both; K1 on the
+    chroma wave body, KP P wave body, KB B wave body, K4 deblock wave, and
+    the entries on slabs: DCT + quant, DCT, luma deblock lines) to its
+    plain torch version on the card, at the shapes of the main paths and
+    on seeded corner cases, with exact equality, and time both; K1 on the
     records of a 720p I frame and of a 720p P frame with the default P
-    tools (init table 1), 1 and 3 slices; KP with and without the
-    reference's default P tools (16x8/8x16, P_8x8, the 8x8 transform), on
-    seeded waves where every partition type and both transforms are
-    chosen;
+    tools (init table 1), 1 and 3 slices, and of a 1920x1088 B frame; KP
+    with and without the reference's default P tools (16x8/8x16, P_8x8,
+    the 8x8 transform), on seeded waves where every partition type and
+    both transforms are chosen; KB on the widest wave (60 lanes) of a
+    1920x1088 B frame of config 4 with and without partitions and on
+    seeded waves of that width (every btype, every partition shape with
+    every (c0, c1)) at QP 0, 28 and 51, `allow_parts` on and off; K4 also
+    on that B frame (two-list bS);
  4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
     28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
@@ -39,24 +43,36 @@ Phases (any failure exits non-zero, before the result line):
     golden, the launches of every frame asserted as in 7 but with K1 once
     a frame; and at CIF with JVT-G012 rate control at 1 Mb/s (1 IDR + 5
     P) against its golden and the reference's per-frame QPs;
+    config 4 (`bench.py:56-58, 69-72`): 7 frames at 1920x1088, hierarchical
+    B (`num_b_frames=2`), CABAC, deblock, rate control at 8 Mb/s, through
+    `Encoder(cfg)`, against its golden (`bgop_1080p_cabac_rc`) and its
+    per-frame QPs, every frame's launches asserted: a B frame runs K2 and
+    KB once a wave, K4 at most once a wave and K1 once, never KP or K3's
+    wave form;
 10. one CIF P frame's `make_inter_encoder` output on the card against
     the same call on the CPU, every key, tolerance 0, without and with the
     default P tools.
 
 The line before the last is a JSON object with one entry per kernel
-(`launches`: the sum over the four 720p main paths, phases 4, 7, 8 and 9,
-each driven with the counts set to 0 just before and read just after;
-`launches_by_path` splits it; KP's `ms` is a wave of the default P tools,
-`ms_tools_off` one without them; K1's `ms`, `bins` and bound are the P
-frame's, `ms_i_frame` and `bins_i_frame` the I frame's); the last line is
+(`launches`: the sum over the four 720p main paths and config 4, phases
+4, 7, 8 and 9, each driven with the counts set to 0 just before and read
+just after; `launches_by_path` splits it; KP's `ms` is a wave of the
+default P tools, `ms_tools_off` one without them; KB's `ms` the widest
+wave of the 1080p B frame, `body_ms` K2 + KB on it; K1's `ms`, `bins` and
+bound are the 720p P frame's, `ms_i_frame` and `bins_i_frame` the I
+frame's, `ms_b_1080p` and `bins_b_1080p` the 1080p B frame's; K4's
+`ms_1080p` a wave of the 1080p B frame); the last line is
 {"ok": true, "device": {...}}.
 
 `bound_ms` of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its integer operations over
 the card's int32 issue rate (132 SMs x 64 int32 lanes x 1.98 GHz, about
 16.7 TOP/s; the data sheet's 67 TFLOP/s counts a float32 multiply-add
-on 128 lanes as two), both counted from this run's inputs.  K1 to K4
-and KP are bound by neither but by a chain of dependent steps, which
+on 128 lanes as two), both counted from this run's inputs; KP and KB
+read of their references the distinct samples that the run's vectors
+and decisions need (`distinct_reference_samples`).  Every row keeps
+both halves too (`bytes_ms`, `operations_ms`).  K1 to K4,
+KP and KB are bound by neither but by a chain of dependent steps, which
 `PERF.md` models; K1's row also carries `bins`, counted from this run's
 records.
 `library_ms` is null throughout: no single PyTorch call computes a CABAC
@@ -101,17 +117,23 @@ KERNELS = {
     # I16x16, intra and inter chroma residuals)
     "KP": ("p_wave", "tpu264_torch/csrc/p_wave.cu",
            "tpu264/kernels/pallas_kernels.py:55,66", False),
+    # and in the B wave body (the inter residual; the I16x16, intra and
+    # inter chroma residuals)
+    "KB": ("b_wave", "tpu264_torch/csrc/b_wave.cu",
+           "tpu264/kernels/pallas_kernels.py:55,66", False),
 }
+BW, BH = 1920, 1088             # config 4 (`bench.py:56-58`)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
     """Least time for the work: bytes over the memory rate or operations
-    over the peak rate, whichever is larger."""
+    over the peak rate, whichever is larger (both kept in the row)."""
     t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / INT_OPS_PER_S
     return {"bound_ms": 1e3 * max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes_ms": 1e3 * t_b, "operations_ms": 1e3 * t_o}
 
 
 def fail(msg: str) -> None:
@@ -567,21 +589,15 @@ def check_p_wave(dev, waves) -> dict:
     ms, pms, kp_in, st, wave = timed[full]
     n_mbs = wave[14].shape[0]
     want = tinter.p_wave_plain(*state(wave), *kp_in, wave[17], full)
-    avg = kint.QPEL_TABLE[:, 6].tolist()
-    frac = lambda mv: [avg[(y & 3) * 4 + (x & 3)] for y, x in mv.tolist()]
-    parts = wave[17].reshape(n_mbs, 8, 2)
-    # luma reads of every candidate: 256 samples of the MB's two, 128 of
-    # each half, 64 of each quadrant, one or two planes a sample
-    mc_reads = (256 * sum(1 + a for a in frac(wave[13])
-                          + frac(want["mv_skip"]))
-                + 128 * sum(1 + a for a in frac(parts[:, :4].reshape(-1, 2)))
-                + 64 * sum(1 + a for a in frac(parts[:, 4:].reshape(-1, 2))))
+    luma, chroma = kp_windows(wave, want)
+    n_ref = distinct_reference_samples(wave[0].shape[1:], wave[1].shape, 1,
+                                       luma, chroma)
     n_inter = int(want["is_inter"].sum())
     n_t8 = int(((want["ptype"] == 0) & want["is_inter"]).sum())
     # a macroblock: 58 context samples, 384 source samples, 529 int32 of
     # I4x4 results, coords, 9 vectors, 4 map cells and 4 flags in; 815
-    # int32 of results, 3 flags, 66 border values and 3 map cells out; the
-    # candidates' luma reads and the chroma windows of an inter lane.
+    # int32 of results, 3 flags, 66 border values and 3 map cells out; and
+    # the distinct reference samples.
     # Operations: K3's intra costs (384 samples x 4 modes x 22), 256
     # samples x 5 candidates x 20 (two reads and an average, Hadamard,
     # sum), about 300 a 4x4 block for transform, quantiser and
@@ -590,7 +606,7 @@ def check_p_wave(dev, waves) -> dict:
     # samples x (2 x 16 butterfly + 6 quantiser) + 256 x 8 for the costs
     n_bytes = (n_mbs * (4 * (58 + 384 + 529 + 2 + 18 + 12) + 4
                         + 4 * (815 + 66 + 9) + 3)
-               + 4 * mc_reads + n_inter * 2 * 81 * 4)
+               + 4 * n_ref)
     n_ops = (n_mbs * (384 * 4 * 22 + 256 * 5 * 20 + 24 * 300)
              + n_inter * 128 * 12 + n_t8 * (256 * 38 + 256 * 8))
     return {"KP": dict(err=err, ms=ms, plain_ms=pms,
@@ -720,7 +736,7 @@ def p_frame_records(dev, cur, ref, slices: int):
     planes = [torch.as_tensor(p, device=dev) for p in (*cur, *ref)]
     _, ys = enc._encode_p(*planes, QP)
     recs, counts = enc._cabac_records(
-        tif.reorder_wave_outputs(enc.sched, ys), p_slice=True)
+        tif.reorder_wave_outputs(enc.sched, ys), kind="p")
     init = torch.as_tensor(k1.init_packed_states(1, QP), device=dev)
     return recs, counts, init, enc._cap_words
 
@@ -833,11 +849,11 @@ def check_cabac(dev, frames) -> tuple[dict, tuple, list]:
 def launch_counts() -> list:
     """The wrappers' launch counters (one dict a module)."""
     from tpu264_torch.entropy import cabac_engine_cuda as k1
-    from tpu264_torch.kernels import dct_quant as dq, deblock_lines as dl, \
-        deblock_wave as k4w, i16_chroma_wave as k3w, i4x4_wave as k2w, \
-        p_wave as kp
+    from tpu264_torch.kernels import b_wave as kb, dct_quant as dq, \
+        deblock_lines as dl, deblock_wave as k4w, i16_chroma_wave as k3w, \
+        i4x4_wave as k2w, p_wave as kp
     return [k1.launches, k2w.launches, k3w.launches, kp.launches,
-            k4w.launches, dq.launches, dl.launches]
+            kb.launches, k4w.launches, dq.launches, dl.launches]
 
 
 def reset_counts() -> None:
@@ -965,13 +981,16 @@ def phase_config2() -> None:
         fail("config 2: not an IDR and two P frames")
 
 
-def phase_ippp(name: str, what: str) -> tuple[dict, object]:
-    """An IPPP golden through `Encoder(cfg)`, the launches of each frame
+def phase_ippp(name: str, what: str, kinds=None) -> tuple[dict, object]:
+    """An IPPP golden (a B-GOP golden with `kinds`, its frames' kinds in
+    coding order) through `Encoder(cfg)`, the launches of each frame
     asserted (those of its deferred entropy finish included): an IDR frame
     runs K2 once a wave and K3, K4 at most once a wave; a P frame K2 and KP
-    once a wave, K4 at most once a wave; K1 once a frame with CABAC and
-    never with CAVLC; the slab entries and (in a P frame) K3's wave form
-    never -> (launch counts of the whole run, the encoder)."""
+    once a wave, K4 at most once a wave; a B frame K2 and KB once a wave,
+    K4 at most once a wave; K1 once a frame with CABAC and never with
+    CAVLC; the slab entries, K3's wave form outside an IDR frame, KP
+    outside a P frame and KB outside a B frame never -> (launch counts of
+    the whole run, the encoder)."""
     from tpu264_torch.coding.encoder import Encoder
     per_frame = []
     queued = []     # seconds of each frame's device work, synchronised
@@ -998,7 +1017,8 @@ def phase_ippp(name: str, what: str) -> tuple[dict, object]:
         return run
 
     real = {}
-    for kind, attr in (("IDR", "encode_intra_frame"), ("P", "encode_p_frame")):
+    for kind, attr in (("IDR", "encode_intra_frame"), ("P", "encode_p_frame"),
+                       ("B", "encode_b_frame")):
         real[attr] = getattr(Encoder, attr)
         setattr(Encoder, attr, counted(kind, real[attr]))
     reset_counts()
@@ -1010,17 +1030,18 @@ def phase_ippp(name: str, what: str) -> tuple[dict, object]:
     counts = read_counts()
     n_waves = enc.sched.n_waves
     print(f"{what}, launches on the path: {counts}")
-    kinds = ["IDR"] + ["P"] * (golden(name)["frames"] - 1)
+    kinds = kinds or ["IDR"] + ["P"] * (golden(name)["frames"] - 1)
     if [k for k, _ in per_frame] != kinds:
         fail(f"{what}: frames {[k for k, _ in per_frame]}")
     k1_a_frame = int(enc.cabac)
     for i, (kind, c) in enumerate(per_frame):
         print(f"  frame {i} {kind} launches: {c}")
-        want = ({"K1": k1_a_frame, "K2": n_waves, "KP": 0, "K2_blocks": 0,
-                 "K3_blocks": 0, "K4_lines": 0}
-                if kind == "IDR" else
-                {"K1": k1_a_frame, "K2": n_waves, "K3": 0, "KP": n_waves,
-                 "K2_blocks": 0, "K3_blocks": 0, "K4_lines": 0})
+        want = {"K1": k1_a_frame, "K2": n_waves, "K2_blocks": 0,
+                "K3_blocks": 0, "K4_lines": 0,
+                "KP": n_waves if kind == "P" else 0,
+                "KB": n_waves if kind == "B" else 0}
+        if kind != "IDR":
+            want["K3"] = 0
         for k, n in want.items():
             if c[k] != n:
                 fail(f"{what} frame {i} ({kind}): {k} ran {c[k]} "
@@ -1035,23 +1056,398 @@ def phase_ippp(name: str, what: str) -> tuple[dict, object]:
              f"calls")
     # `FrameStats.seconds` of a pipelined frame runs until the next frame
     # is queued, so the frames' own times are taken around their calls
-    print(f"{what} (eager, first run), device work of a frame: IDR "
-          f"{queued[0]:.3f} s, P frames "
-          f"{', '.join(f'{t:.3f}' for t in queued[1:])} s; "
-          f"{len(enc.stats) / secs:.4f} frames/s with pull and NAL assembly")
+    print(f"{what} (eager, first run), device work of each frame in coding "
+          f"order: " + ", ".join(f"{k} {t:.3f} s" for (k, _), t in
+                                  zip(per_frame, queued))
+          + f"; {len(enc.stats) / secs:.4f} frames/s with pull and NAL "
+          f"assembly")
     return counts, enc
 
 
-def phase_rate_control(name: str, what: str) -> None:
-    """An IPPP golden encoded with rate control (`phase_ippp`): the QP of
-    every frame is the one the reference's rate controller chose, and
-    they move."""
-    _, enc = phase_ippp(name, what)
+def phase_rate_control(name: str, what: str, kinds=None) -> dict:
+    """A golden encoded with rate control (`phase_ippp`): the QP of every
+    frame is the reference's, and they move -> the launch counts."""
+    counts, enc = phase_ippp(name, what, kinds)
     qps = [st.qp for st in enc.stats]
     want = golden(name)["frame_qps"]
     print(f"{what}: QPs {qps} (reference {want})")
     if enc.rc is None or qps != want or len(set(qps)) < 2:
         fail(f"{what}: QPs {qps}, not the reference's {want}, or constant")
+    return counts
+
+
+def b_frame_case(dev, is_ref: bool) -> dict:
+    """One 1920x1088 B frame of config 4's encoder on the card (synth frame
+    1 between frames 0 and 2 as its references, QP 30, the partitions
+    allowed unless `is_ref`), queued and finished: "wave", the arguments
+    of its widest wave's `wave_body` call (the border buffers and maps as
+    they are before the call), "records" its CABAC records (records,
+    counts, init of table 1, word cap), "deblock" its deblocker's
+    arguments (two-list bS inputs).  It runs K2 and KB once a wave, KP
+    never."""
+    from tpu264_torch.coding import b_frame as tb
+    from tpu264_torch.coding.encoder import Encoder
+    from tpu264_torch.config import EncoderConfig
+    from tpu264_torch.entropy import cabac_engine_cuda as k1
+    from tpu264_torch.media.synth import synth_frame
+    enc = Encoder(EncoderConfig(width=BW, height=BH, qp=QP, intra_period=0,
+                                num_b_frames=2, symbol_mode="CABAC",
+                                deblock=True))
+    if not enc.b_partitions:
+        fail("config 4's encoder weighs no B partitions")
+    widest = int(np.argmax(enc.sched.valid.sum(axis=1)))
+    inner, calls, case = tb.wave_body, [], {}
+
+    def spy(*args, **kw):
+        if len(calls) == widest:
+            case["wave"] = (tuple(m.clone() for m in args[0]), *args[1:8],
+                            clone_bd(args[8]), *args[9:])
+        calls.append(1)
+        return inner(*args, **kw)
+
+    real_records, real_deblock = enc._cabac_records, enc._deblock
+
+    def records(*a, **kw):
+        case["records"] = real_records(*a, **kw)
+        return case["records"]
+
+    def deblock(*a, **kw):
+        case["deblock"] = (a, kw)
+        return real_deblock(*a, **kw)
+
+    enc._cabac_records, enc._deblock = records, deblock
+    tb.wave_body = spy
+    before = read_counts()
+    try:
+        frames = [synth_frame(BW, BH, t) for t in range(3)]
+        fin, _ = enc.encode_b_frame(*frames[1], frames[0], frames[2],
+                                    frame_num=1, poc_lsb=2, qp=QP + 2,
+                                    is_ref=is_ref)
+        fin()
+        torch.cuda.synchronize()
+    finally:
+        tb.wave_body = inner
+    after = read_counts()
+    if len(calls) != enc.sched.n_waves or "wave" not in case:
+        fail(f"1080p B frame: {len(calls)} wave body calls for "
+             f"{enc.sched.n_waves} waves")
+    ran = {k: after[k] - before[k] for k in ("K2", "KB", "KP")}
+    n = enc.sched.n_waves
+    if ran != {"K2": n, "KB": n, "KP": 0}:
+        fail(f"1080p B frame launched {ran} for {n} waves")
+    recs, counts = case["records"]
+    case["records"] = (recs, counts, torch.as_tensor(
+        k1.init_packed_states(1, QP + 2), device=dev), enc._cap_words)
+    return case
+
+
+def distinct_reference_samples(shape, cshape, n_refs: int, luma,
+                               chroma) -> int:
+    """The reference samples a wave kernel must read, each counted once
+    in its own plane: the union of the luma windows `luma` and of the
+    chroma windows `chroma`, each an iterable of (reference, y, x, mv, bh,
+    bw) with (y, x) the block's origin in the padded planes of shape
+    `shape` (half-pel planes G, b, h, j) and `cshape` (u and v alike).
+    A luma window reads one or two half-pel planes (`interp.QPEL_TABLE`),
+    a chroma window (bh + 1) x (bw + 1) samples less the row and column
+    that a zero eighth-pel fraction does not weigh; starts clamp as
+    `interp.clamp_start` clamps them."""
+    from tpu264_torch.kernels.interp import QPEL_TABLE
+    qt = QPEL_TABLE.tolist()
+    hp, wp = shape
+    chp, cwp = cshape
+    lmask = np.zeros((n_refs, 4, hp, wp), bool)
+    cmask = np.zeros((n_refs, chp, cwp), bool)
+
+    def clamp(s, size, dim):
+        return min(max(s + dim if s < 0 else s, 0), dim - size)
+
+    for ref, y, x, (my, mx), bh, bw in luma:
+        p1, dy1, dx1, p2, dy2, dx2, avg = qt[(my & 3) * 4 + (mx & 3)]
+        for p, dy, dx in ((p1, dy1, dx1),) + (((p2, dy2, dx2),) if avg
+                                              else ()):
+            yy = clamp(y + (my >> 2) + dy, bh, hp)
+            xx = clamp(x + (mx >> 2) + dx, bw, wp)
+            lmask[ref, p, yy:yy + bh, xx:xx + bw] = True
+    for ref, y, x, (my, mx), bh, bw in chroma:
+        yy = clamp(y + (my >> 3), bh + 1, chp)
+        xx = clamp(x + (mx >> 3), bw + 1, cwp)
+        cmask[ref, yy:yy + bh + (my & 7 != 0),
+              xx:xx + bw + (mx & 7 != 0)] = True
+    return int(lmask.sum()) + 2 * int(cmask.sum())
+
+
+def kp_windows(wave, want) -> tuple:
+    """What KP's function reads of the reference on one wave with the
+    default tools (`check_p_wave`'s case `wave`, its plain results
+    `want`): the luma windows of every candidate (the MB's two, each
+    half's, each quadrant's) and the chroma windows of the prediction
+    chosen -> (luma windows, chroma windows)."""
+    from tpu264_torch.coding import inter_frame as tinter
+    cpu = lambda t: t.cpu().tolist()
+    me, skip, mv, mv2 = (cpu(v) for v in (wave[13], want["mv_skip"],
+                                          want["mv"], want["mv2"]))
+    parts = cpu(wave[17].reshape(-1, 8, 2))
+    inter, ptype = cpu(want["is_inter"]), cpu(want["ptype"])
+    halves = ((0, 0, 8, 16), (8, 0, 8, 16), (0, 0, 16, 8), (0, 8, 16, 8))
+    luma, chroma = [], []
+    for i, (r, c) in enumerate(cpu(wave[11])):
+        y0, x0 = r * 16 + tinter.PAD, c * 16 + tinter.PAD
+        cy0, cx0 = r * 8 + tinter.PAD // 2, c * 8 + tinter.PAD // 2
+        luma += [(0, y0, x0, v, 16, 16) for v in (me[i], skip[i])]
+        luma += [(0, y0 + py, x0 + px, parts[i][h], bh, bw)
+                 for h, (py, px, bh, bw) in enumerate(halves)]
+        luma += [(0, y0 + 8 * (q // 2), x0 + 8 * (q % 2), parts[i][4 + q],
+                  8, 8) for q in range(4)]
+        if not inter[i]:
+            continue
+        if ptype[i] == 0:
+            chroma.append((0, cy0, cx0, mv[i], 8, 8))
+        elif ptype[i] == 3:
+            chroma += [(0, cy0 + 4 * (q // 2), cx0 + 4 * (q % 2),
+                        parts[i][4 + q], 4, 4) for q in range(4)]
+        else:
+            (py, px, bh, bw), (qy, qx, _, _) = (
+                ((0, 0, 4, 8), (4, 0, 4, 8)) if ptype[i] == 1
+                else ((0, 0, 8, 4), (0, 4, 8, 4)))
+            chroma += [(0, cy0 + py, cx0 + px, mv[i], bh, bw),
+                       (0, cy0 + qy, cx0 + qx, mv2[i], bh, bw)]
+    return luma, chroma
+
+
+def kb_windows(wave, want, direct) -> tuple:
+    """What KB's function reads of the two references on one wave
+    (`check_b_wave`'s case `wave`, its plain results `want`, the lanes'
+    direct vectors and lists `direct` = (dmv0, dmv1, duse0, duse1)):
+    the luma windows of L0 and L1 at the search vectors, of direct at the
+    direct vectors for the lists it uses and never where `colmixed`, of
+    each half for both lists where partitions are allowed; the chroma
+    windows of the prediction chosen -> (luma windows, chroma windows,
+    luma candidates costed in 16x16 units)."""
+    from tpu264_torch.coding import b_frame as tb
+    from tpu264_torch.kernels import b_wave as kb
+    (_, _, _, *_, coords, _, mv_me, mv_parts, _, colmixed, _, _, _, parts,
+     allow) = wave
+    cpu = lambda t: t.cpu().tolist()
+    me, mp = [cpu(v) for v in mv_me], [cpu(v) for v in mv_parts]
+    dmv, duse = [cpu(v) for v in direct[:2]], [cpu(v) for v in direct[2:]]
+    bt, cm = cpu(want["btype"]), cpu(colmixed)
+    bp, c0, c1 = (cpu(want[k]) if parts else None
+                  for k in ("bptype", "c0", "c1"))
+    lists = {0: (0,), 1: (1,), 2: (0, 1)}
+    luma, chroma, n_cand = [], [], 0
+    for i, (r, c) in enumerate(cpu(coords)):
+        y0, x0, cy0, cx0 = (r * 16 + tb.PAD, c * 16 + tb.PAD,
+                            r * 8 + tb.PAD // 2, c * 8 + tb.PAD // 2)
+        for lst in (0, 1):
+            luma.append((lst, y0, x0, me[lst][i], 16, 16))
+            if duse[lst][i] and not cm[i]:
+                luma.append((lst, y0, x0, dmv[lst][i], 16, 16))
+        n_cand += 3 + (not cm[i])
+        if parts and allow:
+            n_cand += 6
+            for h, k in enumerate(kb.HALVES):
+                py, px, bh, bw = tb.GEO[k]
+                luma += [(lst, y0 + py, x0 + px, mp[lst][i][h], bh, bw)
+                         for lst in (0, 1)]
+        if bt[i] == 5:
+            halves = ("top", "bot") if bp[i] == 1 else ("left", "right")
+            for k, cc in zip(halves, (c0[i], c1[i])):
+                py, px, bh, bw = tb.CGEO[k]
+                chroma += [(lst, cy0 + py, cx0 + px,
+                            mp[lst][i][kb.HALVES.index(k)], bh, bw)
+                           for lst in lists[cc]]
+        elif bt[i] == 3:
+            chroma += [(lst, cy0, cx0, dmv[lst][i], 8, 8)
+                       for lst in (0, 1) if duse[lst][i]]
+        elif bt[i] != 4:
+            chroma += [(lst, cy0, cx0, me[lst][i], 8, 8)
+                       for lst in lists[bt[i]]]
+    return luma, chroma, n_cand
+
+
+def check_b_wave(dev, waves) -> dict:
+    """KB: the B wave kernel against `b_wave_plain` on the card, on the
+    same I4x4 results: every output, the border buffers and both lists'
+    maps after the wave.  Cases: the widest wave (60 lanes) of a
+    1920x1088 B frame that allows partitions and of one that does not
+    (`waves`: the arguments of their `wave_body` calls), and seeded waves
+    of that width (`synth_inputs.random_b_wave`: every btype, every
+    partition shape with every (c0, c1), colzero and colmixed lanes,
+    padding lanes, vectors past the planes' edges) at QP 0, 28 and 51,
+    each with `allow_parts` on and off.  The whole `wave_body` (K2's wave
+    form, then KB) is held to `wave_body_plain` on the same cases."""
+    from tpu264_torch.coding import b_frame as tb
+    from tpu264_torch.coding import intra_frame as tif
+    from tpu264_torch.kernels import b_wave as kb
+    from tpu264_torch.kernels import i4x4_wave as k2w
+    from tpu264_torch.kernels import interp as kint
+    from tpu264_torch.ref.transform import chroma_qp
+    from tpu264_torch.tools.synth_inputs import random_b_wave
+
+    def seeded(qp, allow):
+        (bd, maps, ref0, ref1, coords, avail, me0, me1, mp0, mp1, cz, cm, gy,
+         gu, gv) = random_b_wave(80 + qp, BW // 16, BH // 16)
+        i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+        b1 = lambda a: torch.as_tensor(a, device=dev)
+        pad = tb.PAD
+        planes = tuple(kint.luma_planes(kint.pad_plane(i32(r[0]), pad))
+                       for r in (ref0, ref1))
+        cpads = tuple(kint.pad_plane(i32(pl), pad // 2)
+                      for r in (ref0, ref1) for pl in r[1:])
+        return (tuple(i32(m) for m in maps), planes, cpads, qp,
+                chroma_qp(qp), *tif.LAMBDA_TABLE[qp],
+                {k: i32(v) for k, v in bd.items()}, i32(coords), b1(avail),
+                (i32(me0), i32(me1)), (i32(mp0), i32(mp1)), b1(cz), b1(cm),
+                i32(gy), i32(gu), i32(gv), True, allow)
+
+    def state(case):
+        return tuple(m.clone() for m in case[0]), clone_bd(case[8])
+
+    def i4x4(case, bd):
+        qp, _, lam4, lam24 = case[3:7]
+        coords, avail, gy = case[9], case[10], case[15]
+        ltop, lleft, _, _, _, _, mtop, mleft = tif.gather_border_ctx(
+            bd, coords[:, 0].long(), coords[:, 1].long())
+        return tif.eval_i4x4_plain(gy, ltop, lleft, mtop, mleft,
+                                   *avail.unbind(1), qp, lam4, lam24)
+
+    def kb_args(case, maps, bd, i4):
+        mb4, modebuf, _, coeffs4, j4 = i4
+        (_, planes, cpads, qp, cqp, lam4, lam24, lam_me, _, coords, avail,
+         mv_me, mv_parts, cz, cm, gy, gu, gv, parts, allow) = case
+        return ((bd, maps, planes, cpads, coords, avail, mv_me, mv_parts,
+                 cz, cm, gy, gu, gv, mb4, modebuf, coeffs4, j4, qp, cqp,
+                 lam4, lam24, lam_me),
+                (parts, allow))
+
+    def maps_of(maps):
+        return dict(zip(("mv0_map", "ref0_map", "mv1_map", "ref1_map"),
+                        maps))
+
+    err, seen = 0, []
+    cases = list(waves) + [seeded(qp, allow) for qp in (0, 28, 51)
+                           for allow in (True, False)]
+    for i, case in enumerate(cases):
+        # the whole body: two launches against the plain body
+        (mk, bk), (mp, bp) = state(case), state(case)
+        got = tb.wave_body(mk, *case[1:8], bk, *case[9:])
+        torch.cuda.synchronize()
+        want = tb.wave_body_plain(mp, *case[1:8], bp, *case[9:])
+        err = max(err, differ(got, want, f"B wave body {i}"),
+                  differ(bk, bp, f"B wave body {i} borders"),
+                  differ(maps_of(mk), maps_of(mp), f"B wave body {i} maps"))
+        # KB alone, on the plain I4x4 results
+        (mk, bk), (mp, bp) = state(case), state(case)
+        i4 = i4x4(case, bk)
+        args, flags = kb_args(case, mk, bk, i4)
+        out = kb.alloc_outputs((case[9].shape[0],), dev, True)
+        kb.b_wave(*args, tif._BLK_ORDER, out, *flags)
+        torch.cuda.synchronize()
+        del out["modes"]
+        want = tb.b_wave_plain(*kb_args(case, mp, bp, i4)[0], *flags)
+        err = max(err, differ(out, want, f"KB {i}"),
+                  differ(bk, bp, f"KB {i} borders"),
+                  differ(maps_of(mk), maps_of(mp), f"KB {i} maps"))
+        n = int((case[9][:, 0] < BH // 16).sum())
+        bt = want["btype"][:n]
+        part = bt == 5
+        combos = set(zip(*(want[k][:n][part].tolist()
+                           for k in ("bptype", "c0", "c1"))))
+        seen.append((case[-1], sorted(set(bt.tolist())), len(combos), n))
+    print("KB btypes chosen, partition combinations, lanes, per case (the "
+          "frames' waves first; allow_parts): " + "; ".join(
+              f"{a} {b} {c} {n}" for a, b, c, n in seen))
+    seeded_seen = seen[len(waves):]
+    if set().union(*(set(b) for _, b, _, _ in seeded_seen)) != \
+            {0, 1, 2, 3, 4, 5}:
+        fail("KB: the seeded waves do not choose every btype")
+    if max(c for _, _, c, _ in seeded_seen) != 18:
+        fail("KB: no seeded wave chooses every partition combination")
+    if any(5 in b for a, b, _, _ in seen if not a):
+        fail("KB: a wave that allows no partitions chose one")
+    # time the frame's wave that allows partitions: KB alone, and K2 + KB
+    # as the loop runs them
+    wave = waves[0]
+    n_mbs = wave[15].shape[0]
+    maps, bd = state(wave)
+    i4 = k2w.i4x4_wave_bd(wave[15], bd, wave[9], wave[10], wave[3],
+                          wave[5], wave[6], tif._K2_RULES)
+    args, flags = kb_args(wave, maps, bd, i4)
+    out = kb.alloc_outputs((n_mbs,), dev, True)
+    before = kb.launches["KB"]
+    ms = time_ms(lambda: kb.b_wave(*args, tif._BLK_ORDER, out, *flags), 200)
+    if kb.launches["KB"] != before + 201:
+        fail("KB's launch count is not one a call")
+    pms = time_ms(lambda: tb.b_wave_plain(*args, *flags), 5)
+    body_ms = time_ms(lambda: tb.wave_body(maps, *wave[1:8], bd, *wave[9:],
+                                           out=out), 200)
+    print(f"KB wave of {n_mbs} MBs at 1920x1088: kernel {ms:.4f} ms, plain "
+          f"{pms:.3f} ms; the B wave body (K2 + KB) {body_ms:.4f} ms")
+    # the bound, from this wave's own vectors and decisions (on fresh
+    # state: the timed calls rewrote the lanes' left columns)
+    maps, bd = state(wave)
+    direct = tb.spatial_direct(maps, wave[9], wave[10], wave[13])[2:]
+    want = tb.b_wave_plain(*kb_args(wave, maps, bd, i4x4(wave, bd))[0],
+                           *flags)
+    luma, chroma, n_cand = kb_windows(wave, want, direct)
+    n_ref = distinct_reference_samples(wave[1][0].shape[1:],
+                                       wave[2][0].shape, 2, luma, chroma)
+    n_cpred = sum(2 * w[4] * w[5] for w in chroma)
+    allow = wave[18] and wave[19]
+    # a macroblock: 58 context samples, 384 source samples, 529 int32 of
+    # I4x4 results, coords, 2 + 2 vector components (+ 16 with partitions
+    # allowed), 8 map cells and 6 flags in; 815 int32 of results, 4 flags,
+    # 66 border values and 6 map cells out; and the distinct reference
+    # samples.  Operations: K3's intra costs (384 samples x 4 modes x 22),
+    # 20 a sample of each luma candidate (reads, average, Hadamard, sum),
+    # about 300 a 4x4 block for transform, quantiser and reconstruction
+    # over 24 blocks, 12 a chroma sample predicted
+    n_bytes = (n_mbs * (4 * (58 + 384 + 529 + 2 + 4 + 16 * allow + 24) + 6
+                        + 4 * (815 + 66 + 18) + 4)
+               + 4 * n_ref)
+    n_ops = (n_mbs * (384 * 4 * 22 + 24 * 300) + 256 * 20 * n_cand
+             + 12 * n_cpred)
+    return {"KB": dict(err=err, ms=ms, plain_ms=pms, body_ms=body_ms,
+                       lanes=n_mbs, **bound(n_bytes, n_ops))}
+
+
+def check_1080p_b_kernels(dev, case) -> dict:
+    """K1 on the CABAC records of the 1920x1088 B frame (init table 1, one
+    slice) and K4 on its reconstruction with the two-list bS inputs,
+    each against its plain version, timed -> extra keys for the K1 and
+    K4 rows."""
+    from tpu264_torch.coding.wavefront import build_schedule
+    from tpu264_torch.entropy import cabac_engine_cuda as k1
+    from tpu264_torch.kernels import deblock as kd
+    from tpu264_torch.kernels import deblock_wave as k4w
+    recs, counts, init, cap_words = case["records"]
+    e1, plain_ms = engine_err(recs, counts, init, cap_words,
+                              "1080p B frame")
+    ms1 = time_ms(lambda: k1.encode_slices(recs, counts, init, cap_words),
+                  10)
+    n, bins = record_bins(recs, counts)
+    print(f"K1 1920x1088 B frame: {n} records, {bins} bins: kernel "
+          f"{ms1:.3f} ms, plain (host loop) {plain_ms:.1f} ms")
+    a, kw = case["deblock"]
+    sched = build_schedule(BW // 16, BH // 16, 1)
+    got = kd.make_deblocker_skewed(sched, True)(*a, **kw)
+    torch.cuda.synchronize()
+    want = kd.make_deblocker_skewed(sched, True, plain=True)(*a, **kw)
+    e4 = max(max_abs_err(g, w) for g, w in zip(got, want))
+    y, u, v, intra_mb, tc, mv, ref, qp, cqp = a
+    bs_v, bs_h = kd.compute_bs_maps(intra_mb.to(torch.bool), tc, mv, ref)
+    planes = [p.to(torch.int32, copy=True).contiguous() for p in (y, u, v)]
+    n_waves = sched.n_waves
+
+    def kernel_frame():
+        for cp in range(n_waves):
+            k4w.deblock_wave(*planes, bs_v, bs_h, cp, qp, cqp)
+
+    ms4 = time_ms(kernel_frame, 10) / n_waves
+    print(f"K4 1920x1088 B frame, a wave of {n_waves}: kernel {ms4:.4f} ms")
+    return {"K1": dict(err=e1, ms_b_1080p=ms1, bins_b_1080p=bins),
+            "K4": dict(err=e4, ms_1080p=ms4)}
 
 
 def phase_p_wave_body_vs_cpu(dev, tools) -> None:
@@ -1104,6 +1500,7 @@ def phase_p_wave_body_vs_cpu(dev, tools) -> None:
 
 
 def main() -> int:
+    t_start = time.monotonic()
     kind = phase_device()
     dev = torch.device("cuda")
     sys.path.insert(0, str(ROOT))
@@ -1123,6 +1520,13 @@ def main() -> int:
         dev, [p_frame_wave(dev, NO_TOOLS),
               p_frame_wave(dev, Tools(True, True, True))]))
     results.update(check_deblock_wave(dev, deblock_case))
+    # the B wave: a 1920x1088 B frame of config 4 that allows partitions
+    # and one that does not
+    b_cases = [b_frame_case(dev, is_ref) for is_ref in (False, True)]
+    results.update(check_b_wave(dev, [c["wave"] for c in b_cases]))
+    for k, extra in check_1080p_b_kernels(dev, b_cases[0]).items():
+        results[k].update(extra, err=max(results[k]["err"], extra["err"]))
+    del b_cases
     wrong = {k: r["err"] for k, r in sorted(results.items()) if r["err"]}
     if wrong:
         fail(f"kernels differ from their plain versions (max abs err): "
@@ -1140,6 +1544,10 @@ def main() -> int:
                              "the default P tools")
     phase_rate_control("ippp_cif_cabac_rc", "IPPP CABAC at CIF with rate "
                        "control at 1 Mb/s")
+    counts_b = phase_rate_control(
+        "bgop_1080p_cabac_rc", "config 4 at 1920x1088 (hierarchical B, "
+        "CABAC, deblock, rate control at 8 Mb/s)",
+        kinds=["IDR", "P", "B", "B", "P", "B", "B"])
     phase_p_wave_body_vs_cpu(dev, NO_TOOLS)
     phase_p_wave_body_vs_cpu(dev, Tools(True, True, True))
     rows = []
@@ -1149,18 +1557,22 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": counts[k] + counts_p[k] + counts_t[k]
-               + counts_c[k],
+               + counts_c[k] + counts_b[k],
                "launches_by_path": {"config3_720p": counts[k],
                                     "ippp_720p": counts_p[k],
                                     "ippp_720p_tools": counts_t[k],
-                                    "ippp_720p_cabac": counts_c[k]},
+                                    "ippp_720p_cabac": counts_c[k],
+                                    "bgop_1080p": counts_b[k]},
                "max_abs_err": r["err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None}
-        for extra in ("bins", "ms_i_frame", "bins_i_frame", "ms_tools_off"):
+        for extra in ("bins", "ms_i_frame", "bins_i_frame", "ms_tools_off",
+                      "ms_b_1080p", "bins_b_1080p", "ms_1080p", "body_ms",
+                      "lanes", "bytes_ms", "operations_ms"):
             if extra in r:
                 row[extra] = r[extra]
         rows.append(row)
+    print(f"chip_smoke.py total: {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,102 @@
+"""Hierarchical-B GOPs on the CPU: the port's streams equal the JAX
+reference encoder's byte for byte, with the same recon planes, frame types
+and sizes in display order, at QCIF with one slice and deblocking:
+`num_b_frames=2` over 7 frames (I, P, Bref, B, P with a list-0 reordering,
+Bref, B) with CAVLC, with CABAC, and with CABAC under JVT-G012 rate control
+(every frame's QP the reference's); and `num_b_frames=1` over 5 frames
+(IbPbP).  The cases share the reference's compiled programs
+(`torch_util.reference_encoder`): the I, P and B encoders, the deblocker,
+the CAVLC serializers and the CABAC record programs of this geometry."""
+
+import dataclasses
+
+import pytest
+
+from tpu264.coding.encoder import build_bgop_plan as ref_plan
+from tpu264.config import EncoderConfig as RefConfig
+
+from tpu264_torch.coding.encoder import Encoder, build_bgop_plan
+from tpu264_torch.config import EncoderConfig
+
+from torch_util import (QCIF_H, QCIF_W, assert_same_encode, frame_qp_spy,
+                        moving_frames, record_qps, reference_encoder)
+
+KINDS = {2: ["IDR", "Bref", "B", "P", "Bref", "B", "P"],
+         1: ["IDR", "B", "P", "B", "P"]}
+_REF: dict = {}
+
+
+def _cfg(nb: int, symbol_mode: str, **kw):
+    return RefConfig(width=QCIF_W, height=QCIF_H, qp=28, intra_period=0,
+                     num_b_frames=nb, symbol_mode=symbol_mode, deblock=True,
+                     **kw)
+
+
+def _reference(nb: int, symbol_mode: str, rc: bool):
+    """The reference's (encoder, config, frames, stream, per-frame QPs in
+    display order, the rate controller's QPs), once a process."""
+    key = (nb, symbol_mode, rc)
+    if key not in _REF:
+        n = 7 if nb == 2 else 5
+        frames = moving_frames(n)
+        cfg = _cfg(nb, symbol_mode,
+                   **(dict(rate_control=True, bitrate=256_000) if rc
+                      else {}))
+        ref = reference_encoder(cfg)
+        qps = frame_qp_spy(ref, n)
+        rc_qps = record_qps(ref) if rc else None
+        want = ref.encode_sequence(frames)
+        _REF[key] = (ref, cfg, frames, want, qps(), rc_qps)
+    return _REF[key]
+
+
+@pytest.mark.parametrize("nb,symbol_mode,rc", [
+    (2, "CAVLC", False), (2, "CABAC", False), (2, "CABAC", True),
+    (1, "CAVLC", False)])
+def test_bgop_stream_equals_reference(nb, symbol_mode, rc):
+    ref, cfg, frames, want, ref_qps, rc_qps = _reference(nb, symbol_mode,
+                                                          rc)
+    n = len(frames)
+    assert ref.gop_mode == "bgop" and ref.b_partitions and ref.t8_mode
+    port = Encoder(EncoderConfig.from_reference(dataclasses.asdict(cfg)),
+                   device="cpu")
+    assert port.gop_mode == "bgop" and port.b_partitions and port.t8_mode
+    assert (port.sps.pic_order_cnt_type, port.sps.max_num_ref_frames,
+            port.sps.num_reorder_frames, port.sps.profile_idc) == \
+        (ref.sps.pic_order_cnt_type, ref.sps.max_num_ref_frames,
+         ref.sps.num_reorder_frames, ref.sps.profile_idc)
+    got = port.encode_sequence(frames)
+    assert_same_encode(ref, want, port, got)
+    # display order, the plan's kinds, and every frame's QP
+    assert [s.frame for s in port.stats] == list(range(n))
+    assert [s.slice_type for s in port.stats] == KINDS[nb]
+    assert [s.qp for s in port.stats] == ref_qps
+    if rc:
+        # the anchors' QPs come from the controller, and they move
+        anchors = [s.qp for s in port.stats if s.slice_type in ("IDR", "P")]
+        assert anchors == rc_qps and len(set(ref_qps)) >= 3
+
+
+def test_bgop_record_cap_overflow_equals_reference():
+    """CABAC B slices over the record cap (1 a MB): the encoder compacts
+    them again at their true size, and the stream is the reference's."""
+    _, cfg, frames, want, _, _ = _reference(2, "CABAC", False)
+    port = Encoder(EncoderConfig.from_reference(dataclasses.asdict(cfg)),
+                   device="cpu", records_per_mb=1)
+    seen = []
+    real = port._cabac_records
+
+    def records(mbd, **kw):
+        recs, counts = real(mbd, **kw)
+        seen.append((kw.get("kind") == "b", int(counts.max())))
+        return recs, counts
+
+    port._cabac_records = records
+    assert port.encode_sequence(frames) == want
+    assert any(b and c > port._cabac_cap for b, c in seen)
+
+
+@pytest.mark.parametrize("nfr,nb,period", [
+    (7, 2, 0), (9, 3, 0), (5, 1, 0), (10, 2, 2), (12, 2, 5), (4, 2, 0)])
+def test_bgop_plan_matches_reference(nfr, nb, period):
+    assert build_bgop_plan(nfr, nb, period) == ref_plan(nfr, nb, period)

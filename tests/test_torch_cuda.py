@@ -13,6 +13,7 @@ import pytest
 
 import torch
 
+from tpu264_torch.coding import b_frame as tb
 from tpu264_torch.coding import inter_frame as tinter
 from tpu264_torch.coding import intra_frame as tif
 from tpu264_torch.coding.encoder import Encoder
@@ -24,6 +25,7 @@ from tpu264_torch.kernels import deblock_lines as dl
 from tpu264_torch.kernels import deblock_wave as k4w
 from tpu264_torch.kernels import i16_chroma_wave as k3w
 from tpu264_torch.kernels import i4x4_wave as k2w
+from tpu264_torch.kernels import b_wave as kb
 from tpu264_torch.kernels import interp as kint
 from tpu264_torch.kernels import p_wave as kp
 from tpu264_torch.media.synth import synth_frame
@@ -31,8 +33,9 @@ from tpu264_torch.ref import deblock as rd
 from tpu264_torch.ref.transform import chroma_qp
 from tpu264_torch.entropy import cabac_binarize as tcb
 from tpu264_torch.entropy import cabac_engine_cuda as k1
-from tpu264_torch.tools.synth_inputs import random_deblock_picture, \
-    random_mbs, random_p_wave, random_p_wave_tools, random_wave
+from tpu264_torch.tools.synth_inputs import random_b_wave, \
+    random_deblock_picture, random_mbs, random_p_wave, random_p_wave_tools, \
+    random_wave
 
 from torch_util import assert_equal, carry_records, cuda_device, \
     long_run_records, random_i4x4_lanes, random_records, run_engine, t32, \
@@ -609,3 +612,104 @@ def test_cuda_encoder_matches_cpu(deblock, slices):
     assert launched["K4"] == (2 * n_waves if deblock else 0)
     assert launched["K2_blocks"] == launched["K3_blocks"] == 0
     assert launched["K4_lines"] == 0
+
+
+def _b_wave_on(dev, seed, wm, hm, qp, allow):
+    """A seeded B wave as `b_frame.wave_body`'s arguments on `dev`, with
+    the partitions."""
+    (bd, maps, ref0, ref1, coords, avail, me0, me1, mp0, mp1, cz, cm, gy, gu,
+     gv) = random_b_wave(seed, wm, hm, n_pad=3)
+    pad = tb.PAD
+    planes = tuple(kint.luma_planes(kint.pad_plane(t32(r[0], dev), pad))
+                   for r in (ref0, ref1))
+    cpads = tuple(kint.pad_plane(t32(p, dev), pad // 2) for r in (ref0, ref1)
+                  for p in r[1:])
+    b = lambda a: torch.as_tensor(a, device=dev)
+    return (tuple(t32(m, dev) for m in maps), planes, cpads, qp,
+            chroma_qp(qp), *tif.LAMBDA_TABLE[qp],
+            {k: t32(v, dev) for k, v in bd.items()}, t32(coords, dev),
+            b(avail), (t32(me0, dev), t32(me1, dev)),
+            (t32(mp0, dev), t32(mp1, dev)), b(cz), b(cm), t32(gy, dev),
+            t32(gu, dev), t32(gv, dev), True, allow)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("allow", [True, False])
+@pytest.mark.parametrize("qp", [0, 28, 51])
+def test_cuda_b_wave_body_matches_plain(qp, allow):
+    """The B wave body on the card (K2's wave form, then KB) against
+    `wave_body_plain` on the CPU, at the 1080p width (60 lanes and 3
+    padding lanes): every result, the border buffers and both lists' maps
+    after the wave; one launch of K2 and of KB, none of KP."""
+    dev = cuda_device()
+    counts = (k2w.launches, kp.launches, kb.launches)
+    before = [dict(c) for c in counts]
+    args = _b_wave_on(dev, 120 + qp, 120, 68, qp, allow)
+    got = tb.wave_body(*args)
+    torch.cuda.synchronize()
+    ran = {k: c[k] - b[k] for c, b in zip(counts, before) for k in c}
+    assert ran == {"K2": 1, "KP": 0, "KB": 1}
+    args_c = _b_wave_on("cpu", 120 + qp, 120, 68, qp, allow)
+    want = tb.wave_body(*args_c)
+    assert list(got) == list(want) == list(kb.outputs(True))
+    for k, (shape, dtype) in kb.outputs(True).items():
+        assert got[k].dtype == dtype and got[k].shape[1:] == shape, k
+        assert_equal(got[k], want[k], k)
+    for k in args[8]:
+        assert_equal(args[8][k], args_c[8][k], k)
+    for g, w in zip(args[0], args_c[0]):
+        assert_equal(g, w)
+    # a wave that allows no partitions chooses none
+    assert allow or 5 not in set(to_np(want["btype"]).tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_ref", [False, True])
+def test_cuda_b_frame_matches_cpu(is_ref):
+    """One QCIF B frame through `make_b_encoder` (partitions, allowed
+    unless `is_ref`) on the card and on the CPU: every per-wave output
+    and the recon planes equal; K2 and KB once a wave."""
+    dev = cuda_device()
+    w, h = 176, 144
+    sched = build_schedule(w // 16, h // 16, 1)
+    frames = [synth_frame(w, h, t) for t in range(3)]
+    planes = [torch.as_tensor(p) for p in (*frames[1], *frames[0],
+                                           *frames[2])]
+    rng = np.random.default_rng(4)
+    col = [torch.as_tensor(rng.random(sched.n_mbs) < f) for f in (0.3, 0.1)]
+    encode = tb.make_b_encoder(sched, partitions=True)
+    before = (dict(k2w.launches), dict(kb.launches))
+    out_d, ys_d = encode(*(p.to(dev) for p in planes),
+                         *(c.to(dev) for c in col), 30, not is_ref)
+    torch.cuda.synchronize()
+    assert k2w.launches["K2"] - before[0]["K2"] == sched.n_waves
+    assert kb.launches["KB"] - before[1]["KB"] == sched.n_waves
+    out_c, ys_c = encode(*planes, *col, 30, not is_ref)
+    for k, c in {**ys_c, **out_c}.items():
+        d = {**ys_d, **out_d}[k]
+        assert d.dtype == c.dtype and d.shape == c.shape, k
+        assert_equal(d, c, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symbol_mode", ["CAVLC", "CABAC"])
+def test_cuda_bgop_stream_matches_cpu(symbol_mode):
+    """QCIF hierarchical B (`num_b_frames=2`, 7 frames, deblock; CABAC
+    with rate control at 256 kb/s): the stream, QPs and recon on the card
+    equal the CPU run's; K2 and KB once a wave of each B frame."""
+    dev = cuda_device()
+    frames = [synth_frame(176, 144, t) for t in range(7)]
+    rc = dict(rate_control=True, bitrate=256_000) \
+        if symbol_mode == "CABAC" else {}
+    cfg = EncoderConfig(width=176, height=144, qp=28, intra_period=0,
+                        num_b_frames=2, symbol_mode=symbol_mode, **rc)
+    before = dict(kb.launches)
+    gpu = Encoder(cfg, device=dev)
+    got = gpu.encode_sequence(frames)
+    assert kb.launches["KB"] - before["KB"] == 4 * gpu.sched.n_waves
+    cpu = Encoder(cfg, device="cpu")
+    assert got == cpu.encode_sequence(frames)
+    assert [s.qp for s in gpu.stats] == [s.qp for s in cpu.stats]
+    for g_rec, c_rec in zip(gpu.recons, cpu.recons):
+        for g, c in zip(g_rec, c_rec):
+            assert_equal(to_np(g), to_np(c))

@@ -94,9 +94,10 @@ _IPPP = dict(intra_period=0, symbol_mode="CAVLC")
 @pytest.mark.parametrize("kwargs,what", [
     (dict(_IPPP, weighted_pred=True), "weighted_pred on.*weighted pred"),
     (dict(_IPPP_OK, weighted_pred=True), "weighted_pred on"),
-    (dict(_IPPP_OK, num_b_frames=1), "hierarchical-B"),
-    (dict(_IPPP, num_b_frames=2, rate_control=True, bitrate=100000),
-     "with rate control.*hierarchical-B"),
+    (dict(_IPPP_OK, weighted_pred=True, rate_control=True, bitrate=100000),
+     "weighted_pred on"),
+    (dict(_IPPP, num_b_frames=2, rate_control=True, bitrate=100000,
+          sei_messages=True), "SEI"),
     (dict(sei_messages=True), "SEI"),
 ])
 def test_unported_options_raise(kwargs, what):
@@ -123,6 +124,14 @@ def test_unported_options_raise(kwargs, what):
     (dict(symbol_mode="CABAC", rate_control=True, bitrate=100000), "intra"),
     (dict(symbol_mode="CAVLC", rate_control=True, bitrate=100000), "intra"),
     (dict(_IPPP, rate_control=True, bitrate=1), "ippp"),
+    (dict(_IPPP, num_b_frames=2), "bgop"),
+    (dict(_IPPP, num_b_frames=1, symbol_mode="CABAC"), "bgop"),
+    (dict(_IPPP, num_b_frames=2, rate_control=True, bitrate=100000),
+     "bgop"),
+    (dict(_IPPP_OK, num_b_frames=2, symbol_mode="CABAC", rate_control=True,
+          bitrate=100000), "bgop"),
+    # the reference weighs weighted prediction in IPPP only
+    (dict(_IPPP, num_b_frames=2, weighted_pred=True), "bgop"),
 ])
 def test_ported_options_construct(kwargs, mode):
     enc = Encoder(EncoderConfig(width=W, height=H, **kwargs), device="cpu")
@@ -139,16 +148,24 @@ def test_ported_options_construct(kwargs, mode):
     (dict(_IPPP, transform_8x8=False), (True, True, False)),
     (_IPPP_OK, (False, False, False)),
     (dict(symbol_mode="CAVLC"), (False, False, False)),
+    (dict(_IPPP, num_b_frames=2), (True, True, True)),
+    (dict(_IPPP, num_b_frames=1, inter_partitions=False),
+     (False, False, True)),
+    (dict(_IPPP_OK, num_b_frames=2, symbol_mode="CABAC"),
+     (False, False, False)),
 ])
 def test_p_tools_follow_the_reference(kwargs, tools):
-    """The P tools as the reference sets them (on for IPPP unless the
-    config says False, never for all-intra), and the parameter sets: High
-    profile and transform_8x8_mode_flag with the 8x8 transform."""
+    """The P tools as the reference sets them (on for IPPP and the P
+    anchors of B GOPs unless the config says False, never for all-intra),
+    the B partitions likewise, and the parameter sets: High profile and
+    transform_8x8_mode_flag with the 8x8 transform; a B GOP's POC type 0,
+    reference and reorder frame counts."""
     from tpu264.coding.encoder import build_params as ref_build_params
     from tpu264.config import EncoderConfig as RefConfig
     cfg = EncoderConfig(width=W, height=H, **kwargs)
     enc = Encoder(cfg, device="cpu")
     assert (enc.partitions, enc.p8x8, enc.t8_mode) == tools
+    assert enc.b_partitions == (enc.gop_mode == "bgop" and tools[0])
     ref_cfg = RefConfig(width=W, height=H, **kwargs)
     sps, pps, _ = ref_build_params(ref_cfg, enc.gop_mode, t8=enc.t8_mode)
     assert enc.sps.write_rbsp() == sps.write_rbsp()

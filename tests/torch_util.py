@@ -73,11 +73,12 @@ def run_engine(slices, table, qp, pad=5, out_cap=8192, device="cpu"):
 # when it does not).  `reference_encoder` lets an encoder reuse the programs
 # of an earlier one in the same process where both would build the same
 # program: each program is keyed by exactly the settings that the code
-# building it in `tpu264/coding/encoder.py` reads (the intra and P
-# encoders, the CAVLC serializers and the CABAC record programs `_crec` do
-# not read `deblock`; the deblocker reads the slice layout and
-# `deblock_idc`).  The reference is imported inside the functions:
-# `test_torch_cuda.py` imports this module where jax may not be installed.
+# building it in `tpu264/coding/encoder.py` reads (the intra, P and B
+# encoders, the CAVLC serializers and the CABAC record programs `_crec`,
+# whose "b" entry is the B slices', do not read `deblock`; the deblocker
+# reads the slice layout and `deblock_idc`).  The reference is imported
+# inside the functions: `test_torch_cuda.py` imports this module where jax
+# may not be installed.
 
 _REF_PROGRAMS: dict = {}
 
@@ -92,9 +93,10 @@ def reference_encoder(cfg):
     keys = {"_encode_frame": sched,
             "_encode_p": sched + (cfg.search_range, enc.partitions,
                                   enc.t8_mode, enc.wp_mode, enc.p8x8),
+            "_encode_b": sched + (cfg.search_range, enc.b_partitions),
             "_deblock": sched + (enc.deblock_idc,),
             "_ser_i": sched + (enc.t8_mode,), "_ser_p": sched,
-            "_crec": sched + (enc.t8_mode,), "_sse3": ()}
+            "_ser_b": sched, "_crec": sched + (enc.t8_mode,), "_sse3": ()}
     for attr, key in keys.items():
         prog = getattr(enc, attr, None)
         if prog is not None:
@@ -158,6 +160,33 @@ def record_qps(enc) -> list:
 
     enc.rc.frame_qp = spy
     return qps
+
+
+def frame_qp_spy(enc, n_frames: int):
+    """Record the slice QP of every frame that `enc` (either package's
+    encoder) codes from now on -> a function that gives them in display
+    order (a B GOP codes its frames in another order)."""
+    from tpu264_torch.coding.encoder import build_bgop_plan
+    calls = []
+    for attr in ("encode_intra_frame", "encode_p_frame", "encode_b_frame"):
+        fn = getattr(enc, attr)
+
+        def spy(*a, _fn=fn, **kw):
+            calls.append(kw["qp"])
+            return _fn(*a, **kw)
+
+        setattr(enc, attr, spy)
+
+    def in_display_order():
+        if enc.gop_mode != "bgop":
+            return [int(qp) for qp in calls]
+        qps = [None] * n_frames
+        plan = build_bgop_plan(n_frames, enc.cfg.num_b_frames,
+                               enc.cfg.intra_period)
+        for (disp, *_), qp in zip(plan, calls):
+            qps[disp] = int(qp)
+        return qps
+    return in_display_order
 
 
 def encode_both_rc(ref_cfg, frames, **port_kw):
@@ -282,7 +311,8 @@ def assert_port_decodes_to_recon(deblock: bool, slices: int):
 
 # ---- goldens: a named entry of `tests/data/torch_golden.json` = a config,
 # a number of `synth_frame` frames, and the stream's SHA-256, size and
-# frame sizes as the JAX reference encoder gives them.
+# frame sizes (display order) as the JAX reference encoder gives them; with
+# rate control also every frame's QP ("frame_qps", display order).
 
 GOLDEN = Path(__file__).resolve().parent / "data" / "torch_golden.json"
 
@@ -294,12 +324,14 @@ def _check_golden(name: str, encoder_cls, config_cls, **enc_kw):
     frames = [synth_frame(cfg.width, cfg.height, t)
               for t in range(golden["frames"])]
     enc = encoder_cls(cfg, **enc_kw)
-    qps = record_qps(enc) if "frame_qps" in golden else []
+    qps = (frame_qp_spy(enc, len(frames)) if "frame_qps" in golden
+           else None)
     stream = enc.encode_sequence(frames)
     assert hashlib.sha256(stream).hexdigest() == golden["sha256"]
     assert len(stream) == golden["bytes"]
     assert [s.bits for s in enc.stats] == golden["frame_bits"]
-    assert qps == golden.get("frame_qps", [])
+    if "frame_qps" in golden:
+        assert qps() == golden["frame_qps"]
     return cfg, enc
 
 

@@ -1,10 +1,11 @@
 """Sequence-level encoder (torch), counterpart of
-`tpu264.coding.encoder` for all-intra and IPPP GOPs, CABAC or CAVLC, with
-the reference's default P tools (16x8/8x16 and P_8x8 partitions, the 8x8
-transform) and JVT-G012 frame rate control.
+`tpu264.coding.encoder` for all-intra, IPPP and hierarchical-B GOPs,
+CABAC or CAVLC, with the reference's default P tools (16x8/8x16 and P_8x8
+partitions, the 8x8 transform), the B 16x8/8x16 partitions, and JVT-G012
+frame rate control.
 
 Parameter-set emission, per-frame device encode (wavefront mode decision
-with kernels K2/K3, motion search and the P wave body, the wavefront
+with kernels K2/K3, motion search and the P or B wave body, the wavefront
 deblocker with K4, then either CABAC binarization and the range coder K1
 or the CAVLC serializer and bit packer), Annex-B assembly and per-frame
 stats.  All-intra CAVLC sequences at a fixed QP go through the batched
@@ -13,8 +14,7 @@ The encoder runs on the CUDA card unless the caller asks for
 `device="cpu"`.
 
 Not ported yet; the constructor raises `NotImplementedError` naming the
-ROADMAP item that brings each: weighted prediction, B GOPs (with or
-without rate control) and SEI messages.
+ROADMAP item that brings each: weighted prediction and SEI messages.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch
 
 from tpu264_torch.bits import nal
 from tpu264_torch.bits.params import PPS, SPS
-from tpu264_torch.bits.slicehdr import SLICE_I, SLICE_P, SliceHeader
+from tpu264_torch.bits.slicehdr import SLICE_B, SLICE_I, SLICE_P, SliceHeader
 from tpu264_torch.config import EncoderConfig
 from tpu264_torch.entropy import cabac_binarize as cbz
 from tpu264_torch.entropy import cabac_engine_cuda as k1
@@ -40,6 +40,7 @@ from tpu264_torch.kernels.deblock import make_deblocker_skewed, up4
 from tpu264_torch.ref.transform import chroma_qp
 from tpu264_torch.runtime.ratectl import RateController
 from . import mvpred
+from .b_frame import make_b_encoder
 from .inter_frame import make_inter_encoder
 from .intra_frame import make_intra_encoder, reorder_wave_outputs
 from .wavefront import build_schedule
@@ -60,24 +61,80 @@ class FrameStats:
     qp: int             # the slice QP (rate control's choice where it runs)
 
 
+def build_bgop_plan(nfr: int, num_b: int, intra_period: int):
+    """Coding-order plan of a B-GOP sequence (the reference's
+    `build_bgop_plan`): a list of (display, kind, ref0, ref1, layer), kind
+    "I" / "P" anchors (layer 0), "Bref" pyramid midpoints, "B" leaves;
+    layer is the pyramid depth (1 = directly between anchors).  num_b >= 2
+    builds the dyadic hierarchy; the IDR cadence counts display frames,
+    with chained-P tails before each closed-GOP IDR."""
+    step = num_b + 1
+    hier = num_b >= 2
+    anchors = list(range(0, nfr, step))
+    if anchors[-1] != nfr - 1:
+        anchors.append(nfr - 1)
+
+    def fill_gap(lo, hi, plan, depth):
+        if hi - lo <= 1:
+            return
+        if not hier:
+            for d in range(lo + 1, hi):
+                plan.append((d, "B", lo, hi, depth))
+            return
+        mid = (lo + hi) // 2
+        is_ref = (mid - lo > 1) or (hi - mid > 1)
+        plan.append((mid, "Bref" if is_ref else "B", lo, hi, depth))
+        fill_gap(lo, mid, plan, depth + 1)
+        fill_gap(mid, hi, plan, depth + 1)
+
+    plan = []
+    prev = None
+    last_idr = 0
+    for ai, a in enumerate(anchors):
+        is_idr = ai == 0 or (intra_period > 1
+                             and a - last_idr >= intra_period)
+        if is_idr:
+            last_idr = a
+        if prev is None:
+            plan.append((a, "I", None, None, 0))
+        elif is_idr:
+            # closed GOP: an IDR flushes the DPB, so the gap frames before
+            # it go out as a chained-P tail in display order, then the IDR
+            for d in range(prev + 1, a):
+                plan.append((d, "P", d - 1, None, 0))
+            plan.append((a, "I", None, None, 0))
+        else:
+            plan.append((a, "P", prev, None, 0))
+            fill_gap(prev, a, plan, 1)
+        prev = a
+    return plan
+
+
 def build_params(cfg: EncoderConfig, gop_mode: str = "intra",
                  t8: bool = False):
-    """SPS/PPS of an all-intra or IPPP stream (the parameter sets the
-    reference's `build_params` writes for these GOP modes without weighted
-    prediction) -> (sps, pps, cabac).  `t8`: the 8x8 transform is used,
-    which needs High profile and transform_8x8_mode_flag."""
-    if gop_mode not in ("intra", "ippp"):
-        raise NotImplementedError(
-            f"build_params: gop_mode {gop_mode!r} is not ported yet "
-            "(ROADMAP Queue 1: hierarchical-B GOPs)")
+    """SPS/PPS of an all-intra, IPPP or B-GOP stream (the parameter sets
+    the reference's `build_params` writes for these GOP modes without
+    weighted prediction) -> (sps, pps, cabac).  A B GOP has display-order
+    POC (type 0), is signalled as Main where the config says Baseline, and
+    keeps 4 (pyramid) or 2 reference frames and 2 or 1 reorder frames.
+    `t8`: the 8x8 transform is used, which needs High profile and
+    transform_8x8_mode_flag."""
+    if gop_mode not in ("intra", "ippp", "bgop"):
+        raise ValueError(f"build_params: unknown gop_mode {gop_mode!r}")
+    bgop = gop_mode == "bgop"
     sps = SPS(
-        profile_idc=cfg.profile_idc,
-        constraint_flags=0xC0 if cfg.profile_idc == 66 else 0,
+        profile_idc=(77 if bgop and cfg.profile_idc == 66
+                     else cfg.profile_idc),
+        constraint_flags=(0xC0 if cfg.profile_idc == 66 and not bgop
+                          else 0),
         level_idc=cfg.level_idc,
-        pic_order_cnt_type=2,
-        max_num_ref_frames=max(1, cfg.num_ref_frames),
+        pic_order_cnt_type=0 if bgop else 2,
+        max_num_ref_frames=max((4 if cfg.num_b_frames >= 2 else 2)
+                               if bgop else 1, cfg.num_ref_frames),
         pic_width_in_mbs=cfg.width_mbs,
         pic_height_in_map_units=cfg.height_mbs,
+        num_reorder_frames=((2 if cfg.num_b_frames >= 2 else 1)
+                            if bgop else None),
     )
     cabac = cfg.symbol_mode.upper() == "CABAC"
     if cabac and sps.profile_idc == 66:
@@ -96,6 +153,33 @@ def build_params(cfg: EncoderConfig, gop_mode: str = "intra",
     return sps, pps, cabac
 
 
+def colstate_of(mbd):
+    """Per-MB colocated state for spatial direct (spec 8.4.1.2.2) from a P
+    frame's raster results -> (colzero, colmixed) [n] bool.  colzero:
+    every 4x4 cell of the MB has colZeroFlag = 1 (inter, ref 0, |mv| <= 1
+    in both components); colmixed: the cells disagree, so a later B frame
+    must not choose direct there.  16x16 MBs are never mixed; 16x8 / 8x16
+    weigh both partitions' vectors, P_8x8 all four quadrants'."""
+    is_inter = mbd["is_inter"].to(torch.bool)
+
+    def cz(m):
+        return (m.to(torch.int32).abs() <= 1).all(dim=-1)
+
+    c0 = cz(mbd["mv"])
+    all_c = any_c = c0
+    if "ptype" in mbd:
+        pt = mbd["ptype"].to(torch.int32)
+        c1 = cz(mbd["mv2"])
+        two = (pt == 1) | (pt == 2)
+        all_c = torch.where(two, c0 & c1, all_c)
+        any_c = torch.where(two, c0 | c1, any_c)
+        if "mvq" in mbd:
+            cq = cz(mbd["mvq"])                         # [n, 4]
+            all_c = torch.where(pt == 3, cq.all(dim=1), all_c)
+            any_c = torch.where(pt == 3, cq.any(dim=1), any_c)
+    return is_inter & all_c, is_inter & any_c & ~all_c
+
+
 def _psnr3(sse, sizes):
     return tuple(99.99 if s == 0 else
                  10 * np.log10(255.0 ** 2 * npx / float(s))
@@ -103,18 +187,23 @@ def _psnr3(sse, sizes):
 
 
 class Encoder:
-    """H.264 encoder: all-intra and IPPP GOPs with CABAC or CAVLC (P_Skip /
-    P_L0_16x16 / P_L0_16x8 / P_L0_8x16 / P_8x8 / I16x16 / I4x4 per MB,
-    full-search ME with quarter-pel refinement for the MB and each
-    partition, the 8x8 transform of 16x16 inter MBs, periodic IDR),
-    optional in-loop deblocking, 1 or several slices, and JVT-G012 rate
-    control when `cfg.rate_control` and `cfg.bitrate > 0`.
+    """H.264 encoder: all-intra, IPPP and hierarchical-B GOPs with CABAC or
+    CAVLC (P_Skip / P_L0_16x16 / P_L0_16x8 / P_L0_8x16 / P_8x8 / I16x16 /
+    I4x4 per P MB, full-search ME with quarter-pel refinement for the MB
+    and each partition, the 8x8 transform of 16x16 inter MBs; B_L0 / B_L1
+    / B_Bi_16x16, spatial direct, 16x8 / 8x16 and intra per B MB, both
+    lists searched; periodic IDR), optional in-loop deblocking, 1 or
+    several slices, and JVT-G012 rate control when `cfg.rate_control`
+    and `cfg.bitrate > 0`.
 
     `gop_mode`: "intra" = every frame IDR; "ippp" = first frame IDR, rest
-    P (`cfg.intra_period > 1` inserts periodic IDR frames).  The default
-    follows `cfg.intra_period` as in the reference, and so do the P tools:
-    `cfg.inter_partitions` (16x8/8x16 and P_8x8) and `cfg.transform_8x8`
-    are on for IPPP unless the config says False.
+    P (`cfg.intra_period > 1` inserts periodic IDR frames); "bgop" = P
+    anchors `cfg.num_b_frames + 1` frames apart with B frames between
+    them (`build_bgop_plan`).  The default follows `cfg.intra_period` and
+    `cfg.num_b_frames` as in the reference, and so do the tools:
+    `cfg.inter_partitions` (16x8/8x16 and P_8x8; the B 16x8/8x16 on
+    non-reference B frames) and `cfg.transform_8x8` are on for IPPP and
+    B GOPs unless the config says False.
     `device`: where the frame encode runs: "cuda" (the default) runs the
     CUDA kernels and raises where there is no card; "cpu", which a caller
     must ask for, runs every kernel's plain torch version.
@@ -143,11 +232,10 @@ class Encoder:
         # as in the reference, rate control runs only with a target
         # bitrate; without one the encode is at fixed QP
         rc_on = cfg.rate_control and cfg.bitrate > 0
-        if gop_mode not in ("intra", "ippp"):
-            raise NotImplementedError(
-                f"gop_mode {gop_mode!r}: B GOPs"
-                f"{' with rate control' if rc_on else ''} are not ported "
-                "yet (ROADMAP Queue 1: hierarchical-B GOPs)")
+        if gop_mode not in ("intra", "ippp", "bgop"):
+            raise ValueError(f"unknown gop_mode {gop_mode!r}")
+        # the reference weighs explicit weighted prediction in IPPP only
+        # (a B GOP encodes without it)
         if gop_mode == "ippp" and cfg.weighted_pred:
             raise NotImplementedError(
                 "IPPP with weighted_pred on is not ported yet (ROADMAP "
@@ -160,26 +248,35 @@ class Encoder:
         self.intra_batch = max(1, int(intra_batch))
         self.sched = build_schedule(cfg.width_mbs, cfg.height_mbs,
                                     cfg.slices_per_frame)
-        # the P tools: the reference's defaults (on for IPPP unless the
-        # config says False; asked for in an all-intra GOP, a warning)
-        ippp = gop_mode == "ippp"
+        # the P tools: the reference's defaults (on for IPPP and for the P
+        # anchors of B GOPs unless the config says False; asked for in an
+        # all-intra GOP, a warning).  B slices code the 4x4 transform only
+        # (transform_size_8x8_flag 0 where the PPS has the 8x8 transform).
+        inter = gop_mode in ("ippp", "bgop")
         for field in ("inter_partitions", "transform_8x8"):
-            if getattr(cfg, field) and not ippp:
+            if getattr(cfg, field) and not inter:
                 warnings.warn(f"{field} requested but only supported for "
                               "IPPP / B GOPs; encoding without it",
                               stacklevel=2)
-        self.partitions = ippp and cfg.inter_partitions is not False
-        self.t8_mode = ippp and cfg.transform_8x8 is not False
+        self.partitions = inter and cfg.inter_partitions is not False
+        self.t8_mode = inter and cfg.transform_8x8 is not False
         self.p8x8 = self.partitions
+        # B 16x8 / 8x16 partitions, on non-reference B frames only
+        self.b_partitions = (gop_mode == "bgop"
+                             and cfg.inter_partitions is not False)
         self.sps, self.pps, self.cabac = build_params(cfg, gop_mode,
                                                       t8=self.t8_mode)
         self._encode_frame = make_intra_encoder(self.sched)
-        self._encode_p = None
-        if ippp:
+        self._encode_p = self._encode_b = None
+        if inter:
             self._encode_p = make_inter_encoder(
                 self.sched, search_range=cfg.search_range,
                 partitions=self.partitions, t8=self.t8_mode,
                 p8x8=self.p8x8)
+        if gop_mode == "bgop":
+            self._encode_b = make_b_encoder(
+                self.sched, search_range=cfg.search_range,
+                partitions=self.b_partitions)
         # in-loop deblocking: idc 0 (on) single-slice, idc 2 (slice-local)
         # multi-slice, idc 1 (off) when disabled
         self.deblock_idc = (1 if not cfg.deblock
@@ -199,15 +296,16 @@ class Encoder:
         self._cabac_cap = per_slice * records_per_mb
         self._cap_words = per_slice * WORDS_PER_MB
 
-    def _cabac_records(self, mbd, p_slice: bool = False):
-        """Binarize + compact on device: packed records [S, cap], counts.
+    def _cabac_records(self, mbd, kind: str = "i"):
+        """Binarize + compact on device a picture of slice kind `kind`
+        ("i", "p" or "b") -> packed records [S, cap], counts.
 
         In a PPS with the 8x8 transform, I_NxN MBs of I slices carry its
-        flag too (a zero t8 map).  A slice over the record cap
-        (pathological content) keeps every record: the same record grids
-        are compacted again with room for the largest slice, so the stream
-        is the one an unbounded buffer gives (the reference re-binarizes
-        such a frame on the host)."""
+        flag too (a zero t8 map; B MBs send it as 0).  A slice over the
+        record cap (pathological content) keeps every record: the same
+        record grids are compacted again with room for the largest slice,
+        so the stream is the one an unbounded buffer gives (the reference
+        re-binarizes such a frame on the host)."""
         cfg = self.cfg
         rows = self.sched.slice_starts.tolist()
         if self.t8_mode and "t8" not in mbd:
@@ -215,7 +313,8 @@ class Encoder:
                                            dtype=torch.bool,
                                            device=self.device))
         k, a, b, v = cbz.binarize_frame(mbd, cfg.width_mbs, cfg.height_mbs,
-                                        rows, p_slice=p_slice)
+                                        rows, p_slice=kind == "p",
+                                        b_slice=kind == "b")
         recs, counts = cbz.compact_slices(k, a, b, v, cfg.width_mbs, rows,
                                           cfg.height_mbs, self._cabac_cap)
         need = int(counts.max())
@@ -224,12 +323,12 @@ class Encoder:
                                               rows, cfg.height_mbs, need)
         return recs, counts
 
-    def _cabac_payloads(self, recs, counts, qp: int,
-                        p_slice: bool = False) -> list:
+    def _cabac_payloads(self, recs, counts, qp: int, kind: str = "i") -> list:
         """CABAC slice payloads through the range coder (kernel K1, one
         launch for all slices), with the contexts of init table 0 in an I
-        slice and of table 1 (cabac_init_idc 0) in a P slice."""
-        init = torch.as_tensor(k1.init_packed_states(int(p_slice), qp),
+        slice and of table 1 (cabac_init_idc 0) in a P or B slice."""
+        table = 0 if kind == "i" else 1
+        init = torch.as_tensor(k1.init_packed_states(table, qp),
                                device=recs.device)
         words, nbytes = k1.encode_slices(recs, counts, init, self._cap_words)
         return k1.payloads_from_words(words, nbytes)
@@ -246,20 +345,25 @@ class Encoder:
                                        sink.to_bytes() + payload))
         return nalus
 
-    def _deblock_inputs(self, mbd, p_slice: bool = False):
+    def _deblock_inputs(self, mbd, kind: str = "i"):
         """The deblocker's bS inputs (intra_mb, tc_luma, mv, ref, t8_mb),
-        derived on device from the raster MB dict: a P picture's
+        derived on device from the raster MB dict of a picture of slice
+        kind `kind` ("i", "p" or "b"): a P picture's
         single-list motion from its "is_inter" and "mv", per 4x4 block
-        where it has partitions ("ptype", "mv2", "mvq"); an all-intra
-        picture has none.  The coefficient condition of an 8x8-transform
-        MB counts the covering 8x8 block's coefficients on every 4x4
-        block."""
+        where it has partitions ("ptype", "mv2", "mvq"); a B picture's
+        two-list motion (`_b_motion`); an all-intra picture has none.  The
+        coefficient condition of an 8x8-transform MB counts the covering
+        8x8 block's coefficients on every 4x4 block."""
         cfg = self.cfg
         wm, hm = cfg.width_mbs, cfg.height_mbs
         n = wm * hm
         dev = self.device
-        is_inter = (mbd["is_inter"].to(torch.bool) if p_slice
-                    else torch.zeros(n, dtype=torch.bool, device=dev))
+        if kind == "b":
+            is_inter = mbd["btype"].to(torch.int32) != 4
+        elif kind == "p":
+            is_inter = mbd["is_inter"].to(torch.bool)
+        else:
+            is_inter = torch.zeros(n, dtype=torch.bool, device=dev)
         cbp_luma, _, _ = compute_cbp(mbd["sel16"].to(torch.bool),
                                      mbd["luma_ac"], mbd["chroma_dc"],
                                      mbd["chroma_ac"])
@@ -271,12 +375,15 @@ class Encoder:
                                                        dtype=torch.int32)
             tc = torch.where(up4(t8_mb), tc8.repeat_interleave(2, 0)
                              .repeat_interleave(2, 1), tc)
-        mv = (mbd["mv"].to(torch.int32) if p_slice
+        if kind == "b":
+            mv_grid, ref_grid = self._b_motion(mbd, is_inter)
+            return (~is_inter).reshape(hm, wm), tc, mv_grid, ref_grid, t8_mb
+        mv = (mbd["mv"].to(torch.int32) if kind == "p"
               else torch.zeros((n, 2), dtype=torch.int32, device=dev))
         mv_grid = torch.where(is_inter[:, None], mv, 0).reshape(hm, wm, 2)
         ref_grid = torch.where(is_inter, 0, mvpred.INTRA).to(torch.int32) \
             .reshape(hm, wm)
-        if p_slice and "ptype" in mbd:
+        if kind == "p" and "ptype" in mbd:
             # partitions: per-4x4 grids (part1 covers the bottom rows of a
             # 16x8 MB, the right columns of an 8x16 one; a P_8x8 MB's
             # blocks take their quadrant's vector)
@@ -299,30 +406,80 @@ class Encoder:
             ref_grid = up4(ref_grid)
         return (~is_inter).reshape(hm, wm), tc, mv_grid, ref_grid, t8_mb
 
-    def _apply_deblock(self, dev_out, mbd, qp: int, p_slice: bool = False):
-        """In-loop filter of a picture; the filtered planes stay on
-        device."""
-        *inputs, t8_mb = self._deblock_inputs(mbd, p_slice)
+    def _b_motion(self, mbd, is_inter):
+        """A B picture's two-list motion for the bS derivation: (mv
+        [hm, wm, 2, 2], picture ids [hm, wm, 2]) per MB (list 0's picture
+        is 0, list 1's is 1, -1 where a list is unused), or per 4x4 block
+        ([4hm, 4wm, ...]) where the picture has partitions ("bptype"; part
+        1 covers the bottom rows of a 16x8 MB, the right columns of an
+        8x16 one)."""
+        wm, hm = self.cfg.width_mbs, self.cfg.height_mbs
+        dev = self.device
+        use0 = mbd["use0"].to(torch.bool)
+        use1 = mbd["use1"].to(torch.bool)
+        mv0 = mbd["mv0"].to(torch.int32)
+        mv1 = mbd["mv1"].to(torch.int32)
+        if "bptype" not in mbd:
+            mv = torch.stack([torch.where(use0[:, None], mv0, 0),
+                              torch.where(use1[:, None], mv1, 0)], dim=1)
+            pid = torch.stack([torch.where(use0, 0, -1),
+                               torch.where(use1, 1, -1)], dim=1)
+            return (mv.reshape(hm, wm, 2, 2),
+                    pid.to(torch.int32).reshape(hm, wm, 2))
+        partd = mbd["btype"].to(torch.int32) == 5
+        c1 = mbd["c1"].to(torch.int64)
+        use0b = torch.where(partd, c1 != 1, use0)
+        use1b = torch.where(partd, c1 != 0, use1)
+        bt4 = up4(mbd["bptype"].to(torch.int32).reshape(hm, wm))
+        rsel = (torch.arange(hm * 4, device=dev) % 4 >= 2)[:, None]
+        csel = (torch.arange(wm * 4, device=dev) % 4 >= 2)[None, :]
+        p1cell = torch.where(bt4 == 1, rsel, (bt4 == 2) & csel)
+
+        def list_grids(mvp0, up0, mvp1, up1, pid):
+            grids = []
+            for mvp, up in ((mvp0, up0), (mvp1, up1)):
+                on = up & is_inter
+                grids.append((
+                    up4(torch.where(on[:, None], mvp.to(torch.int32), 0)
+                        .reshape(hm, wm, 2)),
+                    up4(torch.where(on, pid, -1).to(torch.int32)
+                        .reshape(hm, wm))))
+            (m0, r0), (m1, r1) = grids
+            return (torch.where(p1cell[..., None], m1, m0),
+                    torch.where(p1cell, r1, r0))
+
+        mvl0, refl0 = list_grids(mv0, use0, mbd["mv0b"], use0b, 0)
+        mvl1, refl1 = list_grids(mv1, use1, mbd["mv1b"], use1b, 1)
+        return (torch.stack([mvl0, mvl1], dim=2),
+                torch.stack([refl0, refl1], dim=2))
+
+    def _apply_deblock(self, dev_out, mbd, qp: int, kind: str = "i"):
+        """In-loop filter of a picture of slice kind `kind`; the filtered
+        planes stay on device."""
+        *inputs, t8_mb = self._deblock_inputs(mbd, kind)
         fy, fu, fv = self._deblock(
             dev_out["recon_y"], dev_out["recon_u"], dev_out["recon_v"],
             *inputs, qp, chroma_qp(qp), t8_mb=t8_mb)
         return (fy.to(torch.uint8), fu.to(torch.uint8), fv.to(torch.uint8))
 
-    def _recon(self, dev_out, mbd, qp: int, p_slice: bool = False):
-        """The picture that is output and referenced: deblocked where the
-        config asks for it."""
+    def _recon(self, dev_out, mbd, qp: int, kind: str = "i"):
+        """The picture (of slice kind `kind`) that is output and
+        referenced: deblocked where the config asks for it."""
         if self.cfg.deblock:
-            return self._apply_deblock(dev_out, mbd, qp, p_slice)
+            return self._apply_deblock(dev_out, mbd, qp, kind)
         return tuple(dev_out[k].to(torch.uint8)
                      for k in ("recon_y", "recon_u", "recon_v"))
 
-    def _serialize(self, mbd, p_slice: bool):
-        """CAVLC serialize + pack on device -> (words, nbits, skipped).  In
-        a PPS with the 8x8 transform, I_NxN MBs of I slices carry its
-        flag too."""
+    def _serialize(self, mbd, kind: str):
+        """CAVLC serialize + pack on device a picture of slice kind `kind`
+        ("i", "p" or "b") -> (words, nbits, skipped).  In a PPS with the
+        8x8 transform, I_NxN MBs of I slices carry its flag too."""
         cfg = self.cfg
         rows = self.sched.slice_starts.tolist()
-        if p_slice:
+        if kind == "b":
+            v, ln, skipped = dcav.serialize_frame_b(
+                mbd, cfg.width_mbs, cfg.height_mbs, rows)
+        elif kind == "p":
             v, ln, skipped = dcav.serialize_frame_p(
                 mbd, cfg.width_mbs, cfg.height_mbs, rows)
         else:
@@ -405,7 +562,7 @@ class Encoder:
                 orig = self._to_device(y, u, v)
                 dev_out, ys = self._encode_frame(*orig, qp)
                 mbd = reorder_wave_outputs(self.sched, ys)
-                w, nb, _ = self._serialize(mbd, p_slice=False)
+                w, nb, _ = self._serialize(mbd, "i")
                 recon = self._recon(dev_out, mbd, qp)
                 words.append(w)
                 nbits.append(nb)
@@ -443,6 +600,8 @@ class Encoder:
                 return self._encode_sequence_intra_batched(
                     itertools.chain(head, it), self.intra_batch)
             frames = head
+        if self.gop_mode == "bgop":
+            return self._encode_sequence_bgop(frames)
         out = self._header_nalus()
         self.recons = []
         frame_num = 0
@@ -501,6 +660,95 @@ class Encoder:
         drain()
         return b"".join(out)
 
+    def _encode_sequence_bgop(self, frames) -> bytes:
+        """B-GOP sequence (display-order POC type 0, closed GOPs), as the
+        reference's `_encode_sequence_bgop` codes it.
+
+        num_b_frames == 1: IbPbP.  num_b_frames >= 2: the dyadic pyramid,
+        each anchor gap's midpoint a reference B (layer 1), recursing into
+        the halves down to non-reference leaves.  P anchors after a
+        reference B carry a ref_pic_list_modification so that list0[0]
+        stays the previous anchor.  B QPs follow the pyramid layer
+        (QPBSlice + layer - 1); with rate control the anchors take the
+        JVT-G012 QP and the Bs ride it (anchor + 2 + layer - 1).  Each
+        frame's entropy finish runs before the next frame is queued; the
+        stats are kept in display order."""
+        cfg = self.cfg
+        frames = list(frames)
+        nfr = len(frames)
+        plan = build_bgop_plan(nfr, cfg.num_b_frames, cfg.intra_period)
+        hier = cfg.num_b_frames >= 2
+        out = self._header_nalus()
+        self.recons = [None] * nfr
+        stats = [None] * nfr
+        fn = 0
+        idr_count = 0
+        disp_base = 0
+        fn_of = {}                     # display index -> frame_num (refs)
+        col_of = {}                    # display index -> (colzero, colmixed)
+        last_ref_fn = 0
+        max_lsb = 1 << self.sps.log2_max_pic_order_cnt_lsb
+        max_fn = 1 << self.sps.log2_max_frame_num
+        anchor_qp = cfg.qp_inter
+        for disp, kind, r0, r1, layer in plan:
+            t0 = time.monotonic()
+            y, u, v = frames[disp]
+            if kind == "I":
+                qp = self.rc.frame_qp("I") if self.rc else cfg.qp
+                anchor_qp = qp
+                disp_base = disp
+                fin, recon = self.encode_intra_frame(
+                    y, u, v, frame_num=0, idr_pic_id=idr_count % 2,
+                    poc_lsb=0, qp=qp)
+                idr_count += 1
+                fn_of[disp] = last_ref_fn = 0
+                fn = 1
+            elif kind == "P":
+                qp = (self.rc.frame_qp("P", num_b=cfg.num_b_frames)
+                      if self.rc else cfg.qp_inter)
+                anchor_qp = qp
+                reorder = ()
+                if hier and fn_of.get(r0) is not None \
+                        and last_ref_fn != fn_of[r0]:
+                    # point list0[0] back at the previous anchor
+                    reorder = ((0, (fn - fn_of[r0]) % max_fn - 1),)
+                fin, recon = self.encode_p_frame(
+                    y, u, v, self.recons[r0], frame_num=fn,
+                    poc_lsb=(2 * (disp - disp_base)) % max_lsb,
+                    reorder_l0=reorder, qp=qp)
+                fn_of[disp] = last_ref_fn = fn
+                fn = (fn + 1) % max_fn
+            else:
+                # the pyramid QP ladder: QPBSlice at layer 1, +1 a layer
+                # below; with rate control it rides the anchor QP
+                base_b = (min(anchor_qp + 2, 51) if self.rc
+                          else cfg.qp_bslice)
+                qp = min(base_b + layer - 1, 51)
+                is_ref = kind == "Bref"
+                fin, recon = self.encode_b_frame(
+                    y, u, v, self.recons[r0], self.recons[r1],
+                    frame_num=fn, poc_lsb=(2 * (disp - disp_base)) % max_lsb,
+                    is_ref=is_ref, col=col_of.get(r1), qp=qp)
+                if is_ref:
+                    fn_of[disp] = last_ref_fn = fn
+                    fn = (fn + 1) % max_fn
+            col_of[disp] = self._last_col
+            self.recons[disp] = recon
+            sse = self._sse3(self._dev_orig, recon)
+            nalus = fin()
+            out.extend(nalus)
+            bits = sum(8 * len(b) for b in nalus)
+            st = sse.tolist()
+            if self.rc is not None:
+                self.rc.update("B" if kind.startswith("B") else kind, bits,
+                               float(st[3]) / y.size)
+            ps = _psnr3(st, (y.size, u.size, v.size))
+            stats[disp] = FrameStats(
+                disp, "IDR" if kind == "I" else kind, bits, ps[0], ps[1],
+                ps[2], time.monotonic() - t0, qp)
+        self.stats.extend(st for st in stats if st is not None)
+        return b"".join(out)
+
     def _to_device(self, y, u, v):
         return tuple(torch.as_tensor(np.asarray(p), device=self.device)
                      for p in (y, u, v))
@@ -525,10 +773,15 @@ class Encoder:
                 pic_order_cnt_lsb=poc_lsb, is_idr=True)
 
         mbd = reorder_wave_outputs(self.sched, ys)
+        if self.gop_mode == "bgop":
+            # an all-intra picture never sets colZeroFlag (refIdxCol -1)
+            zero = torch.zeros(cfg.width_mbs * cfg.height_mbs,
+                               dtype=torch.bool, device=self.device)
+            self._last_col = (zero, zero)
         if self.cabac:
             recs, counts = self._cabac_records(mbd)
         else:
-            words, nbits, _ = self._serialize(mbd, p_slice=False)
+            words, nbits, _ = self._serialize(mbd, "i")
         recon = self._recon(dev_out, mbd, qp)
 
         def finish():
@@ -549,7 +802,7 @@ class Encoder:
         planes -> (finish, recon).  `finish()` runs K1 (CABAC) or pulls the
         packed words and the skip map (CAVLC) and returns the frame's NAL
         units.  `reorder_l0` and `mmco` go into the slice header as given
-        (B GOPs will use them)."""
+        (a B GOP's P anchors after a reference B carry a reordering)."""
         cfg = self.cfg
         if qp is None:
             qp = cfg.qp_inter
@@ -564,21 +817,86 @@ class Encoder:
                 reorder_l0=reorder_l0, mmco=mmco)
 
         mbd = reorder_wave_outputs(self.sched, ys)
+        if self.gop_mode == "bgop":
+            self._last_col = colstate_of(mbd)
         if self.cabac:
-            recs, counts = self._cabac_records(mbd, p_slice=True)
+            recs, counts = self._cabac_records(mbd, kind="p")
         else:
-            words, nbits, skipped = self._serialize(mbd, p_slice=True)
-        recon = self._recon(dev_out, mbd, qp, p_slice=True)
+            words, nbits, skipped = self._serialize(mbd, "p")
+        recon = self._recon(dev_out, mbd, qp, "p")
 
         def finish():
             if self.cabac:
                 return self._cabac_nalus(
-                    self._cabac_payloads(recs, counts, qp, p_slice=True),
+                    self._cabac_payloads(recs, counts, qp, "p"),
                     hdr_sink, 2, nal.NAL_SLICE)
             nbits_np = nbits.cpu().numpy()
             return self._cavlc_nalus(_pull_words(words, nbits_np), nbits_np,
                                      skipped.cpu().numpy(), hdr_sink, 2,
                                      nal.NAL_SLICE)
+
+        return finish, recon
+
+    def encode_b_frame(self, y, u, v, ref0, ref1, frame_num: int,
+                       poc_lsb: int, qp: int | None = None,
+                       is_ref: bool = False, col=None):
+        """Queue one B frame's device work against the (past, future)
+        recon planes `ref0`, `ref1` -> (finish, recon), in-loop deblocked
+        per the config with the two-list bS.  `col` = (colzero, colmixed)
+        [n_mbs] bool: the colocated state of the list-1 reference
+        (`colstate_of` of a P anchor; None: all false).  A reference B
+        (`is_ref`, nal_ref_idc 2) weighs no partitions.  `finish()` runs
+        K1 (CABAC) or pulls the packed words and the skip map (CAVLC) and
+        returns the frame's NAL units."""
+        cfg = self.cfg
+        n_mbs = cfg.width_mbs * cfg.height_mbs
+        if qp is None:
+            qp = cfg.qp_inter
+        if col is None:
+            zero = torch.zeros(n_mbs, dtype=torch.bool, device=self.device)
+            col = (zero, zero)
+        self._dev_orig = self._to_device(y, u, v)
+        refs = [torch.as_tensor(p, device=self.device)
+                for p in (*ref0, *ref1)]
+        dev_out, ys = self._encode_b(*self._dev_orig, *refs, *col, qp,
+                                     allow_parts=not is_ref)
+        nal_ref_idc = 2 if is_ref else 0
+
+        def hdr_sink(s):
+            return self._slice_header(
+                s, SLICE_B, qp, frame_num=frame_num,
+                pic_order_cnt_lsb=poc_lsb, is_idr=False,
+                nal_ref_idc=nal_ref_idc)
+
+        mbd = reorder_wave_outputs(self.sched, ys)
+        if self.t8_mode:
+            # B MBs code the 4x4 transform: the flag goes out as 0
+            mbd["t8"] = torch.zeros(n_mbs, dtype=torch.bool,
+                                    device=self.device)
+        # this picture's colZeroFlag as a later colocated picture: inter
+        # MBs whose used list's vector is within +-1 quarter-pel; it has
+        # no partitions where it is a reference, so no mixed cells
+        use0 = mbd["use0"].to(torch.bool)
+        use1 = mbd["use1"].to(torch.bool)
+        mv = torch.where(use0[:, None], mbd["mv0"], mbd["mv1"])
+        self._last_col = ((use0 | use1) & (mv.abs() <= 1).all(dim=1),
+                          torch.zeros(n_mbs, dtype=torch.bool,
+                                      device=self.device))
+        if self.cabac:
+            recs, counts = self._cabac_records(mbd, kind="b")
+        else:
+            words, nbits, skipped = self._serialize(mbd, "b")
+        recon = self._recon(dev_out, mbd, qp, "b")
+
+        def finish():
+            if self.cabac:
+                return self._cabac_nalus(
+                    self._cabac_payloads(recs, counts, qp, "b"),
+                    hdr_sink, nal_ref_idc, nal.NAL_SLICE)
+            nbits_np = nbits.cpu().numpy()
+            return self._cavlc_nalus(_pull_words(words, nbits_np), nbits_np,
+                                     skipped.cpu().numpy(), hdr_sink,
+                                     nal_ref_idc, nal.NAL_SLICE)
 
         return finish, recon
 

@@ -57,16 +57,19 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
+#include "inter_wave.cuh"
 #include "intra_wave.cuh"
 #include "transform4x4.cuh"
 
 namespace {
 
+using iv::Geometry;
+using iv::kIntra;
+using iv::kPad;
+using iv::kUnavail;
+using iv::mv_cost;
 using iw::kThreads;
 
-constexpr int kPad = 24;           // luma padding of the reference planes
-constexpr int kUnavail = -2;       // map codes: outside the slice
-constexpr int kIntra = -1;         // intra macroblock
 // the tools (`kernels/p_wave.py` `Tools`)
 constexpr int kParts = 1, kP8x8 = 2, kT8 = 4;
 
@@ -113,112 +116,32 @@ struct WaveIo {
 };
 constexpr int kPtrs = 42;
 
-struct Geometry {
-  int wm, hm;        // picture in macroblocks
-  int hp, wp;        // padded luma planes
-  int hc, wc;        // padded chroma planes
-};
-
-// a block's start as `jax.lax.dynamic_slice` reads it: a negative start
-// counts from the end, then the block is moved inside [0, dim)
-__device__ __forceinline__ int clamp_start(int s, int size, int dim) {
-  s = s < 0 ? s + dim : s;
-  s = s < dim - size ? s : dim - size;
-  return s > 0 ? s : 0;
-}
-
-// ue(se(v)) code length of one vector difference component
-__device__ __forceinline__ int32_t mvd_bits1(int32_t v) {
-  const int32_t k = v > 0 ? 2 * v - 1 : -2 * v;
-  return 2 * (31 - __clz(k + 1)) + 1;
-}
-
-__device__ __forceinline__ int32_t mv_cost(int32_t dy, int32_t dx) {
-  return mvd_bits1(dy) + mvd_bits1(dx);
-}
-
-__device__ __forceinline__ int32_t median3(int32_t a, int32_t b, int32_t c) {
-  return max(min(max(a, b), c), min(a, b));
-}
-
-// One thread: the lane's neighbour vectors A, B, C (D in C's place where C
-// is missing) from the maps, the median prediction (spec 8.4.1.3) and the
-// P_Skip vector (spec 8.4.1.1) -> out = pred y, x, skip y, x.
+// One thread: the lane's median prediction (spec 8.4.1.3) and P_Skip vector
+// (spec 8.4.1.1) from the maps -> out = pred y, x, skip y, x.
 __device__ void predict_vectors(const WaveIo& io, const Geometry& g, int r,
                                 int c, bool at, bool al, bool atl, bool atr,
                                 int32_t* out) {
-  const int wm2 = g.wm + 2, hm2 = g.hm + 2;
-  // cells: channel 0 = top-right 4x4 cell, 1 = bottom-left, 2 = bottom-right
-  const int cell[4] = {(0 * hm2 + r + 1) * wm2 + c,     // A: left MB
-                       (1 * hm2 + r) * wm2 + c + 1,     // B: top MB
-                       (1 * hm2 + r) * wm2 + c + 2,     // C: top-right MB
-                       (2 * hm2 + r) * wm2 + c};        // D: top-left MB
-  const bool ok[4] = {al, at, atr, atl};
-  int32_t ref[4], mv[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    ref[i] = ok[i] ? io.ref_map[cell[i]] : kUnavail;
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-      mv[i][k] = ref[i] >= 0 ? io.mv_map[2 * cell[i] + k] : 0;
-  }
-  if (ref[2] == kUnavail) {
-    ref[2] = ref[3];
-    mv[2][0] = mv[3][0];
-    mv[2][1] = mv[3][1];
-  }
-  const bool only_a =
-      ref[1] == kUnavail && ref[2] == kUnavail && ref[0] != kUnavail;
-  const int sa = ref[0] == 0, sb = ref[1] == 0, sc = ref[2] == 0;
+  int32_t ref[3], mv[3][2];
+  iv::neighbour_vectors(io.mv_map, io.ref_map, g, r, c, at, al, atl, atr,
+                        ref, mv);
+  iv::median_prediction(ref, mv, out);
   const bool zero = ref[0] == kUnavail || ref[1] == kUnavail ||
                     (ref[0] == 0 && mv[0][0] == 0 && mv[0][1] == 0) ||
                     (ref[1] == 0 && mv[1][0] == 0 && mv[1][1] == 0);
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int32_t a = mv[0][k], b = mv[1][k], cc = mv[2][k];
-    const int32_t pred = only_a ? a
-                         : (sa + sb + sc == 1 ? sa * a + sb * b + sc * cc
-                                              : median3(a, b, cc));
-    out[k] = pred;
-    out[2 + k] = zero ? 0 : pred;
-  }
+  out[2] = zero ? 0 : out[0];
+  out[3] = zero ? 0 : out[1];
 }
 
-// Sample (y, x) of the bh x bw quarter-pel prediction of the block whose
-// padded-plane origin is (y0, x0), for vector (mvy, mvx) (`interp.mc_luma`).
+// Sample (y, x) of a quarter-pel luma prediction from the reference's
+// half-pel planes (`iv::mc_luma_sample` with this kernel's table).
 __device__ __forceinline__ int32_t mc_luma_sample(const int32_t* planes,
                                                   const PParams& prm,
                                                   const Geometry& g, int y0,
                                                   int x0, int32_t mvy,
                                                   int32_t mvx, int y, int x,
                                                   int bh, int bw) {
-  const int8_t* t = prm.qpel[(mvy & 3) * 4 + (mvx & 3)];
-  const int by = y0 + (mvy >> 2), bx = x0 + (mvx >> 2);
-  const int plane = g.hp * g.wp;
-  const int ya = clamp_start(by + t[1], bh, g.hp);
-  const int xa = clamp_start(bx + t[2], bw, g.wp);
-  const int32_t a = planes[t[0] * plane + (ya + y) * g.wp + xa + x];
-  if (!t[6]) return a;
-  const int yb = clamp_start(by + t[4], bh, g.hp);
-  const int xb = clamp_start(bx + t[5], bw, g.wp);
-  const int32_t bv = planes[t[3] * plane + (yb + y) * g.wp + xb + x];
-  return (a + bv + 1) >> 1;
-}
-
-// Sample (cy, cx) of the bh x bw eighth-pel bilinear chroma prediction
-// (`interp.mc_chroma`): a (bh+1) x (bw+1) window at the clamped start.
-__device__ __forceinline__ int32_t mc_chroma_sample(const int32_t* cpad,
-                                                    const Geometry& g,
-                                                    int cy0, int cx0,
-                                                    int32_t mvy, int32_t mvx,
-                                                    int cy, int cx, int bh,
-                                                    int bw) {
-  const int fy = mvy & 7, fx = mvx & 7;
-  const int sy = clamp_start(cy0 + (mvy >> 3), bh + 1, g.hc);
-  const int sx = clamp_start(cx0 + (mvx >> 3), bw + 1, g.wc);
-  const int32_t* w = cpad + (sy + cy) * g.wc + sx + cx;
-  return ((8 - fx) * (8 - fy) * w[0] + fx * (8 - fy) * w[1] +
-          (8 - fx) * fy * w[g.wc] + fx * fy * w[g.wc + 1] + 32) >> 6;
+  return iv::mc_luma_sample(planes, prm.qpel, g, y0, x0, mvy, mvx, y, x, bh,
+                            bw);
 }
 
 // One 8-point pass of the JM forward 8x8 transform (`transform8._fwd1d`).
@@ -273,12 +196,6 @@ __device__ __forceinline__ void inv8(int32_t (&d)[8]) {
 __device__ __forceinline__ int32_t coeff_bits(int32_t l) {
   const int32_t a = iw::iabs(l);
   return a ? 2 * (32 - __clz(a)) + 1 : 0;
-}
-
-__device__ __forceinline__ int32_t warp_sum(int32_t v) {
-#pragma unroll
-  for (int m = 1; m < 32; m <<= 1) v += __shfl_xor_sync(iw::kFull, v, m);
-  return v;
 }
 
 __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
@@ -352,11 +269,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
 #pragma unroll
   for (int k = 0; k < 5; ++k) {
     if (k < n_cand) {                  // uniform over the block
-      int32_t t = iw::iabs(iw::wht16(s_y - cand[k], p));
-#pragma unroll
-      for (int m = 1; m < 16; m <<= 1) t += __shfl_xor_sync(iw::kFull, t, m);
-      t = (t + 1) >> 1;                                // this 4x4 block's SATD
-      t += __shfl_xor_sync(iw::kFull, t, 16);          // + the warp's other
+      const int32_t t = iv::warp_satd(s_y - cand[k], p);
       if ((tid & 31) == 0) isum[k][tid >> 5] = t;
     }
   }
@@ -466,7 +379,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
         my = mv2_y;
         mx = mv2_x;
       }
-      cpred = mc_chroma_sample(comp ? io.cv_pad : io.cu_pad, g,
+      cpred = iv::mc_chroma_sample(comp ? io.cv_pad : io.cu_pad, g,
                                r * 8 + kPad / 2 + oy, c * 8 + kPad / 2 + ox,
                                my, mx, cy - oy, cx - ox, bh, bw);
     } else {
@@ -593,7 +506,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
                                d8 * d8, coeff_bits(lev8[tid])};
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const int32_t t = warp_sum(part[k]);
+        const int32_t t = iv::warp_sum(part[k]);
         if ((tid & 31) == 0) tsum[k][tid >> 5] = t;
       }
       const unsigned nz = __ballot_sync(iw::kFull, lev8[tid] != 0);

@@ -1,6 +1,6 @@
-"""CABAC binarization of I and P slices on device (torch).
+"""CABAC binarization of I, P and B slices on device (torch).
 
-Counterpart of the I- and P-slice paths of `tpu264.entropy.cabac_binarize_j`
+Counterpart of `tpu264.entropy.cabac_binarize_j`
 (`binarize_frame_j`, `RecordRows`, `_residual_group_j`,
 `_residual_group8_j`, `pack_records`, `unpack_records_np`,
 `compact_slices_j`) and of the record kinds of
@@ -9,7 +9,9 @@ for a whole frame from the final syntax maps and compacts them per slice
 into the packed streams kernel K1 replays.  P slices carry the reference's
 default P tools: 16x8/8x16 and P_8x8 partitions ("ptype", "mv2", "mvq")
 and the 8x8 transform ("t8", whose flag also goes on the I_NxN MBs of an
-I slice in the same PPS).  The B branch is not ported yet.
+I slice in the same PPS).  B slices carry L0 / L1 / Bi 16x16, direct (a
+direct MB with cbp 0 is a B_Skip) and the 16x8 / 8x16 two-partition
+types ("bptype", "c0", "c1", "mv0b", "mv1b"), with per-list mvds.
 
 The per-coefficient loops are emitted as blocked rows ([15, n]
 significance maps, [16, 6, n] level groups, ...); the row order inside
@@ -26,11 +28,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu264_torch.coding.b_mbtypes import COMBO_IDX
 from tpu264_torch.coding.wavefront import BLK_ORDER
 from .cabac_ctx import CBF_CAT_OFF, LAST8_MAP, LVL_CAT_OFF, SIG8_MAP, \
-    SIG_CAT_OFF, K_I4, K_I16, K_INTER, K_SKIP
-from .device_cavlc import (_partition_mvds, bit_length_minus1,
-                           blk_grid_index, compute_cbp, mpm_grid, mvd_16x16)
+    SIG_CAT_OFF, K_DIRECT, K_I4, K_I16, K_INTER, K_SKIP
+from .device_cavlc import (_partition_mvds, b_list_flags, b_list_mvds,
+                           bit_length_minus1, blk_grid_index,
+                           compute_cbp, mpm_grid, mvd_16x16)
 
 K_CTX, K_BYP, K_TERM = 0, 1, 2
 I32 = torch.int32
@@ -224,19 +228,28 @@ def _residual_group8(grid: RecordRows, scan64, on_res):
     _level_rows(grid, scan64, on_res, 426)
 
 
-def binarize_frame(mb, wm: int, hm: int, slice_rows, p_slice: bool = False):
-    """I- or P-slice records of a frame from its raster MB dict.
+def binarize_frame(mb, wm: int, hm: int, slice_rows, p_slice: bool = False,
+                   b_slice: bool = False):
+    """I-, P- or B-slice records of a frame from its raster MB dict.
 
     A P dict carries "is_inter", "mv" and "mv_skip"; with "ptype" and
-    "mv2" the 16x8/8x16 partitions, with "mvq" also P_8x8; with "t8" (a
-    PPS with transform_8x8_mode_flag, in I slices too) the 8x8 transform.
-    Returns (kind [S, n] int32, a, b, valid [S, n] bool): slot-major, the
-    same record semantics and order as `binarize_frame_j`."""
+    "mv2" the 16x8/8x16 partitions, with "mvq" also P_8x8; a B dict
+    "btype", "mv0", "mv1", "use0", "use1", with "bptype", "c0", "c1",
+    "mv0b", "mv1b" the two-partition types; with "t8" (a PPS with
+    transform_8x8_mode_flag, in I and B slices a zero map) the 8x8
+    transform.  Returns (kind [S, n] int32, a, b, valid [S, n] bool):
+    slot-major, the same record semantics and order as
+    `binarize_frame_j`."""
     n = wm * hm
     dev = mb["luma_ac"].device
     t8_mode = "t8" in mb
-    is_inter = (mb["is_inter"].to(torch.bool) if p_slice
-                else torch.zeros(n, dtype=torch.bool, device=dev))
+    if b_slice:
+        btype, is_inter, partd, bptype, _, exp, exp_b = b_list_flags(mb)
+        is_direct = btype == 3
+    else:
+        is_inter = (mb["is_inter"].to(torch.bool) if p_slice
+                    else torch.zeros(n, dtype=torch.bool, device=dev))
+        is_direct = torch.zeros(n, dtype=torch.bool, device=dev)
     sel16 = mb["sel16"].to(torch.bool) & ~is_inter
     luma_ac = mb["luma_ac"].to(I32)
     luma_dc = mb["luma_dc"].to(I32)
@@ -272,15 +285,26 @@ def binarize_frame(mb, wm: int, hm: int, slice_rows, p_slice: bool = False):
             mvd0 = mvd_16x16(mv, is_inter, wm, hm, slice_rows)
         skipped = (is_inter & (ptype == 0)
                    & (mv == mb["mv_skip"].to(I32)).all(dim=1) & (cbp == 0))
+    elif b_slice:
+        # per list: partition 0's (and 1's) mvds where the list is coded
+        # explicitly
+        bmvd = []
+        for lx, (d0, d1) in enumerate(b_list_mvds(mb, wm, hm, slice_rows)):
+            bmvd.append((torch.where(exp[lx][:, None], d0, 0),
+                         None if d1 is None else
+                         torch.where(exp_b[lx][:, None], d1, 0)))
+        skipped = is_direct & (cbp == 0)
     else:
         skipped = torch.zeros(n, dtype=torch.bool, device=dev)
     coded = ~skipped
     intra_cur = ~is_inter
 
     # ---- final-state neighbor grids (2D [hm, wm]) ----
-    kind_g = torch.where(skipped, K_SKIP,
-                         torch.where(is_inter, K_INTER,
-                                     torch.where(sel16, K_I16, K_I4))) \
+    kind_g = torch.where(
+        skipped, K_SKIP,
+        torch.where(is_direct, K_DIRECT,
+                    torch.where(is_inter, K_INTER,
+                                torch.where(sel16, K_I16, K_I4)))) \
         .to(I32).reshape(hm, wm)
     cbp_l_g = torch.where(coded, cbp_luma, 0).reshape(hm, wm)
     cbp_c_g = torch.where(coded, cbp_chroma, 0).reshape(hm, wm)
@@ -321,13 +345,47 @@ def binarize_frame(mb, wm: int, hm: int, slice_rows, p_slice: bool = False):
         t8_inc = nb_sum(t8_g, t8_g)
 
     # ---- mb_skip_flag ----
-    if p_slice:
+    if p_slice or b_slice:
         nskip = (kind_g != K_SKIP).to(I32)
-        grid.ctx_bin(11 + nb_sum(nskip, nskip), skipped.to(I32), ones)
+        grid.ctx_bin((24 if b_slice else 11) + nb_sum(nskip, nskip),
+                     skipped.to(I32), ones)
 
     # ---- mb_type ----
     intra_coded = coded & intra_cur
-    if p_slice:
+    if b_slice:
+        # Table 9-37 (B): bin 0 (ctx 27 + the left and top MBs that are
+        # neither skipped nor direct) 0 = direct; '100' / '101' = L0 / L1
+        # 16x16; '11' + 4 bits (+ 1) for Bi, the partitioned types and
+        # the intra prefix
+        nd = ((kind_g != K_SKIP) & (kind_g != K_DIRECT)).to(I32)
+        explicit = coded & ~is_direct
+        grid.ctx_bin(27 + nb_sum(nd, nd), (~is_direct).to(I32), coded)
+        one_list = explicit & is_inter & ((btype == 0) | (btype == 1))
+        on11 = (btype == 2) | partd | ~is_inter
+        grid.ctx_bin(30, on11.to(I32), explicit)
+        grid.ctx_bin(32, (btype == 1).to(I32), one_list)
+        tail = explicit & on11
+        # the '11' suffix: Bi 0000; intra 1101; types 4..10 value - 3;
+        # 11 1110; 12..21 (value + 4) // 2 and one bit more
+        bits13 = torch.where(is_inter, 0, 13)
+        if "bptype" in mb:
+            combo = torch.as_tensor(COMBO_IDX, device=dev)
+            mbt_part = (4 + 2 * combo[(mb["c0"].to(I32) * 3
+                                       + mb["c1"].to(I32)).long()]
+                        + (bptype == 2).to(I32))
+            bits13 = torch.where(
+                partd, torch.where(mbt_part <= 10, mbt_part - 3,
+                                   torch.where(mbt_part == 11, 14,
+                                               (mbt_part + 4) // 2)),
+                bits13)
+        grid.ctx_bin(31, (bits13 >> 3) & 1, tail)
+        for sh in (2, 1, 0):
+            grid.ctx_bin(32, (bits13 >> sh) & 1, tail)
+        if "bptype" in mb:
+            grid.ctx_bin(32, mbt_part & 1, tail & partd & (mbt_part >= 12))
+        first_ctx = 32
+        rest = (33, 34, 34, 35, 35)
+    elif p_slice:
         grid.ctx_bin(14, intra_cur.to(I32), coded)
         inter_coded = coded & is_inter
         # Table 9-37 P prefix: '000' 16x16, '011' 16x8, '010' 8x16, '001'
@@ -383,7 +441,7 @@ def binarize_frame(mb, wm: int, hm: int, slice_rows, p_slice: bool = False):
     # partitions part0 then part1 (7.3.5.1 order), then P_8x8's q2 and q3;
     # the contexts sum |mvd| of the left and top 4x4 cells (spec
     # 9.3.3.1.1.7), a skipped or intra neighbour adding 0 ----
-    if p_slice:
+    if p_slice or b_slice:
         def emit_mvd(vals, s_of_comp, on_mv):
             for comp, base in ((1, 40), (0, 47)):
                 s = s_of_comp(comp)
@@ -402,6 +460,41 @@ def binarize_frame(mb, wm: int, hm: int, slice_rows, p_slice: bool = False):
                 grid.bypass(egs, egsb, on_eg & (egsb > 0))
                 grid.bypass((vals[:, comp] < 0).to(I32), 1, on_mv & (a > 0))
 
+    if b_slice:
+        # per list (list 0's mvds, then list 1's): partition 0 then 1, the
+        # contexts from the |mvd| cells of that list
+        for lx in range(2):
+            on0 = coded & exp[lx]
+            d0, d1 = bmvd[lx]
+            a0 = torch.where(on0[:, None], d0.abs(), 0)
+            if d1 is None:
+                a0_g = a0.reshape(hm, wm, 2)
+                emit_mvd(d0, lambda comp: nb_sum(a0_g[:, :, comp],
+                                                 a0_g[:, :, comp]), on0)
+                continue
+            on1 = coded & exp_b[lx] & partd
+            a1 = torch.where(on1[:, None], d1.abs(), 0)
+            tr_g = torch.where((bptype == 2)[:, None], a1, a0) \
+                .reshape(hm, wm, 2)
+            bl_g = torch.where((bptype == 1)[:, None], a1, a0) \
+                .reshape(hm, wm, 2)
+            br_g = torch.where((bptype > 0)[:, None], a1, a0) \
+                .reshape(hm, wm, 2)
+
+            def s_p1(comp, br_g=br_g, a0=a0):
+                # 16x8 bottom: A = left MB's br cell, B = own part 0;
+                # 8x16 right: A = own part 0, B = top MB's br cell
+                lbr = torch.where(av_l, left(br_g[:, :, comp]), 0) \
+                    .reshape(n)
+                tbr = torch.where(av_t, top(br_g[:, :, comp]), 0) \
+                    .reshape(n)
+                own = a0[:, comp]
+                return torch.where(bptype == 1, lbr + own, own + tbr)
+
+            emit_mvd(d0, lambda comp, tr_g=tr_g, bl_g=bl_g: nb_sum(
+                tr_g[:, :, comp], bl_g[:, :, comp]), on0)
+            emit_mvd(d1, s_p1, on1)
+    elif p_slice:
         on0 = coded & is_inter
         a0 = torch.where(on0[:, None], mvd0.abs(), 0)
         if parts_mode:

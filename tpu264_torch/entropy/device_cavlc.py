@@ -1,8 +1,9 @@
 """On-device CAVLC serialization + bit packing (torch), and the per-MB
 syntax helpers shared by the CABAC binarizer and the deblocker.
 
-Counterpart of `tpu264.entropy.device_cavlc` for I and P slices (with the
-default P tools: partitions, P_8x8, the 8x8 transform): per-block token/length
+Counterpart of `tpu264.entropy.device_cavlc` for I, P and B slices (with
+the default P tools: partitions, P_8x8, the 8x8 transform; B 16x8 / 8x16
+partitions): per-block token/length
 computation is parallel over blocks, packing is a prefix sum plus a
 scatter-add, so only the packed slice payloads cross to the host.  Every
 function mirrors its reference twin bit for bit; the tests hold them to
@@ -19,6 +20,7 @@ import torch
 
 from tpu264_torch.bits.expgolomb import write_ue
 from tpu264_torch.coding import mvpred
+from tpu264_torch.coding.b_mbtypes import COMBO_IDX
 from tpu264_torch.coding.wavefront import BLK_ORDER
 from tpu264_torch.kernels.transform import on
 from . import cavlc_tables as tbl
@@ -631,6 +633,48 @@ def _ue_slots(vals, lens, slot: int, v, on):
     lens[slot] = torch.where(on, ln, 0)
 
 
+def _skip_run_slots(vals, lens, coded, wm: int, hm: int, slice_rows):
+    """mb_skip_run at slot 0 of each coded MB: the skipped MBs since the
+    previous coded MB of its slice (a prefix scan)."""
+    n = wm * hm
+    dev = coded.device
+    pos = torch.arange(n, dtype=I32, device=dev)
+    slice_first = np.zeros(n, dtype=np.int32)
+    rows = [int(r) for r in slice_rows] + [hm]
+    for s in range(len(rows) - 1):
+        slice_first[rows[s] * wm: rows[s + 1] * wm] = rows[s] * wm
+    slice_first = torch.as_tensor(slice_first, device=dev)
+    prev_coded = torch.cummax(torch.where(coded, pos, -1), dim=0).values
+    prev_excl = torch.cat([torch.full((1,), -1, dtype=I32, device=dev),
+                           prev_coded[:-1]])
+    prev_excl = torch.maximum(prev_excl, slice_first - 1)
+    _ue_slots(vals, lens, 0, pos - prev_excl - 1, coded)
+
+
+def _cbp_delta_slots(vals, lens, slot: int, cbp, cbp_luma, inter_coded,
+                     is_i4, coded, sel16, t8=None) -> None:
+    """From `slot` on: coded_block_pattern me(v) of inter and I_NxN MBs;
+    with `t8` (a PPS with transform_8x8_mode_flag: the MBs' flags)
+    transform_size_8x8_flag after the cbp of inter MBs with a luma
+    residual (spec 7.3.5; every inter shape qualifies, B direct included
+    under direct_8x8_inference_flag 1); then mb_qp_delta, se(0) = '1',
+    where one is sent."""
+    dev = cbp.device
+    ci, li_ = ue_code(_tab("cbpi", dev)[cbp.long()])
+    cp, lp_ = ue_code(_tab("cbpp", dev)[cbp.long()])
+    vals[slot] = torch.where(inter_coded, cp, torch.where(is_i4, ci, 0))
+    lens[slot] = torch.where(inter_coded, lp_, torch.where(is_i4, li_, 0))
+    slot += 1
+    if t8 is not None:
+        flag_on = inter_coded & (cbp_luma > 0)
+        vals[slot] = (flag_on & t8).to(I32)
+        lens[slot] = flag_on.to(I32)
+        slot += 1
+    has_delta = (coded & (sel16 | (cbp > 0))).to(I32)
+    vals[slot] = has_delta
+    lens[slot] = has_delta
+
+
 def serialize_frame_p(mb, wm: int, hm: int, slice_rows):
     """P-frame grids (mirror of `serialize_frame_p_j`, and of
     slice_writer.serialize_frame_mbs_p).
@@ -670,20 +714,8 @@ def serialize_frame_p(mb, wm: int, hm: int, slice_rows):
     skipped = (is_inter & (ptype == 0) & (mv == mv_skip).all(dim=1)
                & (cbp == 0))
 
-    # mb_skip_run per coded MB: distance to previous coded MB in the slice
-    pos = torch.arange(n, dtype=I32, device=dev)
-    slice_first = np.zeros(n, dtype=np.int32)
-    rows = [int(r) for r in slice_rows] + [hm]
-    for s in range(len(rows) - 1):
-        slice_first[rows[s] * wm: rows[s + 1] * wm] = rows[s] * wm
-    slice_first = torch.as_tensor(slice_first, device=dev)
     coded = ~skipped
-    coded_pos = torch.where(coded, pos, -1)
-    prev_coded = torch.cummax(coded_pos, dim=0).values
-    prev_excl = torch.cat([torch.full((1,), -1, dtype=I32, device=dev),
-                           prev_coded[:-1]])
-    prev_excl = torch.maximum(prev_excl, slice_first - 1)
-    _ue_slots(vals, lens, 0, pos - prev_excl - 1, coded)
+    _skip_run_slots(vals, lens, coded, wm, hm, slice_rows)
 
     mbt_intra = 5 + torch.where(sel16, 1 + mb["i16mode"].to(I32)
                                 + 4 * cbp_chroma + 12 * (cbp_luma > 0), 0)
@@ -716,22 +748,133 @@ def serialize_frame_p(mb, wm: int, hm: int, slice_rows):
             _ue_slots(vals, lens, slot, se_to_ue(d[:, comp]), on)
             slot += 1
 
-    ci, li_ = ue_code(_tab("cbpi", dev)[cbp.long()])
-    cp, lp_ = ue_code(_tab("cbpp", dev)[cbp.long()])
-    vals[slot] = torch.where(inter_coded, cp, torch.where(is_i4, ci, 0))
-    lens[slot] = torch.where(inter_coded, lp_, torch.where(is_i4, li_, 0))
-    slot += 1
-    if t8_mode:
-        # transform_size_8x8_flag after the cbp of inter MBs with a luma
-        # residual (spec 7.3.5; 16x16 / 16x8 / 8x16 all qualify)
-        flag_on = inter_coded & (cbp_luma > 0)
-        vals[slot] = (flag_on & mb["t8"].to(torch.bool)).to(I32)
-        lens[slot] = flag_on.to(I32)
-        slot += 1
+    _cbp_delta_slots(vals, lens, slot, cbp, cbp_luma, inter_coded, is_i4,
+                     coded, sel16,
+                     mb["t8"].to(torch.bool) if t8_mode else None)
 
-    has_delta = (coded & (sel16 | (cbp > 0))).to(I32)
-    vals[slot] = has_delta
-    lens[slot] = has_delta
+    rv, rl = _residual_slots(mb, sel16, cbp_luma, cbp_chroma, wm, hm,
+                             slice_rows)
+    return (torch.cat([torch.stack(vals, dim=1), rv], dim=1),
+            torch.cat([torch.stack(lens, dim=1), rl], dim=1), skipped)
+
+
+HDR_SLOTS_B = 25       # B header slots without partitions or the 8x8 PPS
+
+
+def b_list_flags(mb):
+    """The per-list flags of a B frame's raster results -> (btype,
+    is_inter, partd, bptype, (use0b, use1b), (exp0, exp1), (exp0b,
+    exp1b)): each partition's use of a list (partition 1's equal
+    partition 0's on an MB with one partition) and the lists with an
+    explicit mvd (not direct) of partition 0 and 1."""
+    btype = mb["btype"].to(I32)
+    is_inter = btype != 4
+    partd = btype == 5
+    use0 = mb["use0"].to(torch.bool)
+    use1 = mb["use1"].to(torch.bool)
+    if "bptype" in mb:
+        bptype = mb["bptype"].to(I32)
+        c0, c1 = mb["c0"].to(I32), mb["c1"].to(I32)
+        # choice c: 0 = L0, 1 = L1, 2 = Bi
+        use_b = (torch.where(partd, c1 != 1, use0),
+                 torch.where(partd, c1 != 0, use1))
+        exp = (torch.where(partd, c0 != 1, (btype == 0) | (btype == 2)),
+               torch.where(partd, c0 != 0, (btype == 1) | (btype == 2)))
+        exp_b = (partd & (c1 != 1), partd & (c1 != 0))
+    else:
+        bptype = torch.zeros_like(btype)
+        use_b = (use0, use1)
+        exp = ((btype == 0) | (btype == 2), (btype == 1) | (btype == 2))
+        exp_b = None
+    return btype, is_inter, partd, bptype, use_b, exp, exp_b
+
+
+def b_list_mvds(mb, wm: int, hm: int, slice_rows):
+    """Per list, the mvds of a B frame's MBs -> ((mvd0, mvd1) of list 0,
+    of list 1), [n, 2] each: partition 0's and partition 1's against the
+    spec-8.4.1.3 predictors of the final per-list maps (direct motion
+    takes part as a neighbour); with one partition, mvd1 is None."""
+    btype, is_inter, _, bptype, use_b, _, _ = b_list_flags(mb)
+    out = []
+    for lx in range(2):
+        use = mb[f"use{lx}"].to(torch.bool)
+        mv = mb[f"mv{lx}"].to(I32)
+        if "bptype" in mb:
+            grids = _cell_grids2(bptype, mv, mb[f"mv{lx}b"].to(I32), use,
+                                 use_b[lx], is_inter, wm, hm)
+            p0_ref = torch.where(is_inter & use, 0, mvpred.INTRA).to(I32)
+            d0, d1, _ = _partition_mvds_core(bptype, mv,
+                                             mb[f"mv{lx}b"].to(I32), p0_ref,
+                                             *grids, wm, hm, slice_rows)
+            out.append((d0, d1))
+        else:
+            out.append((mvd_16x16(mv, use, wm, hm, slice_rows), None))
+    return out
+
+
+def serialize_frame_b(mb, wm: int, hm: int, slice_rows):
+    """B-frame grids (mirror of `serialize_frame_b_j`): 16x16 L0 / L1 /
+    Bi, spatial direct (a direct MB with cbp 0 is a B_Skip, counted in the
+    skip runs), with "bptype" / "c0" / "c1" / "mv0b" / "mv1b" the 16x8 /
+    8x16 two-partition types (Table 7-14 mb_type 4..21), and intra; with
+    "t8" (a PPS with transform_8x8_mode_flag) the flag bit, always 0, of
+    I_NxN MBs and of inter MBs with a luma residual.  mvds go out per
+    list and partition (list 0's partition 0 and 1, then list 1's), for
+    the explicit lists of non-direct inter MBs.  Returns (values [n,
+    slots], lengths, skipped [n] bool)."""
+    n = wm * hm
+    parts_mode = "bptype" in mb
+    t8_mode = "t8" in mb
+    ioff, poff = int(t8_mode), 4 * int(parts_mode)
+    btype, is_inter, partd, bptype, _, exp, exp_b = b_list_flags(mb)
+    dev = btype.device
+    is_direct = btype == 3
+    sel16 = mb["sel16"].to(torch.bool) & ~is_inter
+    zero = torch.zeros(n, dtype=I32, device=dev)
+    n_hdr = HDR_SLOTS_B + poff + 2 * ioff
+    vals = [zero] * n_hdr
+    lens = [zero] * n_hdr
+    cbp_luma, cbp_chroma, cbp = compute_cbp(
+        sel16, mb["luma_ac"], mb["chroma_dc"], mb["chroma_ac"])
+    skipped = is_direct & (cbp == 0)
+    coded = ~skipped
+
+    _skip_run_slots(vals, lens, coded, wm, hm, slice_rows)
+
+    mbt_intra = 23 + torch.where(sel16, 1 + mb["i16mode"].to(I32)
+                                 + 4 * cbp_chroma + 12 * (cbp_luma > 0), 0)
+    mbt = torch.where(is_direct, 0, torch.where(is_inter, btype + 1,
+                                                mbt_intra))
+    if parts_mode:
+        # Table 7-14 mb_type 4..21: 4 + 2 * combination + (8x16)
+        combo = torch.as_tensor(COMBO_IDX, device=dev)
+        mbt_part = (4 + 2 * combo[(mb["c0"].to(I32) * 3
+                                   + mb["c1"].to(I32)).long()]
+                    + (bptype == 2).to(I32))
+        mbt = torch.where(partd, mbt_part, mbt)
+    _ue_slots(vals, lens, 1, mbt, coded)
+
+    is_i4 = coded & ~is_inter & ~sel16
+    if t8_mode:
+        lens[2] = is_i4.to(I32)                # the flag, 0 for I_NxN
+    _i4_mode_slots(vals, lens, 2 + ioff, mb, is_i4, wm, hm, slice_rows)
+    _ue_slots(vals, lens, 18 + ioff, mb["cmode"].to(I32), coded & ~is_inter)
+
+    # mvds (x then y): list 0's partition 0 (and 1), then list 1's
+    slot = 19 + ioff
+    for lx, (d0, d1) in enumerate(b_list_mvds(mb, wm, hm, slice_rows)):
+        for d, on in ((d0, coded & exp[lx]),
+                      (d1, coded & exp_b[lx] if parts_mode else None)):
+            if d is None:
+                continue
+            for comp in (1, 0):
+                _ue_slots(vals, lens, slot, se_to_ue(d[:, comp]), on)
+                slot += 1
+
+    # the 8x8 flag of inter MBs is 0: B MBs code the 4x4 transform
+    _cbp_delta_slots(vals, lens, slot, cbp, cbp_luma, coded & is_inter,
+                     is_i4, coded, sel16,
+                     torch.zeros_like(coded) if t8_mode else None)
 
     rv, rl = _residual_slots(mb, sel16, cbp_luma, cbp_chroma, wm, hm,
                              slice_rows)

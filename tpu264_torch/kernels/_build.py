@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernel library.
 
 All kernels (K1 CABAC engine, K2 I4x4 wave body, K3 I16x16 + chroma wave
-body, KP P wave body, K4 deblock wave, and the K2/K3 DCT + quant and K4
-luma line filter entries on slabs) are CUDA C++ under `tpu264_torch/csrc/` with a
-plain C interface.  At first use `nvcc` compiles each source to an object
+body, KP P wave body, KB B wave body, K4 deblock wave, and the K2/K3 DCT +
+quant and K4 luma line filter entries on slabs) are CUDA C++ under
+`tpu264_torch/csrc/` with a plain C interface.  At first use `nvcc` compiles each source to an object
 file, all sources at once in parallel, links them into one shared library,
 `build/tpu264_torch/libtpu264_kernels_<hash>.so` beside the package, keyed
 by a hash of the sources and flags, and `ctypes` loads it.  Only the
@@ -44,6 +44,8 @@ _SIGNATURES = {
     "tpu264_i16_chroma_wave": [P, P, I, I, P],
     # (ptrs[37]*, params*, geom*, n_mbs, stream)
     "tpu264_p_wave": [P, P, P, I, P],
+    # (ptrs[53]*, params*, geom*, n_mbs, stream)
+    "tpu264_b_wave": [P, P, P, I, P],
     # (y, u, v, bs_v, bs_h, wm, cp, r0, n_rows, params*, stream)
     "tpu264_deblock_wave": [P, P, P, P, P, I, I, I, I, P, P],
     # (win, bs, out, n_lines, alpha, beta, tc0_3*, stream)

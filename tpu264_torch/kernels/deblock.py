@@ -55,31 +55,82 @@ def up4(a):
     return a.repeat_interleave(4, 0).repeat_interleave(4, 1)
 
 
+def inter_bs1_two_list(mv_p, pid_p, mv_q, pid_q):
+    """bS-1 trigger of inter/inter edges with two-list motion (spec
+    8.7.2.1; `ref.deblock.inter_bs1_mask` in torch): different reference
+    picture sets or vector counts, or a >= 4 quarter-pel component delta
+    under the picture-wise pairing of the vectors.  mv_*: [..., 2, 2]
+    (list, then (y, x)); pid_*: [..., 2] picture ids per list, -1 = list
+    unused."""
+    use_p, use_q = pid_p >= 0, pid_q >= 0
+    n_p, n_q = use_p.sum(-1), use_q.sum(-1)
+    big = 1 << 20
+    lo_p = torch.where(use_p, pid_p, big).amin(-1)
+    hi_p = torch.where(use_p, pid_p, -1).amax(-1)
+    lo_q = torch.where(use_q, pid_q, big).amin(-1)
+    hi_q = torch.where(use_q, pid_q, -1).amax(-1)
+    sets_differ = (n_p != n_q) | (lo_p != lo_q) | (hi_p != hi_q)
+
+    def far(d):                      # any component >= 4 quarter-pel
+        return (d.abs() >= 4).any(-1)
+
+    # sides using exactly one list: compare the single used vector
+    d_one = far((mv_p * use_p[..., None]).sum(-2)
+                - (mv_q * use_q[..., None]).sum(-2))
+
+    def by_picture(mv, pid, lo, hi):
+        mv_lo = torch.where((pid[..., 0] == lo)[..., None], mv[..., 0, :],
+                            mv[..., 1, :])
+        mv_hi = torch.where((pid[..., 1] == hi)[..., None], mv[..., 1, :],
+                            mv[..., 0, :])
+        return mv_lo, mv_hi
+
+    # both bi-predicted from two distinct pictures: pair them by picture
+    lo_mp, hi_mp = by_picture(mv_p, pid_p, lo_p, hi_p)
+    lo_mq, hi_mq = by_picture(mv_q, pid_q, lo_q, hi_q)
+    d_two = far(lo_mp - lo_mq) | far(hi_mp - hi_mq)
+    # both bi-predicted from the same picture twice: bS 0 unless both the
+    # straight and the crossed pairings have a large delta
+    straight = (far(mv_p[..., 0, :] - mv_q[..., 0, :])
+                | far(mv_p[..., 1, :] - mv_q[..., 1, :]))
+    crossed = (far(mv_p[..., 0, :] - mv_q[..., 1, :])
+               | far(mv_p[..., 1, :] - mv_q[..., 0, :]))
+    both2 = (n_p == 2) & (n_q == 2)
+    same_pic = both2 & (lo_p == hi_p) & (lo_q == hi_q)
+    return sets_differ | torch.where(same_pic, straight & crossed,
+                                     torch.where(both2, d_two, d_one))
+
+
 def compute_bs_maps(intra_mb, tc_luma, mv, ref):
-    """Boundary strengths (bs_v, bs_h) [4hm, 4wm] for single-list motion,
-    at MB granularity (mv [hm, wm, 2], ref [hm, wm]) or per 4x4 block (mv
-    [4hm, 4wm, 2], ref [4hm, 4wm], as partitioned MBs need); ref -1 =
-    intra.  The two-list (B) form of the reference comes with the B
-    slices."""
+    """Boundary strengths (bs_v, bs_h) [4hm, 4wm].  Motion is single-list
+    (mv [hm, wm, 2] / ref [hm, wm], ref -1 = intra, as P pictures have it)
+    or two-list (mv [hm, wm, 2, 2] / ref [hm, wm, 2]: per list, the
+    picture id or -1 where the list is unused, as B pictures have it), at
+    MB granularity or per 4x4 block ([4hm, 4wm, ...], as partitioned MBs
+    need)."""
     hm, wm = intra_mb.shape
     intra4 = up4(intra_mb)
     if mv.shape[0] == hm:
         mv, ref = up4(mv), up4(ref)
+    two_list = mv.dim() == 4
     mv4, ref4, use4 = mv, ref, ref >= 0
     dev = intra_mb.device
 
     def edge_bs(p, q, mb_edge):
         either_intra = intra4[p] | intra4[q]
         coeff = (tc_luma[p] > 0) | (tc_luma[q] > 0)
-        # spec 8.7.2.1 bS 1 for one list: different reference sets, or a
-        # >= 4 quarter-pel component delta of the used motion vectors
-        sets_differ = (use4[p] != use4[q]) | (use4[p] & (ref4[p] != ref4[q]))
-        mv_p = mv4[p] * use4[p][..., None]
-        mv_q = mv4[q] * use4[q][..., None]
-        far = ((mv_p - mv_q).abs() >= 4).any(dim=-1)
+        if two_list:
+            motion = inter_bs1_two_list(mv4[p], ref4[p], mv4[q], ref4[q])
+        else:
+            # spec 8.7.2.1 bS 1 for one list: different reference sets, or
+            # a >= 4 quarter-pel component delta of the used vectors
+            sets_differ = ((use4[p] != use4[q])
+                           | (use4[p] & (ref4[p] != ref4[q])))
+            mv_p = mv4[p] * use4[p][..., None]
+            mv_q = mv4[q] * use4[q][..., None]
+            motion = sets_differ | ((mv_p - mv_q).abs() >= 4).any(dim=-1)
         return torch.where(either_intra, torch.where(mb_edge, 4, 3),
-                           torch.where(coeff, 2,
-                                       torch.where(sets_differ | far, 1, 0))
+                           torch.where(coeff, 2, torch.where(motion, 1, 0))
                            ).to(I32)
 
     h4, w4 = hm * 4, wm * 4

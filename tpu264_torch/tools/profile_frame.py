@@ -1,11 +1,12 @@
-"""Stage profile of one warm 720p frame on the card: an all-intra CABAC +
-deblock frame (the default), or a P frame of an IPPP + deblock sequence:
-CAVLC with the reference's default P tools (`--config ippp720`) or
-without them (`--config ippp720_notools`), or CABAC with the default P
-tools (`--config ippp720_cabac`).
+"""Stage profile of one warm frame on the card: a 720p all-intra CABAC +
+deblock frame (the default), or a P frame of a 720p IPPP + deblock
+sequence: CAVLC with the reference's default P tools (`--config ippp720`)
+or without them (`--config ippp720_notools`), or CABAC with the default P
+tools (`--config ippp720_cabac`); or a B frame of config 4 at 1920x1088
+and its P anchor (`--config bgop1080`).
 
     python -m tpu264_torch.tools.profile_frame
-        [--config intra720|ippp720|ippp720_notools|ippp720_cabac]
+        [--config intra720|ippp720|ippp720_notools|ippp720_cabac|bgop1080]
         [--out FILE.json]
 
 Encodes `synth_frame(1280, 720, t)` frames (QP 28, one slice) and prints
@@ -42,6 +43,18 @@ compact and K1 + payload pull (CABAC), deblock, and pull + NAL assembly
 encoder (pull and NAL assembly included); with CABAC `cabac` counts the P
 frame's records, bins and bytes as above.
 
+With `--config bgop1080` the encoder is config 4 as `bench.py` builds it
+(1920x1088, `num_b_frames=2`, CABAC, deblock, JVT-G012 rate control at
+8 Mb/s) and the sequence is the 7 frames I, P, Bref, B, P, Bref, B in
+coding order (display 0, 3, 1, 2, 6, 4, 5).  After the cold sequence the
+last P anchor (display 6) and the last B frame (display 5, a
+non-reference B that weighs partitions, against display 4 and 6) are
+encoded again warm with the arguments the sequence gave them; each gets
+the keys above under "p_anchor" and "b_frame" (the B frame's stages:
+the half-pel planes of both references, the full search and the sub-pel
+refinement of both lists, the wave loop (K2 + KB), reorder, binarize +
+compact, deblock, K1 + payload pull, NAL assembly).
+
 With `--k1-stages` the kernel library is built with `-DK1_PROFILE`, and
 every launch of the CABAC coder prints, per slice and stage (warp 0 the
 coder, 1 the resolver, 2 the loader), the cycles the stage worked beside the
@@ -73,6 +86,7 @@ from tpu264_torch.kernels import me as kme
 from tpu264_torch.media.synth import synth_frame
 
 W, H, QP = 1280, 720, 28
+BGOP_W, BGOP_H = 1920, 1088     # config 4 (`bench.py:56-58`)
 
 
 class Clock:
@@ -131,15 +145,15 @@ def intra_patches(enc: Encoder) -> list:
             (enc, "_cabac_payloads", "k1_and_pull")]
 
 
-# stages of a P frame that run inside `enc._encode_p` ("p_encode"): the
-# wave loop is what is left of it
+# stages of a P or B frame that run inside `enc._encode_p` or
+# `enc._encode_b` ("inter_encode"): the wave loop is what is left of it
 P_INNER = ("half_pel_planes", "me_full_search", "me_subpel")
 
 
-def ippp_patches(enc: Encoder) -> list:
-    """(owner, attribute, stage) of every stage of a P frame; the pull (K1
-    with CABAC) and NAL assembly run in the `finish` that
-    `encode_p_frame` returns."""
+def ippp_patches(enc: Encoder, inner: str = "_encode_p") -> list:
+    """(owner, attribute, stage) of every stage of a P frame (of a B frame
+    with `inner="_encode_b"`); the pull (K1 with CABAC) and NAL assembly
+    run in the `finish` that `encode_p_frame` returns."""
     if enc.cabac:
         entropy = [(enc, "_cabac_records", "binarize_compact"),
                    (enc, "_cabac_payloads", "k1_and_pull"),
@@ -149,7 +163,7 @@ def ippp_patches(enc: Encoder) -> list:
                    (encoder_mod, "_pull_words", "pull_nal"),
                    (enc, "_cavlc_nalus", "pull_nal")]
     return [(encoder_mod, "reorder_wave_outputs", "reorder"),
-            (enc, "_encode_p", "p_encode"),
+            (enc, inner, "inter_encode"),
             (kint, "luma_planes", "half_pel_planes"),
             (kme, "full_search_blocks", "me_full_search"),
             (kme, "subpel_refine", "me_subpel"),
@@ -188,10 +202,11 @@ def tagged_stages(patches: list):
 
 
 def split_p_encode(by_stage: dict) -> dict:
-    """{"p_encode": whole, inner stages...} -> the same with "wave_loop" =
-    the P encoder less its inner stages, in place of "p_encode"."""
+    """{"inter_encode": whole, inner stages...} -> the same with
+    "wave_loop" = the P or B encoder less its inner stages, in place of
+    "inter_encode"."""
     out = dict(by_stage)
-    out["wave_loop"] = out.pop("p_encode") - sum(out[k] for k in P_INNER)
+    out["wave_loop"] = out.pop("inter_encode") - sum(out[k] for k in P_INNER)
     return out
 
 
@@ -204,8 +219,9 @@ def p_frame_job(enc: Encoder, frame, ref, frame_num: int = 2):
     return run
 
 
-def p_stage_times(enc: Encoder, job) -> dict:
-    """One P frame with a synchronised host clock around every stage."""
+def p_stage_times(enc: Encoder, job, inner: str = "_encode_p") -> dict:
+    """One P (or B) frame with a synchronised host clock around every
+    stage."""
     st: dict = {}
 
     def clocked(name, fn):
@@ -214,7 +230,7 @@ def p_stage_times(enc: Encoder, job) -> dict:
                 return fn(*args, **kw)
         return run
 
-    with patched(ippp_patches(enc), clocked):
+    with patched(ippp_patches(enc, inner), clocked):
         with Clock(st, "frame"):
             job()
     st = split_p_encode(st)
@@ -257,7 +273,7 @@ def profiled_frame(patches: list, job) -> dict:
                           - bisect.bisect_left(launch_at, lo)
                           for lo, hi in ranges)
                 for name, ranges in spans.items()}
-    if "p_encode" in by_stage:
+    if "inter_encode" in by_stage:
         by_stage = split_p_encode(by_stage)
     by_stage["other"] = len(launch_at) - sum(by_stage.values())
     busy_us, busy_until = 0.0, float("-inf")
@@ -343,19 +359,91 @@ def profile_ippp(res: dict, tools: bool, symbol_mode: str) -> None:
     if enc.cabac:
         recs, counts = kept["records"]
         res["cabac"] = cabac_counts(
-            recs, counts, enc._cabac_payloads(recs, counts, QP, p_slice=True))
+            recs, counts, enc._cabac_payloads(recs, counts, QP, "p"))
+
+
+def profile_bgop(res: dict) -> None:
+    """Config 4 at 1920x1088: the cold 7-frame sequence, then its last P
+    anchor and its last B frame warm."""
+    from tpu264_torch.entropy import cabac_engine_cuda as k1
+    from tpu264_torch.kernels import b_wave as kb, deblock_wave as k4w, \
+        i16_chroma_wave as k3w, i4x4_wave as k2w, p_wave as kp
+    w, h = BGOP_W, BGOP_H
+    cfg = EncoderConfig(width=w, height=h, qp=QP, intra_period=0,
+                        num_b_frames=2, symbol_mode="CABAC", deblock=True,
+                        rate_control=True, bitrate=8_000_000)
+    enc = Encoder(cfg)
+    frames = [synth_frame(w, h, t) for t in range(7)]
+    calls = {}                  # the sequence's arguments of each frame
+    for attr in ("encode_p_frame", "encode_b_frame"):
+        def spy(*a, _fn=getattr(enc, attr), _attr=attr, **kw):
+            calls.setdefault(_attr, []).append((a, kw))
+            return _fn(*a, **kw)
+        setattr(enc, attr, spy)
+    t0 = time.monotonic()
+    stream = enc.encode_sequence(frames)            # cold: build + warm-up
+    torch.cuda.synchronize()
+    res.update(device=str(enc.device),
+               config=f"{w}x{h} hierarchical B (num_b_frames=2) CABAC "
+                      f"deblock, rate control 8 Mb/s (config 4)",
+               cold_sequence_seconds=time.monotonic() - t0,
+               cold_frames=[[s.frame, s.slice_type, s.qp, s.bits, s.seconds]
+                            for s in enc.stats],
+               stream={"bytes": len(stream),
+                        "frame_bits": [s.bits for s in enc.stats]})
+    for attr in ("encode_p_frame", "encode_b_frame"):
+        delattr(enc, attr)
+    counters = [k1.launches, k2w.launches, k3w.launches, kp.launches,
+                kb.launches, k4w.launches]
+    kept = {}
+
+    def keep(stage, fn):
+        def run(*a, **kw):
+            kept[stage] = fn(*a, **kw)
+            return kept[stage]
+        return run
+
+    for key, attr, inner, disp in (("p_anchor", "encode_p_frame",
+                                    "_encode_p", 6),
+                                   ("b_frame", "encode_b_frame",
+                                    "_encode_b", 5)):
+        a, kw = calls[attr][-1]
+
+        def job(a=a, kw=kw, attr=attr):
+            fin, _ = getattr(enc, attr)(*a, **kw)
+            return fin()
+
+        out = {"display": disp, "qp": kw["qp"]}
+        before = {k: v for c in counters for k, v in c.items()}
+        warm = {}
+        with patched([(enc, "_cabac_records", "records")], keep):
+            with Clock(warm, "frame"):
+                nalus = job()
+        out["frame_seconds"] = warm["frame"]
+        out["kernel_launches"] = {k: v - before[k] for c in counters
+                                  for k, v in c.items()}
+        if sum(8 * len(n) for n in nalus) != enc.stats[disp].bits:
+            raise SystemExit(f"the warm {key} differs from the sequence's")
+        out["stages"] = p_stage_times(enc, job, inner)
+        out["profile"] = profiled_frame(ippp_patches(enc, inner), job)
+        recs, counts = kept["records"]
+        out["cabac"] = cabac_counts(
+            recs, counts, enc._cabac_payloads(recs, counts, kw["qp"],
+                                              key[0]))
+        res[key] = out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config",
                     choices=("intra720", "ippp720", "ippp720_notools",
-                             "ippp720_cabac"),
+                             "ippp720_cabac", "bgop1080"),
                     default="intra720",
                     help="the frame to profile: all-intra CABAC (default) "
                          "or a P frame of IPPP CAVLC, with the default P "
                          "tools or without them, or of IPPP CABAC with "
-                         "them")
+                         "them; or config 4's B frame and P anchor at "
+                         "1920x1088")
     ap.add_argument("--out", help="also write the JSON object to this file")
     ap.add_argument("--k1-stages", action="store_true",
                     help="build with -DK1_PROFILE: the CABAC coder prints "
@@ -372,7 +460,9 @@ def main() -> int:
         from tpu264_torch.kernels import _build
         _build.NVCC_FLAGS.append("-DK1_PROFILE")
     res: dict = {"card": card, "torch": torch.__version__}
-    if args.config.startswith("ippp720"):
+    if args.config == "bgop1080":
+        profile_bgop(res)
+    elif args.config.startswith("ippp720"):
         profile_ippp(res, tools=args.config != "ippp720_notools",
                      symbol_mode=("CABAC" if args.config == "ippp720_cabac"
                                   else "CAVLC"))

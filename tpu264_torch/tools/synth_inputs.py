@@ -3,8 +3,9 @@
 macroblock lanes for the I4x4 wave kernel (K2), whole waves with their
 border buffers for the wave body (K2 + K3), P waves with their motion
 vector maps and reference picture for the P wave body (K2 + KP), with the
-partitions' vectors for its default tools,
-pictures with mixed intra and inter macroblocks for the deblocker (K4),
+partitions' vectors for its default tools, B waves with both lists' maps,
+references and colocated flags for the B wave body (K2 + KB), pictures
+with mixed intra and inter macroblocks for the deblocker (K4),
 and raster MB dicts of I and P frames for the entropy coders' front ends
 (the CAVLC serializer, the CABAC binarizer).  numpy only."""
 
@@ -232,6 +233,125 @@ def random_p_wave_tools(seed, wm, hm, n_pad=2, pad=24):
             gy, gu, gv, mv_parts)
 
 
+def _clamped_block(plane, y, x, bh, bw):
+    """The bh x bw block of `plane` at (y, x), the start clamped as
+    `jax.lax.dynamic_slice` clamps it."""
+    y = min(max(y + (plane.shape[0] if y < 0 else 0), 0), plane.shape[0] - bh)
+    x = min(max(x + (plane.shape[1] if x < 0 else 0), 0), plane.shape[1] - bw)
+    return plane[y:y + bh, x:x + bw]
+
+
+def random_b_wave(seed, wm, hm, n_pad=2, pad=24):
+    """One wave of the B wave body on a wm x hm picture, as numpy: (bd,
+    maps, ref0, ref1, coords, avail, mv_me0, mv_me1, mv_parts0, mv_parts1,
+    colzero, colmixed, gy, gu, gv): maps = (mv0_map, ref0_map, mv1_map,
+    ref1_map) [3, hm+2, wm+2, (2)] (-2 outside the slice, -1 intra or list
+    unused, 0 used); ref0, ref1 = (y, u, v) pictures of smooth content with
+    noise, which the caller pads by `pad`; the halves' vectors mv_parts
+    [B, 4, 2] (top, bot, left, right), quarter-pel; colzero, colmixed [B].
+
+    The lanes, border buffers and padding lanes are `random_wave`'s.  The
+    lanes' kinds run in turn (from a start the seed picks) through: a source
+    copied from reference 0 at its search vector (L0 wins), from reference 1
+    (L1), the rounded mean of both (Bi), the direct prediction of
+    neighbours that agree on each list's vector (direct), the same over a
+    still colocated MB (colzero: the direct vectors are zero), random
+    content, and the 18 two-partition sources: each shape (16x8, 8x16)
+    with each (c0, c1) of L0, L1, Bi, every half built from its own
+    vectors.  Every fifth lane is colmixed.  Search vectors are whole
+    samples, some reaching past the padded planes' edges."""
+    bd, coords, avail, gy, gu, gv = random_wave(seed, wm, hm, n_pad)
+    r = np.random.default_rng(seed + 3000)
+    h, w = hm * 16, wm * 16
+    yy, xx = np.mgrid[0:h, 0:w]
+    refs = []
+    for k in range(2):
+        refs.append(tuple(
+            np.clip(base + r.integers(-3, 4, size=base.shape), 0, 255)
+            for base in (120 + 60 * np.sin(xx / (13.0 + 4 * k) + seed)
+                         * np.cos(yy / (11.0 - 3 * k)),
+                         128 + 40 * np.sin(xx[::2, ::2] / (9.0 + k)),
+                         128 + 40 * np.cos(yy[::2, ::2] / (7.0 + k)))))
+    padded = [[np.pad(p, q, mode="edge")
+               for p, q in zip(ref, (pad, pad // 2, pad // 2))]
+              for ref in refs]
+    b = len(coords)
+    n_lanes = b - n_pad
+    maps = []
+    for _ in range(2):
+        maps += [r.integers(-48, 49, size=(3, hm + 2, wm + 2, 2)),
+                 r.integers(-2, 1, size=(3, hm + 2, wm + 2))]
+    mv_me = [8 * r.integers(-3, 4, size=(b, 2)) for _ in range(2)]
+    mv_parts = [4 * r.integers(-10, 11, size=(b, 4, 2)) for _ in range(2)]
+    colzero = r.random(b) < 0.2
+    colmixed = (np.arange(b) % 5) == 4
+
+    def pred(lx, rr, cc, v, oy=0, ox=0, bh=16, bw=16):
+        """Reference lx's luma and chroma blocks of the (whole-sample,
+        multiple of 8) vector v for the block at (oy, ox) of MB (rr, cc)."""
+        y, u, vv = padded[lx]
+        ly = rr * 16 + pad + oy + v[0] // 4
+        lx_ = cc * 16 + pad + ox + v[1] // 4
+        cy, cx = (rr * 8 + pad // 2 + oy // 2 + v[0] // 8,
+                  cc * 8 + pad // 2 + ox // 2 + v[1] // 8)
+        return (_clamped_block(y, ly, lx_, bh, bw).astype(np.int64),
+                _clamped_block(u, cy, cx, bh // 2, bw // 2).astype(np.int64),
+                _clamped_block(vv, cy, cx, bh // 2, bw // 2).astype(np.int64))
+
+    def put(i, blocks, oy=0, ox=0):
+        for g, blk, s in ((gy, blocks[0], 1), (gu, blocks[1], 2),
+                          (gv, blocks[2], 2)):
+            bh, bw = blk.shape
+            g[i, oy // s:oy // s + bh, ox // s:ox // s + bw] = np.clip(
+                blk + r.integers(-1, 2, size=blk.shape), 0, 255)
+
+    def choose(c, lx_blocks):
+        a, bb = lx_blocks
+        if c < 2:
+            return (a, bb)[c]
+        return tuple((x + y + 1) >> 1 for x, y in zip(a, bb))
+
+    kinds = ["l0", "l1", "bi", "direct", "colzero", "random"] + [
+        (s, c0, c1) for s in (1, 2) for c0 in range(3) for c1 in range(3)]
+    start = int(r.integers(0, len(kinds)))
+    for i in range(n_lanes):
+        rr, cc = (int(v) for v in coords[i])
+        kind = kinds[(start + i) % len(kinds)]
+        if kind in ("l0", "l1", "bi"):
+            if i % 4 == 3:
+                # a list-0 start past the plane's edges, clamped
+                mv_me[0][i] = (-8 * (rr * 8 + pad // 2 + 3),
+                               8 * ((w + pad - cc * 16) // 2 + 2))
+            blocks = [pred(lx, rr, cc, mv_me[lx][i]) for lx in range(2)]
+            put(i, choose(("l0", "l1", "bi").index(kind), blocks))
+        elif kind in ("direct", "colzero"):
+            v = [8 * r.integers(-3, 4, size=2) for _ in range(2)]
+            cells = [(0, rr + 1, cc), (1, rr, cc + 1), (1, rr, cc + 2),
+                     (2, rr, cc)]                   # A, B, C, D
+            for lx in range(2):
+                for cell in cells:
+                    maps[2 * lx][cell] = v[lx]
+                    maps[2 * lx + 1][cell] = 0
+            colzero[i] = kind == "colzero"
+            colmixed[i] = False
+            if colzero[i] or not avail[i, :2].any():
+                v = [np.zeros(2, np.int64)] * 2
+            put(i, choose(2, [pred(lx, rr, cc, v[lx]) for lx in range(2)]))
+        elif isinstance(kind, tuple):
+            shape, c0, c1 = kind
+            halves = ((0, 1), (2, 3))[shape - 1]
+            for c, k in zip((c0, c1), halves):
+                oy, ox, bh, bw = ((0, 0, 8, 16), (8, 0, 8, 16),
+                                  (0, 0, 16, 8), (0, 8, 16, 8))[k]
+                blocks = [pred(lx, rr, cc, mv_parts[lx][i, k], oy, ox, bh, bw)
+                          for lx in range(2)]
+                put(i, choose(c, blocks), oy, ox)
+    for a in mv_me + mv_parts:
+        a[n_lanes:] = a[n_lanes]
+    return (bd, tuple(maps), refs[0], refs[1], coords, avail, mv_me[0],
+            mv_me[1], mv_parts[0], mv_parts[1], colzero, colmixed, gy, gu, gv)
+
+
 def _levels(r, shape, density):
     """Sparse levels: mostly small, a few large."""
     lev = r.integers(-3, 4, size=shape) * (r.random(shape) < density)
@@ -284,6 +404,58 @@ def random_mbs(seed, wm, hm, p_slice=True, tools=("ptype", "mvq", "t8")):
         mb["ptype"] = ptype
     if "t8" in tools:
         mb["t8"] = is_inter & (ptype == 0) & (r.random(n) < 0.5)
+    return {k: np.asarray(v, np.int32) if v.dtype != bool else v
+            for k, v in mb.items()}
+
+
+def random_b_mbs(seed, wm, hm, parts=True, t8=False):
+    """A seeded raster MB dict of a wm x hm B frame, numpy: L0, L1, Bi and
+    direct 16x16 MBs, intra (I16x16 and I4x4) MBs and, with `parts`, 16x8
+    and 8x16 MBs with every (c0, c1) of L0, L1, Bi ("bptype", "c0", "c1",
+    "mv0b", "mv1b"); each MB's list flags follow its type, a direct MB's
+    lists are random; every fifth MB is a B_Skip (direct, nothing coded);
+    coded and uncoded blocks.  `t8` adds the all-zero map a B slice of a
+    PPS with the 8x8 transform carries."""
+    mb = random_mbs(seed, wm, hm, p_slice=False, tools=())
+    n = wm * hm
+    r = np.random.default_rng(seed + 500)
+    btype = r.integers(0, 5, n)
+    c0, c1 = r.integers(0, 3, n), r.integers(0, 3, n)
+    bptype = np.zeros(n, np.int64)
+    if parts:
+        # every fourth MB but the skips partitioned, its (shape, c0, c1)
+        # in turn
+        on = (np.arange(n) % 4 == 1) & (np.arange(n) % 5 != 0)
+        k = np.arange(int(on.sum())) % 18
+        btype[on] = 5
+        bptype[on], c0[on], c1[on] = 1 + k // 9, k // 3 % 3, k % 3
+    skip = np.arange(n) % 5 == 0
+    btype[skip] = 3
+    bptype[skip] = 0
+    duse = r.integers(1, 4, n)              # a direct MB's lists: 1, 2, 3
+    kinds = [btype == 3, btype == 5, btype == 4]
+    use0 = np.select(kinds, [duse & 1 > 0, c0 != 1, False],
+                     (btype == 0) | (btype == 2))
+    use1 = np.select(kinds, [duse & 2 > 0, c0 != 0, False],
+                     (btype == 1) | (btype == 2))
+    for k in ("luma_ac", "chroma_dc", "chroma_ac"):
+        mb[k][skip] = 0
+    inter = btype != 4
+    mb["luma_dc"][inter] = 0
+    mb.update(btype=btype, use0=use0, use1=use1,
+              mv0=r.integers(-64, 65, size=(n, 2)),
+              mv1=r.integers(-64, 65, size=(n, 2)))
+    if parts:
+        mb.update(bptype=bptype, c0=np.where(btype == 5, c0, 0),
+                  c1=np.where(btype == 5, c1, 0),
+                  mv0b=r.integers(-64, 65, size=(n, 2)),
+                  mv1b=r.integers(-64, 65, size=(n, 2)))
+        mb["mv0b"][btype != 5] = mb["mv0"][btype != 5]
+        mb["mv1b"][btype != 5] = mb["mv1"][btype != 5]
+    for k in ("is_inter", "mv", "mv_skip", "mv_pred"):
+        del mb[k]
+    if t8:
+        mb["t8"] = np.zeros(n, bool)
     return {k: np.asarray(v, np.int32) if v.dtype != bool else v
             for k, v in mb.items()}
 
