@@ -49,15 +49,26 @@ Phases (any failure exits non-zero, before the result line):
     per-frame QPs, every frame's launches asserted: a B frame runs K2 and
     KB once a wave, K4 at most once a wave and K1 once, never KP or K3's
     wave form;
-10. one CIF P frame's `make_inter_encoder` output on the card against
+10. config 4 through `TiledEncoder` (the band-tiled encoder, `bench.py`'s
+    headline path): one band over `make_mesh(1, gop=1)` as `bench.py:75`
+    builds it, and four bands of 17 MB rows on the one card (over four
+    cards where there are), each against its golden from the reference's
+    `TiledEncoder` on the same mesh shape (`tiled_bgop_1080p_cabac_rc`,
+    `tiled4_bgop_1080p_cabac_rc`: SHA-256, frame sizes and QPs), every
+    frame's launches asserted per band (K2 and KP or KB once a wave of
+    each band, K4 at most once, K1 once a band picture, K3 on the I frame
+    only), and the warm frames/s of `Encoder` and of `TiledEncoder` on the
+    same frames printed side by side;
+11. one CIF P frame's `make_inter_encoder` output on the card against
     the same call on the CPU, every key, tolerance 0, without and with the
     default P tools.
 
 The line before the last is a JSON object with one entry per kernel
-(`launches`: the sum over the four 720p main paths and config 4, phases
-4, 7, 8 and 9, each driven with the counts set to 0 just before and read
-just after; `launches_by_path` splits it; KP's `ms` is a wave of the
-default P tools, `ms_tools_off` one without them; KB's `ms` the widest
+(`launches`: the sum over the four 720p main paths, config 4 and its two
+tiled paths, phases 4, 7, 8, 9 and 10, each driven with the counts set
+to 0 just before and read just after; `launches_by_path` splits it;
+KP's `ms` is a wave of the default P tools, `ms_tools_off` one without
+them; KB's `ms` the widest
 wave of the 1080p B frame, `body_ms` K2 + KB on it; K1's `ms`, `bins` and
 bound are the 720p P frame's, `ms_i_frame` and `bins_i_frame` the I
 frame's, `ms_b_1080p` and `bins_b_1080p` the 1080p B frame's; K4's
@@ -691,7 +702,8 @@ def frame_records(dev, frame, slices: int, spy=None, deblock_case=None):
     are before the call; `deblock_case`, a list, takes the deblocker's
     arguments for the frame."""
     from tpu264_torch.coding import intra_frame as tif
-    from tpu264_torch.coding.encoder import Encoder
+    from tpu264_torch.coding.encoder import (Encoder, cabac_records,
+                                             deblock_inputs)
     from tpu264_torch.config import EncoderConfig
     from tpu264_torch.entropy import cabac_engine_cuda as k1
     enc = Encoder(EncoderConfig(width=W, height=H, qp=QP, symbol_mode="CABAC",
@@ -713,9 +725,10 @@ def frame_records(dev, frame, slices: int, spy=None, deblock_case=None):
     if deblock_case is not None:
         from tpu264_torch.ref.transform import chroma_qp
         deblock_case += [dev_out["recon_y"], dev_out["recon_u"],
-                         dev_out["recon_v"], *enc._deblock_inputs(mbd)[:4], QP,
+                         dev_out["recon_v"],
+                         *deblock_inputs(enc.pic, mbd, "i")[:4], QP,
                          chroma_qp(QP)]
-    recs, counts = enc._cabac_records(mbd)
+    recs, counts = cabac_records(enc.pic, mbd, "i", enc._cabac_cap)
     init = torch.as_tensor(k1.init_packed_states(0, QP), device=dev)
     return recs, counts, init, enc._cap_words
 
@@ -725,7 +738,7 @@ def p_frame_records(dev, cur, ref, slices: int):
     planes `ref`, QP 28, the default P tools) through the port's own
     stages -> (records, counts, init of table 1, word cap)."""
     from tpu264_torch.coding import intra_frame as tif
-    from tpu264_torch.coding.encoder import Encoder
+    from tpu264_torch.coding.encoder import Encoder, cabac_records
     from tpu264_torch.config import EncoderConfig
     from tpu264_torch.entropy import cabac_engine_cuda as k1
     enc = Encoder(EncoderConfig(width=W, height=H, qp=QP, symbol_mode="CABAC",
@@ -735,8 +748,9 @@ def p_frame_records(dev, cur, ref, slices: int):
         fail("720p CABAC P frame: the default P tools are off")
     planes = [torch.as_tensor(p, device=dev) for p in (*cur, *ref)]
     _, ys = enc._encode_p(*planes, QP)
-    recs, counts = enc._cabac_records(
-        tif.reorder_wave_outputs(enc.sched, ys), kind="p")
+    recs, counts = cabac_records(
+        enc.pic, tif.reorder_wave_outputs(enc.sched, ys), "p",
+        enc._cabac_cap)
     init = torch.as_tensor(k1.init_packed_states(1, QP), device=dev)
     return recs, counts, init, enc._cap_words
 
@@ -1086,6 +1100,7 @@ def b_frame_case(dev, is_ref: bool) -> dict:
     arguments (two-list bS inputs).  It runs K2 and KB once a wave, KP
     never."""
     from tpu264_torch.coding import b_frame as tb
+    from tpu264_torch.coding import encoder as encoder_mod
     from tpu264_torch.coding.encoder import Encoder
     from tpu264_torch.config import EncoderConfig
     from tpu264_torch.entropy import cabac_engine_cuda as k1
@@ -1105,7 +1120,7 @@ def b_frame_case(dev, is_ref: bool) -> dict:
         calls.append(1)
         return inner(*args, **kw)
 
-    real_records, real_deblock = enc._cabac_records, enc._deblock
+    real_records, real_deblock = encoder_mod.cabac_records, enc._deblock
 
     def records(*a, **kw):
         case["records"] = real_records(*a, **kw)
@@ -1115,7 +1130,7 @@ def b_frame_case(dev, is_ref: bool) -> dict:
         case["deblock"] = (a, kw)
         return real_deblock(*a, **kw)
 
-    enc._cabac_records, enc._deblock = records, deblock
+    encoder_mod.cabac_records, enc._deblock = records, deblock
     tb.wave_body = spy
     before = read_counts()
     try:
@@ -1127,6 +1142,7 @@ def b_frame_case(dev, is_ref: bool) -> dict:
         torch.cuda.synchronize()
     finally:
         tb.wave_body = inner
+        encoder_mod.cabac_records = real_records
     after = read_counts()
     if len(calls) != enc.sched.n_waves or "wave" not in case:
         fail(f"1080p B frame: {len(calls)} wave body calls for "
@@ -1499,6 +1515,117 @@ def phase_p_wave_body_vs_cpu(dev, tools) -> None:
         fail("P wave body check: the frame does not mix inter and intra MBs")
 
 
+def phase_tiled(name: str, what: str) -> dict:
+    """Golden `name` through `TiledEncoder` (its "mesh" is [1, bands]):
+    one band over `make_mesh(1, gop=1)` (no device named: the card, as
+    `bench.py` builds it), or several bands, over that many cards where
+    there are, else all on the one card.  Every frame's launches are
+    asserted per band: K2 once a wave of each band, KP (P) or KB (B) once
+    a wave of each band, K4 at most once a wave of each band, K1 once a
+    band picture, K3 on the I frame only, the slab entries never.  The
+    stream, the frame sizes and QPs are held to the golden; then the
+    frames/s of the single-device `Encoder` and of the tiled encoder on
+    the same frames, both warm, are printed -> the cold run's launches."""
+    from tpu264_torch.config import EncoderConfig
+    from tpu264_torch.coding.encoder import Encoder
+    from tpu264_torch.media.synth import synth_frame
+    from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
+    g = golden(name)
+    cfg = EncoderConfig(**g["config"])
+    frames = [synth_frame(cfg.width, cfg.height, t)
+              for t in range(g["frames"])]
+    n_bands = g["mesh"][1]
+    if n_bands == 1 or torch.cuda.device_count() >= n_bands:
+        mesh = make_mesh(n_bands, gop=1)
+    else:
+        mesh = make_mesh(n_bands, gop=1,
+                         devices=[torch.device("cuda", 0)] * n_bands)
+    te = TiledEncoder(cfg, mesh)
+    if any(d.type != "cuda" for row in te.mesh.devices for d in row):
+        fail(f"{what}: the mesh is not on the card")
+    per_frame = []
+    real = TiledEncoder._frame
+
+    def counted(self, frames_, kind, *a, **kw):
+        before = read_counts()
+        out = real(self, frames_, kind, *a, **kw)
+        after = read_counts()
+        per_frame.append((kind, {k: after[k] - before[k] for k in after}))
+        return out
+
+    TiledEncoder._frame = counted
+    reset_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        (stream,) = te.encode_sequence([frames])
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+    finally:
+        TiledEncoder._frame = real
+    counts = read_counts()
+    sha = hashlib.sha256(stream).hexdigest()
+    print(f"{what}: {n_bands} band(s) of {te.band_hm} MB rows on "
+          f"{[str(d) for d in te.mesh.devices[0]]}; {len(frames)} frames "
+          f"in {secs:.3f} s = {len(frames) / secs:.4f} frames/s (eager, "
+          f"first run); {len(stream)} bytes, sha256 {sha}")
+    print(f"{what}, launches on the path: {counts}")
+    n_waves = te.band_sched.n_waves
+    for i, (kind, c) in enumerate(per_frame):
+        print(f"  frame {i} {kind} launches: {c}")
+        want = {"K1": n_bands * int(te.cabac), "K2": n_bands * n_waves,
+                "KP": n_bands * n_waves if kind == "p" else 0,
+                "KB": n_bands * n_waves if kind == "b" else 0,
+                "K2_blocks": 0, "K3_blocks": 0, "K4_lines": 0}
+        if kind != "i":
+            want["K3"] = 0
+        for k, n in want.items():
+            if c[k] != n:
+                fail(f"{what} frame {i} ({kind}): {k} ran {c[k]} times, not "
+                     f"{n} ({n_bands} bands of {n_waves} waves)")
+        for k in ("K3", "K4") if kind == "i" else ("K4",):
+            if not n_bands <= c[k] <= n_bands * n_waves:
+                fail(f"{what} frame {i} ({kind}): {k} ran {c[k]} times for "
+                     f"{n_bands} bands of {n_waves} waves")
+    if sum(sum(c.values()) for _, c in per_frame) != sum(counts.values()):
+        fail(f"{what}: launches outside the frames' band steps")
+    stats = te.stats[0]
+    for st in stats:
+        print(f"  display {st.frame} {st.slice_type}: QP {st.qp}, {st.bits} "
+              f"bits, PSNR-Y {st.psnr_y:.3f} dB")
+    if [k for k, _ in per_frame] != ["i", "p", "b", "b", "p", "b", "b"]:
+        fail(f"{what}: frames {[k for k, _ in per_frame]}")
+    if [st.bits for st in stats] != g["frame_bits"]:
+        fail(f"{what}: frame bits {[st.bits for st in stats]} != golden "
+             f"{g['frame_bits']}")
+    if [st.qp for st in stats] != g["frame_qps"]:
+        fail(f"{what}: QPs {[st.qp for st in stats]} != golden "
+             f"{g['frame_qps']}")
+    if sha != g["sha256"] or len(stream) != g["bytes"]:
+        fail(f"{what}: stream differs from the reference golden")
+    for ry, ru, rv in te.recons[0]:
+        if tuple(ry.shape) != (cfg.height, cfg.width) or ry.dtype != \
+                torch.uint8 or tuple(ru.shape) != (cfg.height // 2,
+                                                   cfg.width // 2):
+            fail(f"{what}: recon planes have the wrong shape or type")
+    fps = {}
+    for label, run in (("Encoder", lambda: Encoder(cfg).encode_sequence(
+                           frames)),
+                       ("TiledEncoder", lambda: TiledEncoder(
+                           cfg, mesh).encode_sequence([frames])[0])):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = run()
+        torch.cuda.synchronize()
+        fps[label] = len(frames) / (time.monotonic() - t0)
+        if label == "TiledEncoder" and out != stream:
+            fail(f"{what}: the warm tiled run differs from the first")
+    print(f"{what}, warm, same frames, same call: Encoder "
+          f"{fps['Encoder']:.4f} frames/s, TiledEncoder ({n_bands} band(s)) "
+          f"{fps['TiledEncoder']:.4f} frames/s")
+    return counts
+
+
 def main() -> int:
     t_start = time.monotonic()
     kind = phase_device()
@@ -1548,21 +1675,24 @@ def main() -> int:
         "bgop_1080p_cabac_rc", "config 4 at 1920x1088 (hierarchical B, "
         "CABAC, deblock, rate control at 8 Mb/s)",
         kinds=["IDR", "P", "B", "B", "P", "B", "B"])
+    counts_t1 = phase_tiled("tiled_bgop_1080p_cabac_rc", "config 4 "
+                            "through TiledEncoder, bench.py's mesh")
+    counts_t4 = phase_tiled("tiled4_bgop_1080p_cabac_rc", "config 4 "
+                            "through TiledEncoder, four bands")
     phase_p_wave_body_vs_cpu(dev, NO_TOOLS)
     phase_p_wave_body_vs_cpu(dev, Tools(True, True, True))
+    paths = {"config3_720p": counts, "ippp_720p": counts_p,
+             "ippp_720p_tools": counts_t, "ippp_720p_cabac": counts_c,
+             "bgop_1080p": counts_b, "tiled_bgop_1080p": counts_t1,
+             "tiled4_bgop_1080p": counts_t4}
     rows = []
     for k in sorted(KERNELS):
         name, source, replaces, _ = KERNELS[k]
         r = results[k]
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
-               "launches": counts[k] + counts_p[k] + counts_t[k]
-               + counts_c[k] + counts_b[k],
-               "launches_by_path": {"config3_720p": counts[k],
-                                    "ippp_720p": counts_p[k],
-                                    "ippp_720p_tools": counts_t[k],
-                                    "ippp_720p_cabac": counts_c[k],
-                                    "bgop_1080p": counts_b[k]},
+               "launches": sum(c[k] for c in paths.values()),
+               "launches_by_path": {p: c[k] for p, c in paths.items()},
                "max_abs_err": r["err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                "bound_by": r["bound_by"], "library_ms": None}

@@ -10,7 +10,7 @@ with and without the 8x8 transform), 1 and 3 slices:
   * `serialize_frame_b` against `serialize_frame_b_j`;
   * the two-list `compute_bs_maps` against the reference's bS derivation
     (`tpu264.ref.deblock.compute_bs_maps`) on the motion grids the
-    encoder's `_b_motion` builds, per MB and per 4x4 block."""
+    encoder's `b_motion` builds, per MB and per 4x4 block."""
 
 import numpy as np
 import pytest
@@ -23,7 +23,7 @@ from tpu264.entropy import cabac_native
 from tpu264.entropy import device_cavlc as rdc
 from tpu264.ref import deblock as rdb
 
-from tpu264_torch.coding.encoder import Encoder
+from tpu264_torch.coding.encoder import Encoder, b_motion
 from tpu264_torch.coding.wavefront import build_schedule
 from tpu264_torch.config import EncoderConfig
 from tpu264_torch.entropy import cabac_binarize as tcb
@@ -114,7 +114,7 @@ def test_two_list_bs_maps_match_reference(parts):
                   device="cpu")
     tmb = _torch_mb(mb)
     is_inter = tmb["btype"] != 4
-    mv, pid = enc._b_motion(tmb, is_inter)
+    mv, pid = b_motion(enc.pic, tmb, is_inter)
     assert tuple(mv.shape) == ((4 * HM, 4 * WM, 2, 2) if parts
                                else (HM, WM, 2, 2))
     intra = (~is_inter).reshape(HM, WM)

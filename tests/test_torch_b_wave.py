@@ -8,7 +8,9 @@ colmixed masks, at QP 12, 28 and 40, with `allow_parts` on and off: every
 recon plane and every per-wave result, tolerance 0.  Also: `b_wave_plain`
 is the rest of `wave_body_plain`; KB's wrapper tables and pointer layout
 against `csrc/b_wave.cu`; the seeded B waves of `synth_inputs` choose every
-btype and every partition combination at the 1080p width."""
+btype and every partition combination at the 1080p width; references
+handed in already padded (`ref_prepadded`, the tiled encoder's) give
+what edge padding inside the encoder gives."""
 
 import re
 from pathlib import Path
@@ -124,6 +126,26 @@ def test_b_encoder_matches_reference(qp, allow):
     want_types = {0, 1, 3, 4, 5} if allow else {0, 1, 2, 3, 4}
     assert set(bt.tolist()) == want_types, np.bincount(bt)
     assert not (bt[COLMIXED[sched.mb_index[sched.valid]]] == 3).any()
+
+
+def test_prepadded_references_equal_edge_padding():
+    """`ref_prepadded`: references handed in already PAD-extended (the
+    tiled encoder's band halos) give what the encoder's own edge padding
+    gives when they are the edge-padded planes."""
+    encode = tb.make_b_encoder(build_schedule(QCIF_W // 16, QCIF_H // 16, 1),
+                               search_range=16, ref_prepadded=True,
+                               partitions=True)
+    (r0y, r0u, r0v), (y, u, v), (r1y, r1u, r1v) = FRAMES
+    pads = [tki.pad_plane(torch.as_tensor(p), pad)
+            for p, pad in zip((r0y, r0u, r0v, r1y, r1u, r1v),
+                              (PAD, PAD // 2, PAD // 2) * 2)]
+    got_out, got = encode(*(torch.as_tensor(p) for p in (y, u, v)), *pads,
+                          torch.as_tensor(COLZERO),
+                          torch.as_tensor(COLMIXED), 28, True)
+    want_out, want = _port(28, True)
+    assert sorted(got) == sorted(want)
+    for k in {**want, **want_out}:
+        assert_equal({**got, **got_out}[k], {**want, **want_out}[k], k)
 
 
 def test_partitions_off_is_allow_parts_off():

@@ -713,3 +713,51 @@ def test_cuda_bgop_stream_matches_cpu(symbol_mode):
     for g_rec, c_rec in zip(gpu.recons, cpu.recons):
         for g, c in zip(g_rec, c_rec):
             assert_equal(to_np(g), to_np(c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bands", [1, 3])
+def test_cuda_tiled_bgop_matches_cpu(n_bands):
+    """QCIF hierarchical B (`num_b_frames=2`, 7 frames, deblock, CABAC,
+    rate control at 256 kb/s) through `TiledEncoder` with 1 and 3 bands
+    (all on the card): the stream, QPs and recon equal the same bands on
+    the CPU; K2 and KB once a wave of each band of each B frame, K1 once
+    a band picture."""
+    from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
+    dev = cuda_device()
+    frames = [synth_frame(176, 144, t) for t in range(7)]
+    cfg = EncoderConfig(width=176, height=144, qp=28, intra_period=0,
+                        num_b_frames=2, symbol_mode="CABAC",
+                        rate_control=True, bitrate=256_000)
+    before = (dict(kb.launches), dict(k1.launches))
+    gpu = TiledEncoder(cfg, make_mesh(n_bands, gop=1,
+                                      devices=[dev] * n_bands))
+    (got,) = gpu.encode_sequence([frames])
+    n_waves = gpu.band_sched.n_waves
+    assert kb.launches["KB"] - before[0]["KB"] == 4 * n_bands * n_waves
+    assert k1.launches["K1"] - before[1]["K1"] == 7 * n_bands
+    cpu = TiledEncoder(cfg, make_mesh(n_bands, gop=1,
+                                      devices=["cpu"] * n_bands))
+    assert [got] == cpu.encode_sequence([frames])
+    assert [s.qp for s in gpu.stats[0]] == [s.qp for s in cpu.stats[0]]
+    for g_rec, c_rec in zip(gpu.recons[0], cpu.recons[0]):
+        for g, c in zip(g_rec, c_rec):
+            assert g.device.type == "cuda"
+            assert_equal(to_np(g), to_np(c))
+
+
+@pytest.mark.cuda
+def test_cuda_tiled_ippp_cavlc_matches_cpu():
+    """QCIF IPPP CAVLC (5 frames, deblock, the default P tools) through
+    `TiledEncoder` with 3 bands on the card: the stream equals the CPU
+    run's; K2 and KP once a wave of each band of each P frame."""
+    from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
+    dev = cuda_device()
+    frames = [synth_frame(176, 144, t) for t in range(5)]
+    cfg = EncoderConfig(width=176, height=144, qp=28, intra_period=0)
+    before = dict(kp.launches)
+    gpu = TiledEncoder(cfg, make_mesh(3, gop=1, devices=[dev] * 3))
+    got = gpu.encode_sequence([frames])
+    assert kp.launches["KP"] - before["KP"] == 4 * 3 * gpu.band_sched.n_waves
+    cpu = TiledEncoder(cfg, make_mesh(3, gop=1, devices=["cpu"] * 3))
+    assert got == cpu.encode_sequence([frames])

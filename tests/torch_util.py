@@ -342,6 +342,51 @@ def check_golden_reference(name: str):
     return _check_golden(name, Encoder, EncoderConfig)[0]
 
 
+def tiled_reference_encode(cfg, n_tiles: int, frames):
+    """The reference's `TiledEncoder(cfg, make_mesh(n_tiles, gop=1))` on
+    one sequence -> (stream, frame sizes in bits, slice QPs), both in
+    display order."""
+    from tpu264.coding.encoder import build_bgop_plan
+    from tpu264.runtime.tiled import TiledEncoder, make_mesh
+    te = TiledEncoder(cfg, make_mesh(n_tiles, gop=1))
+    coded = []
+    emit = te._emit_frame
+
+    def spy(outs, fins, slice_type, frame_num, qp, **kw):
+        n0 = len(outs[0])
+        emit(outs, fins, slice_type, frame_num, qp, **kw)
+        coded.append((8 * sum(len(b) for b in outs[0][n0:]), int(qp[0])))
+
+    te._emit_frame = spy
+    stream = te.encode_sequence([frames])[0]
+    order = (range(len(frames)) if te.gop_mode != "bgop" else
+             [p[0] for p in build_bgop_plan(len(frames), cfg.num_b_frames,
+                                            cfg.intra_period)])
+    bits, qps = [None] * len(frames), [None] * len(frames)
+    for disp, (b, qp) in zip(order, coded):
+        bits[disp], qps[disp] = b, qp
+    return stream, bits, qps
+
+
+def check_golden_tiled_reference(name: str):
+    """Recompute tiled golden `name` (its "mesh" is [gop, tile]) with the
+    reference's `TiledEncoder` -> (its config, its number of bands)."""
+    from tpu264.config import EncoderConfig
+    from tpu264.media.synth import synth_frame
+    golden = json.loads(GOLDEN.read_text())[name]
+    cfg = EncoderConfig(**golden["config"])
+    gop, tiles = golden["mesh"]
+    assert gop == 1
+    frames = [synth_frame(cfg.width, cfg.height, t)
+              for t in range(golden["frames"])]
+    stream, bits, qps = tiled_reference_encode(cfg, tiles, frames)
+    assert hashlib.sha256(stream).hexdigest() == golden["sha256"]
+    assert len(stream) == golden["bytes"]
+    assert bits == golden["frame_bits"]
+    assert qps == golden["frame_qps"]
+    return cfg, tiles
+
+
 def check_golden_port_on_cpu(name: str):
     """Hold the port's encoder on the CPU to golden `name` -> its config;
     with rate control, its per-frame QPs too."""

@@ -425,7 +425,8 @@ def wave_body(maps, planes, cpads, qp: int, cqp: int, lam4: int, lam24: int,
 
 
 def make_b_encoder(sched: WaveSchedule, chroma_qp_offset: int = 0,
-                   search_range: int = 16, partitions: bool = False):
+                   search_range: int = 16, ref_prepadded: bool = False,
+                   partitions: bool = False):
     """B-frame encoder for a fixed geometry: fn(y, u, v, r0y, r0u, r0v,
     r1y, r1u, r1v, colzero, colmixed, qp, allow_parts=True) -> (recon
     dict, per-wave outputs stacked [n_waves, max_wave, ...]); planes are
@@ -434,12 +435,12 @@ def make_b_encoder(sched: WaveSchedule, chroma_qp_offset: int = 0,
 
     `colmixed`: colocated MBs whose 4x4 cells disagree on colZeroFlag
     (partitioned anchors); the direct candidate is never chosen there.
-    Both references are edge-padded here (a tiled caller, which would hand
-    in real rows of the neighbour tiles, is not ported yet).
-    `partitions`: the 16x8 / 8x16 two-partition candidates (per-half ME
-    for each list; the outputs gain "bptype", "c0", "c1", "mv0b",
-    "mv1b"), on the frames whose `allow_parts` is true (the encoder turns
-    it off on reference Bs)."""
+    `ref_prepadded`: both references arrive already PAD-extended (the
+    tiled encoder hands in real rows of the neighbour bands instead of
+    edge replication).  `partitions`: the 16x8 / 8x16 two-partition
+    candidates (per-half ME for each list; the outputs gain "bptype",
+    "c0", "c1", "mv0b", "mv1b"), on the frames whose `allow_parts` is
+    true (the encoder turns it off on reference Bs)."""
     wm, hm = sched.width_mbs, sched.height_mbs
     rng = min(search_range, PAD - 8)
     shapes = [(("16x16",), (0,), (0,), 16, 16)]
@@ -475,9 +476,13 @@ def make_b_encoder(sched: WaveSchedule, chroma_qp_offset: int = 0,
         allow_parts = bool(allow_parts)
         cqp = chroma_qp(qp, chroma_qp_offset)
         lam4, lam24, lam_me = LAMBDA_TABLE[qp]
-        refs = [(kint.pad_plane(ry, PAD), kint.pad_plane(ru, PAD // 2),
-                 kint.pad_plane(rv, PAD // 2))
-                for ry, ru, rv in ((r0y, r0u, r0v), (r1y, r1u, r1v))]
+        if ref_prepadded:
+            refs = [tuple(p.to(I32).contiguous() for p in r)
+                    for r in ((r0y, r0u, r0v), (r1y, r1u, r1v))]
+        else:
+            refs = [(kint.pad_plane(ry, PAD), kint.pad_plane(ru, PAD // 2),
+                     kint.pad_plane(rv, PAD // 2))
+                    for ry, ru, rv in ((r0y, r0u, r0v), (r1y, r1u, r1v))]
         planes = tuple(kint.luma_planes(rp[0]) for rp in refs)
         cpads = (refs[0][1], refs[0][2], refs[1][1], refs[1][2])
         idx = torch.as_tensor(np.minimum(sched.mb_index, sched.n_mbs - 1),

@@ -180,10 +180,299 @@ def colstate_of(mbd):
     return is_inter & all_c, is_inter & any_c & ~all_c
 
 
+def b_colstate(mbd):
+    """A B picture's colocated state as a later list-1 reference ->
+    (colzero, colmixed) [n] bool: inter MBs whose used list's vector is
+    within +-1 quarter-pel; a B picture that is referenced has no
+    partitions, so no cell disagrees."""
+    use0 = mbd["use0"].to(torch.bool)
+    use1 = mbd["use1"].to(torch.bool)
+    mv = torch.where(use0[:, None], mbd["mv0"], mbd["mv1"])
+    return ((use0 | use1) & (mv.abs() <= 1).all(dim=1),
+            torch.zeros_like(use0))
+
+
+def gop_mode_of(cfg: EncoderConfig) -> str:
+    """The reference's default GOP mode of a config."""
+    if cfg.num_b_frames > 0 and cfg.intra_period != 1:
+        return "bgop"
+    return "intra" if cfg.intra_period == 1 else "ippp"
+
+
+def tools_of(cfg: EncoderConfig, gop_mode: str):
+    """The reference's tool rules -> (partitions, t8_mode, b_partitions):
+    16x8/8x16 and P_8x8 and the 8x8 transform are on for IPPP and for the P
+    anchors of B GOPs unless the config says False (asked for in an
+    all-intra GOP, a warning); the B 16x8/8x16 on the non-reference B
+    frames of a B GOP likewise.  B slices code the 4x4 transform only."""
+    inter = gop_mode in ("ippp", "bgop")
+    for field in ("inter_partitions", "transform_8x8"):
+        if getattr(cfg, field) and not inter:
+            warnings.warn(f"{field} requested but only supported for "
+                          "IPPP / B GOPs; encoding without it",
+                          stacklevel=3)
+    return (inter and cfg.inter_partitions is not False,
+            inter and cfg.transform_8x8 is not False,
+            gop_mode == "bgop" and cfg.inter_partitions is not False)
+
+
 def _psnr3(sse, sizes):
     return tuple(99.99 if s == 0 else
                  10 * np.log10(255.0 ** 2 * npx / float(s))
                  for s, npx in zip(sse, sizes))
+
+
+# ---- the stages of one coded picture after its wave loop.  `Encoder`
+# codes a frame through them, the tiled encoder (`runtime/tiled.py`) each
+# band of a frame.
+
+@dataclasses.dataclass(frozen=True)
+class Picture:
+    """A coded picture's geometry: `wm` x `hm` MBs on `device`, coded as
+    slices of equal height that start at the MB rows `rows`; `t8_mode`:
+    the PPS has the 8x8 transform."""
+    wm: int
+    hm: int
+    rows: tuple
+    t8_mode: bool
+    device: torch.device
+
+    @property
+    def n_mbs(self) -> int:
+        return self.wm * self.hm
+
+
+def cabac_records(pic: Picture, mbd, kind: str, cap: int):
+    """Binarize + compact on device a picture of slice kind `kind` ("i",
+    "p" or "b") -> packed records [S, cap], counts.
+
+    In a PPS with the 8x8 transform, I_NxN MBs of I slices carry its flag
+    too (a zero t8 map; B MBs send it as 0).  A slice over the record cap
+    `cap` (pathological content) keeps every record: the same record grids
+    are compacted again with room for the largest slice, so the stream is
+    the one an unbounded buffer gives (the reference re-binarizes such a
+    picture on the host)."""
+    rows = list(pic.rows)
+    if pic.t8_mode and "t8" not in mbd:
+        mbd = dict(mbd, t8=torch.zeros(pic.n_mbs, dtype=torch.bool,
+                                       device=pic.device))
+    k, a, b, v = cbz.binarize_frame(mbd, pic.wm, pic.hm, rows,
+                                    p_slice=kind == "p", b_slice=kind == "b")
+    recs, counts = cbz.compact_slices(k, a, b, v, pic.wm, rows, pic.hm, cap)
+    need = int(counts.max())
+    if need > cap:
+        recs, counts = cbz.compact_slices(k, a, b, v, pic.wm, rows, pic.hm,
+                                          need)
+    return recs, counts
+
+
+def cabac_payloads(recs, counts, qp: int, kind: str, cap_words: int) -> list:
+    """CABAC slice payloads through the range coder (kernel K1, one launch
+    for all slices), with the contexts of init table 0 in an I slice and
+    of table 1 (cabac_init_idc 0) in a P or B slice."""
+    table = 0 if kind == "i" else 1
+    init = torch.as_tensor(k1.init_packed_states(table, qp),
+                           device=recs.device)
+    words, nbytes = k1.encode_slices(recs, counts, init, cap_words)
+    return k1.payloads_from_words(words, nbytes)
+
+
+def cabac_nalus(payloads, hdr, nal_ref_idc, nal_type) -> list:
+    """One picture's NAL units: each slice's payload after its header
+    `hdr(s)` and the alignment bits."""
+    nalus = []
+    for s, payload in enumerate(payloads):
+        sink = hdr(s)
+        sink.cabac_align()
+        nalus.append(nal.make_nalu(nal_ref_idc, nal_type,
+                                   sink.to_bytes() + payload))
+    return nalus
+
+
+def serialize(pic: Picture, mbd, kind: str, cap_words: int):
+    """CAVLC serialize + pack on device a picture of slice kind `kind`
+    ("i", "p" or "b") -> (words, nbits, skipped).  In a PPS with the 8x8
+    transform, I_NxN MBs of I slices carry its flag too."""
+    rows = list(pic.rows)
+    if kind == "b":
+        v, ln, skipped = dcav.serialize_frame_b(mbd, pic.wm, pic.hm, rows)
+    elif kind == "p":
+        v, ln, skipped = dcav.serialize_frame_p(mbd, pic.wm, pic.hm, rows)
+    else:
+        v, ln = dcav.serialize_frame(mbd, pic.wm, pic.hm, rows,
+                                     t8_mode=pic.t8_mode)
+        skipped = None
+    words, nbits = dcav.pack_slices(v, ln, len(rows), cap_words)
+    return words, nbits, skipped
+
+
+def cavlc_nalus(pic: Picture, words_np, nbits_np, skipped_np, hdr,
+                nal_ref_idc, nal_type) -> list:
+    """One picture's NAL units from its pulled slice words [S, W] and bit
+    counts [S]; `hdr(s)` gives slice s's header sink, `skipped_np` [n] (P
+    and B slices) the MBs whose trailing run the host appends."""
+    per_slice = pic.n_mbs // len(pic.rows)
+    nalus = []
+    for s in range(len(pic.rows)):
+        tail = None
+        if skipped_np is not None:
+            tail = trailing_skip_run(skipped_np, s * per_slice,
+                                     (s + 1) * per_slice)
+        nb = int(nbits_np[s])
+        rbsp = dcav.words_to_rbsp(words_np[s, :(nb + 31) // 32], nb,
+                                  hdr(s), final_skip_run=tail)
+        nalus.append(nal.make_nalu(nal_ref_idc, nal_type, rbsp))
+    return nalus
+
+
+def queue_entropy(pic: Picture, mbd, kind: str, cabac: bool,
+                  records_cap: int, cap_words: int):
+    """The device half of a picture's entropy coding: its CABAC records
+    (`cabac_records`) or its packed CAVLC words (`serialize`)."""
+    if cabac:
+        return cabac_records(pic, mbd, kind, records_cap)
+    return serialize(pic, mbd, kind, cap_words)
+
+
+def entropy_nalus(pic: Picture, queued, qp: int, kind: str, cabac: bool,
+                  cap_words: int, hdr, nal_ref_idc, nal_type) -> list:
+    """The host half of `queue_entropy`: K1 on the records (CABAC) or the
+    pull of the words and the skip map (CAVLC) -> the picture's NAL
+    units, each slice after its header `hdr(s)`."""
+    if cabac:
+        return cabac_nalus(cabac_payloads(*queued, qp, kind, cap_words), hdr,
+                           nal_ref_idc, nal_type)
+    words, nbits, skipped = queued
+    nbits_np = nbits.cpu().numpy()
+    return cavlc_nalus(pic, _pull_words(words, nbits_np), nbits_np,
+                       None if skipped is None else skipped.cpu().numpy(),
+                       hdr, nal_ref_idc, nal_type)
+
+
+def deblock_inputs(pic: Picture, mbd, kind: str):
+    """The deblocker's bS inputs (intra_mb, tc_luma, mv, ref, t8_mb),
+    derived on device from the raster MB dict of a picture of slice kind
+    `kind` ("i", "p" or "b"): a P picture's single-list motion from its
+    "is_inter" and "mv", per 4x4 block where it has partitions ("ptype",
+    "mv2", "mvq"); a B picture's two-list motion (`b_motion`); an
+    all-intra picture has none.  The coefficient condition of an
+    8x8-transform MB counts the covering 8x8 block's coefficients on every
+    4x4 block."""
+    wm, hm, n, dev = pic.wm, pic.hm, pic.n_mbs, pic.device
+    if kind == "b":
+        is_inter = mbd["btype"].to(torch.int32) != 4
+    elif kind == "p":
+        is_inter = mbd["is_inter"].to(torch.bool)
+    else:
+        is_inter = torch.zeros(n, dtype=torch.bool, device=dev)
+    cbp_luma, _, _ = compute_cbp(mbd["sel16"].to(torch.bool),
+                                 mbd["luma_ac"], mbd["chroma_dc"],
+                                 mbd["chroma_ac"])
+    tc = luma_tc_grid(mbd, cbp_luma, wm, hm)
+    t8_mb = None
+    if "t8" in mbd:
+        t8_mb = mbd["t8"].to(torch.bool).reshape(hm, wm)
+        tc8 = tc.reshape(hm * 2, 2, wm * 2, 2).sum(dim=(1, 3),
+                                                   dtype=torch.int32)
+        tc = torch.where(up4(t8_mb), tc8.repeat_interleave(2, 0)
+                         .repeat_interleave(2, 1), tc)
+    if kind == "b":
+        mv_grid, ref_grid = b_motion(pic, mbd, is_inter)
+        return (~is_inter).reshape(hm, wm), tc, mv_grid, ref_grid, t8_mb
+    mv = (mbd["mv"].to(torch.int32) if kind == "p"
+          else torch.zeros((n, 2), dtype=torch.int32, device=dev))
+    mv_grid = torch.where(is_inter[:, None], mv, 0).reshape(hm, wm, 2)
+    ref_grid = torch.where(is_inter, 0, mvpred.INTRA).to(torch.int32) \
+        .reshape(hm, wm)
+    if kind == "p" and "ptype" in mbd:
+        # partitions: per-4x4 grids (part1 covers the bottom rows of a
+        # 16x8 MB, the right columns of an 8x16 one; a P_8x8 MB's blocks
+        # take their quadrant's vector)
+        pt4 = up4(mbd["ptype"].to(torch.int32).reshape(hm, wm))
+        rsel = (torch.arange(hm * 4, device=dev) % 4 >= 2)[:, None]
+        csel = (torch.arange(wm * 4, device=dev) % 4 >= 2)[None, :]
+        use2 = torch.where(pt4 == 1, rsel, (pt4 == 2) & csel)
+        mv2 = torch.where(is_inter[:, None], mbd["mv2"].to(torch.int32),
+                          0).reshape(hm, wm, 2)
+        mv_grid = torch.where(use2[..., None], up4(mv2), up4(mv_grid))
+        if "mvq" in mbd:
+            mq = torch.where(is_inter[:, None, None],
+                             mbd["mvq"].to(torch.int32), 0)
+            q4 = up4(mq.reshape(hm, wm, 4, 2))       # [4hm, 4wm, 4, 2]
+            qsel = (rsel.long() * 2 + csel.long()).expand(hm * 4, wm * 4)
+            mvq_grid = torch.gather(
+                q4, 2, qsel[..., None, None].expand(-1, -1, 1, 2))[..., 0, :]
+            mv_grid = torch.where((pt4 == 3)[..., None], mvq_grid, mv_grid)
+        ref_grid = up4(ref_grid)
+    return (~is_inter).reshape(hm, wm), tc, mv_grid, ref_grid, t8_mb
+
+
+def b_motion(pic: Picture, mbd, is_inter):
+    """A B picture's two-list motion for the bS derivation: (mv [hm, wm, 2,
+    2], picture ids [hm, wm, 2]) per MB (list 0's picture is 0, list 1's
+    is 1, -1 where a list is unused), or per 4x4 block ([4hm, 4wm, ...])
+    where the picture has partitions ("bptype"; part 1 covers the bottom
+    rows of a 16x8 MB, the right columns of an 8x16 one)."""
+    wm, hm, dev = pic.wm, pic.hm, pic.device
+    use0 = mbd["use0"].to(torch.bool)
+    use1 = mbd["use1"].to(torch.bool)
+    mv0 = mbd["mv0"].to(torch.int32)
+    mv1 = mbd["mv1"].to(torch.int32)
+    if "bptype" not in mbd:
+        mv = torch.stack([torch.where(use0[:, None], mv0, 0),
+                          torch.where(use1[:, None], mv1, 0)], dim=1)
+        pid = torch.stack([torch.where(use0, 0, -1),
+                           torch.where(use1, 1, -1)], dim=1)
+        return (mv.reshape(hm, wm, 2, 2),
+                pid.to(torch.int32).reshape(hm, wm, 2))
+    partd = mbd["btype"].to(torch.int32) == 5
+    c1 = mbd["c1"].to(torch.int64)
+    use0b = torch.where(partd, c1 != 1, use0)
+    use1b = torch.where(partd, c1 != 0, use1)
+    bt4 = up4(mbd["bptype"].to(torch.int32).reshape(hm, wm))
+    rsel = (torch.arange(hm * 4, device=dev) % 4 >= 2)[:, None]
+    csel = (torch.arange(wm * 4, device=dev) % 4 >= 2)[None, :]
+    p1cell = torch.where(bt4 == 1, rsel, (bt4 == 2) & csel)
+
+    def list_grids(mvp0, up0, mvp1, up1, pid):
+        grids = []
+        for mvp, up in ((mvp0, up0), (mvp1, up1)):
+            on = up & is_inter
+            grids.append((
+                up4(torch.where(on[:, None], mvp.to(torch.int32), 0)
+                    .reshape(hm, wm, 2)),
+                up4(torch.where(on, pid, -1).to(torch.int32)
+                    .reshape(hm, wm))))
+        (m0, r0), (m1, r1) = grids
+        return (torch.where(p1cell[..., None], m1, m0),
+                torch.where(p1cell, r1, r0))
+
+    mvl0, refl0 = list_grids(mv0, use0, mbd["mv0b"], use0b, 0)
+    mvl1, refl1 = list_grids(mv1, use1, mbd["mv1b"], use1b, 1)
+    return (torch.stack([mvl0, mvl1], dim=2),
+            torch.stack([refl0, refl1], dim=2))
+
+
+def recon_planes(deblock, pic: Picture, dev_out, mbd, qp: int,
+                 kind: str = "i"):
+    """The picture (of slice kind `kind`) that is output and referenced,
+    uint8 on the device: filtered by the wavefront deblocker `deblock`
+    where there is one."""
+    if deblock is None:
+        return tuple(dev_out[k].to(torch.uint8)
+                     for k in ("recon_y", "recon_u", "recon_v"))
+    *inputs, t8_mb = deblock_inputs(pic, mbd, kind)
+    fy, fu, fv = deblock(dev_out["recon_y"], dev_out["recon_u"],
+                         dev_out["recon_v"], *inputs, qp, chroma_qp(qp),
+                         t8_mb=t8_mb)
+    return (fy.to(torch.uint8), fu.to(torch.uint8), fv.to(torch.uint8))
+
+
+def sse3(orig, recon):
+    """[SSE Y, SSE U, SSE V, sum |Y - Y'|] of a picture, an int64 tensor on
+    its device (the last entry is the rate controller's MAD numerator)."""
+    d = [o.to(torch.int64) - r.to(torch.int64) for o, r in zip(orig, recon)]
+    return torch.stack([(x * x).sum() for x in d] + [d[0].abs().sum()])
 
 
 class Encoder:
@@ -225,10 +514,7 @@ class Encoder:
                 "torch.cuda.is_available() is False; pass device=\"cpu\" to "
                 "run the plain torch versions on the CPU")
         if gop_mode is None:
-            if cfg.num_b_frames > 0 and cfg.intra_period != 1:
-                gop_mode = "bgop"
-            else:
-                gop_mode = "intra" if cfg.intra_period == 1 else "ippp"
+            gop_mode = gop_mode_of(cfg)
         # as in the reference, rate control runs only with a target
         # bitrate; without one the encode is at fixed QP
         rc_on = cfg.rate_control and cfg.bitrate > 0
@@ -242,33 +528,22 @@ class Encoder:
                 "Queue 1: weighted prediction)")
         if cfg.sei_messages:
             raise NotImplementedError(
-                "SEI messages are not ported yet (ROADMAP Queue 1: host "
-                "runtime and CLI)")
+                "SEI messages are not ported yet (ROADMAP Queue 1: SEI)")
         self.gop_mode = gop_mode
         self.intra_batch = max(1, int(intra_batch))
         self.sched = build_schedule(cfg.width_mbs, cfg.height_mbs,
                                     cfg.slices_per_frame)
-        # the P tools: the reference's defaults (on for IPPP and for the P
-        # anchors of B GOPs unless the config says False; asked for in an
-        # all-intra GOP, a warning).  B slices code the 4x4 transform only
-        # (transform_size_8x8_flag 0 where the PPS has the 8x8 transform).
-        inter = gop_mode in ("ippp", "bgop")
-        for field in ("inter_partitions", "transform_8x8"):
-            if getattr(cfg, field) and not inter:
-                warnings.warn(f"{field} requested but only supported for "
-                              "IPPP / B GOPs; encoding without it",
-                              stacklevel=2)
-        self.partitions = inter and cfg.inter_partitions is not False
-        self.t8_mode = inter and cfg.transform_8x8 is not False
+        self.partitions, self.t8_mode, self.b_partitions = tools_of(
+            cfg, gop_mode)
         self.p8x8 = self.partitions
-        # B 16x8 / 8x16 partitions, on non-reference B frames only
-        self.b_partitions = (gop_mode == "bgop"
-                             and cfg.inter_partitions is not False)
         self.sps, self.pps, self.cabac = build_params(cfg, gop_mode,
                                                       t8=self.t8_mode)
+        self.pic = Picture(cfg.width_mbs, cfg.height_mbs,
+                           tuple(self.sched.slice_starts.tolist()),
+                           self.t8_mode, self.device)
         self._encode_frame = make_intra_encoder(self.sched)
         self._encode_p = self._encode_b = None
-        if inter:
+        if gop_mode != "intra":
             self._encode_p = make_inter_encoder(
                 self.sched, search_range=cfg.search_range,
                 partitions=self.partitions, t8=self.t8_mode,
@@ -296,200 +571,6 @@ class Encoder:
         self._cabac_cap = per_slice * records_per_mb
         self._cap_words = per_slice * WORDS_PER_MB
 
-    def _cabac_records(self, mbd, kind: str = "i"):
-        """Binarize + compact on device a picture of slice kind `kind`
-        ("i", "p" or "b") -> packed records [S, cap], counts.
-
-        In a PPS with the 8x8 transform, I_NxN MBs of I slices carry its
-        flag too (a zero t8 map; B MBs send it as 0).  A slice over the
-        record cap (pathological content) keeps every record: the same
-        record grids are compacted again with room for the largest slice,
-        so the stream is the one an unbounded buffer gives (the reference
-        re-binarizes such a frame on the host)."""
-        cfg = self.cfg
-        rows = self.sched.slice_starts.tolist()
-        if self.t8_mode and "t8" not in mbd:
-            mbd = dict(mbd, t8=torch.zeros(cfg.width_mbs * cfg.height_mbs,
-                                           dtype=torch.bool,
-                                           device=self.device))
-        k, a, b, v = cbz.binarize_frame(mbd, cfg.width_mbs, cfg.height_mbs,
-                                        rows, p_slice=kind == "p",
-                                        b_slice=kind == "b")
-        recs, counts = cbz.compact_slices(k, a, b, v, cfg.width_mbs, rows,
-                                          cfg.height_mbs, self._cabac_cap)
-        need = int(counts.max())
-        if need > self._cabac_cap:
-            recs, counts = cbz.compact_slices(k, a, b, v, cfg.width_mbs,
-                                              rows, cfg.height_mbs, need)
-        return recs, counts
-
-    def _cabac_payloads(self, recs, counts, qp: int, kind: str = "i") -> list:
-        """CABAC slice payloads through the range coder (kernel K1, one
-        launch for all slices), with the contexts of init table 0 in an I
-        slice and of table 1 (cabac_init_idc 0) in a P or B slice."""
-        table = 0 if kind == "i" else 1
-        init = torch.as_tensor(k1.init_packed_states(table, qp),
-                               device=recs.device)
-        words, nbytes = k1.encode_slices(recs, counts, init, self._cap_words)
-        return k1.payloads_from_words(words, nbytes)
-
-    @staticmethod
-    def _cabac_nalus(payloads, hdr, nal_ref_idc, nal_type) -> list:
-        """One frame's NAL units: each slice's payload after its header
-        `hdr(s)` and the alignment bits."""
-        nalus = []
-        for s, payload in enumerate(payloads):
-            sink = hdr(s)
-            sink.cabac_align()
-            nalus.append(nal.make_nalu(nal_ref_idc, nal_type,
-                                       sink.to_bytes() + payload))
-        return nalus
-
-    def _deblock_inputs(self, mbd, kind: str = "i"):
-        """The deblocker's bS inputs (intra_mb, tc_luma, mv, ref, t8_mb),
-        derived on device from the raster MB dict of a picture of slice
-        kind `kind` ("i", "p" or "b"): a P picture's
-        single-list motion from its "is_inter" and "mv", per 4x4 block
-        where it has partitions ("ptype", "mv2", "mvq"); a B picture's
-        two-list motion (`_b_motion`); an all-intra picture has none.  The
-        coefficient condition of an 8x8-transform MB counts the covering
-        8x8 block's coefficients on every 4x4 block."""
-        cfg = self.cfg
-        wm, hm = cfg.width_mbs, cfg.height_mbs
-        n = wm * hm
-        dev = self.device
-        if kind == "b":
-            is_inter = mbd["btype"].to(torch.int32) != 4
-        elif kind == "p":
-            is_inter = mbd["is_inter"].to(torch.bool)
-        else:
-            is_inter = torch.zeros(n, dtype=torch.bool, device=dev)
-        cbp_luma, _, _ = compute_cbp(mbd["sel16"].to(torch.bool),
-                                     mbd["luma_ac"], mbd["chroma_dc"],
-                                     mbd["chroma_ac"])
-        tc = luma_tc_grid(mbd, cbp_luma, wm, hm)
-        t8_mb = None
-        if "t8" in mbd:
-            t8_mb = mbd["t8"].to(torch.bool).reshape(hm, wm)
-            tc8 = tc.reshape(hm * 2, 2, wm * 2, 2).sum(dim=(1, 3),
-                                                       dtype=torch.int32)
-            tc = torch.where(up4(t8_mb), tc8.repeat_interleave(2, 0)
-                             .repeat_interleave(2, 1), tc)
-        if kind == "b":
-            mv_grid, ref_grid = self._b_motion(mbd, is_inter)
-            return (~is_inter).reshape(hm, wm), tc, mv_grid, ref_grid, t8_mb
-        mv = (mbd["mv"].to(torch.int32) if kind == "p"
-              else torch.zeros((n, 2), dtype=torch.int32, device=dev))
-        mv_grid = torch.where(is_inter[:, None], mv, 0).reshape(hm, wm, 2)
-        ref_grid = torch.where(is_inter, 0, mvpred.INTRA).to(torch.int32) \
-            .reshape(hm, wm)
-        if kind == "p" and "ptype" in mbd:
-            # partitions: per-4x4 grids (part1 covers the bottom rows of a
-            # 16x8 MB, the right columns of an 8x16 one; a P_8x8 MB's
-            # blocks take their quadrant's vector)
-            pt4 = up4(mbd["ptype"].to(torch.int32).reshape(hm, wm))
-            rsel = (torch.arange(hm * 4, device=dev) % 4 >= 2)[:, None]
-            csel = (torch.arange(wm * 4, device=dev) % 4 >= 2)[None, :]
-            use2 = torch.where(pt4 == 1, rsel, (pt4 == 2) & csel)
-            mv2 = torch.where(is_inter[:, None], mbd["mv2"].to(torch.int32),
-                              0).reshape(hm, wm, 2)
-            mv_grid = torch.where(use2[..., None], up4(mv2), up4(mv_grid))
-            if "mvq" in mbd:
-                mq = torch.where(is_inter[:, None, None],
-                                 mbd["mvq"].to(torch.int32), 0)
-                q4 = up4(mq.reshape(hm, wm, 4, 2))       # [4hm, 4wm, 4, 2]
-                qsel = (rsel.long() * 2 + csel.long()).expand(hm * 4, wm * 4)
-                mvq_grid = torch.gather(
-                    q4, 2, qsel[..., None, None].expand(-1, -1, 1, 2))[..., 0, :]
-                mv_grid = torch.where((pt4 == 3)[..., None], mvq_grid,
-                                      mv_grid)
-            ref_grid = up4(ref_grid)
-        return (~is_inter).reshape(hm, wm), tc, mv_grid, ref_grid, t8_mb
-
-    def _b_motion(self, mbd, is_inter):
-        """A B picture's two-list motion for the bS derivation: (mv
-        [hm, wm, 2, 2], picture ids [hm, wm, 2]) per MB (list 0's picture
-        is 0, list 1's is 1, -1 where a list is unused), or per 4x4 block
-        ([4hm, 4wm, ...]) where the picture has partitions ("bptype"; part
-        1 covers the bottom rows of a 16x8 MB, the right columns of an
-        8x16 one)."""
-        wm, hm = self.cfg.width_mbs, self.cfg.height_mbs
-        dev = self.device
-        use0 = mbd["use0"].to(torch.bool)
-        use1 = mbd["use1"].to(torch.bool)
-        mv0 = mbd["mv0"].to(torch.int32)
-        mv1 = mbd["mv1"].to(torch.int32)
-        if "bptype" not in mbd:
-            mv = torch.stack([torch.where(use0[:, None], mv0, 0),
-                              torch.where(use1[:, None], mv1, 0)], dim=1)
-            pid = torch.stack([torch.where(use0, 0, -1),
-                               torch.where(use1, 1, -1)], dim=1)
-            return (mv.reshape(hm, wm, 2, 2),
-                    pid.to(torch.int32).reshape(hm, wm, 2))
-        partd = mbd["btype"].to(torch.int32) == 5
-        c1 = mbd["c1"].to(torch.int64)
-        use0b = torch.where(partd, c1 != 1, use0)
-        use1b = torch.where(partd, c1 != 0, use1)
-        bt4 = up4(mbd["bptype"].to(torch.int32).reshape(hm, wm))
-        rsel = (torch.arange(hm * 4, device=dev) % 4 >= 2)[:, None]
-        csel = (torch.arange(wm * 4, device=dev) % 4 >= 2)[None, :]
-        p1cell = torch.where(bt4 == 1, rsel, (bt4 == 2) & csel)
-
-        def list_grids(mvp0, up0, mvp1, up1, pid):
-            grids = []
-            for mvp, up in ((mvp0, up0), (mvp1, up1)):
-                on = up & is_inter
-                grids.append((
-                    up4(torch.where(on[:, None], mvp.to(torch.int32), 0)
-                        .reshape(hm, wm, 2)),
-                    up4(torch.where(on, pid, -1).to(torch.int32)
-                        .reshape(hm, wm))))
-            (m0, r0), (m1, r1) = grids
-            return (torch.where(p1cell[..., None], m1, m0),
-                    torch.where(p1cell, r1, r0))
-
-        mvl0, refl0 = list_grids(mv0, use0, mbd["mv0b"], use0b, 0)
-        mvl1, refl1 = list_grids(mv1, use1, mbd["mv1b"], use1b, 1)
-        return (torch.stack([mvl0, mvl1], dim=2),
-                torch.stack([refl0, refl1], dim=2))
-
-    def _apply_deblock(self, dev_out, mbd, qp: int, kind: str = "i"):
-        """In-loop filter of a picture of slice kind `kind`; the filtered
-        planes stay on device."""
-        *inputs, t8_mb = self._deblock_inputs(mbd, kind)
-        fy, fu, fv = self._deblock(
-            dev_out["recon_y"], dev_out["recon_u"], dev_out["recon_v"],
-            *inputs, qp, chroma_qp(qp), t8_mb=t8_mb)
-        return (fy.to(torch.uint8), fu.to(torch.uint8), fv.to(torch.uint8))
-
-    def _recon(self, dev_out, mbd, qp: int, kind: str = "i"):
-        """The picture (of slice kind `kind`) that is output and
-        referenced: deblocked where the config asks for it."""
-        if self.cfg.deblock:
-            return self._apply_deblock(dev_out, mbd, qp, kind)
-        return tuple(dev_out[k].to(torch.uint8)
-                     for k in ("recon_y", "recon_u", "recon_v"))
-
-    def _serialize(self, mbd, kind: str):
-        """CAVLC serialize + pack on device a picture of slice kind `kind`
-        ("i", "p" or "b") -> (words, nbits, skipped).  In a PPS with the
-        8x8 transform, I_NxN MBs of I slices carry its flag too."""
-        cfg = self.cfg
-        rows = self.sched.slice_starts.tolist()
-        if kind == "b":
-            v, ln, skipped = dcav.serialize_frame_b(
-                mbd, cfg.width_mbs, cfg.height_mbs, rows)
-        elif kind == "p":
-            v, ln, skipped = dcav.serialize_frame_p(
-                mbd, cfg.width_mbs, cfg.height_mbs, rows)
-        else:
-            v, ln = dcav.serialize_frame(mbd, cfg.width_mbs, cfg.height_mbs,
-                                         rows, t8_mode=self.t8_mode)
-            skipped = None
-        words, nbits = dcav.pack_slices(v, ln, cfg.slices_per_frame,
-                                        self._cap_words)
-        return words, nbits, skipped
-
     def _slice_header(self, s: int, slice_type: int, qp: int, **kw):
         """The BitSink holding slice `s`'s header."""
         cfg = self.cfg
@@ -499,34 +580,6 @@ class Encoder:
             slice_type=slice_type, slice_qp=qp,
             disable_deblocking_filter_idc=self.deblock_idc, **kw)
         return hdr.write_rbsp_head(self.sps, self.pps)
-
-    def _cavlc_nalus(self, words_np, nbits_np, skipped_np, hdr, nal_ref_idc,
-                     nal_type):
-        """One frame's NAL units from its pulled slice words [S, W] and
-        bit counts [S]; `hdr(s)` gives slice s's header sink, `skipped_np`
-        [n] (P slices) the MBs whose trailing run the host appends."""
-        cfg = self.cfg
-        per_slice = (cfg.width_mbs * cfg.height_mbs) // cfg.slices_per_frame
-        nalus = []
-        for s in range(cfg.slices_per_frame):
-            tail = None
-            if skipped_np is not None:
-                tail = trailing_skip_run(skipped_np, s * per_slice,
-                                         (s + 1) * per_slice)
-            nb = int(nbits_np[s])
-            rbsp = dcav.words_to_rbsp(words_np[s, :(nb + 31) // 32], nb,
-                                      hdr(s), final_skip_run=tail)
-            nalus.append(nal.make_nalu(nal_ref_idc, nal_type, rbsp))
-        return nalus
-
-    @staticmethod
-    def _sse3(orig, recon):
-        """[SSE Y, SSE U, SSE V, sum |Y - Y'|] of the frame, an int64
-        tensor on the device (the last entry is the rate controller's
-        MAD numerator)."""
-        d = [o.to(torch.int64) - r.to(torch.int64)
-             for o, r in zip(orig, recon)]
-        return torch.stack([(x * x).sum() for x in d] + [d[0].abs().sum()])
 
     def _header_nalus(self) -> list:
         """SPS + PPS that open every stream."""
@@ -562,11 +615,12 @@ class Encoder:
                 orig = self._to_device(y, u, v)
                 dev_out, ys = self._encode_frame(*orig, qp)
                 mbd = reorder_wave_outputs(self.sched, ys)
-                w, nb, _ = self._serialize(mbd, "i")
-                recon = self._recon(dev_out, mbd, qp)
+                w, nb, _ = serialize(self.pic, mbd, "i", self._cap_words)
+                recon = recon_planes(self._deblock, self.pic, dev_out, mbd,
+                                     qp)
                 words.append(w)
                 nbits.append(nb)
-                sse.append(self._sse3(orig, recon))
+                sse.append(sse3(orig, recon))
                 self.recons.append(recon)
             nbits_np = torch.stack(nbits).cpu().numpy()   # syncs the device
             sse_np = torch.stack(sse).cpu().numpy()
@@ -574,8 +628,8 @@ class Encoder:
             per_frame_s = (time.monotonic() - t0) / len(chunk)
             for b, (y, u, v) in enumerate(chunk):
                 i = c0 + b
-                nalus = self._cavlc_nalus(
-                    words_np[b], nbits_np[b], None,
+                nalus = cavlc_nalus(
+                    self.pic, words_np[b], nbits_np[b], None,
                     lambda s: self._slice_header(
                         s, SLICE_I, qp, frame_num=0, idr_pic_id=i % 2,
                         is_idr=True),
@@ -650,7 +704,7 @@ class Encoder:
                 frame_num = (frame_num + 1) % (
                     1 << self.sps.log2_max_frame_num)
             self.recons.append(recon)
-            sse = self._sse3(self._dev_orig, recon)
+            sse = sse3(self._dev_orig, recon)
             if pipeline:
                 drain()
             pending = (i, is_idr, qp, fin, sse, (y.size, u.size, v.size),
@@ -734,7 +788,7 @@ class Encoder:
                     fn = (fn + 1) % max_fn
             col_of[disp] = self._last_col
             self.recons[disp] = recon
-            sse = self._sse3(self._dev_orig, recon)
+            sse = sse3(self._dev_orig, recon)
             nalus = fin()
             out.extend(nalus)
             bits = sum(8 * len(b) for b in nalus)
@@ -748,6 +802,22 @@ class Encoder:
                 ps[2], time.monotonic() - t0, qp)
         self.stats.extend(st for st in stats if st is not None)
         return b"".join(out)
+
+    def _queue(self, dev_out, mbd, qp: int, kind: str, hdr, nal_ref_idc,
+               nal_type):
+        """Queue a frame's entropy device work and its in-loop filter ->
+        (finish, recon): `finish()` runs K1 (CABAC) or pulls the packed
+        words and the skip map (CAVLC) and returns the frame's NAL
+        units."""
+        queued = queue_entropy(self.pic, mbd, kind, self.cabac,
+                               self._cabac_cap, self._cap_words)
+        recon = recon_planes(self._deblock, self.pic, dev_out, mbd, qp, kind)
+
+        def finish():
+            return entropy_nalus(self.pic, queued, qp, kind, self.cabac,
+                                 self._cap_words, hdr, nal_ref_idc, nal_type)
+
+        return finish, recon
 
     def _to_device(self, y, u, v):
         return tuple(torch.as_tensor(np.asarray(p), device=self.device)
@@ -778,22 +848,7 @@ class Encoder:
             zero = torch.zeros(cfg.width_mbs * cfg.height_mbs,
                                dtype=torch.bool, device=self.device)
             self._last_col = (zero, zero)
-        if self.cabac:
-            recs, counts = self._cabac_records(mbd)
-        else:
-            words, nbits, _ = self._serialize(mbd, "i")
-        recon = self._recon(dev_out, mbd, qp)
-
-        def finish():
-            if self.cabac:
-                return self._cabac_nalus(
-                    self._cabac_payloads(recs, counts, qp), hdr_sink, 3,
-                    nal.NAL_IDR)
-            nbits_np = nbits.cpu().numpy()
-            return self._cavlc_nalus(_pull_words(words, nbits_np), nbits_np,
-                                     None, hdr_sink, 3, nal.NAL_IDR)
-
-        return finish, recon
+        return self._queue(dev_out, mbd, qp, "i", hdr_sink, 3, nal.NAL_IDR)
 
     def encode_p_frame(self, y, u, v, ref, frame_num: int,
                        qp: int | None = None, poc_lsb: int = 0,
@@ -819,23 +874,7 @@ class Encoder:
         mbd = reorder_wave_outputs(self.sched, ys)
         if self.gop_mode == "bgop":
             self._last_col = colstate_of(mbd)
-        if self.cabac:
-            recs, counts = self._cabac_records(mbd, kind="p")
-        else:
-            words, nbits, skipped = self._serialize(mbd, "p")
-        recon = self._recon(dev_out, mbd, qp, "p")
-
-        def finish():
-            if self.cabac:
-                return self._cabac_nalus(
-                    self._cabac_payloads(recs, counts, qp, "p"),
-                    hdr_sink, 2, nal.NAL_SLICE)
-            nbits_np = nbits.cpu().numpy()
-            return self._cavlc_nalus(_pull_words(words, nbits_np), nbits_np,
-                                     skipped.cpu().numpy(), hdr_sink, 2,
-                                     nal.NAL_SLICE)
-
-        return finish, recon
+        return self._queue(dev_out, mbd, qp, "p", hdr_sink, 2, nal.NAL_SLICE)
 
     def encode_b_frame(self, y, u, v, ref0, ref1, frame_num: int,
                        poc_lsb: int, qp: int | None = None,
@@ -873,32 +912,9 @@ class Encoder:
             # B MBs code the 4x4 transform: the flag goes out as 0
             mbd["t8"] = torch.zeros(n_mbs, dtype=torch.bool,
                                     device=self.device)
-        # this picture's colZeroFlag as a later colocated picture: inter
-        # MBs whose used list's vector is within +-1 quarter-pel; it has
-        # no partitions where it is a reference, so no mixed cells
-        use0 = mbd["use0"].to(torch.bool)
-        use1 = mbd["use1"].to(torch.bool)
-        mv = torch.where(use0[:, None], mbd["mv0"], mbd["mv1"])
-        self._last_col = ((use0 | use1) & (mv.abs() <= 1).all(dim=1),
-                          torch.zeros(n_mbs, dtype=torch.bool,
-                                      device=self.device))
-        if self.cabac:
-            recs, counts = self._cabac_records(mbd, kind="b")
-        else:
-            words, nbits, skipped = self._serialize(mbd, "b")
-        recon = self._recon(dev_out, mbd, qp, "b")
-
-        def finish():
-            if self.cabac:
-                return self._cabac_nalus(
-                    self._cabac_payloads(recs, counts, qp, "b"),
-                    hdr_sink, nal_ref_idc, nal.NAL_SLICE)
-            nbits_np = nbits.cpu().numpy()
-            return self._cavlc_nalus(_pull_words(words, nbits_np), nbits_np,
-                                     skipped.cpu().numpy(), hdr_sink,
-                                     nal_ref_idc, nal.NAL_SLICE)
-
-        return finish, recon
+        self._last_col = b_colstate(mbd)
+        return self._queue(dev_out, mbd, qp, "b", hdr_sink, nal_ref_idc,
+                           nal.NAL_SLICE)
 
 
 def _pull_words(words, nbits_np) -> np.ndarray:

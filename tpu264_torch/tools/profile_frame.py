@@ -3,10 +3,12 @@ deblock frame (the default), or a P frame of a 720p IPPP + deblock
 sequence: CAVLC with the reference's default P tools (`--config ippp720`)
 or without them (`--config ippp720_notools`), or CABAC with the default P
 tools (`--config ippp720_cabac`); or a B frame of config 4 at 1920x1088
-and its P anchor (`--config bgop1080`).
+and its P anchor (`--config bgop1080`), or the same two frames through
+the band-tiled encoder (`--config tiled1080 --tiles N`).
 
     python -m tpu264_torch.tools.profile_frame
-        [--config intra720|ippp720|ippp720_notools|ippp720_cabac|bgop1080]
+        [--config intra720|ippp720|ippp720_notools|ippp720_cabac|bgop1080
+                  |tiled1080 [--tiles N]]
         [--out FILE.json]
 
 Encodes `synth_frame(1280, 720, t)` frames (QP 28, one slice) and prints
@@ -54,6 +56,14 @@ the keys above under "p_anchor" and "b_frame" (the B frame's stages:
 the half-pel planes of both references, the full search and the sub-pel
 refinement of both lists, the wave loop (K2 + KB), reorder, binarize +
 compact, deblock, K1 + payload pull, NAL assembly).
+
+With `--config tiled1080 --tiles N` the same sequence goes through
+`TiledEncoder(cfg, mesh)` with N bands of 68 / N MB rows (`make_mesh(1,
+gop=1)`, `bench.py`'s mesh, for one band; for more, N cards where there
+are, else all N bands on the one card), and the warm P anchor and B frame
+are the band steps of every band of those frames (`TiledEncoder._frame`
+with the arguments the sequence gave it); the stages add "halo", the
+reference rows each band takes from its neighbours.
 
 With `--k1-stages` the kernel library is built with `-DK1_PROFILE`, and
 every launch of the CABAC coder prints, per slice and stage (warp 0 the
@@ -127,11 +137,13 @@ def stage_times(enc: Encoder, frame) -> tuple[dict, dict]:
     with Clock(st, "reorder"):
         mbd = intra_frame.reorder_wave_outputs(enc.sched, ys)
     with Clock(st, "binarize_compact"):
-        recs, counts = enc._cabac_records(mbd)
+        recs, counts = encoder_mod.cabac_records(enc.pic, mbd, "i",
+                                                 enc._cabac_cap)
     with Clock(st, "deblock"):
-        enc._apply_deblock(dev_out, mbd, QP)
+        encoder_mod.recon_planes(enc._deblock, enc.pic, dev_out, mbd, QP)
     with Clock(st, "k1_and_pull"):
-        payloads = enc._cabac_payloads(recs, counts, QP)
+        payloads = encoder_mod.cabac_payloads(recs, counts, QP, "i",
+                                              enc._cap_words)
     return st, cabac_counts(recs, counts, payloads)
 
 
@@ -140,9 +152,9 @@ def intra_patches(enc: Encoder) -> list:
     frame."""
     return [(encoder_mod, "reorder_wave_outputs", "reorder"),
             (enc, "_encode_frame", "wave_loop"),
-            (enc, "_cabac_records", "binarize_compact"),
-            (enc, "_apply_deblock", "deblock"),
-            (enc, "_cabac_payloads", "k1_and_pull")]
+            (encoder_mod, "cabac_records", "binarize_compact"),
+            (encoder_mod, "recon_planes", "deblock"),
+            (encoder_mod, "cabac_payloads", "k1_and_pull")]
 
 
 # stages of a P or B frame that run inside `enc._encode_p` or
@@ -150,24 +162,35 @@ def intra_patches(enc: Encoder) -> list:
 P_INNER = ("half_pel_planes", "me_full_search", "me_subpel")
 
 
-def ippp_patches(enc: Encoder, inner: str = "_encode_p") -> list:
-    """(owner, attribute, stage) of every stage of a P frame (of a B frame
-    with `inner="_encode_b"`); the pull (K1 with CABAC) and NAL assembly
-    run in the `finish` that `encode_p_frame` returns."""
-    if enc.cabac:
-        entropy = [(enc, "_cabac_records", "binarize_compact"),
-                   (enc, "_cabac_payloads", "k1_and_pull"),
-                   (enc, "_cabac_nalus", "pull_nal")]
+def entropy_patches(cabac: bool) -> list:
+    """(owner, attribute, stage) of the entropy stages and the in-loop
+    filter of a picture (`coding/encoder.py`'s picture stages); the pull
+    (K1 with CABAC) and NAL assembly run in a frame's `finish`."""
+    if cabac:
+        entropy = [(encoder_mod, "cabac_records", "binarize_compact"),
+                   (encoder_mod, "cabac_payloads", "k1_and_pull"),
+                   (encoder_mod, "cabac_nalus", "pull_nal")]
     else:
-        entropy = [(enc, "_serialize", "serialize_pack"),
+        entropy = [(encoder_mod, "serialize", "serialize_pack"),
                    (encoder_mod, "_pull_words", "pull_nal"),
-                   (enc, "_cavlc_nalus", "pull_nal")]
-    return [(encoder_mod, "reorder_wave_outputs", "reorder"),
-            (enc, inner, "inter_encode"),
+                   (encoder_mod, "cavlc_nalus", "pull_nal")]
+    return [(encoder_mod, "recon_planes", "deblock")] + entropy
+
+
+def inter_patches(owner, inner: str) -> list:
+    """(owner, attribute, stage) of the motion search stages inside the P
+    or B encoder `owner.inner` ("inter_encode")."""
+    return [(owner, inner, "inter_encode"),
             (kint, "luma_planes", "half_pel_planes"),
             (kme, "full_search_blocks", "me_full_search"),
-            (kme, "subpel_refine", "me_subpel"),
-            (enc, "_recon", "deblock")] + entropy
+            (kme, "subpel_refine", "me_subpel")]
+
+
+def ippp_patches(enc: Encoder, inner: str = "_encode_p") -> list:
+    """(owner, attribute, stage) of every stage of a P frame (of a B frame
+    with `inner="_encode_b"`)."""
+    return ([(encoder_mod, "reorder_wave_outputs", "reorder")]
+            + inter_patches(enc, inner) + entropy_patches(enc.cabac))
 
 
 @contextlib.contextmanager
@@ -219,9 +242,9 @@ def p_frame_job(enc: Encoder, frame, ref, frame_num: int = 2):
     return run
 
 
-def p_stage_times(enc: Encoder, job, inner: str = "_encode_p") -> dict:
+def p_stage_times(patches: list, job) -> dict:
     """One P (or B) frame with a synchronised host clock around every
-    stage."""
+    stage of `patches`."""
     st: dict = {}
 
     def clocked(name, fn):
@@ -230,7 +253,7 @@ def p_stage_times(enc: Encoder, job, inner: str = "_encode_p") -> dict:
                 return fn(*args, **kw)
         return run
 
-    with patched(ippp_patches(enc, inner), clocked):
+    with patched(patches, clocked):
         with Clock(st, "frame"):
             job()
     st = split_p_encode(st)
@@ -341,7 +364,7 @@ def profile_ippp(res: dict, tools: bool, symbol_mode: str) -> None:
 
     before = {k: v for c in counters for k, v in c.items()}
     warm = {}
-    with patched([(enc, "_cabac_records", "records")], keep):
+    with patched([(encoder_mod, "cabac_records", "records")], keep):
         with Clock(warm, "frame"):
             nalus = job()
     res["frame_seconds"] = warm["frame"]
@@ -354,12 +377,13 @@ def profile_ippp(res: dict, tools: bool, symbol_mode: str) -> None:
         fin, _ = enc.encode_intra_frame(*frames[0])
         fin()
     res["idr_frame_seconds"] = idr["frame"]
-    res["stages"] = p_stage_times(enc, job)
+    res["stages"] = p_stage_times(ippp_patches(enc), job)
     res["profile"] = profiled_frame(ippp_patches(enc), job)
     if enc.cabac:
         recs, counts = kept["records"]
         res["cabac"] = cabac_counts(
-            recs, counts, enc._cabac_payloads(recs, counts, QP, "p"))
+            recs, counts, encoder_mod.cabac_payloads(recs, counts, QP, "p",
+                                                     enc._cap_words))
 
 
 def profile_bgop(res: dict) -> None:
@@ -416,7 +440,7 @@ def profile_bgop(res: dict) -> None:
         out = {"display": disp, "qp": kw["qp"]}
         before = {k: v for c in counters for k, v in c.items()}
         warm = {}
-        with patched([(enc, "_cabac_records", "records")], keep):
+        with patched([(encoder_mod, "cabac_records", "records")], keep):
             with Clock(warm, "frame"):
                 nalus = job()
         out["frame_seconds"] = warm["frame"]
@@ -424,12 +448,91 @@ def profile_bgop(res: dict) -> None:
                                   for k, v in c.items()}
         if sum(8 * len(n) for n in nalus) != enc.stats[disp].bits:
             raise SystemExit(f"the warm {key} differs from the sequence's")
-        out["stages"] = p_stage_times(enc, job, inner)
+        out["stages"] = p_stage_times(ippp_patches(enc, inner), job)
         out["profile"] = profiled_frame(ippp_patches(enc, inner), job)
         recs, counts = kept["records"]
         out["cabac"] = cabac_counts(
-            recs, counts, enc._cabac_payloads(recs, counts, kw["qp"],
-                                              key[0]))
+            recs, counts, encoder_mod.cabac_payloads(
+                recs, counts, kw["qp"], key[0], enc._cap_words))
+        res[key] = out
+
+
+def tiled_patches(te, inner: str) -> list:
+    """(owner, attribute, stage) of every stage of a P (`inner="_enc_p"`)
+    or B (`"_enc_b"`) frame of the tiled encoder, all bands together: the
+    band halos ("halo"), the motion search and wave loop, reorder, the
+    entropy stages and the in-loop filter."""
+    from tpu264_torch.runtime import tiled
+    return ([(tiled, "reorder_wave_outputs", "reorder"),
+             (tiled, "band_refs", "halo")]
+            + inter_patches(te, inner) + entropy_patches(te.cabac))
+
+
+def profile_tiled(res: dict, n_tiles: int) -> None:
+    """Config 4 at 1920x1088 through `TiledEncoder` with `n_tiles` bands
+    (over that many cards where there are, else all on the one card): the
+    cold 7-frame sequence, then its last P anchor and its last B frame
+    warm, every band of the frame."""
+    from tpu264_torch.entropy import cabac_engine_cuda as k1
+    from tpu264_torch.kernels import b_wave as kb, deblock_wave as k4w, \
+        i16_chroma_wave as k3w, i4x4_wave as k2w, p_wave as kp
+    from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
+    w, h = BGOP_W, BGOP_H
+    cfg = EncoderConfig(width=w, height=h, qp=QP, intra_period=0,
+                        num_b_frames=2, symbol_mode="CABAC", deblock=True,
+                        rate_control=True, bitrate=8_000_000)
+    if n_tiles == 1 or torch.cuda.device_count() >= n_tiles:
+        mesh = make_mesh(n_tiles, gop=1)
+    else:
+        mesh = make_mesh(n_tiles, gop=1,
+                         devices=[torch.device("cuda", 0)] * n_tiles)
+    te = TiledEncoder(cfg, mesh)
+    frames = [synth_frame(w, h, t) for t in range(7)]
+    calls = []                  # the sequence's arguments of each frame
+    frame = te._frame
+
+    def spy(*a, **kw):
+        calls.append((a, dict(kw)))
+        return frame(*a, **kw)
+
+    te._frame = spy
+    t0 = time.monotonic()
+    (stream,) = te.encode_sequence([frames])        # cold: build + warm-up
+    torch.cuda.synchronize()
+    del te._frame
+    res.update(device=[str(d) for d in te.mesh.devices[0]],
+               config=f"{w}x{h} hierarchical B (num_b_frames=2) CABAC "
+                      f"deblock, rate control 8 Mb/s (config 4), "
+                      f"TiledEncoder with {n_tiles} band(s) of "
+                      f"{te.band_hm} MB rows",
+               cold_sequence_seconds=time.monotonic() - t0,
+               cold_frames=[[s.frame, s.slice_type, s.qp, s.bits, s.seconds]
+                            for s in te.stats[0]],
+               stream={"bytes": len(stream),
+                       "frame_bits": [s.bits for s in te.stats[0]]})
+    counters = [k1.launches, k2w.launches, k3w.launches, kp.launches,
+                kb.launches, k4w.launches]
+    # coding order I 0, P 3, Bref 1, B 2, P 6, Bref 4, B 5
+    for key, pos, inner, disp in (("p_anchor", 4, "_enc_p", 6),
+                                  ("b_frame", 6, "_enc_b", 5)):
+        a, kw = calls[pos]
+
+        def job(a=a, kw=kw):
+            return te._frame(*a, **dict(kw))
+
+        out = {"display": disp, "qp": int(a[2][0])}
+        before = {k: v for c in counters for k, v in c.items()}
+        warm = {}
+        with Clock(warm, "frame"):
+            coded = job()
+        out["frame_seconds"] = warm["frame"]
+        out["kernel_launches"] = {k: v - before[k] for c in counters
+                                  for k, v in c.items()}
+        if sum(8 * len(n) for n in coded[0][0]) != te.stats[0][disp].bits:
+            raise SystemExit(f"the warm {key} differs from the sequence's")
+        patches = tiled_patches(te, inner)
+        out["stages"] = p_stage_times(patches, job)
+        out["profile"] = profiled_frame(patches, job)
         res[key] = out
 
 
@@ -437,13 +540,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config",
                     choices=("intra720", "ippp720", "ippp720_notools",
-                             "ippp720_cabac", "bgop1080"),
+                             "ippp720_cabac", "bgop1080", "tiled1080"),
                     default="intra720",
                     help="the frame to profile: all-intra CABAC (default) "
                          "or a P frame of IPPP CAVLC, with the default P "
                          "tools or without them, or of IPPP CABAC with "
                          "them; or config 4's B frame and P anchor at "
-                         "1920x1088")
+                         "1920x1088, through Encoder or (tiled1080) "
+                         "TiledEncoder")
+    ap.add_argument("--tiles", type=int, default=1,
+                    help="bands of --config tiled1080 (default 1)")
     ap.add_argument("--out", help="also write the JSON object to this file")
     ap.add_argument("--k1-stages", action="store_true",
                     help="build with -DK1_PROFILE: the CABAC coder prints "
@@ -462,6 +568,8 @@ def main() -> int:
     res: dict = {"card": card, "torch": torch.__version__}
     if args.config == "bgop1080":
         profile_bgop(res)
+    elif args.config == "tiled1080":
+        profile_tiled(res, args.tiles)
     elif args.config.startswith("ippp720"):
         profile_ippp(res, tools=args.config != "ippp720_notools",
                      symbol_mode=("CABAC" if args.config == "ippp720_cabac"
