@@ -19,7 +19,10 @@ Phases (any failure exits non-zero, before the result line):
     1920x1088 B frame of config 4 with and without partitions and on
     seeded waves of that width (every btype, every partition shape with
     every (c0, c1)) at QP 0, 28 and 51, `allow_parts` on and off; K4 also
-    on that B frame (two-list bS);
+    on that B frame (two-list bS); KP with explicit weights (64, 0),
+    (58, -7) and (71, 12) on seeded waves whose source is faded by them,
+    the P tools off and on, and on the widest wave of the first P frame of
+    `ippp_720p_wp_sei` as its encode runs it;
  4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
     28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
@@ -59,16 +62,29 @@ Phases (any failure exits non-zero, before the result line):
     each band, K4 at most once, K1 once a band picture, K3 on the I frame
     only), and the warm frames/s of `Encoder` and of `TiledEncoder` on the
     same frames printed side by side;
-11. one CIF P frame's `make_inter_encoder` output on the card against
+11. IPPP CABAC at 720p with weighted prediction and SEI over five frames
+    of a fade (`ippp_720p_wp_sei`) against its golden, with every P
+    frame's (weight, offset) and the launches of every frame asserted as in
+    9, and the weights engaged (not all (64, 0));
+12. config 5 (`config5_4k_gop`): IPPP CABAC at 3840x2160, `intra_period=2`,
+    4 frames (two closed GOPs) through the port's `runtime.gop_scheduler`,
+    one simulated host (every frame's launches asserted) and two, both
+    gathered streams equal to each other and the golden; then
+    `scaling_harness` at 1 and 2 simulated hosts on the one card prints
+    each host's seconds and the efficiency beside the card;
+13. one CIF P frame's `make_inter_encoder` output on the card against
     the same call on the CPU, every key, tolerance 0, without and with the
     default P tools.
 
 The line before the last is a JSON object with one entry per kernel
 (`launches`: the sum over the four 720p main paths, config 4 and its two
-tiled paths, phases 4, 7, 8, 9 and 10, each driven with the counts set
-to 0 just before and read just after; `launches_by_path` splits it;
-KP's `ms` is a wave of the default P tools, `ms_tools_off` one without
-them; KB's `ms` the widest
+tiled paths, the weighted 720p path and config 5, phases 4, 7, 8, 9, 10,
+11 and 12, each driven with the counts set to 0 just before and read just
+after; `launches_by_path` splits it; KP's `ms` is a wave of the default P
+tools, `ms_tools_off` one without them, `ms_weighted` (with its
+`plain_ms_weighted`, `body_ms_weighted` and `bound_ms_weighted`) the
+weighted golden's widest wave, and `weighted` lists the weighted cases
+with their max abs err; KB's `ms` the widest
 wave of the 1080p B frame, `body_ms` K2 + KB on it; K1's `ms`, `bins` and
 bound are the 720p P frame's, `ms_i_frame` and `bins_i_frame` the I
 frame's, `ms_b_1080p` and `bins_b_1080p` the 1080p B frame's; K4's
@@ -170,7 +186,7 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def phase_device() -> str:
+def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA card (there is no CPU fallback)")
@@ -180,10 +196,11 @@ def phase_device() -> str:
         timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    return torch.cuda.get_device_name(0)
+    return torch.cuda.get_device_name(0), card
 
 
 def phase_build() -> None:
@@ -460,6 +477,97 @@ def p_frame_wave(dev, tools) -> tuple:
     return tuple(seen)
 
 
+def seeded_p_wave(dev, qp: int, offset: int, tools, seed: int,
+                  wp=(64, 0)) -> tuple:
+    """A seeded 720p P wave as `wave_body`'s arguments (19, as
+    `p_frame_wave` gives them): `random_p_wave`, or with the partitions or
+    the 8x8 transform `random_p_wave_tools`; with weights `wp` the source
+    tiles are faded by them (the lanes that the reference predicts, its
+    weighted samples predict)."""
+    from tpu264_torch.coding import inter_frame as tinter
+    from tpu264_torch.coding import intra_frame as tif
+    from tpu264_torch.kernels import interp as kint
+    from tpu264_torch.ref.transform import chroma_qp
+    from tpu264_torch.tools.synth_inputs import (random_p_wave,
+                                                 random_p_wave_tools)
+    if tools.partitions or tools.t8:
+        *arrs, mvp = random_p_wave_tools(seed, W // 16, H // 16)
+    else:
+        arrs, mvp = random_p_wave(seed, W // 16, H // 16), None
+    (bd, mv_map, ref_map, ry, ru, rv, coords, avail, mv_me, gy, gu,
+     gv) = arrs
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+    pad = tinter.PAD
+    return (kint.luma_planes(kint.pad_plane(i32(ry), pad)),
+            kint.pad_plane(i32(ru), pad // 2),
+            kint.pad_plane(i32(rv), pad // 2), qp, chroma_qp(qp, offset),
+            *tif.LAMBDA_TABLE[qp], {k: i32(v) for k, v in bd.items()},
+            i32(mv_map), i32(ref_map), i32(coords),
+            torch.as_tensor(avail, device=dev), i32(mv_me),
+            tinter.weight_luma(i32(gy), *wp), i32(gu), i32(gv),
+            i32(mvp) if tools.partitions else None, tools)
+
+
+def wave_state(case):
+    """Copies of a P wave case's border buffers and maps."""
+    return clone_bd(case[8]), case[9].clone(), case[10].clone()
+
+
+def wave_i4x4(case):
+    """The plain I4x4 results of a P wave case (KP's inputs from K2)."""
+    from tpu264_torch.coding import intra_frame as tif
+    planes, cu, cv, qp, cqp, lam4, lam24, lam_me, bd = case[:9]
+    coords, avail, _, gy = case[11:15]
+    ltop, lleft, _, _, _, _, mtop, mleft = tif.gather_border_ctx(
+        bd, coords[:, 0].long(), coords[:, 1].long())
+    return tif.eval_i4x4_plain(gy, ltop, lleft, mtop, mleft,
+                               *avail.unbind(1), qp, lam4, lam24)
+
+
+def kp_inputs(case, i4):
+    """KP's arguments after the maps, from a P wave case and its I4x4
+    results."""
+    planes, cu, cv, qp, cqp, lam4, lam24, lam_me = case[:8]
+    mb4, modebuf, _, coeffs4, j4 = i4
+    return (planes, cu, cv, *case[11:17], mb4, modebuf, coeffs4, j4, qp,
+            cqp, lam4, lam24, lam_me)
+
+
+def hold_p_wave(dev, case, wp, what: str) -> tuple:
+    """A P wave case with weights `wp` = (wy, oy): the whole body (K2's
+    wave form, then KP) against `wave_body_plain`, and KP alone against
+    `p_wave_plain` on the plain I4x4 results; every output, the border
+    buffers and the three map channels -> (max abs err, the plain
+    results)."""
+    from tpu264_torch.coding import inter_frame as tinter
+    from tpu264_torch.coding import intra_frame as tif
+    from tpu264_torch.kernels import p_wave as kp
+    mvp, tools = case[17:19]
+    wy, oy = wp
+    st_k, st_p = wave_state(case), wave_state(case)
+    got = tinter.wave_body(*case[:8], *st_k, *case[11:], wy=wy, oy=oy)
+    torch.cuda.synchronize()
+    want = tinter.wave_body_plain(*case[:8], *st_p, *case[11:], wy=wy, oy=oy)
+    err = max(differ(got, want, f"{what} body"),
+              differ(st_k[0], st_p[0], f"{what} body borders"),
+              differ({"mv_map": st_k[1], "ref_map": st_k[2]},
+                     {"mv_map": st_p[1], "ref_map": st_p[2]},
+                     f"{what} body maps"))
+    kp_in = kp_inputs(case, wave_i4x4(case))
+    st_k, st_p = wave_state(case), wave_state(case)
+    out = kp.alloc_outputs((case[11].shape[0],), dev, tools)
+    kp.p_wave(*st_k, *kp_in, tif._BLK_ORDER, out, mvp, tools, wy, oy)
+    torch.cuda.synchronize()
+    del out["modes"]
+    want = tinter.p_wave_plain(*st_p, *kp_in, mvp, tools, wy, oy)
+    err = max(err, differ(out, want, f"KP {what}"),
+              differ(st_k[0], st_p[0], f"KP {what} borders"),
+              differ({"mv_map": st_k[1], "ref_map": st_k[2]},
+                     {"mv_map": st_p[1], "ref_map": st_p[2]},
+                     f"KP {what} maps"))
+    return err, want
+
+
 def check_p_wave(dev, waves) -> dict:
     """KP: the P wave kernel against `p_wave_plain` on the card, on the
     same I4x4 results: every output, the border buffers and the three map
@@ -477,81 +585,21 @@ def check_p_wave(dev, waves) -> dict:
     from tpu264_torch.coding import inter_frame as tinter
     from tpu264_torch.coding import intra_frame as tif
     from tpu264_torch.kernels import i4x4_wave as k2w
-    from tpu264_torch.kernels import interp as kint
     from tpu264_torch.kernels import p_wave as kp
-    from tpu264_torch.ref.transform import chroma_qp
-    from tpu264_torch.tools.synth_inputs import (random_p_wave,
-                                                 random_p_wave_tools)
-
-    def seeded(qp, offset, tools=kp.NO_TOOLS):
-        if tools.partitions or tools.t8:
-            *arrs, mvp = random_p_wave_tools(70 + qp - offset, W // 16,
-                                             H // 16)
-        else:
-            arrs, mvp = random_p_wave(50 + qp - offset, W // 16, H // 16), None
-        (bd, mv_map, ref_map, ry, ru, rv, coords, avail, mv_me, gy, gu,
-         gv) = arrs
-        i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
-        pad = tinter.PAD
-        return (kint.luma_planes(kint.pad_plane(i32(ry), pad)),
-                kint.pad_plane(i32(ru), pad // 2),
-                kint.pad_plane(i32(rv), pad // 2), qp, chroma_qp(qp, offset),
-                *tif.LAMBDA_TABLE[qp], {k: i32(v) for k, v in bd.items()},
-                i32(mv_map), i32(ref_map), i32(coords),
-                torch.as_tensor(avail, device=dev), i32(mv_me), i32(gy),
-                i32(gu), i32(gv),
-                i32(mvp) if tools.partitions else None, tools)
-
-    def state(case):
-        return clone_bd(case[8]), case[9].clone(), case[10].clone()
-
-    def i4x4(case):
-        planes, cu, cv, qp, cqp, lam4, lam24, lam_me, bd = case[:9]
-        coords, avail, _, gy = case[11:15]
-        ltop, lleft, _, _, _, _, mtop, mleft = tif.gather_border_ctx(
-            bd, coords[:, 0].long(), coords[:, 1].long())
-        return tif.eval_i4x4_plain(gy, ltop, lleft, mtop, mleft,
-                                   *avail.unbind(1), qp, lam4, lam24)
-
-    def kp_inputs(case, i4):
-        planes, cu, cv, qp, cqp, lam4, lam24, lam_me = case[:8]
-        mb4, modebuf, _, coeffs4, j4 = i4
-        return (planes, cu, cv, *case[11:17], mb4, modebuf, coeffs4, j4, qp,
-                cqp, lam4, lam24, lam_me)
 
     full = kp.Tools(True, True, True)
     err, seen = 0, []
     cases = (list(waves)
-             + [seeded(qp, off) for qp, off in
-                ((0, 0), (28, 0), (28, -2), (51, -2))]
-             + [seeded(qp, 0, full) for qp in (0, 28, 51)]
-             + [seeded(28, 0, kp.Tools(True, False, False)),
-                seeded(28, 0, kp.Tools(False, False, True))])
+             + [seeded_p_wave(dev, qp, off, kp.NO_TOOLS, 50 + qp - off)
+                for qp, off in ((0, 0), (28, 0), (28, -2), (51, -2))]
+             + [seeded_p_wave(dev, qp, 0, t, 70 + qp) for qp, t in
+                ((0, full), (28, full), (51, full),
+                 (28, kp.Tools(True, False, False)),
+                 (28, kp.Tools(False, False, True)))])
     for i, case in enumerate(cases):
-        mvp, tools = case[17:]
-        # the whole body: two launches against the plain body
-        st_k, st_p = state(case), state(case)
-        got = tinter.wave_body(*case[:8], *st_k, *case[11:])
-        torch.cuda.synchronize()
-        want = tinter.wave_body_plain(*case[:8], *st_p, *case[11:])
-        err = max(err, differ(got, want, f"P wave body {i}"),
-                  differ(st_k[0], st_p[0], f"P wave body {i} borders"),
-                  differ({"mv_map": st_k[1], "ref_map": st_k[2]},
-                         {"mv_map": st_p[1], "ref_map": st_p[2]},
-                         f"P wave body {i} maps"))
-        # KP alone, on the plain I4x4 results
-        kp_in = kp_inputs(case, i4x4(case))
-        st_k, st_p = state(case), state(case)
-        out = kp.alloc_outputs((case[11].shape[0],), dev, tools)
-        kp.p_wave(*st_k, *kp_in, tif._BLK_ORDER, out, mvp, tools)
-        torch.cuda.synchronize()
-        del out["modes"]
-        want = tinter.p_wave_plain(*st_p, *kp_in, mvp, tools)
-        err = max(err, differ(out, want, f"KP {i}"),
-                  differ(st_k[0], st_p[0], f"KP {i} borders"),
-                  differ({"mv_map": st_k[1], "ref_map": st_k[2]},
-                         {"mv_map": st_p[1], "ref_map": st_p[2]},
-                         f"KP {i} maps"))
+        e, want = hold_p_wave(dev, case, (64, 0), f"P wave {i}")
+        err = max(err, e)
+        tools = case[18]
         n = int((case[11][:, 0] < H // 16).sum())
         inter = want["is_inter"][:n]
         ptypes = (sorted(set(want["ptype"][:n][inter].tolist()))
@@ -578,7 +626,7 @@ def check_p_wave(dev, waves) -> dict:
         tools = wave[18]
         coords, avail, mv_me, gy = wave[11:15]
         n_mbs = gy.shape[0]
-        st = state(wave)
+        st = wave_state(wave)
         i4 = k2w.i4x4_wave_bd(gy, st[0], coords, avail, wave[3], wave[5],
                               wave[6], tif._K2_RULES)
         kp_in = kp_inputs(wave, i4)
@@ -595,11 +643,19 @@ def check_p_wave(dev, waves) -> dict:
         print(f"KP wave of {n_mbs} MBs, {tools}: kernel {ms:.4f} ms, plain "
               f"{pms:.3f} ms; the P wave body (K2 + KP) {body_ms:.4f} ms")
         timed[tools] = (ms, pms, kp_in, st, wave)
-    # the row: the wave of the default tools, the main path of this slice;
-    # what it reads and does, from its own vectors and decisions
+    # the row: the wave of the default tools, the main path of this slice
     ms, pms, kp_in, st, wave = timed[full]
+    want = tinter.p_wave_plain(*wave_state(wave), *kp_in, wave[17], full)
+    return {"KP": dict(err=err, ms=ms, plain_ms=pms,
+                       ms_tools_off=timed[kp.NO_TOOLS][0],
+                       **kp_bound(wave, want, (64, 0)))}
+
+
+def kp_bound(wave, want, wp) -> dict:
+    """KP's bound on a wave with the default tools (`check_p_wave`'s case
+    `wave`, its plain results `want`, weights `wp`): what it reads and
+    does, from its own vectors and decisions."""
     n_mbs = wave[14].shape[0]
-    want = tinter.p_wave_plain(*state(wave), *kp_in, wave[17], full)
     luma, chroma = kp_windows(wave, want)
     n_ref = distinct_reference_samples(wave[0].shape[1:], wave[1].shape, 1,
                                        luma, chroma)
@@ -614,15 +670,120 @@ def check_p_wave(dev, waves) -> dict:
     # sum), about 300 a 4x4 block for transform, quantiser and
     # reconstruction over 24 blocks, 12 a chroma sample of an inter lane's
     # interpolation, and on a 16x16 inter lane the 8x8 transform's 64
-    # samples x (2 x 16 butterfly + 6 quantiser) + 256 x 8 for the costs
+    # samples x (2 x 16 butterfly + 6 quantiser) + 256 x 8 for the costs;
+    # with weights, 256 samples x 5 candidates x 6 (multiply, round,
+    # shift, offset, two clamps)
     n_bytes = (n_mbs * (4 * (58 + 384 + 529 + 2 + 18 + 12) + 4
                         + 4 * (815 + 66 + 9) + 3)
                + 4 * n_ref)
     n_ops = (n_mbs * (384 * 4 * 22 + 256 * 5 * 20 + 24 * 300)
              + n_inter * 128 * 12 + n_t8 * (256 * 38 + 256 * 8))
-    return {"KP": dict(err=err, ms=ms, plain_ms=pms,
-                       ms_tools_off=timed[kp.NO_TOOLS][0],
-                       **bound(n_bytes, n_ops))}
+    if tuple(wp) != (64, 0):
+        n_ops += n_mbs * 256 * 5 * 6
+    return bound(n_bytes, n_ops)
+
+
+WEIGHTS = ((64, 0), (58, -7), (71, 12))
+
+
+def check_p_wave_weighted(dev, golden_wave) -> dict:
+    """KP with explicit weights: seeded 720p P waves whose source tiles are
+    faded by the weights (64, 0), (58, -7) and (71, 12) (`WEIGHTS`), the P
+    tools off and on, and the widest wave of the first P frame of golden
+    `ippp_720p_wp_sei` as its encode runs it (`golden_wave`: the
+    `wave_body` arguments and the frame's weights), each held to
+    `p_wave_plain` and the whole body to `wave_body_plain`
+    (`hold_p_wave`), tolerance 0; then KP timed on the golden's wave ->
+    the KP row's weighted entries."""
+    from tpu264_torch.coding import inter_frame as tinter
+    from tpu264_torch.coding import intra_frame as tif
+    from tpu264_torch.kernels import i4x4_wave as k2w
+    from tpu264_torch.kernels import p_wave as kp
+    full = kp.Tools(True, True, True)
+    cases = [(seeded_p_wave(dev, 28, 0, t, 130 + 7 * wy + oy, (wy, oy)),
+              (wy, oy), f"seeded {t_name}") for t, t_name in
+             ((kp.NO_TOOLS, "tools off"), (full, "tools on"))
+             for wy, oy in WEIGHTS]
+    cases.append((*golden_wave, "ippp_720p_wp_sei widest wave"))
+    err, rows = 0, []
+    for case, wp, what in cases:
+        e, want = hold_p_wave(dev, case, wp, f"{what} {wp}")
+        err = max(err, e)
+        n = int((case[11][:, 0] < H // 16).sum())
+        inter = int(want["is_inter"][:n].sum())
+        rows.append({"case": what, "wy": wp[0], "oy": wp[1],
+                     "lanes": n, "inter": inter, "max_abs_err": e})
+        print(f"KP weighted {what}, (wy, oy) = {wp}: {inter} inter of {n} "
+              f"lanes, max abs err {e}")
+        if what.startswith("seeded") and not 0 < inter < n:
+            fail(f"KP weighted {what} {wp}: the wave does not mix inter "
+                 f"and intra lanes")
+    wave, wp, _ = cases[-1]
+    wy, oy = wp
+    if wp == (64, 0):
+        fail("the golden's P frame has no weights")
+    tools = wave[18]
+    coords, avail, mv_me, gy = wave[11:15]
+    st = wave_state(wave)
+    i4 = k2w.i4x4_wave_bd(gy, st[0], coords, avail, wave[3], wave[5],
+                          wave[6], tif._K2_RULES)
+    kp_in = kp_inputs(wave, i4)
+    out = kp.alloc_outputs((gy.shape[0],), dev, tools)
+    ms = time_ms(lambda: kp.p_wave(*st, *kp_in, tif._BLK_ORDER, out,
+                                   wave[17], tools, wy, oy), 200)
+    ms_unweighted = time_ms(lambda: kp.p_wave(
+        *st, *kp_in, tif._BLK_ORDER, out, wave[17], tools), 200)
+    pms = time_ms(lambda: tinter.p_wave_plain(*st, *kp_in, wave[17], tools,
+                                              wy, oy), 5)
+    body_ms = time_ms(lambda: tinter.wave_body(
+        *wave[:8], *st, *wave[11:], out=out, wy=wy, oy=oy), 200)
+    want = tinter.p_wave_plain(*wave_state(wave), *kp_in, wave[17], tools,
+                               wy, oy)
+    bnd = kp_bound(wave, want, wp)
+    print(f"KP weighted wave of {gy.shape[0]} MBs (golden, {wp}): kernel "
+          f"{ms:.4f} ms ({ms_unweighted:.4f} ms with (64, 0) on the same "
+          f"inputs), plain {pms:.3f} ms; K2 + KP {body_ms:.4f} ms; bound "
+          f"{bnd['bound_ms']:.6f} ms ({bnd['bound_by']})")
+    return {"KP": dict(err=err, weighted=rows, ms_weighted=ms,
+                       plain_ms_weighted=pms, body_ms_weighted=body_ms,
+                       bound_ms_weighted=bnd["bound_ms"],
+                       bound_by_weighted=bnd["bound_by"])}
+
+
+def wp_frame_wave(dev) -> tuple:
+    """The widest wave of the first P frame of golden `ippp_720p_wp_sei`
+    as `Encoder(cfg)` on the card runs it (frames 0 and 1 of the fade):
+    (its 19 `wave_body` arguments, with the border buffers and maps as
+    they are before the call, (wy, oy)); the weights are the golden's."""
+    from tpu264_torch.coding import inter_frame as tinter
+    from tpu264_torch.coding.encoder import Encoder
+    from tpu264_torch.config import EncoderConfig
+    g = golden("ippp_720p_wp_sei")
+    cfg = EncoderConfig(**g["config"])
+    enc = Encoder(cfg)
+    mid = enc.sched.n_waves // 2
+    inner, calls, seen = tinter.wave_body, [], []
+
+    def spy(*args, **kw):
+        if len(calls) == mid:
+            seen.append(((*args[:8], clone_bd(args[8]), args[9].clone(),
+                          args[10].clone(), *args[11:]),
+                         (kw["wy"], kw["oy"])))
+        calls.append(1)
+        return inner(*args, **kw)
+
+    tinter.wave_body = spy
+    try:
+        enc.encode_sequence(golden_frames(g)[:2])
+    finally:
+        tinter.wave_body = inner
+    if len(seen) != 1 or len(seen[0][0]) != 19:
+        fail(f"ippp_720p_wp_sei: {len(calls)} wave body calls, no wave "
+             f"taken")
+    if list(seen[0][1]) != g["frame_wp"][0]:
+        fail(f"ippp_720p_wp_sei: the P frame's weights {seen[0][1]} are "
+             f"not the golden's {g['frame_wp'][0]}")
+    return seen[0]
 
 
 def check_deblock_wave(dev, frame_case) -> dict:
@@ -942,17 +1103,28 @@ def golden(name: str) -> dict:
                       .read_text())[name]
 
 
+def golden_frames(g: dict) -> list:
+    """The input frames of golden `g`: `synth_frame` frames, or (a
+    "recipe" under "frames") the fade of `fade_frames`."""
+    from tpu264_torch.media.synth import synth_frame
+    from tpu264_torch.tools.synth_inputs import FADE, fade_frames
+    w, h = g["config"]["width"], g["config"]["height"]
+    if isinstance(g["frames"], dict):
+        if g["frames"]["recipe"] != FADE:
+            fail(f"golden frames {g['frames']} are not `fade_frames`'s")
+        return fade_frames(w, h, g["frames"]["n"])
+    return [synth_frame(w, h, t) for t in range(g["frames"])]
+
+
 def encode_golden(name: str, what: str, **enc_kw):
     """Encode the frames of golden `name` through `Encoder(cfg)` (no
     device named: the card) and hold stream and frame sizes to it ->
     (encoder, stream, seconds)."""
     from tpu264_torch.coding.encoder import Encoder
     from tpu264_torch.config import EncoderConfig
-    from tpu264_torch.media.synth import synth_frame
     g = golden(name)
     cfg = EncoderConfig(**g["config"])
-    frames = [synth_frame(cfg.width, cfg.height, t)
-              for t in range(g["frames"])]
+    frames = golden_frames(g)
     enc = Encoder(cfg, **enc_kw)
     if enc.device.type != "cuda":
         fail(f"{what}: Encoder(cfg) chose {enc.device}, not the card")
@@ -967,7 +1139,8 @@ def encode_golden(name: str, what: str, **enc_kw):
           f"{len(stream)} bytes, sha256 {sha}")
     for i, st in enumerate(enc.stats):
         print(f"  frame {i} {st.slice_type}: QP {st.qp}, {st.bits} bits, "
-              f"PSNR-Y {st.psnr_y:.3f} dB, {st.seconds:.3f} s")
+              f"PSNR-Y {st.psnr_y:.3f} dB, {st.seconds:.3f} s"
+              + (f", (wy, oy) {st.wp}" if st.wp else ""))
     if [st.bits for st in enc.stats] != g["frame_bits"]:
         fail(f"{what}: frame bits {[st.bits for st in enc.stats]} != golden "
              f"{g['frame_bits']}")
@@ -995,31 +1168,26 @@ def phase_config2() -> None:
         fail("config 2: not an IDR and two P frames")
 
 
-def phase_ippp(name: str, what: str, kinds=None) -> tuple[dict, object]:
-    """An IPPP golden (a B-GOP golden with `kinds`, its frames' kinds in
-    coding order) through `Encoder(cfg)`, the launches of each frame
-    asserted (those of its deferred entropy finish included): an IDR frame
-    runs K2 once a wave and K3, K4 at most once a wave; a P frame K2 and KP
-    once a wave, K4 at most once a wave; a B frame K2 and KB once a wave,
-    K4 at most once a wave; K1 once a frame with CABAC and never with
-    CAVLC; the slab entries, K3's wave form outside an IDR frame, KP
-    outside a P frame and KB outside a B frame never -> (launch counts of
-    the whole run, the encoder)."""
-    from tpu264_torch.coding.encoder import Encoder
-    per_frame = []
-    queued = []     # seconds of each frame's device work, synchronised
+class FrameLaunches:
+    """While entered, `Encoder`'s frame methods record each frame's kind,
+    its launches (those of its deferred entropy finish included) in
+    `per_frame`, and the seconds of its device work, synchronised, in
+    `queued`; `check` asserts them."""
 
-    def counted(kind, fn):
+    def __init__(self):
+        self.per_frame, self.queued, self.real = [], [], {}
+
+    def _counted(self, kind, fn):
         def run(*a, **kw):
             before = read_counts()
             torch.cuda.synchronize()
             t0 = time.monotonic()
             fin, recon = fn(*a, **kw)
             torch.cuda.synchronize()
-            queued.append(time.monotonic() - t0)
+            self.queued.append(time.monotonic() - t0)
             after = read_counts()
             ran = {k: after[k] - before[k] for k in after}
-            per_frame.append((kind, ran))
+            self.per_frame.append((kind, ran))
 
             def finish():
                 b = read_counts()
@@ -1030,52 +1198,161 @@ def phase_ippp(name: str, what: str, kinds=None) -> tuple[dict, object]:
             return finish, recon
         return run
 
-    real = {}
-    for kind, attr in (("IDR", "encode_intra_frame"), ("P", "encode_p_frame"),
-                       ("B", "encode_b_frame")):
-        real[attr] = getattr(Encoder, attr)
-        setattr(Encoder, attr, counted(kind, real[attr]))
-    reset_counts()
-    try:
-        enc, _, secs = encode_golden(name, what)
-    finally:
-        for attr, fn in real.items():
+    def __enter__(self):
+        from tpu264_torch.coding.encoder import Encoder
+        for kind, attr in (("IDR", "encode_intra_frame"),
+                           ("P", "encode_p_frame"), ("B", "encode_b_frame")):
+            self.real[attr] = getattr(Encoder, attr)
+            setattr(Encoder, attr, self._counted(kind, self.real[attr]))
+        return self
+
+    def __exit__(self, *exc):
+        from tpu264_torch.coding.encoder import Encoder
+        for attr, fn in self.real.items():
             setattr(Encoder, attr, fn)
+
+    def check(self, what: str, kinds, n_waves: int, cabac: bool,
+              counts: dict) -> None:
+        """An IDR frame runs K2 once a wave and K3, K4 at most once a
+        wave; a P frame K2 and KP once a wave, K4 at most once a wave; a B
+        frame K2 and KB once a wave, K4 at most once a wave; K1 once a
+        frame with CABAC and never with CAVLC; the slab entries, K3's wave
+        form outside an IDR frame, KP outside a P frame and KB outside a B
+        frame never; and nothing runs outside the frames (`counts`: the
+        whole run's launches)."""
+        if [k for k, _ in self.per_frame] != kinds:
+            fail(f"{what}: frames {[k for k, _ in self.per_frame]}")
+        for i, (kind, c) in enumerate(self.per_frame):
+            print(f"  frame {i} {kind} launches: {c}")
+            want = {"K1": int(cabac), "K2": n_waves, "K2_blocks": 0,
+                    "K3_blocks": 0, "K4_lines": 0,
+                    "KP": n_waves if kind == "P" else 0,
+                    "KB": n_waves if kind == "B" else 0}
+            if kind != "IDR":
+                want["K3"] = 0
+            for k, n in want.items():
+                if c[k] != n:
+                    fail(f"{what} frame {i} ({kind}): {k} ran {c[k]} "
+                         f"times, not {n} ({n_waves} waves)")
+            at_most_a_wave = ("K3", "K4") if kind == "IDR" else ("K4",)
+            for k in at_most_a_wave:
+                if not 1 <= c[k] <= n_waves:
+                    fail(f"{what} frame {i} ({kind}): {k} ran {c[k]} "
+                         f"times for {n_waves} waves")
+        if sum(sum(c.values()) for _, c in self.per_frame) != \
+                sum(counts.values()):
+            fail(f"{what}: launches outside the frames' encode and finish "
+                 f"calls")
+
+
+def phase_ippp(name: str, what: str, kinds=None) -> tuple[dict, object]:
+    """An IPPP golden (a B-GOP golden with `kinds`, its frames' kinds in
+    coding order) through `Encoder(cfg)`, the launches of each frame
+    asserted (`FrameLaunches.check`) -> (launch counts of the whole run,
+    the encoder)."""
+    reset_counts()
+    with FrameLaunches() as fl:
+        enc, _, secs = encode_golden(name, what)
     counts = read_counts()
-    n_waves = enc.sched.n_waves
     print(f"{what}, launches on the path: {counts}")
-    kinds = kinds or ["IDR"] + ["P"] * (golden(name)["frames"] - 1)
-    if [k for k, _ in per_frame] != kinds:
-        fail(f"{what}: frames {[k for k, _ in per_frame]}")
-    k1_a_frame = int(enc.cabac)
-    for i, (kind, c) in enumerate(per_frame):
-        print(f"  frame {i} {kind} launches: {c}")
-        want = {"K1": k1_a_frame, "K2": n_waves, "K2_blocks": 0,
-                "K3_blocks": 0, "K4_lines": 0,
-                "KP": n_waves if kind == "P" else 0,
-                "KB": n_waves if kind == "B" else 0}
-        if kind != "IDR":
-            want["K3"] = 0
-        for k, n in want.items():
-            if c[k] != n:
-                fail(f"{what} frame {i} ({kind}): {k} ran {c[k]} "
-                     f"times, not {n} ({n_waves} waves)")
-        at_most_a_wave = ("K3", "K4") if kind == "IDR" else ("K4",)
-        for k in at_most_a_wave:
-            if not 1 <= c[k] <= n_waves:
-                fail(f"{what} frame {i} ({kind}): {k} ran {c[k]} "
-                     f"times for {n_waves} waves")
-    if sum(sum(c.values()) for _, c in per_frame) != sum(counts.values()):
-        fail(f"{what}: launches outside the frames' encode and finish "
-             f"calls")
+    fl.check(what, kinds or ["IDR"] + ["P"] * (len(enc.stats) - 1),
+             enc.sched.n_waves, enc.cabac, counts)
     # `FrameStats.seconds` of a pipelined frame runs until the next frame
     # is queued, so the frames' own times are taken around their calls
     print(f"{what} (eager, first run), device work of each frame in coding "
           f"order: " + ", ".join(f"{k} {t:.3f} s" for (k, _), t in
-                                  zip(per_frame, queued))
+                                  zip(fl.per_frame, fl.queued))
           + f"; {len(enc.stats) / secs:.4f} frames/s with pull and NAL "
           f"assembly")
     return counts, enc
+
+
+def phase_weighted(name: str, what: str) -> dict:
+    """An IPPP golden with weighted prediction and SEI (`phase_ippp`):
+    every P frame's (weight, offset) is the golden's, and at least one is
+    not (64, 0) -> the launch counts."""
+    counts, enc = phase_ippp(name, what)
+    got = [list(st.wp) for st in enc.stats if st.slice_type == "P"]
+    want = golden(name)["frame_wp"]
+    print(f"{what}: P frames' (wy, oy) {got} (reference {want})")
+    if not enc.wp_mode or got != want:
+        fail(f"{what}: weights {got}, not the reference's {want}")
+    if all(w == [64, 0] for w in got):
+        fail(f"{what}: weighted prediction did not engage")
+    return counts
+
+
+def phase_gop(name: str, what: str, card: str) -> dict:
+    """BASELINE config 5 (golden `name`, its "scheduler"): closed GOPs
+    through the port's `runtime.gop_scheduler`, hosts simulated in turn on
+    the one card.  One host's gathered stream (every frame's launches
+    asserted, `FrameLaunches.check`) and two hosts' equal each other and
+    the golden; then `scaling_harness` at 1 and 2 hosts prints each
+    simulated host's seconds and the efficiency beside the card (`card`:
+    its name and power limit) -> the one-host run's launches."""
+    from tpu264_torch.coding.encoder import Encoder
+    from tpu264_torch.config import EncoderConfig
+    from tpu264_torch.runtime import (GopScheduler, encode_host_share,
+                                      gather_streams, scaling_harness)
+    g = golden(name)
+    cfg = EncoderConfig(**g["config"])
+    frames = golden_frames(g)
+    sc = g["scheduler"]
+    made = []
+
+    def mk():
+        made.append(Encoder(cfg))           # no device named: the card
+        if made[-1].device.type != "cuda":
+            fail(f"{what}: Encoder(cfg) chose {made[-1].device}")
+        return made[-1]
+
+    def gathered(hosts):
+        sched = GopScheduler(sc["n_frames"], sc["intra_period"], hosts)
+        return gather_streams([encode_host_share(mk, frames, sched, h)
+                               for h in range(hosts)])
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with FrameLaunches() as fl:
+        one = gathered(sc["hosts"])
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    counts = read_counts()
+    enc = made[0]
+    sha = hashlib.sha256(one).hexdigest()
+    print(f"{what}: {len(frames)} frames at {cfg.width}x{cfg.height} in "
+          f"{secs:.3f} s = {len(frames) / secs:.4f} frames/s (one host, "
+          f"eager, first run); {len(one)} bytes, sha256 {sha}")
+    print(f"{what}, launches on the path: {counts}")
+    fl.check(what, ["IDR", "P"] * (len(frames) // 2), enc.sched.n_waves,
+             enc.cabac, counts)
+    for st, t in zip(enc.stats, fl.queued):
+        print(f"  GOP frame {st.frame} {st.slice_type}: {st.bits} bits, "
+              f"PSNR-Y {st.psnr_y:.3f} dB, device work {t:.3f} s")
+    if [st.bits for st in enc.stats] != g["frame_bits"]:
+        fail(f"{what}: frame bits {[st.bits for st in enc.stats]} != golden "
+             f"{g['frame_bits']}")
+    if sha != g["sha256"] or len(one) != g["bytes"]:
+        fail(f"{what}: the one-host stream differs from the reference "
+             f"golden")
+    two = gathered(2)
+    if two != one:
+        fail(f"{what}: the two-host gathered stream differs from the "
+             f"one-host stream")
+    print(f"{what}: the two-host gathered stream equals the one-host stream "
+          f"and the golden")
+    res = scaling_harness(mk, frames, sc["intra_period"], host_counts=(1, 2),
+                          reps=1)
+    for hosts, r in res.items():
+        print(f"{what}, {card}: {hosts} simulated host(s): per-host "
+              f"seconds {r['per_host_s']}, parallel wall "
+              f"{r['parallel_wall_s']} s, efficiency {r['efficiency']} (raw "
+              f"{r['raw_efficiency']}), {r['stream_bytes']} bytes")
+        if r["stream_bytes"] != g["bytes"]:
+            fail(f"{what}: the harness's {hosts}-host stream has "
+                 f"{r['stream_bytes']} bytes, not {g['bytes']}")
+    return counts
 
 
 def phase_rate_control(name: str, what: str, kinds=None) -> dict:
@@ -1628,7 +1905,7 @@ def phase_tiled(name: str, what: str) -> dict:
 
 def main() -> int:
     t_start = time.monotonic()
-    kind = phase_device()
+    kind, card = phase_device()
     dev = torch.device("cuda")
     sys.path.insert(0, str(ROOT))
     phase_build()
@@ -1646,6 +1923,9 @@ def main() -> int:
     results.update(check_p_wave(
         dev, [p_frame_wave(dev, NO_TOOLS),
               p_frame_wave(dev, Tools(True, True, True))]))
+    weighted = check_p_wave_weighted(dev, wp_frame_wave(dev))["KP"]
+    results["KP"].update(weighted, err=max(results["KP"]["err"],
+                                           weighted["err"]))
     results.update(check_deblock_wave(dev, deblock_case))
     # the B wave: a 1920x1088 B frame of config 4 that allows partitions
     # and one that does not
@@ -1679,12 +1959,17 @@ def main() -> int:
                             "through TiledEncoder, bench.py's mesh")
     counts_t4 = phase_tiled("tiled4_bgop_1080p_cabac_rc", "config 4 "
                             "through TiledEncoder, four bands")
+    counts_w = phase_weighted("ippp_720p_wp_sei", "IPPP CABAC at 720p with "
+                              "weighted prediction and SEI (fade)")
+    counts_g = phase_gop("config5_4k_gop", "config 5 at 3840x2160 "
+                         "(GOP-parallel, IPPP CABAC, intra_period 2)", card)
     phase_p_wave_body_vs_cpu(dev, NO_TOOLS)
     phase_p_wave_body_vs_cpu(dev, Tools(True, True, True))
     paths = {"config3_720p": counts, "ippp_720p": counts_p,
              "ippp_720p_tools": counts_t, "ippp_720p_cabac": counts_c,
              "bgop_1080p": counts_b, "tiled_bgop_1080p": counts_t1,
-             "tiled4_bgop_1080p": counts_t4}
+             "tiled4_bgop_1080p": counts_t4, "ippp_720p_wp_sei": counts_w,
+             "config5_4k_gop": counts_g}
     rows = []
     for k in sorted(KERNELS):
         name, source, replaces, _ = KERNELS[k]
@@ -1698,7 +1983,9 @@ def main() -> int:
                "bound_by": r["bound_by"], "library_ms": None}
         for extra in ("bins", "ms_i_frame", "bins_i_frame", "ms_tools_off",
                       "ms_b_1080p", "bins_b_1080p", "ms_1080p", "body_ms",
-                      "lanes", "bytes_ms", "operations_ms"):
+                      "lanes", "bytes_ms", "operations_ms", "weighted",
+                      "ms_weighted", "plain_ms_weighted", "body_ms_weighted",
+                      "bound_ms_weighted", "bound_by_weighted"):
             if extra in r:
                 row[extra] = r[extra]
         rows.append(row)

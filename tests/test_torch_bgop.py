@@ -95,3 +95,18 @@ def test_bgop_record_cap_overflow_equals_reference(monkeypatch):
     assert port.encode_sequence(frames) == want
     assert any(b and c > port._cabac_cap for b, c in seen)
 
+
+
+def test_bgop_weighted_pred_writes_reference_bytes():
+    """A B GOP with `weighted_pred` asked for encodes without it, in the
+    port as in the reference (explicit weights are an IPPP tool there): the
+    stream is the reference's, which is its stream without the option."""
+    ref, cfg, frames, want, _, _ = _reference(2, "CAVLC", False)
+    wp_cfg = dataclasses.replace(cfg, weighted_pred=True)
+    ref_wp = reference_encoder(wp_cfg)
+    assert not ref_wp.wp_mode and ref_wp.pps.weighted_pred_flag == 0
+    assert ref_wp.encode_sequence(frames) == want
+    port = Encoder(EncoderConfig.from_reference(dataclasses.asdict(wp_cfg)),
+                   device="cpu")
+    assert not port.wp_mode and port.pps.weighted_pred_flag == 0
+    assert port.encode_sequence(frames) == want

@@ -420,6 +420,72 @@ def test_cuda_default_tools_stream_matches_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wy,oy", [(64, 0), (58, -7), (71, 12)])
+@pytest.mark.parametrize("tools", [kp.NO_TOOLS, kp.Tools(True, True, True)])
+def test_cuda_weighted_p_wave_matches_plain(wy, oy, tools):
+    """KP with explicit weights (the source faded by them) on the card
+    against `wave_body_plain` on the CPU: every result, the borders and
+    the maps; two launches, K2 and KP."""
+    dev = cuda_device()
+    qp = 28
+    consts = (qp, chroma_qp(qp), *tif.LAMBDA_TABLE[qp])
+    *arrs, mvp = random_p_wave_tools(110 + wy + oy, 40, 20)
+    (bd, mv_map, ref_map, ry, ru, rv, coords, avail, mv_me, gy, gu,
+     gv) = arrs
+    gy = np.clip(((gy * wy + 32) >> 6) + oy, 0, 255)
+
+    def on(d):
+        planes = kint.luma_planes(kint.pad_plane(t32(ry, d), tinter.PAD))
+        cu, cv = (kint.pad_plane(t32(p, d), tinter.PAD // 2)
+                  for p in (ru, rv))
+        return ((planes, cu, cv, *consts),
+                ({k: t32(v, d) for k, v in bd.items()}, t32(mv_map, d),
+                 t32(ref_map, d)),
+                (t32(coords, d), torch.as_tensor(avail, device=d),
+                 t32(mv_me, d), t32(gy, d), t32(gu, d), t32(gv, d),
+                 t32(mvp, d) if tools.partitions else None, tools))
+
+    before = (kp.launches["KP"], k2w.launches["K2"])
+    head, st_k, xs = on(dev)
+    got = tinter.wave_body(*head, *st_k, *xs, wy=wy, oy=oy)
+    torch.cuda.synchronize()
+    assert (kp.launches["KP"], k2w.launches["K2"]) == (before[0] + 1,
+                                                       before[1] + 1)
+    head, st_c, xs = on("cpu")
+    want = tinter.wave_body(*head, *st_c, *xs, wy=wy, oy=oy)
+    for k in want:
+        assert_equal(got[k], want[k], k)
+    for k in st_c[0]:
+        assert_equal(st_k[0][k], st_c[0][k], k)
+    assert_equal(st_k[1], st_c[1])
+    assert_equal(st_k[2], st_c[2])
+    inter = to_np(want["is_inter"]).astype(bool)
+    assert inter.any() and (~inter).any()
+
+
+@pytest.mark.cuda
+def test_cuda_weighted_stream_matches_cpu():
+    """112x80 IPPP CABAC with weighted prediction and SEI over a fade, 5
+    frames: the stream, the recon and every P frame's weights on the card
+    equal the CPU run's, and the weights engage."""
+    from tpu264_torch.tools.synth_inputs import fade_frames
+    dev = cuda_device()
+    frames = fade_frames(112, 80, 5)
+    cfg = EncoderConfig(width=112, height=80, qp=30, intra_period=0,
+                        symbol_mode="CABAC", weighted_pred=True,
+                        sei_messages=True)
+    gpu = Encoder(cfg, device=dev)
+    got = gpu.encode_sequence(frames)
+    cpu = Encoder(cfg, device="cpu")
+    assert got == cpu.encode_sequence(frames)
+    assert [s.wp for s in gpu.stats] == [s.wp for s in cpu.stats]
+    assert any(s.wp not in (None, (64, 0)) for s in gpu.stats)
+    for g_rec, c_rec in zip(gpu.recons, cpu.recons):
+        for g, c in zip(g_rec, c_rec):
+            assert_equal(to_np(g), to_np(c))
+
+
+@pytest.mark.cuda
 def test_cuda_p_wave_rejects_bad_input():
     dev = cuda_device()
     planes, cu, cv, bd, mv_map, ref_map, *xs = _p_wave_on(dev, 4, 11, 9)

@@ -101,12 +101,22 @@ _IPPP = dict(intra_period=0, symbol_mode="CAVLC")
     (dict(sei_messages=True), "SEI"),
 ])
 def test_unported_options_raise(kwargs, what):
+    """The options named by `what` construct: weighted prediction in IPPP
+    (the PPS flag set; a B GOP encodes without it) and SEI messages (a SEI
+    NAL unit after SPS and PPS)."""
+    from tpu264_torch.bits import nal
     base = dict(width=W, height=H, qp=28, symbol_mode="CABAC")
     base.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
-        Encoder(EncoderConfig(**base), device="cpu")
-    import re
-    assert re.search(what, str(exc.value)), str(exc.value)
+    enc = Encoder(EncoderConfig(**base), device="cpu")
+    heads = [t for _, t, _ in nal.split_annexb(b"".join(
+        enc._header_nalus()))]
+    if what.startswith("weighted_pred"):
+        assert enc.gop_mode == "ippp" and enc.wp_mode
+        assert enc.pps.weighted_pred_flag == 1
+        assert heads == [nal.NAL_SPS, nal.NAL_PPS]
+    else:
+        assert not enc.wp_mode and enc.pps.weighted_pred_flag == 0
+        assert heads == [nal.NAL_SPS, nal.NAL_PPS, nal.NAL_SEI]
 
 
 @pytest.mark.parametrize("kwargs,mode", [

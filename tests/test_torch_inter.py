@@ -115,8 +115,19 @@ def test_neighbor_mvs_match_np_oracle(slices):
 
 
 def test_unported_tools_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinter.make_inter_encoder(build_schedule(WM, HM, 1), weighted=True)
+    """`make_inter_encoder(weighted=True)` builds (nothing of the P tools
+    raises any more): with the weights (64, 0) a QCIF P frame's outputs are
+    the unweighted encoder's, and real weights change them."""
+    sched = build_schedule(WM, HM, 1)
+    planes = [torch.as_tensor(p) for p in synth_frame(W, H, 1)
+              + synth_frame(W, H, 0)]
+    out, ys = tinter.make_inter_encoder(sched)(*planes, 28)
+    weighted = tinter.make_inter_encoder(sched, weighted=True)
+    out_w, ys_w = weighted(*planes, 28, 64, 0)
+    for k, v in {**ys, **out}.items():
+        assert_equal({**ys_w, **out_w}[k], v, k)
+    out_f, _ = weighted(*planes, 28, 58, -7)
+    assert not torch.equal(out_f["recon_y"], out["recon_y"])
 
 
 def test_p8x8_needs_partitions():

@@ -57,11 +57,18 @@ def _t8_better(ssd8, rb8, ssd4, rb4, qp):
 
 def _ref_p_wave_body(planes, cu_pad, cv_pad, qp, cqp, lam4, lam24, lam_me,
                      bd, mv_map, ref_map, coords, avail, mv_me, gy, gu, gv,
-                     mv_parts=None, tools=kp.NO_TOOLS):
-    """The reference's `wave_body` closure (`tpu264/coding/inter_frame.py`,
-    no weighting; `tools` as its `partitions`, `p8x8`, `t8`), composed from
+                     mv_parts=None, tools=kp.NO_TOOLS, wy=None, oy=None):
+    """The reference's `wave_body` closure (`tpu264/coding/inter_frame.py`;
+    `tools` as its `partitions`, `p8x8`, `t8`; with (wy, oy) as it is built
+    with `weighted`, without them as it is built without), composed from
     its module-level parts -> (border buffers, mv map, ref map after the
     wave, the results)."""
+
+    def wl(pred):
+        if wy is None:
+            return pred
+        return jnp.clip(((pred * wy + 32) >> 6) + oy, 0, 255)
+
     r, c = coords[:, 0], coords[:, 1]
     at, al, atl, atr = (avail[:, i] for i in range(4))
     b = r.shape[0]
@@ -98,7 +105,7 @@ def _ref_p_wave_body(planes, cu_pad, cv_pad, qp, cqp, lam4, lam24, lam_me,
     y0, x0 = r * 16 + PAD, c * 16 + PAD
 
     def inter_cost(mv):
-        pred = rki.mc_luma(planes, y0, x0, mv)
+        pred = wl(rki.mc_luma(planes, y0, x0, mv))
         blk = (gy - pred).reshape(b, 4, 4, 4, 4).transpose(0, 1, 3, 2, 4)
         satd = rkt.satd4x4(blk).sum(axis=(1, 2))
         return pred, satd + lam_me * rinter.mvd_bits(mv - mv_pred)
@@ -119,12 +126,12 @@ def _ref_p_wave_body(planes, cu_pad, cv_pad, qp, cqp, lam4, lam24, lam_me,
     mvd_bits = rinter.mvd_bits
     if tools.partitions:
         mvT, mvB, mvL, mvR = (mv_parts[:, i] for i in range(4))
-        p16x8 = jnp.concatenate(
+        p16x8 = wl(jnp.concatenate(
             [rki.mc_luma(planes, y0, x0, mvT, bh=8, bw=16),
-             rki.mc_luma(planes, y0 + 8, x0, mvB, bh=8, bw=16)], axis=1)
-        p8x16 = jnp.concatenate(
+             rki.mc_luma(planes, y0 + 8, x0, mvB, bh=8, bw=16)], axis=1))
+        p8x16 = wl(jnp.concatenate(
             [rki.mc_luma(planes, y0, x0, mvL, bh=16, bw=8),
-             rki.mc_luma(planes, y0, x0 + 8, mvR, bh=16, bw=8)], axis=2)
+             rki.mc_luma(planes, y0, x0 + 8, mvR, bh=16, bw=8)], axis=2))
         j_16x8 = satd_full(p16x8) + lam_me * (
             mvd_bits(mvT - mv_pred) + mvd_bits(mvB - mvT) + 3)
         j_8x16 = satd_full(p8x16) + lam_me * (
@@ -143,8 +150,9 @@ def _ref_p_wave_body(planes, cu_pad, cv_pad, qp, cqp, lam4, lam24, lam_me,
     if tools.p8x8:
         mvQ = [mv_parts[:, 4 + i] for i in range(4)]
         p8 = jnp.concatenate([jnp.concatenate(
-            [rki.mc_luma(planes, y0 + 8 * qy, x0 + 8 * qx, mvQ[2 * qy + qx],
-                         bh=8, bw=8) for qx in (0, 1)], axis=2)
+            [wl(rki.mc_luma(planes, y0 + 8 * qy, x0 + 8 * qx,
+                            mvQ[2 * qy + qx], bh=8, bw=8))
+             for qx in (0, 1)], axis=2)
             for qy in (0, 1)], axis=1)
         j_p8 = satd_full(p8) + lam_me * (
             mvd_bits(mvQ[0] - mv_pred) + mvd_bits(mvQ[1] - mvQ[0])
@@ -436,6 +444,7 @@ def test_p_wave_params(qp, cqp):
     assert t8[193:196] == [(1 << qbits8) // 6, qbits8, qp // 6]
     lam = np.array([t8[196]], np.int32).view(np.float32)[0]
     assert lam == tif_lam(qp)
+    assert t8[197:] == [64, 0]           # no weighting
     tools = kp.pack_params(qp, cqp, lam4, lam24, lam_me,
                            tuple(tif.BLK_ORDER), kp.Tools(True, True, True))
     assert list(tools)[len(k3) + 117] == 7
@@ -455,7 +464,7 @@ def test_p_wave_layout_matches_kernel_source():
     assert names[-n_out - n_tools:-n_out] == list(kp.TOOL_OUTPUTS)
     assert "mv_parts" in names
     assert len(kp.pack_params(28, 28, 23, 140, 6, tuple(tif.BLK_ORDER))) \
-        == kp.PARAMS_LEN == 2 * 55 + 32 + 5 + 16 * 7 + 1 + 3 * 64 + 4
+        == kp.PARAMS_LEN == 2 * 55 + 32 + 5 + 16 * 7 + 1 + 3 * 64 + 4 + 2
 
 
 def test_alloc_outputs_cover_the_reference_results():

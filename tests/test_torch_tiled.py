@@ -1,6 +1,7 @@
 """The band-tiled encoder's own pieces on the CPU, no reference encode: the
 reference halo a band's motion search reads, the mesh, and the
-refusals.  The streams are held to the reference in
+refusals, and that it ignores weighted prediction and SEI as the
+reference's does.  The streams are held to the reference in
 `test_torch_ippp_slices.py` (IPPP, two lanes, the CLI) and
 `test_torch_bgop_slices.py` (B GOPs, CABAC with rate control, the record
 cap overflow)."""
@@ -85,3 +86,18 @@ def test_cuda_without_a_card_raises(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             cli_main(argv + extra)
     assert not (tmp_path / "out.264").exists()
+
+
+def test_weighted_pred_and_sei_are_ignored():
+    """As the reference's tiled path (which reads neither option), the
+    tiled encoder writes the same bytes with weighted prediction and SEI
+    messages asked for as without them: IPPP CAVLC at QCIF, 3 bands."""
+    from tpu264_torch.media.synth import synth_frame
+    frames = [synth_frame(176, 144, t) for t in range(3)]
+    streams = []
+    for on in (False, True):
+        cfg = EncoderConfig(width=176, height=144, qp=28, intra_period=0,
+                            weighted_pred=on, sei_messages=on)
+        te = TiledEncoder(cfg, make_mesh(3, gop=1, devices=["cpu"] * 3))
+        streams.append(te.encode_sequence([frames])[0])
+    assert streams[0] == streams[1]

@@ -1,8 +1,9 @@
 """Sequence-level encoder (torch), counterpart of
 `tpu264.coding.encoder` for all-intra, IPPP and hierarchical-B GOPs,
 CABAC or CAVLC, with the reference's default P tools (16x8/8x16 and P_8x8
-partitions, the 8x8 transform), the B 16x8/8x16 partitions, and JVT-G012
-frame rate control.
+partitions, the 8x8 transform), the B 16x8/8x16 partitions, explicit
+weighted prediction of IPPP P frames, SEI messages, and JVT-G012 frame
+rate control.
 
 Parameter-set emission, per-frame device encode (wavefront mode decision
 with kernels K2/K3, motion search and the P or B wave body, the wavefront
@@ -12,9 +13,6 @@ stats.  All-intra CAVLC sequences at a fixed QP go through the batched
 entry, which pulls a chunk of frames' payloads from the device at once.
 The encoder runs on the CUDA card unless the caller asks for
 `device="cpu"`.
-
-Not ported yet; the constructor raises `NotImplementedError` naming the
-ROADMAP item that brings each: weighted prediction and SEI messages.
 """
 
 from __future__ import annotations
@@ -27,7 +25,7 @@ import warnings
 import numpy as np
 import torch
 
-from tpu264_torch.bits import nal
+from tpu264_torch.bits import nal, sei
 from tpu264_torch.bits.params import PPS, SPS
 from tpu264_torch.bits.slicehdr import SLICE_B, SLICE_I, SLICE_P, SliceHeader
 from tpu264_torch.config import EncoderConfig
@@ -59,6 +57,7 @@ class FrameStats:
     psnr_v: float
     seconds: float
     qp: int             # the slice QP (rate control's choice where it runs)
+    wp: tuple | None = None   # (luma weight, offset) of a weighted P frame
 
 
 def build_bgop_plan(nfr: int, num_b: int, intra_period: int):
@@ -111,14 +110,15 @@ def build_bgop_plan(nfr: int, num_b: int, intra_period: int):
 
 
 def build_params(cfg: EncoderConfig, gop_mode: str = "intra",
-                 t8: bool = False):
+                 t8: bool = False, wp: bool = False):
     """SPS/PPS of an all-intra, IPPP or B-GOP stream (the parameter sets
-    the reference's `build_params` writes for these GOP modes without
-    weighted prediction) -> (sps, pps, cabac).  A B GOP has display-order
-    POC (type 0), is signalled as Main where the config says Baseline, and
-    keeps 4 (pyramid) or 2 reference frames and 2 or 1 reorder frames.
+    the reference's `build_params` writes) -> (sps, pps, cabac).  A B GOP
+    has display-order POC (type 0), is signalled as Main where the config
+    says Baseline, and keeps 4 (pyramid) or 2 reference frames and 2 or 1
+    reorder frames.
     `t8`: the 8x8 transform is used, which needs High profile and
-    transform_8x8_mode_flag."""
+    transform_8x8_mode_flag.  `wp`: P slices carry explicit weights
+    (weighted_pred_flag)."""
     if gop_mode not in ("intra", "ippp", "bgop"):
         raise ValueError(f"build_params: unknown gop_mode {gop_mode!r}")
     bgop = gop_mode == "bgop"
@@ -149,6 +149,7 @@ def build_params(cfg: EncoderConfig, gop_mode: str = "intra",
         pic_init_qp=26,
         deblocking_filter_control_present_flag=1,
         transform_8x8_mode_flag=1 if t8 else 0,
+        weighted_pred_flag=1 if wp else 0,
     )
     return sps, pps, cabac
 
@@ -520,15 +521,6 @@ class Encoder:
         rc_on = cfg.rate_control and cfg.bitrate > 0
         if gop_mode not in ("intra", "ippp", "bgop"):
             raise ValueError(f"unknown gop_mode {gop_mode!r}")
-        # the reference weighs explicit weighted prediction in IPPP only
-        # (a B GOP encodes without it)
-        if gop_mode == "ippp" and cfg.weighted_pred:
-            raise NotImplementedError(
-                "IPPP with weighted_pred on is not ported yet (ROADMAP "
-                "Queue 1: weighted prediction)")
-        if cfg.sei_messages:
-            raise NotImplementedError(
-                "SEI messages are not ported yet (ROADMAP Queue 1: SEI)")
         self.gop_mode = gop_mode
         self.intra_batch = max(1, int(intra_batch))
         self.sched = build_schedule(cfg.width_mbs, cfg.height_mbs,
@@ -536,8 +528,12 @@ class Encoder:
         self.partitions, self.t8_mode, self.b_partitions = tools_of(
             cfg, gop_mode)
         self.p8x8 = self.partitions
-        self.sps, self.pps, self.cabac = build_params(cfg, gop_mode,
-                                                      t8=self.t8_mode)
+        # explicit weighted prediction, as in the reference: IPPP only (a B
+        # GOP and its P anchors encode without it)
+        self.wp_mode = bool(cfg.weighted_pred) and gop_mode == "ippp"
+        self._last_wp = None        # the last P frame's (weight, offset)
+        self.sps, self.pps, self.cabac = build_params(
+            cfg, gop_mode, t8=self.t8_mode, wp=self.wp_mode)
         self.pic = Picture(cfg.width_mbs, cfg.height_mbs,
                            tuple(self.sched.slice_starts.tolist()),
                            self.t8_mode, self.device)
@@ -547,7 +543,7 @@ class Encoder:
             self._encode_p = make_inter_encoder(
                 self.sched, search_range=cfg.search_range,
                 partitions=self.partitions, t8=self.t8_mode,
-                p8x8=self.p8x8)
+                weighted=self.wp_mode, p8x8=self.p8x8)
         if gop_mode == "bgop":
             self._encode_b = make_b_encoder(
                 self.sched, search_range=cfg.search_range,
@@ -582,9 +578,18 @@ class Encoder:
         return hdr.write_rbsp_head(self.sps, self.pps)
 
     def _header_nalus(self) -> list:
-        """SPS + PPS that open every stream."""
-        return [nal.make_nalu(3, nal.NAL_SPS, self.sps.write_rbsp()),
-                nal.make_nalu(3, nal.NAL_PPS, self.pps.write_rbsp())]
+        """SPS + PPS (+ with `cfg.sei_messages` one SEI NAL unit: the
+        encoder tag and a recovery point, Annex D, as the reference writes
+        them) that open every stream."""
+        out = [nal.make_nalu(3, nal.NAL_SPS, self.sps.write_rbsp()),
+               nal.make_nalu(3, nal.NAL_PPS, self.pps.write_rbsp())]
+        if self.cfg.sei_messages:
+            rbsp = sei.make_sei_rbsp(
+                sei.write_user_data(f"tpu264 - {self.gop_mode} "
+                                    f"{self.cfg.symbol_mode.upper()}"),
+                sei.write_recovery_point(0))
+            out.append(nal.make_nalu(0, nal.NAL_SEI, rbsp))
+        return out
 
     def _encode_sequence_intra_batched(self, frames, batch: int) -> bytes:
         """All-IDR CAVLC sequence in chunks of `batch` frames; the stream
@@ -664,13 +669,13 @@ class Encoder:
         # runs after frame k+1's device work has been queued.  Not under
         # rate control: frame k's bits choose frame k+1's QP.
         pipeline = self.rc is None
-        pending = None     # (index, is_idr, qp, finish, sse, sizes, t0)
+        pending = None  # (index, is_idr, qp, wp, finish, sse, sizes, t0)
 
         def drain():
             nonlocal pending
             if pending is None:
                 return
-            i0, idr0, qp0, fin, sse, sizes, t0 = pending
+            i0, idr0, qp0, wp0, fin, sse, sizes, t0 = pending
             pending = None
             nalus = fin()
             out.extend(nalus)
@@ -682,7 +687,7 @@ class Encoder:
             ps = _psnr3(st, sizes)
             self.stats.append(FrameStats(
                 i0, "IDR" if idr0 else "P", bits, ps[0], ps[1], ps[2],
-                time.monotonic() - t0, qp0))
+                time.monotonic() - t0, qp0, wp0))
 
         period = self.cfg.intra_period
         for i, (y, u, v) in enumerate(frames):
@@ -707,8 +712,8 @@ class Encoder:
             sse = sse3(self._dev_orig, recon)
             if pipeline:
                 drain()
-            pending = (i, is_idr, qp, fin, sse, (y.size, u.size, v.size),
-                       t0)
+            pending = (i, is_idr, qp, None if is_idr else self._last_wp, fin,
+                       sse, (y.size, u.size, v.size), t0)
             if not pipeline:
                 drain()
         drain()
@@ -850,6 +855,27 @@ class Encoder:
             self._last_col = (zero, zero)
         return self._queue(dev_out, mbd, qp, "i", hdr_sink, 3, nal.NAL_IDR)
 
+    @staticmethod
+    def _estimate_wp(y, ref_y) -> tuple:
+        """A P frame's explicit luma weight and offset (denominator 6):
+        the least-squares gain and offset of the frame `y` against the
+        reference recon `ref_y`, collapsed to (64, 0) near identity, as
+        the reference's `_estimate_wp` computes them.  It runs in numpy on
+        the host, on purpose: its float64 means and Python rounding (half
+        to even) decide the integers, and a sum in another order could
+        move one across a .5 and change every byte after it."""
+        a = np.asarray(y).astype(np.float64)
+        rf = (ref_y.cpu().numpy() if isinstance(ref_y, torch.Tensor)
+              else np.asarray(ref_y)).astype(np.float64)
+        var = rf.var()
+        gain = 1.0 if var < 1e-3 else float(
+            ((a - a.mean()) * (rf - rf.mean())).mean() / var)
+        w = int(np.clip(round(gain * 64), 1, 127))
+        o = int(np.clip(round(a.mean() - w * rf.mean() / 64.0), -128, 127))
+        if abs(w - 64) < 2 and abs(o) < 2:
+            return 64, 0
+        return w, o
+
     def encode_p_frame(self, y, u, v, ref, frame_num: int,
                        qp: int | None = None, poc_lsb: int = 0,
                        reorder_l0: tuple = (), mmco: tuple = ()):
@@ -857,19 +883,27 @@ class Encoder:
         planes -> (finish, recon).  `finish()` runs K1 (CABAC) or pulls the
         packed words and the skip map (CAVLC) and returns the frame's NAL
         units.  `reorder_l0` and `mmco` go into the slice header as given
-        (a B GOP's P anchors after a reference B carry a reordering)."""
+        (a B GOP's P anchors after a reference B carry a reordering).
+        With weighted prediction the frame's (weight, offset) is estimated
+        first (`_estimate_wp`, which pulls the reference's luma to the
+        host), kept in `_last_wp` and written into the slice header."""
         cfg = self.cfg
         if qp is None:
             qp = cfg.qp_inter
         self._dev_orig = self._to_device(y, u, v)
         ref = tuple(torch.as_tensor(p, device=self.device) for p in ref)
-        dev_out, ys = self._encode_p(*self._dev_orig, *ref, qp)
+        wp, pred_weights = (), None
+        self._last_wp = None
+        if self.wp_mode:
+            self._last_wp = wp = self._estimate_wp(y, ref[0])
+            pred_weights = (6, 6, [(*wp, 64, 0, 64, 0)], [])
+        dev_out, ys = self._encode_p(*self._dev_orig, *ref, qp, *wp)
 
         def hdr_sink(s):
             return self._slice_header(
                 s, SLICE_P, qp, frame_num=frame_num,
                 pic_order_cnt_lsb=poc_lsb, is_idr=False, nal_ref_idc=2,
-                reorder_l0=reorder_l0, mmco=mmco)
+                reorder_l0=reorder_l0, mmco=mmco, pred_weights=pred_weights)
 
         mbd = reorder_wave_outputs(self.sched, ys)
         if self.gop_mode == "bgop":

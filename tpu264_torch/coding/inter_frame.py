@@ -21,8 +21,13 @@ takes, is `wave_body_plain`: `gather_border_ctx`, `eval_i4x4_plain`, then
 With the reference's default IPPP tools (`partitions`, `p8x8`, `t8`) a
 wave also weighs P_L0_16x8, P_L0_8x16 and P_8x8 (each partition with its
 own full-search and sub-pel vector) and picks the transform of a 16x16
-inter MB, still in the same two launches.  Not ported yet (raises):
-weighted prediction.
+inter MB, still in the same two launches.
+
+With explicit weighted prediction (`weighted`: a frame's luma weight and
+offset, denominator 6) the motion search runs against the pre-weighted
+reference and its own half-pel planes, while the wave weighs every luma
+prediction after interpolation from the unweighted planes (`weight_luma`),
+as a decoder forms it; chroma keeps the default weights.
 """
 
 from __future__ import annotations
@@ -72,6 +77,15 @@ def _from_blocks(blk):
     return blk.permute(0, 1, 3, 2, 4).reshape(b, 16, 16)
 
 
+def weight_luma(pred, wy: int, oy: int):
+    """Explicit luma weighting (spec 8.4.2.3.2, denominator 6, int32):
+    clip(((pred * wy + 32) >> 6) + oy, 0, 255); the default (64, 0)
+    leaves samples of 0-255 as they are."""
+    if (wy, oy) == (64, 0):
+        return pred
+    return torch.clamp(((pred * wy + 32) >> 6) + oy, 0, 255)
+
+
 def _satd16(gy, pred):
     """SATD (DC included) of a 16x16 prediction's residual, per lane."""
     return kt.satd4x4(_to_blocks(gy - pred)).sum(dim=(1, 2), dtype=I32)
@@ -80,16 +94,18 @@ def _satd16(gy, pred):
 def p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
                  mv_me, gy, gu, gv, mb4, modebuf, coeffs4, j4, qp: int,
                  cqp: int, lam4: int, lam24: int, lam_me: int,
-                 mv_parts=None, tools: kp.Tools = kp.NO_TOOLS) -> dict:
+                 mv_parts=None, tools: kp.Tools = kp.NO_TOOLS, wy: int = 64,
+                 oy: int = 0) -> dict:
     """Plain torch version of the P wave kernel (KP, `kernels.p_wave.
     p_wave`, same inputs): for B lanes at coords [B,2] (int32 (r, c);
     padding lanes at (hm, 0)) with avail [B,4] = (top, left, top-left,
     top-right), the neighbour vectors from the maps, the median and skip
     predictions, the inter candidates (MC from the half-pel `planes` of the
-    reference, SATD + lam_me * vector bits): P_Skip and P_L0_16x16, and
-    with `tools` on the 16x8 / 8x16 partitions and P_8x8 from the
-    partitions' own vectors mv_parts [B, 8, 2] (`kernels.p_wave.PARTS`);
-    the I16x16 and chroma searches, the decision against the I4x4 results
+    reference, weighted by (wy, oy) after interpolation, SATD + lam_me *
+    vector bits): P_Skip and P_L0_16x16, and with `tools` on the 16x8 /
+    8x16 partitions and P_8x8 from the partitions' own vectors mv_parts
+    [B, 8, 2] (`kernels.p_wave.PARTS`); the I16x16 and chroma searches,
+    the decision against the I4x4 results
     (recon, mode grid, scanned levels, cost), the chosen residuals (for a
     16x16 inter MB with `tools.t8`, the 8x8 transform where it is cheaper
     by SSD + lambda x coefficient bits), the border scatter into `bd` and
@@ -132,8 +148,12 @@ def p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
     y0 = r * 16 + PAD
     x0 = c * 16 + PAD
 
+    def mc(dy, dx, mv, bh=16, bw=16):
+        return weight_luma(kint.mc_luma(planes, y0 + dy, x0 + dx, mv, bh=bh,
+                                        bw=bw), wy, oy)
+
     def inter_cost(mv):
-        pred = kint.mc_luma(planes, y0, x0, mv)
+        pred = mc(0, 0, mv)
         return pred, _satd16(gy, pred) + lam_me * mvd_bits(mv - mv_pred)
 
     pred_me, j_me = inter_cost(mv_me)
@@ -150,12 +170,10 @@ def p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
     if tools.partitions:
         # ---- 16x8 / 8x16 candidates (per-half refined MVs) ----
         mv_t, mv_bt, mv_l, mv_r = mv_parts[:, :4].unbind(1)
-        p16x8 = torch.cat(
-            [kint.mc_luma(planes, y0, x0, mv_t, bh=8, bw=16),
-             kint.mc_luma(planes, y0 + 8, x0, mv_bt, bh=8, bw=16)], dim=1)
-        p8x16 = torch.cat(
-            [kint.mc_luma(planes, y0, x0, mv_l, bh=16, bw=8),
-             kint.mc_luma(planes, y0, x0 + 8, mv_r, bh=16, bw=8)], dim=2)
+        p16x8 = torch.cat([mc(0, 0, mv_t, bh=8), mc(8, 0, mv_bt, bh=8)],
+                          dim=1)
+        p8x16 = torch.cat([mc(0, 0, mv_l, bw=8), mc(0, 8, mv_r, bw=8)],
+                          dim=2)
         # rate estimate: part0 vs the MB predictor, part1 vs part0 (the
         # exact per-partition predictors are recomputed by the serializer
         # from the final maps) + ue(mb_type)
@@ -179,9 +197,8 @@ def p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
         # ---- P_8x8 candidate: one MV per 8x8 quadrant ----
         mv_q = mv_parts[:, 4:].unbind(1)
         p8 = torch.cat([torch.cat(
-            [kint.mc_luma(planes, y0 + 8 * qy, x0 + 8 * qx, mv_q[2 * qy + qx],
-                          bh=8, bw=8) for qx in (0, 1)], dim=2)
-            for qy in (0, 1)], dim=1)
+            [mc(8 * qy, 8 * qx, mv_q[2 * qy + qx], bh=8, bw=8)
+             for qx in (0, 1)], dim=2) for qy in (0, 1)], dim=1)
         # rate estimate: q0 vs the MB predictor, later quadrants vs their
         # raster-order sibling (the exact spec-8.4.1.3 predictors are
         # recomputed by the serializer); + ue(mb_type=3) + 4x
@@ -324,7 +341,8 @@ def p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
 def wave_body_plain(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
                     lam24: int, lam_me: int, bd, mv_map, ref_map, coords,
                     avail, mv_me, gy, gu, gv, mv_parts=None,
-                    tools: kp.Tools = kp.NO_TOOLS) -> dict:
+                    tools: kp.Tools = kp.NO_TOOLS, wy: int = 64,
+                    oy: int = 0) -> dict:
     """Plain torch version of `wave_body` (what K2's wave form and KP are
     held to): gather, the I4x4 search, then `p_wave_plain`."""
     r, c = coords[:, 0].long(), coords[:, 1].long()
@@ -336,7 +354,7 @@ def wave_body_plain(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
         qp, lam4, lam24)
     res = p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords,
                        avail, mv_me, gy, gu, gv, mb4, modebuf, coeffs4, j4,
-                       qp, cqp, lam4, lam24, lam_me, mv_parts, tools)
+                       qp, cqp, lam4, lam24, lam_me, mv_parts, tools, wy, oy)
     return {k: modes_zz if k == "modes" else res[k]
             for k in kp.outputs(tools)}
 
@@ -344,14 +362,16 @@ def wave_body_plain(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
 def wave_body(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
               lam24: int, lam_me: int, bd, mv_map, ref_map, coords, avail,
               mv_me, gy, gu, gv, mv_parts=None,
-              tools: kp.Tools = kp.NO_TOOLS, out=None) -> dict:
+              tools: kp.Tools = kp.NO_TOOLS, out=None, wy: int = 64,
+              oy: int = 0) -> dict:
     """One P wave of B lanes: the decision among P_Skip, P_L0_16x16 (with
     `tools`: P_L0_16x8, P_L0_8x16, P_8x8 and the 8x8 transform), I16x16
     and I4x4, transform, quantisation and reconstruction of the MBs at
     coords [B,2] (int32; padding lanes at (hm, 0)) with avail [B,4],
     full-search vectors mv_me [B,2] (and the partitions' mv_parts
     [B,8,2]) and source tiles gy [B,16,16], gu, gv [B,8,8], against the
-    reference's half-pel `planes` and padded chroma; the border buffers
+    reference's half-pel `planes` and padded chroma, every luma prediction
+    weighted by (wy, oy) after interpolation; the border buffers
     `bd` and the maps give the neighbour context and take the finished
     MBs' borders and vectors, in place.  Returns the wave's results, a
     dict of [B, ...] tensors (`kernels.p_wave.outputs(tools)`).
@@ -364,7 +384,7 @@ def wave_body(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
     if gy.device.type == "cpu":
         return wave_body_plain(planes, cu_pad, cv_pad, qp, cqp, lam4, lam24,
                                lam_me, bd, mv_map, ref_map, coords, avail,
-                               mv_me, gy, gu, gv, mv_parts, tools)
+                               mv_me, gy, gu, gv, mv_parts, tools, wy, oy)
     if out is None:
         out = kp.alloc_outputs((gy.shape[0],), gy.device, tools)
     mb4, modebuf, _, coeffs4, j4 = k2w.i4x4_wave_bd(
@@ -372,7 +392,7 @@ def wave_body(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
         modes_zz=out["modes"])
     kp.p_wave(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
               mv_me, gy, gu, gv, mb4, modebuf, coeffs4, j4, qp, cqp, lam4,
-              lam24, lam_me, _BLK_ORDER, out, mv_parts, tools)
+              lam24, lam_me, _BLK_ORDER, out, mv_parts, tools, wy, oy)
     return out
 
 
@@ -382,9 +402,9 @@ def make_inter_encoder(sched: WaveSchedule,
                        partitions: bool = False, t8: bool = False,
                        weighted: bool = False, p8x8: bool = False):
     """P-frame encoder for a fixed geometry:
-    fn(y, u, v, ref_y, ref_u, ref_v, qp) -> (recon dict, per-wave outputs
-    stacked [n_waves, max_wave, ...]); planes are tensors on the device
-    that runs the encode, qp a Python int.
+    fn(y, u, v, ref_y, ref_u, ref_v, qp[, wy, oy]) -> (recon dict, per-wave
+    outputs stacked [n_waves, max_wave, ...]); planes are tensors on the
+    device that runs the encode, qp (and the weights) Python ints.
 
     `ref_prepadded`: ref planes arrive already PAD-extended (a tiled
     caller supplies real rows of the neighbour tiles instead of edge
@@ -393,13 +413,14 @@ def make_inter_encoder(sched: WaveSchedule,
     (per-quadrant ME; "mvq" and ptype 3), which needs `partitions`.
     `t8`: the High-profile 8x8 transform of 16x16 inter MBs, where it is
     cheaper by SSD + lambda x coefficient bits ("t8"; luma_ac carries the
-    CAVLC-interleaved pseudo-4x4 blocks).  `weighted` (explicit weighted
-    prediction) is not ported yet and raises.
+    CAVLC-interleaved pseudo-4x4 blocks).  `weighted`: explicit luma
+    weighted prediction (spec 8.4.2.3.2, denominator 6): fn takes the
+    frame's weight and offset (wy, oy); motion search runs against the
+    pre-weighted reference clip(((ref * wy + 32) >> 6) + oy) and that
+    picture's own half-pel planes, while the wave weighs each luma
+    prediction after interpolation from the unweighted planes.  Chroma
+    keeps the default weights.
     """
-    if weighted:
-        raise NotImplementedError(
-            "make_inter_encoder: weighted prediction is not ported yet "
-            "(ROADMAP Queue 1: weighted prediction)")
     if p8x8 and not partitions:
         raise ValueError("p8x8 requires partitions")
     tools = kp.Tools(partitions, p8x8, t8)
@@ -417,7 +438,8 @@ def make_inter_encoder(sched: WaveSchedule,
                        8, 8))
 
     def motion_search(y, ref_pad, planes, lam_me):
-        """Phase 1, parallel over all MBs: one integer SSD sweep, then the
+        """Phase 1, parallel over all MBs, against the reference `ref_pad`
+        and its half-pel `planes`: one integer SSD sweep, then the
         sub-pel refinement of each block shape -> quarter-pel vectors of
         the MB [n_mbs, 2] and of the partitions [n_mbs, 8, 2] (zeros where
         a tool is off; None without partitions)."""
@@ -437,8 +459,12 @@ def make_inter_encoder(sched: WaveSchedule,
         return mv_q["16x16"], torch.stack(
             [mv_q.get(n, zero) for n in kp.PARTS], dim=1)
 
-    def encode(y, u, v, ref_y, ref_u, ref_v, qp: int):
+    def encode(y, u, v, ref_y, ref_u, ref_v, qp: int, wy: int = 64,
+               oy: int = 0):
         dev = y.device
+        if not weighted:
+            wy, oy = 64, 0
+        wy, oy = int(wy), int(oy)
         y, u, v = y.to(I32), u.to(I32), v.to(I32)
         qp = int(qp)
         cqp = chroma_qp(qp, chroma_qp_offset)
@@ -451,8 +477,10 @@ def make_inter_encoder(sched: WaveSchedule,
             cu_pad = kint.pad_plane(ref_u, PAD // 2)
             cv_pad = kint.pad_plane(ref_v, PAD // 2)
         planes = kint.luma_planes(ref_pad)
+        me_ref = weight_luma(ref_pad, wy, oy)
+        me_planes = planes if me_ref is ref_pad else kint.luma_planes(me_ref)
 
-        mv_q, mv_parts = motion_search(y, ref_pad, planes, lam_me)
+        mv_q, mv_parts = motion_search(y, me_ref, me_planes, lam_me)
         # rearrange per wave: [n_waves, Bmax, ...]
         idx = torch.as_tensor(np.minimum(sched.mb_index, sched.n_mbs - 1),
                               dtype=torch.int64, device=dev)
@@ -471,7 +499,7 @@ def make_inter_encoder(sched: WaveSchedule,
         xs = list(zip(*(t.unbind(0) for t in (
             coords, avail, mv_q[idx], gy_all, gu_all, gv_all))))
         if dev.type == "cpu":
-            waves = [wave_body(*consts, *x, mvp, tools)
+            waves = [wave_body(*consts, *x, mvp, tools, wy=wy, oy=oy)
                      for x, mvp in zip(xs, parts)]
             ys = {k: torch.stack([w[k] for w in waves]) for k in waves[0]}
         else:
@@ -481,7 +509,8 @@ def make_inter_encoder(sched: WaveSchedule,
             rows = {k: v.unbind(0) for k, v in ys.items()}
             for wi, (x, mvp) in enumerate(zip(xs, parts)):
                 wave_body(*consts, *x, mvp, tools,
-                          out={k: v[wi] for k, v in rows.items()})
+                          out={k: v[wi] for k, v in rows.items()}, wy=wy,
+                          oy=oy)
         out = dict(
             recon_y=assemble_plane(sched, ys.pop("recon_mb"), 16),
             recon_u=assemble_plane(sched, ys.pop("rec_u"), 8),

@@ -2,7 +2,8 @@
 // wave in one launch: motion-vector prediction, the P_Skip and P_L0_16x16
 // candidates and, with the reference's default tools, the P_L0_16x8,
 // P_L0_8x16 and P_8x8 candidates (quarter-pel motion compensation, SATD,
-// vector rate), the Intra16x16 and chroma searches, the inter-or-intra
+// vector rate; every luma prediction weighted by the frame's explicit
+// weight and offset), the Intra16x16 and chroma searches, the inter-or-intra
 // decision, the chosen residual's transform, quantiser and reconstruction
 // (for a 16x16 inter macroblock also the 8x8 transform, and the choice
 // between the two), the merge with the Intra4x4 result, the border scatter
@@ -88,6 +89,8 @@ struct PParams {
   uint8_t zigzag8[64];
   int32_t f8, qbits8, qdiv6;
   float lam_ssd;
+  // explicit weighted prediction of luma (denominator 6); (64, 0) is none
+  int32_t wy, oy;
 };
 
 // the pointers of one wave, in the order of the C entry's `ptrs`
@@ -133,15 +136,20 @@ __device__ void predict_vectors(const WaveIo& io, const Geometry& g, int r,
 }
 
 // Sample (y, x) of a quarter-pel luma prediction from the reference's
-// half-pel planes (`iv::mc_luma_sample` with this kernel's table).
+// half-pel planes (`iv::mc_luma_sample` with this kernel's table), weighted
+// after interpolation as a decoder weighs it (spec 8.4.2.3.2,
+// `inter_frame.weight_luma`): clip(((p * wy + 32) >> 6) + oy); (64, 0)
+// gives p back.  Every candidate, and so the SATD, the residuals, the
+// transform choice and the reconstruction, sees the weighted sample.
 __device__ __forceinline__ int32_t mc_luma_sample(const int32_t* planes,
                                                   const PParams& prm,
                                                   const Geometry& g, int y0,
                                                   int x0, int32_t mvy,
                                                   int32_t mvx, int y, int x,
                                                   int bh, int bw) {
-  return iv::mc_luma_sample(planes, prm.qpel, g, y0, x0, mvy, mvx, y, x, bh,
-                            bw);
+  const int32_t p = iv::mc_luma_sample(planes, prm.qpel, g, y0, x0, mvy,
+                                       mvx, y, x, bh, bw);
+  return iw::clip255(((p * prm.wy + 32) >> 6) + prm.oy);
 }
 
 // One 8-point pass of the JM forward 8x8 transform (`transform8._fwd1d`).
@@ -600,7 +608,8 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
 // qshift mf00 v00 lim_dc qp; then zigzag[16] blk_raster[16]), then the
 // inter rounding offsets of luma and chroma, lam4, lam24, lam_me, the
 // quarter-pel table [16][7], the tools, mf8[64] v8[64] zigzag8[64] f8
-// qbits8 qp/6 and the bits of the float32 lambda.  `geom` is wm, hm, hp,
+// qbits8 qp/6, the bits of the float32 lambda, and the luma weight and
+// offset.  `geom` is wm, hm, hp,
 // wp, hc, wc.
 extern "C" int tpu264_p_wave(void* const* ptrs, const int32_t* params,
                              const int32_t* geom, int n_mbs, void* stream) {
@@ -628,6 +637,8 @@ extern "C" int tpu264_p_wave(void* const* ptrs, const int32_t* params,
   prm.qbits8 = *q++;
   prm.qdiv6 = *q++;
   std::memcpy(&prm.lam_ssd, q++, sizeof(float));
+  prm.wy = *q++;
+  prm.oy = *q++;
   const Geometry g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5]};
   if (n_mbs > 0) {
     p_wave_kernel<<<n_mbs, kThreads, 0, (cudaStream_t)stream>>>(io, prm, g);

@@ -11,10 +11,13 @@ output arrays, see `alloc_outputs`), the finished macroblocks' borders
 back into the buffers and their vectors into the maps, in place.  With
 the reference's default P tools (`Tools`) it also weighs the 16x8, 8x16
 and P_8x8 candidates from the partitions' own vectors and picks the
-transform of a 16x16 inter macroblock.  Its tables (the two quantiser
+transform of a 16x16 inter macroblock, and it weighs every luma
+prediction by the frame's explicit weight and offset (weighted
+prediction; (64, 0) leaves it as it is).  Its tables (the two quantiser
 sets of K3's wave form, the inter rounding, the lambdas, the quarter-pel
-table, the tools, the 8x8 transform's tables) go in by value, packed here
-from the Python tables the plain version uses (`pack_params`).  There is no
+table, the tools, the 8x8 transform's tables, the weights) go in by
+value, packed here from the Python tables the plain version uses
+(`pack_params`).  There is no
 fallback to the plain version: a kernel that does not build or launch
 raises.
 
@@ -85,10 +88,12 @@ def _f32_bits(x: float) -> int:
 
 
 def pack_params(qp: int, cqp: int, lam4: int, lam24: int, lam_me: int,
-                blk_order: tuple, tools: Tools = NO_TOOLS):
+                blk_order: tuple, tools: Tools = NO_TOOLS, wy: int = 64,
+                oy: int = 0):
     """The kernel's by-value tables as a host int32 array (layout: see
-    `tpu264_p_wave` in the CUDA source), cached."""
-    key = (qp, cqp, lam4, lam24, lam_me, blk_order, tools)
+    `tpu264_p_wave` in the CUDA source), cached by all of its inputs, the
+    luma weight and offset included."""
+    key = (qp, cqp, lam4, lam24, lam_me, blk_order, tools, wy, oy)
     if key not in _PARAMS:
         qbits8 = 16 + qp // 6
         vals = (list(k3w.pack_params(qp, cqp, blk_order))
@@ -101,21 +106,22 @@ def pack_params(qp: int, cqp: int, lam4: int, lam24: int, lam_me: int,
                 + kt8.V8_TABLE[qp % 6].reshape(-1).tolist()
                 + kt8.ZIGZAG_8x8.tolist()
                 + [(1 << qbits8) // 6, qbits8, qp // 6,
-                   _f32_bits(float(kt8.LAM_SSD[qp]))])
+                   _f32_bits(float(kt8.LAM_SSD[qp])), wy, oy])
         assert len(vals) == PARAMS_LEN
         _PARAMS[key] = _build.host_i32(vals)
     return _PARAMS[key]
 
 
 # K3's two quantiser sets and scans, the inter rounding, the lambdas, the
-# quarter-pel table, the tools, the 8x8 tables
-PARAMS_LEN = 2 * 55 + 32 + 5 + 16 * 7 + 1 + 3 * 64 + 4
+# quarter-pel table, the tools, the 8x8 tables, the luma weight and offset
+PARAMS_LEN = 2 * 55 + 32 + 5 + 16 * 7 + 1 + 3 * 64 + 4 + 2
 
 
 def p_wave(bd: dict, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
            mv_me, gy, gu, gv, mb4, modebuf, coeffs4, j4, qp: int, cqp: int,
            lam4: int, lam24: int, lam_me: int, blk_order: tuple,
-           out: dict, mv_parts=None, tools: Tools = NO_TOOLS) -> None:
+           out: dict, mv_parts=None, tools: Tools = NO_TOOLS, wy: int = 64,
+           oy: int = 0) -> None:
     """The P wave body after the I4x4 search, for B lanes on the card, one
     launch: reads the lanes' context from the border buffers `bd` and their
     neighbour vectors from mv_map [3,hm+2,wm+2,2] / ref_map [3,hm+2,wm+2]
@@ -124,9 +130,10 @@ def p_wave(bd: dict, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
     lanes' full-search vectors mv_me [B,2], source tiles gy [B,16,16], gu,
     gv [B,8,8] and the I4x4 results (recon, mode grid, scanned levels,
     cost); with `tools.partitions` (and `p8x8`) the partitions' vectors
-    mv_parts [B,8,2] (`PARTS`).  Writes every result of `outputs(tools)`
-    but "modes" into `out`, the lanes' last rows and columns into `bd` and
-    their vectors into the maps."""
+    mv_parts [B,8,2] (`PARTS`); the luma weight and offset (wy, oy), which
+    every luma prediction takes after interpolation.  Writes every result
+    of `outputs(tools)` but "modes" into `out`, the lanes' last rows and
+    columns into `bd` and their vectors into the maps."""
     who = "p_wave"
     dev = gy.device
     b, wm, hm = k3w.check_wave_inputs(who, bd, coords, avail, dev)
@@ -168,6 +175,6 @@ def p_wave(bd: dict, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
     launches["KP"] += 1
     err = _build.lib().tpu264_p_wave(
         ptrs, pack_params(int(qp), int(cqp), int(lam4), int(lam24),
-                          int(lam_me), blk_order, tools),
+                          int(lam_me), blk_order, tools, int(wy), int(oy)),
         _build.host_i32([wm, hm, hp, wp, hc, wc]), b, _build.stream_of(gy))
     _build.check(err, "tpu264_p_wave")

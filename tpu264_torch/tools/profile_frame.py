@@ -2,13 +2,15 @@
 deblock frame (the default), or a P frame of a 720p IPPP + deblock
 sequence: CAVLC with the reference's default P tools (`--config ippp720`)
 or without them (`--config ippp720_notools`), or CABAC with the default P
-tools (`--config ippp720_cabac`); or a B frame of config 4 at 1920x1088
+tools (`--config ippp720_cabac`), and with weighted prediction and SEI over
+a fade (`--config ippp720_wp`); or a P frame of config 5 at 3840x2160
+(`--config gop4k`); or a B frame of config 4 at 1920x1088
 and its P anchor (`--config bgop1080`), or the same two frames through
 the band-tiled encoder (`--config tiled1080 --tiles N`).
 
     python -m tpu264_torch.tools.profile_frame
-        [--config intra720|ippp720|ippp720_notools|ippp720_cabac|bgop1080
-                  |tiled1080 [--tiles N]]
+        [--config intra720|ippp720|ippp720_notools|ippp720_cabac
+                  |ippp720_wp|gop4k|bgop1080|tiled1080 [--tiles N]]
         [--out FILE.json]
 
 Encodes `synth_frame(1280, 720, t)` frames (QP 28, one slice) and prints
@@ -35,15 +37,22 @@ sequence (full-search ME with quarter-pel refinement of the MB, its
 8x8 transform weighed in every MB), encoded against the second's
 reconstruction by `Encoder.encode_p_frame`; `ippp720_notools` is the same
 with the 16x16 partition and the 4x4 transform alone, `ippp720_cabac`
-the default tools' frame with CABAC.  The stages are upload, the half-pel
-planes, the full search, the sub-pel refinement, the wave loop (the rest
-of the P encoder), reorder, serialize + pack (CAVLC) or binarize +
-compact and K1 + payload pull (CABAC), deblock, and pull + NAL assembly
-(CAVLC) or NAL assembly (CABAC);
-`kernel_launches` gives the hand-written kernels' launches of the frame,
-`stream` its bits and `idr_frame_seconds` a warm IDR frame of the same
-encoder (pull and NAL assembly included); with CABAC `cabac` counts the P
-frame's records, bins and bytes as above.
+the default tools' frame with CABAC, `ippp720_wp` that frame with
+explicit weighted prediction and SEI (the golden `ippp_720p_wp_sei`'s
+encoder) over `fade_frames`, and `gop4k` the P frame of config 5's first
+GOP at 3840x2160 (IDR + P, CABAC, the default tools) against the IDR
+frame's reconstruction.  The stages are upload, the weights' estimate
+("estimate_wp", with weighted prediction: the pull of the reference's
+luma and the host's least squares), the pre-weighted reference
+("weight_ref"), the half-pel planes (of the reference, and with weights
+of the pre-weighted one), the full search, the sub-pel refinement, the
+wave loop (the rest of the P encoder), reorder, serialize + pack
+(CAVLC) or binarize + compact and K1 + payload pull (CABAC), deblock, and
+pull + NAL assembly (CAVLC) or NAL assembly (CABAC); `kernel_launches`
+gives the hand-written kernels' launches of the frame, `stream` its bits
+(and each frame's weights) and `idr_frame_seconds` a warm IDR frame of
+the same encoder (pull and NAL assembly included); with CABAC `cabac`
+counts the P frame's records, bins and bytes as above.
 
 With `--config bgop1080` the encoder is config 4 as `bench.py` builds it
 (1920x1088, `num_b_frames=2`, CABAC, deblock, JVT-G012 rate control at
@@ -87,7 +96,7 @@ import numpy as np
 import torch
 
 from tpu264_torch.coding import encoder as encoder_mod
-from tpu264_torch.coding import intra_frame
+from tpu264_torch.coding import inter_frame, intra_frame
 from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.config import EncoderConfig
 from tpu264_torch.entropy import cabac_binarize as cbz
@@ -159,7 +168,7 @@ def intra_patches(enc: Encoder) -> list:
 
 # stages of a P or B frame that run inside `enc._encode_p` or
 # `enc._encode_b` ("inter_encode"): the wave loop is what is left of it
-P_INNER = ("half_pel_planes", "me_full_search", "me_subpel")
+P_INNER = ("weight_ref", "half_pel_planes", "me_full_search", "me_subpel")
 
 
 def entropy_patches(cabac: bool) -> list:
@@ -181,6 +190,7 @@ def inter_patches(owner, inner: str) -> list:
     """(owner, attribute, stage) of the motion search stages inside the P
     or B encoder `owner.inner` ("inter_encode")."""
     return [(owner, inner, "inter_encode"),
+            (inter_frame, "weight_luma", "weight_ref"),
             (kint, "luma_planes", "half_pel_planes"),
             (kme, "full_search_blocks", "me_full_search"),
             (kme, "subpel_refine", "me_subpel")]
@@ -189,7 +199,8 @@ def inter_patches(owner, inner: str) -> list:
 def ippp_patches(enc: Encoder, inner: str = "_encode_p") -> list:
     """(owner, attribute, stage) of every stage of a P frame (of a B frame
     with `inner="_encode_b"`)."""
-    return ([(encoder_mod, "reorder_wave_outputs", "reorder")]
+    wp = [(enc, "_estimate_wp", "estimate_wp")] if enc.wp_mode else []
+    return ([(encoder_mod, "reorder_wave_outputs", "reorder")] + wp
             + inter_patches(enc, inner) + entropy_patches(enc.cabac))
 
 
@@ -229,7 +240,8 @@ def split_p_encode(by_stage: dict) -> dict:
     "wave_loop" = the P or B encoder less its inner stages, in place of
     "inter_encode"."""
     out = dict(by_stage)
-    out["wave_loop"] = out.pop("inter_encode") - sum(out[k] for k in P_INNER)
+    out["wave_loop"] = out.pop("inter_encode") - sum(out.get(k, 0)
+                                                     for k in P_INNER)
     return out
 
 
@@ -333,25 +345,36 @@ def profile_intra(res: dict) -> None:
         intra_patches(enc), lambda: enc.encode_sequence([frames[1]]))
 
 
-def profile_ippp(res: dict, tools: bool, symbol_mode: str) -> None:
+def profile_ippp(res: dict, tools: bool, symbol_mode: str, w: int = W,
+                 h: int = H, weighted: bool = False,
+                 intra_period: int = 0) -> None:
+    """A warm P frame: the last of IDR + P + P (`intra_period=2`: of IDR +
+    P), against the reconstruction before it."""
     from tpu264_torch.entropy import cabac_engine_cuda as k1
     from tpu264_torch.kernels import dct_quant as dq, deblock_wave as k4w, \
         i16_chroma_wave as k3w, i4x4_wave as k2w, p_wave as kp
+    from tpu264_torch.tools.synth_inputs import fade_frames
     off = {} if tools else dict(inter_partitions=False, transform_8x8=False)
-    cfg = EncoderConfig(width=W, height=H, qp=QP, symbol_mode=symbol_mode,
-                        intra_period=0, deblock=True, **off)
+    cfg = EncoderConfig(width=w, height=h, qp=QP, symbol_mode=symbol_mode,
+                        intra_period=intra_period, deblock=True,
+                        weighted_pred=weighted, sei_messages=weighted, **off)
     enc = Encoder(cfg)
-    frames = [synth_frame(W, H, t) for t in range(3)]
+    n = 2 if intra_period == 2 else 3
+    frames = (fade_frames(w, h, n) if weighted
+              else [synth_frame(w, h, t) for t in range(n)])
     stream = enc.encode_sequence(frames)            # cold: build + warm-up
     what = ("16x8/8x16, P_8x8, 8x8 transform" if tools
             else "16x16 partition, 4x4 transform")
+    if weighted:
+        what += ", weighted prediction and SEI over a fade"
     res.update(device=str(enc.device),
-               config=f"{W}x{H} IPPP {symbol_mode} deblock QP {QP}, {what}, "
-                      f"P frame 2 of IDR + P + P",
+               config=f"{w}x{h} IPPP {symbol_mode} deblock QP {QP}, {what}, "
+                      f"P frame {n - 1} of IDR" + " + P" * (n - 1),
                cold_frame_seconds=[s.seconds for s in enc.stats],
                stream={"bytes": len(stream),
-                       "frame_bits": [s.bits for s in enc.stats]})
-    job = p_frame_job(enc, frames[2], enc.recons[1])
+                       "frame_bits": [s.bits for s in enc.stats],
+                       "frame_wp": [s.wp for s in enc.stats]})
+    job = p_frame_job(enc, frames[n - 1], enc.recons[n - 2], n - 1)
     counters = [k1.launches, k2w.launches, k3w.launches, kp.launches,
                 k4w.launches, dq.launches]
     kept = {}                   # the warm frame's CABAC records
@@ -370,7 +393,7 @@ def profile_ippp(res: dict, tools: bool, symbol_mode: str) -> None:
     res["frame_seconds"] = warm["frame"]
     res["kernel_launches"] = {k: v - before[k] for c in counters
                               for k, v in c.items()}
-    if sum(8 * len(n) for n in nalus) != enc.stats[2].bits:
+    if sum(8 * len(b) for b in nalus) != enc.stats[n - 1].bits:
         raise SystemExit("the warm P frame differs from the sequence's")
     idr = {}
     with Clock(idr, "frame"):
@@ -540,12 +563,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config",
                     choices=("intra720", "ippp720", "ippp720_notools",
-                             "ippp720_cabac", "bgop1080", "tiled1080"),
+                             "ippp720_cabac", "ippp720_wp", "gop4k",
+                             "bgop1080", "tiled1080"),
                     default="intra720",
                     help="the frame to profile: all-intra CABAC (default) "
                          "or a P frame of IPPP CAVLC, with the default P "
                          "tools or without them, or of IPPP CABAC with "
-                         "them; or config 4's B frame and P anchor at "
+                         "them, and with weighted prediction over a fade; "
+                         "or config 5's P frame at 3840x2160; or config "
+                         "4's B frame and P anchor at "
                          "1920x1088, through Encoder or (tiled1080) "
                          "TiledEncoder")
     ap.add_argument("--tiles", type=int, default=1,
@@ -570,6 +596,11 @@ def main() -> int:
         profile_bgop(res)
     elif args.config == "tiled1080":
         profile_tiled(res, args.tiles)
+    elif args.config == "ippp720_wp":
+        profile_ippp(res, tools=True, symbol_mode="CABAC", weighted=True)
+    elif args.config == "gop4k":
+        profile_ippp(res, tools=True, symbol_mode="CABAC", w=3840, h=2160,
+                     intra_period=2)
     elif args.config.startswith("ippp720"):
         profile_ippp(res, tools=args.config != "ippp720_notools",
                      symbol_mode=("CABAC" if args.config == "ippp720_cabac"

@@ -6,12 +6,30 @@ vector maps and reference picture for the P wave body (K2 + KP), with the
 partitions' vectors for its default tools, B waves with both lists' maps,
 references and colocated flags for the B wave body (K2 + KB), pictures
 with mixed intra and inter macroblocks for the deblocker (K4),
-and raster MB dicts of I and P frames for the entropy coders' front ends
-(the CAVLC serializer, the CABAC binarizer).  numpy only."""
+raster MB dicts of I and P frames for the entropy coders' front ends
+(the CAVLC serializer, the CABAC binarizer), and the fading frames that
+weighted prediction is for.  numpy only."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+# the recipe of `fade_frames`, as the golden file records it
+FADE = ("natural_frame(w, h, t) with its luma scaled by (1 - 0.06 t) in "
+        "float64, clipped to 0-255, astype(uint8), for t = 0 .. n - 1")
+
+
+def fade_frames(width: int, height: int, n: int) -> list:
+    """n frames of a fade to black (`FADE`): the input of the reference's
+    weighted-prediction test (`tests/test_ippp.py`), (y, u, v) uint8."""
+    from tpu264_torch.media.synth import natural_frame
+    out = []
+    for t in range(n):
+        y, u, v = natural_frame(width, height, t)
+        out.append((np.clip(y.astype(np.float64) * (1 - 0.06 * t), 0,
+                            255).astype(np.uint8), u, v))
+    return out
 
 
 def random_i4x4_lanes(seed, reps=2):
