@@ -22,7 +22,10 @@ Phases (any failure exits non-zero, before the result line):
     on that B frame (two-list bS); KP with explicit weights (64, 0),
     (58, -7) and (71, 12) on seeded waves whose source is faded by them,
     the P tools off and on, and on the widest wave of the first P frame of
-    `ippp_720p_wp_sei` as its encode runs it;
+    `ippp_720p_wp_sei` as its encode runs it; K4 as the decoder runs it,
+    on seeded 1280x720 and 1920x1088 pictures with per-MB QP grids over
+    0-51, filter offsets, idc 2 slice edges in the middle of MB rows, t8
+    MBs and two-list motion;
  4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
     28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
@@ -74,13 +77,22 @@ Phases (any failure exits non-zero, before the result line):
     each host's seconds and the efficiency beside the card;
 13. one CIF P frame's `make_inter_encoder` output on the card against
     the same call on the CPU, every key, tolerance 0, without and with the
-    default P tools.
+    default P tools;
+14. the port's decoder on the card (`Decoder()`: host parse and
+    reconstruction, the in-loop deblocking through K4): config 2,
+    `ippp_cif_cabac_rc`, config 3's two 720p frames and a CIF
+    hierarchical-B GOP with config 4's settings (encoded in this phase)
+    decode to their encoder's recons frame for frame, K4 at most once a
+    wave in every picture and no other kernel; decode seconds a frame, ms
+    a MB and the deblocking stage's time on the card (and of its plain
+    version on the CPU) printed; an x264 stream with per-MB QPs and
+    filter offsets decodes on the card to the CPU decoder's frames.
 
 The line before the last is a JSON object with one entry per kernel
 (`launches`: the sum over the four 720p main paths, config 4 and its two
-tiled paths, the weighted 720p path and config 5, phases 4, 7, 8, 9, 10,
-11 and 12, each driven with the counts set to 0 just before and read just
-after; `launches_by_path` splits it; KP's `ms` is a wave of the default P
+tiled paths, the weighted 720p path, config 5 and the decode, phases 4,
+7, 8, 9, 10, 11, 12 and 14, each driven with the counts set to 0 just
+before and read just after; `launches_by_path` splits it; KP's `ms` is a wave of the default P
 tools, `ms_tools_off` one without them, `ms_weighted` (with its
 `plain_ms_weighted`, `body_ms_weighted` and `bound_ms_weighted`) the
 weighted golden's widest wave, and `weighted` lists the weighted cases
@@ -88,7 +100,9 @@ with their max abs err; KB's `ms` the widest
 wave of the 1080p B frame, `body_ms` K2 + KB on it; K1's `ms`, `bins` and
 bound are the 720p P frame's, `ms_i_frame` and `bins_i_frame` the I
 frame's, `ms_b_1080p` and `bins_b_1080p` the 1080p B frame's; K4's
-`ms_1080p` a wave of the 1080p B frame); the last line is
+`ms_1080p` a wave of the 1080p B frame, `ms_grids_720p` and
+`ms_grids_1080p` (with their `plain_ms_grids_*` and `bound_ms_grids_*`)
+a wave of the seeded decoder pictures); the last line is
 {"ok": true, "device": {...}}.
 
 `bound_ms` of a kernel is the larger of its bytes (each input read once,
@@ -150,6 +164,10 @@ KERNELS = {
            "tpu264/kernels/pallas_kernels.py:55,66", False),
 }
 BW, BH = 1920, 1088             # config 4 (`bench.py:56-58`)
+# streams the decode phase decodes: golden name -> (stream, the encoder's
+# recons in display order), kept as the encode phases make them
+DECODED_GOLDENS = ("config2_cif", "ippp_cif_cabac_rc")
+ENCODED: dict = {}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
 
@@ -837,23 +855,100 @@ def check_deblock_wave(dev, frame_case) -> dict:
     bs_v, bs_h = kd.compute_bs_maps(intra_mb, tc, mv, ref)
     planes = [p.to(torch.int32, copy=True).contiguous() for p in (y, u, v)]
     n_waves = sched_720.n_waves
+    grids = uniform_grids(qp, cqp, intra_mb.shape, dev)
 
     def kernel_frame():
         for cp in range(n_waves):
-            k4w.deblock_wave(*planes, bs_v, bs_h, cp, qp, cqp)
+            k4w.deblock_wave(*planes, bs_v, bs_h, cp, *grids)
 
     ms = time_ms(kernel_frame, 10) / n_waves
     plain = kd.make_deblocker_skewed(sched_720, True, plain=True)
     pms = time_ms(lambda: plain(*frame_case), 2) / n_waves
     print(f"K4 720p frame, a wave of {n_waves}: kernel {ms:.4f} ms, plain "
           f"{pms:.3f} ms")
-    # a frame: every sample and every bS read once, every sample written
-    # once; 16 lines x 8 luma edges x 60 operations and 8 lines x 8 chroma
-    # edges x 30 a macroblock; a wave is 1 / n_waves of it
-    n_bytes = (2 * 4 * (W * H * 3 // 2) + 2 * 4 * (W // 4) * (H // 4))
-    n_ops = (W // 16) * (H // 16) * (16 * 8 * 60 + 8 * 8 * 30)
     return {"K4": dict(err=err, ms=ms, plain_ms=pms,
-                       **bound(n_bytes / n_waves, n_ops / n_waves))}
+                       **k4_wave_bound(W, H))}
+
+
+def uniform_grids(qp: int, cqp: int, shape, dev) -> tuple:
+    """The luma and chroma QP grids of a picture at one QP, as the
+    encoder's deblocker passes them to K4."""
+    return (torch.full(tuple(shape), qp, dtype=torch.int32, device=dev),
+            torch.full(tuple(shape), cqp, dtype=torch.int32, device=dev))
+
+
+def k4_wave_bound(w: int, h: int) -> dict:
+    """K4's bound a wave of a w x h picture: every sample and every bS
+    read once, every sample written once, the two QP grids read once;
+    16 lines x 8 luma edges x 60 operations and 8 lines x 8 chroma edges
+    x 30 a macroblock, with six parameter sets of about 12 operations;
+    a wave is 1 / n_waves of the frame."""
+    n_mbs = (w // 16) * (h // 16)
+    n_waves = w // 16 + 2 * (h // 16 - 1)
+    n_bytes = (2 * 4 * (w * h * 3 // 2) + 2 * 4 * (w // 4) * (h // 4)
+               + 2 * 4 * n_mbs)
+    n_ops = n_mbs * (16 * 8 * 60 + 8 * 8 * 30 + 6 * 12)
+    return bound(n_bytes / n_waves, n_ops / n_waves)
+
+
+def check_deblock_wave_grids(dev) -> dict:
+    """K4 as the decoder runs it, against its plain version on the card:
+    seeded pictures at 1280x720 and 1920x1088 with per-MB luma and chroma
+    QP grids over 0-51, FilterOffsetA/B in -12 .. 12, deblocking idc 2 with
+    slice edges in the middle of MB rows, t8 MBs and two-list motion per
+    4x4 block; both versions timed -> extra keys for the K4 row."""
+    from tpu264_torch.kernels import deblock as kd
+    from tpu264_torch.kernels import deblock_wave as k4w
+    from tpu264_torch.tools.synth_inputs import random_decode_deblock
+    out, err = {}, 0
+    for tag, (w, h) in (("720p", (W, H)), ("1080p", (BW, BH))):
+        wm, hm = w // 16, h // 16
+        d = random_decode_deblock(11, wm, hm, two_list=True, idc=2)
+        mid_row = (~d["left_ok"][:, 1:]).sum()
+        if not (mid_row and d["t8"].any() and d["off_a"] and d["off_b"]
+                and ((d["ref"] >= 0).sum(-1) == 2).any()
+                and len(np.unique(d["qp"])) == 52):
+            fail(f"K4 grids {tag}: the seeded picture lacks a case")
+        t = {k: torch.as_tensor(v, device=dev) for k, v in d.items()
+             if not k.startswith("off")}
+        args = (t["y"], t["u"], t["v"], t["intra_mb"], t["tc_luma"],
+                t["mv"], t["ref"], t["qp"], t["cqp"])
+        kw = dict(t8_mb=t["t8"], left_ok=t["left_ok"], top_ok=t["top_ok"],
+                  off_a=d["off_a"], off_b=d["off_b"])
+        n_waves = wm + 2 * (hm - 1)
+        before = k4w.launches["K4"]
+        got = kd.make_deblocker(wm, hm)(*args, **kw)
+        torch.cuda.synchronize()
+        if k4w.launches["K4"] != before + n_waves:
+            fail(f"K4 grids {tag}: not one launch a wave")
+        plain = kd.make_deblocker(wm, hm, plain=True)
+        want = plain(*args, **kw)
+        for g, wp, o in zip(got, want, args[:3]):
+            err = max(err, max_abs_err(g, wp))
+            if not (wp != o.to(wp.dtype)).any():
+                fail(f"K4 grids {tag}: the deblocker changed nothing")
+        # time: the kernel's launches of the frame against the whole plain
+        # deblocker (bS, parameters, skew), per wave
+        bs_v, bs_h = kd.bs_maps(*args[3:7], t["t8"], t["left_ok"],
+                                t["top_ok"])
+        planes = [p.to(torch.int32, copy=True).contiguous()
+                  for p in args[:3]]
+
+        def kernel_frame():
+            for cp in range(n_waves):
+                k4w.deblock_wave(*planes, bs_v, bs_h, cp, t["qp"], t["cqp"],
+                                 d["off_a"], d["off_b"])
+
+        ms = time_ms(kernel_frame, 10) / n_waves
+        pms = time_ms(lambda: plain(*args, **kw), 2) / n_waves
+        b = k4_wave_bound(w, h)
+        print(f"K4 with per-MB QP grids, offsets ({d['off_a']}, "
+              f"{d['off_b']}), idc 2 slices, t8, two lists, {w}x{h}, a wave "
+              f"of {n_waves}: kernel {ms:.4f} ms, plain {pms:.3f} ms, bound "
+              f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
+        out.update({f"ms_grids_{tag}": ms, f"plain_ms_grids_{tag}": pms,
+                    f"bound_ms_grids_{tag}": b["bound_ms"]})
+    return {"K4": dict(err=err, **out)}
 
 
 def frame_records(dev, frame, slices: int, spy=None, deblock_case=None):
@@ -1095,6 +1190,7 @@ def phase_encode(frames) -> dict:
              f"{golden['frame_bits']}")
     if sha != golden["sha256"] or len(stream) != golden["bytes"]:
         fail("stream differs from the reference golden")
+    ENCODED["config3_720p"] = (stream, enc.recons)
     return counts
 
 
@@ -1146,6 +1242,8 @@ def encode_golden(name: str, what: str, **enc_kw):
              f"{g['frame_bits']}")
     if sha != g["sha256"] or len(stream) != g["bytes"]:
         fail(f"{what}: stream differs from the reference golden")
+    if name in DECODED_GOLDENS:
+        ENCODED[name] = (stream, enc.recons)
     return enc, stream, secs
 
 
@@ -1732,10 +1830,11 @@ def check_1080p_b_kernels(dev, case) -> dict:
     bs_v, bs_h = kd.compute_bs_maps(intra_mb.to(torch.bool), tc, mv, ref)
     planes = [p.to(torch.int32, copy=True).contiguous() for p in (y, u, v)]
     n_waves = sched.n_waves
+    grids = uniform_grids(qp, cqp, intra_mb.shape, dev)
 
     def kernel_frame():
         for cp in range(n_waves):
-            k4w.deblock_wave(*planes, bs_v, bs_h, cp, qp, cqp)
+            k4w.deblock_wave(*planes, bs_v, bs_h, cp, *grids)
 
     ms4 = time_ms(kernel_frame, 10) / n_waves
     print(f"K4 1920x1088 B frame, a wave of {n_waves}: kernel {ms4:.4f} ms")
@@ -1790,6 +1889,134 @@ def phase_p_wave_body_vs_cpu(dev, tools) -> None:
           f"{int(inter.sum())} inter and {int((~inter).sum())} intra MBs")
     if not inter.any() or inter.all():
         fail("P wave body check: the frame does not mix inter and intra MBs")
+
+
+class DeblockSpy:
+    """While entered, a `Decoder`'s deblocking stage records for each
+    picture its K4 launches and its seconds on the card (synchronised);
+    the first picture's stage is run again on a copy by a decoder on the
+    CPU (the plain version), timed, and must give the same planes."""
+
+    def __init__(self, dec):
+        from tpu264_torch.decode import Decoder
+        from tpu264_torch.kernels import deblock_wave as k4w
+        self.dec, self.k4w, self.pics = dec, k4w, []
+        self.cpu = Decoder(device="cpu")
+        self.plain_s = None
+
+    def __enter__(self):
+        import copy
+        real = self.dec._deblock_picture
+
+        def spy(pic):
+            twin = copy.copy(pic) if not self.pics else None
+            torch.cuda.synchronize()
+            before = self.k4w.launches["K4"]
+            t0 = time.monotonic()
+            real(pic)                    # the planes come back to the host
+            secs = time.monotonic() - t0
+            n, n_waves = self.k4w.launches["K4"] - before, \
+                pic.wm + 2 * (pic.hm - 1)
+            if not 1 <= n <= n_waves:
+                fail(f"decode: K4 ran {n} times in a picture of {n_waves} "
+                     f"waves")
+            self.pics.append((n, secs, pic.wm * pic.hm))
+            if twin is not None:
+                self.cpu.pps = self.dec.pps
+                t0 = time.monotonic()
+                self.cpu._deblock_picture(twin)
+                self.plain_s = time.monotonic() - t0
+                for c, a, b in zip("YUV", (pic.y, pic.u, pic.v),
+                                   (twin.y, twin.u, twin.v)):
+                    if not np.array_equal(a, b):
+                        fail(f"decode: the deblocking on the card differs "
+                             f"from the CPU's in {c}")
+
+        self.dec._deblock_picture = spy
+        return self
+
+    def __exit__(self, *exc):
+        del self.dec._deblock_picture
+
+
+def phase_decode(card: str) -> dict:
+    """The port's decoder on the card, closed loop: config 2 (CIF IPPP
+    CAVLC), IPPP CABAC at CIF with rate control, config 3's two 720p
+    frames and a CIF hierarchical-B GOP with config 4's settings (encoded
+    here), each decoded through `Decoder()` (no device named: the card;
+    host parse and reconstruction, the deblocking on the card) to the
+    encoder's recons, frame for frame.  K4 runs at most once a wave in
+    every deblocked picture and nothing else launches; decode seconds a
+    frame and ms a MB and the deblocking stage's time on the card (and of
+    its plain version on the CPU, first picture) are printed beside the
+    card (`card`).  Then an x264 stream with per-MB QPs and filter offsets
+    (`tests/data/x264_qcif_aq_deblock.264`) decodes on the card to what
+    the decoder on the CPU gives -> the four streams' launch counts."""
+    from tpu264_torch.coding.encoder import Encoder
+    from tpu264_torch.config import EncoderConfig
+    from tpu264_torch.decode import Decoder
+    from tpu264_torch.media.synth import synth_frame
+    g = golden("bgop_1080p_cabac_rc")
+    cfg = EncoderConfig(**{**g["config"], "width": 352, "height": 288})
+    enc = Encoder(cfg)
+    stream = enc.encode_sequence([synth_frame(352, 288, t)
+                                  for t in range(7)])
+    ENCODED["bgop_cif"] = (stream, enc.recons)
+    kinds = sorted(st.slice_type[0] for st in enc.stats)
+    if kinds != ["B"] * 4 + ["I"] + ["P"] * 2:
+        fail(f"decode: the CIF B GOP's frames are {kinds}")
+    del enc
+    cases = (("config2_cif", "config 2, CIF IPPP CAVLC"),
+             ("ippp_cif_cabac_rc", "IPPP CABAC at CIF with rate control"),
+             ("config3_720p", "config 3, 720p all-intra CABAC"),
+             ("bgop_cif", "CIF hierarchical-B GOP, config 4's settings"))
+    reset_counts()
+    for name, what in cases:
+        stream, recons = ENCODED[name]
+        dec = Decoder()
+        if dec.device.type != "cuda":
+            fail(f"decode: Decoder() chose {dec.device}, not the card")
+        with DeblockSpy(dec) as spy:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            frames = dec.decode(stream)
+            secs = time.monotonic() - t0
+        if len(frames) != len(recons) or len(spy.pics) != len(frames):
+            fail(f"decode {what}: {len(frames)} frames, {len(spy.pics)} "
+                 f"deblocked, {len(recons)} encoded")
+        for i, (f, r) in enumerate(zip(frames, recons)):
+            for c, a, b in zip("YUV", f, r):
+                if a.dtype != np.uint8 or not np.array_equal(
+                        a, b.cpu().numpy()):
+                    fail(f"decode {what}: frame {i} {c} differs from the "
+                         f"encoder's recon")
+        n_mbs = sum(m for _, _, m in spy.pics)
+        stage = [s for _, s, _ in spy.pics]
+        print(f"decode {what} on {card}: {len(frames)} frames equal the "
+              f"encoder's recons; {secs:.3f} s, {secs / len(frames):.4f} s a "
+              f"frame, {1e3 * secs / n_mbs:.4f} ms a MB; deblocking on the "
+              f"card {1e3 * sum(stage) / len(stage):.3f} ms a picture "
+              f"({1e3 * min(stage):.3f}-{1e3 * max(stage):.3f}), K4 "
+              f"{[n for n, _, _ in spy.pics]} launches; plain version on "
+              f"the CPU {1e3 * spy.plain_s:.3f} ms (first picture)")
+    counts = read_counts()
+    print(f"decode, launches on the path: {counts}")
+    if counts["K4"] <= 0 or any(v for k, v in counts.items() if k != "K4"):
+        fail(f"decode: launches {counts}, not K4 alone")
+    data = (ROOT / "tests" / "data" / "x264_qcif_aq_deblock.264").read_bytes()
+    dec = Decoder()
+    with DeblockSpy(dec) as spy:
+        on_card = dec.decode(data)
+    on_cpu = Decoder(device="cpu").decode(data)
+    if len(on_card) != len(on_cpu) or not all(
+            np.array_equal(a, b) for f, h in zip(on_card, on_cpu)
+            for a, b in zip(f, h)):
+        fail("decode: the x264 stream with per-MB QPs differs between the "
+             "card and the CPU")
+    print(f"decode x264 QCIF stream (aq-mode under CRF, deblock=-2,1, B, 2 "
+          f"slices): {len(on_card)} frames on the card equal the CPU's; K4 "
+          f"{[n for n, _, _ in spy.pics]} launches")
+    return counts
 
 
 def phase_tiled(name: str, what: str) -> dict:
@@ -1927,6 +2154,8 @@ def main() -> int:
     results["KP"].update(weighted, err=max(results["KP"]["err"],
                                            weighted["err"]))
     results.update(check_deblock_wave(dev, deblock_case))
+    grids = check_deblock_wave_grids(dev)["K4"]
+    results["K4"].update(grids, err=max(results["K4"]["err"], grids["err"]))
     # the B wave: a 1920x1088 B frame of config 4 that allows partitions
     # and one that does not
     b_cases = [b_frame_case(dev, is_ref) for is_ref in (False, True)]
@@ -1965,11 +2194,12 @@ def main() -> int:
                          "(GOP-parallel, IPPP CABAC, intra_period 2)", card)
     phase_p_wave_body_vs_cpu(dev, NO_TOOLS)
     phase_p_wave_body_vs_cpu(dev, Tools(True, True, True))
+    counts_d = phase_decode(card)
     paths = {"config3_720p": counts, "ippp_720p": counts_p,
              "ippp_720p_tools": counts_t, "ippp_720p_cabac": counts_c,
              "bgop_1080p": counts_b, "tiled_bgop_1080p": counts_t1,
              "tiled4_bgop_1080p": counts_t4, "ippp_720p_wp_sei": counts_w,
-             "config5_4k_gop": counts_g}
+             "config5_4k_gop": counts_g, "decode": counts_d}
     rows = []
     for k in sorted(KERNELS):
         name, source, replaces, _ = KERNELS[k]
@@ -1985,7 +2215,10 @@ def main() -> int:
                       "ms_b_1080p", "bins_b_1080p", "ms_1080p", "body_ms",
                       "lanes", "bytes_ms", "operations_ms", "weighted",
                       "ms_weighted", "plain_ms_weighted", "body_ms_weighted",
-                      "bound_ms_weighted", "bound_by_weighted"):
+                      "bound_ms_weighted", "bound_by_weighted",
+                      "ms_grids_720p", "plain_ms_grids_720p",
+                      "bound_ms_grids_720p", "ms_grids_1080p",
+                      "plain_ms_grids_1080p", "bound_ms_grids_1080p"):
             if extra in r:
                 row[extra] = r[extra]
         rows.append(row)

@@ -8,6 +8,8 @@ installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -18,6 +20,7 @@ from tpu264_torch.coding import inter_frame as tinter
 from tpu264_torch.coding import intra_frame as tif
 from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.coding.wavefront import build_schedule
+from tpu264_torch.decode import Decoder
 from tpu264_torch.config import EncoderConfig
 from tpu264_torch.kernels import dct_quant as dq
 from tpu264_torch.kernels import deblock as kd
@@ -34,8 +37,8 @@ from tpu264_torch.ref.transform import chroma_qp
 from tpu264_torch.entropy import cabac_binarize as tcb
 from tpu264_torch.entropy import cabac_engine_cuda as k1
 from tpu264_torch.tools.synth_inputs import random_b_wave, \
-    random_deblock_picture, random_mbs, random_p_wave, random_p_wave_tools, \
-    random_wave
+    random_deblock_picture, random_decode_deblock, random_mbs, random_p_wave, \
+    random_p_wave_tools, random_wave
 
 from torch_util import assert_equal, carry_records, cuda_device, \
     long_run_records, random_i4x4_lanes, random_records, run_engine, t32, \
@@ -162,19 +165,85 @@ def test_cuda_deblock_wave_rejects_bad_input():
     y = torch.zeros((48, 80), dtype=torch.int32, device=dev)
     c = torch.zeros((24, 40), dtype=torch.int32, device=dev)
     b = torch.zeros((12, 20), dtype=torch.int32, device=dev)
-    k4w.deblock_wave(y, c, c.clone(), b, b.clone(), 0, 28, 28)
+    q = torch.full((3, 5), 28, dtype=torch.int32, device=dev)
+    k4w.deblock_wave(y, c, c.clone(), b, b.clone(), 0, q, q.clone())
     with pytest.raises(TypeError):
-        k4w.deblock_wave(y.to(torch.uint8), c, c, b, b, 0, 28, 28)
+        k4w.deblock_wave(y.to(torch.uint8), c, c, b, b, 0, q, q)
     with pytest.raises(ValueError):             # a chroma plane's shape
-        k4w.deblock_wave(y, c[:, :32], c, b, b, 0, 28, 28)
+        k4w.deblock_wave(y, c[:, :32], c, b, b, 0, q, q)
     with pytest.raises(ValueError):             # not contiguous
-        k4w.deblock_wave(y, c, c, b.t().contiguous().t(), b, 0, 28, 28)
+        k4w.deblock_wave(y, c, c, b.t().contiguous().t(), b, 0, q, q)
     with pytest.raises(ValueError):             # another device
-        k4w.deblock_wave(y, c, c, b.cpu(), b, 0, 28, 28)
+        k4w.deblock_wave(y, c, c, b.cpu(), b, 0, q, q)
     with pytest.raises(ValueError):             # no such wave
-        k4w.deblock_wave(y, c, c, b, b, 9, 28, 28)
+        k4w.deblock_wave(y, c, c, b, b, 9, q, q)
     with pytest.raises(ValueError):             # not whole macroblocks
-        k4w.deblock_wave(y[:40], c, c, b, b, 0, 28, 28)
+        k4w.deblock_wave(y[:40], c, c, b, b, 0, q, q)
+    with pytest.raises(ValueError):             # a QP grid's shape
+        k4w.deblock_wave(y, c, c, b, b, 0, q[:2], q)
+    with pytest.raises(TypeError):              # a QP grid's type
+        k4w.deblock_wave(y, c, c, b, b, 0, q, q.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idc", [0, 2])
+@pytest.mark.parametrize("two_list", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_deblock_wave_grids_match_plain(seed, two_list, idc):
+    """K4 with per-MB QP grids over 0-51, offsets, MB-edge masks with
+    slice edges in the middle of a row, t8 and one- or two-list motion,
+    against the plain version on the card and on the CPU; one launch a
+    wave."""
+    dev = cuda_device()
+    for wm, hm in ((11, 9), (5, 3)):
+        d = random_decode_deblock(seed + wm, wm, hm, two_list=two_list,
+                                  idc=idc)
+        fn = kd.make_deblocker(wm, hm)
+
+        def run(device, plain=False):
+            t = {k: torch.as_tensor(v, device=device) for k, v in d.items()
+                 if not k.startswith("off")}
+            f = kd.make_deblocker(wm, hm, plain=True) if plain else fn
+            return f(t["y"], t["u"], t["v"], t["intra_mb"], t["tc_luma"],
+                     t["mv"], t["ref"], t["qp"], t["cqp"], t8_mb=t["t8"],
+                     left_ok=t["left_ok"], top_ok=t["top_ok"],
+                     off_a=d["off_a"], off_b=d["off_b"])
+
+        before = k4w.launches["K4"]
+        got = run(dev)
+        torch.cuda.synchronize()
+        assert k4w.launches["K4"] == before + wm + 2 * (hm - 1)
+        for g, w, c in zip(got, run(dev, plain=True), run("cpu")):
+            assert_equal(g, w)
+            assert_equal(g, c)
+
+
+@pytest.mark.cuda
+def test_cuda_decoder_equals_cpu():
+    """The decoder with its deblocking on the card equals the decoder on
+    the CPU: an x264 stream with per-MB QPs (aq-mode under CRF), offsets
+    (deblock=-2,1), B pictures and two slices a picture, and a CIF IPPP
+    CABAC stream of the port's own, decoded to the encoder's recons."""
+    dev = cuda_device()
+    stream = (Path(__file__).parent / "data" / "x264_qcif_aq_deblock.264"
+              ).read_bytes()
+    cfg = EncoderConfig(width=352, height=288, qp=28, intra_period=0,
+                        symbol_mode="CABAC", deblock=True)
+    enc = Encoder(cfg, device=dev)
+    own = enc.encode_sequence([synth_frame(352, 288, t) for t in range(3)])
+    for s, recons in ((stream, None), (own, enc.recons)):
+        before = k4w.launches["K4"]
+        on_card = Decoder(device=dev).decode(s)
+        assert k4w.launches["K4"] > before
+        on_cpu = Decoder(device="cpu").decode(s)
+        assert len(on_card) == len(on_cpu) > 0
+        for g, w in zip(on_card, on_cpu):
+            for gp, wp in zip(g, w):
+                assert gp.dtype == wp.dtype
+                assert_equal(gp, wp)
+        for g, r in zip(on_card, recons or ()):
+            for gp, rp in zip(g, r):
+                assert_equal(gp, rp)
 
 
 def _wave_on(dev, seed, wm, hm):

@@ -1,7 +1,10 @@
 """The port's wavefront deblocker on the CPU (the plain version that kernel
 K4's wave form is held to on the card) against the JAX reference deblocker
 and the scalar `ref/deblock` oracle, exact; and what the wave kernel's
-wrapper computes in Python: the lanes of a wave and the packed parameters."""
+wrapper computes in Python: the lanes of a wave and the filter parameters."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -266,18 +269,31 @@ def test_plain_flag_is_the_cpu_path():
 
 @pytest.mark.parametrize("qp,cqp", [(0, 0), (28, 28), (51, 39), (60, -3)])
 def test_deblock_wave_params(qp, cqp):
-    """alpha, beta, tc0[1..3] for luma then chroma, QPs clipped to 0..51."""
-    vals = list(k4w.pack_params(qp, cqp))
-    assert len(vals) == 10
-    for q, five in ((qp, vals[:5]), (cqp, vals[5:])):
+    """alpha, beta, tc0[1..3] at a luma and a chroma QP, clipped to 0..51
+    (offsets 0), as the plain deblocker derives them; and the tables in
+    the wave kernel's constant memory are the reference's."""
+    alpha, beta, tc0 = tkd.edge_params(t32([qp, cqp]))
+    for i, q in enumerate((qp, cqp)):
         qi = min(max(q, 0), 51)
-        assert five == [int(rd.ALPHA_TABLE[qi]), int(rd.BETA_TABLE[qi]),
-                        *(int(t) for t in rd.TC0_TABLE[qi])]
+        assert [int(alpha[i]), int(beta[i]), *tc0[i].tolist()] == [
+            int(rd.ALPHA_TABLE[qi]), int(rd.BETA_TABLE[qi]),
+            *(int(t) for t in rd.TC0_TABLE[qi])]
+    src = (Path(tkd.__file__).parents[1] / "csrc" / "deblock_wave.cu"
+           ).read_text()
+
+    def table(name):
+        body = re.search(name + r"[^=]*=\s*\{(.*?)\};", src, re.S).group(1)
+        return [int(x) for x in re.findall(r"-?\d+", body)]
+
+    assert table("kAlpha") == [int(x) for x in rd.ALPHA_TABLE]
+    assert table("kBeta") == [int(x) for x in rd.BETA_TABLE]
+    assert table("kTc0") == [int(x) for x in rd.TC0_TABLE.ravel()]
 
 
 def test_deblock_wave_refuses_cpu_tensors():
     z = torch.zeros((48, 80), dtype=torch.int32)
     c = torch.zeros((24, 40), dtype=torch.int32)
     b = torch.zeros((12, 20), dtype=torch.int32)
+    q = torch.full((3, 5), 28, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        k4w.deblock_wave(z, c, c.clone(), b, b.clone(), 0, 28, 28)
+        k4w.deblock_wave(z, c, c.clone(), b, b.clone(), 0, q, q.clone())

@@ -236,6 +236,40 @@ def test_port_never_imports_jax():
     assert int(res.stdout.strip()) >= 40
 
 
+def imported_roots(path) -> set:
+    """The top-level names of every absolute import in a source file, at
+    module level or inside a function, including `importlib.import_module`
+    and `__import__` calls with a literal name."""
+    import ast
+    roots = set()
+    for node in ast.walk(ast.parse(Path(path).read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            roots.add((node.module or "").split(".")[0])
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            roots.add(node.args[0].value.split(".")[0])
+    return roots
+
+
+def test_port_sources_import_no_jax():
+    """No source file of `tpu264_torch/` names jax or the JAX package in an
+    import, lazy ones inside functions included (the decoder imports
+    inside functions)."""
+    files = sorted((ROOT / "tpu264_torch").rglob("*.py"))
+    assert len(files) >= 60
+    bad = {str(f.relative_to(ROOT)): sorted(r & {"jax", "jaxlib", "tpu264"})
+           for f in files if (r := imported_roots(f)) & {"jax", "jaxlib",
+                                                         "tpu264"}}
+    assert not bad, bad
+    assert "tpu264_torch" in imported_roots(
+        ROOT / "tpu264_torch" / "decode" / "decoder.py")
+
+
 def test_chip_smoke_imports_no_jax():
     """`chip_smoke.py` runs where jax is not installed: no import in it,
     at the top or inside a function, names jax or the JAX package."""

@@ -222,6 +222,36 @@ def assert_decodes_to_recon(port, stream, n_frames: int):
             assert_equal(to_np(g), d)
 
 
+def decode_both(stream: bytes):
+    """The port's decoder on the CPU and the reference decoder on one
+    stream: their frames equal array for array and their parsed SEI
+    messages field for field.  -> (frames, the port's decoder, and for
+    each picture it deblocked: (the number of distinct MB QPs, the filter
+    offsets, the deblocking idc))."""
+    import dataclasses
+    from tpu264.decode import Decoder as RefDecoder
+    from tpu264_torch.decode import Decoder
+    ref, port = RefDecoder(), Decoder(device="cpu")
+    pics = []
+    deblock = port._deblock_picture
+
+    def spy(pic):
+        pics.append((len(np.unique(pic.qp_mb)), pic.db_off or (0, 0),
+                     pic.deblock_idc))
+        return deblock(pic)
+
+    port._deblock_picture = spy
+    want, got = ref.decode(stream), port.decode(stream)
+    assert len(got) == len(want) > 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        for c, gp, wp in zip("YUV", g, w):
+            assert gp.dtype == wp.dtype and gp.shape == wp.shape
+            assert_equal(gp, wp, f"frame {i} {c}")
+    assert ([dataclasses.asdict(m) for m in port.sei]
+            == [dataclasses.asdict(m) for m in ref.sei])
+    return got, port, pics
+
+
 # ---- config 1 stream cases (`test_torch_cavlc_stream.py` for one slice a
 # picture, `test_torch_cavlc_slices.py` for three): five QCIF frames,
 # all-intra CAVLC at QP 28, through the reference and the port on the

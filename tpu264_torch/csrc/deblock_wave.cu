@@ -30,6 +30,16 @@
 // (r-1, c) and (r-1, c+1) final before (r, c) runs.  The picture's left
 // column and top row have no neighbour: those window parts are neither
 // loaded nor stored, and bS is 0 on those edges by construction.
+//
+// The thresholds follow spec 8.7.2 per macroblock: the kernel takes the
+// picture's luma and chroma QP grids [hm, wm] and FilterOffsetA/B.  An
+// internal edge of MB (r, c) uses qp[r, c]; its left MB edge
+// (qp[r, c] + qp[r, c-1] + 1) >> 1 and its top MB edge
+// (qp[r, c] + qp[r-1, c] + 1) >> 1; indexA = clip(q + off_a, 0, 51)
+// selects alpha and tc0, indexB = clip(q + off_b, 0, 51) beta, from the
+// tables in constant memory.  Six threads derive the block's six parameter
+// sets (luma and chroma x internal, left, top) before the edge steps.  An
+// edge that must not be filtered (a slice edge at idc 2) comes with bS 0.
 // All arithmetic is int32, equal to the plain torch deblocker bit for bit.
 
 #include <cstdint>
@@ -43,9 +53,44 @@ constexpr int kThreads = 128;
 constexpr int kLumaStride = 21;     // 20 window columns + 1: fewer conflicts
 constexpr int kChromaStride = 13;   // 12 + 1
 
-struct WaveParams {
-  dbf::EdgeParams luma, chroma;
-};
+// spec Tables 8-16 and 8-17, as `tpu264_torch/ref/deblock.py` holds them
+__constant__ int32_t kAlpha[52] = {
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4, 4, 5, 6, 7, 8, 9, 10,
+    12, 13, 15, 17, 20, 22, 25, 28, 32, 36, 40, 45, 50, 56, 63, 71, 80, 90,
+    101, 113, 127, 144, 162, 182, 203, 226, 255, 255};
+__constant__ int32_t kBeta[52] = {
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 2, 2, 2, 3, 3, 3, 3, 4,
+    4, 4, 6, 6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13, 14, 14, 15,
+    15, 16, 16, 17, 17, 18, 18};
+__constant__ int32_t kTc0[52][3] = {
+    {0, 0, 0}, {0, 0, 0}, {0, 0, 0}, {0, 0, 0}, {0, 0, 0}, {0, 0, 0},
+    {0, 0, 0}, {0, 0, 0}, {0, 0, 0}, {0, 0, 0}, {0, 0, 0}, {0, 0, 0},
+    {0, 0, 0}, {0, 0, 0}, {0, 0, 0}, {0, 0, 0}, {0, 0, 0}, {0, 0, 1},
+    {0, 0, 1}, {0, 0, 1}, {0, 0, 1}, {0, 1, 1}, {0, 1, 1}, {1, 1, 1},
+    {1, 1, 1}, {1, 1, 1}, {1, 1, 1}, {1, 1, 2}, {1, 1, 2}, {1, 1, 2},
+    {1, 1, 2}, {1, 2, 3}, {1, 2, 3}, {2, 2, 3}, {2, 2, 4}, {2, 3, 4},
+    {2, 3, 4}, {3, 3, 5}, {3, 4, 6}, {3, 4, 6}, {4, 5, 7}, {4, 5, 8},
+    {4, 6, 9}, {5, 7, 10}, {6, 8, 11}, {6, 8, 13}, {7, 10, 14}, {8, 11, 16},
+    {9, 12, 18}, {10, 13, 20}, {11, 15, 23}, {13, 17, 25}};
+
+enum { kInternal = 0, kLeft = 1, kTop = 2 };
+
+// the parameter set of an edge of MB (r, c) of one plane's QP grid
+__device__ __forceinline__ dbf::EdgeParams edge_params(
+    const int32_t* __restrict__ qp, int wm, int r, int c, int kind, int off_a,
+    int off_b) {
+  const int64_t at = (int64_t)r * wm + c;
+  int32_t q = qp[at];
+  if (kind == kLeft && c > 0) q = (q + qp[at - 1] + 1) >> 1;
+  if (kind == kTop && r > 0) q = (q + qp[at - wm] + 1) >> 1;
+  const int ia = dbf::clip3(0, 51, q + off_a);
+  const int ib = dbf::clip3(0, 51, q + off_b);
+  dbf::EdgeParams p;
+  p.alpha = kAlpha[ia];
+  p.beta = kBeta[ib];
+  for (int k = 0; k < 3; ++k) p.tc0[k] = kTc0[ia][k];
+  return p;
+}
 
 // window sample (wy, wx) exists: not in the unused corner, and not beyond
 // the picture's top row or left column
@@ -61,11 +106,14 @@ __global__ void __launch_bounds__(kThreads) deblock_wave_kernel(
     int32_t* __restrict__ v,
     const int32_t* __restrict__ bs_v,        // [4 hm, 4 wm]
     const int32_t* __restrict__ bs_h,
-    int wm, int cp, int r0, WaveParams prm) {
+    const int32_t* __restrict__ qp_y,        // [hm, wm] luma QP per MB
+    const int32_t* __restrict__ qp_c,        // [hm, wm] chroma QP per MB
+    int wm, int cp, int r0, int off_a, int off_b) {
   __shared__ int32_t lw[20 * kLumaStride];
   __shared__ int32_t cw[2][10 * kChromaStride];
   __shared__ int32_t bsv[16];     // [row of 4x4 blocks][vertical edge]
   __shared__ int32_t bsh[16];     // [horizontal edge][column of 4x4 blocks]
+  __shared__ dbf::EdgeParams prm[2][3];   // [luma, chroma][internal, left, top]
 
   const int tid = threadIdx.x;
   const int r = r0 + blockIdx.x;
@@ -94,6 +142,10 @@ __global__ void __launch_bounds__(kThreads) deblock_wave_kernel(
   } else if (tid < 32) {
     const int t = tid - 16;
     bsh[t] = bs_h[(int64_t)(4 * r + (t >> 2)) * w4 + 4 * c + (t & 3)];
+  } else if (tid < 38) {
+    const int t = tid - 32;
+    prm[t / 3][t % 3] =
+        edge_params(t < 3 ? qp_y : qp_c, wm, r, c, t % 3, off_a, off_b);
   }
   __syncthreads();
 
@@ -113,8 +165,9 @@ __global__ void __launch_bounds__(kThreads) deblock_wave_kernel(
         int32_t s[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) s[i] = lw[base + i * stride];
+        const int kind = k ? kInternal : (vert ? kLeft : kTop);
         dbf::luma_line(s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], bs,
-                       prm.luma);
+                       prm[0][kind]);
 #pragma unroll
         for (int i = 1; i < 7; ++i) lw[base + i * stride] = s[i];
       } else if (step < 4) {
@@ -132,7 +185,8 @@ __global__ void __launch_bounds__(kThreads) deblock_wave_kernel(
                                 : bsh[k * 4 + (l >> 1)];
         const int32_t p1 = win[base], q1 = win[base + 3 * stride];
         int32_t p0 = win[base + stride], q0 = win[base + 2 * stride];
-        dbf::chroma_line(p1, p0, q0, q1, bs, prm.chroma);
+        const int kind = k ? kInternal : (vert ? kLeft : kTop);
+        dbf::chroma_line(p1, p0, q0, q1, bs, prm[1][kind]);
         win[base + stride] = p0;
         win[base + 2 * stride] = q0;
       }
@@ -159,23 +213,16 @@ __global__ void __launch_bounds__(kThreads) deblock_wave_kernel(
 }  // namespace
 
 // Filters the macroblocks (r, cp - 2r), r = r0 .. r0 + n_rows - 1, of wave
-// `cp` in place.  `params` is the host int32 array that
-// `kernels/deblock_wave.py` packs: alpha, beta, tc0[3] for luma, then the
-// same five for chroma.
+// `cp` in place, with the per-MB QP grids qp_y, qp_c [hm, wm] and the
+// filter offsets off_a, off_b (FilterOffsetA/B).
 extern "C" int tpu264_deblock_wave(int32_t* y, int32_t* u, int32_t* v,
                                    const int32_t* bs_v, const int32_t* bs_h,
+                                   const int32_t* qp_y, const int32_t* qp_c,
                                    int wm, int cp, int r0, int n_rows,
-                                   const int32_t* params, void* stream) {
-  WaveParams prm;
-  dbf::EdgeParams* sets[2] = {&prm.luma, &prm.chroma};
-  for (int s = 0; s < 2; ++s) {
-    sets[s]->alpha = params[5 * s];
-    sets[s]->beta = params[5 * s + 1];
-    for (int k = 0; k < 3; ++k) sets[s]->tc0[k] = params[5 * s + 2 + k];
-  }
+                                   int off_a, int off_b, void* stream) {
   if (n_rows > 0) {
     deblock_wave_kernel<<<n_rows, kThreads, 0, (cudaStream_t)stream>>>(
-        y, u, v, bs_v, bs_h, wm, cp, r0, prm);
+        y, u, v, bs_v, bs_h, qp_y, qp_c, wm, cp, r0, off_a, off_b);
   }
   return (int)cudaGetLastError();
 }

@@ -46,8 +46,9 @@ _SIGNATURES = {
     "tpu264_p_wave": [P, P, P, I, P],
     # (ptrs[53]*, params*, geom*, n_mbs, stream)
     "tpu264_b_wave": [P, P, P, I, P],
-    # (y, u, v, bs_v, bs_h, wm, cp, r0, n_rows, params*, stream)
-    "tpu264_deblock_wave": [P, P, P, P, P, I, I, I, I, P, P],
+    # (y, u, v, bs_v, bs_h, qp_y, qp_c, wm, cp, r0, n_rows, off_a, off_b,
+    #  stream)
+    "tpu264_deblock_wave": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
     # (win, bs, out, n_lines, alpha, beta, tc0_3*, stream)
     "tpu264_deblock_luma": [P, P, P, I, I, I, P, P],
     # (records, rec_stride, counts, init, tables*, words, out_cap, nbytes,

@@ -13,13 +13,15 @@ column strip of MBs, filtered with all MB rows at once in torch.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from tpu264_torch.ref import deblock as rd
 from tpu264_torch.coding.wavefront import WaveSchedule
 from tpu264_torch.coding.mvpred import INTRA
-from .deblock_lines import filter_luma_lines_plain
+from .deblock_lines import filter_luma_lines_plain, tc0_lines
 from .deblock_wave import deblock_wave
 from .transform import I32
 
@@ -32,13 +34,13 @@ def _clip3(lo, hi, x):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def filter_chroma_lines(win, bs, alpha: int, beta: int, tc0_row):
-    """win [..., 4] = p1 p0 q0 q1 per line."""
+def filter_chroma_lines(win, bs, alpha, beta, tc0_row):
+    """win [..., 4] = p1 p0 q0 q1 per line; alpha, beta and tc0_row as
+    `deblock_lines.filter_luma_lines_plain` takes them."""
     p1, p0, q0, q1 = win[..., 0], win[..., 1], win[..., 2], win[..., 3]
     fflag = (((p0 - q0).abs() < alpha) & ((p1 - p0).abs() < beta)
              & ((q1 - q0).abs() < beta) & (bs > 0))
-    tc0_row = torch.as_tensor(tc0_row, dtype=I32, device=win.device)
-    tc = tc0_row[torch.clamp(bs, 1, 3).long() - 1] + 1
+    tc = tc0_lines(tc0_row, bs) + 1
     delta = _clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3)
     use_n = fflag & (bs < 4)
     s4 = fflag & (bs == 4)
@@ -143,16 +145,69 @@ def compute_bs_maps(intra_mb, tc_luma, mv, ref):
     return bs_v, bs_h
 
 
-def make_deblocker_skewed(sched: WaveSchedule,
-                          filter_across_slices: bool = True,
-                          plain: bool = False):
-    """Wavefront picture deblocker (bit-exact with `ref.deblock`).
+def bs_maps(intra_mb, tc_luma, mv, ref, t8_mb=None, left_ok=None,
+            top_ok=None):
+    """The deblocker's boundary strengths (bs_v, bs_h) [4hm, 4wm]:
+    `compute_bs_maps`, then no internal 4x4 edges in the MBs of `t8_mb`,
+    and bS 0 on the MB edges that must not be filtered: the left edge of
+    MB (r, c) where left_ok[r, c] is False and its top edge where
+    top_ok[r, c] is False ([hm, wm] bool; picture edges, and slice edges
+    at disable_deblocking_filter_idc 2).  bS 0 filters nothing, as the
+    reference's skipped edge."""
+    bs_v, bs_h = compute_bs_maps(intra_mb.to(torch.bool), tc_luma.to(I32),
+                                 mv.to(I32), ref.to(I32))
+    hm, wm = intra_mb.shape
+    if t8_mb is not None:
+        # transform-8x8 MBs have no internal 4x4 edges: their luma
+        # edges at x/y = 4 and 12 within the MB are not filtered
+        t8r = up4(t8_mb.to(torch.bool))
+        dev = t8r.device
+        odd_c = torch.arange(4 * wm, device=dev) % 2 == 1
+        odd_r = torch.arange(4 * hm, device=dev) % 2 == 1
+        bs_v = torch.where(t8r & odd_c[None, :], 0, bs_v)
+        bs_h = torch.where(t8r & odd_r[:, None], 0, bs_h)
+    if left_ok is not None:
+        keep = left_ok.to(torch.bool).repeat_interleave(4, 0)
+        bs_v[:, ::4] = torch.where(keep, bs_v[:, ::4], 0)
+    if top_ok is not None:
+        keep = top_ok.to(torch.bool).repeat_interleave(4, 1)
+        bs_h[::4, :] = torch.where(keep, bs_h[::4, :], 0)
+    return bs_v, bs_h
 
-    fn(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp, t8_mb=None) ->
-    filtered int32 planes; `t8_mb` [hm, wm] marks the MBs coded with the
-    8x8 transform, whose inner 4x4 luma edges are not filtered.  CUDA planes go through the wave kernel (K4, one launch a
-    wave, or it raises); CPU planes, and any planes when `plain` is set
-    (the kernel's checks), through the plain version:
+
+_TABLES: dict = {}
+
+
+def edge_params(q, off_a: int = 0, off_b: int = 0):
+    """Spec 8.7.2's thresholds at the (averaged) QP grid `q`: alpha and
+    the tc0 row [..., 3] at indexA = clip(q + off_a, 0, 51), beta at
+    indexB = clip(q + off_b, 0, 51)."""
+    dev = q.device
+    if dev not in _TABLES:
+        _TABLES[dev] = tuple(torch.as_tensor(np.asarray(t), dtype=I32,
+                                             device=dev)
+                             for t in (ALPHA, BETA, TC0))
+    alpha, beta, tc0 = _TABLES[dev]
+    ia = torch.clamp(q + off_a, 0, 51).long()
+    ib = torch.clamp(q + off_b, 0, 51).long()
+    return alpha[ia], beta[ib], tc0[ia]
+
+
+@functools.lru_cache(maxsize=None)
+def make_deblocker(wm: int, hm: int, plain: bool = False):
+    """Wavefront picture deblocker of a wm x hm MB picture (bit-exact with
+    `ref.deblock.deblock_frame`); one per geometry.
+
+    fn(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp, t8_mb=None,
+    left_ok=None, top_ok=None, off_a=0, off_b=0) -> filtered int32
+    planes.  `qp`, `cqp` are the luma and chroma QP, one for the picture
+    (an int) or one per MB ([hm, wm]); `t8_mb` [hm, wm] marks the MBs
+    coded with the 8x8 transform, whose inner 4x4 luma edges are not
+    filtered; `left_ok`, `top_ok` [hm, wm] say which MB edges are filtered
+    (`bs_maps`); off_a, off_b are FilterOffsetA/B.  CUDA planes go
+    through the wave kernel (K4, one launch a wave, or it raises); CPU
+    planes, and any planes when `plain` is set (the kernel's checks),
+    through the plain version:
 
     MB (r, c) is stored at skewed MB column c' = c + 2r, so every 2:1
     anti-diagonal wave becomes one contiguous column strip: a wave step is
@@ -160,73 +215,75 @@ def make_deblocker_skewed(sched: WaveSchedule,
     windows stay local in skew space (left -> c'-1, top/top-right -> band
     above at c'-2).
     """
-    wm, hm = sched.width_mbs, sched.height_mbs
     n_waves = wm + 2 * (hm - 1)
     OF = 3          # left pad in MBs (c'-2 strip reads at c'=0 reach -36px)
     skw = OF + n_waves + 1
-
-    # rows whose top MB edge is never filtered (picture / slice boundary)
-    zero_top_rows = {0}
-    if not filter_across_slices:
-        zero_top_rows |= {int(r) for r in sched.slice_starts.tolist() if r}
+    cache: dict = {}
 
     def _skew_cols(mb_px: int, device):
         """Per-pixel-row skewed column of true col x in band b:
         x + (OF + 2b) * mb_px."""
-        rows = np.repeat(np.arange(hm), mb_px)
-        cols = (np.arange(wm * mb_px)[None, :]
-                + (OF + 2 * rows)[:, None] * mb_px)
-        return torch.as_tensor(cols, device=device)
+        key = ("cols", mb_px, device)
+        if key not in cache:
+            rows = np.repeat(np.arange(hm), mb_px)
+            cols = (np.arange(wm * mb_px)[None, :]
+                    + (OF + 2 * rows)[:, None] * mb_px)
+            cache[key] = (torch.arange(hm * mb_px, device=device)[:, None],
+                          torch.as_tensor(cols, device=device))
+        return cache[key]
 
     def _skew(plane, mb_px: int):
         """[hm*mb_px, wm*mb_px] -> [hm*mb_px, skw*mb_px] skewed layout."""
         out = torch.zeros((hm * mb_px, skw * mb_px), dtype=I32,
                           device=plane.device)
-        rr = torch.arange(hm * mb_px, device=plane.device)[:, None]
-        out[rr, _skew_cols(mb_px, plane.device)] = plane.to(I32)
+        rr, cc = _skew_cols(mb_px, plane.device)
+        out[rr, cc] = plane.to(I32)
         return out
 
     def _unskew(buf, mb_px: int):
-        rr = torch.arange(hm * mb_px, device=buf.device)[:, None]
-        return buf[rr, _skew_cols(mb_px, buf.device)]
+        rr, cc = _skew_cols(mb_px, buf.device)
+        return buf[rr, cc]
 
-    def bs_maps(intra_mb, tc_luma, mv, ref, t8_mb):
-        bs_v, bs_h = compute_bs_maps(intra_mb.to(torch.bool),
-                                     tc_luma.to(I32), mv.to(I32),
-                                     ref.to(I32))
-        if t8_mb is not None:
-            # transform-8x8 MBs have no internal 4x4 edges: their luma
-            # edges at x/y = 4 and 12 within the MB are not filtered
-            t8r = up4(t8_mb.to(torch.bool))
-            dev = t8r.device
-            odd_c = torch.arange(4 * wm, device=dev) % 2 == 1
-            odd_r = torch.arange(4 * hm, device=dev) % 2 == 1
-            bs_v = torch.where(t8r & odd_c[None, :], 0, bs_v)
-            bs_h = torch.where(t8r & odd_r[:, None], 0, bs_h)
-        for r in zero_top_rows:
-            bs_h[r * 4, :] = 0
-        return bs_v, bs_h
+    def _grid(q, device):
+        """An int QP as a [hm, wm] int32 grid (cached), or the grid."""
+        if isinstance(q, torch.Tensor):
+            return q.to(device=device, dtype=I32).contiguous()
+        key = ("qp", int(q), device)
+        if key not in cache:
+            cache[key] = torch.full((hm, wm), int(q), dtype=I32,
+                                    device=device)
+        return cache[key]
 
-    def deblock(y, u, v, intra_mb, tc_luma, mv, ref, qp: int, cqp: int,
-                t8_mb=None):
+    def deblock(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp, t8_mb=None,
+                left_ok=None, top_ok=None, off_a: int = 0, off_b: int = 0):
+        bs_v, bs_h = bs_maps(intra_mb, tc_luma, mv, ref, t8_mb, left_ok,
+                             top_ok)
+        qp_y, qp_c = _grid(qp, y.device), _grid(cqp, y.device)
         if plain or y.device.type == "cpu":
-            return deblock_plain(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp,
-                                 t8_mb)
-        bs_v, bs_h = bs_maps(intra_mb, tc_luma, mv, ref, t8_mb)
+            return deblock_plain(y, u, v, bs_v, bs_h, qp_y, qp_c, off_a,
+                                 off_b)
         # raster planes, filtered in place wave by wave
         yb, ub, vb = (p.to(I32, copy=True).contiguous() for p in (y, u, v))
         for cp in range(n_waves):
-            deblock_wave(yb, ub, vb, bs_v, bs_h, cp, qp, cqp)
+            deblock_wave(yb, ub, vb, bs_v, bs_h, cp, qp_y, qp_c, off_a,
+                         off_b)
         return yb, ub, vb
 
-    def deblock_plain(y, u, v, intra_mb, tc_luma, mv, ref, qp: int, cqp: int,
-                      t8_mb=None):
-        qi = min(max(int(qp), 0), 51)
-        ci = min(max(int(cqp), 0), 51)
-        alpha, beta, tc0_row = ALPHA[qi], BETA[qi], TC0[qi]
-        calpha, cbeta = ALPHA[ci], BETA[ci]
-        ctc0_row = torch.as_tensor(TC0[ci], dtype=I32, device=y.device)
-        bs_v, bs_h = bs_maps(intra_mb, tc_luma, mv, ref, t8_mb)
+    def skewed_params(qp_g, off_a: int, off_b: int):
+        """Per skewed MB column: (alpha, beta, tc0) of the internal, the
+        left and the top MB edges, each [hm, skw] ([hm, skw, 3])."""
+        qs = _skew(qp_g, 1)
+        q_left = qs.clone()
+        q_left[:, 1:] = (qs[:, 1:] + qs[:, :-1] + 1) >> 1
+        q_top = qs.clone()
+        q_top[1:, 2:] = (qs[1:, 2:] + qs[:-1, :-2] + 1) >> 1
+        return [edge_params(q, off_a, off_b) for q in (qs, q_left, q_top)]
+
+    def deblock_plain(y, u, v, bs_v, bs_h, qp_y, qp_c, off_a: int,
+                      off_b: int):
+        # per MB: (alpha, beta, tc0) of its internal, left and top edges
+        lprm = skewed_params(qp_y, off_a, off_b)
+        cprm = skewed_params(qp_c, off_a, off_b)
         yb = _skew(y, 16)
         ub = _skew(u, 8)
         vb = _skew(v, 8)
@@ -236,12 +293,19 @@ def make_deblocker_skewed(sched: WaveSchedule,
         zeros_l = torch.zeros((1, 4, 20), dtype=I32, device=dev)
         zeros_c = torch.zeros((1, 2, 12), dtype=I32, device=dev)
 
+        def at(prm, kind: int, col: int):
+            """The wave's parameters, one set a MB row, for its lines."""
+            a, b, t = (x[:, col] for x in prm[kind])
+            return a[:, None], b[:, None], t[:, None, :]
+
         # the skewed planes are updated in place, one wave strip at a time
         for cp in range(n_waves):
             base = (OF + cp) * 16
             base2 = (OF + cp - 2) * 16
+            col = OF + cp
             BV = bvs[:, (OF + cp) * 4:(OF + cp + 1) * 4].reshape(hm, 4, 4)
             BH = bhs[:, (OF + cp) * 4:(OF + cp + 1) * 4].reshape(hm, 4, 4)
+            inner, left, top = (at(lprm, kind, col) for kind in range(3))
 
             # ---- luma ----
             M = yb[:, base - 4:base + 16].reshape(hm, 16, 20)
@@ -253,7 +317,7 @@ def make_deblocker_skewed(sched: WaveSchedule,
                 e = 4 + 4 * k
                 seg = win[:, 4:20, e - 4:e + 4].contiguous()
                 win[:, 4:20, e - 4:e + 4] = filter_luma_lines_plain(
-                    seg, b_lines, alpha, beta, tc0_row)
+                    seg, b_lines, *(inner if k else left))
             # horizontal: the same filter on the transposed window
             winT = win.transpose(1, 2)                    # a view of win
             for k in range(4):
@@ -261,11 +325,12 @@ def make_deblocker_skewed(sched: WaveSchedule,
                 e = 4 + 4 * k
                 seg = winT[:, 4:20, e - 4:e + 4].contiguous()
                 winT[:, 4:20, e - 4:e + 4] = filter_luma_lines_plain(
-                    seg, b_lines, alpha, beta, tc0_row)
+                    seg, b_lines, *(inner if k else top))
             yb[:, base - 4:base + 16] = win[:, 4:20].reshape(hm * 16, 20)
             A[:-1, 12:16] = win[1:, 0:4]      # A views yb: writes through
 
             # ---- chroma ----
+            cinner, cleft, ctop = (at(cprm, kind, col) for kind in range(3))
             cb = (OF + cp) * 8
             cb2 = (OF + cp - 2) * 8
             for pb in (ub, vb):
@@ -278,20 +343,49 @@ def make_deblocker_skewed(sched: WaveSchedule,
                     b_lines = BV[:, :, k].repeat_interleave(2, 1)
                     e = 4 + 2 * k
                     cwin[:, 2:10, e - 2:e + 2] = filter_chroma_lines(
-                        cwin[:, 2:10, e - 2:e + 2], b_lines, calpha, cbeta,
-                        ctc0_row)
+                        cwin[:, 2:10, e - 2:e + 2], b_lines,
+                        *(cinner if k else cleft))
                 cwinT = cwin.transpose(1, 2)              # [hm, 12, 10]
                 for k in (0, 2):
                     b_lines = BH[:, k, :].repeat_interleave(2, 1)
                     e = 2 + 2 * k
                     cwinT[:, 4:12, e - 2:e + 2] = filter_chroma_lines(
-                        cwinT[:, 4:12, e - 2:e + 2], b_lines, calpha, cbeta,
-                        ctc0_row)
+                        cwinT[:, 4:12, e - 2:e + 2], b_lines,
+                        *(cinner if k else ctop))
                 pb[:, cb - 4:cb + 8] = cwin[:, 2:10].reshape(hm * 8, 12)
                 Ac[:-1, 6:8] = cwin[1:, 0:2]
         return _unskew(yb, 16), _unskew(ub, 8), _unskew(vb, 8)
 
     return deblock
+
+
+def make_deblocker_skewed(sched: WaveSchedule,
+                          filter_across_slices: bool = True,
+                          plain: bool = False):
+    """The encoder's picture deblocker: `make_deblocker` of the schedule's
+    geometry at one QP a picture, offsets 0, with the top MB edges of the
+    slices' first rows left unfiltered unless `filter_across_slices`
+    (idc 2: the encoder's slices are whole MB rows).
+
+    fn(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp, t8_mb=None) ->
+    filtered int32 planes."""
+    wm, hm = sched.width_mbs, sched.height_mbs
+    deblock = make_deblocker(wm, hm, plain)
+    top_ok: dict = {}          # device -> [hm, wm] bool
+    ok = np.ones((hm, wm), dtype=bool)
+    ok[[int(r) for r in sched.slice_starts.tolist()], :] = False
+
+    def deblock_frame(y, u, v, intra_mb, tc_luma, mv, ref, qp: int,
+                      cqp: int, t8_mb=None):
+        if filter_across_slices:
+            return deblock(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp,
+                           t8_mb)
+        if y.device not in top_ok:
+            top_ok[y.device] = torch.as_tensor(ok, device=y.device)
+        return deblock(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp, t8_mb,
+                       top_ok=top_ok[y.device])
+
+    return deblock_frame
 
 
 def intra_motion(hm: int, wm: int, device):

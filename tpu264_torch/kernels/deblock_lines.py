@@ -28,8 +28,20 @@ def _clip3(lo, hi, x):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def filter_luma_lines_plain(win, bs, alpha: int, beta: int, tc0_row):
-    """win [..., 8] = p3..q3 per line; bs broadcastable to win[..., 0]."""
+def tc0_lines(tc0_row, bs):
+    """TC0_TABLE[indexA][bS - 1] of each line: `tc0_row` is one row of
+    three for every line, or a row per line [..., 3] (bS's shape)."""
+    k = torch.clamp(bs, 1, 3).long() - 1
+    t = torch.as_tensor(tc0_row, dtype=torch.int32, device=bs.device)
+    if t.dim() == 1:
+        return t[k]
+    return torch.gather(t.expand(*k.shape, 3), -1, k[..., None])[..., 0]
+
+
+def filter_luma_lines_plain(win, bs, alpha, beta, tc0_row):
+    """win [..., 8] = p3..q3 per line; bs broadcastable to win[..., 0];
+    alpha, beta ints or int32 tensors broadcastable to it, tc0_row as
+    `tc0_lines` takes it."""
     p3, p2, p1, p0 = win[..., 0], win[..., 1], win[..., 2], win[..., 3]
     q0, q1, q2, q3 = win[..., 4], win[..., 5], win[..., 6], win[..., 7]
     fflag = (((p0 - q0).abs() < alpha) & ((p1 - p0).abs() < beta)
@@ -37,8 +49,7 @@ def filter_luma_lines_plain(win, bs, alpha: int, beta: int, tc0_row):
     ap = (p2 - p0).abs() < beta
     aq = (q2 - q0).abs() < beta
 
-    tc0_row = torch.as_tensor(tc0_row, dtype=torch.int32, device=win.device)
-    tc0 = tc0_row[torch.clamp(bs, 1, 3).long() - 1]
+    tc0 = tc0_lines(tc0_row, bs)
     tc = tc0 + ap.to(torch.int32) + aq.to(torch.int32)
     delta = _clip3(-tc, tc, ((q0 - p0) * 4 + (p1 - q1) + 4) >> 3)
     np0 = torch.clamp(p0 + delta, 0, 255)

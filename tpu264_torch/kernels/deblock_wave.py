@@ -1,13 +1,14 @@
 """Kernel K4 in its wave form: the deblocking of one macroblock wave of a
 picture, luma and chroma, as one CUDA launch (`csrc/deblock_wave.cu`).
 
-`deblock_wave` is what `kernels.deblock.make_deblocker_skewed` runs per
-wave for CUDA planes; its plain version is that module's skewed torch
-deblocker (`plain=True`).  The kernel works on the raster planes in place
-and takes alpha, beta and the tc0 rows of luma and chroma by value
-(`pack_params`); which macroblocks a wave holds is computed here
-(`wave_lanes`).  There is no fallback to the plain version: a kernel that
-does not build or launch raises.
+`deblock_wave` is what `kernels.deblock.make_deblocker` runs per wave for
+CUDA planes; its plain version is that module's skewed torch deblocker
+(`plain=True`).  The kernel works on the raster planes in place and takes
+the picture's luma and chroma QP grids [hm, wm] and FilterOffsetA/B: it
+derives each edge's alpha, beta and tc0 from them as spec 8.7.2 does (the
+tables are in the kernel's constant memory).  Which macroblocks a wave
+holds is computed here (`wave_lanes`).  There is no fallback to the plain
+version: a kernel that does not build or launch raises.
 
 `launches["K4"]` counts kernel launches.
 """
@@ -16,11 +17,9 @@ from __future__ import annotations
 
 import torch
 
-from tpu264_torch.ref import deblock as rd
 from . import _build
 
 I32 = torch.int32
-_PARAMS: dict = {}
 
 launches = {"K4": 0}
 
@@ -33,26 +32,14 @@ def wave_lanes(cp: int, wm: int, hm: int) -> tuple[int, int]:
     return r0, max(0, r1 - r0 + 1)
 
 
-def pack_params(qp: int, cqp: int):
-    """The kernel's by-value filter parameters as a host int32 array:
-    alpha, beta, tc0[bS = 1..3] at indexA = indexB = qp for luma, then the
-    same five at cqp for chroma; cached."""
-    key = (qp, cqp)
-    if key not in _PARAMS:
-        vals = []
-        for q in (qp, cqp):
-            qi = min(max(int(q), 0), 51)
-            vals += [rd.ALPHA_TABLE[qi], rd.BETA_TABLE[qi], *rd.TC0_TABLE[qi]]
-        assert len(vals) == 10
-        _PARAMS[key] = _build.host_i32(vals)
-    return _PARAMS[key]
-
-
-def deblock_wave(y, u, v, bs_v, bs_h, cp: int, qp: int, cqp: int) -> None:
+def deblock_wave(y, u, v, bs_v, bs_h, cp: int, qp_y, qp_c, off_a: int = 0,
+                 off_b: int = 0) -> None:
     """Filter the MBs of wave `cp` of the int32 raster planes y [16hm, 16wm],
     u, v [8hm, 8wm] on the card, in place, one launch; bs_v, bs_h
     [4hm, 4wm] are the boundary strengths of the vertical and horizontal
-    4x4 edges.  Waves must be run in order, 0 .. wm + 2 (hm - 1) - 1."""
+    4x4 edges (0 on every edge left unfiltered), qp_y, qp_c [hm, wm] the
+    int32 luma and chroma QP of each MB, off_a, off_b FilterOffsetA/B.
+    Waves must be run in order, 0 .. wm + 2 (hm - 1) - 1."""
     dev = y.device
     if dev.type != "cuda":
         raise ValueError(f"deblock_wave: CUDA tensors expected, got {dev}")
@@ -64,7 +51,8 @@ def deblock_wave(y, u, v, bs_v, bs_h, cp: int, qp: int, cqp: int) -> None:
     for name, t, shape in (("y", y, (h, w)), ("u", u, (h // 2, w // 2)),
                            ("v", v, (h // 2, w // 2)),
                            ("bs_v", bs_v, (hm * 4, wm * 4)),
-                           ("bs_h", bs_h, (hm * 4, wm * 4))):
+                           ("bs_h", bs_h, (hm * 4, wm * 4)),
+                           ("qp_y", qp_y, (hm, wm)), ("qp_c", qp_c, (hm, wm))):
         _build.check_tensor("deblock_wave", name, t, shape, I32, dev)
     if not 0 <= cp < wm + 2 * (hm - 1):
         raise ValueError(f"deblock_wave: no wave {cp} in a {wm} x {hm} picture")
@@ -74,6 +62,6 @@ def deblock_wave(y, u, v, bs_v, bs_h, cp: int, qp: int, cqp: int) -> None:
     launches["K4"] += 1
     err = _build.lib().tpu264_deblock_wave(
         _build.ptr(y), _build.ptr(u), _build.ptr(v), _build.ptr(bs_v),
-        _build.ptr(bs_h), wm, cp, r0, n, pack_params(int(qp), int(cqp)),
-        _build.stream_of(y))
+        _build.ptr(bs_h), _build.ptr(qp_y), _build.ptr(qp_c), wm, cp, r0, n,
+        int(off_a), int(off_b), _build.stream_of(y))
     _build.check(err, "tpu264_deblock_wave")

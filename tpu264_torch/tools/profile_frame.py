@@ -6,11 +6,13 @@ tools (`--config ippp720_cabac`), and with weighted prediction and SEI over
 a fade (`--config ippp720_wp`); or a P frame of config 5 at 3840x2160
 (`--config gop4k`); or a B frame of config 4 at 1920x1088
 and its P anchor (`--config bgop1080`), or the same two frames through
-the band-tiled encoder (`--config tiled1080 --tiles N`).
+the band-tiled encoder (`--config tiled1080 --tiles N`); or the decode of
+config 3's two 720p frames by the port's decoder (`--config decode720`:
+its deblocking stage on the card against host parse and reconstruction).
 
     python -m tpu264_torch.tools.profile_frame
         [--config intra720|ippp720|ippp720_notools|ippp720_cabac
-                  |ippp720_wp|gop4k|bgop1080|tiled1080 [--tiles N]]
+                  |ippp720_wp|gop4k|bgop1080|tiled1080 [--tiles N]|decode720]
         [--out FILE.json]
 
 Encodes `synth_frame(1280, 720, t)` frames (QP 28, one slice) and prints
@@ -345,6 +347,38 @@ def profile_intra(res: dict) -> None:
         intra_patches(enc), lambda: enc.encode_sequence([frames[1]]))
 
 
+def profile_decode(res: dict) -> None:
+    """Config 3's two 720p frames (encoded here) decoded by `Decoder()` on
+    the card, warm: the deblocking stage (`_deblock_picture`: uploads, bS
+    maps, K4 a wave, the pull) against the rest (host parse and
+    reconstruction)."""
+    from tpu264_torch.decode import Decoder
+    cfg = EncoderConfig(width=W, height=H, qp=QP, symbol_mode="CABAC",
+                        deblock=True)
+    stream = Encoder(cfg).encode_sequence(
+        [synth_frame(W, H, t) for t in range(2)])
+    Decoder().decode(stream)                   # cold: warm-up
+    res.update(device="cuda", config=f"decode of {W}x{H} all-intra CABAC "
+                                     f"deblock QP {QP}, 2 frames")
+    st: dict = {}
+    real = Decoder._deblock_picture
+
+    def clocked(self, pic):
+        with Clock(st, "deblock"):
+            real(self, pic)
+
+    with patched([(Decoder, "_deblock_picture", "deblock")],
+                 lambda stage, fn: clocked):
+        with Clock(st, "decode"):
+            Decoder().decode(stream)
+    st["parse_recon"] = st.pop("decode") - st["deblock"]
+    res["stages"] = st
+    res["frame_seconds"] = (st["parse_recon"] + st["deblock"]) / 2
+    res["profile"] = profiled_frame(
+        [(Decoder, "_deblock_picture", "deblock")],
+        lambda: Decoder().decode(stream))
+
+
 def profile_ippp(res: dict, tools: bool, symbol_mode: str, w: int = W,
                  h: int = H, weighted: bool = False,
                  intra_period: int = 0) -> None:
@@ -564,7 +598,7 @@ def main() -> int:
     ap.add_argument("--config",
                     choices=("intra720", "ippp720", "ippp720_notools",
                              "ippp720_cabac", "ippp720_wp", "gop4k",
-                             "bgop1080", "tiled1080"),
+                             "bgop1080", "tiled1080", "decode720"),
                     default="intra720",
                     help="the frame to profile: all-intra CABAC (default) "
                          "or a P frame of IPPP CAVLC, with the default P "
@@ -573,7 +607,8 @@ def main() -> int:
                          "or config 5's P frame at 3840x2160; or config "
                          "4's B frame and P anchor at "
                          "1920x1088, through Encoder or (tiled1080) "
-                         "TiledEncoder")
+                         "TiledEncoder; or (decode720) the decode of "
+                         "config 3's two 720p frames")
     ap.add_argument("--tiles", type=int, default=1,
                     help="bands of --config tiled1080 (default 1)")
     ap.add_argument("--out", help="also write the JSON object to this file")
@@ -596,6 +631,8 @@ def main() -> int:
         profile_bgop(res)
     elif args.config == "tiled1080":
         profile_tiled(res, args.tiles)
+    elif args.config == "decode720":
+        profile_decode(res)
     elif args.config == "ippp720_wp":
         profile_ippp(res, tools=True, symbol_mode="CABAC", weighted=True)
     elif args.config == "gop4k":

@@ -5,7 +5,9 @@ border buffers for the wave body (K2 + K3), P waves with their motion
 vector maps and reference picture for the P wave body (K2 + KP), with the
 partitions' vectors for its default tools, B waves with both lists' maps,
 references and colocated flags for the B wave body (K2 + KB), pictures
-with mixed intra and inter macroblocks for the deblocker (K4),
+with mixed intra and inter macroblocks for the deblocker (K4), and the
+decoder's form of them (per-MB QPs, filter offsets, slice edges in the
+middle of a row, the 8x8 transform, two-list motion),
 raster MB dicts of I and P frames for the entropy coders' front ends
 (the CAVLC serializer, the CABAC binarizer), and the fading frames that
 weighted prediction is for.  numpy only."""
@@ -509,6 +511,63 @@ def random_deblock_picture(seed, wm, hm):
     ref = np.where(intra_mb, -1, r.integers(0, 5, size=(hm, wm)) == 0)
     return y, u, v, intra_mb, tc_luma.astype(np.int32), mv, \
         ref.astype(np.int32)
+
+
+def random_decode_deblock(seed, wm, hm, two_list=True, idc=2):
+    """A wm x hm MB picture for the deblocker as a decoder calls it, as
+    numpy: a dict of the planes y, u, v and intra_mb, tc_luma [4hm, 4wm],
+    the motion (two-list per 4x4 block: mv [4hm, 4wm, 2, 2] and the
+    picture ids pid [4hm, 4wm, 2], -1 where a list is unused; else
+    one-list per MB as `random_deblock_picture` has it), per-MB luma and
+    chroma QP grids qp, cqp [hm, wm] over 0-51 (the chroma grid through a
+    chroma QP offset), t8 [hm, wm], the MB-edge masks left_ok, top_ok
+    [hm, wm] (picture edges; at `idc` 2 also the edges of slices that
+    start in the middle of a row) and FilterOffsetA/B off_a, off_b in
+    -12 .. 12 (even, as slice headers code them)."""
+    from tpu264_torch.ref.transform import chroma_qp
+    y, u, v, intra_mb, tc_luma, mv, ref = random_deblock_picture(seed, wm,
+                                                                 hm)
+    r = np.random.default_rng(10_000 + seed)
+    out = dict(y=y, u=u, v=v, intra_mb=intra_mb, tc_luma=tc_luma, mv=mv,
+               ref=ref)
+    if two_list:
+        # per 8x8 block: list 0, list 1 or both, from three pictures
+        h8, w8 = 2 * hm, 2 * wm
+        vecs = np.array([(0, 0), (1, -1), (4, 0), (-3, 6), (0, -5)])
+        mv8 = vecs[r.integers(0, len(vecs), size=(h8, w8, 2))]
+        use = r.integers(1, 4, size=(h8, w8))          # 1: L0, 2: L1, 3: bi
+        pid8 = np.stack([np.where(use & 1, r.integers(0, 3, (h8, w8)), -1),
+                         np.where(use & 2, r.integers(0, 3, (h8, w8)), -1)],
+                        axis=-1)
+        intra8 = np.repeat(np.repeat(intra_mb, 2, 0), 2, 1)
+        mv8 = np.where(intra8[..., None, None], 0, mv8)
+        pid8 = np.where(intra8[..., None], -1, pid8)
+        out["mv"] = np.repeat(np.repeat(mv8, 2, 0), 2, 1).astype(np.int32)
+        out["ref"] = np.repeat(np.repeat(pid8, 2, 0), 2, 1).astype(np.int32)
+    qp = r.integers(0, 52, size=(hm, wm))
+    c_off = int(r.integers(-12, 13))
+    out["qp"] = qp.astype(np.int32)
+    out["cqp"] = np.array([[chroma_qp(int(q), c_off) for q in row]
+                           for row in qp], np.int32)
+    out["t8"] = (r.integers(0, 2, size=(hm, wm)) == 1) & ~intra_mb
+    left_ok = np.zeros((hm, wm), bool)
+    top_ok = np.zeros((hm, wm), bool)
+    left_ok[:, 1:] = True
+    top_ok[1:, :] = True
+    if idc == 2:
+        # slices of 3 .. 3 wm - 1 MBs in raster order: most start mid-row
+        starts = np.zeros(hm * wm, bool)
+        at = 0
+        while at < hm * wm:
+            starts[at] = True
+            at += int(r.integers(3, 3 * wm))
+        sid = np.cumsum(starts).reshape(hm, wm)
+        left_ok[:, 1:] &= sid[:, 1:] == sid[:, :-1]
+        top_ok[1:, :] &= sid[1:, :] == sid[:-1, :]
+    out["left_ok"], out["top_ok"] = left_ok, top_ok
+    out["off_a"] = 2 * int(r.integers(-6, 7))
+    out["off_b"] = 2 * int(r.integers(-6, 7))
+    return out
 
 
 def random_records(seed, n):
