@@ -86,13 +86,22 @@ Phases (any failure exits non-zero, before the result line):
     wave in every picture and no other kernel; decode seconds a frame, ms
     a MB and the deblocking stage's time on the card (and of its plain
     version on the CPU) printed; an x264 stream with per-MB QPs and
-    filter offsets decodes on the card to the CPU decoder's frames.
+    filter offsets decodes on the card to the CPU decoder's frames;
+15. `tpu264_torch.runtime.dryrun.entry("cuda")`: one QCIF all-intra
+    CAVLC frame equal to `entry("cpu")`'s, stream and recon;
+16. the dry run, `dryrun_multichip(4, devices=["cuda"] * 4)`: config
+    4's tools (hierarchical B, CABAC, rate control at 2 Mb/s, deblock,
+    halos) at 1280 x 128 over 2 lanes x 2 bands on the one card, 5 frames
+    a lane, each lane's stream decoded on the card to the encoder's
+    recons, each lane held to the golden `dryrun_multichip_4` (SHA-256,
+    frame sizes and QPs); encode and decode seconds printed.
 
 The line before the last is a JSON object with one entry per kernel
 (`launches`: the sum over the four 720p main paths, config 4 and its two
-tiled paths, the weighted 720p path, config 5 and the decode, phases 4,
-7, 8, 9, 10, 11, 12 and 14, each driven with the counts set to 0 just
-before and read just after; `launches_by_path` splits it; KP's `ms` is a wave of the default P
+tiled paths, the weighted 720p path, config 5, the decode, `entry` and
+the dry run, phases 4, 7, 8, 9, 10, 11, 12, 14, 15 and 16, each driven
+with the counts set to 0 just before and read just after;
+`launches_by_path` splits it; KP's `ms` is a wave of the default P
 tools, `ms_tools_off` one without them, `ms_weighted` (with its
 `plain_ms_weighted`, `body_ms_weighted` and `bound_ms_weighted`) the
 weighted golden's widest wave, and `weighted` lists the weighted cases
@@ -2019,6 +2028,78 @@ def phase_decode(card: str) -> dict:
     return counts
 
 
+def phase_entry() -> dict:
+    """`tpu264_torch.runtime.dryrun.entry`: one all-intra QCIF frame on the
+    card (K2 + K3 a wave, K4 a wave, CAVLC) equals the same call on the
+    CPU, stream and recon -> the card's launch counts."""
+    from tpu264_torch.runtime.dryrun import entry
+    fn, args = entry("cuda")
+    reset_counts()
+    stream, recon = fn(*args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    fn_cpu, args_cpu = entry("cpu")
+    want, want_recon = fn_cpu(*args_cpu)
+    if stream != want:
+        fail("entry: the card's stream differs from the CPU's")
+    for c, a, b in zip("YUV", recon, want_recon):
+        if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+            fail(f"entry: the card's recon {c} differs from the CPU's")
+    print(f"entry (QCIF all-intra CAVLC, QP 28): {len(stream)} bytes, equal "
+          f"to the CPU's; launches {counts}")
+    for k in ("K2", "K3", "K4"):
+        if counts[k] <= 0:
+            fail(f"entry: {k} was not launched")
+    if any(counts[k] for k in ("K1", "KP", "KB", "K2_blocks", "K3_blocks",
+                               "K4_lines")):
+        fail(f"entry: launches {counts} outside K2, K3 and K4")
+    return counts
+
+
+def phase_dryrun(card: str) -> dict:
+    """`dryrun_multichip(4, devices=["cuda"] * 4)`: the band-tiled
+    config-4 pipeline (hierarchical B, CABAC, rate control at 2 Mb/s,
+    deblocking, halos) at 1280 x 128 over a [2 lanes, 2 bands] mesh laid
+    on the one card, every lane's stream decoded on the card to the
+    encoder's recons (the function raises otherwise); each lane's SHA-256,
+    bytes, frame sizes and QPs held to the golden `dryrun_multichip_4`
+    from the reference's dry run -> the launch counts of encode and
+    decode (K1, K2, K3, KP, KB and K4 each at least once)."""
+    from tpu264_torch.runtime.dryrun import dryrun_multichip
+    g = golden("dryrun_multichip_4")
+    reset_counts()
+    try:
+        res = dryrun_multichip(4, devices=["cuda"] * 4,
+                               width=g["config"]["width"])
+    except RuntimeError as e:           # a decode that differs, or lost
+        fail(str(e))
+    counts = read_counts()
+    if res["mesh"] != g["mesh"] or res["height"] != g["config"]["height"] \
+            or len(res["lanes"]) != len(g["lanes"]):
+        fail(f"dryrun: mesh {res['mesh']}, height {res['height']}, "
+             f"{len(res['lanes'])} lanes")
+    for i, (got, want) in enumerate(zip(res["lanes"], g["lanes"])):
+        print(f"dryrun lane {i}: {got['bytes']} bytes, sha256 "
+              f"{got['sha256']}, frame bits {got['frame_bits']}, QPs "
+              f"{got['frame_qps']}")
+        for k in ("sha256", "bytes", "frame_bits", "frame_qps"):
+            if got[k] != want[k]:
+                fail(f"dryrun lane {i}: {k} {got[k]} != golden {want[k]}")
+    n_mbs = (len(res["lanes"]) * res["frames"] * res["width"]
+             * res["height"] // 256)
+    print(f"dryrun on {card}: {res['width']}x{res['height']}, mesh "
+          f"{res['mesh']} on one card; encode {res['encode_seconds']:.3f} s "
+          f"(first run), decode on the card {res['decode_seconds']:.3f} s = "
+          f"{1e3 * res['decode_seconds'] / n_mbs:.4f} ms a MB, every frame "
+          f"equal to the recon; launches {counts}")
+    for k in ("K1", "K2", "K3", "KP", "KB", "K4"):
+        if counts[k] <= 0:
+            fail(f"dryrun: {k} was not launched")
+    if any(counts[k] for k in ("K2_blocks", "K3_blocks", "K4_lines")):
+        fail(f"dryrun: slab entries launched: {counts}")
+    return counts
+
+
 def phase_tiled(name: str, what: str) -> dict:
     """Golden `name` through `TiledEncoder` (its "mesh" is [1, bands]):
     one band over `make_mesh(1, gop=1)` (no device named: the card, as
@@ -2195,11 +2276,14 @@ def main() -> int:
     phase_p_wave_body_vs_cpu(dev, NO_TOOLS)
     phase_p_wave_body_vs_cpu(dev, Tools(True, True, True))
     counts_d = phase_decode(card)
+    counts_e = phase_entry()
+    counts_r = phase_dryrun(card)
     paths = {"config3_720p": counts, "ippp_720p": counts_p,
              "ippp_720p_tools": counts_t, "ippp_720p_cabac": counts_c,
              "bgop_1080p": counts_b, "tiled_bgop_1080p": counts_t1,
              "tiled4_bgop_1080p": counts_t4, "ippp_720p_wp_sei": counts_w,
-             "config5_4k_gop": counts_g, "decode": counts_d}
+             "config5_4k_gop": counts_g, "decode": counts_d,
+             "entry": counts_e, "dryrun_multichip_4": counts_r}
     rows = []
     for k in sorted(KERNELS):
         name, source, replaces, _ = KERNELS[k]

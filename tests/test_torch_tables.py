@@ -229,11 +229,17 @@ def test_port_never_imports_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tpu264' or m.startswith('tpu264.')]\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n")
+        "print(' '.join(mods))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 40
+    mods = set(res.stdout.split())
+    assert len(mods) >= 40
+    # the entry points of runtime/dryrun.py and the tools are walked too
+    assert {"tpu264_torch.runtime.dryrun", "tpu264_torch.tools.card",
+            "tpu264_torch.tools.rd_harness", "tpu264_torch.tools.x264_lavc",
+            "tpu264_torch.tools.scaling_artifact",
+            "tpu264_torch.tools.profile_frame"} <= mods
 
 
 def imported_roots(path) -> set:
@@ -268,6 +274,11 @@ def test_port_sources_import_no_jax():
     assert not bad, bad
     assert "tpu264_torch" in imported_roots(
         ROOT / "tpu264_torch" / "decode" / "decoder.py")
+    scanned = {str(f.relative_to(ROOT)) for f in files}
+    assert {"tpu264_torch/runtime/dryrun.py",
+            "tpu264_torch/tools/rd_harness.py",
+            "tpu264_torch/tools/scaling_artifact.py",
+            "tpu264_torch/tools/x264_lavc.py"} <= scanned
 
 
 def test_chip_smoke_imports_no_jax():

@@ -417,6 +417,69 @@ def check_golden_tiled_reference(name: str):
     return cfg, tiles
 
 
+def reference_rd_tool():
+    """The reference's `tools/rd_harness.py` as a module, imported without
+    its side effects on this process (it edits `sys.path` and
+    `os.environ`)."""
+    import importlib.util
+    import sys
+    saved_path, saved_env = list(sys.path), dict(os.environ)
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "reference_rd_harness",
+            Path(__file__).resolve().parents[1] / "tools" / "rd_harness.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path[:] = saved_path
+        os.environ.clear()
+        os.environ.update(saved_env)
+    return mod
+
+
+def dryrun_golden(width: int) -> dict:
+    """The reference's dry run (`__graft_entry__.dryrun_multichip(4)`'s
+    setup) at `width`: its `TiledEncoder` over `make_mesh(4)` (2 lanes x 2
+    bands of the virtual CPU devices), lane g coding `synth_frame(w, h, t
+    + 7 g)`, t < 5 -> the golden entry: config, mesh, frames and each
+    lane's SHA-256, bytes, frame sizes and slice QPs in display order."""
+    from tpu264.coding.encoder import build_bgop_plan
+    from tpu264.config import EncoderConfig
+    from tpu264.media.synth import synth_frame
+    from tpu264.runtime.tiled import TiledEncoder, make_mesh
+    mesh = make_mesh(4)
+    gop, tile = mesh.shape["gop"], mesh.shape["tile"]
+    config = dict(width=width, height=64 * tile, qp=30, intra_period=0,
+                  num_b_frames=2, symbol_mode="CABAC", deblock=True,
+                  rate_control=True, bitrate=2_000_000)
+    cfg = EncoderConfig(**config)
+    te = TiledEncoder(cfg, mesh)
+    coded = []                  # per coded frame: (bits, qp) of each lane
+    emit = te._emit_frame
+
+    def spy(outs, fins, slice_type, frame_num, qp, **kw):
+        n0 = [len(o) for o in outs]
+        emit(outs, fins, slice_type, frame_num, qp, **kw)
+        coded.append([(8 * sum(len(b) for b in o[n:]), int(q))
+                      for o, n, q in zip(outs, n0, qp)])
+
+    te._emit_frame = spy
+    nfr = 5
+    streams = te.encode_sequence([[synth_frame(width, cfg.height, t + 7 * g)
+                                   for t in range(nfr)] for g in range(gop)])
+    order = [p[0] for p in build_bgop_plan(nfr, 2, 0)]
+    lanes = []
+    for g, s in enumerate(streams):
+        bits, qps = [None] * nfr, [None] * nfr
+        for disp, lane in zip(order, coded):
+            bits[disp], qps[disp] = lane[g]
+        lanes.append({"sha256": hashlib.sha256(s).hexdigest(),
+                      "bytes": len(s), "frame_bits": bits,
+                      "frame_qps": qps})
+    return {"config": config, "mesh": [gop, tile], "frames": nfr,
+            "lane_stride": 7, "lanes": lanes}
+
+
 def check_golden_port_on_cpu(name: str):
     """Hold the port's encoder on the CPU to golden `name` -> its config;
     with rate control, its per-frame QPs too."""

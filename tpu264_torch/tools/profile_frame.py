@@ -8,10 +8,11 @@ a fade (`--config ippp720_wp`); or a P frame of config 5 at 3840x2160
 and its P anchor (`--config bgop1080`), or the same two frames through
 the band-tiled encoder (`--config tiled1080 --tiles N`); or the decode of
 config 3's two 720p frames by the port's decoder (`--config decode720`:
-its deblocking stage on the card against host parse and reconstruction).
+its deblocking stage on the card against host parse and reconstruction);
+or a 1920x1088 all-intra CAVLC frame (`--config intra1080`, below).
 
     python -m tpu264_torch.tools.profile_frame
-        [--config intra720|ippp720|ippp720_notools|ippp720_cabac
+        [--config intra720|intra1080|ippp720|ippp720_notools|ippp720_cabac
                   |ippp720_wp|gop4k|bgop1080|tiled1080 [--tiles N]|decode720]
         [--out FILE.json]
 
@@ -76,6 +77,20 @@ are the band steps of every band of those frames (`TiledEncoder._frame`
 with the arguments the sequence gave it); the stages add "halo", the
 reference rows each band takes from its neighbours.
 
+With `--config intra1080` the encoder is the all-intra CAVLC path of
+`bench.py:86-99` (`EncoderConfig(width=1920, height=1088, qp=28)`:
+CAVLC, deblocking, one slice; `Encoder(cfg, intra_batch=B)`, B from
+`TPU264_BATCH`, default 4), the counterpart of the reference's
+`tools/profile_stages.py` and `tools/profile_ser.py`, under their names:
+`stages` holds the warm seconds (mean of 3 synchronised calls) of the wave
+loop ("wavefront_s"), "reorder_s", the CAVLC serializer ("serialize_s")
+and packer ("pack_s", and their sum "serialize_pack_s"), `encode_blocks`
+alone on 17 x wm x hm zero blocks ("encode_blocks17n_s"), "deblock_s",
+the pull of the words ("pull_s") and the host NAL assembly
+("host_nal_s"); `profile` the launches by stage and the device time of a
+frame through the per-frame path, and `batched` the batched entry's
+seconds a frame over B frames with its own profile.
+
 With `--k1-stages` the kernel library is built with `-DK1_PROFILE`, and
 every launch of the CABAC coder prints, per slice and stage (warp 0 the
 coder, 1 the resolver, 2 the loader), the cycles the stage worked beside the
@@ -90,13 +105,15 @@ import argparse
 import bisect
 import contextlib
 import json
-import subprocess
+import os
 import sys
 import time
 
 import numpy as np
 import torch
 
+from tpu264_torch.bits import nal
+from tpu264_torch.bits.slicehdr import SLICE_I
 from tpu264_torch.coding import encoder as encoder_mod
 from tpu264_torch.coding import inter_frame, intra_frame
 from tpu264_torch.coding.encoder import Encoder
@@ -105,6 +122,7 @@ from tpu264_torch.entropy import cabac_binarize as cbz
 from tpu264_torch.kernels import interp as kint
 from tpu264_torch.kernels import me as kme
 from tpu264_torch.media.synth import synth_frame
+from tpu264_torch.tools.card import card_info
 
 W, H, QP = 1280, 720, 28
 BGOP_W, BGOP_H = 1920, 1088     # config 4 (`bench.py:56-58`)
@@ -345,6 +363,109 @@ def profile_intra(res: dict) -> None:
     res["stages"], res["cabac"] = stage_times(enc, frames[1])
     res["profile"] = profiled_frame(
         intra_patches(enc), lambda: enc.encode_sequence([frames[1]]))
+
+
+def timed(fn, n: int = 3) -> tuple:
+    """Mean host seconds of `n` warm calls of `fn()`, synchronised on both
+    sides (one untimed call first) -> (seconds, the last result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) / n, out
+
+
+def cavlc_intra_patches(enc: Encoder) -> list:
+    """(owner, attribute, stage) of every stage of an all-intra CAVLC
+    frame, under the reference's `tools/profile_stages.py` names."""
+    return [(enc, "_encode_frame", "wavefront"),
+            (encoder_mod, "reorder_wave_outputs", "reorder"),
+            (encoder_mod, "serialize", "serialize_pack"),
+            (encoder_mod, "recon_planes", "deblock"),
+            (encoder_mod, "_pull_words", "host_nal"),
+            (encoder_mod, "cavlc_nalus", "host_nal")]
+
+
+def profile_intra1080(res: dict, batch: int) -> None:
+    """The 1920x1088 all-intra CAVLC path of `bench.py:86-99`
+    (`EncoderConfig(width=1920, height=1088, qp=28)`: CAVLC, deblocking,
+    one slice; `Encoder(cfg, intra_batch=batch)`), the counterpart of the
+    reference's `tools/profile_stages.py` and `profile_ser.py`: warm
+    seconds of each stage of a frame, launches by stage and device time
+    of a frame through the per-frame path, and the batched entry's
+    seconds a frame over `batch` frames."""
+    from tpu264_torch.entropy import device_cavlc as dcav
+    from tpu264_torch.kernels import deblock_wave as k4w, \
+        i16_chroma_wave as k3w, i4x4_wave as k2w
+    w, h = BGOP_W, BGOP_H
+    cfg = EncoderConfig(width=w, height=h, qp=QP)
+    enc = Encoder(cfg, intra_batch=batch)
+    frames = [synth_frame(w, h, t) for t in range(batch)]
+    cold = {}
+    with Clock(cold, "frame"):                      # cold: build + warm-up
+        enc.encode_sequence(frames[:1])
+    res.update(device=str(enc.device),
+               config=f"{w}x{h} all-intra CAVLC deblock QP {QP} "
+                      f"(bench.py:86-99), intra_batch {batch}",
+               cold_frame_seconds=cold["frame"])
+    res["frame_seconds"], _ = timed(lambda: enc.encode_sequence(frames[:1]))
+    counters = [k2w.launches, k3w.launches, k4w.launches]
+    before = {k: v for c in counters for k, v in c.items()}
+    stream = enc.encode_sequence(frames[:1])
+    res["kernel_launches"] = {k: v - before[k] for c in counters
+                              for k, v in c.items()}
+    res["stream"] = {"bytes": len(stream), "frame_bits": enc.stats[-1].bits}
+    wm, hm, pic = cfg.width_mbs, cfg.height_mbs, enc.pic
+    rows = list(pic.rows)
+    y, u, v = (torch.as_tensor(np.asarray(p), device=enc.device)
+               for p in frames[0])
+    st: dict = {}
+    st["wavefront_s"], (dev_out, ys) = timed(
+        lambda: enc._encode_frame(y, u, v, QP))
+    st["reorder_s"], mbd = timed(
+        lambda: intra_frame.reorder_wave_outputs(enc.sched, ys))
+    st["serialize_s"], (vals, lens) = timed(
+        lambda: dcav.serialize_frame(mbd, wm, hm, rows,
+                                     t8_mode=pic.t8_mode))
+    st["pack_s"], (words, nbits) = timed(
+        lambda: dcav.pack_slices(vals, lens, len(rows), enc._cap_words))
+    st["serialize_pack_s"] = st["serialize_s"] + st["pack_s"]
+    n_blocks = 17 * wm * hm
+    g16 = torch.zeros((n_blocks, 16), dtype=torch.int32, device=enc.device)
+    nc = torch.zeros(n_blocks, dtype=torch.int32, device=enc.device)
+    st["encode_blocks17n_s"], _ = timed(
+        lambda: dcav.encode_blocks(g16, nc, 16))
+    st["deblock_s"], _ = timed(
+        lambda: encoder_mod.recon_planes(enc._deblock, pic, dev_out, mbd,
+                                         QP))
+
+    def pull():
+        nbits_np = nbits.cpu().numpy()
+        return encoder_mod._pull_words(words, nbits_np), nbits_np
+
+    st["pull_s"], (words_np, nbits_np) = timed(pull)
+
+    def host_nal():
+        return encoder_mod.cavlc_nalus(
+            pic, words_np, nbits_np, None,
+            lambda s: enc._slice_header(s, SLICE_I, QP, frame_num=0,
+                                        idr_pic_id=0, is_idr=True),
+            3, nal.NAL_IDR)
+
+    st["host_nal_s"], _ = timed(host_nal)
+    res["stages"] = st
+    res["nbits"] = nbits_np.tolist()
+    res["encode_blocks_blocks"] = n_blocks
+    res["profile"] = profiled_frame(
+        cavlc_intra_patches(enc), lambda: enc.encode_sequence(frames[:1]))
+    secs, _ = timed(lambda: enc.encode_sequence(frames), n=2)
+    res["batched"] = {
+        "batch": batch, "seconds_per_frame": secs / batch,
+        "frames_per_second": batch / secs,
+        "profile": profiled_frame(cavlc_intra_patches(enc),
+                                  lambda: enc.encode_sequence(frames))}
 
 
 def profile_decode(res: dict) -> None:
@@ -593,12 +714,13 @@ def profile_tiled(res: dict, n_tiles: int) -> None:
         res[key] = out
 
 
-def main() -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config",
-                    choices=("intra720", "ippp720", "ippp720_notools",
-                             "ippp720_cabac", "ippp720_wp", "gop4k",
-                             "bgop1080", "tiled1080", "decode720"),
+                    choices=("intra720", "intra1080", "ippp720",
+                             "ippp720_notools", "ippp720_cabac",
+                             "ippp720_wp", "gop4k", "bgop1080", "tiled1080",
+                             "decode720"),
                     default="intra720",
                     help="the frame to profile: all-intra CABAC (default) "
                          "or a P frame of IPPP CAVLC, with the default P "
@@ -608,31 +730,37 @@ def main() -> int:
                          "4's B frame and P anchor at "
                          "1920x1088, through Encoder or (tiled1080) "
                          "TiledEncoder; or (decode720) the decode of "
-                         "config 3's two 720p frames")
+                         "config 3's two 720p frames; or (intra1080) the "
+                         "1920x1088 all-intra CAVLC path of bench.py, "
+                         "stage by stage and through the batched entry "
+                         "(TPU264_BATCH frames, default 4)")
     ap.add_argument("--tiles", type=int, default=1,
                     help="bands of --config tiled1080 (default 1)")
     ap.add_argument("--out", help="also write the JSON object to this file")
     ap.add_argument("--k1-stages", action="store_true",
                     help="build with -DK1_PROFILE: the CABAC coder prints "
                          "the busy cycles of its stages at every launch")
-    args = ap.parse_args()
+    return ap
+
+
+def main() -> int:
+    args = build_parser().parse_args()
     if not torch.cuda.is_available():
         print("profile_frame needs a CUDA card", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    info = card_info()
     if args.k1_stages:
         from tpu264_torch.kernels import _build
         _build.NVCC_FLAGS.append("-DK1_PROFILE")
-    res: dict = {"card": card, "torch": torch.__version__}
+    res: dict = {"card": info["card"], "torch": info["torch"]}
     if args.config == "bgop1080":
         profile_bgop(res)
     elif args.config == "tiled1080":
         profile_tiled(res, args.tiles)
     elif args.config == "decode720":
         profile_decode(res)
+    elif args.config == "intra1080":
+        profile_intra1080(res, int(os.environ.get("TPU264_BATCH", "4")))
     elif args.config == "ippp720_wp":
         profile_ippp(res, tools=True, symbol_mode="CABAC", weighted=True)
     elif args.config == "gop4k":
