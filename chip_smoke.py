@@ -6,23 +6,26 @@ Phases (any failure exits non-zero, before the result line):
  1. print the card (`nvidia-smi` name, power limit) and the torch / CUDA
     versions; refuse to run without CUDA;
  2. build the CUDA kernel library from `tpu264_torch/csrc` (timed);
- 3. hold each kernel (K1 CABAC engine, K2 I4x4 wave body, K3 I16x16 +
-    chroma wave body, KP P wave body, KB B wave body, K4 deblock wave, and
-    the entries on slabs: DCT + quant, DCT, luma deblock lines) to its
+ 3. hold each kernel (K1 CABAC engine, K2 I4x4 wave body of I pictures,
+    K3 I16x16 + chroma wave body, KP P wave body and KB B wave body (one
+    launch a picture each, the Intra4x4 search inside), K4 deblock wave,
+    and the entries on slabs: DCT + quant, DCT, luma deblock lines) to its
     plain torch version on the card, at the shapes of the main paths and
     on seeded corner cases, with exact equality, and time both; K1 on the
     records of a 720p I frame and of a 720p P frame with the default P
     tools (init table 1), 1 and 3 slices, and of a 1920x1088 B frame; KP
-    with and without the reference's default P tools (16x8/8x16, P_8x8,
-    the 8x8 transform), on seeded waves where every partition type and
-    both transforms are chosen; KB on the widest wave (60 lanes) of a
-    1920x1088 B frame of config 4 with and without partitions and on
-    seeded waves of that width (every btype, every partition shape with
-    every (c0, c1)) at QP 0, 28 and 51, `allow_parts` on and off; K4 also
-    on that B frame (two-list bS); KP with explicit weights (64, 0),
-    (58, -7) and (71, 12) on seeded waves whose source is faded by them,
-    the P tools off and on, and on the widest wave of the first P frame of
-    `ippp_720p_wp_sei` as its encode runs it; K4 as the decoder runs it,
+    on whole 720p P pictures and on their widest waves (a picture of one
+    wave) with and without the reference's default P tools (16x8/8x16,
+    P_8x8, the 8x8 transform), and on seeded waves where every partition
+    type and both transforms are chosen; KB on whole 1920x1088 B pictures
+    of config 4 with and without partitions and on their widest waves (60
+    lanes), on seeded waves of that width (every btype, every partition
+    shape with every (c0, c1)) at QP 0, 28 and 51, `allow_parts` on and
+    off, and on a B picture of a 17-row band; K4 also on that B frame
+    (two-list bS); KP with explicit weights (64, 0), (58, -7) and (71, 12)
+    on seeded waves whose source is faded by them, the P tools off and on,
+    and on the first P picture of `ippp_720p_wp_sei` and its widest wave
+    as its encode runs them; K4 as the decoder runs it,
     on seeded 1280x720 and 1920x1088 pictures with per-MB QP grids over
     0-51, filter offsets, idc 2 slice edges in the middle of MB rows, t8
     MBs and two-list motion;
@@ -38,9 +41,9 @@ Phases (any failure exits non-zero, before the result line):
  6. config 2: CIF IPPP CAVLC (1 IDR + 2 P, deblock, full-search and
     quarter-pel ME, no partitions) against its golden;
  7. IPPP at 720p: the same at 1280x720 against its golden, with the
-    launches of every frame asserted: a P frame runs K2 and KP once a
-    wave, K4 at most once a wave, and K1, K3's wave form and the slab
-    entries never;
+    launches of every frame asserted: a P frame runs KP once, K4 at most
+    once a wave, and K1, K2's and K3's wave forms and the slab entries
+    never (an IDR frame K2 once a wave);
  8. config 2 at `bench.py`'s settings (CIF, QP 28, the default P tools,
     1 IDR + 3 P) and IPPP at 720p with the default P tools (1 IDR + 2 P),
     each against its golden with the launches of every frame asserted as
@@ -52,18 +55,18 @@ Phases (any failure exits non-zero, before the result line):
     config 4 (`bench.py:56-58, 69-72`): 7 frames at 1920x1088, hierarchical
     B (`num_b_frames=2`), CABAC, deblock, rate control at 8 Mb/s, through
     `Encoder(cfg)`, against its golden (`bgop_1080p_cabac_rc`) and its
-    per-frame QPs, every frame's launches asserted: a B frame runs K2 and
-    KB once a wave, K4 at most once a wave and K1 once, never KP or K3's
-    wave form;
+    per-frame QPs, every frame's launches asserted: a B frame runs KB
+    once, K4 at most once a wave and K1 once, never KP or K2's or K3's
+    wave forms;
 10. config 4 through `TiledEncoder` (the band-tiled encoder, `bench.py`'s
     headline path): one band over `make_mesh(1, gop=1)` as `bench.py:75`
     builds it, and four bands of 17 MB rows on the one card (over four
     cards where there are), each against its golden from the reference's
     `TiledEncoder` on the same mesh shape (`tiled_bgop_1080p_cabac_rc`,
     `tiled4_bgop_1080p_cabac_rc`: SHA-256, frame sizes and QPs), every
-    frame's launches asserted per band (K2 and KP or KB once a wave of
-    each band, K4 at most once, K1 once a band picture, K3 on the I frame
-    only), and the warm frames/s of `Encoder` and of `TiledEncoder` on the
+    frame's launches asserted per band (KP or KB once a band, K4 at most
+    once a wave, K1 once a band picture, K2 and K3 on the I frame only),
+    and the warm frames/s of `Encoder` and of `TiledEncoder` on the
     same frames printed side by side;
 11. IPPP CABAC at 720p with weighted prediction and SEI over five frames
     of a fade (`ippp_720p_wp_sei`) against its golden, with every P
@@ -101,12 +104,15 @@ The line before the last is a JSON object with one entry per kernel
 tiled paths, the weighted 720p path, config 5, the decode, `entry` and
 the dry run, phases 4, 7, 8, 9, 10, 11, 12, 14, 15 and 16, each driven
 with the counts set to 0 just before and read just after;
-`launches_by_path` splits it; KP's `ms` is a wave of the default P
-tools, `ms_tools_off` one without them, `ms_weighted` (with its
-`plain_ms_weighted`, `body_ms_weighted` and `bound_ms_weighted`) the
-weighted golden's widest wave, and `weighted` lists the weighted cases
-with their max abs err; KB's `ms` the widest
-wave of the 1080p B frame, `body_ms` K2 + KB on it; K1's `ms`, `bins` and
+`launches_by_path` splits it; KP's `ms`, `plain_ms` and `bound_ms` are
+a 720p P picture of the default P tools (one launch; `waves` of them,
+`ms_wave` a wave), `ms_one_wave` a picture of its widest wave alone (the
+wrapper's host time included), `ms_tools_off` a picture without the
+tools, `ms_weighted` (with `ms_wave_weighted`, `plain_ms_weighted` and
+`bound_ms_weighted`) the weighted golden's first P picture, and
+`weighted` lists the weighted cases with their max abs err; KB's the
+1080p B picture that allows partitions (`lanes` its widest wave's), and
+`ms_band`, `plain_ms_band` a 17-row band's B picture; K1's `ms`, `bins` and
 bound are the 720p P frame's, `ms_i_frame` and `bins_i_frame` the I
 frame's, `ms_b_1080p` and `bins_b_1080p` the 1080p B frame's; K4's
 `ms_1080p` a wave of the 1080p B frame, `ms_grids_720p` and
@@ -163,13 +169,13 @@ KERNELS = {
            "tpu264/kernels/pallas_kernels.py:142", True),
     "K4_lines": ("deblock_luma_lines", "tpu264_torch/csrc/deblock_luma.cu",
                  "tpu264/kernels/pallas_kernels.py:142", False),
-    # K2's and K3's functions in the P wave body (the inter residual; the
-    # I16x16, intra and inter chroma residuals)
-    "KP": ("p_wave", "tpu264_torch/csrc/p_wave.cu",
+    # K2's and K3's functions in the P wave body (the Intra4x4 search and
+    # the inter residual; the I16x16, intra and inter chroma residuals),
+    # one launch a P picture
+    "KP": ("p_frame", "tpu264_torch/csrc/p_wave.cu",
            "tpu264/kernels/pallas_kernels.py:55,66", False),
-    # and in the B wave body (the inter residual; the I16x16, intra and
-    # inter chroma residuals)
-    "KB": ("b_wave", "tpu264_torch/csrc/b_wave.cu",
+    # and in the B wave body, one launch a B picture
+    "KB": ("b_frame", "tpu264_torch/csrc/b_wave.cu",
            "tpu264/kernels/pallas_kernels.py:55,66", False),
 }
 BW, BH = 1920, 1088             # config 4 (`bench.py:56-58`)
@@ -470,47 +476,90 @@ def check_wave_body(dev, wave) -> dict:
                        **bound(n_bytes, n_ops))}
 
 
-def p_frame_wave(dev, tools) -> tuple:
-    """The arguments of the `wave_body` call of the widest wave of a 720p
-    P frame (synth frames 1 over 0, QP 28, one slice, the P `tools`)
-    through `make_inter_encoder` on the card, the border buffers and maps
-    as they are before the call: (planes, cu_pad, cv_pad, qp, cqp, lam4,
-    lam24, lam_me, bd, mv_map, ref_map, coords, avail, mv_me, gy, gu, gv,
-    mv_parts, tools)."""
+def clone_state(x):
+    """A copy of a wave body argument that the kernels write (the border
+    buffers, the maps) or of any other tensor argument."""
+    if isinstance(x, dict):
+        return clone_bd(x)
+    if isinstance(x, tuple) and x and all(isinstance(t, torch.Tensor)
+                                          for t in x):
+        return tuple(t.clone() for t in x)
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def capture_picture(mod, run) -> tuple:
+    """The positional arguments of the one `mod.frame_body` call that
+    `run()` makes (a P or B picture's wave table, tables and state), every
+    tensor copied as the picture starts."""
+    inner, seen = mod.frame_body, []
+
+    def spy(*args, **kw):
+        seen.append(tuple(clone_state(a) for a in args))
+        return inner(*args, **kw)
+
+    mod.frame_body = spy
+    try:
+        run()
+    finally:
+        mod.frame_body = inner
+    if len(seen) != 1:
+        fail(f"{mod.__name__}: {len(seen)} frame_body calls in a picture")
+    return seen[0]
+
+
+# a P picture case: `inter_frame.frame_body`'s 21 positional arguments
+# (planes, cu_pad, cv_pad, qp, cqp, lam4, lam24, lam_me, bd, mv_map,
+# ref_map, coords, avail, mv_me, gy, gu, gv, mv_parts, tools, wy, oy), the
+# per-wave arrays [n_waves, bmax, ...]; a P wave case: `wave_body`'s 19
+# (the same, a wave's rows, without wy and oy)
+
+
+def p_state(pic):
+    """Copies of a P picture or wave case's border buffers and maps."""
+    return clone_bd(pic[8]), pic[9].clone(), pic[10].clone()
+
+
+
+def p_wave_of(pic, w: int) -> tuple:
+    """Wave w of P picture case `pic` as a wave case, the border buffers
+    and maps as KP leaves them after waves [0, w)."""
+    from tpu264_torch.coding import inter_frame as tinter
+    st = p_state(pic)
+    tinter.frame_body(*pic[:8], *st, *pic[11:], waves=(0, w))
+    torch.cuda.synchronize()
+    return (*pic[:8], *st,
+            *(None if t is None else t[w] for t in pic[11:18]), pic[18])
+
+
+def p_frame_case(dev, tools) -> tuple:
+    """A 720p P frame (synth frames 1 over 0, QP 28, one slice, the P
+    `tools`) through `make_inter_encoder` on the card, which launches KP
+    once and K2 never -> (its picture case as the picture starts, its
+    widest wave's case)."""
     from tpu264_torch.coding import inter_frame as tinter
     from tpu264_torch.coding.wavefront import build_schedule
     from tpu264_torch.media.synth import synth_frame
     sched = build_schedule(W // 16, H // 16, 1)
     planes = [torch.as_tensor(p, device=dev)
               for p in synth_frame(W, H, 1) + synth_frame(W, H, 0)]
-    inner, calls, seen = tinter.wave_body, [], []
-
-    def spy(*args, **kw):
-        if len(calls) == sched.n_waves // 2:
-            seen.extend((*args[:8], clone_bd(args[8]), args[9].clone(),
-                         args[10].clone(), *args[11:]))
-        calls.append(1)
-        return inner(*args, **kw)
-
-    tinter.wave_body = spy
-    try:
-        tinter.make_inter_encoder(sched, partitions=tools.partitions,
-                                  p8x8=tools.p8x8, t8=tools.t8)(*planes, QP)
-    finally:
-        tinter.wave_body = inner
-    if len(calls) != sched.n_waves or len(seen) != 19:
-        fail(f"720p P frame: {len(calls)} wave body calls for "
-             f"{sched.n_waves} waves")
-    return tuple(seen)
+    before = read_counts()
+    pic = capture_picture(tinter, lambda: tinter.make_inter_encoder(
+        sched, partitions=tools.partitions, p8x8=tools.p8x8,
+        t8=tools.t8)(*planes, QP))
+    torch.cuda.synchronize()
+    after = read_counts()
+    ran = {k: after[k] - before[k] for k in ("K2", "KP", "KB")}
+    if ran != {"K2": 0, "KP": 1, "KB": 0} or len(pic) != 21:
+        fail(f"720p P frame {tools}: launched {ran}")
+    return pic, p_wave_of(pic, sched.n_waves // 2)
 
 
 def seeded_p_wave(dev, qp: int, offset: int, tools, seed: int,
                   wp=(64, 0)) -> tuple:
-    """A seeded 720p P wave as `wave_body`'s arguments (19, as
-    `p_frame_wave` gives them): `random_p_wave`, or with the partitions or
-    the 8x8 transform `random_p_wave_tools`; with weights `wp` the source
-    tiles are faded by them (the lanes that the reference predicts, its
-    weighted samples predict)."""
+    """A seeded 720p P wave case: `random_p_wave`, or with the partitions
+    or the 8x8 transform `random_p_wave_tools`; with weights `wp` the
+    source tiles are faded by them (the lanes that the reference predicts,
+    its weighted samples predict)."""
     from tpu264_torch.coding import inter_frame as tinter
     from tpu264_torch.coding import intra_frame as tif
     from tpu264_torch.kernels import interp as kint
@@ -535,59 +584,18 @@ def seeded_p_wave(dev, qp: int, offset: int, tools, seed: int,
             i32(mvp) if tools.partitions else None, tools)
 
 
-def wave_state(case):
-    """Copies of a P wave case's border buffers and maps."""
-    return clone_bd(case[8]), case[9].clone(), case[10].clone()
-
-
-def wave_i4x4(case):
-    """The plain I4x4 results of a P wave case (KP's inputs from K2)."""
-    from tpu264_torch.coding import intra_frame as tif
-    planes, cu, cv, qp, cqp, lam4, lam24, lam_me, bd = case[:9]
-    coords, avail, _, gy = case[11:15]
-    ltop, lleft, _, _, _, _, mtop, mleft = tif.gather_border_ctx(
-        bd, coords[:, 0].long(), coords[:, 1].long())
-    return tif.eval_i4x4_plain(gy, ltop, lleft, mtop, mleft,
-                               *avail.unbind(1), qp, lam4, lam24)
-
-
-def kp_inputs(case, i4):
-    """KP's arguments after the maps, from a P wave case and its I4x4
-    results."""
-    planes, cu, cv, qp, cqp, lam4, lam24, lam_me = case[:8]
-    mb4, modebuf, _, coeffs4, j4 = i4
-    return (planes, cu, cv, *case[11:17], mb4, modebuf, coeffs4, j4, qp,
-            cqp, lam4, lam24, lam_me)
-
-
 def hold_p_wave(dev, case, wp, what: str) -> tuple:
-    """A P wave case with weights `wp` = (wy, oy): the whole body (K2's
-    wave form, then KP) against `wave_body_plain`, and KP alone against
-    `p_wave_plain` on the plain I4x4 results; every output, the border
-    buffers and the three map channels -> (max abs err, the plain
+    """A P wave case with weights `wp` = (wy, oy): KP on a picture of that
+    one wave (`wave_body`) against `wave_body_plain`, every output, the
+    border buffers and the three map channels -> (max abs err, the plain
     results)."""
     from tpu264_torch.coding import inter_frame as tinter
-    from tpu264_torch.coding import intra_frame as tif
-    from tpu264_torch.kernels import p_wave as kp
-    mvp, tools = case[17:19]
     wy, oy = wp
-    st_k, st_p = wave_state(case), wave_state(case)
+    st_k, st_p = p_state(case), p_state(case)
     got = tinter.wave_body(*case[:8], *st_k, *case[11:], wy=wy, oy=oy)
     torch.cuda.synchronize()
     want = tinter.wave_body_plain(*case[:8], *st_p, *case[11:], wy=wy, oy=oy)
-    err = max(differ(got, want, f"{what} body"),
-              differ(st_k[0], st_p[0], f"{what} body borders"),
-              differ({"mv_map": st_k[1], "ref_map": st_k[2]},
-                     {"mv_map": st_p[1], "ref_map": st_p[2]},
-                     f"{what} body maps"))
-    kp_in = kp_inputs(case, wave_i4x4(case))
-    st_k, st_p = wave_state(case), wave_state(case)
-    out = kp.alloc_outputs((case[11].shape[0],), dev, tools)
-    kp.p_wave(*st_k, *kp_in, tif._BLK_ORDER, out, mvp, tools, wy, oy)
-    torch.cuda.synchronize()
-    del out["modes"]
-    want = tinter.p_wave_plain(*st_p, *kp_in, mvp, tools, wy, oy)
-    err = max(err, differ(out, want, f"KP {what}"),
+    err = max(differ(got, want, f"KP {what}"),
               differ(st_k[0], st_p[0], f"KP {what} borders"),
               differ({"mv_map": st_k[1], "ref_map": st_k[2]},
                      {"mv_map": st_p[1], "ref_map": st_p[2]},
@@ -595,26 +603,82 @@ def hold_p_wave(dev, case, wp, what: str) -> tuple:
     return err, want
 
 
-def check_p_wave(dev, waves) -> dict:
-    """KP: the P wave kernel against `p_wave_plain` on the card, on the
-    same I4x4 results: every output, the border buffers and the three map
-    channels after the wave.  Cases: the widest wave of a 720p P frame
-    without the P tools and with the reference's default ones (`waves`:
-    the arguments of their `wave_body` calls), seeded 720p waves over
-    every availability combination, with padding lanes, neighbours that
-    agree with the search vector and ones that do not, and search vectors
-    past the padded plane's edges, at QP 0, 28 and 51 with chroma QP
-    offsets 0 and -2; and seeded waves with the default tools at QP 0, 28
-    and 51 (and with 16x8/8x16 alone, and the 8x8 transform alone, at 28),
-    whose source tiles steer lanes to every partition type and both
-    transforms.  The whole `wave_body` (K2's wave form, then KP) is held
-    to `wave_body_plain` on the same cases."""
+def hold_p_picture(pic, what: str) -> tuple:
+    """KP on a whole P picture case (one launch) against `p_frame_plain`
+    on the card: every output row, the border buffers and the maps after
+    the picture -> (max abs err, the plain results, the plain version's
+    milliseconds)."""
     from tpu264_torch.coding import inter_frame as tinter
-    from tpu264_torch.coding import intra_frame as tif
-    from tpu264_torch.kernels import i4x4_wave as k2w
+    st_k, st_p = p_state(pic), p_state(pic)
+    got = tinter.frame_body(*pic[:8], *st_k, *pic[11:])
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    want = tinter.p_frame_plain(*pic[:8], *st_p, *pic[11:])
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.monotonic() - t0)
+    err = max(differ(got, want, f"KP {what}"),
+              differ(st_k[0], st_p[0], f"KP {what} borders"),
+              differ({"mv_map": st_k[1], "ref_map": st_k[2]},
+                     {"mv_map": st_p[1], "ref_map": st_p[2]},
+                     f"KP {what} maps"))
+    return err, want, plain_ms
+
+
+def real_lanes(pic, want, at: int, n: int, valid) -> tuple:
+    """A picture case and its plain results as one wave of the picture's
+    real macroblocks (the per-wave arrays at pic[at:at + n], pairs of them
+    too, flattened and the padding lanes left out), for the bounds."""
+    m = torch.as_tensor(valid, device=want[next(iter(want))].device)
+
+    def sel(t):
+        if t is None:
+            return None
+        if isinstance(t, tuple):
+            return tuple(sel(x) for x in t)
+        return t[m]
+
+    return ((*pic[:at], *(sel(t) for t in pic[at:at + n]), *pic[at + n:]),
+            {k: v[m] for k, v in want.items()})
+
+
+def time_frame(mod, pic, state, out, counter: str, reps: int = 20) -> float:
+    """Device ms of one frame kernel launch on picture case `pic` (CUDA
+    events over `reps` launches, each of the whole picture again on the
+    state it left; every launch counted once)."""
+    from tpu264_torch.kernels import b_wave as kb, p_wave as kp
+    counts = kp.launches if counter == "KP" else kb.launches
+    before = counts[counter]
+    if counter == "KP":
+        ms = time_ms(lambda: mod.frame_body(*pic[:8], *state, *pic[11:],
+                                            out=out), reps)
+    else:
+        ms = time_ms(lambda: mod.frame_body(state[0], *pic[1:8], state[1],
+                                            *pic[9:], out=out), reps)
+    if counts[counter] != before + reps + 1:
+        fail(f"{counter}'s launch count is not one a picture")
+    return ms
+
+
+def check_p_wave(dev, frames) -> dict:
+    """KP: the P frame kernel against its plain version on the card,
+    every output, the border buffers and the three map channels.  Single
+    waves (pictures of one wave, `wave_body` against `wave_body_plain`):
+    the widest wave of a 720p P frame without the P tools and with the
+    reference's default ones (`frames`: (picture case, widest wave case)
+    of each), seeded 720p waves over every availability combination, with
+    padding lanes, neighbours that agree with the search vector and ones
+    that do not, and search vectors past the padded plane's edges, at QP
+    0, 28 and 51 with chroma QP offsets 0 and -2; and seeded waves with
+    the default tools at QP 0, 28 and 51 (and with 16x8/8x16 alone, and
+    the 8x8 transform alone, at 28), whose source tiles steer lanes to
+    every partition type and both transforms.  Whole pictures: both 720p
+    P frames in one launch each against `p_frame_plain`, timed a picture
+    and a wave."""
+    from tpu264_torch.coding import inter_frame as tinter
     from tpu264_torch.kernels import p_wave as kp
 
     full = kp.Tools(True, True, True)
+    waves = [w for _, w in frames]
     err, seen = 0, []
     cases = (list(waves)
              + [seeded_p_wave(dev, qp, off, kp.NO_TOOLS, 50 + qp - off)
@@ -635,7 +699,7 @@ def check_p_wave(dev, waves) -> dict:
         seen.append((tools, int(inter.sum()), int(want["sel16"][:n].sum()),
                      n, ptypes, n_t8))
     print("KP lanes inter / I16x16 / all, partition types, 8x8 transform, "
-          "per case (the frames' waves first): " + "; ".join(
+          "per single-wave case (the frames' waves first): " + "; ".join(
               f"{a} / {b} / {n} {pt} t8 {t}" for _, a, b, n, pt, t in seen))
     if not all(0 < a < n for _, a, _, n, _, _ in seen[len(waves):]):
         fail("KP: a seeded case does not mix inter and intra lanes")
@@ -647,52 +711,60 @@ def check_p_wave(dev, waves) -> dict:
     if not any(x[5] > 0 for x in full_seen) or \
             not any(0 <= x[5] < x[1] for x in full_seen):
         fail("KP: the seeded waves do not choose both transforms")
-    # time the frames' waves: KP alone, and K2 + KP as the loop runs them
+    # the frames' whole pictures: held, and timed a picture and a wave
     timed = {}
-    for wave in waves:
-        tools = wave[18]
-        coords, avail, mv_me, gy = wave[11:15]
-        n_mbs = gy.shape[0]
-        st = wave_state(wave)
-        i4 = k2w.i4x4_wave_bd(gy, st[0], coords, avail, wave[3], wave[5],
-                              wave[6], tif._K2_RULES)
-        kp_in = kp_inputs(wave, i4)
-        out = kp.alloc_outputs((n_mbs,), dev, tools)
-        before = kp.launches["KP"]
-        ms = time_ms(lambda: kp.p_wave(*st, *kp_in, tif._BLK_ORDER, out,
-                                       wave[17], tools), 200)
-        if kp.launches["KP"] != before + 201:
-            fail("KP's launch count is not one a call")
-        pms = time_ms(lambda: tinter.p_wave_plain(*st, *kp_in, wave[17],
-                                                  tools), 5)
-        body_ms = time_ms(lambda: tinter.wave_body(*wave[:8], *st,
-                                                   *wave[11:], out=out), 200)
-        print(f"KP wave of {n_mbs} MBs, {tools}: kernel {ms:.4f} ms, plain "
-              f"{pms:.3f} ms; the P wave body (K2 + KP) {body_ms:.4f} ms")
-        timed[tools] = (ms, pms, kp_in, st, wave)
-    # the row: the wave of the default tools, the main path of this slice
-    ms, pms, kp_in, st, wave = timed[full]
-    want = tinter.p_wave_plain(*wave_state(wave), *kp_in, wave[17], full)
-    return {"KP": dict(err=err, ms=ms, plain_ms=pms,
+    for pic, wave in frames:
+        tools = pic[18]
+        e, want, pms = hold_p_picture(pic, f"720p P picture {tools}")
+        err = max(err, e)
+        n_waves = pic[11].shape[0]
+        out = kp.alloc_outputs(pic[11].shape[:2], dev, tools)
+        ms = time_frame(tinter, pic, p_state(pic), out, "KP")
+        st = p_state(wave)
+        one_ms = time_ms(lambda: tinter.wave_body(*wave[:8], *st,
+                                                  *wave[11:]), 200)
+        print(f"KP 720p P picture of {n_waves} waves, {tools}: one launch "
+              f"{ms:.4f} ms = {1e3 * ms / n_waves:.2f} us a wave; plain "
+              f"{pms:.1f} ms; a picture of its widest wave alone "
+              f"{one_ms:.4f} ms")
+        timed[tools] = (ms, pms, one_ms, pic, want)
+    # the row: the picture of the default tools, the main path of the slice
+    ms, pms, one_ms, pic, want = timed[full]
+    n_waves = pic[11].shape[0]
+    flat = real_lanes(pic, want, 11, 7, frame_valid(pic[11]))
+    bnd = kp_bound(*flat, (64, 0))
+    print(f"KP bound over the picture's {flat[0][14].shape[0]} MBs: "
+          f"{bnd['bound_ms']:.6f} ms ({bnd['bound_by']})")
+    return {"KP": dict(err=err, ms=ms, plain_ms=pms, waves=n_waves,
+                       ms_wave=ms / n_waves, ms_one_wave=one_ms,
                        ms_tools_off=timed[kp.NO_TOOLS][0],
-                       **kp_bound(wave, want, (64, 0)))}
+                       ms_wave_tools_off=timed[kp.NO_TOOLS][0] / n_waves,
+                       **bnd)}
+
+
+def frame_valid(coords) -> np.ndarray:
+    """The real lanes of a wave table (padding lanes sit at row hm)."""
+    c = coords.cpu().numpy()
+    return c[..., 0] < c[..., 0].max()
 
 
 def kp_bound(wave, want, wp) -> dict:
-    """KP's bound on a wave with the default tools (`check_p_wave`'s case
-    `wave`, its plain results `want`, weights `wp`): what it reads and
-    does, from its own vectors and decisions."""
+    """KP's bound on a wave case with the default tools (a picture's real
+    macroblocks as one wave, `real_lanes`), its plain results `want`,
+    weights `wp`: what it reads and does, from its own vectors and
+    decisions."""
     n_mbs = wave[14].shape[0]
     luma, chroma = kp_windows(wave, want)
     n_ref = distinct_reference_samples(wave[0].shape[1:], wave[1].shape, 1,
                                        luma, chroma)
     n_inter = int(want["is_inter"].sum())
     n_t8 = int(((want["ptype"] == 0) & want["is_inter"]).sum())
-    # a macroblock: 58 context samples, 384 source samples, 529 int32 of
-    # I4x4 results, coords, 9 vectors, 4 map cells and 4 flags in; 815
-    # int32 of results, 3 flags, 66 border values and 3 map cells out; and
-    # the distinct reference samples.
-    # Operations: K3's intra costs (384 samples x 4 modes x 22), 256
+    # a macroblock: 58 context samples and 8 context modes, 384 source
+    # samples, coords, 9 vectors, 4 map cells and 4 flags in; 831 int32 of
+    # results (the 16 Intra4x4 modes included), 3 flags, 66 border values
+    # and 3 map cells out; and the distinct reference samples.
+    # Operations: the Intra4x4 search (16 block steps of 144 samples x 23
+    # and about 400), K3's intra costs (384 samples x 4 modes x 22), 256
     # samples x 5 candidates x 20 (two reads and an average, Hadamard,
     # sum), about 300 a 4x4 block for transform, quantiser and
     # reconstruction over 24 blocks, 12 a chroma sample of an inter lane's
@@ -700,10 +772,11 @@ def kp_bound(wave, want, wp) -> dict:
     # samples x (2 x 16 butterfly + 6 quantiser) + 256 x 8 for the costs;
     # with weights, 256 samples x 5 candidates x 6 (multiply, round,
     # shift, offset, two clamps)
-    n_bytes = (n_mbs * (4 * (58 + 384 + 529 + 2 + 18 + 12) + 4
-                        + 4 * (815 + 66 + 9) + 3)
+    n_bytes = (n_mbs * (4 * (58 + 8 + 384 + 2 + 18 + 12) + 4
+                        + 4 * (831 + 66 + 9) + 3)
                + 4 * n_ref)
-    n_ops = (n_mbs * (384 * 4 * 22 + 256 * 5 * 20 + 24 * 300)
+    n_ops = (n_mbs * (16 * (144 * 23 + 400) + 384 * 4 * 22 + 256 * 5 * 20
+                      + 24 * 300)
              + n_inter * 128 * 12 + n_t8 * (256 * 38 + 256 * 8))
     if tuple(wp) != (64, 0):
         n_ops += n_mbs * 256 * 5 * 6
@@ -713,104 +786,80 @@ def kp_bound(wave, want, wp) -> dict:
 WEIGHTS = ((64, 0), (58, -7), (71, 12))
 
 
-def check_p_wave_weighted(dev, golden_wave) -> dict:
+def check_p_wave_weighted(dev, golden) -> dict:
     """KP with explicit weights: seeded 720p P waves whose source tiles are
     faded by the weights (64, 0), (58, -7) and (71, 12) (`WEIGHTS`), the P
     tools off and on, and the widest wave of the first P frame of golden
-    `ippp_720p_wp_sei` as its encode runs it (`golden_wave`: the
-    `wave_body` arguments and the frame's weights), each held to
-    `p_wave_plain` and the whole body to `wave_body_plain`
-    (`hold_p_wave`), tolerance 0; then KP timed on the golden's wave ->
-    the KP row's weighted entries."""
+    `ippp_720p_wp_sei` as its encode runs it, each held to
+    `wave_body_plain` (`hold_p_wave`), tolerance 0; then that whole
+    weighted picture (`golden`: its picture case and its widest wave's
+    case) held to `p_frame_plain` and timed -> the KP row's weighted
+    entries."""
     from tpu264_torch.coding import inter_frame as tinter
-    from tpu264_torch.coding import intra_frame as tif
-    from tpu264_torch.kernels import i4x4_wave as k2w
     from tpu264_torch.kernels import p_wave as kp
     full = kp.Tools(True, True, True)
+    pic, wave = golden
+    wp = tuple(pic[19:21])
     cases = [(seeded_p_wave(dev, 28, 0, t, 130 + 7 * wy + oy, (wy, oy)),
               (wy, oy), f"seeded {t_name}") for t, t_name in
              ((kp.NO_TOOLS, "tools off"), (full, "tools on"))
              for wy, oy in WEIGHTS]
-    cases.append((*golden_wave, "ippp_720p_wp_sei widest wave"))
+    cases.append((wave, wp, "ippp_720p_wp_sei widest wave"))
     err, rows = 0, []
-    for case, wp, what in cases:
-        e, want = hold_p_wave(dev, case, wp, f"{what} {wp}")
+    for case, w, what in cases:
+        e, want = hold_p_wave(dev, case, w, f"{what} {w}")
         err = max(err, e)
         n = int((case[11][:, 0] < H // 16).sum())
         inter = int(want["is_inter"][:n].sum())
-        rows.append({"case": what, "wy": wp[0], "oy": wp[1],
+        rows.append({"case": what, "wy": w[0], "oy": w[1],
                      "lanes": n, "inter": inter, "max_abs_err": e})
-        print(f"KP weighted {what}, (wy, oy) = {wp}: {inter} inter of {n} "
+        print(f"KP weighted {what}, (wy, oy) = {w}: {inter} inter of {n} "
               f"lanes, max abs err {e}")
         if what.startswith("seeded") and not 0 < inter < n:
-            fail(f"KP weighted {what} {wp}: the wave does not mix inter "
+            fail(f"KP weighted {what} {w}: the wave does not mix inter "
                  f"and intra lanes")
-    wave, wp, _ = cases[-1]
-    wy, oy = wp
     if wp == (64, 0):
         fail("the golden's P frame has no weights")
-    tools = wave[18]
-    coords, avail, mv_me, gy = wave[11:15]
-    st = wave_state(wave)
-    i4 = k2w.i4x4_wave_bd(gy, st[0], coords, avail, wave[3], wave[5],
-                          wave[6], tif._K2_RULES)
-    kp_in = kp_inputs(wave, i4)
-    out = kp.alloc_outputs((gy.shape[0],), dev, tools)
-    ms = time_ms(lambda: kp.p_wave(*st, *kp_in, tif._BLK_ORDER, out,
-                                   wave[17], tools, wy, oy), 200)
-    ms_unweighted = time_ms(lambda: kp.p_wave(
-        *st, *kp_in, tif._BLK_ORDER, out, wave[17], tools), 200)
-    pms = time_ms(lambda: tinter.p_wave_plain(*st, *kp_in, wave[17], tools,
-                                              wy, oy), 5)
-    body_ms = time_ms(lambda: tinter.wave_body(
-        *wave[:8], *st, *wave[11:], out=out, wy=wy, oy=oy), 200)
-    want = tinter.p_wave_plain(*wave_state(wave), *kp_in, wave[17], tools,
-                               wy, oy)
-    bnd = kp_bound(wave, want, wp)
-    print(f"KP weighted wave of {gy.shape[0]} MBs (golden, {wp}): kernel "
-          f"{ms:.4f} ms ({ms_unweighted:.4f} ms with (64, 0) on the same "
-          f"inputs), plain {pms:.3f} ms; K2 + KP {body_ms:.4f} ms; bound "
-          f"{bnd['bound_ms']:.6f} ms ({bnd['bound_by']})")
+    e, want, pms = hold_p_picture(pic, f"ippp_720p_wp_sei P picture {wp}")
+    err = max(err, e)
+    rows.append({"case": "ippp_720p_wp_sei P picture", "wy": wp[0],
+                 "oy": wp[1], "lanes": int(frame_valid(pic[11]).sum()),
+                 "inter": int(want["is_inter"][frame_valid(pic[11])].sum()),
+                 "max_abs_err": e})
+    n_waves = pic[11].shape[0]
+    out = kp.alloc_outputs(pic[11].shape[:2], dev, pic[18])
+    ms = time_frame(tinter, pic, p_state(pic), out, "KP")
+    unweighted = (*pic[:19], 64, 0)
+    ms_unweighted = time_frame(tinter, unweighted, p_state(pic), out, "KP")
+    bnd = kp_bound(*real_lanes(pic, want, 11, 7, frame_valid(pic[11])), wp)
+    print(f"KP weighted 720p P picture (golden, {wp}) of {n_waves} waves: "
+          f"one launch {ms:.4f} ms = {1e3 * ms / n_waves:.2f} us a wave "
+          f"({ms_unweighted:.4f} ms with (64, 0) on the same inputs), plain "
+          f"{pms:.1f} ms; bound {bnd['bound_ms']:.6f} ms "
+          f"({bnd['bound_by']})")
     return {"KP": dict(err=err, weighted=rows, ms_weighted=ms,
-                       plain_ms_weighted=pms, body_ms_weighted=body_ms,
+                       ms_wave_weighted=ms / n_waves,
+                       plain_ms_weighted=pms,
                        bound_ms_weighted=bnd["bound_ms"],
                        bound_by_weighted=bnd["bound_by"])}
 
 
-def wp_frame_wave(dev) -> tuple:
-    """The widest wave of the first P frame of golden `ippp_720p_wp_sei`
-    as `Encoder(cfg)` on the card runs it (frames 0 and 1 of the fade):
-    (its 19 `wave_body` arguments, with the border buffers and maps as
-    they are before the call, (wy, oy)); the weights are the golden's."""
+def wp_frame_case(dev) -> tuple:
+    """The first P frame of golden `ippp_720p_wp_sei` as `Encoder(cfg)` on
+    the card runs it (frames 0 and 1 of the fade): (its picture case, its
+    widest wave's case); the weights are the golden's."""
     from tpu264_torch.coding import inter_frame as tinter
     from tpu264_torch.coding.encoder import Encoder
     from tpu264_torch.config import EncoderConfig
     g = golden("ippp_720p_wp_sei")
     cfg = EncoderConfig(**g["config"])
     enc = Encoder(cfg)
-    mid = enc.sched.n_waves // 2
-    inner, calls, seen = tinter.wave_body, [], []
-
-    def spy(*args, **kw):
-        if len(calls) == mid:
-            seen.append(((*args[:8], clone_bd(args[8]), args[9].clone(),
-                          args[10].clone(), *args[11:]),
-                         (kw["wy"], kw["oy"])))
-        calls.append(1)
-        return inner(*args, **kw)
-
-    tinter.wave_body = spy
-    try:
-        enc.encode_sequence(golden_frames(g)[:2])
-    finally:
-        tinter.wave_body = inner
-    if len(seen) != 1 or len(seen[0][0]) != 19:
-        fail(f"ippp_720p_wp_sei: {len(calls)} wave body calls, no wave "
-             f"taken")
-    if list(seen[0][1]) != g["frame_wp"][0]:
-        fail(f"ippp_720p_wp_sei: the P frame's weights {seen[0][1]} are "
+    pic = capture_picture(tinter, lambda: enc.encode_sequence(
+        golden_frames(g)[:2]))
+    if len(pic) != 21 or list(pic[19:21]) != g["frame_wp"][0]:
+        fail(f"ippp_720p_wp_sei: the P frame's weights {pic[19:21]} are "
              f"not the golden's {g['frame_wp'][0]}")
-    return seen[0]
+    return pic, p_wave_of(pic, enc.sched.n_waves // 2)
 
 
 def check_deblock_wave(dev, frame_case) -> dict:
@@ -1321,20 +1370,20 @@ class FrameLaunches:
     def check(self, what: str, kinds, n_waves: int, cabac: bool,
               counts: dict) -> None:
         """An IDR frame runs K2 once a wave and K3, K4 at most once a
-        wave; a P frame K2 and KP once a wave, K4 at most once a wave; a B
-        frame K2 and KB once a wave, K4 at most once a wave; K1 once a
-        frame with CABAC and never with CAVLC; the slab entries, K3's wave
-        form outside an IDR frame, KP outside a P frame and KB outside a B
-        frame never; and nothing runs outside the frames (`counts`: the
+        wave; a P frame KP once (the whole picture) and K4 at most once a
+        wave; a B frame KB once and K4 at most once a wave; K1 once a frame
+        with CABAC and never with CAVLC; the slab entries, K2 and K3's wave
+        forms outside an IDR frame, KP outside a P frame and KB outside a
+        B frame never; and nothing runs outside the frames (`counts`: the
         whole run's launches)."""
         if [k for k, _ in self.per_frame] != kinds:
             fail(f"{what}: frames {[k for k, _ in self.per_frame]}")
         for i, (kind, c) in enumerate(self.per_frame):
             print(f"  frame {i} {kind} launches: {c}")
-            want = {"K1": int(cabac), "K2": n_waves, "K2_blocks": 0,
+            want = {"K1": int(cabac),
+                    "K2": n_waves if kind == "IDR" else 0, "K2_blocks": 0,
                     "K3_blocks": 0, "K4_lines": 0,
-                    "KP": n_waves if kind == "P" else 0,
-                    "KB": n_waves if kind == "B" else 0}
+                    "KP": int(kind == "P"), "KB": int(kind == "B")}
             if kind != "IDR":
                 want["K3"] = 0
             for k, n in want.items():
@@ -1474,15 +1523,44 @@ def phase_rate_control(name: str, what: str, kinds=None) -> dict:
     return counts
 
 
+# a B picture case: `b_frame.frame_body`'s 20 positional arguments (maps,
+# planes, cpads, qp, cqp, lam4, lam24, lam_me, bd, coords, avail, mv_me,
+# mv_parts, colzero, colmixed, gy, gu, gv, partitions, allow_parts), the
+# per-wave arrays [n_waves, bmax, ...], mv_me and mv_parts a pair of
+# lists; a B wave case: `b_frame.wave_body`'s 20 (a wave's rows)
+
+
+def b_state(case):
+    """Copies of a B picture or wave case's maps and border buffers."""
+    return tuple(m.clone() for m in case[0]), clone_bd(case[8])
+
+
+def b_row(t, w):
+    """Row w of a per-wave array, or of each of a pair of them."""
+    if t is None:
+        return None
+    return tuple(x[w] for x in t) if isinstance(t, tuple) else t[w]
+
+
+def b_wave_of(pic, w: int) -> tuple:
+    """Wave w of B picture case `pic` as a wave case, the maps and border
+    buffers as KB leaves them after waves [0, w)."""
+    from tpu264_torch.coding import b_frame as tb
+    maps, bd = b_state(pic)
+    tb.frame_body(maps, *pic[1:8], bd, *pic[9:], waves=(0, w))
+    torch.cuda.synchronize()
+    return (maps, *pic[1:8], bd, *(b_row(t, w) for t in pic[9:18]),
+            *pic[18:])
+
+
 def b_frame_case(dev, is_ref: bool) -> dict:
     """One 1920x1088 B frame of config 4's encoder on the card (synth frame
     1 between frames 0 and 2 as its references, QP 30, the partitions
-    allowed unless `is_ref`), queued and finished: "wave", the arguments
-    of its widest wave's `wave_body` call (the border buffers and maps as
-    they are before the call), "records" its CABAC records (records,
-    counts, init of table 1, word cap), "deblock" its deblocker's
-    arguments (two-list bS inputs).  It runs K2 and KB once a wave, KP
-    never."""
+    allowed unless `is_ref`), queued and finished: "picture", its picture
+    case as the picture starts; "wave", its widest wave's case; "records"
+    its CABAC records (records, counts, init of table 1, word cap),
+    "deblock" its deblocker's arguments (two-list bS inputs).  It runs KB
+    once, K2 and KP never."""
     from tpu264_torch.coding import b_frame as tb
     from tpu264_torch.coding import encoder as encoder_mod
     from tpu264_torch.coding.encoder import Encoder
@@ -1495,15 +1573,7 @@ def b_frame_case(dev, is_ref: bool) -> dict:
     if not enc.b_partitions:
         fail("config 4's encoder weighs no B partitions")
     widest = int(np.argmax(enc.sched.valid.sum(axis=1)))
-    inner, calls, case = tb.wave_body, [], {}
-
-    def spy(*args, **kw):
-        if len(calls) == widest:
-            case["wave"] = (tuple(m.clone() for m in args[0]), *args[1:8],
-                            clone_bd(args[8]), *args[9:])
-        calls.append(1)
-        return inner(*args, **kw)
-
+    case = {}
     real_records, real_deblock = encoder_mod.cabac_records, enc._deblock
 
     def records(*a, **kw):
@@ -1514,27 +1584,25 @@ def b_frame_case(dev, is_ref: bool) -> dict:
         case["deblock"] = (a, kw)
         return real_deblock(*a, **kw)
 
-    encoder_mod.cabac_records, enc._deblock = records, deblock
-    tb.wave_body = spy
-    before = read_counts()
-    try:
+    def run():
         frames = [synth_frame(BW, BH, t) for t in range(3)]
         fin, _ = enc.encode_b_frame(*frames[1], frames[0], frames[2],
                                     frame_num=1, poc_lsb=2, qp=QP + 2,
                                     is_ref=is_ref)
         fin()
         torch.cuda.synchronize()
+
+    encoder_mod.cabac_records, enc._deblock = records, deblock
+    before = read_counts()
+    try:
+        case["picture"] = capture_picture(tb, run)
     finally:
-        tb.wave_body = inner
         encoder_mod.cabac_records = real_records
     after = read_counts()
-    if len(calls) != enc.sched.n_waves or "wave" not in case:
-        fail(f"1080p B frame: {len(calls)} wave body calls for "
-             f"{enc.sched.n_waves} waves")
     ran = {k: after[k] - before[k] for k in ("K2", "KB", "KP")}
-    n = enc.sched.n_waves
-    if ran != {"K2": n, "KB": n, "KP": 0}:
-        fail(f"1080p B frame launched {ran} for {n} waves")
+    if ran != {"K2": 0, "KB": 1, "KP": 0}:
+        fail(f"1080p B frame launched {ran}")
+    case["wave"] = b_wave_of(case["picture"], widest)
     recs, counts = case["records"]
     case["records"] = (recs, counts, torch.as_tensor(
         k1.init_packed_states(1, QP + 2), device=dev), enc._cap_words)
@@ -1666,21 +1734,89 @@ def kb_windows(wave, want, direct) -> tuple:
     return luma, chroma, n_cand
 
 
-def check_b_wave(dev, waves) -> dict:
-    """KB: the B wave kernel against `b_wave_plain` on the card, on the
-    same I4x4 results: every output, the border buffers and both lists'
-    maps after the wave.  Cases: the widest wave (60 lanes) of a
-    1920x1088 B frame that allows partitions and of one that does not
-    (`waves`: the arguments of their `wave_body` calls), and seeded waves
-    of that width (`synth_inputs.random_b_wave`: every btype, every
+def maps_of(maps):
+    return dict(zip(("mv0_map", "ref0_map", "mv1_map", "ref1_map"), maps))
+
+
+def hold_b_picture(pic, what: str) -> tuple:
+    """KB on a whole B picture case (one launch) against `b_frame_plain`
+    on the card: every output row, the border buffers and both lists'
+    maps after the picture -> (max abs err, the plain results, the plain
+    version's milliseconds, the direct vectors and lists of each wave as
+    the plain version saw them)."""
+    from tpu264_torch.coding import b_frame as tb
+    (mk, bk), (mp, bp) = b_state(pic), b_state(pic)
+    got = tb.frame_body(mk, *pic[1:8], bk, *pic[9:])
+    torch.cuda.synchronize()
+    inner, direct = tb.spatial_direct, []
+
+    def spy(*a, **kw):
+        res = inner(*a, **kw)
+        direct.append(res[2:])
+        return res
+
+    tb.spatial_direct = spy
+    try:
+        t0 = time.monotonic()
+        want = tb.b_frame_plain(mp, *pic[1:8], bp, *pic[9:])
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.monotonic() - t0)
+    finally:
+        tb.spatial_direct = inner
+    err = max(differ(got, want, f"KB {what}"),
+              differ(bk, bp, f"KB {what} borders"),
+              differ(maps_of(mk), maps_of(mp), f"KB {what} maps"))
+    return err, want, plain_ms, [torch.stack(t) for t in zip(*direct)]
+
+
+def kb_bound(pic, want, direct) -> dict:
+    """KB's bound on a B picture case's real macroblocks (`real_lanes`),
+    its plain results `want` and the direct vectors and lists of its
+    waves `direct` (`hold_b_picture`): what it reads and does, from its
+    own vectors and decisions."""
+    valid = frame_valid(pic[9])
+    wave, want = real_lanes(pic, want, 9, 9, valid)
+    m = torch.as_tensor(valid, device=direct[0].device)
+    direct = [d[m] for d in direct]
+    n_mbs = wave[15].shape[0]
+    luma, chroma, n_cand = kb_windows(wave, want, direct)
+    n_ref = distinct_reference_samples(wave[1][0].shape[1:],
+                                       wave[2][0].shape, 2, luma, chroma)
+    n_cpred = sum(2 * w[4] * w[5] for w in chroma)
+    allow = wave[18] and wave[19]
+    # a macroblock: 58 context samples and 8 context modes, 384 source
+    # samples, coords, 2 + 2 vector components (+ 16 with partitions
+    # allowed), 8 map cells and 6 flags in; 831 int32 of results (the 16
+    # Intra4x4 modes included), 4 flags, 66 border values and 6 map cells
+    # out; and the distinct reference samples.  Operations: the Intra4x4
+    # search (16 block steps of 144 samples x 23 and about 400), K3's
+    # intra costs (384 samples x 4 modes x 22), 20 a sample of each luma
+    # candidate (reads, average, Hadamard, sum), about 300 a 4x4 block for
+    # transform, quantiser and reconstruction over 24 blocks, 12 a chroma
+    # sample predicted
+    n_bytes = (n_mbs * (4 * (58 + 8 + 384 + 2 + 4 + 16 * allow + 24) + 6
+                        + 4 * (831 + 66 + 18) + 4)
+               + 4 * n_ref)
+    n_ops = (n_mbs * (16 * (144 * 23 + 400) + 384 * 4 * 22 + 24 * 300)
+             + 256 * 20 * n_cand + 12 * n_cpred)
+    return bound(n_bytes, n_ops)
+
+
+def check_b_wave(dev, b_cases) -> dict:
+    """KB: the B frame kernel against its plain version on the card, every
+    output, the border buffers and both lists' maps.  Single waves
+    (pictures of one wave, `wave_body` against `wave_body_plain`): the
+    widest wave (60 lanes) of a 1920x1088 B frame that allows partitions
+    and of one that does not (`b_cases`: `b_frame_case`), and seeded
+    waves of that width (`synth_inputs.random_b_wave`: every btype, every
     partition shape with every (c0, c1), colzero and colmixed lanes,
     padding lanes, vectors past the planes' edges) at QP 0, 28 and 51,
-    each with `allow_parts` on and off.  The whole `wave_body` (K2's wave
-    form, then KB) is held to `wave_body_plain` on the same cases."""
+    each with `allow_parts` on and off.  Whole pictures: both 1080p B
+    frames in one launch each against `b_frame_plain`, the one that
+    allows partitions timed a picture and a wave, with its bound."""
     from tpu264_torch.coding import b_frame as tb
     from tpu264_torch.coding import intra_frame as tif
     from tpu264_torch.kernels import b_wave as kb
-    from tpu264_torch.kernels import i4x4_wave as k2w
     from tpu264_torch.kernels import interp as kint
     from tpu264_torch.ref.transform import chroma_qp
     from tpu264_torch.tools.synth_inputs import random_b_wave
@@ -1701,62 +1837,26 @@ def check_b_wave(dev, waves) -> dict:
                 (i32(me0), i32(me1)), (i32(mp0), i32(mp1)), b1(cz), b1(cm),
                 i32(gy), i32(gu), i32(gv), True, allow)
 
-    def state(case):
-        return tuple(m.clone() for m in case[0]), clone_bd(case[8])
-
-    def i4x4(case, bd):
-        qp, _, lam4, lam24 = case[3:7]
-        coords, avail, gy = case[9], case[10], case[15]
-        ltop, lleft, _, _, _, _, mtop, mleft = tif.gather_border_ctx(
-            bd, coords[:, 0].long(), coords[:, 1].long())
-        return tif.eval_i4x4_plain(gy, ltop, lleft, mtop, mleft,
-                                   *avail.unbind(1), qp, lam4, lam24)
-
-    def kb_args(case, maps, bd, i4):
-        mb4, modebuf, _, coeffs4, j4 = i4
-        (_, planes, cpads, qp, cqp, lam4, lam24, lam_me, _, coords, avail,
-         mv_me, mv_parts, cz, cm, gy, gu, gv, parts, allow) = case
-        return ((bd, maps, planes, cpads, coords, avail, mv_me, mv_parts,
-                 cz, cm, gy, gu, gv, mb4, modebuf, coeffs4, j4, qp, cqp,
-                 lam4, lam24, lam_me),
-                (parts, allow))
-
-    def maps_of(maps):
-        return dict(zip(("mv0_map", "ref0_map", "mv1_map", "ref1_map"),
-                        maps))
-
+    waves = [c["wave"] for c in b_cases]
     err, seen = 0, []
-    cases = list(waves) + [seeded(qp, allow) for qp in (0, 28, 51)
-                           for allow in (True, False)]
+    cases = waves + [seeded(qp, allow) for qp in (0, 28, 51)
+                     for allow in (True, False)]
     for i, case in enumerate(cases):
-        # the whole body: two launches against the plain body
-        (mk, bk), (mp, bp) = state(case), state(case)
+        (mk, bk), (mp, bp) = b_state(case), b_state(case)
         got = tb.wave_body(mk, *case[1:8], bk, *case[9:])
         torch.cuda.synchronize()
         want = tb.wave_body_plain(mp, *case[1:8], bp, *case[9:])
-        err = max(err, differ(got, want, f"B wave body {i}"),
-                  differ(bk, bp, f"B wave body {i} borders"),
-                  differ(maps_of(mk), maps_of(mp), f"B wave body {i} maps"))
-        # KB alone, on the plain I4x4 results
-        (mk, bk), (mp, bp) = state(case), state(case)
-        i4 = i4x4(case, bk)
-        args, flags = kb_args(case, mk, bk, i4)
-        out = kb.alloc_outputs((case[9].shape[0],), dev, True)
-        kb.b_wave(*args, tif._BLK_ORDER, out, *flags)
-        torch.cuda.synchronize()
-        del out["modes"]
-        want = tb.b_wave_plain(*kb_args(case, mp, bp, i4)[0], *flags)
-        err = max(err, differ(out, want, f"KB {i}"),
-                  differ(bk, bp, f"KB {i} borders"),
-                  differ(maps_of(mk), maps_of(mp), f"KB {i} maps"))
+        err = max(err, differ(got, want, f"KB wave {i}"),
+                  differ(bk, bp, f"KB wave {i} borders"),
+                  differ(maps_of(mk), maps_of(mp), f"KB wave {i} maps"))
         n = int((case[9][:, 0] < BH // 16).sum())
         bt = want["btype"][:n]
         part = bt == 5
         combos = set(zip(*(want[k][:n][part].tolist()
                            for k in ("bptype", "c0", "c1"))))
         seen.append((case[-1], sorted(set(bt.tolist())), len(combos), n))
-    print("KB btypes chosen, partition combinations, lanes, per case (the "
-          "frames' waves first; allow_parts): " + "; ".join(
+    print("KB btypes chosen, partition combinations, lanes, per single-wave "
+          "case (the frames' waves first; allow_parts): " + "; ".join(
               f"{a} {b} {c} {n}" for a, b, c, n in seen))
     seeded_seen = seen[len(waves):]
     if set().union(*(set(b) for _, b, _, _ in seeded_seen)) != \
@@ -1766,50 +1866,72 @@ def check_b_wave(dev, waves) -> dict:
         fail("KB: no seeded wave chooses every partition combination")
     if any(5 in b for a, b, _, _ in seen if not a):
         fail("KB: a wave that allows no partitions chose one")
-    # time the frame's wave that allows partitions: KB alone, and K2 + KB
-    # as the loop runs them
+    # the frames' whole pictures: held; the one that allows partitions
+    # timed a picture and a wave
+    held = []
+    for c in b_cases:
+        pic = c["picture"]
+        e, want, pms, direct = hold_b_picture(
+            pic, f"1080p B picture allow_parts={pic[19]}")
+        err = max(err, e)
+        held.append((pic, want, pms, direct))
+    pic, want, pms, direct = held[0]
+    n_waves, n_mbs = pic[9].shape[:2]
+    out = kb.alloc_outputs(pic[9].shape[:2], dev, True)
+    ms = time_frame(tb, pic, b_state(pic), out, "KB")
     wave = waves[0]
-    n_mbs = wave[15].shape[0]
-    maps, bd = state(wave)
-    i4 = k2w.i4x4_wave_bd(wave[15], bd, wave[9], wave[10], wave[3],
-                          wave[5], wave[6], tif._K2_RULES)
-    args, flags = kb_args(wave, maps, bd, i4)
-    out = kb.alloc_outputs((n_mbs,), dev, True)
-    before = kb.launches["KB"]
-    ms = time_ms(lambda: kb.b_wave(*args, tif._BLK_ORDER, out, *flags), 200)
-    if kb.launches["KB"] != before + 201:
-        fail("KB's launch count is not one a call")
-    pms = time_ms(lambda: tb.b_wave_plain(*args, *flags), 5)
-    body_ms = time_ms(lambda: tb.wave_body(maps, *wave[1:8], bd, *wave[9:],
-                                           out=out), 200)
-    print(f"KB wave of {n_mbs} MBs at 1920x1088: kernel {ms:.4f} ms, plain "
-          f"{pms:.3f} ms; the B wave body (K2 + KB) {body_ms:.4f} ms")
-    # the bound, from this wave's own vectors and decisions (on fresh
-    # state: the timed calls rewrote the lanes' left columns)
-    maps, bd = state(wave)
-    direct = tb.spatial_direct(maps, wave[9], wave[10], wave[13])[2:]
-    want = tb.b_wave_plain(*kb_args(wave, maps, bd, i4x4(wave, bd))[0],
-                           *flags)
-    luma, chroma, n_cand = kb_windows(wave, want, direct)
-    n_ref = distinct_reference_samples(wave[1][0].shape[1:],
-                                       wave[2][0].shape, 2, luma, chroma)
-    n_cpred = sum(2 * w[4] * w[5] for w in chroma)
-    allow = wave[18] and wave[19]
-    # a macroblock: 58 context samples, 384 source samples, 529 int32 of
-    # I4x4 results, coords, 2 + 2 vector components (+ 16 with partitions
-    # allowed), 8 map cells and 6 flags in; 815 int32 of results, 4 flags,
-    # 66 border values and 6 map cells out; and the distinct reference
-    # samples.  Operations: K3's intra costs (384 samples x 4 modes x 22),
-    # 20 a sample of each luma candidate (reads, average, Hadamard, sum),
-    # about 300 a 4x4 block for transform, quantiser and reconstruction
-    # over 24 blocks, 12 a chroma sample predicted
-    n_bytes = (n_mbs * (4 * (58 + 384 + 529 + 2 + 4 + 16 * allow + 24) + 6
-                        + 4 * (815 + 66 + 18) + 4)
-               + 4 * n_ref)
-    n_ops = (n_mbs * (384 * 4 * 22 + 24 * 300) + 256 * 20 * n_cand
-             + 12 * n_cpred)
-    return {"KB": dict(err=err, ms=ms, plain_ms=pms, body_ms=body_ms,
-                       lanes=n_mbs, **bound(n_bytes, n_ops))}
+    maps, bd = b_state(wave)
+    one_ms = time_ms(lambda: tb.wave_body(maps, *wave[1:8], bd, *wave[9:]),
+                     200)
+    bnd = kb_bound(pic, want, direct)
+    print(f"KB 1920x1088 B picture of {n_waves} waves: one launch "
+          f"{ms:.4f} ms = {1e3 * ms / n_waves:.2f} us a wave; plain "
+          f"{pms:.1f} ms; a picture of its widest wave ({n_mbs} lanes) "
+          f"alone {one_ms:.4f} ms; bound {bnd['bound_ms']:.6f} ms "
+          f"({bnd['bound_by']})")
+    return {"KB": dict(err=err, ms=ms, plain_ms=pms, waves=n_waves,
+                       ms_wave=ms / n_waves, ms_one_wave=one_ms,
+                       lanes=n_mbs, **bnd)}
+
+
+def band_case(dev) -> tuple:
+    """A B picture of one 17-row band of config 4 at 1920 wide (the band
+    `TiledEncoder` codes with four bands), through `make_b_encoder` on
+    the card with the partitions (synth frames cut to the band's 272
+    rows, frame 1 between 0 and 2, QP 30, colocated flags seeded): its
+    picture case as the picture starts."""
+    from tpu264_torch.coding import b_frame as tb
+    from tpu264_torch.coding.wavefront import build_schedule
+    from tpu264_torch.media.synth import synth_frame
+    sched = build_schedule(BW // 16, 17, 1)
+    rows = 16 * 17
+    f = [[torch.as_tensor(np.ascontiguousarray(p[:rows // (1 + (i > 0))]),
+                          device=dev)
+          for i, p in enumerate(synth_frame(BW, BH, t))] for t in range(3)]
+    rng = np.random.default_rng(17)
+    col = [torch.as_tensor(rng.random(sched.n_mbs) < q, device=dev)
+           for q in (0.3, 0.1)]
+    enc = tb.make_b_encoder(sched, partitions=True)
+    return capture_picture(tb, lambda: enc(*f[1], *f[0], *f[2], *col,
+                                           QP + 2))
+
+
+def check_band(dev) -> dict:
+    """KB on a 17-row band's B picture (`band_case`), one launch, against
+    `b_frame_plain`, timed a picture and a wave -> the KB row's band
+    entries."""
+    from tpu264_torch.coding import b_frame as tb
+    from tpu264_torch.kernels import b_wave as kb
+    pic = band_case(dev)
+    err, want, pms, _ = hold_b_picture(pic, "17-row band B picture")
+    n_waves = pic[9].shape[0]
+    out = kb.alloc_outputs(pic[9].shape[:2], dev, True)
+    ms = time_frame(tb, pic, b_state(pic), out, "KB")
+    print(f"KB 17-row band B picture (1920 x 272) of {n_waves} waves: one "
+          f"launch {ms:.4f} ms = {1e3 * ms / n_waves:.2f} us a wave; plain "
+          f"{pms:.1f} ms; max abs err {err}")
+    return {"KB": dict(err=err, ms_band=ms, ms_wave_band=ms / n_waves,
+                       plain_ms_band=pms, waves_band=n_waves)}
 
 
 def check_1080p_b_kernels(dev, case) -> dict:
@@ -1854,8 +1976,8 @@ def check_1080p_b_kernels(dev, case) -> dict:
 def phase_p_wave_body_vs_cpu(dev, tools) -> None:
     """One CIF P frame through `make_inter_encoder` with the P `tools` on
     the card and on the CPU: every per-wave output and the recon planes are
-    equal.  On the card the body runs K2's wave form and KP once a wave; on
-    the CPU their plain versions."""
+    equal.  On the card KP runs once, the whole picture, and K2 never; on
+    the CPU the plain version."""
     from tpu264_torch.coding.inter_frame import make_inter_encoder
     from tpu264_torch.coding.wavefront import build_schedule
     from tpu264_torch.media.synth import synth_frame
@@ -1875,8 +1997,7 @@ def phase_p_wave_body_vs_cpu(dev, tools) -> None:
     after = read_counts()
     ran = {k: after[k] - before[k]
            for k in ("K2", "K3", "KP", "K2_blocks", "K3_blocks")}
-    want = {"K2": sched.n_waves, "K3": 0, "KP": sched.n_waves,
-            "K2_blocks": 0, "K3_blocks": 0}
+    want = {"K2": 0, "K3": 0, "KP": 1, "K2_blocks": 0, "K3_blocks": 0}
     if ran != want:
         fail(f"P wave body on the card launched {ran}, not {want}")
     out_c, ys_c = encode(*planes, QP)
@@ -2105,8 +2226,8 @@ def phase_tiled(name: str, what: str) -> dict:
     one band over `make_mesh(1, gop=1)` (no device named: the card, as
     `bench.py` builds it), or several bands, over that many cards where
     there are, else all on the one card.  Every frame's launches are
-    asserted per band: K2 once a wave of each band, KP (P) or KB (B) once
-    a wave of each band, K4 at most once a wave of each band, K1 once a
+    asserted per band: K2 once a wave of each band of the I frame, KP (P)
+    or KB (B) once a band, K4 at most once a wave of each band, K1 once a
     band picture, K3 on the I frame only, the slab entries never.  The
     stream, the frame sizes and QPs are held to the golden; then the
     frames/s of the single-device `Encoder` and of the tiled encoder on
@@ -2158,9 +2279,10 @@ def phase_tiled(name: str, what: str) -> dict:
     n_waves = te.band_sched.n_waves
     for i, (kind, c) in enumerate(per_frame):
         print(f"  frame {i} {kind} launches: {c}")
-        want = {"K1": n_bands * int(te.cabac), "K2": n_bands * n_waves,
-                "KP": n_bands * n_waves if kind == "p" else 0,
-                "KB": n_bands * n_waves if kind == "b" else 0,
+        want = {"K1": n_bands * int(te.cabac),
+                "K2": n_bands * n_waves if kind == "i" else 0,
+                "KP": n_bands * int(kind == "p"),
+                "KB": n_bands * int(kind == "b"),
                 "K2_blocks": 0, "K3_blocks": 0, "K4_lines": 0}
         if kind != "i":
             want["K3"] = 0
@@ -2229,9 +2351,9 @@ def main() -> int:
     results.update(check_wave_body(dev, wave))
     from tpu264_torch.kernels.p_wave import NO_TOOLS, Tools
     results.update(check_p_wave(
-        dev, [p_frame_wave(dev, NO_TOOLS),
-              p_frame_wave(dev, Tools(True, True, True))]))
-    weighted = check_p_wave_weighted(dev, wp_frame_wave(dev))["KP"]
+        dev, [p_frame_case(dev, NO_TOOLS),
+              p_frame_case(dev, Tools(True, True, True))]))
+    weighted = check_p_wave_weighted(dev, wp_frame_case(dev))["KP"]
     results["KP"].update(weighted, err=max(results["KP"]["err"],
                                            weighted["err"]))
     results.update(check_deblock_wave(dev, deblock_case))
@@ -2240,7 +2362,9 @@ def main() -> int:
     # the B wave: a 1920x1088 B frame of config 4 that allows partitions
     # and one that does not
     b_cases = [b_frame_case(dev, is_ref) for is_ref in (False, True)]
-    results.update(check_b_wave(dev, [c["wave"] for c in b_cases]))
+    results.update(check_b_wave(dev, b_cases))
+    band = check_band(dev)["KB"]
+    results["KB"].update(band, err=max(results["KB"]["err"], band["err"]))
     for k, extra in check_1080p_b_kernels(dev, b_cases[0]).items():
         results[k].update(extra, err=max(results[k]["err"], extra["err"]))
     del b_cases
@@ -2298,8 +2422,11 @@ def main() -> int:
         for extra in ("bins", "ms_i_frame", "bins_i_frame", "ms_tools_off",
                       "ms_b_1080p", "bins_b_1080p", "ms_1080p", "body_ms",
                       "lanes", "bytes_ms", "operations_ms", "weighted",
-                      "ms_weighted", "plain_ms_weighted", "body_ms_weighted",
+                      "waves", "ms_wave", "ms_one_wave", "ms_wave_tools_off",
+                      "ms_weighted", "ms_wave_weighted", "plain_ms_weighted",
                       "bound_ms_weighted", "bound_by_weighted",
+                      "ms_band", "ms_wave_band", "plain_ms_band",
+                      "waves_band",
                       "ms_grids_720p", "plain_ms_grids_720p",
                       "bound_ms_grids_720p", "ms_grids_1080p",
                       "plain_ms_grids_1080p", "bound_ms_grids_1080p"):

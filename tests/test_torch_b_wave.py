@@ -261,31 +261,47 @@ def test_b_wave_params(qp, cqp):
 
 
 def test_b_wave_layout_matches_kernel_source():
-    """The wrapper's pointer list and table length against what
+    """The frame wrapper's pointer list and table length against what
     `csrc/b_wave.cu` reads (the kernel cannot run here)."""
     src = (CSRC / "b_wave.cu").read_text()
     n_ptrs = int(re.search(r"constexpr int kPtrs = (\d+);", src).group(1))
-    n_out = sum(1 for k in kb.OUTPUTS if k != "modes")
+    n_out = len(kb.OUTPUTS)
     n_part = len(kb.PART_OUTPUTS)
     # borders, 4 maps, 2 planes, 4 chroma, coords, avail, 2 + 2 vectors,
-    # colzero, colmixed, 3 sources, 4 I4x4 results
-    assert n_ptrs == len(k3w.BORDERS) + 25 + n_part + n_out
-    order = re.search(r"struct WaveIo \{(.*?)\};", src, re.S).group(1)
+    # colzero, colmixed, 3 sources
+    assert n_ptrs == len(k3w.BORDERS) + 21 + n_part + n_out
+    order = re.search(r"struct FrameIo \{(.*?)\};", src, re.S).group(1)
     names = re.findall(r"\*\s*(\w+)[,;]", order)
-    assert names[-n_out:] == [k for k in kb.OUTPUTS if k != "modes"]
+    assert names[-n_out:] == list(kb.OUTPUTS)
     assert names[-n_out - n_part:-n_out] == list(kb.PART_OUTPUTS)
     assert len(kb.pack_params(28, 28, 23, 140, 6, tuple(tif.BLK_ORDER))) \
         == kb.PARAMS_LEN == 2 * 55 + 32 + 5 + 16 * 7 + 1 + 18 + 3
+    # the wrapper hands over as many pointers, on a picture of one wave
+    consts, xs = _wave(2)
+    maps, planes, cpads, qp, cqp, lam4, lam24, lam_me, bd = consts
+    a = kb.frame_args(bd, maps, planes, cpads, *_one_wave_picture(xs), qp,
+                      cqp, lam4, lam24, lam_me, tuple(tif.BLK_ORDER),
+                      tif._K2_RULES,
+                      kb.alloc_outputs((1, xs[0].shape[0]), "cpu", True),
+                      True, True)
+    assert len(a.tensors) == n_ptrs and a.waves == (0, 1)
+
+
+def _one_wave_picture(xs):
+    """A wave's arrays (coords, avail, mv_me, mv_parts, cz, cm, gy, gu, gv)
+    as the wave table of a picture of one wave."""
+    pair = lambda p: tuple(t.unsqueeze(0) for t in p)
+    coords, avail, mv_me, mv_parts, cz, cm, gy, gu, gv = xs
+    return (coords.unsqueeze(0), avail.unsqueeze(0), pair(mv_me),
+            pair(mv_parts), cz.unsqueeze(0), cm.unsqueeze(0),
+            gy.unsqueeze(0), gu.unsqueeze(0), gv.unsqueeze(0))
 
 
 def test_b_wave_refuses_cpu_tensors():
     consts, xs = _wave(2)
     maps, planes, cpads, qp, cqp, lam4, lam24, lam_me, bd = consts
-    coords, avail, mv_me, mv_parts, cz, cm, gy, gu, gv = xs
-    b = gy.shape[0]
-    zero = t32(np.zeros(b))
     with pytest.raises(ValueError, match="CUDA"):
-        kb.b_wave(bd, maps, planes, cpads, coords, avail, mv_me, mv_parts,
-                  cz, cm, gy, gu, gv, gy, t32(np.zeros((b, 4, 4))), gy, zero,
-                  qp, cqp, lam4, lam24, lam_me, tuple(tif.BLK_ORDER),
-                  kb.alloc_outputs((b,), "cpu", True), True, True)
+        kb.b_frame(bd, maps, planes, cpads, *_one_wave_picture(xs), qp, cqp,
+                   lam4, lam24, lam_me, tuple(tif.BLK_ORDER), tif._K2_RULES,
+                   kb.alloc_outputs((1, xs[0].shape[0]), "cpu", True), True,
+                   True)

@@ -357,10 +357,11 @@ def _p_wave_on(dev, seed, wm, hm):
 @pytest.mark.cuda
 @pytest.mark.parametrize("qp,offset", [(0, 0), (28, 0), (28, -2), (51, -2)])
 def test_cuda_p_wave_body_matches_plain(qp, offset):
-    """The P wave body on the card (K2's wave form, then KP) against
-    `wave_body_plain` on the card and on the CPU: every result, the border
-    buffers and both maps after the wave, padding lanes included; one
-    launch of each kernel and none of the slab entries."""
+    """The P wave body on the card (KP's frame form on a picture of one
+    wave, the Intra4x4 search inside) against `wave_body_plain` on the
+    card and on the CPU: every result, the border buffers and both maps
+    after the wave, padding lanes included; one launch of KP, none of K2,
+    K3 or the slab entries."""
     dev = cuda_device()
     cqp = chroma_qp(qp, offset)
     lam = tif.LAMBDA_TABLE[qp]
@@ -371,7 +372,7 @@ def test_cuda_p_wave_body_matches_plain(qp, offset):
     got = tinter.wave_body(planes, cu, cv, *consts, bd_k, mv_k, ref_k, *xs)
     torch.cuda.synchronize()
     ran = {k: c[k] - b[k] for c, b in zip(counts, before) for k in c}
-    assert ran == {"K2": 1, "K3": 0, "KP": 1, "K2_blocks": 0, "K3_blocks": 0}
+    assert ran == {"K2": 0, "K3": 0, "KP": 1, "K2_blocks": 0, "K3_blocks": 0}
     _, _, _, bd_p, mv_p, ref_p, *xs = _p_wave_on(dev, 70 + qp, 40, 20)
     on_card = tinter.wave_body_plain(planes, cu, cv, *consts, bd_p, mv_p,
                                      ref_p, *xs)
@@ -398,7 +399,8 @@ def test_cuda_p_wave_body_matches_plain(qp, offset):
 def test_cuda_p_frame_matches_cpu():
     """One CIF P frame (3 slices) through `make_inter_encoder` on the card
     and on the CPU: every per-wave output and the recon planes equal; the
-    card ran K2 and KP once a wave and no slab entry."""
+    card ran KP once (the whole picture), and K2, K3 and the slab entries
+    never."""
     dev = cuda_device()
     w, h = 352, 288
     sched = build_schedule(w // 16, h // 16, 3)
@@ -412,8 +414,7 @@ def test_cuda_p_frame_matches_cpu():
     out_d, ys_d = encode(*(p.to(dev) for p in planes), 28)
     torch.cuda.synchronize()
     ran = {k: c[k] - b[k] for c, b in zip(counts, before) for k in c}
-    n = sched.n_waves
-    assert ran == {"K2": n, "K3": 0, "KP": n, "K2_blocks": 0, "K3_blocks": 0}
+    assert ran == {"K2": 0, "K3": 0, "KP": 1, "K2_blocks": 0, "K3_blocks": 0}
     out_c, ys_c = encode(*planes, 28)
     assert set(ys_d) == set(ys_c) == set(kp.OUTPUTS) - {"recon_mb", "rec_u",
                                                          "rec_v"}
@@ -471,16 +472,16 @@ def test_cuda_p_wave_tools_match_plain(qp, tools):
 @pytest.mark.cuda
 def test_cuda_default_tools_stream_matches_cpu():
     """112x80 IPPP CAVLC with the default P tools, 5 frames: the stream
-    and recon on the card equal the CPU run's; K2 and KP once a wave of
-    each P frame."""
+    and recon on the card equal the CPU run's; KP once a P frame, K2 once
+    a wave of the I frame only."""
     dev = cuda_device()
     frames = [synth_frame(112, 80, t) for t in range(5)]
     cfg = EncoderConfig(width=112, height=80, qp=30, intra_period=0)
     before = (dict(k2w.launches), dict(kp.launches))
     gpu = Encoder(cfg, device=dev)
     got = gpu.encode_sequence(frames)
-    assert kp.launches["KP"] - before[1]["KP"] == 4 * gpu.sched.n_waves
-    assert k2w.launches["K2"] - before[0]["K2"] == 5 * gpu.sched.n_waves
+    assert kp.launches["KP"] - before[1]["KP"] == 4
+    assert k2w.launches["K2"] - before[0]["K2"] == gpu.sched.n_waves
     cpu = Encoder(cfg, device="cpu")
     assert got == cpu.encode_sequence(frames)
     for g_rec, c_rec in zip(gpu.recons, cpu.recons):
@@ -494,7 +495,7 @@ def test_cuda_default_tools_stream_matches_cpu():
 def test_cuda_weighted_p_wave_matches_plain(wy, oy, tools):
     """KP with explicit weights (the source faded by them) on the card
     against `wave_body_plain` on the CPU: every result, the borders and
-    the maps; two launches, K2 and KP."""
+    the maps; one launch of KP, none of K2."""
     dev = cuda_device()
     qp = 28
     consts = (qp, chroma_qp(qp), *tif.LAMBDA_TABLE[qp])
@@ -519,7 +520,7 @@ def test_cuda_weighted_p_wave_matches_plain(wy, oy, tools):
     got = tinter.wave_body(*head, *st_k, *xs, wy=wy, oy=oy)
     torch.cuda.synchronize()
     assert (kp.launches["KP"], k2w.launches["K2"]) == (before[0] + 1,
-                                                       before[1] + 1)
+                                                       before[1])
     head, st_c, xs = on("cpu")
     want = tinter.wave_body(*head, *st_c, *xs, wy=wy, oy=oy)
     for k in want:
@@ -558,17 +559,16 @@ def test_cuda_weighted_stream_matches_cpu():
 def test_cuda_p_wave_rejects_bad_input():
     dev = cuda_device()
     planes, cu, cv, bd, mv_map, ref_map, *xs = _p_wave_on(dev, 4, 11, 9)
-    coords, avail, mv_me, gy, gu, gv = xs
-    b = gy.shape[0]
-    mb4, modebuf, _, coeffs4, j4 = k2w.i4x4_wave_bd(
-        gy, bd, coords, avail, 28, 23, 140, tif._K2_RULES)
+    coords, avail, mv_me, gy, gu, gv = (t.unsqueeze(0) for t in xs)
+    b = gy.shape[1]
 
-    def run(mv_map=mv_map, planes=planes, cu=cu, mv_me=mv_me, j4=j4,
-            out=None):
-        out = kp.alloc_outputs((b,), dev) if out is None else out
-        kp.p_wave(bd, mv_map, ref_map, planes, cu, cv, coords, avail, mv_me,
-                  gy, gu, gv, mb4, modebuf, coeffs4, j4, 28, 28, 23, 140, 6,
-                  tuple(tif.BLK_ORDER), out)
+    def run(mv_map=mv_map, planes=planes, cu=cu, mv_me=mv_me, gv=gv,
+            out=None, waves=None):
+        out = kp.alloc_outputs((1, b), dev) if out is None else out
+        kp.p_frame(bd, mv_map, ref_map, planes, cu, cv, coords, avail, mv_me,
+                   gy, gu, gv, 28, 28, 23, 140, 6, tuple(tif.BLK_ORDER),
+                   tif._K2_RULES, out, waves=waves)
+        torch.cuda.synchronize()
 
     run()
     with pytest.raises(TypeError):
@@ -580,9 +580,62 @@ def test_cuda_p_wave_rejects_bad_input():
     with pytest.raises(ValueError):
         run(cu=cu[:, :-1])
     with pytest.raises(ValueError):
-        run(j4=j4.cpu())
+        run(gv=gv.cpu())
     with pytest.raises(ValueError):
-        run(out=kp.alloc_outputs((b + 1,), dev))
+        run(out=kp.alloc_outputs((1, b + 1), dev))
+    with pytest.raises(ValueError):
+        run(waves=(0, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [None, (1, 5, 17)])
+def test_cuda_p_frame_wave_ranges_match_plain(split):
+    """KP's frame form on a CIF P picture with the default tools and
+    weights (58, -7), whole or run as wave ranges (one launch a range),
+    against `p_frame_plain` on the CPU: every result, the border buffers
+    and the maps; a launch a range, none of K2."""
+    dev = cuda_device()
+    w, h = 352, 288
+    sched = build_schedule(w // 16, h // 16, 1)
+    captured = {}
+    inner = tinter.frame_body
+
+    def spy(*a, **kw):
+        # the state as the picture starts
+        captured["args"] = (tuple(
+            {k: v.clone() for k, v in x.items()} if isinstance(x, dict)
+            else x.clone() if isinstance(x, torch.Tensor) else x
+            for x in a), kw)
+        return inner(*a, **kw)
+
+    tinter.frame_body = spy
+    try:
+        tinter.make_inter_encoder(sched, partitions=True, p8x8=True, t8=True,
+                                  weighted=True)(
+            *(torch.as_tensor(p) for p in synth_frame(w, h, 3)
+              + synth_frame(w, h, 2)), 28, 58, -7)
+    finally:
+        tinter.frame_body = inner
+    a, kw = captured["args"]
+    to = lambda t, d: ({k: v.to(d) for k, v in t.items()} if isinstance(t, dict)
+                       else t.to(d) if isinstance(t, torch.Tensor) else t)
+    edges = [0, *(split or ()), sched.n_waves]
+    before = (kp.launches["KP"], k2w.launches["K2"])
+    got = kp.alloc_outputs((sched.n_waves, sched.max_wave), dev,
+                           kp.Tools(True, True, True))
+    on_card = [to(t, dev) for t in a]
+    for w0, w1 in zip(edges, edges[1:]):
+        inner(*on_card, **kw, out=got, waves=(w0, w1))
+    torch.cuda.synchronize()
+    assert (kp.launches["KP"] - before[0], k2w.launches["K2"] - before[1]) \
+        == (len(edges) - 1, 0)
+    want = inner(*a, **kw)
+    for k in want:
+        assert_equal(got[k], want[k], k)
+    for k in a[8]:
+        assert_equal(on_card[8][k], a[8][k], k)
+    assert_equal(on_card[9], a[9])
+    assert_equal(on_card[10], a[10])
 
 
 @pytest.mark.cuda
@@ -699,7 +752,8 @@ def test_cuda_engine_p_records_match_plain(tools, slices):
 def test_cuda_ippp_cabac_rc_stream_matches_cpu():
     """112x80 IPPP with CABAC, the default P tools and rate control, 5
     frames: stream, recon and every frame's QP on the card equal the CPU
-    run's; K1 once a frame, K2 and KP once a wave of each P frame."""
+    run's; K1 once a frame, KP once a P frame, K2 once a wave of the I
+    frame only."""
     dev = cuda_device()
     frames = [synth_frame(112, 80, t) for t in range(5)]
     cfg = EncoderConfig(width=112, height=80, qp=30, intra_period=0,
@@ -709,8 +763,8 @@ def test_cuda_ippp_cabac_rc_stream_matches_cpu():
     gpu = Encoder(cfg, device=dev)
     got = gpu.encode_sequence(frames)
     assert k1.launches["K1"] - before[0]["K1"] == 5
-    assert k2w.launches["K2"] - before[1]["K2"] == 5 * gpu.sched.n_waves
-    assert kp.launches["KP"] - before[2]["KP"] == 4 * gpu.sched.n_waves
+    assert k2w.launches["K2"] - before[1]["K2"] == gpu.sched.n_waves
+    assert kp.launches["KP"] - before[2]["KP"] == 4
     cpu = Encoder(cfg, device="cpu")
     assert got == cpu.encode_sequence(frames)
     assert [s.qp for s in gpu.stats] == [s.qp for s in cpu.stats]
@@ -772,10 +826,11 @@ def _b_wave_on(dev, seed, wm, hm, qp, allow):
 @pytest.mark.parametrize("allow", [True, False])
 @pytest.mark.parametrize("qp", [0, 28, 51])
 def test_cuda_b_wave_body_matches_plain(qp, allow):
-    """The B wave body on the card (K2's wave form, then KB) against
-    `wave_body_plain` on the CPU, at the 1080p width (60 lanes and 3
-    padding lanes): every result, the border buffers and both lists' maps
-    after the wave; one launch of K2 and of KB, none of KP."""
+    """The B wave body on the card (KB's frame form on a picture of one
+    wave, the Intra4x4 search inside) against `wave_body_plain` on the
+    CPU, at the 1080p width (60 lanes and 3 padding lanes): every result,
+    the border buffers and both lists' maps after the wave; one launch of
+    KB, none of K2 or KP."""
     dev = cuda_device()
     counts = (k2w.launches, kp.launches, kb.launches)
     before = [dict(c) for c in counts]
@@ -783,7 +838,7 @@ def test_cuda_b_wave_body_matches_plain(qp, allow):
     got = tb.wave_body(*args)
     torch.cuda.synchronize()
     ran = {k: c[k] - b[k] for c, b in zip(counts, before) for k in c}
-    assert ran == {"K2": 1, "KP": 0, "KB": 1}
+    assert ran == {"K2": 0, "KP": 0, "KB": 1}
     args_c = _b_wave_on("cpu", 120 + qp, 120, 68, qp, allow)
     want = tb.wave_body(*args_c)
     assert list(got) == list(want) == list(kb.outputs(True))
@@ -803,7 +858,7 @@ def test_cuda_b_wave_body_matches_plain(qp, allow):
 def test_cuda_b_frame_matches_cpu(is_ref):
     """One QCIF B frame through `make_b_encoder` (partitions, allowed
     unless `is_ref`) on the card and on the CPU: every per-wave output
-    and the recon planes equal; K2 and KB once a wave."""
+    and the recon planes equal; KB once (the whole picture), K2 never."""
     dev = cuda_device()
     w, h = 176, 144
     sched = build_schedule(w // 16, h // 16, 1)
@@ -817,8 +872,8 @@ def test_cuda_b_frame_matches_cpu(is_ref):
     out_d, ys_d = encode(*(p.to(dev) for p in planes),
                          *(c.to(dev) for c in col), 30, not is_ref)
     torch.cuda.synchronize()
-    assert k2w.launches["K2"] - before[0]["K2"] == sched.n_waves
-    assert kb.launches["KB"] - before[1]["KB"] == sched.n_waves
+    assert k2w.launches["K2"] - before[0]["K2"] == 0
+    assert kb.launches["KB"] - before[1]["KB"] == 1
     out_c, ys_c = encode(*planes, *col, 30, not is_ref)
     for k, c in {**ys_c, **out_c}.items():
         d = {**ys_d, **out_d}[k]
@@ -831,7 +886,7 @@ def test_cuda_b_frame_matches_cpu(is_ref):
 def test_cuda_bgop_stream_matches_cpu(symbol_mode):
     """QCIF hierarchical B (`num_b_frames=2`, 7 frames, deblock; CABAC
     with rate control at 256 kb/s): the stream, QPs and recon on the card
-    equal the CPU run's; K2 and KB once a wave of each B frame."""
+    equal the CPU run's; KB once a B frame."""
     dev = cuda_device()
     frames = [synth_frame(176, 144, t) for t in range(7)]
     rc = dict(rate_control=True, bitrate=256_000) \
@@ -841,7 +896,7 @@ def test_cuda_bgop_stream_matches_cpu(symbol_mode):
     before = dict(kb.launches)
     gpu = Encoder(cfg, device=dev)
     got = gpu.encode_sequence(frames)
-    assert kb.launches["KB"] - before["KB"] == 4 * gpu.sched.n_waves
+    assert kb.launches["KB"] - before["KB"] == 4
     cpu = Encoder(cfg, device="cpu")
     assert got == cpu.encode_sequence(frames)
     assert [s.qp for s in gpu.stats] == [s.qp for s in cpu.stats]
@@ -856,8 +911,7 @@ def test_cuda_tiled_bgop_matches_cpu(n_bands):
     """QCIF hierarchical B (`num_b_frames=2`, 7 frames, deblock, CABAC,
     rate control at 256 kb/s) through `TiledEncoder` with 1 and 3 bands
     (all on the card): the stream, QPs and recon equal the same bands on
-    the CPU; K2 and KB once a wave of each band of each B frame, K1 once
-    a band picture."""
+    the CPU; KB once a band of each B frame, K1 once a band picture."""
     from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
     dev = cuda_device()
     frames = [synth_frame(176, 144, t) for t in range(7)]
@@ -868,8 +922,7 @@ def test_cuda_tiled_bgop_matches_cpu(n_bands):
     gpu = TiledEncoder(cfg, make_mesh(n_bands, gop=1,
                                       devices=[dev] * n_bands))
     (got,) = gpu.encode_sequence([frames])
-    n_waves = gpu.band_sched.n_waves
-    assert kb.launches["KB"] - before[0]["KB"] == 4 * n_bands * n_waves
+    assert kb.launches["KB"] - before[0]["KB"] == 4 * n_bands
     assert k1.launches["K1"] - before[1]["K1"] == 7 * n_bands
     cpu = TiledEncoder(cfg, make_mesh(n_bands, gop=1,
                                       devices=["cpu"] * n_bands))
@@ -885,7 +938,7 @@ def test_cuda_tiled_bgop_matches_cpu(n_bands):
 def test_cuda_tiled_ippp_cavlc_matches_cpu():
     """QCIF IPPP CAVLC (5 frames, deblock, the default P tools) through
     `TiledEncoder` with 3 bands on the card: the stream equals the CPU
-    run's; K2 and KP once a wave of each band of each P frame."""
+    run's; KP once a band of each P frame."""
     from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
     dev = cuda_device()
     frames = [synth_frame(176, 144, t) for t in range(5)]
@@ -893,6 +946,6 @@ def test_cuda_tiled_ippp_cavlc_matches_cpu():
     before = dict(kp.launches)
     gpu = TiledEncoder(cfg, make_mesh(3, gop=1, devices=[dev] * 3))
     got = gpu.encode_sequence([frames])
-    assert kp.launches["KP"] - before["KP"] == 4 * 3 * gpu.band_sched.n_waves
+    assert kp.launches["KP"] - before["KP"] == 4 * 3
     cpu = TiledEncoder(cfg, make_mesh(3, gop=1, devices=["cpu"] * 3))
     assert got == cpu.encode_sequence([frames])

@@ -1,6 +1,6 @@
 """One P wave of the port's wave body (on the CPU: `wave_body_plain`, the
-gather, `eval_i4x4_plain` and `p_wave_plain`, which the P wave kernel KP is
-held to on the card) against the reference's P wave body composed eagerly
+gather, `eval_i4x4_plain` and `p_wave_plain`, of which the P wave kernel
+KP's plain version `p_frame_plain` is a loop over the waves) against the reference's P wave body composed eagerly
 from its module-level parts, on seeded waves: every result, the border
 buffers and both motion-vector maps after the wave, tolerance 0.  No
 reference encoder is built (nothing here compiles `make_inter_encoder`).
@@ -451,20 +451,29 @@ def test_p_wave_params(qp, cqp):
 
 
 def test_p_wave_layout_matches_kernel_source():
-    """The wrapper's pointer list and table length against what
+    """The frame wrapper's pointer list and table length against what
     `csrc/p_wave.cu` reads (the kernel cannot run here)."""
     src = (CSRC / "p_wave.cu").read_text()
     n_ptrs = int(re.search(r"constexpr int kPtrs = (\d+);", src).group(1))
-    n_out = sum(1 for k in kp.OUTPUTS if k != "modes")
+    n_out = len(kp.OUTPUTS)
     n_tools = len(kp.TOOL_OUTPUTS)
-    assert n_ptrs == len(k3w.BORDERS) + 16 + n_tools + n_out
-    order = re.search(r"struct WaveIo \{(.*?)\};", src, re.S).group(1)
+    # borders, 2 maps, planes, 2 chroma, coords, avail, mv_me, mv_parts,
+    # 3 sources
+    assert n_ptrs == len(k3w.BORDERS) + 12 + n_tools + n_out
+    order = re.search(r"struct FrameIo \{(.*?)\};", src, re.S).group(1)
     names = re.findall(r"\*\s*(\w+)[,;]", order)
-    assert names[-n_out:] == [k for k in kp.OUTPUTS if k != "modes"]
+    assert names[-n_out:] == list(kp.OUTPUTS)
     assert names[-n_out - n_tools:-n_out] == list(kp.TOOL_OUTPUTS)
     assert "mv_parts" in names
     assert len(kp.pack_params(28, 28, 23, 140, 6, tuple(tif.BLK_ORDER))) \
         == kp.PARAMS_LEN == 2 * 55 + 32 + 5 + 16 * 7 + 1 + 3 * 64 + 4 + 2
+    # the wrapper hands over as many pointers, on a picture of one wave
+    planes, cu, cv, bd, mv_map, ref_map, *xs = _wave(2)
+    xs = [t.unsqueeze(0) for t in xs]
+    a = kp.frame_args(bd, mv_map, ref_map, planes, cu, cv, *xs, 28, 28,
+                      *tif.LAMBDA_TABLE[28], tuple(tif.BLK_ORDER),
+                      tif._K2_RULES, kp.alloc_outputs(xs[0].shape[:2], "cpu"))
+    assert len(a.tensors) == n_ptrs and a.waves == (0, 1)
 
 
 def test_alloc_outputs_cover_the_reference_results():
@@ -479,9 +488,8 @@ def test_p_wave_refuses_cpu_tensors():
     qp = 28
     lam4, lam24, lam_me = tif.LAMBDA_TABLE[qp]
     planes, cu, cv, bd, mv_map, ref_map, *xs = _wave(2)
-    b = xs[0].shape[0]
+    xs = [t.unsqueeze(0) for t in xs]
     with pytest.raises(ValueError, match="CUDA"):
-        kp.p_wave(bd, mv_map, ref_map, planes, cu, cv, *xs, xs[3],
-                  t32(np.zeros((b, 4, 4))), xs[3], t32(np.zeros(b)), qp, qp,
-                  lam4, lam24, lam_me, tuple(tif.BLK_ORDER),
-                  kp.alloc_outputs((b,), "cpu"))
+        kp.p_frame(bd, mv_map, ref_map, planes, cu, cv, *xs, qp, qp, lam4,
+                   lam24, lam_me, tuple(tif.BLK_ORDER), tif._K2_RULES,
+                   kp.alloc_outputs(xs[0].shape[:2], "cpu"))

@@ -22,13 +22,15 @@ its final per-list vectors (partition 0's; mv0b / mv1b carry partition
 for non-reference B frames (`allow_parts`): the per-MB colZeroFlag input
 is exact only while colocated pictures keep MB-constant motion.
 
-Kernels on this path, two launches a wave (`wave_body`): K2 as the I4x4
-wave kernel (`kernels.i4x4_wave.i4x4_wave_bd`), then the B wave kernel KB
-(`kernels.b_wave`: both lists' vector prediction, every candidate, the
-I16x16 and chroma searches, the decision, the chosen residual's
+The kernel on this path is one launch a B picture (`frame_body`): the B
+wave kernel KB in its frame form (`kernels.b_wave.b_frame`: every wave of
+the picture in order, a grid barrier between waves; in a wave the
+Intra4x4 search beside both lists' vector prediction, every candidate and
+the I16x16 and chroma searches, then the decision, the chosen residual's
 transforms, the merge, the border scatter and the map writes).  The plain
-version, which the CPU takes, is `wave_body_plain`: `gather_border_ctx`,
-`eval_i4x4_plain`, then `b_wave_plain`.
+version, which the CPU takes, is `b_frame_plain`: a loop over the waves
+of `wave_body_plain` (`gather_border_ctx`, `eval_i4x4_plain`, then
+`b_wave_plain`).
 """
 
 from __future__ import annotations
@@ -37,7 +39,6 @@ import numpy as np
 import torch
 
 from tpu264_torch.kernels import dct_quant as dq
-from tpu264_torch.kernels import i4x4_wave as k2w
 from tpu264_torch.kernels import b_wave as kb
 from tpu264_torch.kernels import interp as kint
 from tpu264_torch.kernels import me as kme
@@ -128,8 +129,9 @@ def b_wave_plain(bd, maps, planes, cpads, coords, avail, mv_me, mv_parts,
                  colzero, colmixed, gy, gu, gv, mb4, modebuf, coeffs4, j4,
                  qp: int, cqp: int, lam4: int, lam24: int, lam_me: int,
                  partitions: bool = False, allow_parts: bool = False) -> dict:
-    """Plain torch version of the B wave kernel (KB, `kernels.b_wave.
-    b_wave`, same inputs): for B lanes at coords [B,2] (int32 (r, c);
+    """The B wave body after the Intra4x4 search, in plain torch (what
+    KB's inter group computes; `b_frame_plain` is KB's plain version): for
+    B lanes at coords [B,2] (int32 (r, c);
     padding lanes at (hm, 0)) with avail [B,4], each list's neighbour
     vectors from maps = (mv0_map, ref0_map, mv1_map, ref1_map), the median
     predictions and the direct vectors, the inter candidates (MC from the
@@ -368,8 +370,8 @@ def wave_body_plain(maps, planes, cpads, qp: int, cqp: int, lam4: int,
                     mv_parts, colzero, colmixed, gy, gu, gv,
                     partitions: bool = False,
                     allow_parts: bool = False) -> dict:
-    """Plain torch version of `wave_body` (what K2's wave form and KB are
-    held to): gather, the I4x4 search, then `b_wave_plain`."""
+    """One B wave in plain torch: gather, the I4x4 search, then
+    `b_wave_plain`."""
     r, c = coords[:, 0].long(), coords[:, 1].long()
     at, al, atl, atr = avail.unbind(1)
     ltop, lleft, _, _, _, _, modes_top, modes_left = gather_border_ctx(
@@ -385,28 +387,82 @@ def wave_body_plain(maps, planes, cpads, qp: int, cqp: int, lam4: int,
             for k in kb.outputs(partitions)}
 
 
+def _row(pair, w):
+    """Row w of a (list 0, list 1) pair of per-wave arrays (None: None)."""
+    return None if pair is None else (pair[0][w], pair[1][w])
+
+
+def b_frame_plain(maps, planes, cpads, qp: int, cqp: int, lam4: int,
+                  lam24: int, lam_me: int, bd, coords, avail, mv_me,
+                  mv_parts, colzero, colmixed, gy, gu, gv,
+                  partitions: bool = False, allow_parts: bool = False,
+                  out=None, waves=None) -> dict:
+    """Plain torch version of KB's frame form (`frame_body`, same inputs,
+    what the kernel is held to): the waves [w0, w1) of the per-wave
+    arrays (`waves`; None: all) one after another through
+    `wave_body_plain`, each wave's results into its row of `out`."""
+    n = coords.shape[0]
+    w0, w1 = (0, n) if waves is None else waves
+    if out is None:
+        out = kb.alloc_outputs(coords.shape[:2], gy.device, partitions)
+    for w in range(w0, w1):
+        res = wave_body_plain(maps, planes, cpads, qp, cqp, lam4, lam24,
+                              lam_me, bd, coords[w], avail[w],
+                              _row(mv_me, w), _row(mv_parts, w), colzero[w],
+                              colmixed[w], gy[w], gu[w], gv[w], partitions,
+                              allow_parts)
+        for k, v in res.items():
+            out[k][w] = v
+    return out
+
+
+def frame_body(maps, planes, cpads, qp: int, cqp: int, lam4: int,
+               lam24: int, lam_me: int, bd, coords, avail, mv_me, mv_parts,
+               colzero, colmixed, gy, gu, gv, partitions: bool = False,
+               allow_parts: bool = False, out=None, waves=None) -> dict:
+    """The B wave body of the waves [w0, w1) of a picture (`waves`; None:
+    all), in order: for each wave the decision among B_L0 / B_L1 /
+    B_Bi_16x16, B_Direct_16x16, (with `partitions` and `allow_parts`) the
+    16x8 / 8x16 two-partition types, I16x16 and I4x4, transform,
+    quantisation and reconstruction of the MBs of the wave table coords
+    [n_waves, bmax, 2] (int32; padding lanes at (hm, 0)) with avail
+    [n_waves, bmax, 4], search vectors mv_me = (list 0, list 1) [n_waves,
+    bmax, 2] (and the halves' mv_parts, [n_waves, bmax, 4, 2] a list),
+    colzero / colmixed [n_waves, bmax] and source tiles gy [n_waves, bmax,
+    16, 16], gu, gv [.., 8, 8], against the references' half-pel `planes`
+    and padded chroma `cpads` (u0, v0, u1, v1); the border buffers `bd`
+    and both lists' `maps` give the neighbour context and take the
+    finished MBs' borders and vectors, in place.  Returns `out` (given, or
+    allocated: `kernels.b_wave.alloc_outputs`), whose rows [w0, w1) hold
+    the waves' results.
+
+    CUDA tensors go through one launch of KB (or it raises), CPU tensors
+    through `b_frame_plain`.
+    """
+    if gy.device.type == "cpu":
+        return b_frame_plain(maps, planes, cpads, qp, cqp, lam4, lam24,
+                             lam_me, bd, coords, avail, mv_me, mv_parts,
+                             colzero, colmixed, gy, gu, gv, partitions,
+                             allow_parts, out, waves)
+    if out is None:
+        out = kb.alloc_outputs(coords.shape[:2], gy.device, partitions)
+    kb.b_frame(bd, maps, planes, cpads, coords, avail, mv_me, mv_parts,
+               colzero, colmixed, gy, gu, gv, qp, cqp, lam4, lam24, lam_me,
+               _BLK_ORDER, _K2_RULES, out, partitions, allow_parts, waves)
+    return out
+
+
 def wave_body(maps, planes, cpads, qp: int, cqp: int, lam4: int, lam24: int,
               lam_me: int, bd, coords, avail, mv_me, mv_parts, colzero,
               colmixed, gy, gu, gv, partitions: bool = False,
               allow_parts: bool = False, out=None) -> dict:
-    """One B wave of B lanes: the decision among B_L0 / B_L1 / B_Bi_16x16,
-    B_Direct_16x16, (with `partitions` and `allow_parts`) the 16x8 / 8x16
-    two-partition types, I16x16 and I4x4, transform, quantisation and
-    reconstruction of the MBs at coords [B,2] (int32; padding lanes at
-    (hm, 0)) with avail [B,4], search vectors mv_me = (list 0, list 1)
-    [B,2] (and the halves' mv_parts, [B,4,2] a list), colzero / colmixed
-    [B] and source tiles gy [B,16,16], gu, gv [B,8,8], against the
-    references' half-pel `planes` and padded chroma `cpads` (u0, v0, u1,
-    v1); the border buffers `bd` and both lists' `maps` give the neighbour
-    context and take the finished MBs' borders and vectors, in place.
-    Returns the wave's results, a dict of [B, ...] tensors
-    (`kernels.b_wave.outputs(partitions)`).
-
-    CUDA tensors go through two kernels (K2's wave form, then KB on the
-    same stream, or it raises), which write into `out` when it is given
-    (rows of the frame's arrays, `kernels.b_wave.alloc_outputs`); CPU
-    tensors through `wave_body_plain`.
-    """
+    """One B wave of B lanes: `frame_body` of a picture of one wave, with
+    the wave's arrays coords [B,2], avail [B,4], mv_me (two [B,2]),
+    mv_parts (two [B,4,2], or None), colzero, colmixed [B], gy
+    [B,16,16], gu, gv [B,8,8].  Returns the wave's results, a dict of
+    [B, ...] tensors (`kernels.b_wave.outputs(partitions)`), written into
+    `out` when it is given.  CUDA tensors: one launch of KB; CPU tensors:
+    `wave_body_plain`."""
     if gy.device.type == "cpu":
         return wave_body_plain(maps, planes, cpads, qp, cqp, lam4, lam24,
                                lam_me, bd, coords, avail, mv_me, mv_parts,
@@ -414,13 +470,12 @@ def wave_body(maps, planes, cpads, qp: int, cqp: int, lam4: int, lam24: int,
                                allow_parts)
     if out is None:
         out = kb.alloc_outputs((gy.shape[0],), gy.device, partitions)
-    mb4, modebuf, _, coeffs4, j4 = k2w.i4x4_wave_bd(
-        gy, bd, coords, avail, qp, lam4, lam24, _K2_RULES,
-        modes_zz=out["modes"])
-    kb.b_wave(bd, maps, planes, cpads, coords, avail, mv_me, mv_parts,
-              colzero, colmixed, gy, gu, gv, mb4, modebuf, coeffs4, j4, qp,
-              cqp, lam4, lam24, lam_me, _BLK_ORDER, out, partitions,
-              allow_parts)
+    pair = lambda p: None if p is None else tuple(t.unsqueeze(0) for t in p)
+    frame_body(maps, planes, cpads, qp, cqp, lam4, lam24, lam_me, bd,
+               coords.unsqueeze(0), avail.unsqueeze(0), pair(mv_me),
+               pair(mv_parts), colzero.unsqueeze(0), colmixed.unsqueeze(0),
+               gy.unsqueeze(0), gu.unsqueeze(0), gv.unsqueeze(0), partitions,
+               allow_parts, out={k: v.unsqueeze(0) for k, v in out.items()})
     return out
 
 
@@ -506,25 +561,11 @@ def make_b_encoder(sched: WaveSchedule, chroma_qp_offset: int = 0,
         avail = torch.as_tensor(sched.avail, device=dev)
         cz = colzero.to(torch.bool)[idx]
         cm = colmixed.to(torch.bool)[idx]
-        consts = (maps, planes, cpads, qp, cqp, lam4, lam24, lam_me, bd)
-        n_waves = sched.n_waves
-        per_wave = zip(coords.unbind(0), avail.unbind(0),
-                       zip(mvs[0].unbind(0), mvs[1].unbind(0)),
-                       (zip(halves[0].unbind(0), halves[1].unbind(0))
-                        if partitions else [None] * n_waves),
-                       cz.unbind(0), cm.unbind(0), gy_all.unbind(0),
-                       gu_all.unbind(0), gv_all.unbind(0))
-        if dev.type == "cpu":
-            waves = [wave_body(*consts, *x, partitions, allow_parts)
-                     for x in per_wave]
-            ys = {k: torch.stack([w[k] for w in waves]) for k in waves[0]}
-        else:
-            # the kernels write each wave's results into its row
-            ys = kb.alloc_outputs((n_waves, sched.max_wave), dev, partitions)
-            rows = {k: t.unbind(0) for k, t in ys.items()}
-            for wi, x in enumerate(per_wave):
-                wave_body(*consts, *x, partitions, allow_parts,
-                          out={k: t[wi] for k, t in rows.items()})
+        # every wave of the picture: one launch on the card
+        ys = frame_body(maps, planes, cpads, qp, cqp, lam4, lam24, lam_me, bd,
+                        coords, avail, tuple(mvs),
+                        tuple(halves) if partitions else None, cz, cm,
+                        gy_all, gu_all, gv_all, partitions, allow_parts)
         out = dict(
             recon_y=assemble_plane(sched, ys.pop("recon_mb"), 16),
             recon_u=assemble_plane(sched, ys.pop("rec_u"), 8),

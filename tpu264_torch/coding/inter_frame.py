@@ -9,19 +9,20 @@ anti-diagonal wavefront loop, batched per wave.  Candidates per MB: P_Skip
 (skip-mv MC), P_L0_16x16 (ME mv), Intra_16x16 and Intra_4x4 (the
 `intra_frame.eval_*` machinery).
 
-Kernels on this path, two launches a wave (`wave_body`): K2 as the I4x4
-wave kernel (`kernels.i4x4_wave.i4x4_wave_bd`, reading its context from the
-border buffers), then the P wave kernel KP (`kernels.p_wave`: vector
-prediction, the P_Skip and P_L0_16x16 candidates, the I16x16 and chroma
-searches, the decision, every transform of the chosen path, the merge, the
-border scatter and the map writes).  The plain version, which the CPU
-takes, is `wave_body_plain`: `gather_border_ctx`, `eval_i4x4_plain`, then
-`p_wave_plain`.
+The kernel on this path is one launch a P picture (`frame_body`): the P
+wave kernel KP in its frame form (`kernels.p_wave.p_frame`: every wave of
+the picture in order, a grid barrier between waves; in a wave the Intra4x4
+search beside the vector prediction, the P_Skip and P_L0_16x16
+candidates, the I16x16 and chroma searches, then the decision, every
+transform of the chosen path, the merge, the border scatter and the map
+writes).  The plain version, which the CPU takes, is `p_frame_plain`: a
+loop over the waves of `wave_body_plain` (`gather_border_ctx`,
+`eval_i4x4_plain`, then `p_wave_plain`).
 
 With the reference's default IPPP tools (`partitions`, `p8x8`, `t8`) a
 wave also weighs P_L0_16x8, P_L0_8x16 and P_8x8 (each partition with its
 own full-search and sub-pel vector) and picks the transform of a 16x16
-inter MB, still in the same two launches.
+inter MB, in the same launch.
 
 With explicit weighted prediction (`weighted`: a frame's luma weight and
 offset, denominator 6) the motion search runs against the pre-weighted
@@ -36,7 +37,6 @@ import numpy as np
 import torch
 
 from tpu264_torch.kernels import dct_quant as dq
-from tpu264_torch.kernels import i4x4_wave as k2w
 from tpu264_torch.kernels import interp as kint
 from tpu264_torch.kernels import me as kme
 from tpu264_torch.kernels import p_wave as kp
@@ -96,8 +96,9 @@ def p_wave_plain(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
                  cqp: int, lam4: int, lam24: int, lam_me: int,
                  mv_parts=None, tools: kp.Tools = kp.NO_TOOLS, wy: int = 64,
                  oy: int = 0) -> dict:
-    """Plain torch version of the P wave kernel (KP, `kernels.p_wave.
-    p_wave`, same inputs): for B lanes at coords [B,2] (int32 (r, c);
+    """The P wave body after the Intra4x4 search, in plain torch (what
+    KP's inter group computes; `p_frame_plain` is KP's plain version): for
+    B lanes at coords [B,2] (int32 (r, c);
     padding lanes at (hm, 0)) with avail [B,4] = (top, left, top-left,
     top-right), the neighbour vectors from the maps, the median and skip
     predictions, the inter candidates (MC from the half-pel `planes` of the
@@ -343,8 +344,8 @@ def wave_body_plain(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
                     avail, mv_me, gy, gu, gv, mv_parts=None,
                     tools: kp.Tools = kp.NO_TOOLS, wy: int = 64,
                     oy: int = 0) -> dict:
-    """Plain torch version of `wave_body` (what K2's wave form and KP are
-    held to): gather, the I4x4 search, then `p_wave_plain`."""
+    """One P wave in plain torch: gather, the I4x4 search, then
+    `p_wave_plain`."""
     r, c = coords[:, 0].long(), coords[:, 1].long()
     at, al, atl, atr = avail.unbind(1)
     ltop, lleft, _, _, _, _, modes_top, modes_left = gather_border_ctx(
@@ -359,40 +360,88 @@ def wave_body_plain(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
             for k in kp.outputs(tools)}
 
 
+def p_frame_plain(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
+                  lam24: int, lam_me: int, bd, mv_map, ref_map, coords,
+                  avail, mv_me, gy, gu, gv, mv_parts=None,
+                  tools: kp.Tools = kp.NO_TOOLS, wy: int = 64, oy: int = 0,
+                  out=None, waves=None) -> dict:
+    """Plain torch version of KP's frame form (`frame_body`, same inputs,
+    what the kernel is held to): the waves [w0, w1) of the per-wave
+    arrays (`waves`; None: all) one after another through
+    `wave_body_plain`, each wave's results into its row of `out`."""
+    n = coords.shape[0]
+    w0, w1 = (0, n) if waves is None else waves
+    if out is None:
+        out = kp.alloc_outputs(coords.shape[:2], gy.device, tools)
+    for w in range(w0, w1):
+        res = wave_body_plain(planes, cu_pad, cv_pad, qp, cqp, lam4, lam24,
+                              lam_me, bd, mv_map, ref_map, coords[w],
+                              avail[w], mv_me[w], gy[w], gu[w], gv[w],
+                              None if mv_parts is None else mv_parts[w],
+                              tools, wy, oy)
+        for k, v in res.items():
+            out[k][w] = v
+    return out
+
+
+def frame_body(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
+               lam24: int, lam_me: int, bd, mv_map, ref_map, coords, avail,
+               mv_me, gy, gu, gv, mv_parts=None,
+               tools: kp.Tools = kp.NO_TOOLS, wy: int = 64, oy: int = 0,
+               out=None, waves=None) -> dict:
+    """The P wave body of the waves [w0, w1) of a picture (`waves`; None:
+    all), in order: for each wave the decision among P_Skip, P_L0_16x16
+    (with `tools`: P_L0_16x8, P_L0_8x16, P_8x8 and the 8x8 transform),
+    I16x16 and I4x4, transform, quantisation and reconstruction of the
+    MBs of the wave table coords [n_waves, bmax, 2] (int32; padding lanes
+    at (hm, 0)) with avail [n_waves, bmax, 4], full-search vectors mv_me
+    [n_waves, bmax, 2] (and the partitions' mv_parts [n_waves, bmax, 8,
+    2]) and source tiles gy [n_waves, bmax, 16, 16], gu, gv [.., 8, 8],
+    against the reference's half-pel `planes` and padded chroma, every
+    luma prediction weighted by (wy, oy) after interpolation; the border
+    buffers `bd` and the maps give the neighbour context and take the
+    finished MBs' borders and vectors, in place.  Returns `out` (given, or
+    allocated: `kernels.p_wave.alloc_outputs`), whose rows [w0, w1) hold
+    the waves' results.
+
+    CUDA tensors go through one launch of KP (or it raises), CPU tensors
+    through `p_frame_plain`.
+    """
+    if gy.device.type == "cpu":
+        return p_frame_plain(planes, cu_pad, cv_pad, qp, cqp, lam4, lam24,
+                             lam_me, bd, mv_map, ref_map, coords, avail,
+                             mv_me, gy, gu, gv, mv_parts, tools, wy, oy, out,
+                             waves)
+    if out is None:
+        out = kp.alloc_outputs(coords.shape[:2], gy.device, tools)
+    kp.p_frame(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
+               mv_me, gy, gu, gv, qp, cqp, lam4, lam24, lam_me, _BLK_ORDER,
+               _K2_RULES, out, mv_parts, tools, wy, oy, waves)
+    return out
+
+
 def wave_body(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
               lam24: int, lam_me: int, bd, mv_map, ref_map, coords, avail,
               mv_me, gy, gu, gv, mv_parts=None,
               tools: kp.Tools = kp.NO_TOOLS, out=None, wy: int = 64,
               oy: int = 0) -> dict:
-    """One P wave of B lanes: the decision among P_Skip, P_L0_16x16 (with
-    `tools`: P_L0_16x8, P_L0_8x16, P_8x8 and the 8x8 transform), I16x16
-    and I4x4, transform, quantisation and reconstruction of the MBs at
-    coords [B,2] (int32; padding lanes at (hm, 0)) with avail [B,4],
-    full-search vectors mv_me [B,2] (and the partitions' mv_parts
-    [B,8,2]) and source tiles gy [B,16,16], gu, gv [B,8,8], against the
-    reference's half-pel `planes` and padded chroma, every luma prediction
-    weighted by (wy, oy) after interpolation; the border buffers
-    `bd` and the maps give the neighbour context and take the finished
-    MBs' borders and vectors, in place.  Returns the wave's results, a
-    dict of [B, ...] tensors (`kernels.p_wave.outputs(tools)`).
-
-    CUDA tensors go through two kernels (K2's wave form, then KP on the
-    same stream, or it raises), which write into `out` when it is given
-    (rows of the frame's arrays, `kernels.p_wave.alloc_outputs`); CPU
-    tensors through `wave_body_plain`.
-    """
+    """One P wave of B lanes: `frame_body` of a picture of one wave, with
+    the wave's arrays coords [B,2], avail [B,4], mv_me [B,2], (mv_parts
+    [B,8,2]), gy [B,16,16], gu, gv [B,8,8].  Returns the wave's results,
+    a dict of [B, ...] tensors (`kernels.p_wave.outputs(tools)`), written
+    into `out` when it is given.  CUDA tensors: one launch of KP; CPU
+    tensors: `wave_body_plain`."""
     if gy.device.type == "cpu":
         return wave_body_plain(planes, cu_pad, cv_pad, qp, cqp, lam4, lam24,
                                lam_me, bd, mv_map, ref_map, coords, avail,
                                mv_me, gy, gu, gv, mv_parts, tools, wy, oy)
     if out is None:
         out = kp.alloc_outputs((gy.shape[0],), gy.device, tools)
-    mb4, modebuf, _, coeffs4, j4 = k2w.i4x4_wave_bd(
-        gy, bd, coords, avail, qp, lam4, lam24, _K2_RULES,
-        modes_zz=out["modes"])
-    kp.p_wave(bd, mv_map, ref_map, planes, cu_pad, cv_pad, coords, avail,
-              mv_me, gy, gu, gv, mb4, modebuf, coeffs4, j4, qp, cqp, lam4,
-              lam24, lam_me, _BLK_ORDER, out, mv_parts, tools, wy, oy)
+    one = [None if t is None else t.unsqueeze(0)
+           for t in (coords, avail, mv_me, gy, gu, gv, mv_parts)]
+    frame_body(planes, cu_pad, cv_pad, qp, cqp, lam4, lam24, lam_me, bd,
+               mv_map, ref_map, *one, tools, wy, oy,
+               out={k: v.unsqueeze(0) for k, v in out.items()})
     return out
 
 
@@ -481,12 +530,9 @@ def make_inter_encoder(sched: WaveSchedule,
         me_planes = planes if me_ref is ref_pad else kint.luma_planes(me_ref)
 
         mv_q, mv_parts = motion_search(y, me_ref, me_planes, lam_me)
-        # rearrange per wave: [n_waves, Bmax, ...]
+        # the wave table: [n_waves, Bmax, ...]
         idx = torch.as_tensor(np.minimum(sched.mb_index, sched.n_mbs - 1),
                               dtype=torch.int64, device=dev)
-        parts = ([None] * sched.n_waves if mv_parts is None
-                 else mv_parts[idx].unbind(0))
-
         bd = init_border_buffers(hm, wm, dev)
         mv_map = torch.zeros((3, hm + 2, wm + 2, 2), dtype=I32, device=dev)
         ref_map = torch.full((3, hm + 2, wm + 2), mvpred.UNAVAIL, dtype=I32,
@@ -494,23 +540,12 @@ def make_inter_encoder(sched: WaveSchedule,
         gy_all, gu_all, gv_all = tile_origin_xs(sched, y, u, v)
         coords = torch.as_tensor(sched.coords, dtype=I32, device=dev)
         avail = torch.as_tensor(sched.avail, device=dev)
-        consts = (planes, cu_pad, cv_pad, qp, cqp, lam4, lam24, lam_me, bd,
-                  mv_map, ref_map)
-        xs = list(zip(*(t.unbind(0) for t in (
-            coords, avail, mv_q[idx], gy_all, gu_all, gv_all))))
-        if dev.type == "cpu":
-            waves = [wave_body(*consts, *x, mvp, tools, wy=wy, oy=oy)
-                     for x, mvp in zip(xs, parts)]
-            ys = {k: torch.stack([w[k] for w in waves]) for k in waves[0]}
-        else:
-            # the kernels write each wave's results into its row
-            ys = kp.alloc_outputs((sched.n_waves, sched.max_wave), dev,
-                                  tools)
-            rows = {k: v.unbind(0) for k, v in ys.items()}
-            for wi, (x, mvp) in enumerate(zip(xs, parts)):
-                wave_body(*consts, *x, mvp, tools,
-                          out={k: v[wi] for k, v in rows.items()}, wy=wy,
-                          oy=oy)
+        # every wave of the picture: one launch on the card
+        ys = frame_body(planes, cu_pad, cv_pad, qp, cqp, lam4, lam24, lam_me,
+                        bd, mv_map, ref_map, coords, avail, mv_q[idx],
+                        gy_all, gu_all, gv_all,
+                        None if mv_parts is None else mv_parts[idx], tools,
+                        wy, oy)
         out = dict(
             recon_y=assemble_plane(sched, ys.pop("recon_mb"), 16),
             recon_u=assemble_plane(sched, ys.pop("rec_u"), 8),

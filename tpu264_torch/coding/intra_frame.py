@@ -177,7 +177,7 @@ def eval_i16(orig, ltop, lleft, at, al, atl, qp: int):
 
     Plain torch on any device: part of the plain versions of the wave
     kernels K3 (`i16_chroma_wave_plain`) and KP (`inter_frame.
-    p_wave_plain`), whose forward DCT is K3's plain version."""
+    p_frame_plain`), whose forward DCT is K3's plain version."""
     b = orig.shape[0]
     top16 = ltop[:, 1:17]
     tl = ltop[:, 0]

@@ -1,31 +1,39 @@
-// Kernel KB: the B wave body after the Intra4x4 search, for one macroblock
-// wave in one launch: the vector prediction of both lists, the B_L0_16x16,
+// Kernel KB: the B wave body, all of it, as one launch a B picture (or a
+// band of the tiled encoder), in the frame form that it shares with the P
+// wave kernel KP (`frame_wave.cuh`, `p_wave.cu`): one cooperative launch
+// runs the picture's waves in order with a grid-wide barrier between them;
+// a macroblock lane is one block of 416 threads, whose first five warps run
+// the Intra4x4 search (`i4x4_body.cuh`, K2's wave form) while the other
+// eight run the vector prediction of both lists, the B_L0_16x16,
 // B_L1_16x16, B_Bi_16x16 and spatial-direct candidates and, on frames that
 // allow them, the 16x8 and 8x16 two-partition candidates with an L0, L1 or
 // Bi choice for each partition (quarter-pel motion compensation from two
 // references, SATD, vector rate, mb_type rate), the Intra16x16 and chroma
-// searches, the decision, the chosen residual's transform, quantiser and
-// reconstruction, the merge with the Intra4x4 result, the border scatter and
-// the writes into both lists' motion-vector maps.
+// searches; then, after the two groups join, the decision, the chosen
+// residual's transform, quantiser and reconstruction, the merge with the
+// Intra4x4 result, the border scatter and the writes into both lists'
+// motion-vector maps.
 //
 // Replaces tpu264/kernels/pallas_kernels.py `_dct_quant_kernel` (K2) and
 // `_dct_kernel` (K3) as the B path uses them: the reference's B wave body
-// (`tpu264/coding/b_frame.py` `wave_body`) runs K2's function on the inter
-// residual (`kt.fdct_quant4x4`) and K3's in its I16x16 and chroma searches
-// and residuals (`eval_i16`, `chroma_residual_recon`), between some
-// thousand small array operations a wave.  Here all of that is one kernel;
-// K2's wave form (`i4x4_wave.cu`) runs just before it on the same stream
-// and hands over the Intra4x4 results, as it does for the P wave kernel KP
-// (`p_wave.cu`), whose layout this kernel shares (`inter_wave.cuh`,
-// `intra_wave.cuh`).
+// (`tpu264/coding/b_frame.py` `wave_body`) runs K2's function in its
+// Intra4x4 search and on the inter residual (`kt.fdct_quant4x4`) and K3's
+// in its I16x16 and chroma searches and residuals (`eval_i16`,
+// `chroma_residual_recon`), between some thousand small array operations a
+// wave.  On B pictures this kernel takes the place of K2's wave form too.
 //
 // What bounds it on the card: not bytes (a macroblock reads about 10 KB,
 // the four 16x16 and up to twelve partition candidates' samples included,
-// and writes about 3.5 KB) and not arithmetic, but a chain of dependent
-// phases, each ended by a block barrier: context and both lists' vector
-// prediction, mode costs, choice, residual, transform, DC transform,
-// quantise + reconstruct, store.  Each macroblock lane gets one block of
-// 256 threads:
+// and writes about 3.5 KB) and not arithmetic, but chains of dependent
+// steps: a picture's waves one after another, and in a wave the Intra4x4
+// search's 16 block steps of two barriers each beside the inter group's
+// context, vector prediction and mode costs, then the decision and the
+// transform phases, each ended by a barrier.  Before, each wave was two
+// launches (K2's wave form, then this kernel) with about 0.15 ms of host
+// work around 35 us of device work.  The design does what KP's does: one
+// launch a picture, the Intra4x4 chain overlapped with everything that
+// does not need it, its results handed over in shared memory, a grid
+// barrier in place of a kernel boundary.  The inter group's layout:
 //   costs: thread (blk, p) owns sample p of 4x4 block blk; it forms that
 //     sample of the L0, L1, Bi and direct predictions and, where the frame
 //     allows partitions, of the L0, L1 and Bi predictions of the 16x8 half
@@ -51,13 +59,15 @@
 // Only the chosen path's residual is transformed (the plain version
 // computes every candidate and selects).  B macroblocks have no 8x8
 // transform and no sub-partitions.  All arithmetic is int32 with arithmetic
-// shifts, equal to the plain torch version `b_wave_plain`
+// shifts, equal to the plain torch version `b_frame_plain`
 // (`tpu264_torch/coding/b_frame.py`) bit for bit.
 
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
 
+#include "frame_wave.cuh"
+#include "i4x4_body.cuh"
 #include "inter_wave.cuh"
 #include "intra_wave.cuh"
 #include "transform4x4.cuh"
@@ -68,7 +78,6 @@ using iv::Geometry;
 using iv::kIntra;
 using iv::kPad;
 using iv::mv_cost;
-using iw::kThreads;
 
 // flags: the encoder weighs partitions; this frame allows them
 constexpr int kParts = 1, kAllowParts = 2;
@@ -86,33 +95,33 @@ struct BParams {
   int32_t type_bits[3];    // ue(mb_type) bits of B_L0, B_L1, B_Bi_16x16
 };
 
-// the pointers of one wave, in the order of the C entry's `ptrs`
-struct WaveIo {
+// the pointers of a picture, in the order of the C entry's `ptrs`; the
+// per-wave arrays are [n_waves, bmax, ...], lane row b = w * bmax + lane
+struct FrameIo {
   iw::Borders bd;                   // border buffers
   int32_t *mv0_map, *ref0_map;      // list 0: [3,hm+2,wm+2,2], [3,hm+2,wm+2]
   int32_t *mv1_map, *ref1_map;      // list 1
   const int32_t *planes0, *planes1; // [4,hp,wp] G, b, h, j of each list
   const int32_t *c0u, *c0v, *c1u, *c1v;   // [hc,wc] padded chroma
-  const int32_t* coords;            // [B,2] (r, c)
-  const uint8_t* avail;             // [B,4] top, left, top-left, top-right
-  const int32_t *mv_me0, *mv_me1;   // [B,2] quarter-pel (y, x) of each list
-  const int32_t *mv_parts0, *mv_parts1;   // [B,4,2] top bot left right
-  const uint8_t *colzero, *colmixed;      // [B]
-  const int32_t *gy, *gu, *gv;      // source [B,16,16], [B,8,8] x 2
-  const int32_t *mb4, *modebuf, *coeffs4, *j4;   // the I4x4 body's results
+  const int32_t* coords;            // [.,2] (r, c)
+  const uint8_t* avail;             // [.,4] top, left, top-left, top-right
+  const int32_t *mv_me0, *mv_me1;   // [.,2] quarter-pel (y, x) of each list
+  const int32_t *mv_parts0, *mv_parts1;   // [.,4,2] top bot left right
+  const uint8_t *colzero, *colmixed;      // [.]
+  const int32_t *gy, *gu, *gv;      // source [.,16,16], [.,8,8] x 2
   // the partitions' results, null without partitions
-  int32_t *bptype, *c0, *c1;        // [B] 0 / 1 16x8 / 2 8x16; choices
-  int32_t *mv0b, *mv1b;             // [B,2] partition 1's vectors
-  int32_t* btype;                   // [B] L0 L1 Bi direct intra partitioned
-  int32_t *mv0, *mv1;               // [B,2]
-  uint8_t *use0, *use1;             // [B]
-  uint8_t* sel16;                   // [B] Intra16x16 chosen
-  int32_t *i16mode, *cmode;         // [B]
-  int32_t *luma_ac, *luma_dc;       // [B,16,16], [B,16]
-  int32_t *chroma_dc, *chroma_ac;   // [B,2,4], [B,2,4,16]
+  int32_t *bptype, *c0, *c1;        // [.] 0 / 1 16x8 / 2 8x16; choices
+  int32_t *mv0b, *mv1b;             // [.,2] partition 1's vectors
+  int32_t* btype;                   // [.] L0 L1 Bi direct intra partitioned
+  int32_t *mv0, *mv1;               // [.,2]
+  uint8_t *use0, *use1;             // [.]
+  uint8_t* sel16;                   // [.] Intra16x16 chosen
+  int32_t *i16mode, *modes, *cmode; // [.], [.,16] Intra4x4 modes, [.]
+  int32_t *luma_ac, *luma_dc;       // [.,16,16], [.,16]
+  int32_t *chroma_dc, *chroma_ac;   // [.,2,4], [.,2,4,16]
   int32_t *recon_mb, *rec_u, *rec_v;
 };
-constexpr int kPtrs = 53;
+constexpr int kPtrs = 50;
 
 // first minimum of three costs (the lowest choice wins a tie)
 __device__ __forceinline__ int first_min3(const int32_t (&j)[3],
@@ -130,9 +139,13 @@ __device__ __forceinline__ int first_min3(const int32_t (&j)[3],
   return k;
 }
 
-__global__ void __launch_bounds__(kThreads) b_wave_kernel(WaveIo io,
-                                                          BParams prm,
-                                                          Geometry g) {
+// The inter group's part of lane row b (tid = 0 .. 255): everything of the
+// B wave body but the Intra4x4 search, whose results it reads from `i4o`
+// after the join.
+__device__ __forceinline__ void b_lane(const FrameIo& io, const BParams& prm,
+                                       const Geometry& g,
+                                       const fw::I4Out& i4o, int b,
+                                       int tid) {
   __shared__ iw::IntraSmem s;
   __shared__ int32_t res[24][16];     // per 4x4 block (16 luma, 4 U, 4 V)
   __shared__ int32_t lev[24][16];
@@ -144,8 +157,6 @@ __global__ void __launch_bounds__(kThreads) b_wave_kernel(WaveIo io,
   // the 8x16 halves' L0, L1, Bi
   __shared__ int32_t isum[10][8];
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
   const int r = io.coords[2 * b], c = io.coords[2 * b + 1];
   const bool at = io.avail[4 * b] != 0, al = io.avail[4 * b + 1] != 0,
              atl = io.avail[4 * b + 2] != 0, atr = io.avail[4 * b + 3] != 0;
@@ -168,9 +179,9 @@ __global__ void __launch_bounds__(kThreads) b_wave_kernel(WaveIo io,
     iv::median_prediction(ref, mv, vec[l]);
     vec[l][2] = ref[0] == 0 || ref[1] == 0 || ref[2] == 0;
   }
-  __syncthreads();
+  fw::inter_sync();
   iw::intra_context_sums(s, tid);
-  __syncthreads();
+  fw::inter_sync();
 
   // ---- costs: I16x16 and chroma modes; the inter candidates ----
   int32_t pr[4], cpr[4];
@@ -230,7 +241,7 @@ __global__ void __launch_bounds__(kThreads) b_wave_kernel(WaveIo io,
       if ((tid & 31) == 0) isum[k][tid >> 5] = t;
     }
   }
-  __syncthreads();
+  fw::inter_sync();
 
   // ---- the choices, by every thread alike ----
   int32_t j16;
@@ -244,7 +255,8 @@ __global__ void __launch_bounds__(kThreads) b_wave_kernel(WaveIo io,
   }
   const int32_t rb0 = mv_cost(me0y - p0y, me0x - p0x);
   const int32_t rb1 = mv_cost(me1y - p1y, me1x - p1x);
-  const int32_t j4 = io.j4[b];
+  fw::join();                        // the Intra4x4 results are in i4o
+  const int32_t j4 = i4o.j4;
   const bool sel16 = j16 < j4;
   // L0, L1, Bi (+ their ue(mb_type) bits), direct (1 bit, no mvd),
   // intra (the larger mb_type cost)
@@ -391,7 +403,7 @@ __global__ void __launch_bounds__(kThreads) b_wave_kernel(WaveIo io,
     res[16 + comp * 4 + cb][p] =
         s.csrc[comp * 64 + ln.cy * 8 + ln.cx] - cpred;
   }
-  __syncthreads();
+  fw::inter_sync();
   // ---- forward transform, one thread a 4x4 block; an inter luma block
   // is quantised and reconstructed here (it has no DC transform) ----
   const bool lblk = luma_tx && tid < 16;
@@ -421,7 +433,7 @@ __global__ void __launch_bounds__(kThreads) b_wave_kernel(WaveIo io,
       dcs[tid] = w[0];
     }
   }
-  __syncthreads();
+  fw::inter_sync();
 
   // ---- the DC transforms ----
   if (sel16 && !is_inter && tid == 0) {
@@ -431,7 +443,7 @@ __global__ void __launch_bounds__(kThreads) b_wave_kernel(WaveIo io,
     iw::chroma_dc_transform(cdcs + 4 * cmp, prm.chroma, fc,
                             io.chroma_dc + (b * 2 + cmp) * 4);
   }
-  __syncthreads();
+  fw::inter_sync();
 
   // ---- AC quantiser, dequantiser, inverse transform ----
   if (lblk && !is_inter) {
@@ -443,16 +455,16 @@ __global__ void __launch_bounds__(kThreads) b_wave_kernel(WaveIo io,
 #pragma unroll
     for (int i = 0; i < 16; ++i) res[slot][i] = w[i];
   }
-  __syncthreads();
+  fw::inter_sync();
 
   // ---- results: levels, reconstruction, border scatter, maps ----
   {
     // luma_ac [16 blocks in coding order][16 scan positions]
     const int32_t lv = luma_tx ? lev[prm.blk_raster[blk]][prm.zigzag[p]]
-                               : io.coeffs4[b * 256 + tid];
+                               : i4o.coeffs4[tid];
     io.luma_ac[b * 256 + tid] = lv;
     const int32_t rec = luma_tx ? iw::clip255(lpred + res[blk][p])
-                                : io.mb4[b * 256 + y * 16 + x];
+                                : i4o.mb4[y * 16 + x];
     io.recon_mb[b * 256 + y * 16 + x] = rec;
     iw::store_luma_border(io.bd, g.wm, r, c, y, x, rec);
   }
@@ -465,7 +477,7 @@ __global__ void __launch_bounds__(kThreads) b_wave_kernel(WaveIo io,
   const bool is_i16 = sel16 && !is_inter;
   if (tid < 16) io.luma_dc[b * 16 + tid] = is_i16 ? dclev[prm.zigzag[tid]] : 0;
   // an inter or I16x16 macroblock shows its neighbours the mode -1
-  iw::store_mode_tiles(io.bd, g.wm, r, c, tid, luma_tx, io.modebuf + b * 16);
+  iw::store_mode_tiles(io.bd, g.wm, r, c, tid, luma_tx, i4o.modebuf);
   if (tid == 96) {
     io.btype[b] = btype;
     io.mv0[2 * b] = mv0y;
@@ -509,19 +521,38 @@ __global__ void __launch_bounds__(kThreads) b_wave_kernel(WaveIo io,
   }
 }
 
+__global__ void __launch_bounds__(fw::kThreads, 1) b_frame_kernel(
+    FrameIo io, BParams prm, i4::Params i4p, Geometry g, int bmax, int w0,
+    int w1) {
+  __shared__ i4::Smem s4;
+  __shared__ fw::I4Out i4o;
+  fw::frame_loop(io.bd, g.wm, io.coords, io.avail, io.gy, io.modes, i4p,
+                 bmax, w0, w1, s4, i4o, [&](int b, int tid) {
+                   b_lane(io, prm, g, i4o, b, tid);
+                 });
+}
+
 }  // namespace
 
-// `ptrs` holds the device pointers of one wave in the order of `WaveIo`;
+// `ptrs` holds the device pointers of a picture in the order of `FrameIo`;
 // `params` is the host int32 array that `kernels/b_wave.py` packs: K3's
 // wave-form table (for luma, then for chroma, mf[16] lim[16] v[16] f qbits
 // qshift mf00 v00 lim_dc qp; then zigzag[16] blk_raster[16]), then the
 // inter rounding offsets of luma and chroma, lam4, lam24, lam_me, the
 // quarter-pel table [16][7], the flags, the partitions' mb_type bits
-// [2][9] and those of B_L0, B_L1, B_Bi_16x16 [3].  `geom` is wm, hm, hp, wp, hc, wc.
-extern "C" int tpu264_b_wave(void* const* ptrs, const int32_t* params,
-                             const int32_t* geom, int n_mbs, void* stream) {
-  static_assert(sizeof(WaveIo) == kPtrs * sizeof(void*), "WaveIo layout");
-  WaveIo io;
+// [2][9] and those of B_L0, B_L1, B_Bi_16x16 [3]; `i4params` K2's table
+// (`i4::load_params`).  `geom` is wm, hm, hp, wp, hc, wc.  Runs waves
+// [w0, w1) of bmax lanes on `grid` blocks (at most `tpu264_b_frame_blocks`).
+extern "C" int tpu264_b_frame(void* const* ptrs, const int32_t* params,
+                              const int32_t* i4params, const int32_t* geom,
+                              int bmax, int w0, int w1, int grid,
+                              void* stream) {
+  static_assert(sizeof(FrameIo) == kPtrs * sizeof(void*), "FrameIo layout");
+  static_assert(sizeof(FrameIo) + sizeof(BParams) + sizeof(i4::Params) +
+                        sizeof(Geometry) + 3 * sizeof(int) <=
+                    4096,
+                "kernel parameters");
+  FrameIo io;
   std::memcpy(&io, ptrs, sizeof(io));
   BParams prm;
   const int32_t* q = params;
@@ -540,9 +571,16 @@ extern "C" int tpu264_b_wave(void* const* ptrs, const int32_t* params,
   for (int s = 0; s < 2; ++s)
     for (int i = 0; i < 9; ++i) prm.tb_part[s][i] = *q++;
   for (int i = 0; i < 3; ++i) prm.type_bits[i] = *q++;
-  const Geometry g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5]};
-  if (n_mbs > 0) {
-    b_wave_kernel<<<n_mbs, kThreads, 0, (cudaStream_t)stream>>>(io, prm, g);
-  }
-  return (int)cudaGetLastError();
+  i4::Params i4p;
+  i4::load_params(i4p, i4params);
+  Geometry g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5]};
+  if (w1 <= w0 || bmax <= 0) return (int)cudaGetLastError();
+  void* args[] = {&io, &prm, &i4p, &g, &bmax, &w0, &w1};
+  return fw::launch(b_frame_kernel, grid, args, stream);
+}
+
+// The most blocks of KB that the card holds at once (0: no cooperative
+// launch), the largest grid `tpu264_b_frame` may take.
+extern "C" int tpu264_b_frame_blocks(int* blocks) {
+  return fw::co_resident(b_frame_kernel, blocks);
 }

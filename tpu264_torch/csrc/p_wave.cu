@@ -1,33 +1,42 @@
-// Kernel KP: the P wave body after the Intra4x4 search, for one macroblock
-// wave in one launch: motion-vector prediction, the P_Skip and P_L0_16x16
-// candidates and, with the reference's default tools, the P_L0_16x8,
-// P_L0_8x16 and P_8x8 candidates (quarter-pel motion compensation, SATD,
-// vector rate; every luma prediction weighted by the frame's explicit
-// weight and offset), the Intra16x16 and chroma searches, the inter-or-intra
-// decision, the chosen residual's transform, quantiser and reconstruction
-// (for a 16x16 inter macroblock also the 8x8 transform, and the choice
-// between the two), the merge with the Intra4x4 result, the border scatter
-// and the motion-vector map writes.
+// Kernel KP: the P wave body, all of it, as one launch a P picture (or a
+// band of the tiled encoder).  One cooperative launch runs the picture's
+// waves in order with a grid-wide barrier between them (`frame_wave.cuh`);
+// a macroblock lane is one block of 416 threads, whose first five warps run
+// the Intra4x4 search (`i4x4_body.cuh`, K2's wave form) while the other
+// eight run motion-vector prediction, the P_Skip and P_L0_16x16 candidates
+// and, with the reference's default tools, the P_L0_16x8, P_L0_8x16 and
+// P_8x8 candidates (quarter-pel motion compensation, SATD, vector rate;
+// every luma prediction weighted by the frame's explicit weight and
+// offset), the Intra16x16 and chroma searches; then, after the two groups
+// join, the inter-or-intra decision, the chosen residual's transform,
+// quantiser and reconstruction (for a 16x16 inter macroblock also the 8x8
+// transform, and the choice between the two), the merge with the Intra4x4
+// result, the border scatter and the motion-vector map writes.
 //
 // Replaces tpu264/kernels/pallas_kernels.py `_dct_quant_kernel` (K2) and
-// `_dct_kernel` (K3) as the P path uses them: the port ran K2 once a wave on
-// the slab of inter residual blocks and K3 five times (the I16x16 residual,
-// intra U and V, inter U and V) in the middle of the P wave body
-// (`tpu264/coding/inter_frame.py` `wave_body`), whose other steps were about
-// 1,300 small array operations a wave with the 16x16 partition alone.  Here
-// all of that is one kernel; K2's wave form (`i4x4_wave.cu`) runs just
-// before it on the same stream and hands over the Intra4x4 results.  The
-// 8x8 transform of the reference (`tpu264/kernels/transform8.py`) is plain
-// array code, not Pallas; it runs here because its choice sits in the
-// middle of the wave body.
+// `_dct_kernel` (K3) as the P path uses them: the reference runs K2's
+// function in the Intra4x4 search (`eval_i4x4`) and on the inter residual,
+// and K3's in the I16x16 and chroma searches and residuals, between about
+// 1,300 small array operations a wave (`tpu264/coding/inter_frame.py`
+// `wave_body`).  On P pictures this kernel takes the place of K2's wave
+// form too, which runs only on I pictures now.  The 8x8 transform of the
+// reference (`tpu264/kernels/transform8.py`) is plain array code, not
+// Pallas; it runs here because its choice sits in the middle of the wave
+// body.
 //
 // What bounds it on the card: not bytes (a macroblock reads about 7 KB, the
 // two 16x16 motion-compensated candidates included, and writes about
-// 3.5 KB) and not arithmetic, but a chain of dependent phases, each ended by
-// a block barrier: context and vector prediction, mode costs, choice,
-// residual, transform, DC transform, quantise + reconstruct, store.  Each
-// macroblock lane gets one block of 256 threads, laid out as in K3's wave
-// form (`intra_wave.cuh`):
+// 3.5 KB) and not arithmetic, but chains of dependent steps: a picture's
+// waves one after another, and in a wave the Intra4x4 search's 16 block
+// steps of two barriers each (about 22 us a wave) beside the inter group's
+// context, vector prediction and mode costs, then the decision and the
+// transform phases, each ended by a barrier.  Before, each wave was two
+// launches (K2's wave form, then this kernel) with about 0.15 ms of host
+// work around 34 us of device work.  The design: one launch a picture
+// (the host work once a picture), the Intra4x4 chain overlapped with
+// everything that does not need it, its results handed over in shared
+// memory, and a grid barrier in place of a kernel boundary between waves.
+// The inter group keeps its layout of K3's wave form (`intra_wave.cuh`):
 //   costs: thread (blk, p) owns sample p of 4x4 block blk; it forms that
 //     sample of every inter prediction (two to five) straight from the four
 //     half-pel planes (two reads and the rounding average of `QPEL_TABLE`,
@@ -43,13 +52,13 @@
 //     an I16x16 lane and every chroma component go through their DC
 //     transforms first;
 //   the 8x8 transform, only on a lane that chose a 16x16 inter prediction
-//     with the tool on (a block-uniform branch): eight threads an 8x8 block
-//     run its rows, then its columns, one thread a coefficient quantises
-//     and dequantises, eight threads a block invert it, and a block sum
-//     gives both transforms' SSD and coefficient bits.
+//     with the tool on (a branch uniform over the group): eight threads an
+//     8x8 block run its rows, then its columns, one thread a coefficient
+//     quantises and dequantises, eight threads a block invert it, and a
+//     group sum gives both transforms' SSD and coefficient bits.
 // Only the chosen path's residual is transformed (the plain version
 // computes every candidate and selects).  All arithmetic is int32 with
-// arithmetic shifts, equal to the plain torch version `p_wave_plain`
+// arithmetic shifts, equal to the plain torch version `p_frame_plain`
 // (`tpu264_torch/coding/inter_frame.py`) bit for bit, but the transform
 // choice's cost, SSD + lambda x bits in float32 with one rounding, as the
 // reference's fused multiply-add gives it (`__fmaf_rn`).
@@ -58,6 +67,8 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
+#include "frame_wave.cuh"
+#include "i4x4_body.cuh"
 #include "inter_wave.cuh"
 #include "intra_wave.cuh"
 #include "transform4x4.cuh"
@@ -69,7 +80,6 @@ using iv::kIntra;
 using iv::kPad;
 using iv::kUnavail;
 using iv::mv_cost;
-using iw::kThreads;
 
 // the tools (`kernels/p_wave.py` `Tools`)
 constexpr int kParts = 1, kP8x8 = 2, kT8 = 4;
@@ -93,35 +103,35 @@ struct PParams {
   int32_t wy, oy;
 };
 
-// the pointers of one wave, in the order of the C entry's `ptrs`
-struct WaveIo {
+// the pointers of a picture, in the order of the C entry's `ptrs`; the
+// per-wave arrays are [n_waves, bmax, ...], lane row b = w * bmax + lane
+struct FrameIo {
   iw::Borders bd;                   // border buffers
   int32_t *mv_map, *ref_map;        // [3,hm+2,wm+2,2], [3,hm+2,wm+2]
   const int32_t* planes;            // [4,hp,wp] G, b, h, j
   const int32_t *cu_pad, *cv_pad;   // [hc,wc] each
-  const int32_t* coords;            // [B,2] (r, c)
-  const uint8_t* avail;             // [B,4] top, left, top-left, top-right
-  const int32_t* mv_me;             // [B,2] quarter-pel (y, x)
-  const int32_t* mv_parts;          // [B,8,2] top bot left right q0..q3
-  const int32_t *gy, *gu, *gv;      // source [B,16,16], [B,8,8] x 2
-  const int32_t *mb4, *modebuf, *coeffs4, *j4;   // the I4x4 body's results
+  const int32_t* coords;            // [.,2] (r, c)
+  const uint8_t* avail;             // [.,4] top, left, top-left, top-right
+  const int32_t* mv_me;             // [.,2] quarter-pel (y, x)
+  const int32_t* mv_parts;          // [.,8,2] top bot left right q0..q3
+  const int32_t *gy, *gu, *gv;      // source [.,16,16], [.,8,8] x 2
   // the tools' results, null where the tool is off
-  int32_t* ptype;                   // [B] 0 16x16, 1 16x8, 2 8x16, 3 P_8x8
-  int32_t *mv2, *mvq;               // [B,2], [B,4,2]
-  uint8_t* t8;                      // [B] 8x8 transform chosen
-  uint8_t* is_inter;                // [B]
-  int32_t *mv, *mv_pred, *mv_skip;  // [B,2]
-  uint8_t* sel16;                   // [B] Intra16x16 chosen
-  int32_t *i16mode, *cmode;         // [B]
-  int32_t *luma_ac, *luma_dc;       // [B,16,16], [B,16]
-  int32_t *chroma_dc, *chroma_ac;   // [B,2,4], [B,2,4,16]
+  int32_t* ptype;                   // [.] 0 16x16, 1 16x8, 2 8x16, 3 P_8x8
+  int32_t *mv2, *mvq;               // [.,2], [.,4,2]
+  uint8_t* t8;                      // [.] 8x8 transform chosen
+  uint8_t* is_inter;                // [.]
+  int32_t *mv, *mv_pred, *mv_skip;  // [.,2]
+  uint8_t* sel16;                   // [.] Intra16x16 chosen
+  int32_t *i16mode, *modes, *cmode; // [.], [.,16] Intra4x4 modes, [.]
+  int32_t *luma_ac, *luma_dc;       // [.,16,16], [.,16]
+  int32_t *chroma_dc, *chroma_ac;   // [.,2,4], [.,2,4,16]
   int32_t *recon_mb, *rec_u, *rec_v;
 };
-constexpr int kPtrs = 42;
+constexpr int kPtrs = 39;
 
 // One thread: the lane's median prediction (spec 8.4.1.3) and P_Skip vector
 // (spec 8.4.1.1) from the maps -> out = pred y, x, skip y, x.
-__device__ void predict_vectors(const WaveIo& io, const Geometry& g, int r,
+__device__ void predict_vectors(const FrameIo& io, const Geometry& g, int r,
                                 int c, bool at, bool al, bool atl, bool atr,
                                 int32_t* out) {
   int32_t ref[3], mv[3][2];
@@ -206,9 +216,13 @@ __device__ __forceinline__ int32_t coeff_bits(int32_t l) {
   return a ? 2 * (32 - __clz(a)) + 1 : 0;
 }
 
-__global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
-                                                          PParams prm,
-                                                          Geometry g) {
+// The inter group's part of lane row b (tid = 0 .. 255): everything of the
+// P wave body but the Intra4x4 search, whose results it reads from `i4o`
+// after the join.
+__device__ __forceinline__ void p_lane(const FrameIo& io, const PParams& prm,
+                                       const Geometry& g,
+                                       const fw::I4Out& i4o, int b,
+                                       int tid) {
   __shared__ iw::IntraSmem s;
   __shared__ int32_t res[24][16];     // per 4x4 block (16 luma, 4 U, 4 V)
   __shared__ int32_t lev[24][16];
@@ -224,8 +238,6 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
   __shared__ int32_t pred8[256], pass8[4][8][8], coef8[256], lev8[256],
       rec8[256], tsum[5][8];
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
   const int r = io.coords[2 * b], c = io.coords[2 * b + 1];
   const bool at = io.avail[4 * b] != 0, al = io.avail[4 * b + 1] != 0,
              atl = io.avail[4 * b + 2] != 0, atr = io.avail[4 * b + 3] != 0;
@@ -238,9 +250,9 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
   // ---- context, source, and (thread 128) the vector predictions ----
   iw::load_intra_context(s, io.bd, g.wm, r, c, io.gy, io.gu, io.gv, b, tid);
   if (tid == 128) predict_vectors(io, g, r, c, at, al, atl, atr, vec);
-  __syncthreads();
+  fw::inter_sync();
   iw::intra_context_sums(s, tid);
-  __syncthreads();
+  fw::inter_sync();
 
   // ---- costs: I16x16 and chroma modes; the inter candidates ----
   int32_t pr[4], cpr[4];
@@ -281,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
       if ((tid & 31) == 0) isum[k][tid >> 5] = t;
     }
   }
-  __syncthreads();
+  fw::inter_sync();
 
   // ---- the choices, by every thread alike ----
   int32_t j16;
@@ -351,7 +363,8 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
       }
     }
   }
-  const int32_t j4 = io.j4[b];
+  fw::join();                        // the Intra4x4 results are in i4o
+  const int32_t j4 = i4o.j4;
   const bool sel16 = j16 < j4;
   // intra pays the larger mb_type cost in P slices
   const bool is_inter = j_inter < (j16 < j4 ? j16 : j4) + prm.lam24;
@@ -396,7 +409,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
     res[16 + comp * 4 + cb][p] =
         s.csrc[comp * 64 + ln.cy * 8 + ln.cx] - cpred;
   }
-  __syncthreads();
+  fw::inter_sync();
   // ---- forward transform, one thread a 4x4 block; an inter luma block
   // is quantised and reconstructed here (it has no DC transform) ----
   const bool lblk = luma_tx && tid < 16;
@@ -426,7 +439,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
       dcs[tid] = w[0];
     }
   }
-  __syncthreads();
+  fw::inter_sync();
 
   // ---- the DC transforms ----
   if (sel16 && !is_inter && tid == 0) {
@@ -436,7 +449,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
     iw::chroma_dc_transform(cdcs + 4 * cmp, prm.chroma, fc,
                             io.chroma_dc + (b * 2 + cmp) * 4);
   }
-  __syncthreads();
+  fw::inter_sync();
 
   // ---- AC quantiser, dequantiser, inverse transform ----
   if (lblk && !is_inter) {
@@ -448,7 +461,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
 #pragma unroll
     for (int i = 0; i < 16; ++i) res[slot][i] = w[i];
   }
-  __syncthreads();
+  fw::inter_sync();
 
   // ---- the 8x8 transform and its choice (a 16x16 inter lane) ----
   bool t8_sel = false;
@@ -473,7 +486,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
 #pragma unroll
       for (int j = 0; j < 8; ++j) coef8[k8 * 64 + j * 8 + i8] = v[j];
     }
-    __syncthreads();
+    fw::inter_sync();
     {
       // quantiser and dequantiser, one thread a coefficient
       const int pos = tid & 63;
@@ -486,7 +499,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
                        ? lv8 << (prm.qdiv6 - 2)
                        : (lv8 + (1 << (1 - prm.qdiv6))) >> (2 - prm.qdiv6);
     }
-    __syncthreads();
+    fw::inter_sync();
     if (tid < 32) {
       // inverse: row i8, then column i8
 #pragma unroll
@@ -505,7 +518,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
         rec8[at8] = iw::clip255(pred8[at8] + ((v[j] + 32) >> 6));
       }
     }
-    __syncthreads();
+    fw::inter_sync();
     {
       // this sample's share of both transforms' SSD and bits
       const int32_t d4 = s_y - iw::clip255(lpred + res[blk][p]);
@@ -520,7 +533,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
       const unsigned nz = __ballot_sync(iw::kFull, lev8[tid] != 0);
       if ((tid & 31) == 0) tsum[4][tid >> 5] = nz != 0;
     }
-    __syncthreads();
+    fw::inter_sync();
     int32_t tot[5] = {0, 0, 0, 0, 0};
 #pragma unroll
     for (int k = 0; k < 5; ++k) {
@@ -543,11 +556,11 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
     const int32_t lv =
         t8_sel ? lev8[(n4 >> 2) * 64 + prm.zigzag8[4 * p + (n4 & 3)]]
                : (luma_tx ? lev[prm.blk_raster[blk]][prm.zigzag[p]]
-                          : io.coeffs4[b * 256 + tid]);
+                          : i4o.coeffs4[tid]);
     io.luma_ac[b * 256 + tid] = lv;
     const int32_t rec = t8_sel ? rec8[y * 16 + x]
                                : (luma_tx ? iw::clip255(lpred + res[blk][p])
-                                          : io.mb4[b * 256 + y * 16 + x]);
+                                          : i4o.mb4[y * 16 + x]);
     io.recon_mb[b * 256 + y * 16 + x] = rec;
     iw::store_luma_border(io.bd, g.wm, r, c, y, x, rec);
   }
@@ -560,7 +573,7 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
   const bool is_i16 = sel16 && !is_inter;
   if (tid < 16) io.luma_dc[b * 16 + tid] = is_i16 ? dclev[prm.zigzag[tid]] : 0;
   // an inter or I16x16 macroblock shows its neighbours the mode -1
-  iw::store_mode_tiles(io.bd, g.wm, r, c, tid, luma_tx, io.modebuf + b * 16);
+  iw::store_mode_tiles(io.bd, g.wm, r, c, tid, luma_tx, i4o.modebuf);
   if (tid == 96) {
     io.is_inter[b] = is_inter ? 1 : 0;
     io.sel16[b] = is_i16 ? 1 : 0;
@@ -600,21 +613,39 @@ __global__ void __launch_bounds__(kThreads) p_wave_kernel(WaveIo io,
   }
 }
 
+__global__ void __launch_bounds__(fw::kThreads, 1) p_frame_kernel(
+    FrameIo io, PParams prm, i4::Params i4p, Geometry g, int bmax, int w0,
+    int w1) {
+  __shared__ i4::Smem s4;
+  __shared__ fw::I4Out i4o;
+  fw::frame_loop(io.bd, g.wm, io.coords, io.avail, io.gy, io.modes, i4p,
+                 bmax, w0, w1, s4, i4o, [&](int b, int tid) {
+                   p_lane(io, prm, g, i4o, b, tid);
+                 });
+}
+
 }  // namespace
 
-// `ptrs` holds the device pointers of one wave in the order of `WaveIo`;
+// `ptrs` holds the device pointers of a picture in the order of `FrameIo`;
 // `params` is the host int32 array that `kernels/p_wave.py` packs: K3's
 // wave-form table (for luma, then for chroma, mf[16] lim[16] v[16] f qbits
 // qshift mf00 v00 lim_dc qp; then zigzag[16] blk_raster[16]), then the
 // inter rounding offsets of luma and chroma, lam4, lam24, lam_me, the
 // quarter-pel table [16][7], the tools, mf8[64] v8[64] zigzag8[64] f8
 // qbits8 qp/6, the bits of the float32 lambda, and the luma weight and
-// offset.  `geom` is wm, hm, hp,
-// wp, hc, wc.
-extern "C" int tpu264_p_wave(void* const* ptrs, const int32_t* params,
-                             const int32_t* geom, int n_mbs, void* stream) {
-  static_assert(sizeof(WaveIo) == kPtrs * sizeof(void*), "WaveIo layout");
-  WaveIo io;
+// offset; `i4params` K2's table (`i4::load_params`).  `geom` is wm, hm,
+// hp, wp, hc, wc.  Runs waves [w0, w1) of bmax lanes on `grid` blocks (at
+// most `tpu264_p_frame_blocks`).
+extern "C" int tpu264_p_frame(void* const* ptrs, const int32_t* params,
+                              const int32_t* i4params, const int32_t* geom,
+                              int bmax, int w0, int w1, int grid,
+                              void* stream) {
+  static_assert(sizeof(FrameIo) == kPtrs * sizeof(void*), "FrameIo layout");
+  static_assert(sizeof(FrameIo) + sizeof(PParams) + sizeof(i4::Params) +
+                        sizeof(Geometry) + 3 * sizeof(int) <=
+                    4096,
+                "kernel parameters");
+  FrameIo io;
   std::memcpy(&io, ptrs, sizeof(io));
   PParams prm;
   const int32_t* q = params;
@@ -639,9 +670,16 @@ extern "C" int tpu264_p_wave(void* const* ptrs, const int32_t* params,
   std::memcpy(&prm.lam_ssd, q++, sizeof(float));
   prm.wy = *q++;
   prm.oy = *q++;
-  const Geometry g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5]};
-  if (n_mbs > 0) {
-    p_wave_kernel<<<n_mbs, kThreads, 0, (cudaStream_t)stream>>>(io, prm, g);
-  }
-  return (int)cudaGetLastError();
+  i4::Params i4p;
+  i4::load_params(i4p, i4params);
+  Geometry g{geom[0], geom[1], geom[2], geom[3], geom[4], geom[5]};
+  if (w1 <= w0 || bmax <= 0) return (int)cudaGetLastError();
+  void* args[] = {&io, &prm, &i4p, &g, &bmax, &w0, &w1};
+  return fw::launch(p_frame_kernel, grid, args, stream);
+}
+
+// The most blocks of KP that the card holds at once (0: no cooperative
+// launch), the largest grid `tpu264_p_frame` may take.
+extern "C" int tpu264_p_frame_blocks(int* blocks) {
+  return fw::co_resident(p_frame_kernel, blocks);
 }

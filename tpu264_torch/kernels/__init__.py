@@ -1,6 +1,7 @@
 """Batched torch kernels for the codec hot loops, and the wrappers of
 the hand-written CUDA kernels: the wave kernels K2 (`i4x4_wave`), K3
-(`i16_chroma_wave`), KP (`p_wave`), KB (`b_wave`) and K4 (`deblock_wave`), and the
+(`i16_chroma_wave`) and K4 (`deblock_wave`), the frame kernels KP
+(`p_wave`) and KB (`b_wave`), and the
 entries on slabs (`dct_quant`, `deblock_lines`); K1 lives in
 `entropy/cabac_engine_cuda.py`.
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernel library.
 
 All kernels (K1 CABAC engine, K2 I4x4 wave body, K3 I16x16 + chroma wave
-body, KP P wave body, KB B wave body, K4 deblock wave, and the K2/K3 DCT +
-quant and K4 luma line filter entries on slabs) are CUDA C++ under
+body, KP P wave body and KB B wave body (one launch a picture each), K4
+deblock wave, and the K2/K3 DCT + quant and K4 luma line filter entries on
+slabs) are CUDA C++ under
 `tpu264_torch/csrc/` with a plain C interface.  At first use `nvcc` compiles each source to an object
 file, all sources at once in parallel, links them into one shared library,
 `build/tpu264_torch/libtpu264_kernels_<hash>.so` beside the package, keyed
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -42,10 +44,13 @@ _SIGNATURES = {
     "tpu264_i4x4_wave_bd": [P, P, P, P, P, P, P, I, P, P, P, P, P, P, I, P],
     # (ptrs[27]*, params*, n_mbs, wm, stream)
     "tpu264_i16_chroma_wave": [P, P, I, I, P],
-    # (ptrs[37]*, params*, geom*, n_mbs, stream)
-    "tpu264_p_wave": [P, P, P, I, P],
-    # (ptrs[53]*, params*, geom*, n_mbs, stream)
-    "tpu264_b_wave": [P, P, P, I, P],
+    # (ptrs[39]*, params*, i4params*, geom*, bmax, w0, w1, grid, stream)
+    "tpu264_p_frame": [P, P, P, P, I, I, I, I, P],
+    # (blocks*)
+    "tpu264_p_frame_blocks": [P],
+    # (ptrs[50]*, params*, i4params*, geom*, bmax, w0, w1, grid, stream)
+    "tpu264_b_frame": [P, P, P, P, I, I, I, I, P],
+    "tpu264_b_frame_blocks": [P],
     # (y, u, v, bs_v, bs_h, qp_y, qp_c, wm, cp, r0, n_rows, off_a, off_b,
     #  stream)
     "tpu264_deblock_wave": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
@@ -58,6 +63,7 @@ _SIGNATURES = {
 
 _LIB = None
 build_seconds: float | None = None      # wall time of the last build
+_CO_RESIDENT: dict = {}
 
 
 def _sources() -> list[Path]:
@@ -137,6 +143,57 @@ def lib() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+class FrameArgs(NamedTuple):
+    """What the host hands a frame kernel (KP, KB) for one launch: the
+    tensors in the order of the kernel's `FrameIo` (None: a null
+    pointer), its two tables (its own and K2's), the geometry, the lanes
+    a wave and the wave range."""
+    tensors: list
+    params: ctypes.Array
+    i4params: ctypes.Array
+    geom: list
+    bmax: int
+    waves: tuple
+
+
+def launch_frame(entry: str, a: FrameArgs, like) -> None:
+    """One cooperative launch of frame kernel `entry` with the layout `a`
+    on the card and stream of tensor `like`; raises if the card refuses
+    it."""
+    grid, _ = frame_grid(a.bmax, co_resident(entry, like.device))
+    ptrs = [0 if t is None else t.data_ptr() for t in a.tensors]
+    err = getattr(lib(), entry)(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), a.params, a.i4params,
+        host_i32(a.geom), a.bmax, *a.waves, grid, stream_of(like))
+    check(err, entry)
+
+
+def frame_grid(bmax: int, co_resident: int) -> tuple:
+    """A frame kernel's cooperative grid for waves of `bmax` lanes on a card
+    that holds `co_resident` of its blocks at once -> (blocks, lanes a
+    block takes a wave at most)."""
+    if co_resident < 1:
+        raise RuntimeError("the card runs no cooperative launch of the frame "
+                           "kernel (0 co-resident blocks)")
+    grid = max(1, min(bmax, co_resident))
+    return grid, -(-bmax // grid)
+
+
+def co_resident(entry: str, dev) -> int:
+    """The most blocks of a frame kernel (`entry` + "_blocks" reports them)
+    that card `dev` holds at once; asked once a card."""
+    import torch
+    key = (entry, dev.index if dev.index is not None
+           else torch.cuda.current_device())
+    if key not in _CO_RESIDENT:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(key[1]):
+            check(getattr(lib(), entry + "_blocks")(ctypes.byref(n)),
+                  entry + "_blocks")
+        _CO_RESIDENT[key] = n.value
+    return _CO_RESIDENT[key]
 
 
 def check_tensor(who: str, name: str, t, shape, dtype, dev) -> None:

@@ -11,15 +11,16 @@ build or launch raises.
 On the main paths both run inside the wave kernels: K2 in `i4x4_wave.py`
 (the whole I4x4 body of a wave, DCT + quant included, in one launch), K3
 in `i16_chroma_wave.py` (the I16x16 and chroma part of the intra wave
-body), and both in `p_wave.py` (the P wave body after the I4x4 search).
+body), and both in `p_wave.py` and `b_wave.py` (the P and B wave bodies,
+one launch a picture).
 The entries here, for whole slabs of blocks, have no caller on a main
 path; `chip_smoke.py` and the `cuda` tests hold them to their plain
 versions.
 
 `launches` counts kernel launches (not plain-version calls): "K2_blocks"
 `fdct_quant4x4`'s, "K3_blocks" `fdct4x4`'s.  The wave kernels keep their
-own counts, `i4x4_wave.launches["K2"]`, `i16_chroma_wave.launches["K3"]`
-and `p_wave.launches["KP"]`.
+own counts, `i4x4_wave.launches["K2"]`, `i16_chroma_wave.launches["K3"]`,
+`p_wave.launches["KP"]` and `b_wave.launches["KB"]`.
 """
 
 from __future__ import annotations

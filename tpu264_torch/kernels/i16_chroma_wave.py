@@ -78,6 +78,16 @@ def pack_params(qp: int, cqp: int, blk_order: tuple):
     return _PARAMS[key]
 
 
+def check_borders(who: str, bd: dict, dev) -> tuple:
+    """Check the border buffers -> (wm, hm)."""
+    hm = bd["col_y"].shape[0] - 1
+    wm = (bd["modes_row"].shape[1] - 5) // 4
+    for name, (extra, a, b_) in BORDERS.items():
+        _build.check_tensor(who, name, bd[name], (hm + extra, a * wm + b_),
+                            I32, dev)
+    return wm, hm
+
+
 def check_wave_inputs(who: str, bd: dict, coords, avail, dev) -> tuple:
     """Check the border buffers and the wave's coords [B,2] int32 and avail
     [B,4] bool -> (B, wm, hm)."""
@@ -86,12 +96,25 @@ def check_wave_inputs(who: str, bd: dict, coords, avail, dev) -> tuple:
     b = coords.shape[0]
     _build.check_tensor(who, "coords", coords, (b, 2), I32, dev)
     _build.check_tensor(who, "avail", avail, (b, 4), torch.bool, dev)
-    hm = bd["col_y"].shape[0] - 1
-    wm = (bd["modes_row"].shape[1] - 5) // 4
-    for name, (extra, a, b_) in BORDERS.items():
-        _build.check_tensor(who, name, bd[name], (hm + extra, a * wm + b_),
-                            I32, dev)
-    return b, wm, hm
+    return (b, *check_borders(who, bd, dev))
+
+
+def check_frame_inputs(who: str, bd: dict, coords, avail, dev,
+                       waves=None) -> tuple:
+    """Check the border buffers, a picture's wave table coords
+    [n_waves, bmax, 2] int32 and avail [n_waves, bmax, 4] bool, and the
+    wave range `waves` = (w0, w1) (None: every wave) -> (n_waves, bmax, wm,
+    hm, w0, w1).  Any device: the frame wrappers check theirs first."""
+    if coords.dim() != 3:
+        raise ValueError(f"{who}: coords must be [n_waves, bmax, 2], got "
+                         f"{tuple(coords.shape)}")
+    n, bmax = coords.shape[:2]
+    _build.check_tensor(who, "coords", coords, (n, bmax, 2), I32, dev)
+    _build.check_tensor(who, "avail", avail, (n, bmax, 4), torch.bool, dev)
+    w0, w1 = (0, n) if waves is None else (int(waves[0]), int(waves[1]))
+    if not 0 <= w0 <= w1 <= n:
+        raise ValueError(f"{who}: waves {(w0, w1)} outside [0, {n}]")
+    return (n, bmax, *check_borders(who, bd, dev), w0, w1)
 
 
 def i16_chroma_wave(bd: dict, coords, avail, gy, gu, gv, mb4, modebuf,

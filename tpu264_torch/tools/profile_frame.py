@@ -66,7 +66,7 @@ non-reference B that weighs partitions, against display 4 and 6) are
 encoded again warm with the arguments the sequence gave them; each gets
 the keys above under "p_anchor" and "b_frame" (the B frame's stages:
 the half-pel planes of both references, the full search and the sub-pel
-refinement of both lists, the wave loop (K2 + KB), reorder, binarize +
+refinement of both lists, the wave loop (one KB launch), reorder, binarize +
 compact, deblock, K1 + payload pull, NAL assembly).
 
 With `--config tiled1080 --tiles N` the same sequence goes through

@@ -2,9 +2,9 @@
 `chip_smoke.py`: random and hand-steered CABAC record sequences for K1,
 macroblock lanes for the I4x4 wave kernel (K2), whole waves with their
 border buffers for the wave body (K2 + K3), P waves with their motion
-vector maps and reference picture for the P wave body (K2 + KP), with the
+vector maps and reference picture for the P wave body (KP), with the
 partitions' vectors for its default tools, B waves with both lists' maps,
-references and colocated flags for the B wave body (K2 + KB), pictures
+references and colocated flags for the B wave body (KB), pictures
 with mixed intra and inter macroblocks for the deblocker (K4), and the
 decoder's form of them (per-MB QPs, filter offsets, slice edges in the
 middle of a row, the 8x8 transform, two-list motion),
