@@ -28,11 +28,19 @@ Phases (any failure exits non-zero, before the result line):
     as its encode runs them; K4 as the decoder runs it,
     on seeded 1280x720 and 1920x1088 pictures with per-MB QP grids over
     0-51, filter offsets, idc 2 slice edges in the middle of MB rows, t8
-    MBs and two-list motion;
+    MBs and two-list motion; KF and KS (motion estimation's integer full
+    search and sub-pel refinement, one launch each a list) on every list
+    that those P and B pictures search (the 720p P pictures without and
+    with the tools: one and nine blocks; the weighted golden's pre-weighted
+    reference; both lists of the 1080p B pictures, with the partitions'
+    five blocks and with the MB alone; both lists of the band's B
+    picture) and on seeded 720p pictures at the ME lambdas of QP 0, 28 and
+    51 and flat ones (ties);
  4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
     28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
-    wave, K3 and K4 at most once a wave, KP and the slab entries never),
+    wave, K3 and K4 at most once a wave, KP, KF, KS and the slab entries
+    never),
     and hold the stream's SHA-256 to `tests/data/torch_golden.json` (made
     by the JAX reference encoder);
  5. config 1: five QCIF frames, all-intra CAVLC, through the batched
@@ -41,9 +49,9 @@ Phases (any failure exits non-zero, before the result line):
  6. config 2: CIF IPPP CAVLC (1 IDR + 2 P, deblock, full-search and
     quarter-pel ME, no partitions) against its golden;
  7. IPPP at 720p: the same at 1280x720 against its golden, with the
-    launches of every frame asserted: a P frame runs KP once, K4 at most
-    once a wave, and K1, K2's and K3's wave forms and the slab entries
-    never (an IDR frame K2 once a wave);
+    launches of every frame asserted: a P frame runs KP, KF and KS once,
+    K4 at most once a wave, and K1, K2's and K3's wave forms and the slab
+    entries never (an IDR frame K2 once a wave, KF and KS never);
  8. config 2 at `bench.py`'s settings (CIF, QP 28, the default P tools,
     1 IDR + 3 P) and IPPP at 720p with the default P tools (1 IDR + 2 P),
     each against its golden with the launches of every frame asserted as
@@ -56,16 +64,17 @@ Phases (any failure exits non-zero, before the result line):
     B (`num_b_frames=2`), CABAC, deblock, rate control at 8 Mb/s, through
     `Encoder(cfg)`, against its golden (`bgop_1080p_cabac_rc`) and its
     per-frame QPs, every frame's launches asserted: a B frame runs KB
-    once, K4 at most once a wave and K1 once, never KP or K2's or K3's
-    wave forms;
+    once, KF and KS twice (two lists), K4 at most once a wave and K1
+    once, never KP or K2's or K3's wave forms;
 10. config 4 through `TiledEncoder` (the band-tiled encoder, `bench.py`'s
     headline path): one band over `make_mesh(1, gop=1)` as `bench.py:75`
     builds it, and four bands of 17 MB rows on the one card (over four
     cards where there are), each against its golden from the reference's
     `TiledEncoder` on the same mesh shape (`tiled_bgop_1080p_cabac_rc`,
     `tiled4_bgop_1080p_cabac_rc`: SHA-256, frame sizes and QPs), every
-    frame's launches asserted per band (KP or KB once a band, K4 at most
-    once a wave, K1 once a band picture, K2 and K3 on the I frame only),
+    frame's launches asserted per band (KP or KB once a band, KF and KS
+    once a list of a band, K4 at most once a wave, K1 once a band
+    picture, K2 and K3 on the I frame only),
     and the warm frames/s of `Encoder` and of `TiledEncoder` on the
     same frames printed side by side;
 11. IPPP CABAC at 720p with weighted prediction and SEI over five frames
@@ -117,7 +126,10 @@ bound are the 720p P frame's, `ms_i_frame` and `bins_i_frame` the I
 frame's, `ms_b_1080p` and `bins_b_1080p` the 1080p B frame's; K4's
 `ms_1080p` a wave of the 1080p B frame, `ms_grids_720p` and
 `ms_grids_1080p` (with their `plain_ms_grids_*` and `bound_ms_grids_*`)
-a wave of the seeded decoder pictures); the last line is
+a wave of the seeded decoder pictures; KF's and KS's the 1080p B
+picture's list 0 with the partitions, `ms_720p_p` (with `plain_ms_720p_p`,
+`bound_ms_720p_p`) the 720p P picture with the tools and `ms_band` (with
+`plain_ms_band`, `bound_ms_band`) the band's list 0); the last line is
 {"ok": true, "device": {...}}.
 
 `bound_ms` of a kernel is the larger of its bytes (each input read once,
@@ -133,7 +145,8 @@ KP and KB are bound by neither but by a chain of dependent steps, which
 records.
 `library_ms` is null throughout: no single PyTorch call computes a CABAC
 coder, an H.264 intra search, the H.264 integer transform with its
-quantiser, or the deblocking filter.
+quantiser, the deblocking filter, the quadrant SSD maps of a full search
+with the first-minimum argmin, or a SATD sub-pel search.
 """
 
 from __future__ import annotations
@@ -177,6 +190,12 @@ KERNELS = {
     # and in the B wave body, one launch a B picture
     "KB": ("b_frame", "tpu264_torch/csrc/b_wave.cu",
            "tpu264/kernels/pallas_kernels.py:55,66", False),
+    # motion estimation, jnp in the reference: the integer full search and
+    # the sub-pel refinement, one launch each a list of a P or B picture
+    "KF": ("me_search", "tpu264_torch/csrc/me_search.cu",
+           "none: jnp tpu264/kernels/me.py:34,88,156", False),
+    "KS": ("me_subpel", "tpu264_torch/csrc/me_subpel.cu",
+           "none: jnp tpu264/kernels/me.py:214", False),
 }
 BW, BH = 1920, 1088             # config 4 (`bench.py:56-58`)
 # streams the decode phase decodes: golden name -> (stream, the encoder's
@@ -1179,9 +1198,10 @@ def launch_counts() -> list:
     from tpu264_torch.entropy import cabac_engine_cuda as k1
     from tpu264_torch.kernels import b_wave as kb, dct_quant as dq, \
         deblock_lines as dl, deblock_wave as k4w, i16_chroma_wave as k3w, \
-        i4x4_wave as k2w, p_wave as kp
+        i4x4_wave as k2w, me_search as kfs, me_subpel as ksp, p_wave as kp
     return [k1.launches, k2w.launches, k3w.launches, kp.launches,
-            kb.launches, k4w.launches, dq.launches, dl.launches]
+            kb.launches, k4w.launches, dq.launches, dl.launches,
+            kfs.launches, ksp.launches]
 
 
 def reset_counts() -> None:
@@ -1371,11 +1391,12 @@ class FrameLaunches:
               counts: dict) -> None:
         """An IDR frame runs K2 once a wave and K3, K4 at most once a
         wave; a P frame KP once (the whole picture) and K4 at most once a
-        wave; a B frame KB once and K4 at most once a wave; K1 once a frame
-        with CABAC and never with CAVLC; the slab entries, K2 and K3's wave
-        forms outside an IDR frame, KP outside a P frame and KB outside a
-        B frame never; and nothing runs outside the frames (`counts`: the
-        whole run's launches)."""
+        wave; a B frame KB once and K4 at most once a wave; KF and KS once
+        a list (a P frame once, a B frame twice, an IDR frame never); K1
+        once a frame with CABAC and never with CAVLC; the slab entries, K2
+        and K3's wave forms outside an IDR frame, KP outside a P frame and
+        KB outside a B frame never; and nothing runs outside the frames
+        (`counts`: the whole run's launches)."""
         if [k for k, _ in self.per_frame] != kinds:
             fail(f"{what}: frames {[k for k, _ in self.per_frame]}")
         for i, (kind, c) in enumerate(self.per_frame):
@@ -1384,6 +1405,7 @@ class FrameLaunches:
                     "K2": n_waves if kind == "IDR" else 0, "K2_blocks": 0,
                     "K3_blocks": 0, "K4_lines": 0,
                     "KP": int(kind == "P"), "KB": int(kind == "B")}
+            want["KF"] = want["KS"] = {"IDR": 0, "P": 1, "B": 2}[kind]
             if kind != "IDR":
                 want["K3"] = 0
             for k, n in want.items():
@@ -1973,6 +1995,183 @@ def check_1080p_b_kernels(dev, case) -> dict:
             "K4": dict(err=e4, ms_1080p=ms4)}
 
 
+class MeCalls:
+    """While entered, every call of the motion search's kernel wrappers
+    (`me_search.full_search`, KF; `me_subpel.subpel`, KS) is recorded
+    with copies of its tensor arguments under the label `at`, then run:
+    `calls` lists (label, "KF" or "KS", arguments)."""
+
+    def __init__(self):
+        self.calls, self.at, self.real = [], "", []
+
+    def __enter__(self):
+        from tpu264_torch.kernels import me_search as kfs
+        from tpu264_torch.kernels import me_subpel as ksp
+        self.real = []
+        for mod, attr, k in ((kfs, "full_search", "KF"),
+                             (ksp, "subpel", "KS")):
+            fn = getattr(mod, attr)
+            self.real.append((mod, attr, fn))
+
+            def spy(*a, _fn=fn, _k=k):
+                self.calls.append((self.at, _k,
+                                   tuple(clone_state(x) for x in a)))
+                return _fn(*a)
+            setattr(mod, attr, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.real:
+            setattr(mod, attr, fn)
+
+    def pairs(self) -> list:
+        """(label, KF's arguments, KS's arguments) of each list searched,
+        in order (a KS call follows its list's KF call); the label gains
+        ", list i" where a label searched two lists."""
+        kf = [(at, a) for at, k, a in self.calls if k == "KF"]
+        ks = [(at, a) for at, k, a in self.calls if k == "KS"]
+        if len(kf) != len(ks) or any(x[0] != y[0] for x, y in zip(kf, ks)):
+            fail(f"motion search: {len(kf)} KF and {len(ks)} KS calls")
+        labels = [at for at, _ in kf]
+        out = []
+        for (at, a), (_, b) in zip(kf, ks):
+            if labels.count(at) > 1:
+                at = f"{at}, list {sum(x[0].startswith(at + ',') for x in out)}"
+            out.append((at, a, b))
+        return out
+
+
+def seeded_me_cases(dev) -> list:
+    """KF's and KS's arguments on seeded 1280x720 pictures, every block of
+    `me.SEARCH_BLOCKS`: a noisy reference and a source shifted from it by
+    (3, -5) plus noise, at the ME lambdas of QP 0, 28 and 51; and flat
+    pictures, where every candidate ties, at QP 28's."""
+    from tpu264_torch.coding.intra_frame import LAMBDA_TABLE
+    from tpu264_torch.kernels import interp as kint
+    from tpu264_torch.kernels import me_subpel as ksp
+    rng = np.random.default_rng(41)
+    ref = rng.integers(0, 256, (H, W))
+    cur = np.clip(np.roll(ref, (3, -5), (0, 1))
+                  + rng.integers(-6, 7, (H, W)), 0, 255)
+    flat = np.full((H, W), 128)
+    shapes = ksp.shapes(True, True)
+    names = ksp.names_of(shapes)
+    out = []
+    for what, c, r, qps in (("noise", cur, ref, (0, 28, 51)),
+                            ("flat", flat, flat, (28,))):
+        y = torch.as_tensor(c, dtype=torch.int32, device=dev)
+        rp = kint.pad_plane(torch.as_tensor(r, device=dev), 24).contiguous()
+        planes = kint.luma_planes(rp).contiguous()
+        for qp in qps:
+            lam = LAMBDA_TABLE[qp][2]
+            kf = (y, rp, 24, 16, lam, W // 16, H // 16, names)
+            out.append((f"seeded 720p {what}, QP {qp}", kf,
+                        (y, planes, 24, None, lam, W // 16, H // 16, shapes)))
+    return out
+
+
+def kf_bound(a) -> dict:
+    """KF's bound on its arguments `a`: the source and the union of the
+    windows read once, the vectors written once.  At each candidate of
+    an MB: 2 operations a sample (the difference, the multiply-add into
+    its quadrant's sum), 1 for the rate's two code lengths, and for each
+    requested block its quadrants' sums less one, the rate's multiply-add
+    and the compare."""
+    from tpu264_torch.kernels import me_search as kfs
+    y, _, _, r, _, wm, hm, names = a
+    n, span = wm * hm, 2 * r + 1
+    n_bytes = 4 * (y.numel() + (16 * hm + 2 * r) * (16 * wm + 2 * r)) \
+        + 8 * len(names) * n
+    per_block = sum(bin(kfs.quad_mask(nm)).count("1") - 1 + 2
+                    for nm in names)
+    return bound(n_bytes, n * span * span * (2 * 256 + 1 + per_block))
+
+
+def ks_bound(a) -> dict:
+    """KS's bound on its arguments `a`: the source, the four half-pel
+    planes and the full-pel vectors read once (the planes in full: an
+    upper count of what the vectors reach, far below the operations'
+    time), the vectors written once.  Operations on the integer pipe only
+    (the plane reads are the bytes' term), over the 17 evaluations a
+    block needs: the centre and the 8 step-2 candidates, whose positions
+    are full or half pel (one plane sample, no average), and the 8 step-1
+    candidates around the step-2 winner, each at a quarter position (the
+    average: a three-input add and a shift).  A sample: the difference, 4
+    Hadamard adds or subtracts, the absolute value, the sum (7; 9 with
+    the average); a 4x4 block: the SATD's rounding (2); a block: the
+    rate (4 a component for its code length, 1 multiply-add) and the
+    compare (10)."""
+    from tpu264_torch.kernels import me_subpel as ksp
+    y, planes, _, _, _, wm, hm, shapes = a
+    table = ksp.shape_table(shapes)
+    n = wm * hm
+    n_bytes = 4 * (y.numel() + planes.numel()) + 16 * len(table) * n
+    samples = sum(bh * bw for _, _, bh, bw in table)
+    ops = (9 * 7 + 8 * 9) * samples + 17 * 2 * samples // 16 \
+        + 17 * 10 * len(table)
+    return bound(n_bytes, n * ops)
+
+
+def check_me(dev, recorded: MeCalls) -> dict:
+    """KF and KS against their plain versions on the card, tolerance 0:
+    every list searched while `recorded` was entered (the 720p P pictures
+    without and with the default P tools, the weighted golden's first P
+    picture with its pre-weighted reference and planes, both lists of the
+    1920x1088 B pictures of config 4 and of a 17-row band's B picture),
+    the 1080p B picture's lists again without partitions (the MB alone),
+    and the seeded pictures of `seeded_me_cases`; KS takes its list's
+    vectors from KF's plain version.  Both timed on the 1080p B picture's
+    list 0 (the row), the 720p P picture with the tools and the band ->
+    the KF and KS rows."""
+    from tpu264_torch.kernels import me_search as kfs
+    from tpu264_torch.kernels import me_subpel as ksp
+    cases = recorded.pairs()
+    b_lists = [c for c in cases if c[0].startswith("1080p B picture")]
+    if len(b_lists) != 2:
+        fail(f"motion search: {len(b_lists)} lists in the 1080p B picture")
+    for at, kf, ks in b_lists:
+        shapes = ksp.shapes()
+        cases.append((f"{at}, no partitions", (*kf[:7], ksp.names_of(shapes)),
+                      (*ks[:7], shapes)))
+    cases += seeded_me_cases(dev)
+    err = {"KF": 0, "KS": 0}
+    for at, kf, ks in cases:
+        got = kfs.full_search(*kf)
+        want = kfs.full_search_plain(*kf)
+        e1 = max_abs_err(got, want)
+        ks = (*ks[:3], want, *ks[4:])
+        got = ksp.subpel(*ks)
+        want_q = ksp.subpel_plain(*ks)
+        e2 = max_abs_err(got, want_q)
+        err["KF"], err["KS"] = max(err["KF"], e1), max(err["KS"], e2)
+        moved = int((want != 0).any(dim=2).sum())
+        print(f"KF / KS {at}: {len(kf[7])} blocks of {kf[5] * kf[6]} MBs, "
+              f"{moved} non-zero full-pel vectors; max abs err {e1} / {e2}")
+        if at.startswith("seeded 720p flat") and moved:
+            fail("KF: a flat picture's search left (0, 0)")
+    timed = {}
+    for key, at in (("", "1080p B picture, list 0"),
+                    ("_720p_p", "720p P picture, default tools"),
+                    ("_band", "17-row band B picture, list 0")):
+        kf, ks = next((a, b) for lab, a, b in cases if lab == at)
+        ms = {"KF": time_ms(lambda: kfs.full_search(*kf), 20),
+              "KS": time_ms(lambda: ksp.subpel(*ks), 20)}
+        plain = {"KF": time_ms(lambda: kfs.full_search_plain(*kf), 2),
+                 "KS": time_ms(lambda: ksp.subpel_plain(*ks), 2)}
+        bnd = {"KF": kf_bound(kf), "KS": ks_bound(ks)}
+        for k in ms:
+            print(f"{k} {at} ({len(kf[7])} blocks of {kf[5] * kf[6]} MBs): "
+                  f"kernel {ms[k]:.4f} ms, plain {plain[k]:.2f} ms, bound "
+                  f"{bnd[k]['bound_ms']:.5f} ms ({bnd[k]['bound_by']})")
+            t = timed.setdefault(k, {})
+            if key:
+                t.update({f"ms{key}": ms[k], f"plain_ms{key}": plain[k],
+                          f"bound_ms{key}": bnd[k]["bound_ms"]})
+            else:
+                t.update(ms=ms[k], plain_ms=plain[k], **bnd[k])
+    return {k: dict(err=err[k], **timed[k]) for k in ("KF", "KS")}
+
+
 def phase_p_wave_body_vs_cpu(dev, tools) -> None:
     """One CIF P frame through `make_inter_encoder` with the P `tools` on
     the card and on the CPU: every per-wave output and the recon planes are
@@ -1996,8 +2195,9 @@ def phase_p_wave_body_vs_cpu(dev, tools) -> None:
     torch.cuda.synchronize()
     after = read_counts()
     ran = {k: after[k] - before[k]
-           for k in ("K2", "K3", "KP", "K2_blocks", "K3_blocks")}
-    want = {"K2": 0, "K3": 0, "KP": 1, "K2_blocks": 0, "K3_blocks": 0}
+           for k in ("K2", "K3", "KP", "KF", "KS", "K2_blocks", "K3_blocks")}
+    want = {"K2": 0, "K3": 0, "KP": 1, "KF": 1, "KS": 1, "K2_blocks": 0,
+            "K3_blocks": 0}
     if ran != want:
         fail(f"P wave body on the card launched {ran}, not {want}")
     out_c, ys_c = encode(*planes, QP)
@@ -2171,8 +2371,8 @@ def phase_entry() -> dict:
     for k in ("K2", "K3", "K4"):
         if counts[k] <= 0:
             fail(f"entry: {k} was not launched")
-    if any(counts[k] for k in ("K1", "KP", "KB", "K2_blocks", "K3_blocks",
-                               "K4_lines")):
+    if any(counts[k] for k in ("K1", "KP", "KB", "KF", "KS", "K2_blocks",
+                               "K3_blocks", "K4_lines")):
         fail(f"entry: launches {counts} outside K2, K3 and K4")
     return counts
 
@@ -2185,7 +2385,8 @@ def phase_dryrun(card: str) -> dict:
     encoder's recons (the function raises otherwise); each lane's SHA-256,
     bytes, frame sizes and QPs held to the golden `dryrun_multichip_4`
     from the reference's dry run -> the launch counts of encode and
-    decode (K1, K2, K3, KP, KB and K4 each at least once)."""
+    decode (K1, K2, K3, KP, KB, K4, KF and KS each at least once; KF and
+    KS once a list of every P and B band picture)."""
     from tpu264_torch.runtime.dryrun import dryrun_multichip
     g = golden("dryrun_multichip_4")
     reset_counts()
@@ -2213,9 +2414,13 @@ def phase_dryrun(card: str) -> dict:
           f"(first run), decode on the card {res['decode_seconds']:.3f} s = "
           f"{1e3 * res['decode_seconds'] / n_mbs:.4f} ms a MB, every frame "
           f"equal to the recon; launches {counts}")
-    for k in ("K1", "K2", "K3", "KP", "KB", "K4"):
+    for k in ("K1", "K2", "K3", "KP", "KB", "K4", "KF", "KS"):
         if counts[k] <= 0:
             fail(f"dryrun: {k} was not launched")
+    lists = counts["KP"] + 2 * counts["KB"]
+    if counts["KF"] != lists or counts["KS"] != lists:
+        fail(f"dryrun: KF ran {counts['KF']} and KS {counts['KS']} times "
+             f"for {lists} lists of P and B band pictures")
     if any(counts[k] for k in ("K2_blocks", "K3_blocks", "K4_lines")):
         fail(f"dryrun: slab entries launched: {counts}")
     return counts
@@ -2227,7 +2432,8 @@ def phase_tiled(name: str, what: str) -> dict:
     `bench.py` builds it), or several bands, over that many cards where
     there are, else all on the one card.  Every frame's launches are
     asserted per band: K2 once a wave of each band of the I frame, KP (P)
-    or KB (B) once a band, K4 at most once a wave of each band, K1 once a
+    or KB (B) once a band, KF and KS once a list of each band (a P frame
+    once, a B frame twice), K4 at most once a wave of each band, K1 once a
     band picture, K3 on the I frame only, the slab entries never.  The
     stream, the frame sizes and QPs are held to the golden; then the
     frames/s of the single-device `Encoder` and of the tiled encoder on
@@ -2283,6 +2489,8 @@ def phase_tiled(name: str, what: str) -> dict:
                 "K2": n_bands * n_waves if kind == "i" else 0,
                 "KP": n_bands * int(kind == "p"),
                 "KB": n_bands * int(kind == "b"),
+                "KF": n_bands * {"i": 0, "p": 1, "b": 2}[kind],
+                "KS": n_bands * {"i": 0, "p": 1, "b": 2}[kind],
                 "K2_blocks": 0, "K3_blocks": 0, "K4_lines": 0}
         if kind != "i":
             want["K3"] = 0
@@ -2350,10 +2558,19 @@ def main() -> int:
     results.update(check_i4x4_wave(dev, wave))
     results.update(check_wave_body(dev, wave))
     from tpu264_torch.kernels.p_wave import NO_TOOLS, Tools
-    results.update(check_p_wave(
-        dev, [p_frame_case(dev, NO_TOOLS),
-              p_frame_case(dev, Tools(True, True, True))]))
-    weighted = check_p_wave_weighted(dev, wp_frame_case(dev))["KP"]
+    # the lists that the P and B cases below search: KF's and KS's inputs
+    me = MeCalls()
+    with me:
+        me.at = "720p P picture, tools off"
+        p_cases = [p_frame_case(dev, NO_TOOLS)]
+        me.at = "720p P picture, default tools"
+        p_cases.append(p_frame_case(dev, Tools(True, True, True)))
+        me.at = "ippp_720p_wp_sei first P picture (weighted reference)"
+        wp_case = wp_frame_case(dev)
+    results.update(check_p_wave(dev, p_cases))
+    del p_cases
+    weighted = check_p_wave_weighted(dev, wp_case)["KP"]
+    del wp_case
     results["KP"].update(weighted, err=max(results["KP"]["err"],
                                            weighted["err"]))
     results.update(check_deblock_wave(dev, deblock_case))
@@ -2361,13 +2578,22 @@ def main() -> int:
     results["K4"].update(grids, err=max(results["K4"]["err"], grids["err"]))
     # the B wave: a 1920x1088 B frame of config 4 that allows partitions
     # and one that does not
-    b_cases = [b_frame_case(dev, is_ref) for is_ref in (False, True)]
+    with me:
+        b_cases = []
+        for is_ref, label in ((False, "1080p B picture"),
+                              (True, "1080p Bref picture")):
+            me.at = label
+            b_cases.append(b_frame_case(dev, is_ref))
     results.update(check_b_wave(dev, b_cases))
-    band = check_band(dev)["KB"]
+    with me:
+        me.at = "17-row band B picture"
+        band = check_band(dev)["KB"]
     results["KB"].update(band, err=max(results["KB"]["err"], band["err"]))
     for k, extra in check_1080p_b_kernels(dev, b_cases[0]).items():
         results[k].update(extra, err=max(results[k]["err"], extra["err"]))
     del b_cases
+    results.update(check_me(dev, me))
+    del me
     wrong = {k: r["err"] for k, r in sorted(results.items()) if r["err"]}
     if wrong:
         fail(f"kernels differ from their plain versions (max abs err): "
@@ -2427,6 +2653,8 @@ def main() -> int:
                       "bound_ms_weighted", "bound_by_weighted",
                       "ms_band", "ms_wave_band", "plain_ms_band",
                       "waves_band",
+                      "ms_720p_p", "plain_ms_720p_p", "bound_ms_720p_p",
+                      "bound_ms_band",
                       "ms_grids_720p", "plain_ms_grids_720p",
                       "bound_ms_grids_720p", "ms_grids_1080p",
                       "plain_ms_grids_1080p", "bound_ms_grids_1080p"):

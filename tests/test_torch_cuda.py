@@ -30,6 +30,8 @@ from tpu264_torch.kernels import i16_chroma_wave as k3w
 from tpu264_torch.kernels import i4x4_wave as k2w
 from tpu264_torch.kernels import b_wave as kb
 from tpu264_torch.kernels import interp as kint
+from tpu264_torch.kernels import me_search as kme_search
+from tpu264_torch.kernels import me_subpel as kme_subpel
 from tpu264_torch.kernels import p_wave as kp
 from tpu264_torch.media.synth import synth_frame
 from tpu264_torch.ref import deblock as rd
@@ -949,3 +951,146 @@ def test_cuda_tiled_ippp_cavlc_matches_cpu():
     assert kp.launches["KP"] - before["KP"] == 4 * 3
     cpu = TiledEncoder(cfg, make_mesh(3, gop=1, devices=["cpu"] * 3))
     assert got == cpu.encode_sequence([frames])
+
+
+def _me_inputs(dev, kind: str, w: int = 1280, h: int = 720, wp=(64, 0)):
+    """A source and a reference of w x h on the card: synth frames 1 over
+    0 ("synth"; with `wp` the reference pre-weighted as weighted
+    prediction searches it), a seeded noise picture shifted by (3, -5)
+    plus noise ("noise"), or flat pictures ("flat") -> (y, ref_pad,
+    half-pel planes)."""
+    if kind == "synth":
+        cur, ref = synth_frame(w, h, 1)[0], synth_frame(w, h, 0)[0]
+    elif kind == "noise":
+        r = np.random.default_rng(23)
+        ref = r.integers(0, 256, (h, w))
+        cur = np.clip(np.roll(ref, (3, -5), (0, 1))
+                      + r.integers(-6, 7, (h, w)), 0, 255)
+    else:
+        cur = ref = np.full((h, w), 128)
+    y = t32(cur, dev)
+    ref_pad = tinter.weight_luma(kint.pad_plane(t32(ref, dev), 24), *wp)
+    return y, ref_pad.contiguous(), kint.luma_planes(ref_pad).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp", [0, 28, 51])
+@pytest.mark.parametrize("kind,wp", [("synth", (64, 0)), ("noise", (64, 0)),
+                                     ("flat", (64, 0)), ("synth", (58, -7))])
+@pytest.mark.parametrize("tools", [(False, False), (True, False),
+                                   (True, True)])
+def test_cuda_me_kernels_match_plain(tools, kind, wp, qp):
+    """KF and KS on a 720p picture (every MB, the edge MBs included)
+    against their plain versions on the card, tolerance 0, with the blocks
+    a P picture without and with the tools and a B list with partitions
+    search, at the ME lambdas of QP 0, 28 and 51, on synth, noise and flat
+    (tied) pictures and a weighted reference; one launch each."""
+    dev = cuda_device()
+    y, ref_pad, planes = _me_inputs(dev, kind, wp=wp)
+    shapes = kme_subpel.shapes(*tools)
+    names = kme_subpel.names_of(shapes)
+    lam = tif.LAMBDA_TABLE[qp][2]
+    args = (24, 16, lam, 80, 45, names)
+    before = {**kme_search.launches, **kme_subpel.launches}
+    mv_int = kme_search.full_search(y, ref_pad, *args)
+    assert_equal(mv_int, kme_search.full_search_plain(y, ref_pad, *args))
+    sub = (24, mv_int, lam, 80, 45, shapes)
+    got = kme_subpel.subpel(y, planes, *sub)
+    torch.cuda.synchronize()
+    assert {**kme_search.launches, **kme_subpel.launches} == {
+        "KF": before["KF"] + 1, "KS": before["KS"] + 1}
+    assert_equal(got, kme_subpel.subpel_plain(y, planes, *sub))
+    if kind == "flat":
+        assert not mv_int.any() and not got.any()
+
+
+@pytest.mark.cuda
+def test_cuda_me_both_b_lists_match_plain():
+    """KF and KS on both lists of a 1920x1088 B picture (synth frame 1
+    between 0 and 2) with the partitions, against their plain versions,
+    tolerance 0."""
+    dev = cuda_device()
+    w, h = 1920, 1088
+    y = t32(synth_frame(w, h, 1)[0], dev)
+    shapes = kme_subpel.shapes(True)
+    names = kme_subpel.names_of(shapes)
+    for t in (0, 2):
+        ref_pad = kint.pad_plane(t32(synth_frame(w, h, t)[0], dev), 24)
+        planes = kint.luma_planes(ref_pad)
+        args = (24, 16, 7, w // 16, h // 16, names)
+        mv_int = kme_search.full_search(y, ref_pad, *args)
+        assert_equal(mv_int, kme_search.full_search_plain(y, ref_pad, *args))
+        sub = (24, mv_int, 7, w // 16, h // 16, shapes)
+        assert_equal(kme_subpel.subpel(y, planes, *sub),
+                     kme_subpel.subpel_plain(y, planes, *sub))
+
+
+@pytest.mark.cuda
+def test_cuda_me_frames_match_cpu():
+    """A CIF P frame with the default P tools and a QCIF B frame with the
+    partitions through `make_inter_encoder` / `make_b_encoder` on the card
+    and on the CPU: every output key equal; the card ran KF and KS once
+    for the P frame and twice (two lists) for the B frame."""
+    dev = cuda_device()
+    w, h = 352, 288
+    planes = [torch.as_tensor(p) for p in (*synth_frame(w, h, 3),
+                                           *synth_frame(w, h, 2))]
+    encode = tinter.make_inter_encoder(build_schedule(w // 16, h // 16, 1),
+                                       partitions=True, p8x8=True, t8=True)
+    runs = [(encode, planes, (28,), 1)]
+    w, h = 176, 144
+    frames = [synth_frame(w, h, t) for t in range(3)]
+    planes = [torch.as_tensor(p) for p in (*frames[1], *frames[0],
+                                           *frames[2])]
+    col = [torch.zeros(99, dtype=torch.bool)] * 2
+    encode = tb.make_b_encoder(build_schedule(w // 16, h // 16, 1),
+                               partitions=True)
+    runs.append((encode, planes + col, (30,), 2))
+    for encode, ins, rest, lists in runs:
+        before = {**kme_search.launches, **kme_subpel.launches}
+        out_d, ys_d = encode(*(p.to(dev) for p in ins), *rest)
+        torch.cuda.synchronize()
+        assert {**kme_search.launches, **kme_subpel.launches} == {
+            "KF": before["KF"] + lists, "KS": before["KS"] + lists}
+        out_c, ys_c = encode(*ins, *rest)
+        assert set(ys_d) == set(ys_c)
+        for k, c in {**ys_c, **out_c}.items():
+            d = {**ys_d, **out_d}[k]
+            assert d.dtype == c.dtype and d.shape == c.shape, k
+            assert_equal(d, c, k)
+
+
+@pytest.mark.cuda
+def test_cuda_me_wrappers_reject_bad_input():
+    """KF and KS refuse a wrong type, shape or device, blocks they do not
+    take and a search range past their window."""
+    dev = cuda_device()
+    y, ref_pad, planes = _me_inputs(dev, "synth", 96, 64)
+    shapes = kme_subpel.shapes(True)[:2]
+    names = kme_subpel.names_of(shapes)
+    mv = kme_search.full_search(y, ref_pad, 24, 16, 4, 6, 4, names)
+    kme_subpel.subpel(y, planes, 24, mv, 4, 6, 4, shapes)
+    torch.cuda.synchronize()
+    with pytest.raises(TypeError):
+        kme_search.full_search(y.to(torch.uint8), ref_pad, 24, 16, 4, 6, 4,
+                               names)
+    with pytest.raises(ValueError):
+        kme_search.full_search(y, ref_pad.cpu(), 24, 16, 4, 6, 4, names)
+    with pytest.raises(ValueError):
+        kme_search.full_search(y, ref_pad[:40], 24, 16, 4, 6, 4, names)
+    with pytest.raises(ValueError):
+        kme_search.full_search(y, ref_pad, 24, 17, 4, 6, 4, names)
+    with pytest.raises(ValueError):
+        kme_search.full_search(y, ref_pad, 24, 16, 4, 6, 4, ["16x16", "x"])
+    with pytest.raises(TypeError):
+        kme_subpel.subpel(y, planes.long(), 24, mv, 4, 6, 4, shapes)
+    with pytest.raises(ValueError):
+        kme_subpel.subpel(y, planes, 24, mv[:1], 4, 6, 4, shapes)
+    with pytest.raises(ValueError):
+        kme_subpel.subpel(y, planes[:3], 24, mv, 4, 6, 4, shapes)
+    with pytest.raises(ValueError):
+        kme_subpel.subpel(y, planes, 24, mv.cpu(), 4, 6, 4, shapes)
+    with pytest.raises(ValueError):
+        kme_subpel.subpel(y, planes, 24, mv, 4, 6, 4,
+                          [(("16x16", "top", "bot"), (0, 0, 0), (0, 0, 0),
+                            16, 4)])

@@ -3,7 +3,8 @@
 spatial direct/skip, and intra modes.
 
 As in the P engine (`inter_frame.py`), both references are full-searched
-and sub-pel-refined for every MB in parallel (`kernels/me.py`), then the
+and sub-pel-refined for every MB in parallel (`inter_frame.motion_vectors`:
+KF and KS, one launch each a list on the card), then the
 wavefront decision pass picks per MB among B_L0_16x16 / B_L1_16x16 /
 B_Bi_16x16 (average bi-prediction), B_Direct_16x16 (spatial direct, spec
 8.4.1.2.2: the in-scan median predictors double as the direct vectors,
@@ -41,14 +42,14 @@ import torch
 from tpu264_torch.kernels import dct_quant as dq
 from tpu264_torch.kernels import b_wave as kb
 from tpu264_torch.kernels import interp as kint
-from tpu264_torch.kernels import me as kme
+from tpu264_torch.kernels import me_subpel as ksp
 from tpu264_torch.kernels import transform as kt
 from tpu264_torch.ref.transform import chroma_qp
 from . import mvpred
 from .b_mbtypes import (COMBO_IDX, TB_PART, TYPE_BITS,  # noqa: F401
                         part_mb_type)
 from .inter_frame import (CH_BL, CH_BR, CH_TR, PAD, _from_blocks, _satd16,
-                          _to_blocks, mvd_bits)
+                          _to_blocks, motion_vectors, mvd_bits)
 from .intra_frame import (_BLK_ORDER, _K2_RULES, I32, LAMBDA_TABLE, ZZ_COLS,
                           ZZ_ROWS, assemble_plane, chroma_residual_recon,
                           eval_chroma, eval_i16, eval_i4x4_plain,
@@ -498,26 +499,13 @@ def make_b_encoder(sched: WaveSchedule, chroma_qp_offset: int = 0,
     true (the encoder turns it off on reference Bs)."""
     wm, hm = sched.width_mbs, sched.height_mbs
     rng = min(search_range, PAD - 8)
-    shapes = [(("16x16",), (0,), (0,), 16, 16)]
-    if partitions:
-        shapes += [(("top", "bot"), (0, 8), (0, 0), 8, 16),
-                   (("left", "right"), (0, 0), (0, 8), 16, 8)]
+    shapes = ksp.shapes(partitions)
 
     def motion_search(y, ref_pad, planes, lam_me):
-        """Phase 1 for one list, parallel over all MBs: one integer SSD
-        sweep, then the sub-pel refinement of each block shape ->
+        """Phase 1 for one list (`inter_frame.motion_vectors`) ->
         quarter-pel vectors of the MB [n_mbs, 2] and of the halves
         [n_mbs, 4, 2] (None without partitions)."""
-        names = [n for sh in shapes for n in sh[0]]
-        mv_int = kme.full_search_blocks(y, ref_pad, PAD, rng, lam_me, wm, hm,
-                                        names)
-        mv_q = {}
-        for blocks, oys, oxs, bh, bw in shapes:
-            ref = kme.subpel_refine(y, planes, PAD,
-                                    torch.cat([mv_int[n] for n in blocks]),
-                                    lam_me, wm, hm, oy=oys, ox=oxs, bh=bh,
-                                    bw=bw)
-            mv_q.update(zip(blocks, ref.chunk(len(blocks))))
+        mv_q = motion_vectors(y, ref_pad, planes, lam_me, wm, hm, rng, shapes)
         if not partitions:
             return mv_q["16x16"], None
         return mv_q["16x16"], torch.stack([mv_q[n] for n in kb.HALVES],

@@ -3,7 +3,9 @@ quarter-pel refinement, counterpart of `tpu264.coding.inter_frame`.
 
 Motion estimation runs outside the serial MB order: every MB full-searches
 and sub-pel-refines in parallel against the reference frame
-(`kernels/me.py`), and only the decision pass (mv prediction, skip
+(`motion_vectors`: on the card one launch of KF, `kernels/me_search.py`,
+and one of KS, `kernels/me_subpel.py`; their plain versions are
+`kernels/me.py`'s), and only the decision pass (mv prediction, skip
 inference, inter-vs-intra choice, reconstruction) runs in the
 anti-diagonal wavefront loop, batched per wave.  Candidates per MB: P_Skip
 (skip-mv MC), P_L0_16x16 (ME mv), Intra_16x16 and Intra_4x4 (the
@@ -39,6 +41,8 @@ import torch
 from tpu264_torch.kernels import dct_quant as dq
 from tpu264_torch.kernels import interp as kint
 from tpu264_torch.kernels import me as kme
+from tpu264_torch.kernels import me_search as kfs
+from tpu264_torch.kernels import me_subpel as ksp
 from tpu264_torch.kernels import p_wave as kp
 from tpu264_torch.kernels import transform as kt
 from tpu264_torch.kernels import transform8 as kt8
@@ -445,6 +449,19 @@ def wave_body(planes, cu_pad, cv_pad, qp: int, cqp: int, lam4: int,
     return out
 
 
+def motion_vectors(y, ref_pad, planes, lam_me: int, wm: int, hm: int,
+                   rng: int, shapes) -> dict:
+    """Motion search of one list, parallel over all MBs, against the
+    reference `ref_pad` and its half-pel `planes`: the integer full search
+    of every block of `shapes` (`me_subpel.shapes`), then their sub-pel
+    refinement, one launch each on the card (KF, KS) -> {block name:
+    quarter-pel vectors [n_mbs, 2]}."""
+    names = ksp.names_of(shapes)
+    mv_int = kfs.full_search(y, ref_pad, PAD, rng, lam_me, wm, hm, names)
+    return dict(zip(names, ksp.subpel(y, planes, PAD, mv_int, lam_me, wm, hm,
+                                      shapes)))
+
+
 def make_inter_encoder(sched: WaveSchedule,
                        chroma_qp_offset: int = 0, search_range: int = 16,
                        ref_prepadded: bool = False,
@@ -476,32 +493,13 @@ def make_inter_encoder(sched: WaveSchedule,
     wm, hm = sched.width_mbs, sched.height_mbs
     # clamp search so windows stay inside the padded plane
     rng = min(search_range, PAD - 8)
-    # the partitions' searches, refined a shape at a time: (blocks of
-    # kme.SEARCH_BLOCKS, their offsets in the MB, height, width)
-    shapes = [(("16x16",), (0,), (0,), 16, 16)]
-    if partitions:
-        shapes += [(("top", "bot"), (0, 8), (0, 0), 8, 16),
-                   (("left", "right"), (0, 0), (0, 8), 16, 8)]
-    if p8x8:
-        shapes.append((("q0", "q1", "q2", "q3"), (0, 0, 8, 8), (0, 8, 0, 8),
-                       8, 8))
+    shapes = ksp.shapes(partitions, p8x8)
 
     def motion_search(y, ref_pad, planes, lam_me):
-        """Phase 1, parallel over all MBs, against the reference `ref_pad`
-        and its half-pel `planes`: one integer SSD sweep, then the
-        sub-pel refinement of each block shape -> quarter-pel vectors of
-        the MB [n_mbs, 2] and of the partitions [n_mbs, 8, 2] (zeros where
-        a tool is off; None without partitions)."""
-        names = [n for sh in shapes for n in sh[0]]
-        mv_int = kme.full_search_blocks(y, ref_pad, PAD, rng, lam_me, wm, hm,
-                                        names)
-        mv_q = {}
-        for blocks, oys, oxs, bh, bw in shapes:
-            ref = kme.subpel_refine(y, planes, PAD,
-                                    torch.cat([mv_int[n] for n in blocks]),
-                                    lam_me, wm, hm, oy=oys, ox=oxs, bh=bh,
-                                    bw=bw)
-            mv_q.update(zip(blocks, ref.chunk(len(blocks))))
+        """Phase 1 (`motion_vectors`) -> quarter-pel vectors of the MB
+        [n_mbs, 2] and of the partitions [n_mbs, 8, 2] (zeros where a tool
+        is off; None without partitions)."""
+        mv_q = motion_vectors(y, ref_pad, planes, lam_me, wm, hm, rng, shapes)
         if not partitions:
             return mv_q["16x16"], None
         zero = torch.zeros_like(mv_q["16x16"])

@@ -13,6 +13,10 @@ halves' and the MB's maps.
 Sub-pel refinement: the 8 half-pel neighbours of the best integer
 position, then the 8 quarter-pel neighbours of the best half position,
 with SATD + lambda * mv-rate cost.
+
+`full_search_blocks` and `subpel_refine` are what the plain versions of
+the kernels KF (`me_search.py`) and KS (`me_subpel.py`) run; the encoders
+reach them through those wrappers.
 """
 
 from __future__ import annotations

@@ -120,7 +120,8 @@ from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.config import EncoderConfig
 from tpu264_torch.entropy import cabac_binarize as cbz
 from tpu264_torch.kernels import interp as kint
-from tpu264_torch.kernels import me as kme
+from tpu264_torch.kernels import me_search as kfs
+from tpu264_torch.kernels import me_subpel as ksp
 from tpu264_torch.media.synth import synth_frame
 from tpu264_torch.tools.card import card_info
 
@@ -212,8 +213,8 @@ def inter_patches(owner, inner: str) -> list:
     return [(owner, inner, "inter_encode"),
             (inter_frame, "weight_luma", "weight_ref"),
             (kint, "luma_planes", "half_pel_planes"),
-            (kme, "full_search_blocks", "me_full_search"),
-            (kme, "subpel_refine", "me_subpel")]
+            (kfs, "full_search", "me_full_search"),
+            (ksp, "subpel", "me_subpel")]
 
 
 def ippp_patches(enc: Encoder, inner: str = "_encode_p") -> list:
@@ -531,7 +532,7 @@ def profile_ippp(res: dict, tools: bool, symbol_mode: str, w: int = W,
                        "frame_wp": [s.wp for s in enc.stats]})
     job = p_frame_job(enc, frames[n - 1], enc.recons[n - 2], n - 1)
     counters = [k1.launches, k2w.launches, k3w.launches, kp.launches,
-                k4w.launches, dq.launches]
+                k4w.launches, dq.launches, kfs.launches, ksp.launches]
     kept = {}                   # the warm frame's CABAC records
 
     def keep(stage, fn):
@@ -596,7 +597,7 @@ def profile_bgop(res: dict) -> None:
     for attr in ("encode_p_frame", "encode_b_frame"):
         delattr(enc, attr)
     counters = [k1.launches, k2w.launches, k3w.launches, kp.launches,
-                kb.launches, k4w.launches]
+                kb.launches, k4w.launches, kfs.launches, ksp.launches]
     kept = {}
 
     def keep(stage, fn):
@@ -689,7 +690,7 @@ def profile_tiled(res: dict, n_tiles: int) -> None:
                stream={"bytes": len(stream),
                        "frame_bits": [s.bits for s in te.stats[0]]})
     counters = [k1.launches, k2w.launches, k3w.launches, kp.launches,
-                kb.launches, k4w.launches]
+                kb.launches, k4w.launches, kfs.launches, ksp.launches]
     # coding order I 0, P 3, Bref 1, B 2, P 6, Bref 4, B 5
     for key, pos, inner, disp in (("p_anchor", 4, "_enc_p", 6),
                                   ("b_frame", 6, "_enc_b", 5)):
