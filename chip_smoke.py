@@ -35,7 +35,10 @@ Phases (any failure exits non-zero, before the result line):
     reference; both lists of the 1080p B pictures, with the partitions'
     five blocks and with the MB alone; both lists of the band's B
     picture) and on seeded 720p pictures at the ME lambdas of QP 0, 28 and
-    51 and flat ones (ties);
+    51, flat ones (every cost tied) and 0/255 checkerboards (the extremes
+    of the SSD and the SATD), KS also from full-pel vectors forced to +-16
+    on the border macroblocks of a 720p picture and of the band (the
+    edges of its staged windows);
  4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
     28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
@@ -204,15 +207,22 @@ DECODED_GOLDENS = ("config2_cif", "ippp_cif_cabac_rc")
 ENCODED: dict = {}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT_OPS_PER_S = 132 * 64 * 1.98e9   # SMs x int32 lanes x boost clock
+INT8_MMA_OPS_PER_S = 1.979e15   # H100 SXM data sheet, int8 tensor cores, dense
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
-    """Least time for the work: bytes over the memory rate or operations
-    over the peak rate, whichever is larger (both kept in the row)."""
+def bound(n_bytes: float, n_ops: float, mma_ops: float = 0.0) -> dict:
+    """Least time for the work: bytes over the memory rate, int32
+    operations over the int32 lanes' peak or u8 products (a multiply and
+    an add each) over the int8 tensor cores' peak, whichever is largest
+    (each kept in the row; the pipes run side by side)."""
     t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / INT_OPS_PER_S
-    return {"bound_ms": 1e3 * max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations",
-            "bytes_ms": 1e3 * t_b, "operations_ms": 1e3 * t_o}
+    t_m = mma_ops / INT8_MMA_OPS_PER_S
+    row = {"bound_ms": 1e3 * max(t_b, t_o, t_m),
+           "bound_by": "bytes" if t_b >= max(t_o, t_m) else "operations",
+           "bytes_ms": 1e3 * t_b, "operations_ms": 1e3 * t_o}
+    if mma_ops:
+        row["mma_ms"] = 1e3 * t_m
+    return row
 
 
 def fail(msg: str) -> None:
@@ -2044,8 +2054,17 @@ class MeCalls:
 def seeded_me_cases(dev) -> list:
     """KF's and KS's arguments on seeded 1280x720 pictures, every block of
     `me.SEARCH_BLOCKS`: a noisy reference and a source shifted from it by
-    (3, -5) plus noise, at the ME lambdas of QP 0, 28 and 51; and flat
-    pictures, where every candidate ties, at QP 28's."""
+    (3, -5) plus noise, at the ME lambdas of QP 0, 28 and 51; flat
+    pictures, where every candidate ties, at QP 28's; a 0/255
+    checkerboard against its complement (every sample 255 apart at
+    (0, 0) and at the even offsets, equal at the odd ones: the largest
+    SSDs and SATDs), at QP 0's and 51's; the noisy pictures again with KS
+    given full-pel vectors of the search range, +-16 on the border
+    macroblocks; and the noisy pictures padded by 3 samples, not 24, so
+    that KF's windows at the border are clamped and KS's reads there leave
+    the planes (its unstaged branch), with KF's vectors and with the
+    border vectors (the last item of a case: KS's vectors, or None for
+    KF's plain version's)."""
     from tpu264_torch.coding.intra_frame import LAMBDA_TABLE
     from tpu264_torch.kernels import interp as kint
     from tpu264_torch.kernels import me_subpel as ksp
@@ -2054,11 +2073,14 @@ def seeded_me_cases(dev) -> list:
     cur = np.clip(np.roll(ref, (3, -5), (0, 1))
                   + rng.integers(-6, 7, (H, W)), 0, 255)
     flat = np.full((H, W), 128)
+    yy, xx = np.mgrid[:H, :W]
+    chk = 255 * ((yy + xx) & 1)
     shapes = ksp.shapes(True, True)
     names = ksp.names_of(shapes)
     out = []
     for what, c, r, qps in (("noise", cur, ref, (0, 28, 51)),
-                            ("flat", flat, flat, (28,))):
+                            ("flat", flat, flat, (28,)),
+                            ("checkerboard", 255 - chk, chk, (0, 51))):
         y = torch.as_tensor(c, dtype=torch.int32, device=dev)
         rp = kint.pad_plane(torch.as_tensor(r, device=dev), 24).contiguous()
         planes = kint.luma_planes(rp).contiguous()
@@ -2066,25 +2088,57 @@ def seeded_me_cases(dev) -> list:
             lam = LAMBDA_TABLE[qp][2]
             kf = (y, rp, 24, 16, lam, W // 16, H // 16, names)
             out.append((f"seeded 720p {what}, QP {qp}", kf,
-                        (y, planes, 24, None, lam, W // 16, H // 16, shapes)))
+                        (y, planes, 24, None, lam, W // 16, H // 16, shapes),
+                        None))
+        if what == "noise":
+            mv = border_vectors(rng, len(names), W // 16, H // 16, dev)
+            out.append((f"seeded 720p {what}, KS from +-16 at the border", kf,
+                        (y, planes, 24, None, lam, W // 16, H // 16, shapes),
+                        mv))
+            rp = kint.pad_plane(torch.as_tensor(r, device=dev), 3)
+            planes = kint.luma_planes(rp.contiguous()).contiguous()
+            kf = (y, rp.contiguous(), 3, 16, lam, W // 16, H // 16, names)
+            ks = (y, planes, 3, None, lam, W // 16, H // 16, shapes)
+            out.append((f"seeded 720p {what}, padding 3, QP 51", kf, ks,
+                        None))
+            out.append((f"seeded 720p {what}, padding 3, KS from +-16 at "
+                        f"the border", kf, ks, mv))
     return out
+
+
+def border_vectors(rng, n_names: int, wm: int, hm: int, dev):
+    """Full-pel vectors [n_names, wm * hm, 2] of the search range, -16 on
+    the top row and left column of macroblocks and +16 on the bottom row
+    and right column, seeded elsewhere."""
+    mv = rng.integers(-16, 17, (n_names, wm * hm, 2))
+    mr, mc = np.divmod(np.arange(wm * hm), wm)
+    mv[:, mr == 0, 0], mv[:, mr == hm - 1, 0] = -16, 16
+    mv[:, mc == 0, 1], mv[:, mc == wm - 1, 1] = -16, 16
+    return torch.as_tensor(mv, dtype=torch.int32, device=dev)
 
 
 def kf_bound(a) -> dict:
     """KF's bound on its arguments `a`: the source and the union of the
-    windows read once, the vectors written once.  At each candidate of
-    an MB: 2 operations a sample (the difference, the multiply-add into
-    its quadrant's sum), 1 for the rate's two code lengths, and for each
-    requested block its quadrants' sums less one, the rate's multiply-add
-    and the compare."""
+    windows read once, the vectors written once.  A quadrant's SSD is
+    sum(s^2) + sum(w^2) - 2 sum(s w), and sum(s^2) is the same at every
+    candidate, so it leaves the choice unchanged.  The cross terms: 256
+    u8 products a candidate on the int8 tensor cores.  On the int32
+    lanes: for each sample of the windows' union its square and two
+    prefix sums (3), for each position of an 8x8 box in the union its sum
+    of w^2 from them (3), shared by the macroblocks whose windows hold
+    it; at each candidate a quadrant's sum(w^2) - 2 sum(s w) (1 each), 1
+    for the rate's two code lengths, and for each requested block its
+    quadrants' sums less one, the rate's add and the compare."""
     from tpu264_torch.kernels import me_search as kfs
     y, _, _, r, _, wm, hm, names = a
     n, span = wm * hm, 2 * r + 1
-    n_bytes = 4 * (y.numel() + (16 * hm + 2 * r) * (16 * wm + 2 * r)) \
-        + 8 * len(names) * n
+    uh, uw = 16 * hm + 2 * r, 16 * wm + 2 * r
+    n_bytes = 4 * (y.numel() + uh * uw) + 8 * len(names) * n
     per_block = sum(bin(kfs.quad_mask(nm)).count("1") - 1 + 2
                     for nm in names)
-    return bound(n_bytes, n * span * span * (2 * 256 + 1 + per_block))
+    n_ops = 3 * uh * uw + 3 * (uh - 7) * (uw - 7) \
+        + n * span * span * (4 + 1 + per_block)
+    return bound(n_bytes, n_ops, n * span * span * 256 * 2)
 
 
 def ks_bound(a) -> dict:
@@ -2096,18 +2150,18 @@ def ks_bound(a) -> dict:
     block needs: the centre and the 8 step-2 candidates, whose positions
     are full or half pel (one plane sample, no average), and the 8 step-1
     candidates around the step-2 winner, each at a quarter position (the
-    average: a three-input add and a shift).  A sample: the difference, 4
-    Hadamard adds or subtracts, the absolute value, the sum (7; 9 with
-    the average); a 4x4 block: the SATD's rounding (2); a block: the
-    rate (4 a component for its code length, 1 multiply-add) and the
-    compare (10)."""
+    average).  A sample: the difference, 4 Hadamard adds or subtracts,
+    the absolute value and the sum (7; 8 with the average), each on two
+    samples an instruction as 16-bit lane pairs (3.5; 4); a 4x4 block:
+    the SATD's rounding (2); a block: the rate (4 a component for its
+    code length, 1 multiply-add) and the compare (10)."""
     from tpu264_torch.kernels import me_subpel as ksp
     y, planes, _, _, _, wm, hm, shapes = a
     table = ksp.shape_table(shapes)
     n = wm * hm
     n_bytes = 4 * (y.numel() + planes.numel()) + 16 * len(table) * n
     samples = sum(bh * bw for _, _, bh, bw in table)
-    ops = (9 * 7 + 8 * 9) * samples + 17 * 2 * samples // 16 \
+    ops = (9 * 7 + 8 * 8) * samples / 2 + 17 * 2 * samples // 16 \
         + 17 * 10 * len(table)
     return bound(n_bytes, n * ops)
 
@@ -2119,27 +2173,39 @@ def check_me(dev, recorded: MeCalls) -> dict:
     picture with its pre-weighted reference and planes, both lists of the
     1920x1088 B pictures of config 4 and of a 17-row band's B picture),
     the 1080p B picture's lists again without partitions (the MB alone),
-    and the seeded pictures of `seeded_me_cases`; KS takes its list's
-    vectors from KF's plain version.  Both timed on the 1080p B picture's
-    list 0 (the row), the 720p P picture with the tools and the band ->
-    the KF and KS rows."""
+    the band's list 0 with KS from vectors of +-16 on its border
+    macroblocks, and the seeded pictures of `seeded_me_cases`; KS takes
+    its list's vectors from KF's plain version unless a case gives its
+    own.  Both timed on the 1080p B picture's list 0 (the row), the 720p
+    P picture with the tools and the band -> the KF and KS rows.  Prints
+    what `ptxas -v` said of their kernels if this process built them."""
+    from tpu264_torch.kernels import _build
     from tpu264_torch.kernels import me_search as kfs
     from tpu264_torch.kernels import me_subpel as ksp
-    cases = recorded.pairs()
+    for stem in ("me_search", "me_subpel"):
+        for line in _build.ptxas_log.get(stem, "").splitlines():
+            if "entry function" in line or "spill" in line \
+                    or "Used" in line:
+                print(f"ptxas {stem}: {line.strip()}")
+    cases = [(*c, None) for c in recorded.pairs()]
     b_lists = [c for c in cases if c[0].startswith("1080p B picture")]
     if len(b_lists) != 2:
         fail(f"motion search: {len(b_lists)} lists in the 1080p B picture")
-    for at, kf, ks in b_lists:
+    for at, kf, ks, _ in b_lists:
         shapes = ksp.shapes()
         cases.append((f"{at}, no partitions", (*kf[:7], ksp.names_of(shapes)),
-                      (*ks[:7], shapes)))
+                      (*ks[:7], shapes), None))
+    at, kf, ks, _ = next(c for c in cases
+                         if c[0] == "17-row band B picture, list 0")
+    cases.append((f"{at}, KS from +-16 at the border", kf, ks, border_vectors(
+        np.random.default_rng(43), len(kf[7]), kf[5], kf[6], dev)))
     cases += seeded_me_cases(dev)
     err = {"KF": 0, "KS": 0}
-    for at, kf, ks in cases:
+    for at, kf, ks, mv in cases:
         got = kfs.full_search(*kf)
         want = kfs.full_search_plain(*kf)
         e1 = max_abs_err(got, want)
-        ks = (*ks[:3], want, *ks[4:])
+        ks = (*ks[:3], want if mv is None else mv, *ks[4:])
         got = ksp.subpel(*ks)
         want_q = ksp.subpel_plain(*ks)
         e2 = max_abs_err(got, want_q)
@@ -2153,7 +2219,7 @@ def check_me(dev, recorded: MeCalls) -> dict:
     for key, at in (("", "1080p B picture, list 0"),
                     ("_720p_p", "720p P picture, default tools"),
                     ("_band", "17-row band B picture, list 0")):
-        kf, ks = next((a, b) for lab, a, b in cases if lab == at)
+        kf, ks = next((a, b) for lab, a, b, _ in cases if lab == at)
         ms = {"KF": time_ms(lambda: kfs.full_search(*kf), 20),
               "KS": time_ms(lambda: ksp.subpel(*ks), 20)}
         plain = {"KF": time_ms(lambda: kfs.full_search_plain(*kf), 2),
@@ -2654,6 +2720,7 @@ def main() -> int:
                       "ms_band", "ms_wave_band", "plain_ms_band",
                       "waves_band",
                       "ms_720p_p", "plain_ms_720p_p", "bound_ms_720p_p",
+                      "mma_ms",
                       "bound_ms_band",
                       "ms_grids_720p", "plain_ms_grids_720p",
                       "bound_ms_grids_720p", "ms_grids_1080p",

@@ -953,12 +953,15 @@ def test_cuda_tiled_ippp_cavlc_matches_cpu():
     assert got == cpu.encode_sequence([frames])
 
 
-def _me_inputs(dev, kind: str, w: int = 1280, h: int = 720, wp=(64, 0)):
-    """A source and a reference of w x h on the card: synth frames 1 over
+def _me_inputs(dev, kind: str, w: int = 1280, h: int = 720, wp=(64, 0),
+               pad: int = 24):
+    """A source and a reference of w x h on the card, the reference padded
+    by `pad` samples: synth frames 1 over
     0 ("synth"; with `wp` the reference pre-weighted as weighted
     prediction searches it), a seeded noise picture shifted by (3, -5)
-    plus noise ("noise"), or flat pictures ("flat") -> (y, ref_pad,
-    half-pel planes)."""
+    plus noise ("noise"), a 0/255 checkerboard against its complement
+    ("checker": the largest SSDs and SATDs), or flat
+    pictures ("flat") -> (y, ref_pad, half-pel planes)."""
     if kind == "synth":
         cur, ref = synth_frame(w, h, 1)[0], synth_frame(w, h, 0)[0]
     elif kind == "noise":
@@ -966,25 +969,31 @@ def _me_inputs(dev, kind: str, w: int = 1280, h: int = 720, wp=(64, 0)):
         ref = r.integers(0, 256, (h, w))
         cur = np.clip(np.roll(ref, (3, -5), (0, 1))
                       + r.integers(-6, 7, (h, w)), 0, 255)
+    elif kind == "checker":
+        yy, xx = np.mgrid[:h, :w]
+        ref = 255 * ((yy + xx) & 1)
+        cur = 255 - ref
     else:
         cur = ref = np.full((h, w), 128)
     y = t32(cur, dev)
-    ref_pad = tinter.weight_luma(kint.pad_plane(t32(ref, dev), 24), *wp)
+    ref_pad = tinter.weight_luma(kint.pad_plane(t32(ref, dev), pad), *wp)
     return y, ref_pad.contiguous(), kint.luma_planes(ref_pad).contiguous()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qp", [0, 28, 51])
 @pytest.mark.parametrize("kind,wp", [("synth", (64, 0)), ("noise", (64, 0)),
-                                     ("flat", (64, 0)), ("synth", (58, -7))])
+                                     ("flat", (64, 0)), ("checker", (64, 0)),
+                                     ("synth", (58, -7))])
 @pytest.mark.parametrize("tools", [(False, False), (True, False),
                                    (True, True)])
 def test_cuda_me_kernels_match_plain(tools, kind, wp, qp):
     """KF and KS on a 720p picture (every MB, the edge MBs included)
     against their plain versions on the card, tolerance 0, with the blocks
     a P picture without and with the tools and a B list with partitions
-    search, at the ME lambdas of QP 0, 28 and 51, on synth, noise and flat
-    (tied) pictures and a weighted reference; one launch each."""
+    search, at the ME lambdas of QP 0, 28 and 51, on synth, noise, flat
+    (tied) and 0/255 checkerboard pictures and a weighted reference; one
+    launch each."""
     dev = cuda_device()
     y, ref_pad, planes = _me_inputs(dev, kind, wp=wp)
     shapes = kme_subpel.shapes(*tools)
@@ -1002,6 +1011,61 @@ def test_cuda_me_kernels_match_plain(tools, kind, wp, qp):
     assert_equal(got, kme_subpel.subpel_plain(y, planes, *sub))
     if kind == "flat":
         assert not mv_int.any() and not got.any()
+
+
+def _border_vectors(n_names: int, wm: int, hm: int, dev):
+    """Full-pel vectors of the search range, -16 on the top row and left
+    column of macroblocks and +16 on the bottom row and right column."""
+    r = np.random.default_rng(29)
+    mv = r.integers(-16, 17, (n_names, wm * hm, 2))
+    mr, mc = np.divmod(np.arange(wm * hm), wm)
+    mv[:, mr == 0, 0], mv[:, mr == hm - 1, 0] = -16, 16
+    mv[:, mc == 0, 1], mv[:, mc == wm - 1, 1] = -16, 16
+    return t32(mv, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp", [0, 51])
+@pytest.mark.parametrize("kind", ["noise", "checker"])
+def test_cuda_me_kernels_match_plain_with_clamped_windows(kind, qp):
+    """KF and KS on a 720p picture whose reference is padded by 3 samples,
+    not 24: KF's search windows at the border are clamped as
+    `interp.clamp_start` clamps them, and KS's reads there leave the
+    planes (its unstaged branch), from KF's vectors and from +-16 border
+    vectors; every block shape, equal to the plain versions, tolerance
+    0."""
+    dev = cuda_device()
+    y, ref_pad, planes = _me_inputs(dev, kind, pad=3)
+    shapes = kme_subpel.shapes(True, True)
+    names = kme_subpel.names_of(shapes)
+    lam = tif.LAMBDA_TABLE[qp][2]
+    args = (3, 16, lam, 80, 45, names)
+    mv_int = kme_search.full_search(y, ref_pad, *args)
+    assert_equal(mv_int, kme_search.full_search_plain(y, ref_pad, *args))
+    for mv in (mv_int, _border_vectors(len(names), 80, 45, dev)):
+        sub = (3, mv, lam, 80, 45, shapes)
+        assert_equal(kme_subpel.subpel(y, planes, *sub),
+                     kme_subpel.subpel_plain(y, planes, *sub))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h", [(1280, 720), (1920, 272)],
+                         ids=["720p", "band_of_17_rows"])
+def test_cuda_me_subpel_border_vectors_match_plain(w, h):
+    """KS from full-pel vectors of the search range, -16 on the top row and
+    left column of macroblocks and +16 on the bottom row and right column
+    (the edges of the windows it stages), on a 720p picture and a 17-row
+    band of 1920 samples, every block shape, at the ME lambdas of QP 0 and
+    51: equal to its plain version, tolerance 0."""
+    dev = cuda_device()
+    y, _, planes = _me_inputs(dev, "noise", w, h)
+    wm, hm = w // 16, h // 16
+    shapes = kme_subpel.shapes(True, True)
+    mv = _border_vectors(9, wm, hm, dev)
+    for qp in (0, 51):
+        sub = (24, mv, tif.LAMBDA_TABLE[qp][2], wm, hm, shapes)
+        assert_equal(kme_subpel.subpel(y, planes, *sub),
+                     kme_subpel.subpel_plain(y, planes, *sub))
 
 
 @pytest.mark.cuda

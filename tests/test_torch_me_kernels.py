@@ -92,8 +92,9 @@ def _torch_inputs(kind: str):
 
 def test_shape_table_and_packing():
     """The shapes in the order the encoders refine them, the names in the
-    order of the vectors (`me.SEARCH_BLOCKS`'s), each block's quadrants,
-    and the by-value tables' lengths (the CUDA sources' `Params`)."""
+    order of the vectors (`me.SEARCH_BLOCKS`'s), each block's quadrants
+    (KF's `ssd[]` order), the blocks' indices KF is sent, and the by-value
+    tables' lengths (the CUDA sources' `Params`)."""
     shapes = ksp.shapes(True, True)
     assert ksp.names_of(shapes) == list(tme.SEARCH_BLOCKS)
     assert ksp.shape_table(shapes) == [
@@ -108,6 +109,8 @@ def test_shape_table_and_packing():
     for names in (["16x16"], list(tme.SEARCH_BLOCKS)):
         p = kfs.pack_params(WM, HM, (H, W), (H + 48, W + 48), PAD, R, 7, names)
         assert len(p) == 10 + 9 and p[9] == len(names)
+        assert p[10:10 + len(names)] == [
+            list(tme.SEARCH_BLOCKS).index(n) for n in names]
         t = ksp.shape_table(ksp.shapes(len(names) > 1, len(names) > 1))
         q = ksp.pack_params(WM, HM, (H, W), (H + 48, W + 48), PAD, 7, t)
         assert len(q) == 9 + 4 * 9 + 16 * 7 and q[8] == len(names)

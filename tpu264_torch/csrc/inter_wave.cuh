@@ -8,6 +8,8 @@
 // `intra_wave.cuh` (thread (blk, p) owns sample p of 4x4 block blk).
 // All arithmetic is int32 with arithmetic shifts, equal to the plain torch
 // versions (`coding/inter_frame.py`, `coding/b_frame.py`) bit for bit.
+// At the end, the packed byte and 16-bit lane arithmetic of the motion
+// search's kernels KF and KS, equal to `kernels/me.py` bit for bit.
 
 #pragma once
 
@@ -154,6 +156,79 @@ __device__ __forceinline__ int32_t warp_sum(int32_t v) {
 #pragma unroll
   for (int m = 1; m < 32; m <<= 1) v += __shfl_xor_sync(iw::kFull, v, m);
   return v;
+}
+
+// ---- the motion search's packed arithmetic (KF `me_search.cu`, KS
+// `me_subpel.cu`): samples 0..255 held four to a word, first sample in the
+// low byte ----
+
+__device__ __forceinline__ uint32_t pack4(const int32_t* s) {
+  return (uint32_t)s[0] | (uint32_t)s[1] << 8 | (uint32_t)s[2] << 16 |
+         (uint32_t)s[3] << 24;
+}
+
+// the four samples from byte o of a byte array held as words (any
+// alignment; the word after the last one read must exist)
+__device__ __forceinline__ uint32_t bytes4(const uint32_t* s, int o) {
+  return __funnelshift_r(s[o >> 2], s[(o >> 2) + 1], 8 * (o & 3));
+}
+
+// Two 16-bit lanes a word, each holding its value plus kBias: a lane-wise
+// sum or difference is then one 32-bit add with a constant, exact while
+// every lane stays in [0, 2^16) (no carry or borrow crosses lanes).
+constexpr uint32_t kBias = 4096u;
+constexpr uint32_t kBias2 = kBias * 0x10001u;
+
+// samples 0, 2 and 1, 3 of a row word as biased lane pairs
+__device__ __forceinline__ uint32_t lanes02(uint32_t row) {
+  return __byte_perm(row, 0, 0x4240);
+}
+__device__ __forceinline__ uint32_t lanes13(uint32_t row) {
+  return __byte_perm(row, 0, 0x4341);
+}
+
+// (a, b) -> (a + b, a - b), lane-wise, biased in and out
+__device__ __forceinline__ void butterfly(uint32_t& a, uint32_t& b) {
+  const uint32_t s = a + b - kBias2;
+  b = a - b + kBias2;
+  a = s;
+}
+
+// `transform.satd4x4` (DC included) of the 4x4 block whose source rows
+// are src[r] = (lanes02, lanes13) + kBias2 and whose prediction rows are
+// the words pred[r].  The differences sit two to a word, (column c, column
+// c + 2); three butterfly stages across words (column bit 0, row bits 0
+// and 1) leave |v| <= 8 x 255, so every lane stays in range.  The last
+// stage, column bit 1, pairs the two lanes of a word: as |x + y| + |x - y|
+// = 2 max(|x|, |y|), the block's (sum + 1) >> 1 is the sum of max(|x|,
+// |y|) over the eight words, which is max(max(x, y), -min(x, y)) on lanes
+// regrouped two words at a time.  Each instruction works on two samples.
+__device__ __forceinline__ int32_t satd4x4_packed(const uint32_t (&src)[4][2],
+                                                  const uint32_t (&pred)[4]) {
+  uint32_t d[4][2];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    d[r][0] = src[r][0] - lanes02(pred[r]);
+    d[r][1] = src[r][1] - lanes13(pred[r]);
+    butterfly(d[r][0], d[r][1]);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    butterfly(d[0][e], d[1][e]);
+    butterfly(d[2][e], d[3][e]);
+    butterfly(d[0][e], d[2][e]);
+    butterfly(d[1][e], d[3][e]);
+  }
+  uint32_t acc = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const uint32_t x = __byte_perm(d[r][0], d[r][1], 0x5410);   // low lanes
+    const uint32_t y = __byte_perm(d[r][0], d[r][1], 0x7632);   // high lanes
+    const uint32_t m =
+        __vmaxu2(__vmaxu2(x, y), 2 * kBias2 - __vminu2(x, y));
+    acc = __dp2a_lo(m, 0x0101u, acc);          // both lanes, each + kBias
+  }
+  return (int32_t)(acc - 8 * kBias);
 }
 
 }  // namespace iv

@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tpu264_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -68,6 +68,9 @@ _SIGNATURES = {
 
 _LIB = None
 build_seconds: float | None = None      # wall time of the last build
+# what `ptxas -v` said of each source's kernels (registers, spills, shared
+# memory), by source stem, when this process built the library
+ptxas_log: dict = {}
 _CO_RESIDENT: dict = {}
 
 
@@ -106,15 +109,16 @@ def build() -> Path:
     for src in sorted(CSRC.glob("*.cu")):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        jobs.append((cmd, obj, subprocess.Popen(
+        jobs.append((src, cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failures = []
-    for cmd, _, proc in jobs:
+    for src, cmd, _, proc in jobs:
         so, se = proc.communicate()
         if proc.returncode != 0:
             failures.append(f"nvcc failed ({proc.returncode}):\n"
                             f"{' '.join(cmd)}\n{so}\n{se}")
-    objs = [obj for _, obj, _ in jobs]
+        ptxas_log[src.stem] = so + se
+    objs = [obj for _, _, obj, _ in jobs]
     tmp = BUILD_DIR / f"{tag}.tmp"
     try:
         if failures:

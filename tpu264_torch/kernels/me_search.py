@@ -28,6 +28,7 @@ MAX_RANGE = 16          # the kernel's window is at most 48 x 48
 MAX_NAMES = len(kme.SEARCH_BLOCKS)
 
 launches = {"KF": 0}
+_PARAMS: dict = {}          # packed host tables, by all of their inputs
 
 
 def quad_mask(name: str) -> int:
@@ -38,11 +39,13 @@ def quad_mask(name: str) -> int:
 
 def pack_params(wm: int, hm: int, orig_shape, ref_shape, pad: int, r: int,
                 lam: int, names) -> list:
-    """The kernel's by-value table (layout: `Params` in the CUDA
-    source)."""
-    masks = [quad_mask(n) for n in names]
+    """The kernel's host table: `Params` in the CUDA source, then each
+    requested block's index in `me.SEARCH_BLOCKS`, in the order of
+    `names`."""
+    order = list(kme.SEARCH_BLOCKS)
+    index = [order.index(n) for n in names]
     return ([wm, hm, *orig_shape, *ref_shape, pad, r, lam, len(names)]
-            + masks + [0] * (MAX_NAMES - len(masks)))
+            + index + [0] * (MAX_NAMES - len(index)))
 
 
 def full_search_plain(orig_y, ref_pad, pad: int, search_range: int, lam: int,
@@ -58,9 +61,11 @@ def full_search(orig_y, ref_pad, pad: int, search_range: int, lam: int,
                 width_mbs: int, height_mbs: int, names):
     """Integer full search of the blocks `names` (of `me.SEARCH_BLOCKS`)
     of every MB: orig_y [H, W] and the edge-padded reference ref_pad
-    [Hp, Wp], int32 -> full-pel vectors [len(names), n_mbs, 2] int32, each
-    the first in (dy, dx) raster order of the cheapest by SSD + lam * bits
-    of the vector.  CPU tensors: the plain version; CUDA tensors: one
+    [Hp, Wp], int32 samples of 0..255 (a picture's luma and a
+    reconstruction, or its weighted copy, as the encoders pass them; KF
+    holds them as bytes) -> full-pel vectors [len(names), n_mbs, 2] int32,
+    each the first in (dy, dx) raster order of the cheapest by SSD + lam *
+    bits of the vector.  CPU tensors: the plain version; CUDA tensors: one
     launch of KF."""
     if orig_y.device.type == "cpu":
         return full_search_plain(orig_y, ref_pad, pad, search_range, lam,
@@ -91,11 +96,13 @@ def full_search(orig_y, ref_pad, pad: int, search_range: int, lam: int,
     out = torch.empty((len(names), n, 2), dtype=I32, device=dev)
     if n == 0:
         return out
-    params = pack_params(width_mbs, height_mbs, orig_y.shape, ref_pad.shape,
-                         pad, search_range, int(lam), names)
+    key = (width_mbs, height_mbs, tuple(orig_y.shape), tuple(ref_pad.shape),
+           pad, search_range, int(lam), names)
+    if key not in _PARAMS:
+        _PARAMS[key] = _build.host_i32(pack_params(*key))
     launches["KF"] += 1
     err = _build.lib().tpu264_me_search(
         _build.ptr(orig_y), _build.ptr(ref_pad), _build.ptr(out),
-        _build.host_i32(params), _build.stream_of(orig_y))
+        _PARAMS[key], _build.stream_of(orig_y))
     _build.check(err, who)
     return out

@@ -31,6 +31,7 @@ I32 = torch.int32
 MAX_NAMES = len(kme.SEARCH_BLOCKS)
 
 launches = {"KS": 0}
+_PARAMS: dict = {}          # packed host tables, by all of their inputs
 
 
 def shapes(partitions: bool = False, p8x8: bool = False) -> list:
@@ -92,10 +93,12 @@ def subpel(orig_y, planes, pad: int, mv_int, lam: int, width_mbs: int,
            height_mbs: int, shape_list):
     """Half- then quarter-pel refinement with SATD + lam * vector rate cost
     of every block of `shape_list` of every MB: orig_y [H, W], the
-    half-pel planes [4, Hp, Wp] (`interp.luma_planes`), the full-pel
-    vectors mv_int [len(names), n_mbs, 2] (KF's), int32 -> quarter-pel
-    vectors [len(names), n_mbs, 2] int32.  CPU tensors: the plain version;
-    CUDA tensors: one launch of KS."""
+    half-pel planes [4, Hp, Wp] (`interp.luma_planes` of a reference of
+    0..255, so every plane sample is 0..255, as is every source sample;
+    KS holds them as bytes), the full-pel vectors mv_int [len(names),
+    n_mbs, 2] (KF's), int32 -> quarter-pel vectors [len(names), n_mbs, 2]
+    int32.  CPU tensors: the plain version; CUDA tensors: one launch of
+    KS."""
     if orig_y.device.type == "cpu":
         return subpel_plain(orig_y, planes, pad, mv_int, lam, width_mbs,
                             height_mbs, shape_list)
@@ -125,11 +128,13 @@ def subpel(orig_y, planes, pad: int, mv_int, lam: int, width_mbs: int,
     out = torch.empty((len(table), n, 2), dtype=I32, device=dev)
     if n == 0:
         return out
-    params = pack_params(width_mbs, height_mbs, orig_y.shape,
-                         planes.shape[1:], pad, int(lam), table)
+    key = (width_mbs, height_mbs, tuple(orig_y.shape),
+           tuple(planes.shape[1:]), pad, int(lam), tuple(table))
+    if key not in _PARAMS:
+        _PARAMS[key] = _build.host_i32(pack_params(*key))
     launches["KS"] += 1
     err = _build.lib().tpu264_me_subpel(
         _build.ptr(orig_y), _build.ptr(planes), _build.ptr(mv_int),
-        _build.ptr(out), _build.host_i32(params), _build.stream_of(orig_y))
+        _build.ptr(out), _PARAMS[key], _build.stream_of(orig_y))
     _build.check(err, who)
     return out

@@ -339,7 +339,10 @@ def profiled_frame(patches: list, job) -> dict:
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
     top = ranked[:10]
     # the hand-written kernels live in an anonymous namespace of their own
-    own = [kv for kv in ranked if kv[0].startswith("(anonymous namespace)::")]
+    # (a template's name starts with its return type)
+    own = [kv for kv in ranked
+           if kv[0].startswith(("(anonymous namespace)::",
+                                "void (anonymous namespace)::"))]
     return {"frame_seconds_profiled": secs, "device_events": len(on_device),
             "device_busy_seconds": busy_us * 1e-6,
             "launches": len(launch_at), "launches_by_stage": by_stage,
