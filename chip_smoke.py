@@ -38,7 +38,9 @@ Phases (any failure exits non-zero, before the result line):
     51, flat ones (every cost tied) and 0/255 checkerboards (the extremes
     of the SSD and the SATD), KS also from full-pel vectors forced to +-16
     on the border macroblocks of a 720p picture and of the band (the
-    edges of its staged windows);
+    edges of its staged windows); K2, K3 and K4 as the batched all-intra
+    entry runs them, one launch a wave for a chunk of 4 and of 3 pictures
+    at 1920x1088 (`check_batched_intra`);
  4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
     28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
@@ -47,8 +49,13 @@ Phases (any failure exits non-zero, before the result line):
     and hold the stream's SHA-256 to `tests/data/torch_golden.json` (made
     by the JAX reference encoder);
  5. config 1: five QCIF frames, all-intra CAVLC, through the batched
-    entry; the SHA-256 equals the per-frame path's on the card and the
-    golden;
+    entry (a chunk launches K2, K3 and K4 once a wave, as a frame of the
+    per-frame path does); the SHA-256 equals the per-frame path's on the
+    card and the golden; then `bench.py:86-99`'s all-intra frame at
+    1920x1088, six frames through the batched entry (chunks of 4 and 2,
+    254 launches each of K2, K3 and K4 a chunk) and the per-frame path,
+    both against the golden `intra1080_cavlc_batched`, and both warm in
+    one call (seconds a frame);
  6. config 2: CIF IPPP CAVLC (1 IDR + 2 P, deblock, full-search and
     quarter-pel ME, no partitions) against its golden;
  7. IPPP at 720p: the same at 1280x720 against its golden, with the
@@ -113,8 +120,9 @@ Phases (any failure exits non-zero, before the result line):
 
 The line before the last is a JSON object with one entry per kernel
 (`launches`: the sum over the four 720p main paths, config 4 and its two
-tiled paths, the weighted 720p path, config 5, the decode, `entry` and
-the dry run, phases 4, 7, 8, 9, 10, 11, 12, 14, 15 and 16, each driven
+tiled paths, the weighted 720p path, config 5, the decode, `entry`, the
+dry run and the batched 1080p all-intra path, phases 4, 5, 7, 8, 9, 10,
+11, 12, 14, 15 and 16, each driven
 with the counts set to 0 just before and read just after;
 `launches_by_path` splits it; KP's `ms`, `plain_ms` and `bound_ms` are
 a 720p P picture of the default P tools (one launch; `waves` of them,
@@ -132,7 +140,10 @@ frame's, `ms_b_1080p` and `bins_b_1080p` the 1080p B frame's; K4's
 a wave of the seeded decoder pictures; KF's and KS's the 1080p B
 picture's list 0 with the partitions, `ms_720p_p` (with `plain_ms_720p_p`,
 `bound_ms_720p_p`) the 720p P picture with the tools and `ms_band` (with
-`plain_ms_band`, `bound_ms_band`) the band's list 0); the last line is
+`plain_ms_band`, `bound_ms_band`) the band's list 0; K2's, K3's and K4's
+`ms_chunk4` (with `plain_ms_chunk4`, `bound_ms_chunk4`) a wave of a
+chunk of four 1920x1088 pictures in one launch, and K2's and K3's
+`ms_one_picture` that wave of one of them); the last line is
 {"ok": true, "device": {...}}.
 
 `bound_ms` of a kernel is the larger of its bytes (each input read once,
@@ -503,6 +514,195 @@ def check_wave_body(dev, wave) -> dict:
     n_ops = n_mbs * (384 * 4 * 22 + 24 * 300)
     return {"K3": dict(err=err, ms=ms, plain_ms=pms,
                        **bound(n_bytes, n_ops))}
+
+
+def check_batched_intra(dev) -> dict:
+    """K2, K3 and K4 as the batched all-intra entry runs them, one launch a
+    wave for a chunk of F pictures at 1920x1088 (`bench.py:86-99`'s
+    frame), F = 4 and a short chunk F = 3, against their plain versions on
+    the card, tolerance 0: seeded waves of the chunk (`random_wave_chunk`,
+    the fullest wave's 60 lanes and 3 padding lanes) at QP 0, 28 and 51
+    through `wave_body` (K2 reading the border buffers, then K3) against
+    `wave_body_plain`, K2 alone against `eval_i4x4_plain` and K3 alone
+    against `i16_chroma_wave_plain` on the plain I4x4 results, each with
+    the border buffers after the scatter; the batched plain versions
+    against the per-picture ones stacked; and the picture deblocker on F
+    seeded pictures (intra and inter MBs, bS 0 to 4; 1 slice, and 4
+    slices of 17 MB rows unfiltered across) against the plain one, one K4
+    launch a wave (the stacked check on the short chunk, 4 slices).
+    Times a wave of the chunk of 4, and K2's and K3's wave of one of its
+    pictures -> extra keys of the K2, K3 and K4 rows."""
+    from tpu264_torch.coding import intra_frame as tif
+    from tpu264_torch.coding.wavefront import build_schedule
+    from tpu264_torch.kernels import deblock as kd
+    from tpu264_torch.kernels import deblock_wave as k4w
+    from tpu264_torch.kernels import i16_chroma_wave as k3w
+    from tpu264_torch.kernels import i4x4_wave as k2w
+    from tpu264_torch.ref.transform import chroma_qp
+    from tpu264_torch.tools.synth_inputs import (random_deblock_picture,
+                                                 random_wave_chunk)
+    wm, hm = BW // 16, BH // 16
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+    err = {"K2": 0, "K3": 0, "K4": 0}
+
+    def chunk(seed, nf):
+        bd, coords, avail, gy, gu, gv = random_wave_chunk(seed, wm, hm, nf,
+                                                          n_pad=3)
+        return ({k: i32(v) for k, v in bd.items()}, i32(coords),
+                torch.as_tensor(avail, device=dev), i32(gy), i32(gu),
+                i32(gv))
+
+    def i4x4_plain(bd, coords, avail, gy, qp, lam4, lam24):
+        nf = gy.shape[0]
+        f, r, c, av = tif._frame_lanes(coords, avail, nf)
+        ltop, lleft, _, _, _, _, mtop, mleft = tif.gather_border_ctx(
+            bd, r, c, f)
+        outs = tif.eval_i4x4_plain(gy.flatten(0, 1), ltop, lleft, mtop,
+                                   mleft, *av.unbind(1), qp, lam4, lam24)
+        return [t.unflatten(0, (nf, -1)) for t in outs]
+
+    for nf in (4, 3):
+        for qp in (0, 28, 51):
+            cqp = chroma_qp(qp)
+            lam4, lam24, _ = tif.LAMBDA_TABLE[qp]
+            bd, coords, avail, gy, gu, gv = chunk(60 + qp + nf, nf)
+            what = f"chunk of {nf} at QP {qp}"
+            # the whole body: one K2 and one K3 launch for the chunk
+            bd_k, bd_p = clone_bd(bd), clone_bd(bd)
+            before = read_counts()
+            got = tif.wave_body(qp, cqp, lam4, lam24, bd_k, coords, avail,
+                                gy, gu, gv)
+            torch.cuda.synchronize()
+            after = read_counts()
+            if (after["K2"] - before["K2"], after["K3"] - before["K3"]) != \
+                    (1, 1):
+                fail(f"batched wave body, {what}: not one K2 and one K3 "
+                     f"launch")
+            want = tif.wave_body_plain(qp, cqp, lam4, lam24, bd_p, coords,
+                                       avail, gy, gu, gv)
+            e = max(differ(got, want, f"batched wave body, {what}"),
+                    differ(bd_k, bd_p, f"batched wave body borders, {what}"))
+            err["K2"], err["K3"] = max(err["K2"], e), max(err["K3"], e)
+            # the batched plain version is the per-picture one stacked
+            for f in range(nf):
+                bd_f = {k: v[f].clone() for k, v in bd.items()}
+                one = tif.wave_body_plain(qp, cqp, lam4, lam24, bd_f, coords,
+                                          avail, gy[f], gu[f], gv[f])
+                if differ({k: want[k][f] for k in one}, one,
+                          f"batched plain, {what}, picture {f}") or differ(
+                        {k: bd_p[k][f] for k in bd_f}, bd_f,
+                        f"batched plain borders, {what}, picture {f}"):
+                    fail(f"batched plain wave body, {what}: picture {f} "
+                         f"differs from its own call")
+            # K2 alone and K3 alone
+            bd_k = clone_bd(bd)
+            k2 = k2w.i4x4_wave_bd(gy, bd_k, coords, avail, qp, lam4, lam24,
+                                  tif._K2_RULES)
+            torch.cuda.synchronize()
+            p2 = i4x4_plain(bd, coords, avail, gy, qp, lam4, lam24)
+            err["K2"] = max(err["K2"], differ(
+                dict(enumerate(k2)), dict(enumerate(p2)), f"K2, {what}"))
+            mb4, modebuf, _, coeffs4, j4 = p2
+            k3_args = (coords, avail, gy, gu, gv, mb4, modebuf, coeffs4, j4,
+                       qp, cqp)
+            bd_k, bd_p = clone_bd(bd), clone_bd(bd)
+            out = k3w.alloc_outputs((nf, gy.shape[1]), dev)
+            k3w.i16_chroma_wave(bd_k, *k3_args, tif._BLK_ORDER, out)
+            torch.cuda.synchronize()
+            del out["modes"]
+            want = tif.i16_chroma_wave_plain(bd_p, *k3_args)
+            err["K3"] = max(err["K3"], differ(out, want, f"K3, {what}"),
+                            differ(bd_k, bd_p, f"K3 borders, {what}"))
+    # K4: the picture deblocker on a chunk of seeded pictures
+    for nf in (4, 3):
+        pics = [random_deblock_picture(70 + f, wm, hm) for f in range(nf)]
+        args = [torch.as_tensor(np.stack(a), device=dev) for a in zip(*pics)]
+        for slices, across in ((1, True), (4, False)):
+            sched = build_schedule(wm, hm, slices)
+            before = k4w.launches["K4"]
+            got = kd.make_deblocker_skewed(sched, across)(*args, 28,
+                                                          chroma_qp(28))
+            torch.cuda.synchronize()
+            if k4w.launches["K4"] != before + sched.n_waves:
+                fail(f"batched K4, chunk of {nf}: not one launch a wave")
+            want = kd.make_deblocker_skewed(sched, across, plain=True)(
+                *args, 28, chroma_qp(28))
+            for f in range(nf if (nf, slices) == (3, 4) else 0):
+                one = kd.make_deblocker_skewed(sched, across, plain=True)(
+                    *(a[f] for a in args), 28, chroma_qp(28))
+                if any(max_abs_err(w[f], o) for w, o in zip(want, one)):
+                    fail(f"batched plain deblocker, chunk of {nf}: picture "
+                         f"{f} differs from its own call")
+            for g, w, o in zip(got, want, args[:3]):
+                if g.shape != w.shape or g.dtype != w.dtype:
+                    fail("batched K4: plane shape or type differs from the "
+                         "plain one")
+                err["K4"] = max(err["K4"], max_abs_err(g, w))
+                if not (w != o.to(w.dtype)).any():
+                    fail("batched K4: the deblocker changed nothing")
+    # times: a wave of the chunk of 4 (the fullest wave, 60 lanes each)
+    qp, cqp = QP, chroma_qp(QP)
+    lam4, lam24, _ = tif.LAMBDA_TABLE[qp]
+    bd, coords, avail, gy, gu, gv = chunk(9, 4)
+    nf, n_lanes = gy.shape[:2]
+    k2_args = (gy, clone_bd(bd), coords, avail, qp, lam4, lam24,
+               tif._K2_RULES)
+    ms2 = time_ms(lambda: k2w.i4x4_wave_bd(*k2_args), 200)
+    pms2 = time_ms(lambda: i4x4_plain(bd, coords, avail, gy, qp, lam4,
+                                      lam24), 3)
+    mb4, modebuf, _, coeffs4, j4 = i4x4_plain(bd, coords, avail, gy, qp,
+                                              lam4, lam24)
+    k3_args = (coords, avail, gy, gu, gv, mb4, modebuf, coeffs4, j4, qp, cqp)
+    bd_t = clone_bd(bd)
+    out = k3w.alloc_outputs((nf, n_lanes), dev)
+    ms3 = time_ms(lambda: k3w.i16_chroma_wave(bd_t, *k3_args,
+                                              tif._BLK_ORDER, out), 200)
+    pms3 = time_ms(lambda: tif.i16_chroma_wave_plain(bd_t, *k3_args), 3)
+    one3 = (coords, avail, gy[0], gu[0], gv[0], mb4[0], modebuf[0],
+            coeffs4[0], j4[0], qp, cqp)
+    bd_1 = {k: v[0].clone() for k, v in bd.items()}
+    out_1 = k3w.alloc_outputs((n_lanes,), dev)
+    ms3_one = time_ms(lambda: k3w.i16_chroma_wave(bd_1, *one3,
+                                                  tif._BLK_ORDER, out_1), 200)
+    ms2_one = time_ms(lambda: k2w.i4x4_wave_bd(
+        gy[0], bd_1, coords, avail, qp, lam4, lam24, tif._K2_RULES), 200)
+    sched = build_schedule(wm, hm, 1)
+    pics = [random_deblock_picture(80 + f, wm, hm) for f in range(nf)]
+    y, u, v, intra_mb, tc, mv, ref = (
+        torch.as_tensor(np.stack(a), device=dev) for a in zip(*pics))
+    bs_v, bs_h = kd.bs_maps(intra_mb, tc, mv, ref)
+    planes = [p.to(torch.int32, copy=True).contiguous() for p in (y, u, v)]
+    grids = uniform_grids(qp, cqp, (nf, hm, wm), dev)
+
+    def k4_chunk():
+        for cp in range(sched.n_waves):
+            k4w.deblock_wave(*planes, bs_v, bs_h, cp, *grids)
+
+    ms4 = time_ms(k4_chunk, 10) / sched.n_waves
+    plain4 = kd.make_deblocker_skewed(sched, True, plain=True)
+    pms4 = time_ms(lambda: plain4(y, u, v, intra_mb, tc, mv, ref, qp, cqp),
+                   2) / sched.n_waves
+    print(f"batched 1080p, a wave of a chunk of {nf} pictures x {n_lanes} "
+          f"lanes: K2 {ms2:.4f} ms (one picture {ms2_one:.4f}), plain "
+          f"{pms2:.3f}; K3 {ms3:.4f} ms (one picture {ms3_one:.4f}), plain "
+          f"{pms3:.3f}; K4 {ms4:.4f} ms, plain {pms4:.3f}")
+    # bounds as in `check_i4x4_wave`, `check_wave_body`, `k4_wave_bound`,
+    # over the chunk's lanes (padding lanes included, as the kernels run
+    # them)
+    lanes = nf * n_lanes
+    b2 = bound(lanes * (305 * 4 + 4 + 545 * 4), lanes * 16 * (144 * 23 + 400))
+    b3 = bound(lanes * (4 * (58 + 384 + 529) + 3 + 1
+                        + 4 * (2 + 408 + 384 + 58)),
+               lanes * (384 * 4 * 22 + 24 * 300))
+    b4 = k4_wave_bound(BW, BH)
+    b4 = {k: nf * b4[k] if k.endswith("_ms") else b4[k] for k in b4}
+    rows = {k: {"err": err[k], "ms_chunk4": ms, "plain_ms_chunk4": pms,
+                "bound_ms_chunk4": b["bound_ms"]}
+            for k, ms, pms, b in (("K2", ms2, pms2, b2), ("K3", ms3, pms3, b3),
+                                  ("K4", ms4, pms4, b4))}
+    rows["K2"]["ms_one_picture"] = ms2_one
+    rows["K3"]["ms_one_picture"] = ms3_one
+    return rows
 
 
 def clone_state(x):
@@ -1335,16 +1535,82 @@ def encode_golden(name: str, what: str, **enc_kw):
     return enc, stream, secs
 
 
+def check_intra_launches(what: str, counts: dict, n: int, n_waves: int,
+                         deblock: bool) -> None:
+    """An all-intra CAVLC run of `n` chunks (the batched entry) or `n`
+    frames (the per-frame path): K2 and K3 once a wave of each, K4 once a
+    wave with deblocking and never without, and no other kernel."""
+    want = {k: 0 for k in counts}
+    want.update(K2=n * n_waves, K3=n * n_waves,
+                K4=n * n_waves if deblock else 0)
+    wrong = {k: (counts[k], want[k]) for k in counts if counts[k] != want[k]}
+    if wrong:
+        fail(f"{what}: launches (ran, expected) {wrong} for {n} chunks or "
+             f"frames of {n_waves} waves")
+
+
 def phase_config1() -> None:
-    """Config 1: QCIF all-intra CAVLC, 5 frames through the batched entry;
-    the per-frame path on the card gives the same stream."""
+    """Config 1: QCIF all-intra CAVLC, 5 frames through the batched entry
+    (chunks of 4 and 1): a chunk launches K2, K3 and K4 once a wave, as one
+    frame does on the per-frame path, which gives the same stream."""
+    reset_counts()
     enc, batched, _ = encode_golden("config1_qcif", "config 1 (batched)")
     if enc.cabac or enc.intra_batch < 2:
         fail("config 1 did not take the batched CAVLC entry")
+    n_waves = enc.sched.n_waves
+    check_intra_launches("config 1 (batched)", read_counts(), 2, n_waves,
+                         enc.cfg.deblock)
+    reset_counts()
     _, per_frame, _ = encode_golden("config1_qcif", "config 1 (per frame)",
                                     intra_batch=1)
+    check_intra_launches("config 1 (per frame)", read_counts(), 5, n_waves,
+                         enc.cfg.deblock)
     if per_frame != batched:
         fail("config 1: the batched entry and the per-frame path differ")
+    print(f"config 1: K2, K3 and K4 {n_waves} launches each a chunk of the "
+          f"batched entry and a frame of the per-frame path")
+
+
+def phase_intra1080(card: str) -> dict:
+    """`bench.py:86-99`'s all-intra frame (1920x1088, CAVLC, deblock, QP
+    28), golden `intra1080_cavlc_batched`: six frames through the batched
+    entry (a chunk of 4 and one of 2; a chunk launches K2, K3 and K4 once
+    a wave, 254 each, as one frame does) and through the per-frame path,
+    both against the golden; then both warm on the same frames in one
+    call (batched, per frame, per frame, batched): seconds a frame, with
+    the card -> the batched run's launch counts."""
+    name = "intra1080_cavlc_batched"
+    reset_counts()
+    enc, stream, _ = encode_golden(name, "intra1080 (batched, chunks of 4)")
+    counts = read_counts()
+    n_frames, n_waves = len(enc.stats), enc.sched.n_waves
+    n_chunks = -(-n_frames // enc.intra_batch)
+    if enc.intra_batch != 4 or n_chunks != 2:
+        fail(f"intra1080: {n_frames} frames in chunks of {enc.intra_batch}")
+    check_intra_launches("intra1080 (batched)", counts, n_chunks, n_waves,
+                         enc.cfg.deblock)
+    reset_counts()
+    one, _, _ = encode_golden(name, "intra1080 (per frame)", intra_batch=1)
+    counts_1 = read_counts()
+    check_intra_launches("intra1080 (per frame)", counts_1, n_frames,
+                         n_waves, enc.cfg.deblock)
+    frames = golden_frames(golden(name))
+    secs = {"batched": [], "per frame": []}
+    for label, e in (("batched", enc), ("per frame", one),
+                     ("per frame", one), ("batched", enc)):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = e.encode_sequence(frames)
+        torch.cuda.synchronize()
+        secs[label].append((time.monotonic() - t0) / n_frames)
+        if out != stream:
+            fail(f"intra1080 ({label}, warm): the stream differs")
+    print(f"intra1080 warm, same frames, same call ({card}): seconds a "
+          f"frame batched (chunks of 4) {secs['batched']}, per frame "
+          f"{secs['per frame']}; launches a frame batched "
+          f"{sum(counts.values()) / n_frames:g}, per frame "
+          f"{sum(counts_1.values()) / n_frames:g} (K2 + K3 + K4)")
+    return counts
 
 
 def phase_config2() -> None:
@@ -2660,6 +2926,8 @@ def main() -> int:
     del b_cases
     results.update(check_me(dev, me))
     del me
+    for k, extra in check_batched_intra(dev).items():
+        results[k].update(extra, err=max(results[k]["err"], extra["err"]))
     wrong = {k: r["err"] for k, r in sorted(results.items()) if r["err"]}
     if wrong:
         fail(f"kernels differ from their plain versions (max abs err): "
@@ -2667,6 +2935,7 @@ def main() -> int:
     print("kernels equal their plain versions (tolerance 0)")
     counts = phase_encode(frames)
     phase_config1()
+    counts_i = phase_intra1080(card)
     phase_config2()
     counts_p, _ = phase_ippp("ippp_720p", "IPPP at 720p")
     phase_ippp("config2_bench_cif", "config 2 at bench.py's settings (CIF, "
@@ -2699,7 +2968,8 @@ def main() -> int:
              "bgop_1080p": counts_b, "tiled_bgop_1080p": counts_t1,
              "tiled4_bgop_1080p": counts_t4, "ippp_720p_wp_sei": counts_w,
              "config5_4k_gop": counts_g, "decode": counts_d,
-             "entry": counts_e, "dryrun_multichip_4": counts_r}
+             "entry": counts_e, "dryrun_multichip_4": counts_r,
+             "intra1080_batched": counts_i}
     rows = []
     for k in sorted(KERNELS):
         name, source, replaces, _ = KERNELS[k]
@@ -2724,7 +2994,9 @@ def main() -> int:
                       "bound_ms_band",
                       "ms_grids_720p", "plain_ms_grids_720p",
                       "bound_ms_grids_720p", "ms_grids_1080p",
-                      "plain_ms_grids_1080p", "bound_ms_grids_1080p"):
+                      "plain_ms_grids_1080p", "bound_ms_grids_1080p",
+                      "ms_chunk4", "plain_ms_chunk4", "bound_ms_chunk4",
+                      "ms_one_picture"):
             if extra in r:
                 row[extra] = r[extra]
         rows.append(row)

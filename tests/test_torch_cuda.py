@@ -40,7 +40,7 @@ from tpu264_torch.entropy import cabac_binarize as tcb
 from tpu264_torch.entropy import cabac_engine_cuda as k1
 from tpu264_torch.tools.synth_inputs import random_b_wave, \
     random_deblock_picture, random_decode_deblock, random_mbs, random_p_wave, \
-    random_p_wave_tools, random_wave
+    random_p_wave_tools, random_wave, random_wave_chunk
 
 from torch_util import assert_equal, carry_records, cuda_device, \
     long_run_records, random_i4x4_lanes, random_records, run_engine, t32, \
@@ -292,6 +292,165 @@ def test_cuda_wave_body_matches_plain(qp):
     for k in got:
         assert ret[k].data_ptr() == ys[k][1].data_ptr()
         assert_equal(ys[k][1], got[k], k)
+
+
+def _chunk_on(dev, seed, wm, hm, frames):
+    bd, coords, avail, gy, gu, gv = random_wave_chunk(seed, wm, hm, frames,
+                                                      n_pad=3)
+    return ({k: t32(v, dev) for k, v in bd.items()}, t32(coords, dev),
+            torch.as_tensor(avail, device=dev), t32(gy, dev), t32(gu, dev),
+            t32(gv, dev))
+
+
+@pytest.mark.cuda
+def test_cuda_batched_wave_body_matches_plain():
+    """A wave of a chunk of F = 1, 3, 4 pictures (the batched all-intra
+    entry) on the card at QP 0, 28, 51, one K2 and one K3 launch for all
+    F, against `wave_body_plain` on the card and on the CPU: every result
+    and the border buffers after the scatter, padding lanes included; and
+    into columns of a chunk's per-wave arrays, as the wave loop writes
+    them.  The wrappers refuse a chunk's inputs of mismatched shapes.
+    (Each collected test moves the Tier-1 scheduler's chunk boundaries,
+    ROADMAP "Tier-1 and its clock": the cases loop here.)"""
+    dev = cuda_device()
+    for frames in (1, 3, 4):
+        for qp in (0, 28, 51):
+            _check_batched_wave_body(dev, qp, frames)
+    _check_batched_wave_kernels_reject_bad_input(dev)
+
+
+def _check_batched_wave_body(dev, qp, frames):
+    cqp = chroma_qp(qp)
+    lam4, lam24, _ = tif.LAMBDA_TABLE[qp]
+    seed = 90 + qp + frames
+    before = {**k2w.launches, **k3w.launches}
+    bd_k, *args = _chunk_on(dev, seed, 22, 18, frames)
+    got = tif.wave_body(qp, cqp, lam4, lam24, bd_k, *args)
+    torch.cuda.synchronize()
+    assert k2w.launches["K2"] == before["K2"] + 1
+    assert k3w.launches["K3"] == before["K3"] + 1
+    bd_p, *args_p = _chunk_on(dev, seed, 22, 18, frames)
+    on_card = tif.wave_body_plain(qp, cqp, lam4, lam24, bd_p, *args_p)
+    bd_c, *args_c = _chunk_on("cpu", seed, 22, 18, frames)
+    on_cpu = tif.wave_body(qp, cqp, lam4, lam24, bd_c, *args_c)
+    for k, (shape, dtype) in k3w.OUTPUTS.items():
+        assert got[k].dtype == dtype and got[k].shape[2:] == shape, k
+        assert got[k].shape[0] == frames
+        assert_equal(got[k], on_card[k], k)
+        assert_equal(got[k], on_cpu[k], k)
+    for k in bd_k:
+        assert_equal(bd_k[k], bd_p[k], k)
+        assert_equal(bd_k[k], bd_c[k], k)
+    # the wave loop's layout: [F, n_waves, lanes, ...], the wave a column
+    b = args[2].shape[1]
+    ys = k3w.alloc_outputs((frames, 3, b), dev)
+    bd_o, *args = _chunk_on(dev, seed, 22, 18, frames)
+    tif.wave_body(qp, cqp, lam4, lam24, bd_o, *args,
+                  out={k: v[:, 1] for k, v in ys.items()})
+    for k in got:
+        assert_equal(ys[k][:, 1], got[k], k)
+
+
+def _check_batched_wave_kernels_reject_bad_input(dev):
+    bd, coords, avail, gy, gu, gv = _chunk_on(dev, 4, 11, 9, 3)
+    lam = (28, 23, 140, tif._K2_RULES)
+    k2w.i4x4_wave_bd(gy, bd, coords, avail, *lam)
+    with pytest.raises(ValueError):          # border buffers of 2 pictures
+        k2w.i4x4_wave_bd(gy, {k: v[:2] for k, v in bd.items()}, coords,
+                         avail, *lam)
+    with pytest.raises(ValueError):          # one picture's buffers
+        k2w.i4x4_wave_bd(gy, {k: v[0] for k, v in bd.items()}, coords,
+                         avail, *lam)
+    with pytest.raises(ValueError):          # a picture not contiguous
+        k2w.i4x4_wave_bd(gy.transpose(2, 3), bd, coords, avail, *lam)
+    mb4, modebuf, _, coeffs4, j4 = k2w.i4x4_wave_bd(gy, bd, coords, avail,
+                                                    *lam)
+    assert mb4.shape == (3, gy.shape[1], 16, 16) and j4.shape == gy.shape[:2]
+    out = k3w.alloc_outputs(tuple(gy.shape[:2]), dev)
+    k3w.i16_chroma_wave(bd, coords, avail, gy, gu, gv, mb4, modebuf, coeffs4,
+                        j4, 28, 28, tuple(tif.BLK_ORDER), out)
+    with pytest.raises(ValueError):          # results of 2 pictures
+        k3w.i16_chroma_wave(bd, coords, avail, gy, gu, gv, mb4[:2], modebuf,
+                            coeffs4, j4, 28, 28, tuple(tif.BLK_ORDER), out)
+    with pytest.raises(ValueError):          # outputs of one picture
+        k3w.i16_chroma_wave(bd, coords, avail, gy, gu, gv, mb4, modebuf,
+                            coeffs4, j4, 28, 28, tuple(tif.BLK_ORDER),
+                            {k: v[0] for k, v in out.items()})
+    y = torch.zeros((2, 48, 80), dtype=torch.int32, device=dev)
+    c = torch.zeros((2, 24, 40), dtype=torch.int32, device=dev)
+    b = torch.zeros((2, 12, 20), dtype=torch.int32, device=dev)
+    q = torch.full((2, 3, 5), 28, dtype=torch.int32, device=dev)
+    k4w.deblock_wave(y, c, c.clone(), b, b.clone(), 0, q, q.clone())
+    with pytest.raises(ValueError):          # one picture's bS map
+        k4w.deblock_wave(y, c, c, b[0], b, 0, q, q)
+    with pytest.raises(ValueError):          # a QP grid of 1 picture
+        k4w.deblock_wave(y, c, c, b, b, 0, q[:1], q)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_deblocker_matches_plain():
+    """The picture deblocker on a chunk of 3 seeded pictures (intra and
+    inter MBs, bS 0 to 4) on the card, one K4 launch a wave for all of
+    them, 1 slice and 3 slices unfiltered across, against the plain
+    version on the card and on the CPU, and against each picture filtered
+    on its own on the card."""
+    dev = cuda_device()
+    for slices, across in ((1, True), (3, False)):
+        _check_batched_deblocker(dev, slices, across)
+
+
+def _check_batched_deblocker(dev, slices, across):
+    wm, hm = 11, 9
+    sched = build_schedule(wm, hm, slices)
+    pics = [random_deblock_picture(50 + f, wm, hm) for f in range(3)]
+    args = [torch.as_tensor(np.stack(a), device=dev) for a in zip(*pics)]
+    fn = kd.make_deblocker_skewed(sched, across)
+    before = k4w.launches["K4"]
+    got = fn(*args, 28, chroma_qp(28))
+    torch.cuda.synchronize()
+    assert k4w.launches["K4"] == before + sched.n_waves
+    on_card = kd.make_deblocker_skewed(sched, across, plain=True)(
+        *args, 28, chroma_qp(28))
+    on_cpu = fn(*(a.cpu() for a in args), 28, chroma_qp(28))
+    for g, w, c in zip(got, on_card, on_cpu):
+        assert_equal(g, w)
+        assert_equal(g, c)
+    for f in range(3):
+        one = fn(*(a[f] for a in args), 28, chroma_qp(28))
+        for g, o in zip(got, one):
+            assert_equal(g[f], o)
+
+
+@pytest.mark.cuda
+def test_cuda_batched_entry_equals_cpu():
+    """Config 1 (five QCIF all-intra CAVLC frames, 1 and 3 slices) through
+    the batched entry on the card equals the same on the CPU: stream,
+    frame sizes and recons; a chunk of 4 (and the short one of 1)
+    launches K2, K3 and K4 once a wave, as one frame does."""
+    dev = cuda_device()
+    for slices in (1, 3):
+        _check_batched_entry(dev, slices)
+
+
+def _check_batched_entry(dev, slices):
+    cfg = EncoderConfig(width=176, height=144, qp=28, symbol_mode="CAVLC",
+                        intra_period=1, deblock=True,
+                        slices_per_frame=slices)
+    frames = [synth_frame(176, 144, t) for t in range(5)]
+    before = {**k2w.launches, **k3w.launches, **k4w.launches}
+    enc = Encoder(cfg, device=dev)
+    got = enc.encode_sequence(frames)
+    n_waves = enc.sched.n_waves
+    for k in ("K2", "K3", "K4"):
+        ran = {**k2w.launches, **k3w.launches, **k4w.launches}[k] - before[k]
+        assert ran == 2 * n_waves, k
+    cpu = Encoder(cfg, device="cpu")
+    assert got == cpu.encode_sequence(frames)
+    assert [s.bits for s in enc.stats] == [s.bits for s in cpu.stats]
+    for g, w in zip(enc.recons, cpu.recons):
+        for gp, wp in zip(g, w):
+            assert gp.device.type == "cuda"
+            assert_equal(gp, wp)
 
 
 @pytest.mark.cuda

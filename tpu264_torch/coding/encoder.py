@@ -10,7 +10,9 @@ with kernels K2/K3, motion search and the P or B wave body, the wavefront
 deblocker with K4, then either CABAC binarization and the range coder K1
 or the CAVLC serializer and bit packer), Annex-B assembly and per-frame
 stats.  All-intra CAVLC sequences at a fixed QP go through the batched
-entry, which pulls a chunk of frames' payloads from the device at once.
+entry, which codes a chunk of frames through each stage at once: one
+launch of each wave kernel a wave for the whole chunk, one serializer and
+packer pass, one deblocking pass and one pull.
 The encoder runs on the CUDA card unless the caller asks for
 `device="cpu"`.
 """
@@ -290,11 +292,27 @@ def cabac_nalus(payloads, hdr, nal_ref_idc, nal_type) -> list:
     return nalus
 
 
-def serialize(pic: Picture, mbd, kind: str, cap_words: int):
+def _flat(mbd) -> dict:
+    """A chunk's raster MB dict [F, n, ...] as one of F n MBs."""
+    return {k: v.flatten(0, 1) for k, v in mbd.items()}
+
+
+def serialize(pic: Picture, mbd, kind: str, cap_words: int,
+              frames: int | None = None):
     """CAVLC serialize + pack on device a picture of slice kind `kind`
     ("i", "p" or "b") -> (words, nbits, skipped).  In a PPS with the 8x8
-    transform, I_NxN MBs of I slices carry its flag too."""
+    transform, I_NxN MBs of I slices carry its flag too.  `frames`: a
+    chunk of that many I pictures (`mbd` [F, n, ...]) in one serializer
+    and packer pass -> words [F, S, cap_words], nbits [F, S], None."""
     rows = list(pic.rows)
+    if frames is not None:
+        if kind != "i":
+            raise ValueError("serialize: a chunk of pictures is all-intra")
+        v, ln = dcav.serialize_frame(_flat(mbd), pic.wm, pic.hm, rows,
+                                     t8_mode=pic.t8_mode, frames=frames)
+        words, nbits = dcav.pack_slices(v, ln, frames * len(rows), cap_words)
+        return (words.unflatten(0, (frames, -1)),
+                nbits.unflatten(0, (frames, -1)), None)
     if kind == "b":
         v, ln, skipped = dcav.serialize_frame_b(mbd, pic.wm, pic.hm, rows)
     elif kind == "p":
@@ -350,7 +368,7 @@ def entropy_nalus(pic: Picture, queued, qp: int, kind: str, cabac: bool,
                        hdr, nal_ref_idc, nal_type)
 
 
-def deblock_inputs(pic: Picture, mbd, kind: str):
+def deblock_inputs(pic: Picture, mbd, kind: str, frames: int | None = None):
     """The deblocker's bS inputs (intra_mb, tc_luma, mv, ref, t8_mb),
     derived on device from the raster MB dict of a picture of slice kind
     `kind` ("i", "p" or "b"): a P picture's single-list motion from its
@@ -358,7 +376,14 @@ def deblock_inputs(pic: Picture, mbd, kind: str):
     "mv2", "mvq"); a B picture's two-list motion (`b_motion`); an
     all-intra picture has none.  The coefficient condition of an
     8x8-transform MB counts the covering 8x8 block's coefficients on every
-    4x4 block."""
+    4x4 block.  `frames`: `mbd` holds a chunk of that many pictures
+    ([F, n, ...]), and so does each input ([F, ...]); every input is an MB's
+    or a 4x4 block's own, so the chunk is derived as one picture of F hm
+    MB rows and cut back into pictures."""
+    if frames is not None:
+        tall = dataclasses.replace(pic, hm=pic.hm * frames)
+        return tuple(None if t is None else t.unflatten(0, (frames, -1))
+                     for t in deblock_inputs(tall, _flat(mbd), kind))
     wm, hm, n, dev = pic.wm, pic.hm, pic.n_mbs, pic.device
     if kind == "b":
         is_inter = mbd["btype"].to(torch.int32) != 4
@@ -455,14 +480,15 @@ def b_motion(pic: Picture, mbd, is_inter):
 
 
 def recon_planes(deblock, pic: Picture, dev_out, mbd, qp: int,
-                 kind: str = "i"):
+                 kind: str = "i", frames: int | None = None):
     """The picture (of slice kind `kind`) that is output and referenced,
     uint8 on the device: filtered by the wavefront deblocker `deblock`
-    where there is one."""
+    where there is one.  `frames`: a chunk of that many pictures
+    (planes [F, H, W], `mbd` [F, n, ...]) in one deblocking pass."""
     if deblock is None:
         return tuple(dev_out[k].to(torch.uint8)
                      for k in ("recon_y", "recon_u", "recon_v"))
-    *inputs, t8_mb = deblock_inputs(pic, mbd, kind)
+    *inputs, t8_mb = deblock_inputs(pic, mbd, kind, frames)
     fy, fu, fv = deblock(dev_out["recon_y"], dev_out["recon_u"],
                          dev_out["recon_v"], *inputs, qp, chroma_qp(qp),
                          t8_mb=t8_mb)
@@ -471,9 +497,12 @@ def recon_planes(deblock, pic: Picture, dev_out, mbd, qp: int,
 
 def sse3(orig, recon):
     """[SSE Y, SSE U, SSE V, sum |Y - Y'|] of a picture, an int64 tensor on
-    its device (the last entry is the rate controller's MAD numerator)."""
-    d = [o.to(torch.int64) - r.to(torch.int64) for o, r in zip(orig, recon)]
-    return torch.stack([(x * x).sum() for x in d] + [d[0].abs().sum()])
+    its device (the last entry is the rate controller's MAD numerator);
+    of each picture of a chunk, [F, 4], for planes [F, H, W]."""
+    d = [(o.to(torch.int64) - r.to(torch.int64)).flatten(-2)
+         for o, r in zip(orig, recon)]
+    return torch.stack([(x * x).sum(-1) for x in d] + [d[0].abs().sum(-1)],
+                       dim=-1)
 
 
 class Encoder:
@@ -595,15 +624,17 @@ class Encoder:
         """All-IDR CAVLC sequence in chunks of `batch` frames; the stream
         is identical to the per-frame path's.
 
-        A chunk's frames go through the per-frame device path one after
-        another (wave launches that carry several frames' lanes are not
-        built yet); what the chunk shares is the pull: one transfer each
-        of the bit counts, the packed words and the SSEs of all its
-        frames, after the device work of all of them is queued.
-        `FrameStats.seconds` is the chunk's time over its frames.  The
-        reference pads a short last chunk with copies of its last frame to
-        keep one compiled shape and drops their output; there is no shape
-        to keep here, so a short chunk encodes just its frames."""
+        A chunk of F frames goes through each stage once, as the
+        reference's vmapped program does: one upload of its planes
+        [F, H, W], one wave loop whose every wave is one launch each of K2
+        and K3 for all F frames' lanes, one serializer and packer pass
+        over its F S slices, one deblocking pass (one K4 launch a wave for
+        the chunk), one SSE, and one pull each of the bit counts, the
+        packed words and the SSEs.  `FrameStats.seconds` is the chunk's
+        time over its frames.  The reference pads a short last chunk with
+        copies of its last frame to keep one compiled shape and drops
+        their output; there is no shape to keep here, so a short chunk
+        encodes just its frames."""
         cfg = self.cfg
         qp = cfg.qp
         out = self._header_nalus()
@@ -615,22 +646,21 @@ class Encoder:
             if not chunk:
                 break
             t0 = time.monotonic()
-            words, nbits, sse = [], [], []
-            for y, u, v in chunk:
-                orig = self._to_device(y, u, v)
-                dev_out, ys = self._encode_frame(*orig, qp)
-                mbd = reorder_wave_outputs(self.sched, ys)
-                w, nb, _ = serialize(self.pic, mbd, "i", self._cap_words)
-                recon = recon_planes(self._deblock, self.pic, dev_out, mbd,
-                                     qp)
-                words.append(w)
-                nbits.append(nb)
-                sse.append(sse3(orig, recon))
-                self.recons.append(recon)
-            nbits_np = torch.stack(nbits).cpu().numpy()   # syncs the device
-            sse_np = torch.stack(sse).cpu().numpy()
-            words_np = _pull_words(torch.stack(words), nbits_np)
-            per_frame_s = (time.monotonic() - t0) / len(chunk)
+            nf = len(chunk)
+            orig = tuple(torch.as_tensor(
+                np.stack([np.asarray(f[k]) for f in chunk]),
+                device=self.device) for k in range(3))
+            dev_out, ys = self._encode_frame(*orig, qp)
+            mbd = reorder_wave_outputs(self.sched, ys, frames=True)
+            words, nbits, _ = serialize(self.pic, mbd, "i", self._cap_words,
+                                        frames=nf)
+            recon = recon_planes(self._deblock, self.pic, dev_out, mbd, qp,
+                                 frames=nf)
+            self.recons.extend(zip(*recon))
+            nbits_np = nbits.cpu().numpy()            # syncs the device
+            sse_np = sse3(orig, recon).cpu().numpy()
+            words_np = _pull_words(words, nbits_np)
+            per_frame_s = (time.monotonic() - t0) / nf
             for b, (y, u, v) in enumerate(chunk):
                 i = c0 + b
                 nalus = cavlc_nalus(

@@ -16,6 +16,13 @@ neighbour context straight from the border buffers.  The plain version,
 which the CPU takes, is `wave_body_plain`: `gather_border_ctx`,
 `eval_i4x4_plain`, then `i16_chroma_wave_plain` (`eval_i16`,
 `eval_chroma`, the merge, `update_border_ctx`).
+
+The batched all-intra entry codes a chunk of F pictures of one geometry
+at once: the encoder (`make_intra_encoder`) then takes planes [F, H, W],
+and every stage of its wave loop carries a leading picture axis (border
+buffers [F, ...], a wave's tiles and results [F, B, ...]), so that one
+launch of each wave kernel covers the wave in all F pictures.  The
+pictures share the wave schedule; nothing crosses from one to another.
 """
 
 from __future__ import annotations
@@ -250,8 +257,9 @@ def chroma_residual_recon(orig, pred, cqp: int, intra: bool = True):
             kt.zigzag_scan(ac_lev).reshape(b, 4, 16))
 
 
-def init_border_buffers(hm: int, wm: int, device):
-    """Compact wavefront carry: 1-px-deep borders instead of full planes.
+def init_border_buffers(hm: int, wm: int, device, frames=None):
+    """Compact wavefront carry: 1-px-deep borders instead of full planes
+    (with `frames` = F: one set for each of F pictures, [F, ...]).
 
     Intra prediction of MB (r, c) only reads (a) the bottom pixel row of
     MB row r-1 (incl. the top-left corner and top-right run) and (b) the
@@ -266,9 +274,10 @@ def init_border_buffers(hm: int, wm: int, device):
     writes of the padding lanes.
     """
     w = wm * 16
+    lead = () if frames is None else (int(frames),)
 
     def z(*shape, fill=0):
-        return torch.full(shape, fill, dtype=I32, device=device)
+        return torch.full(lead + shape, fill, dtype=I32, device=device)
 
     return dict(row_y=z(hm + 2, 1 + w + 8), col_y=z(hm + 1, 16),
                 row_u=z(hm + 2, 1 + w // 2 + 8), col_u=z(hm + 1, 8),
@@ -277,37 +286,60 @@ def init_border_buffers(hm: int, wm: int, device):
                 modes_col=z(hm + 1, 4, fill=-2))
 
 
-def gather_border_ctx(bd, r, c):
-    """Per-MB neighbor context for one wave from the border carry."""
+def _at(f, *idx):
+    """Index a border buffer at lanes `idx`, in picture f of each lane
+    where the buffers carry a picture axis (f not None)."""
+    return idx if f is None else (f.reshape((-1,) + (1,) * (
+        idx[-1].dim() - 1)),) + idx
+
+
+def gather_border_ctx(bd, r, c, f=None):
+    """Per-MB neighbor context for one wave from the border carry; lane i
+    is MB (r[i], c[i]) of picture f[i] where the buffers are [F, ...]."""
     dev = r.device
 
     def run(name, start, width):
         cols = start[:, None] + torch.arange(width, device=dev)[None, :]
-        return bd[name][r[:, None], cols]
+        return bd[name][_at(f, r[:, None], cols)]
 
-    return (run("row_y", c * 16, 25), bd["col_y"][r],
-            run("row_u", c * 8, 9), bd["col_u"][r],
-            run("row_v", c * 8, 9), bd["col_v"][r],
-            run("modes_row", c * 4 + 1, 4), bd["modes_col"][r])
+    def col(name):
+        return bd[name][_at(f, r)]
+
+    return (run("row_y", c * 16, 25), col("col_y"),
+            run("row_u", c * 8, 9), col("col_u"),
+            run("row_v", c * 8, 9), col("col_v"),
+            run("modes_row", c * 4 + 1, 4), col("modes_col"))
 
 
-def update_border_ctx(bd, r, c, recon_mb, rec_u, rec_v, mode_tiles):
+def update_border_ctx(bd, r, c, recon_mb, rec_u, rec_v, mode_tiles, f=None):
     """Write the finished wave's MB borders back into the carry, in place
-    (the buffers are only ever read through `gather_border_ctx`)."""
+    (the buffers are only ever read through `gather_border_ctx`); lane i
+    is MB (r[i], c[i]) of picture f[i] where the buffers are [F, ...]."""
     dev = r.device
     rr = (r + 1)[:, None]
 
     def cols(px):
         return 1 + c[:, None] * px + torch.arange(px, device=dev)[None, :]
 
-    bd["row_y"][rr, cols(16)] = recon_mb[:, 15, :]
-    bd["col_y"][r] = recon_mb[:, :, 15]
-    bd["row_u"][rr, cols(8)] = rec_u[:, 7, :]
-    bd["col_u"][r] = rec_u[:, :, 7]
-    bd["row_v"][rr, cols(8)] = rec_v[:, 7, :]
-    bd["col_v"][r] = rec_v[:, :, 7]
-    bd["modes_row"][rr, cols(4)] = mode_tiles[:, 3, :]
-    bd["modes_col"][r] = mode_tiles[:, :, 3]
+    bd["row_y"][_at(f, rr, cols(16))] = recon_mb[:, 15, :]
+    bd["col_y"][_at(f, r)] = recon_mb[:, :, 15]
+    bd["row_u"][_at(f, rr, cols(8))] = rec_u[:, 7, :]
+    bd["col_u"][_at(f, r)] = rec_u[:, :, 7]
+    bd["row_v"][_at(f, rr, cols(8))] = rec_v[:, 7, :]
+    bd["col_v"][_at(f, r)] = rec_v[:, :, 7]
+    bd["modes_row"][_at(f, rr, cols(4))] = mode_tiles[:, 3, :]
+    bd["modes_col"][_at(f, r)] = mode_tiles[:, :, 3]
+
+
+def _frame_lanes(coords, avail, frames):
+    """A wave's lanes (coords [B,2], avail [B,4]) in each of `frames`
+    pictures (None: one picture), picture-major -> (f or None, r, c,
+    avail) per lane."""
+    r, c = coords[:, 0].long(), coords[:, 1].long()
+    if frames is None:
+        return None, r, c, avail
+    f = torch.arange(frames, device=r.device).repeat_interleave(r.shape[0])
+    return f, r.repeat(frames), c.repeat(frames), avail.repeat(frames, 1)
 
 
 def i16_chroma_wave_plain(bd, coords, avail, gy, gu, gv, mb4, modebuf,
@@ -316,11 +348,24 @@ def i16_chroma_wave_plain(bd, coords, avail, gy, gu, gv, mb4, modebuf,
     `kernels.i16_chroma_wave.i16_chroma_wave`, same inputs): the I16x16 and
     chroma searches with their transforms, the merge with the I4x4 results
     (recon, mode grid, scanned levels, cost) and the border scatter into
-    `bd`.  Returns every result of the wave but "modes"."""
-    r, c = coords[:, 0].long(), coords[:, 1].long()
+    `bd`.  Returns every result of the wave but "modes".  A chunk of F
+    pictures (gy [F,B,16,16], the other per-lane inputs likewise, border
+    buffers [F, ...]) gives results [F, B, ...]."""
+    nf = gy.shape[0] if gy.dim() == 4 else None
+    lanes = _frame_lanes(coords, avail, nf)
+    flat = [t if nf is None else t.flatten(0, 1)
+            for t in (gy, gu, gv, mb4, modebuf, coeffs4, j4)]
+    res = _i16_chroma_lanes(bd, *lanes, *flat, qp, cqp)
+    return res if nf is None else {k: v.unflatten(0, (nf, -1))
+                                   for k, v in res.items()}
+
+
+def _i16_chroma_lanes(bd, f, r, c, avail, gy, gu, gv, mb4, modebuf, coeffs4,
+                      j4, qp: int, cqp: int) -> dict:
+    """`i16_chroma_wave_plain` of lanes (r, c) of pictures f."""
     at, al, atl, _ = avail.unbind(1)
     ltop, lleft, tctx_u, lctx_u, tctx_v, lctx_v, _, _ = gather_border_ctx(
-        bd, r, c)
+        bd, r, c, f)
     m16, j16, rec16, dc_lev, ac_lev = eval_i16(
         gy, ltop, lleft, at, al, atl, qp)
     sel16 = j16 < j4
@@ -334,7 +379,7 @@ def i16_chroma_wave_plain(bd, coords, avail, gy, gu, gv, mb4, modebuf,
         gu, gv, tctx_u, lctx_u, tctx_v, lctx_v, at, al, atl, cqp)
 
     mode_tiles = torch.where(sel16[:, None, None], -1, modebuf)
-    update_border_ctx(bd, r, c, recon_mb, rec_u, rec_v, mode_tiles)
+    update_border_ctx(bd, r, c, recon_mb, rec_u, rec_v, mode_tiles, f)
 
     return dict(sel16=sel16, i16mode=m16, cmode=cmode,
                 luma_ac=luma_ac, luma_dc=luma_dc,
@@ -345,17 +390,24 @@ def i16_chroma_wave_plain(bd, coords, avail, gy, gu, gv, mb4, modebuf,
 
 def wave_body_plain(qp, cqp, lam4, lam24, bd, coords, avail, gy, gu, gv):
     """Plain torch version of `wave_body` (what the two wave kernels are
-    held to): gather, the I4x4 search, then `i16_chroma_wave_plain`."""
-    r, c = coords[:, 0].long(), coords[:, 1].long()
+    held to): gather, the I4x4 search, then `i16_chroma_wave_plain`; for a
+    chunk of F pictures as `wave_body` takes it, all F pictures' lanes at
+    once."""
+    nf = gy.shape[0] if gy.dim() == 4 else None
+    f, r, c, avail = _frame_lanes(coords, avail, nf)
+    if nf is not None:
+        gy, gu, gv = (t.flatten(0, 1) for t in (gy, gu, gv))
     at, al, atl, atr = avail.unbind(1)
     ltop, lleft, _, _, _, _, modes_top, modes_left = gather_border_ctx(
-        bd, r, c)
+        bd, r, c, f)
     mb4, modebuf, modes_zz, coeffs4, j4 = eval_i4x4_plain(
         gy, ltop, lleft, modes_top, modes_left, at, al, atl, atr,
         qp, lam4, lam24)
-    res = i16_chroma_wave_plain(bd, coords, avail, gy, gu, gv, mb4, modebuf,
-                                coeffs4, j4, qp, cqp)
-    return {k: modes_zz if k == "modes" else res[k] for k in k3w.OUTPUTS}
+    res = _i16_chroma_lanes(bd, f, r, c, avail, gy, gu, gv, mb4, modebuf,
+                            coeffs4, j4, qp, cqp)
+    res = {k: modes_zz if k == "modes" else res[k] for k in k3w.OUTPUTS}
+    return res if nf is None else {k: v.unflatten(0, (nf, -1))
+                                   for k, v in res.items()}
 
 
 def wave_body(qp, cqp, lam4, lam24, bd, coords, avail, gy, gu, gv, out=None):
@@ -364,7 +416,9 @@ def wave_body(qp, cqp, lam4, lam24, bd, coords, avail, gy, gu, gv, out=None):
     lanes at (hm, 0)) with avail [B,4] = (top, left, top-left, top-right)
     and source tiles gy [B,16,16], gu, gv [B,8,8]; the border buffers `bd`
     give the neighbour context and take the finished MBs' borders, in
-    place.  Returns the wave's results, a dict of [B, ...] tensors.
+    place.  Returns the wave's results, a dict of [B, ...] tensors.  A
+    chunk of F pictures: tiles [F, B, ...] and border buffers [F, ...]
+    (coords and avail shared), results [F, B, ...].
 
     CUDA tensors go through the two wave kernels (K2, then K3 on the same
     stream, or it raises), which write into `out` when it is given (rows
@@ -375,7 +429,7 @@ def wave_body(qp, cqp, lam4, lam24, bd, coords, avail, gy, gu, gv, out=None):
         return wave_body_plain(qp, cqp, lam4, lam24, bd, coords, avail,
                                gy, gu, gv)
     if out is None:
-        out = k3w.alloc_outputs((gy.shape[0],), gy.device)
+        out = k3w.alloc_outputs(tuple(gy.shape[:-2]), gy.device)
     mb4, modebuf, _, coeffs4, j4 = k2w.i4x4_wave_bd(
         gy, bd, coords, avail, qp, lam4, lam24, _K2_RULES,
         modes_zz=out["modes"])
@@ -386,26 +440,27 @@ def wave_body(qp, cqp, lam4, lam24, bd, coords, avail, gy, gu, gv, out=None):
 
 def tile_origin_xs(sched: WaveSchedule, y, u, v):
     """Original MB tiles per (wave, lane) [n_waves, max_wave, px, px],
-    gathered once with the static schedule indices."""
+    gathered once with the static schedule indices; planes [F, H, W] of a
+    chunk give [F, n_waves, max_wave, px, px]."""
     hm, wm = sched.height_mbs, sched.width_mbs
-    dev = y.device
-    rs = torch.as_tensor(np.minimum(sched.coords[:, :, 0], hm - 1),
-                         device=dev)
-    cs = torch.as_tensor(sched.coords[:, :, 1], device=dev)
-    yt = y.reshape(hm, 16, wm, 16).permute(0, 2, 1, 3)
-    ut = u.reshape(hm, 8, wm, 8).permute(0, 2, 1, 3)
-    vt = v.reshape(hm, 8, wm, 8).permute(0, 2, 1, 3)
-    return yt[rs, cs], ut[rs, cs], vt[rs, cs]
+    rs, cs = _on_device(sched, "tile_rc", y.device)
+
+    def tiles(p, px):
+        t = p.reshape(*p.shape[:-2], hm, px, wm, px).transpose(-3, -2)
+        return t[..., rs, cs, :, :]
+
+    return tiles(y, 16), tiles(u, 8), tiles(v, 8)
 
 
 def assemble_plane(sched: WaveSchedule, tiles, px: int):
     """[n_waves, max_wave, px, px] wave-major MB tiles → [H, W] plane via
-    a static-permutation gather."""
+    a static-permutation gather ([F, ...] -> [F, H, W] for a chunk)."""
     hm, wm = sched.height_mbs, sched.width_mbs
-    perm = torch.as_tensor(_raster_perm(sched), device=tiles.device)
-    t = tiles.reshape((-1,) + tuple(tiles.shape[2:]))[perm]
-    return t.reshape(hm, wm, px, px).permute(0, 2, 1, 3).reshape(
-        hm * px, wm * px)
+    lead = tuple(tiles.shape[:-4])
+    perm = _on_device(sched, "perm", tiles.device)
+    t = tiles.reshape(lead + (-1, px, px))[..., perm, :, :]
+    return t.reshape(lead + (hm, wm, px, px)).transpose(-3, -2).reshape(
+        lead + (hm * px, wm * px))
 
 
 def make_intra_encoder(sched: WaveSchedule, chroma_qp_offset: int = 0):
@@ -413,32 +468,38 @@ def make_intra_encoder(sched: WaveSchedule, chroma_qp_offset: int = 0):
 
     fn(y, u, v, qp) -> (recon dict, per-wave outputs stacked
     [n_waves, max_wave, ...]); y/u/v are uint8 or int32 tensors on the
-    device that runs the encode, qp a Python int.
+    device that runs the encode, qp a Python int.  A chunk of F pictures,
+    y [F, H, W] and u, v [F, H/2, W/2], goes through one wave loop (one
+    launch of each wave kernel a wave for all F) and gives the recon
+    planes and the outputs with the leading F.
     """
     wm, hm = sched.width_mbs, sched.height_mbs
 
     def encode(y, u, v, qp: int):
-        """y: [H,W] uint8/int32, u/v: [H/2, W/2]. Returns (recon, per-wave ys)."""
+        """y: [H,W] ([F,H,W]) uint8/int32, u/v: [H/2, W/2] ([F, ...]).
+        Returns (recon, per-wave ys)."""
         dev = y.device
         y, u, v = y.to(I32), u.to(I32), v.to(I32)
+        nf = y.shape[0] if y.dim() == 3 else None
+        lead = () if nf is None else (nf,)
         qp = int(qp)
         cqp = chroma_qp(qp, chroma_qp_offset)
         lam4, lam24, _ = LAMBDA_TABLE[qp]
-        gy_all, gu_all, gv_all = tile_origin_xs(sched, y, u, v)
-        coords = torch.as_tensor(sched.coords, dtype=I32, device=dev)
-        avail = torch.as_tensor(sched.avail, device=dev)
-        bd = init_border_buffers(hm, wm, dev)
-        # per wave: (coords, avail, gy, gu, gv) rows
-        xs = list(zip(*(t.unbind(0) for t in (coords, avail, gy_all, gu_all,
-                                              gv_all))))
+        coords, avail = _on_device(sched, "waves", dev)
+        tiles = tile_origin_xs(sched, y, u, v)
+        bd = init_border_buffers(hm, wm, dev, nf)
+        # per wave: (coords, avail, gy, gu, gv), each picture's if a chunk
+        xs = list(zip(coords.unbind(0), avail.unbind(0),
+                      *(t.unbind(len(lead)) for t in tiles)))
         if dev.type == "cpu":
             per_wave = [wave_body(qp, cqp, lam4, lam24, bd, *x) for x in xs]
-            ys = {k: torch.stack([w[k] for w in per_wave])
+            ys = {k: torch.stack([w[k] for w in per_wave], dim=len(lead))
                   for k in per_wave[0]}
         else:
             # the kernels write each wave's results into its row
-            ys = k3w.alloc_outputs((sched.n_waves, sched.max_wave), dev)
-            rows = {k: v.unbind(0) for k, v in ys.items()}
+            ys = k3w.alloc_outputs(lead + (sched.n_waves, sched.max_wave),
+                                   dev)
+            rows = {k: v.unbind(len(lead)) for k, v in ys.items()}
             for wi, x in enumerate(xs):
                 wave_body(qp, cqp, lam4, lam24, bd, *x,
                           out={k: v[wi] for k, v in rows.items()})
@@ -452,28 +513,42 @@ def make_intra_encoder(sched: WaveSchedule, chroma_qp_offset: int = 0):
     return encode
 
 
-_PERM_CACHE: dict = {}
+def _on_device(sched: WaveSchedule, what: str, device):
+    """The schedule's static index tensors on `device` (`kt.constant`):
+    "waves" (coords int32, avail), "tile_rc" (the tiles' MB rows and
+    columns), "perm" (`_raster_perm`)."""
+    def make():
+        if what == "waves":
+            return sched.coords.astype(np.int32), sched.avail
+        if what == "tile_rc":
+            return (np.minimum(sched.coords[:, :, 0], sched.height_mbs - 1),
+                    sched.coords[:, :, 1])
+        return _raster_perm(sched)
+
+    return kt.constant((sched.width_mbs, sched.height_mbs,
+                        tuple(sched.slice_starts.tolist()), what), device,
+                       make)
 
 
 def _raster_perm(sched: WaveSchedule) -> np.ndarray:
-    """perm[mb_raster_idx] = flat wave-major lane index (static), keyed on
-    the schedule geometry."""
-    key = (sched.width_mbs, sched.height_mbs,
-           tuple(sched.slice_starts.tolist()))
-    if key not in _PERM_CACHE:
-        flat_idx = sched.mb_index.reshape(-1)
-        valid = sched.valid.reshape(-1)
-        perm = np.zeros(sched.n_mbs, np.int64)
-        perm[flat_idx[valid]] = np.flatnonzero(valid)
-        _PERM_CACHE[key] = perm
-    return _PERM_CACHE[key]
+    """perm[mb_raster_idx] = flat wave-major lane index (static)."""
+    flat_idx = sched.mb_index.reshape(-1)
+    valid = sched.valid.reshape(-1)
+    perm = np.zeros(sched.n_mbs, np.int64)
+    perm[flat_idx[valid]] = np.flatnonzero(valid)
+    return perm
 
 
-def reorder_wave_outputs(sched: WaveSchedule, ys) -> dict:
+def reorder_wave_outputs(sched: WaveSchedule, ys, frames: bool = False
+                         ) -> dict:
     """Per-wave stacked outputs → [n_mbs, ...] raster order (a static
-    permutation gather; every raster MB has exactly one valid lane)."""
+    permutation gather; every raster MB has exactly one valid lane).
+    `frames`: the outputs of a chunk, [F, n_waves, max_wave, ...] ->
+    [F, n_mbs, ...]."""
     out = {}
+    lead = 1 if frames else 0
     for k, arr in ys.items():
-        perm = torch.as_tensor(_raster_perm(sched), device=arr.device)
-        out[k] = arr.reshape((-1,) + tuple(arr.shape[2:]))[perm]
+        perm = _on_device(sched, "perm", arr.device)
+        flat = arr.flatten(lead, lead + 1)
+        out[k] = flat[:, perm] if frames else flat[perm]
     return out

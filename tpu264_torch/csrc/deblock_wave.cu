@@ -41,6 +41,11 @@
 // sets (luma and chroma x internal, left, top) before the edge steps.  An
 // edge that must not be filtered (a slice edge at idc 2) comes with bS 0.
 // All arithmetic is int32, equal to the plain torch deblocker bit for bit.
+//
+// The batched all-intra entry filters a chunk of F pictures of one
+// geometry at once: one launch takes the wave in all F pictures, the
+// picture in `blockIdx.y`, each plane, bS map and QP grid stacked
+// [F, ...] contiguous.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -108,13 +113,22 @@ __global__ void __launch_bounds__(kThreads) deblock_wave_kernel(
     const int32_t* __restrict__ bs_h,
     const int32_t* __restrict__ qp_y,        // [hm, wm] luma QP per MB
     const int32_t* __restrict__ qp_c,        // [hm, wm] chroma QP per MB
-    int wm, int cp, int r0, int off_a, int off_b) {
+    int wm, int hm, int cp, int r0, int off_a, int off_b) {
   __shared__ int32_t lw[20 * kLumaStride];
   __shared__ int32_t cw[2][10 * kChromaStride];
   __shared__ int32_t bsv[16];     // [row of 4x4 blocks][vertical edge]
   __shared__ int32_t bsh[16];     // [horizontal edge][column of 4x4 blocks]
   __shared__ dbf::EdgeParams prm[2][3];   // [luma, chroma][internal, left, top]
 
+  // picture f of the chunk: every array is [F, ...] contiguous
+  const int64_t mbs = (int64_t)hm * wm, f = blockIdx.y;
+  y += f * 256 * mbs;
+  u += f * 64 * mbs;
+  v += f * 64 * mbs;
+  bs_v += f * 16 * mbs;
+  bs_h += f * 16 * mbs;
+  qp_y += f * mbs;
+  qp_c += f * mbs;
   const int tid = threadIdx.x;
   const int r = r0 + blockIdx.x;
   const int c = cp - 2 * r;
@@ -213,16 +227,19 @@ __global__ void __launch_bounds__(kThreads) deblock_wave_kernel(
 }  // namespace
 
 // Filters the macroblocks (r, cp - 2r), r = r0 .. r0 + n_rows - 1, of wave
-// `cp` in place, with the per-MB QP grids qp_y, qp_c [hm, wm] and the
-// filter offsets off_a, off_b (FilterOffsetA/B).
+// `cp` in place in each of `n_frames` pictures of wm x hm macroblocks, with
+// the per-MB QP grids qp_y, qp_c [hm, wm] and the filter offsets off_a,
+// off_b (FilterOffsetA/B); every array is [n_frames, ...] contiguous.
 extern "C" int tpu264_deblock_wave(int32_t* y, int32_t* u, int32_t* v,
                                    const int32_t* bs_v, const int32_t* bs_h,
                                    const int32_t* qp_y, const int32_t* qp_c,
-                                   int wm, int cp, int r0, int n_rows,
-                                   int off_a, int off_b, void* stream) {
-  if (n_rows > 0) {
-    deblock_wave_kernel<<<n_rows, kThreads, 0, (cudaStream_t)stream>>>(
-        y, u, v, bs_v, bs_h, qp_y, qp_c, wm, cp, r0, off_a, off_b);
+                                   int wm, int hm, int cp, int r0, int n_rows,
+                                   int n_frames, int off_a, int off_b,
+                                   void* stream) {
+  if (n_rows > 0 && n_frames > 0) {
+    const dim3 grid(n_rows, n_frames);
+    deblock_wave_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        y, u, v, bs_v, bs_h, qp_y, qp_c, wm, hm, cp, r0, off_a, off_b);
   }
   return (int)cudaGetLastError();
 }

@@ -31,6 +31,12 @@
 // plain version computes it for every lane and discards it).  All
 // arithmetic is int32 with arithmetic shifts, equal to the plain torch
 // version bit for bit; ties between modes go to the lowest mode number.
+//
+// The batched all-intra entry codes a chunk of F pictures of one geometry
+// at once: one launch covers the wave in all F pictures, the picture in
+// `blockIdx.y`.  The pictures share the wave's coordinates and
+// availability; every other pointer moves by a byte stride a picture that
+// the host gives (`FrameStep`, 0 for the shared ones).
 
 #include <cstdint>
 #include <cstring>
@@ -64,14 +70,32 @@ struct WaveIo {
 };
 constexpr int kPtrs = 27;
 
+// byte strides from picture f to picture f + 1 of each pointer of `WaveIo`
+struct FrameStep {
+  int64_t bytes[kPtrs];
+};
+
+// the pointers of picture f of the chunk
+__device__ __forceinline__ WaveIo frame_io(const WaveIo& io0,
+                                           const FrameStep& fs, int64_t f) {
+  char* p[kPtrs];
+  memcpy(p, &io0, sizeof(p));
+#pragma unroll
+  for (int i = 0; i < kPtrs; ++i) p[i] += f * fs.bytes[i];
+  WaveIo io;
+  memcpy(&io, p, sizeof(io));
+  return io;
+}
+
 __global__ void __launch_bounds__(kThreads) i16_chroma_wave_kernel(
-    WaveIo io, BodyParams prm, int wm) {
+    WaveIo io0, FrameStep fs, BodyParams prm, int wm) {
   __shared__ iw::IntraSmem s;
   __shared__ int32_t res[24][16];     // per 4x4 block (16 luma, 4 U, 4 V)
   __shared__ int32_t lev[24][16];
   __shared__ int32_t dcs[16], cdcs[8];   // DC coefficients; dequantised DCs
   __shared__ int32_t dclev[16];
 
+  const WaveIo io = frame_io(io0, fs, blockIdx.y);
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int r = io.coords[2 * b], c = io.coords[2 * b + 1];
@@ -170,25 +194,31 @@ __global__ void __launch_bounds__(kThreads) i16_chroma_wave_kernel(
 
 }  // namespace
 
-// `ptrs` holds the device pointers of one wave in the order of `WaveIo`;
-// `params` is the host int32 array that `kernels/i16_chroma_wave.py` packs:
-// for luma, then for chroma, mf[16] lim[16] v[16] f qbits qshift mf00 v00
-// lim_dc qp; then zigzag[16] blk_raster[16].  `wm` is the picture's width
-// in macroblocks, which fixes the border buffers' row lengths.
+// `ptrs` holds the device pointers of one wave of the chunk's first
+// picture in the order of `WaveIo`, `fstride` (host, int64[27]) the byte
+// strides from one picture's to the next's; `params` is the host int32
+// array that `kernels/i16_chroma_wave.py` packs: for luma, then for
+// chroma, mf[16] lim[16] v[16] f qbits qshift mf00 v00 lim_dc qp; then
+// zigzag[16] blk_raster[16].  `wm` is the pictures' width in macroblocks,
+// which fixes the border buffers' row lengths.
 extern "C" int tpu264_i16_chroma_wave(void* const* ptrs, const int32_t* params,
-                                      int n_mbs, int wm, void* stream) {
+                                      int n_mbs, int wm, int n_frames,
+                                      const int64_t* fstride, void* stream) {
   static_assert(sizeof(WaveIo) == kPtrs * sizeof(void*), "WaveIo layout");
   WaveIo io;
   std::memcpy(&io, ptrs, sizeof(io));
+  FrameStep fs;
+  std::memcpy(&fs, fstride, sizeof(fs));
   BodyParams prm;
   const int32_t* q = params;
   iw::load_quant_set(prm.luma, q);
   iw::load_quant_set(prm.chroma, q);
   for (int i = 0; i < 16; ++i) prm.zigzag[i] = (uint8_t)*q++;
   for (int i = 0; i < 16; ++i) prm.blk_raster[i] = (uint8_t)*q++;
-  if (n_mbs > 0) {
-    i16_chroma_wave_kernel<<<n_mbs, kThreads, 0, (cudaStream_t)stream>>>(
-        io, prm, wm);
+  if (n_mbs > 0 && n_frames > 0) {
+    const dim3 grid(n_mbs, n_frames);
+    i16_chroma_wave_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        io, fs, prm, wm);
   }
   return (int)cudaGetLastError();
 }

@@ -23,8 +23,16 @@
 // neighbour context as gathered per-lane arrays, `tpu264_i4x4_wave_bd`
 // (what the wave loop calls) lets the lane read it from the loop's border
 // buffers at its own coordinates (`CtxLayout`), which saves the gather.
+//
+// The batched all-intra entry codes a chunk of F pictures of one geometry
+// at once: they share the wave schedule (coordinates and availability),
+// and each has its own sources, border buffers and results.  One launch
+// then covers the wave in all F pictures, the picture in `blockIdx.y`; the
+// host gives the element stride from one picture's data to the next
+// (`FrameStep`).  A lane's arithmetic is the same for every F.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 #include "i4x4_body.cuh"
@@ -41,13 +49,21 @@ struct CtxLayout {
   int row_stride, mrow_stride;    // row lengths of row_y and modes_row
 };
 
+// Element strides from picture f to picture f + 1 of each array, in the
+// order of the C entries' arguments (0: one picture).
+struct FrameStep {
+  int64_t orig, ltop, lleft, modes_top, modes_left;
+  int64_t recon, mode_grid, modes_zz, coeffs, cost;
+};
+constexpr int kSteps = 10;
+
 __global__ void __launch_bounds__(i4::kThreads) i4x4_wave_kernel(
     const int32_t* __restrict__ orig,         // [B,16,16]
     const int32_t* __restrict__ ltop,         // [B,25] or row_y
     const int32_t* __restrict__ lleft,        // [B,16] or col_y
     const int32_t* __restrict__ modes_top,    // [B,4] or modes_row
     const int32_t* __restrict__ modes_left,   // [B,4] or modes_col
-    CtxLayout ctx,
+    CtxLayout ctx, FrameStep fs,
     const uint8_t* __restrict__ at, int at_stride,
     const uint8_t* __restrict__ al, int al_stride,
     const uint8_t* __restrict__ atl, int atl_stride,
@@ -60,6 +76,17 @@ __global__ void __launch_bounds__(i4::kThreads) i4x4_wave_kernel(
     int32_t* __restrict__ cost) {             // [B]
   __shared__ i4::Smem s;
   const int b = blockIdx.x;
+  const int64_t f = blockIdx.y;
+  orig += f * fs.orig;
+  ltop += f * fs.ltop;
+  lleft += f * fs.lleft;
+  modes_top += f * fs.modes_top;
+  modes_left += f * fs.modes_left;
+  recon += f * fs.recon;
+  mode_grid += f * fs.mode_grid;
+  modes_zz += f * fs.modes_zz;
+  coeffs += f * fs.coeffs;
+  cost += f * fs.cost;
   i4::Lane ln;
   if (ctx.coords != nullptr) {
     const int mr = ctx.coords[2 * b], mc = ctx.coords[2 * b + 1];
@@ -97,12 +124,13 @@ static int launch_i4x4_wave(
     const uint8_t* atl, int atl_stride, const uint8_t* atr, int atr_stride,
     const int32_t* params, int32_t* recon, int32_t* mode_grid,
     int32_t* modes_zz, int32_t* coeffs, int32_t* cost, int n_mbs,
-    void* stream) {
+    int n_frames, const FrameStep& fs, void* stream) {
   i4::Params prm;
   i4::load_params(prm, params);
-  if (n_mbs > 0) {
-    i4x4_wave_kernel<<<n_mbs, i4::kThreads, 0, (cudaStream_t)stream>>>(
-        orig, ltop, lleft, modes_top, modes_left, ctx, at, at_stride, al,
+  if (n_mbs > 0 && n_frames > 0) {
+    const dim3 grid(n_mbs, n_frames);
+    i4x4_wave_kernel<<<grid, i4::kThreads, 0, (cudaStream_t)stream>>>(
+        orig, ltop, lleft, modes_top, modes_left, ctx, fs, at, at_stride, al,
         al_stride, atl, atl_stride, atr, atr_stride, prm, recon, mode_grid,
         modes_zz, coeffs, cost);
   }
@@ -121,21 +149,28 @@ extern "C" int tpu264_i4x4_wave(
                           CtxLayout{nullptr, 0, 0}, at, at_stride, al,
                           al_stride, atl, atl_stride, atr, atr_stride, params,
                           recon, mode_grid, modes_zz, coeffs, cost, n_mbs,
-                          stream);
+                          1, FrameStep{}, stream);
 }
 
-// The context read from the wave loop's border buffers of a picture `wm`
+// The context read from the wave loop's border buffers of pictures `wm`
 // macroblocks wide: coords [B,2] = (r, c) and avail [B,4] = (top, left,
-// top-left, top-right) of the wave's lanes.
+// top-left, top-right) of the wave's lanes, the same in each of the
+// `n_frames` pictures; `fstride` (host, int64[10]) holds the element
+// strides between pictures of orig, row_y, col_y, modes_row, modes_col,
+// recon, mode_grid, modes_zz, coeffs and cost.
 extern "C" int tpu264_i4x4_wave_bd(
     const int32_t* orig, const int32_t* row_y, const int32_t* col_y,
     const int32_t* modes_row, const int32_t* modes_col, const int32_t* coords,
     const uint8_t* avail, int wm, const int32_t* params, int32_t* recon,
     int32_t* mode_grid, int32_t* modes_zz, int32_t* coeffs, int32_t* cost,
-    int n_mbs, void* stream) {
+    int n_mbs, int n_frames, const int64_t* fstride, void* stream) {
+  static_assert(sizeof(FrameStep) == kSteps * sizeof(int64_t),
+                "FrameStep layout");
+  FrameStep fs;
+  std::memcpy(&fs, fstride, sizeof(fs));
   return launch_i4x4_wave(orig, row_y, col_y, modes_row, modes_col,
                           CtxLayout{coords, 1 + 16 * wm + 8, 1 + 4 * wm + 4},
                           avail, 4, avail + 1, 4, avail + 2, 4, avail + 3, 4,
                           params, recon, mode_grid, modes_zz, coeffs, cost,
-                          n_mbs, stream);
+                          n_mbs, n_frames, fs, stream);
 }

@@ -22,7 +22,7 @@ from tpu264_torch.bits.expgolomb import write_ue
 from tpu264_torch.coding import mvpred
 from tpu264_torch.coding.b_mbtypes import COMBO_IDX
 from tpu264_torch.coding.wavefront import BLK_ORDER
-from tpu264_torch.kernels.transform import on
+from tpu264_torch.kernels.transform import constant, on
 from . import cavlc_tables as tbl
 from . import mb_syntax
 from .cavlc import SLOTS_PER_BLOCK
@@ -39,8 +39,8 @@ def blk_grid_index(wm: int, hm: int, device):
     [4hm, 4wm] block grid."""
     n = wm * hm
     mb = torch.arange(n, device=device)
-    rows = (mb // wm)[:, None] * 4 + _BY.to(device)[None, :]
-    cols = (mb % wm)[:, None] * 4 + _BX.to(device)[None, :]
+    rows = (mb // wm)[:, None] * 4 + on(_BY, device)[None, :]
+    cols = (mb % wm)[:, None] * 4 + on(_BX, device)[None, :]
     return rows, cols
 
 
@@ -70,10 +70,15 @@ def mpm_grid(modes_grid, slice_start_rows4):
     left[:, 1:] = modes_grid[:, :-1]
     top = torch.full((gh, gw), unavail, dtype=I32, device=dev)
     top[1:, :] = modes_grid[:-1, :]
-    mask = np.zeros((gh, 1), dtype=bool)
-    for r in slice_start_rows4:
-        mask[r] = True
-    top = torch.where(torch.as_tensor(mask, device=dev), unavail, top)
+    rows = tuple(int(r) for r in slice_start_rows4)
+
+    def mask():
+        m = np.zeros((gh, 1), dtype=bool)
+        m[list(rows)] = True
+        return m
+
+    top = torch.where(constant(("mpm", gh) + rows, dev, mask), unavail,
+                      top)
     a = torch.where(left == -1, 2, left)
     b = torch.where(top == -1, 2, top)
     return torch.where((a < 0) | (b < 0), 2, torch.minimum(a, b))
@@ -287,14 +292,20 @@ def _nc_from_grid(tc_grid, slice_start_rows):
     na[:, 1:] = tc_grid[:, :-1]
     nb = torch.zeros_like(tc_grid)
     nb[1:, :] = tc_grid[:-1, :]
-    avail_a = np.zeros((gh, gw), dtype=bool)
-    avail_a[:, 1:] = True
-    avail_b = np.zeros((gh, gw), dtype=bool)
-    avail_b[1:, :] = True
-    for r in slice_start_rows:
-        avail_b[r, :] = False
-    avail_a = torch.as_tensor(avail_a, device=tc_grid.device)
-    avail_b = torch.as_tensor(avail_b, device=tc_grid.device)
+    rows = tuple(int(r) for r in slice_start_rows)
+
+    def avail(side):
+        m = np.zeros((gh, gw), dtype=bool)
+        if side == "a":
+            m[:, 1:] = True
+        else:
+            m[1:, :] = True
+            m[list(rows), :] = False
+        return m
+
+    avail_a, avail_b = (
+        constant(("nc", side, gh, gw) + rows, tc_grid.device,
+                   lambda side=side: avail(side)) for side in "ab")
     return torch.where(avail_a & avail_b, (na + nb + 1) >> 1,
                        torch.where(avail_a, na, torch.where(avail_b, nb, 0)))
 
@@ -399,12 +410,24 @@ def _i4_mode_slots(vals, lens, slot0, mb, is_i4, wm, hm, slice_rows):
 
 
 def serialize_frame(mb, wm: int, hm: int, slice_rows,
-                    t8_mode: bool = False):
+                    t8_mode: bool = False, frames: int = 1):
     """I-frame grids (mirror of `serialize_frame_j`, and of
     slice_writer.serialize_frame_mbs).  `t8_mode`: the PPS has
     transform_8x8_mode_flag set, so an Intra_4x4 MB carries a
     transform_size_8x8_flag bit (0) right after mb_type (spec 7.3.5).
-    Returns (values [n, MB_SLOTS (+1)] int32, lengths)."""
+    Returns (values [n, MB_SLOTS (+1)] int32, lengths).
+
+    `frames` = F serializes a chunk of F pictures of one geometry at once
+    (the reference vmaps `serialize_frame_j` over them): `mb` holds their
+    MBs picture after picture, [F n, ...], and so do the results, whose
+    F S slices `pack_slices` packs in one pass.  The pictures are coded as
+    the MB rows of one picture F hm rows high whose slices start at every
+    picture's slice rows: each picture's first row starts a slice, so no
+    neighbour of the nC grids or of the most probable mode reaches across
+    two pictures (a slice's top row has no top neighbour, and a left
+    neighbour lies in the same row)."""
+    slice_rows = [f * hm + int(r) for f in range(frames) for r in slice_rows]
+    hm = frames * hm
     n = wm * hm
     ioff = int(t8_mode)
     sel16 = mb["sel16"].to(torch.bool)

@@ -41,10 +41,12 @@ _SIGNATURES = {
     "tpu264_i4x4_wave": [P, P, P, P, P, P, I, P, I, P, I, P, I, P,
                          P, P, P, P, P, I, P],
     # (orig, row_y, col_y, modes_row, modes_col, coords, avail, wm, params*,
-    #  recon, mode_grid, modes_zz, coeffs, cost, n_mbs, stream)
-    "tpu264_i4x4_wave_bd": [P, P, P, P, P, P, P, I, P, P, P, P, P, P, I, P],
-    # (ptrs[27]*, params*, n_mbs, wm, stream)
-    "tpu264_i16_chroma_wave": [P, P, I, I, P],
+    #  recon, mode_grid, modes_zz, coeffs, cost, n_mbs, n_frames,
+    #  frame strides*, stream)
+    "tpu264_i4x4_wave_bd": [P, P, P, P, P, P, P, I, P, P, P, P, P, P, I, I, P,
+                            P],
+    # (ptrs[27]*, params*, n_mbs, wm, n_frames, frame strides*, stream)
+    "tpu264_i16_chroma_wave": [P, P, I, I, I, P, P],
     # (ptrs[39]*, params*, i4params*, geom*, bmax, w0, w1, grid, stream)
     "tpu264_p_frame": [P, P, P, P, I, I, I, I, P],
     # (blocks*)
@@ -52,9 +54,9 @@ _SIGNATURES = {
     # (ptrs[50]*, params*, i4params*, geom*, bmax, w0, w1, grid, stream)
     "tpu264_b_frame": [P, P, P, P, I, I, I, I, P],
     "tpu264_b_frame_blocks": [P],
-    # (y, u, v, bs_v, bs_h, qp_y, qp_c, wm, cp, r0, n_rows, off_a, off_b,
-    #  stream)
-    "tpu264_deblock_wave": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # (y, u, v, bs_v, bs_h, qp_y, qp_c, wm, hm, cp, r0, n_rows, n_frames,
+    #  off_a, off_b, stream)
+    "tpu264_deblock_wave": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # (win, bs, out, n_lines, alpha, beta, tc0_3*, stream)
     "tpu264_deblock_luma": [P, P, P, I, I, I, P, P],
     # (records, rec_stride, counts, init, tables*, words, out_cap, nbytes,
@@ -216,6 +218,28 @@ def check_tensor(who: str, name: str, t, shape, dtype, dev) -> None:
         raise ValueError(f"{who}: {name} is on {t.device}, not {dev}")
     if not t.is_contiguous():
         raise ValueError(f"{who}: {name} must be contiguous")
+
+
+def check_frames(who: str, name: str, t, n_frames, shape, dtype,
+                 dev) -> int:
+    """Raise unless `t` is a `dtype` tensor on `dev` of `shape`
+    (`n_frames` None) or of (n_frames,) + `shape` with each picture's part
+    contiguous (the pictures may lie any fixed stride apart) -> the
+    element stride from one picture to the next (0 for one picture)."""
+    if n_frames is None:
+        check_tensor(who, name, t, shape, dtype, dev)
+        return 0
+    if tuple(t.shape) != (n_frames, *shape):
+        raise ValueError(f"{who}: {name} must be {(n_frames, *shape)}, got "
+                         f"{tuple(t.shape)}")
+    check_tensor(who, f"{name}[0]", t[0], shape, dtype, dev)
+    return t.stride(0)
+
+
+def host_i64(values) -> ctypes.Array:
+    """A host int64 array for a by-value table argument."""
+    vals = [int(v) for v in values]
+    return (ctypes.c_int64 * len(vals))(*vals)
 
 
 def stream_of(t) -> ctypes.c_void_p:

@@ -9,6 +9,11 @@ its wave form (`deblock_wave.deblock_wave`: every MB of the wave, luma and
 chroma, on the raster planes in place).  The plain version, which the CPU
 takes, stores MB (r, c) at skewed column c + 2r, so that each wave is one
 column strip of MBs, filtered with all MB rows at once in torch.
+
+The batched all-intra entry filters a chunk of F pictures of one geometry
+at once: planes [F, H, W] and every per-MB input with the same leading F.
+On the card a wave is then one K4 launch for all F pictures; the plain
+version filters the wave's strip in all F pictures at once.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from tpu264_torch.coding.wavefront import WaveSchedule
 from tpu264_torch.coding.mvpred import INTRA
 from .deblock_lines import filter_luma_lines_plain, tc0_lines
 from .deblock_wave import deblock_wave
-from .transform import I32
+from .transform import I32, constant
 
 ALPHA = [int(v) for v in rd.ALPHA_TABLE]
 BETA = [int(v) for v in rd.BETA_TABLE]
@@ -137,10 +142,13 @@ def compute_bs_maps(intra_mb, tc_luma, mv, ref):
 
     h4, w4 = hm * 4, wm * 4
     bs_v = torch.zeros((h4, w4), dtype=I32, device=dev)
-    col_edge = torch.as_tensor((np.arange(1, w4) % 4) == 0, device=dev)
+    # which edges between 4x4 blocks 1 .. n - 1 are MB edges
+    col_edge = constant(("mb_edges", w4), dev,
+                        lambda: (np.arange(1, w4) % 4) == 0)
     bs_v[:, 1:] = edge_bs(np.s_[:, :-1], np.s_[:, 1:], col_edge[None, :])
     bs_h = torch.zeros((h4, w4), dtype=I32, device=dev)
-    row_edge = torch.as_tensor((np.arange(1, h4) % 4) == 0, device=dev)
+    row_edge = constant(("mb_edges", h4), dev,
+                        lambda: (np.arange(1, h4) % 4) == 0)
     bs_h[1:, :] = edge_bs(np.s_[:-1, :], np.s_[1:, :], row_edge[:, None])
     return bs_v, bs_h
 
@@ -153,7 +161,29 @@ def bs_maps(intra_mb, tc_luma, mv, ref, t8_mb=None, left_ok=None,
     MB (r, c) where left_ok[r, c] is False and its top edge where
     top_ok[r, c] is False ([hm, wm] bool; picture edges, and slice edges
     at disable_deblocking_filter_idc 2).  bS 0 filters nothing, as the
-    reference's skipped edge."""
+    reference's skipped edge.
+
+    A chunk of F pictures (intra_mb [F, hm, wm], every other input with
+    the same leading F; `top_ok` [hm, wm] or [F, hm, wm]) gives maps
+    [F, 4hm, 4wm], derived as one picture of F hm MB rows in which the top
+    edge of each picture's first row is left unfiltered (bS 0), as a
+    picture's top edge is on its own: no bS crosses from one picture to
+    the next."""
+    if intra_mb.dim() == 3:
+        nf, hm, wm = intra_mb.shape
+        top = torch.ones((nf, hm, wm), dtype=torch.bool,
+                         device=intra_mb.device)
+        if top_ok is not None:
+            top = top & top_ok.to(torch.bool)
+        top[:, 0] = False
+
+        def fold(t):
+            return None if t is None else t.flatten(0, 1)
+
+        bs_v, bs_h = bs_maps(fold(intra_mb), fold(tc_luma), fold(mv),
+                             fold(ref), fold(t8_mb), fold(left_ok),
+                             fold(top))
+        return bs_v.unflatten(0, (nf, -1)), bs_h.unflatten(0, (nf, -1))
     bs_v, bs_h = compute_bs_maps(intra_mb.to(torch.bool), tc_luma.to(I32),
                                  mv.to(I32), ref.to(I32))
     hm, wm = intra_mb.shape
@@ -200,8 +230,10 @@ def make_deblocker(wm: int, hm: int, plain: bool = False):
 
     fn(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp, t8_mb=None,
     left_ok=None, top_ok=None, off_a=0, off_b=0) -> filtered int32
-    planes.  `qp`, `cqp` are the luma and chroma QP, one for the picture
-    (an int) or one per MB ([hm, wm]); `t8_mb` [hm, wm] marks the MBs
+    planes; planes [F, H, W] with per-MB inputs [F, ...] filter a chunk
+    of F pictures (a QP grid or `top_ok` [hm, wm] holds for all of them).
+    `qp`, `cqp` are the luma and chroma QP, one for the picture (an int)
+    or one per MB ([hm, wm]); `t8_mb` [hm, wm] marks the MBs
     coded with the 8x8 transform, whose inner 4x4 luma edges are not
     filtered; `left_ok`, `top_ok` [hm, wm] say which MB edges are filtered
     (`bs_maps`); off_a, off_b are FilterOffsetA/B.  CUDA planes go
@@ -233,24 +265,27 @@ def make_deblocker(wm: int, hm: int, plain: bool = False):
         return cache[key]
 
     def _skew(plane, mb_px: int):
-        """[hm*mb_px, wm*mb_px] -> [hm*mb_px, skw*mb_px] skewed layout."""
-        out = torch.zeros((hm * mb_px, skw * mb_px), dtype=I32,
-                          device=plane.device)
+        """[F, hm*mb_px, wm*mb_px] -> [F, hm*mb_px, skw*mb_px] skewed
+        layout."""
+        out = torch.zeros((plane.shape[0], hm * mb_px, skw * mb_px),
+                          dtype=I32, device=plane.device)
         rr, cc = _skew_cols(mb_px, plane.device)
-        out[rr, cc] = plane.to(I32)
+        out[:, rr, cc] = plane.to(I32)
         return out
 
     def _unskew(buf, mb_px: int):
         rr, cc = _skew_cols(mb_px, buf.device)
-        return buf[rr, cc]
+        return buf[:, rr, cc]
 
-    def _grid(q, device):
-        """An int QP as a [hm, wm] int32 grid (cached), or the grid."""
+    def _grid(q, device, lead: tuple):
+        """An int QP as a lead + [hm, wm] int32 grid (cached), or the grid
+        (one [hm, wm] grid holds for every picture of a chunk)."""
         if isinstance(q, torch.Tensor):
-            return q.to(device=device, dtype=I32).contiguous()
-        key = ("qp", int(q), device)
+            return q.to(device=device, dtype=I32).expand(
+                lead + (hm, wm)).contiguous()
+        key = ("qp", int(q), device, lead)
         if key not in cache:
-            cache[key] = torch.full((hm, wm), int(q), dtype=I32,
+            cache[key] = torch.full(lead + (hm, wm), int(q), dtype=I32,
                                     device=device)
         return cache[key]
 
@@ -258,10 +293,15 @@ def make_deblocker(wm: int, hm: int, plain: bool = False):
                 left_ok=None, top_ok=None, off_a: int = 0, off_b: int = 0):
         bs_v, bs_h = bs_maps(intra_mb, tc_luma, mv, ref, t8_mb, left_ok,
                              top_ok)
-        qp_y, qp_c = _grid(qp, y.device), _grid(cqp, y.device)
+        lead = tuple(y.shape[:-2])
+        qp_y, qp_c = _grid(qp, y.device, lead), _grid(cqp, y.device, lead)
         if plain or y.device.type == "cpu":
-            return deblock_plain(y, u, v, bs_v, bs_h, qp_y, qp_c, off_a,
-                                 off_b)
+            if lead:
+                return deblock_plain(y, u, v, bs_v, bs_h, qp_y, qp_c, off_a,
+                                     off_b)
+            return tuple(p[0] for p in deblock_plain(
+                *(t[None] for t in (y, u, v, bs_v, bs_h, qp_y, qp_c)),
+                off_a, off_b))
         # raster planes, filtered in place wave by wave
         yb, ub, vb = (p.to(I32, copy=True).contiguous() for p in (y, u, v))
         for cp in range(n_waves):
@@ -271,16 +311,21 @@ def make_deblocker(wm: int, hm: int, plain: bool = False):
 
     def skewed_params(qp_g, off_a: int, off_b: int):
         """Per skewed MB column: (alpha, beta, tc0) of the internal, the
-        left and the top MB edges, each [hm, skw] ([hm, skw, 3])."""
+        left and the top MB edges, each [F, hm, skw] ([F, hm, skw, 3])."""
         qs = _skew(qp_g, 1)
         q_left = qs.clone()
-        q_left[:, 1:] = (qs[:, 1:] + qs[:, :-1] + 1) >> 1
+        q_left[..., 1:] = (qs[..., 1:] + qs[..., :-1] + 1) >> 1
         q_top = qs.clone()
-        q_top[1:, 2:] = (qs[1:, 2:] + qs[:-1, :-2] + 1) >> 1
+        q_top[:, 1:, 2:] = (qs[:, 1:, 2:] + qs[:, :-1, :-2] + 1) >> 1
         return [edge_params(q, off_a, off_b) for q in (qs, q_left, q_top)]
 
     def deblock_plain(y, u, v, bs_v, bs_h, qp_y, qp_c, off_a: int,
                       off_b: int):
+        """The skewed wave loop on F pictures at once: planes [F, H, W],
+        bS maps and QP grids [F, ...]; a wave step filters its strip in
+        every MB row of every picture, and an MB row's top neighbour is
+        the row above it in the same picture (zeros above the first)."""
+        nf = y.shape[0]
         # per MB: (alpha, beta, tc0) of its internal, left and top edges
         lprm = skewed_params(qp_y, off_a, off_b)
         cprm = skewed_params(qp_c, off_a, off_b)
@@ -290,12 +335,12 @@ def make_deblocker(wm: int, hm: int, plain: bool = False):
         bvs = _skew(bs_v, 4)
         bhs = _skew(bs_h, 4)
         dev = y.device
-        zeros_l = torch.zeros((1, 4, 20), dtype=I32, device=dev)
-        zeros_c = torch.zeros((1, 2, 12), dtype=I32, device=dev)
+        zeros_l = torch.zeros((nf, 1, 4, 20), dtype=I32, device=dev)
+        zeros_c = torch.zeros((nf, 1, 2, 12), dtype=I32, device=dev)
 
         def at(prm, kind: int, col: int):
             """The wave's parameters, one set a MB row, for its lines."""
-            a, b, t = (x[:, col] for x in prm[kind])
+            a, b, t = (x[:, :, col].flatten(0, 1) for x in prm[kind])
             return a[:, None], b[:, None], t[:, None, :]
 
         # the skewed planes are updated in place, one wave strip at a time
@@ -303,15 +348,18 @@ def make_deblocker(wm: int, hm: int, plain: bool = False):
             base = (OF + cp) * 16
             base2 = (OF + cp - 2) * 16
             col = OF + cp
-            BV = bvs[:, (OF + cp) * 4:(OF + cp + 1) * 4].reshape(hm, 4, 4)
-            BH = bhs[:, (OF + cp) * 4:(OF + cp + 1) * 4].reshape(hm, 4, 4)
+            BV = bvs[..., (OF + cp) * 4:(OF + cp + 1) * 4].reshape(
+                nf * hm, 4, 4)
+            BH = bhs[..., (OF + cp) * 4:(OF + cp + 1) * 4].reshape(
+                nf * hm, 4, 4)
             inner, left, top = (at(lprm, kind, col) for kind in range(3))
 
             # ---- luma ----
-            M = yb[:, base - 4:base + 16].reshape(hm, 16, 20)
-            A = yb[:, base2 - 4:base2 + 16].view(hm, 16, 20)
-            win = torch.cat([torch.cat([zeros_l, A[:-1, 12:16]], 0), M],
-                            1)                            # [hm, 20, 20]
+            M = yb[..., base - 4:base + 16].reshape(nf * hm, 16, 20)
+            A = yb[..., base2 - 4:base2 + 16].view(nf, hm, 16, 20)
+            above = torch.cat([zeros_l, A[:, :-1, 12:16]], 1)
+            win = torch.cat([above.flatten(0, 1), M],
+                            1)                            # [F hm, 20, 20]
             for k in range(4):
                 b_lines = BV[:, :, k].repeat_interleave(4, 1).contiguous()
                 e = 4 + 4 * k
@@ -326,18 +374,21 @@ def make_deblocker(wm: int, hm: int, plain: bool = False):
                 seg = winT[:, 4:20, e - 4:e + 4].contiguous()
                 winT[:, 4:20, e - 4:e + 4] = filter_luma_lines_plain(
                     seg, b_lines, *(inner if k else top))
-            yb[:, base - 4:base + 16] = win[:, 4:20].reshape(hm * 16, 20)
-            A[:-1, 12:16] = win[1:, 0:4]      # A views yb: writes through
+            yb[..., base - 4:base + 16] = win[:, 4:20].reshape(
+                nf, hm * 16, 20)
+            # A views yb: writes through
+            A[:, :-1, 12:16] = win.view(nf, hm, 20, 20)[:, 1:, 0:4]
 
             # ---- chroma ----
             cinner, cleft, ctop = (at(cprm, kind, col) for kind in range(3))
             cb = (OF + cp) * 8
             cb2 = (OF + cp - 2) * 8
             for pb in (ub, vb):
-                Mc = pb[:, cb - 4:cb + 8].reshape(hm, 8, 12)
-                Ac = pb[:, cb2 - 4:cb2 + 8].view(hm, 8, 12)
-                cwin = torch.cat([torch.cat([zeros_c, Ac[:-1, 6:8]], 0), Mc],
-                                 1)                       # [hm, 10, 12]
+                Mc = pb[..., cb - 4:cb + 8].reshape(nf * hm, 8, 12)
+                Ac = pb[..., cb2 - 4:cb2 + 8].view(nf, hm, 8, 12)
+                above = torch.cat([zeros_c, Ac[:, :-1, 6:8]], 1)
+                cwin = torch.cat([above.flatten(0, 1), Mc],
+                                 1)                       # [F hm, 10, 12]
                 # vertical chroma edges at local cols 4 (MB) and 8
                 for k in (0, 2):
                     b_lines = BV[:, :, k].repeat_interleave(2, 1)
@@ -352,8 +403,9 @@ def make_deblocker(wm: int, hm: int, plain: bool = False):
                     cwinT[:, 4:12, e - 2:e + 2] = filter_chroma_lines(
                         cwinT[:, 4:12, e - 2:e + 2], b_lines,
                         *(cinner if k else ctop))
-                pb[:, cb - 4:cb + 8] = cwin[:, 2:10].reshape(hm * 8, 12)
-                Ac[:-1, 6:8] = cwin[1:, 0:2]
+                pb[..., cb - 4:cb + 8] = cwin[:, 2:10].reshape(
+                    nf, hm * 8, 12)
+                Ac[:, :-1, 6:8] = cwin.view(nf, hm, 10, 12)[:, 1:, 0:2]
         return _unskew(yb, 16), _unskew(ub, 8), _unskew(vb, 8)
 
     return deblock
@@ -368,7 +420,8 @@ def make_deblocker_skewed(sched: WaveSchedule,
     (idc 2: the encoder's slices are whole MB rows).
 
     fn(y, u, v, intra_mb, tc_luma, mv, ref, qp, cqp, t8_mb=None) ->
-    filtered int32 planes."""
+    filtered int32 planes; planes [F, H, W] and per-MB inputs [F, ...]
+    filter a chunk of F pictures."""
     wm, hm = sched.width_mbs, sched.height_mbs
     deblock = make_deblocker(wm, hm, plain)
     top_ok: dict = {}          # device -> [hm, wm] bool

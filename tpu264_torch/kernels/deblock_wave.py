@@ -39,21 +39,26 @@ def deblock_wave(y, u, v, bs_v, bs_h, cp: int, qp_y, qp_c, off_a: int = 0,
     [4hm, 4wm] are the boundary strengths of the vertical and horizontal
     4x4 edges (0 on every edge left unfiltered), qp_y, qp_c [hm, wm] the
     int32 luma and chroma QP of each MB, off_a, off_b FilterOffsetA/B.
-    Waves must be run in order, 0 .. wm + 2 (hm - 1) - 1."""
+    Waves must be run in order, 0 .. wm + 2 (hm - 1) - 1.
+
+    A chunk of F pictures of the batched entry goes in the same launch:
+    y [F, 16hm, 16wm] and every other array with the same leading F, all
+    contiguous."""
     dev = y.device
     if dev.type != "cuda":
         raise ValueError(f"deblock_wave: CUDA tensors expected, got {dev}")
-    h, w = y.shape if y.dim() == 2 else (0, 0)
-    if h <= 0 or w <= 0 or h % 16 or w % 16:
-        raise ValueError(f"deblock_wave: y must be [16 hm, 16 wm], got "
-                         f"{tuple(y.shape)}")
+    lead = tuple(y.shape[:-2]) if y.dim() in (2, 3) else None
+    h, w = y.shape[-2:] if lead is not None else (0, 0)
+    if lead is None or h <= 0 or w <= 0 or h % 16 or w % 16:
+        raise ValueError(f"deblock_wave: y must be [16 hm, 16 wm] or "
+                         f"[F, 16 hm, 16 wm], got {tuple(y.shape)}")
     hm, wm = h // 16, w // 16
     for name, t, shape in (("y", y, (h, w)), ("u", u, (h // 2, w // 2)),
                            ("v", v, (h // 2, w // 2)),
                            ("bs_v", bs_v, (hm * 4, wm * 4)),
                            ("bs_h", bs_h, (hm * 4, wm * 4)),
                            ("qp_y", qp_y, (hm, wm)), ("qp_c", qp_c, (hm, wm))):
-        _build.check_tensor("deblock_wave", name, t, shape, I32, dev)
+        _build.check_tensor("deblock_wave", name, t, lead + shape, I32, dev)
     if not 0 <= cp < wm + 2 * (hm - 1):
         raise ValueError(f"deblock_wave: no wave {cp} in a {wm} x {hm} picture")
     r0, n = wave_lanes(cp, wm, hm)
@@ -62,6 +67,7 @@ def deblock_wave(y, u, v, bs_v, bs_h, cp: int, qp_y, qp_c, off_a: int = 0,
     launches["K4"] += 1
     err = _build.lib().tpu264_deblock_wave(
         _build.ptr(y), _build.ptr(u), _build.ptr(v), _build.ptr(bs_v),
-        _build.ptr(bs_h), _build.ptr(qp_y), _build.ptr(qp_c), wm, cp, r0, n,
-        int(off_a), int(off_b), _build.stream_of(y))
+        _build.ptr(bs_h), _build.ptr(qp_y), _build.ptr(qp_c), wm, hm, cp, r0,
+        n, lead[0] if lead else 1, int(off_a), int(off_b),
+        _build.stream_of(y))
     _build.check(err, "tpu264_deblock_wave")

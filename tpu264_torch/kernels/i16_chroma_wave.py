@@ -28,6 +28,7 @@ from . import transform as kt
 
 I32 = torch.int32
 _PARAMS: dict = {}
+_NO_STEPS = _build.host_i64([0] * 27)       # one picture: no frame strides
 
 launches = {"K3": 0}
 
@@ -48,7 +49,8 @@ BORDERS = {
 
 def alloc_outputs(lead: tuple, device) -> dict:
     """Uninitialised result arrays of shape lead + the per-lane shape:
-    lead = (B,) for one wave, (n_waves, max_wave) for a frame."""
+    lead = (B,) for one wave, (n_waves, max_wave) for a frame, (F,
+    n_waves, max_wave) for a chunk of F frames."""
     return {k: torch.empty(tuple(lead) + shape, dtype=dtype, device=device)
             for k, (shape, dtype) in OUTPUTS.items()}
 
@@ -78,25 +80,35 @@ def pack_params(qp: int, cqp: int, blk_order: tuple):
     return _PARAMS[key]
 
 
-def check_borders(who: str, bd: dict, dev) -> tuple:
-    """Check the border buffers -> (wm, hm)."""
-    hm = bd["col_y"].shape[0] - 1
-    wm = (bd["modes_row"].shape[1] - 5) // 4
-    for name, (extra, a, b_) in BORDERS.items():
-        _build.check_tensor(who, name, bd[name], (hm + extra, a * wm + b_),
-                            I32, dev)
-    return wm, hm
+def check_borders(who: str, bd: dict, dev, n_frames=None) -> tuple:
+    """Check the border buffers of one picture, or ([F, ...]) of each of
+    `n_frames` pictures -> (wm, hm, element strides from one picture's
+    buffers to the next's in the order of `BORDERS`)."""
+    lead = 0 if n_frames is None else 1
+    for name in BORDERS:
+        if bd[name].dim() != 2 + lead:
+            raise ValueError(f"{who}: border buffer {name} must have "
+                             f"{2 + lead} dimensions, got "
+                             f"{tuple(bd[name].shape)}")
+    hm = bd["col_y"].shape[lead] - 1
+    wm = (bd["modes_row"].shape[lead + 1] - 5) // 4
+    steps = [_build.check_frames(who, name, bd[name], n_frames,
+                                 (hm + extra, a * wm + b_), I32, dev)
+             for name, (extra, a, b_) in BORDERS.items()]
+    return wm, hm, steps
 
 
-def check_wave_inputs(who: str, bd: dict, coords, avail, dev) -> tuple:
-    """Check the border buffers and the wave's coords [B,2] int32 and avail
-    [B,4] bool -> (B, wm, hm)."""
+def check_wave_inputs(who: str, bd: dict, coords, avail, dev,
+                      n_frames=None) -> tuple:
+    """Check the border buffers (of `n_frames` pictures: [F, ...]) and the
+    wave's coords [B,2] int32 and avail [B,4] bool, which every picture
+    shares -> (B, wm, hm, the buffers' strides a picture)."""
     if dev.type != "cuda":
         raise ValueError(f"{who}: CUDA tensors expected, got {dev}")
     b = coords.shape[0]
     _build.check_tensor(who, "coords", coords, (b, 2), I32, dev)
     _build.check_tensor(who, "avail", avail, (b, 4), torch.bool, dev)
-    return (b, *check_borders(who, bd, dev))
+    return (b, *check_borders(who, bd, dev, n_frames))
 
 
 def check_frame_inputs(who: str, bd: dict, coords, avail, dev,
@@ -114,7 +126,7 @@ def check_frame_inputs(who: str, bd: dict, coords, avail, dev,
     w0, w1 = (0, n) if waves is None else (int(waves[0]), int(waves[1]))
     if not 0 <= w0 <= w1 <= n:
         raise ValueError(f"{who}: waves {(w0, w1)} outside [0, {n}]")
-    return (n, bmax, *check_borders(who, bd, dev), w0, w1)
+    return (n, bmax, *check_borders(who, bd, dev)[:2], w0, w1)
 
 
 def i16_chroma_wave(bd: dict, coords, avail, gy, gu, gv, mb4, modebuf,
@@ -125,27 +137,38 @@ def i16_chroma_wave(bd: dict, coords, avail, gy, gu, gv, mb4, modebuf,
     coords [B,2] (int32 (r, c)) with avail [B,4] (bool), the source tiles
     gy [B,16,16], gu, gv [B,8,8] and the I4x4 results (recon, mode grid,
     scanned levels, cost); writes every result but "modes" into `out` and
-    the lanes' last rows and columns into `bd`."""
+    the lanes' last rows and columns into `bd`.
+
+    A chunk of F pictures of the batched entry goes in the same launch:
+    gy [F,B,16,16] and every other per-lane input and output with the same
+    leading F (each picture's part contiguous, the pictures any fixed
+    stride apart), border buffers [F, ...]; coords and avail are the
+    pictures' shared schedule."""
     who = "i16_chroma_wave"
     dev = gy.device
-    b, wm, _ = check_wave_inputs(who, bd, coords, avail, dev)
+    nf = gy.shape[0] if gy.dim() == 4 else None
+    b, wm, _, steps = check_wave_inputs(who, bd, coords, avail, dev, nf)
+    steps += [0, 0]                                   # coords, avail
     for name, t, shape in (("gy", gy, (b, 16, 16)), ("gu", gu, (b, 8, 8)),
                            ("gv", gv, (b, 8, 8)), ("mb4", mb4, (b, 16, 16)),
                            ("modebuf", modebuf, (b, 4, 4)),
                            ("coeffs4", coeffs4, (b, 16, 16)),
                            ("j4", j4, (b,))):
-        _build.check_tensor(who, name, t, shape, I32, dev)
+        steps.append(_build.check_frames(who, name, t, nf, shape, I32, dev))
     outs = [k for k in OUTPUTS if k != "modes"]
     for k in outs:
         shape, dtype = OUTPUTS[k]
-        _build.check_tensor(who, f"out[{k!r}]", out[k], (b,) + shape, dtype,
-                            dev)
+        steps.append(_build.check_frames(who, f"out[{k!r}]", out[k], nf,
+                                         (b,) + shape, dtype, dev))
     tensors = ([bd[k] for k in BORDERS]
                + [coords, avail, gy, gu, gv, mb4, modebuf, coeffs4, j4]
                + [out[k] for k in outs])
     ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    fstride = (_NO_STEPS if nf is None else
+               _build.host_i64(st * t.element_size()
+                               for st, t in zip(steps, tensors)))
     launches["K3"] += 1
     err = _build.lib().tpu264_i16_chroma_wave(
         ptrs, pack_params(int(qp), int(cqp), blk_order), b, wm,
-        _build.stream_of(gy))
+        1 if nf is None else nf, fstride, _build.stream_of(gy))
     _build.check(err, "tpu264_i16_chroma_wave")

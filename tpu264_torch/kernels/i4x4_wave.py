@@ -29,6 +29,7 @@ I32 = torch.int32
 _RULE_CODE = {False: 0, True: 1, "mb_top": 2, "mb_left": 3, "mb_tl": 4,
               "mb_tr": 5}
 _PARAMS: dict = {}
+_NO_STEPS = _build.host_i64([0] * 10)       # one picture: no frame strides
 
 launches = {"K2": 0}
 
@@ -114,28 +115,43 @@ def i4x4_wave(orig, ltop, lleft, modes_top, modes_left, at, al, atl, atr,
     return recon, mode_grid, modes_zz, coeffs, cost
 
 
-
 def i4x4_wave_bd(orig, bd: dict, coords, avail, qp: int, lam4: int,
                  lam24: int, rules: tuple, modes_zz=None):
     """`i4x4_wave` for one wave of the wave loop: the lanes' context is read
     from the border buffers `bd` (`init_border_buffers`) at coords [B,2]
     (int32 (r, c)), as `gather_border_ctx` would gather it, and the four
     availability flags are the columns of avail [B,4] (bool).  `modes_zz`
-    [B,16], when given, takes the modes in zig-zag order.  Same returns."""
+    [B,16], when given, takes the modes in zig-zag order.  Same returns.
+
+    A chunk of F pictures of the batched entry goes in the same launch:
+    orig [F,B,16,16] (each picture's part contiguous, the pictures any
+    fixed stride apart), border buffers [F, ...], `modes_zz` [F,B,16], and
+    every return with the leading F; coords and avail are the pictures'
+    shared schedule."""
     who = "i4x4_wave_bd"
     dev = orig.device
-    b, wm, _ = check_wave_inputs(who, bd, coords, avail, dev)
-    _build.check_tensor(who, "orig", orig, (b, 16, 16), I32, dev)
-    if orig.data_ptr() % 16:
+    nf = orig.shape[0] if orig.dim() == 4 else None
+    b, wm, _, steps = check_wave_inputs(who, bd, coords, avail, dev, nf)
+    lead = (b,) if nf is None else (nf, b)
+    o_step = _build.check_frames(who, "orig", orig, nf, (b, 16, 16), I32,
+                                 dev)
+    if orig.data_ptr() % 16 or o_step % 4:
         raise ValueError("i4x4_wave_bd: orig must be 16-byte aligned")
     if modes_zz is None:
-        modes_zz = torch.empty((b, 16), dtype=I32, device=dev)
+        modes_zz = torch.empty(lead + (16,), dtype=I32, device=dev)
+    z_step = _build.check_frames(who, "modes_zz", modes_zz, nf, (b, 16), I32,
+                                 dev)
+    recon = torch.empty(lead + (16, 16), dtype=I32, device=dev)
+    mode_grid = torch.empty(lead + (4, 4), dtype=I32, device=dev)
+    coeffs = torch.empty(lead + (16, 16), dtype=I32, device=dev)
+    cost = torch.empty(lead, dtype=I32, device=dev)
+    if nf is None:
+        fstride = _NO_STEPS
     else:
-        _build.check_tensor(who, "modes_zz", modes_zz, (b, 16), I32, dev)
-    recon = torch.empty((b, 16, 16), dtype=I32, device=dev)
-    mode_grid = torch.empty((b, 4, 4), dtype=I32, device=dev)
-    coeffs = torch.empty((b, 16, 16), dtype=I32, device=dev)
-    cost = torch.empty((b,), dtype=I32, device=dev)
+        row_y, col_y, _, _, _, _, modes_row, modes_col = steps
+        fstride = _build.host_i64(
+            [o_step, row_y, col_y, modes_row, modes_col, recon.stride(0),
+             mode_grid.stride(0), z_step, coeffs.stride(0), cost.stride(0)])
     launches["K2"] += 1
     err = _build.lib().tpu264_i4x4_wave_bd(
         _build.ptr(orig), _build.ptr(bd["row_y"]), _build.ptr(bd["col_y"]),
@@ -143,6 +159,7 @@ def i4x4_wave_bd(orig, bd: dict, coords, avail, qp: int, lam4: int,
         _build.ptr(coords), _build.ptr(avail), wm,
         pack_params(int(qp), int(lam4), int(lam24), rules),
         _build.ptr(recon), _build.ptr(mode_grid), _build.ptr(modes_zz),
-        _build.ptr(coeffs), _build.ptr(cost), b, _build.stream_of(orig))
+        _build.ptr(coeffs), _build.ptr(cost), b, 1 if nf is None else nf,
+        fstride, _build.stream_of(orig))
     _build.check(err, "tpu264_i4x4_wave_bd")
     return recon, mode_grid, modes_zz, coeffs, cost

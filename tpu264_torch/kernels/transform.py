@@ -48,6 +48,22 @@ def on(t: torch.Tensor, device) -> torch.Tensor:
     return _ON_DEVICE[key]
 
 
+def constant(key: tuple, device, make):
+    """The constant that `make()` builds from host data (a tensor or a
+    tuple of them, numpy or torch), on `device`, built and copied there
+    once for each `key` and device: a copy from host memory waits for the
+    card's queue to drain, so the hot paths take their index tables and
+    masks from here."""
+    device = torch.device(device)
+    k = ("constant",) + tuple(key) + (device,)
+    if k not in _ON_DEVICE:
+        val = make()
+        _ON_DEVICE[k] = (tuple(torch.as_tensor(v, device=device) for v in val)
+                         if isinstance(val, tuple)
+                         else torch.as_tensor(val, device=device))
+    return _ON_DEVICE[k]
+
+
 def _rows_cols(x, f):
     """Apply the 1-D 4-point transform `f` along axis -2, then -1:
     M @ x @ M^T for the matrix M that `f` encodes."""

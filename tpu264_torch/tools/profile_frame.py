@@ -89,7 +89,9 @@ alone on 17 x wm x hm zero blocks ("encode_blocks17n_s"), "deblock_s",
 the pull of the words ("pull_s") and the host NAL assembly
 ("host_nal_s"); `profile` the launches by stage and the device time of a
 frame through the per-frame path, and `batched` the batched entry's
-seconds a frame over B frames with its own profile.
+seconds a frame over one chunk of B frames (one launch each of K2, K3 and
+K4 a wave for the chunk), its launches a frame, the card's idle share
+and its own profile.
 
 With `--k1-stages` the kernel library is built with `-DK1_PROFILE`, and
 every launch of the CABAC coder prints, per slice and stage (warp 0 the
@@ -399,7 +401,8 @@ def profile_intra1080(res: dict, batch: int) -> None:
     reference's `tools/profile_stages.py` and `profile_ser.py`: warm
     seconds of each stage of a frame, launches by stage and device time
     of a frame through the per-frame path, and the batched entry's
-    seconds a frame over `batch` frames."""
+    seconds a frame, launches a frame and the card's idle share over one
+    chunk of `batch` frames (one frame, the per-frame path, at 1)."""
     from tpu264_torch.entropy import device_cavlc as dcav
     from tpu264_torch.kernels import deblock_wave as k4w, \
         i16_chroma_wave as k3w, i4x4_wave as k2w
@@ -465,11 +468,15 @@ def profile_intra1080(res: dict, batch: int) -> None:
     res["profile"] = profiled_frame(
         cavlc_intra_patches(enc), lambda: enc.encode_sequence(frames[:1]))
     secs, _ = timed(lambda: enc.encode_sequence(frames), n=2)
+    prof = profiled_frame(cavlc_intra_patches(enc),
+                          lambda: enc.encode_sequence(frames))
     res["batched"] = {
         "batch": batch, "seconds_per_frame": secs / batch,
         "frames_per_second": batch / secs,
-        "profile": profiled_frame(cavlc_intra_patches(enc),
-                                  lambda: enc.encode_sequence(frames))}
+        "launches_per_frame": prof["launches"] / batch,
+        # the card's idle share of the warm (unprofiled) chunk
+        "idle_share": 1 - prof["device_busy_seconds"] / secs,
+        "profile": prof}
 
 
 def profile_decode(res: dict) -> None:

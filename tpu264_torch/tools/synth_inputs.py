@@ -127,6 +127,20 @@ def random_wave(seed, wm, hm, n_pad=2):
     return bd, coords, avail, gy, gu, gv
 
 
+def random_wave_chunk(seed, wm, hm, frames: int, n_pad=2):
+    """One wave of the intra wave body in each of `frames` pictures of a
+    chunk of the batched entry, as numpy: (bd, coords, avail, gy, gu, gv)
+    with bd's buffers and the tiles [F, ...].  Picture f is `random_wave`
+    of seed + 1000 f; the pictures share the first one's coords and avail,
+    as a chunk shares its schedule."""
+    waves = [random_wave(seed + 1000 * f, wm, hm, n_pad)
+             for f in range(frames)]
+    bd = {k: np.stack([w[0][k] for w in waves]) for k in waves[0][0]}
+    coords, avail = waves[0][1], waves[0][2]
+    gy, gu, gv = (np.stack([w[i] for w in waves]) for i in (3, 4, 5))
+    return bd, coords, avail, gy, gu, gv
+
+
 def random_p_wave(seed, wm, hm, n_pad=2, pad=24):
     """One wave of the P wave body on a wm x hm picture, as numpy: (bd,
     mv_map, ref_map, ref_y, ref_u, ref_v, coords, avail, mv_me, gy, gu, gv).
