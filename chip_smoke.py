@@ -6,10 +6,11 @@ Phases (any failure exits non-zero, before the result line):
  1. print the card (`nvidia-smi` name, power limit) and the torch / CUDA
     versions; refuse to run without CUDA;
  2. build the CUDA kernel library from `tpu264_torch/csrc` (timed);
- 3. hold each kernel (K1 CABAC engine, K2 I4x4 wave body of I pictures,
-    K3 I16x16 + chroma wave body, KP P wave body and KB B wave body (one
-    launch a picture each, the Intra4x4 search inside), K4 deblock wave,
-    and the entries on slabs: DCT + quant, DCT, luma deblock lines) to its
+ 3. hold each kernel (KR CABAC binarize + compact, K1 CABAC engine, K2
+    I4x4 wave body of I pictures, K3 I16x16 + chroma wave body, KP P
+    wave body and KB B wave body (one launch a picture each, the
+    Intra4x4 search inside), K4 deblock wave, and the entries on slabs:
+    DCT + quant, DCT, luma deblock lines) to its
     plain torch version on the card, at the shapes of the main paths and
     on seeded corner cases, with exact equality, and time both; K1 on the
     records of a 720p I frame and of a 720p P frame with the default P
@@ -40,7 +41,12 @@ Phases (any failure exits non-zero, before the result line):
     on the border macroblocks of a 720p picture and of the band (the
     edges of its staged windows); K2, K3 and K4 as the batched all-intra
     entry runs them, one launch a wave for a chunk of 4 and of 3 pictures
-    at 1920x1088 (`check_batched_intra`);
+    at 1920x1088 (`check_batched_intra`); KR (four launches a picture) on
+    every CABAC picture those cases make (the 720p I and P frames, 1 and 3
+    slices; the weighted golden's I and P pictures; the 1080p B pictures
+    with and without partitions), each also cut into 3 slices, and on
+    dense QP-0-like I, P and B pictures whose slices are over the
+    encoders' record cap (`check_kr`);
  4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
     28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
@@ -143,7 +149,13 @@ picture's list 0 with the partitions, `ms_720p_p` (with `plain_ms_720p_p`,
 `plain_ms_band`, `bound_ms_band`) the band's list 0; K2's, K3's and K4's
 `ms_chunk4` (with `plain_ms_chunk4`, `bound_ms_chunk4`) a wave of a
 chunk of four 1920x1088 pictures in one launch, and K2's and K3's
-`ms_one_picture` that wave of one of them); the last line is
+`ms_one_picture` that wave of one of them); KR's `ms`, `plain_ms`,
+`bound_ms` are the 1080p B picture that allows partitions, one call of
+the wrapper (its one host read included), with `device_ms` its four
+kernels under `torch.profiler`, `kernel_launches` their launches,
+`ms_inputs` the eager mvd and most-probable-mode inputs, `records` its
+count, and `ms_720p_i`, `ms_720p_p`, `ms_weighted` (with their
+`plain_ms_*`, `bound_ms_*`) the other pictures; the last line is
 {"ok": true, "device": {...}}.
 
 `bound_ms` of a kernel is the larger of its bytes (each input read once,
@@ -156,9 +168,11 @@ and decisions need (`distinct_reference_samples`).  Every row keeps
 both halves too (`bytes_ms`, `operations_ms`).  K1 to K4,
 KP and KB are bound by neither but by a chain of dependent steps, which
 `PERF.md` models; K1's row also carries `bins`, counted from this run's
-records.
+records.  KR is bound by its bytes (`kr_bound`: the MB dict's tensors
+that it reads, and the records that it produces; K1 reads none of the
+rows' zeros).
 `library_ms` is null throughout: no single PyTorch call computes a CABAC
-coder, an H.264 intra search, the H.264 integer transform with its
+binarizer, a CABAC coder, an H.264 intra search, the H.264 integer transform with its
 quantiser, the deblocking filter, the quadrant SSD maps of a full search
 with the first-minimum argmin, or a SATD sub-pel search.
 """
@@ -210,6 +224,10 @@ KERNELS = {
            "none: jnp tpu264/kernels/me.py:34,88,156", False),
     "KS": ("me_subpel", "tpu264_torch/csrc/me_subpel.cu",
            "none: jnp tpu264/kernels/me.py:214", False),
+    # CABAC binarize + compact, jnp in the reference: one call (four
+    # launches) a CABAC picture
+    "KR": ("cabac_records", "tpu264_torch/csrc/cabac_records.cu",
+           "none: jnp tpu264/entropy/cabac_binarize_j.py:241,839", True),
 }
 BW, BH = 1920, 1088             # config 4 (`bench.py:56-58`)
 # streams the decode phase decodes: golden name -> (stream, the encoder's
@@ -1403,15 +1421,191 @@ def check_cabac(dev, frames) -> tuple[dict, tuple, list]:
             waves[len(waves) // 2], deblock_case)
 
 
+class RecordsCalls:
+    """While entered, every call of the encoders' `cabac_records` (binarize
+    + compact of a picture, KR on the card) is recorded under the label
+    `at` with its picture, a copy of its MB dict, its slice kind and its
+    cap, then run: `calls` lists them."""
+
+    def __init__(self):
+        self.calls, self.at, self.real = [], "", None
+
+    def __enter__(self):
+        from tpu264_torch.coding import encoder as encoder_mod
+        self.real = encoder_mod.cabac_records
+
+        def spy(pic, mbd, kind, cap):
+            self.calls.append((self.at, pic, {k: v.clone()
+                                              for k, v in mbd.items()},
+                               kind, cap))
+            return self.real(pic, mbd, kind, cap)
+        encoder_mod.cabac_records = spy
+        return self
+
+    def __exit__(self, *exc):
+        from tpu264_torch.coding import encoder as encoder_mod
+        encoder_mod.cabac_records = self.real
+
+
+def dense_mbs(dev, kind: str, seed: int, wm: int, hm: int) -> dict:
+    """A seeded MB dict (`synth_inputs.random_mbs` / `random_b_mbs` with
+    every tool) whose residual blocks are all full of levels of 1 to 3999
+    in magnitude, as a QP near 0 gives them, on every position the encoder
+    codes (no I16x16 AC DC position, no chroma AC DC position, no luma DC
+    outside I16x16 MBs, nothing in a skipped MB): every level takes the
+    Exp-Golomb escape, and a slice holds some 2,500 records a MB, over the
+    encoders' cap of 768."""
+    from tpu264_torch.tools import synth_inputs as si
+    if kind == "b":
+        mb = si.random_b_mbs(seed, wm, hm, True, True)
+        inter = mb["btype"] != 4
+    else:
+        mb = si.random_mbs(seed, wm, hm, p_slice=kind == "p")
+        inter = mb["is_inter"] if kind == "p" else np.zeros(wm * hm, bool)
+    rng = np.random.default_rng(seed + 1)
+    skip = (np.arange(wm * hm) % 5 == 0) if kind != "i" else \
+        np.zeros(wm * hm, bool)
+    i16 = mb["sel16"] & ~inter
+    for key in ("luma_ac", "luma_dc", "chroma_dc", "chroma_ac"):
+        shape = mb[key].shape
+        lv = rng.integers(1, 4000, size=shape) * rng.choice([-1, 1], shape)
+        lv[skip] = 0
+        if key == "luma_ac":
+            lv[i16, :, 0] = 0
+        elif key == "chroma_ac":
+            lv[..., 0] = 0
+        elif key == "luma_dc":
+            lv[~i16] = 0
+        mb[key] = lv.astype(np.int32)
+    return {k: torch.as_tensor(v, device=dev) for k, v in mb.items()}
+
+
+def kr_bound(mbd, kind, mvds, mpm, counts, n_records: int) -> dict:
+    """KR's least time: the bytes of the MB dict's tensors that it reads
+    (`read_keys`), the mvds, the most probable modes and the 167-word
+    table read once and the records that it produces (`n_records`; K1
+    reads no word past a slice's count, so the rows' zeros are not
+    counted) and the counts written once, against one int32 operation a
+    coefficient (its test for zero) and eight a record (its fields and
+    its packing)."""
+    from tpu264_torch.kernels import cabac_records as kcr
+    n_in = sum(mbd[k].numel() * mbd[k].element_size()
+               for k in kcr.read_keys(mbd, kind)) \
+        + (0 if mvds is None else 4 * mvds.numel()) + 4 * mpm.numel() \
+        + 4 * 167
+    n_coef = sum(mbd[k].numel() for k in ("luma_ac", "luma_dc",
+                                          "chroma_dc", "chroma_ac"))
+    return bound(n_in + 4 * n_records + 4 * counts.numel(),
+                 n_coef + 8 * n_records)
+
+
+def kr_device_ms(fn) -> tuple:
+    """One call of `fn` (a KR call) under `torch.profiler` -> (device ms of
+    KR's kernels, {kernel: launches})."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = ("state_kernel", "count_kernel", "scan_kernel", "emit_kernel")
+    us, launches = 0.0, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in names:
+            if f"::{n}(" in e.name:
+                us += e.time_range.end - e.time_range.start
+                launches[n] = launches.get(n, 0) + 1
+    return (1e-3 * us if launches else None), launches
+
+
+def check_kr(dev, calls) -> dict:
+    """KR (`kernels/cabac_records.py` `records`) against its plain version
+    `records_plain` on the card, packed records (zeros past each count
+    and the rows' width included) and counts, tolerance 0: every CABAC
+    picture that `RecordsCalls` caught (the 720p I frame and the 720p P
+    frame with the default P tools, 1 and 3 slices; the I and the weighted
+    P picture of `ippp_720p_wp_sei`; the 1920x1088 B pictures of config 4
+    with and without partitions), each of them also cut into 3 slices,
+    and dense QP-0-like MB dicts (`dense_mbs`, I at 720p, P and B at
+    1920x1088, 1 and 3 slices) whose slices are over the encoders' cap, so
+    that the rows are as wide as the largest slice.  Times KR (its
+    wrapper, one host read of the largest count included) and the plain
+    version with CUDA events, and KR's four kernels under the profiler ->
+    the KR row: the 1080p B picture with partitions, `ms_720p_i`,
+    `ms_720p_p`, `ms_weighted` (each with its `plain_ms_*`), `ms_inputs`
+    (the eager mvd and most-probable-mode inputs of the B picture),
+    `device_ms` and `kernel_launches` (one call's kernels)."""
+    from tpu264_torch.kernels import cabac_records as kcr
+    cases = {}
+    for at, pic, mbd, kind, cap in calls:
+        key = (at, kind, tuple(pic.rows))
+        cases.setdefault(key, (mbd, pic.wm, pic.hm, cap, pic.t8_mode))
+        rows3 = (0, pic.hm // 3, 2 * pic.hm // 3)
+        if len(pic.rows) == 1:
+            cases.setdefault((at, kind, rows3), (mbd, pic.wm, pic.hm,
+                                                 cap // 3, pic.t8_mode))
+    for kind, wm, hm, seed in (("i", W // 16, H // 16, 71),
+                               ("p", BW // 16, BH // 16, 72),
+                               ("b", BW // 16, BH // 16, 73)):
+        mbd = dense_mbs(dev, kind, seed, wm, hm)
+        for rows in ((0,), (0, hm // 3, 2 * hm // 3)):
+            cases[("dense QP-0-like", kind, rows)] = (
+                mbd, wm, hm, wm * hm // len(rows) * 768, kind != "i")
+    err, timed, over = 0, {}, 0
+    for (at, kind, rows), (mbd, wm, hm, cap, t8) in cases.items():
+        rows = list(rows)
+        ins = kcr.inputs(mbd, wm, hm, rows, kind)
+        got = kcr.records(mbd, *ins, wm, hm, rows, kind, cap, t8)
+        want = kcr.records_plain(mbd, wm, hm, rows, kind, cap, t8)
+        torch.cuda.synchronize()
+        if got[0].shape != want[0].shape:
+            fail(f"KR {at} {kind.upper()} {len(rows)} slices: records "
+                 f"{tuple(got[0].shape)}, plain {tuple(want[0].shape)}")
+        e = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        err = max(err, e)
+        counts = got[1].tolist()
+        over += max(counts) > cap
+        print(f"KR {at} {kind.upper()} picture {wm}x{hm} MBs, "
+              f"{len(rows)} slices: records {counts} (cap {cap}), max abs "
+              f"err {e}")
+        if len(rows) == 1 and at != "dense QP-0-like":
+            args = (mbd, *ins, wm, hm, rows, kind, cap, t8)
+            ms = time_ms(lambda: kcr.records(*args), 10)
+            pms = time_ms(lambda: kcr.records_plain(mbd, wm, hm, rows, kind,
+                                                    cap, t8), 3)
+            ims = time_ms(lambda: kcr.inputs(mbd, wm, hm, rows, kind), 10)
+            dms, kl = kr_device_ms(lambda: kcr.records(*args))
+            b = kr_bound(mbd, kind, ins[0], ins[1], got[1], sum(counts))
+            timed[(at, kind)] = dict(ms=ms, plain_ms=pms, ms_inputs=ims,
+                                     device_ms=dms, kernel_launches=kl,
+                                     records=sum(counts), **b)
+            print(f"KR {at} {kind.upper()} picture: {ms:.4f} ms a call "
+                  f"(kernels {dms} ms on the card, launches {kl}), plain "
+                  f"{pms:.2f} ms, eager inputs {ims:.3f} ms; bound "
+                  f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
+    if over < 6:
+        fail(f"KR: only {over} cases went over the cap")
+    if any(sum(t["kernel_launches"].values()) > 4 for t in timed.values()):
+        fail("KR: more than four launches a picture")
+    row = dict(timed[("1080p B picture", "b")], err=err)
+    for name, key in (("720p_i", ("720p", "i")), ("720p_p", ("720p", "p")),
+                      ("weighted", ("ippp_720p_wp_sei", "p"))):
+        row[f"ms_{name}"] = timed[key]["ms"]
+        row[f"plain_ms_{name}"] = timed[key]["plain_ms"]
+        row[f"bound_ms_{name}"] = timed[key]["bound_ms"]
+    return {"KR": row}
+
+
 def launch_counts() -> list:
     """The wrappers' launch counters (one dict a module)."""
     from tpu264_torch.entropy import cabac_engine_cuda as k1
-    from tpu264_torch.kernels import b_wave as kb, dct_quant as dq, \
-        deblock_lines as dl, deblock_wave as k4w, i16_chroma_wave as k3w, \
-        i4x4_wave as k2w, me_search as kfs, me_subpel as ksp, p_wave as kp
+    from tpu264_torch.kernels import b_wave as kb, cabac_records as kcr, \
+        dct_quant as dq, deblock_lines as dl, deblock_wave as k4w, \
+        i16_chroma_wave as k3w, i4x4_wave as k2w, me_search as kfs, \
+        me_subpel as ksp, p_wave as kp
     return [k1.launches, k2w.launches, k3w.launches, kp.launches,
             kb.launches, k4w.launches, dq.launches, dl.launches,
-            kfs.launches, ksp.launches]
+            kfs.launches, ksp.launches, kcr.launches]
 
 
 def reset_counts() -> None:
@@ -1450,8 +1644,9 @@ def phase_encode(frames) -> dict:
         if not on_path and counts[k] != 0:
             fail(f"{k} ({name}) ran {counts[k]} times on the all-intra "
                  f"path, which does not run it")
-    if counts["K1"] != len(frames):
-        fail(f"K1 ran {counts['K1']} times for {len(frames)} frames")
+    for k in ("K1", "KR"):
+        if counts[k] != len(frames):
+            fail(f"{k} ran {counts[k]} times for {len(frames)} frames")
     if counts["K2"] != n_waves * len(frames):
         fail(f"K2 ran {counts['K2']} times, not once for each of the "
              f"{n_waves} waves of {len(frames)} frames")
@@ -1669,7 +1864,8 @@ class FrameLaunches:
         wave; a P frame KP once (the whole picture) and K4 at most once a
         wave; a B frame KB once and K4 at most once a wave; KF and KS once
         a list (a P frame once, a B frame twice, an IDR frame never); K1
-        once a frame with CABAC and never with CAVLC; the slab entries, K2
+        and KR once a frame with CABAC and never with CAVLC; the slab
+        entries, K2
         and K3's wave forms outside an IDR frame, KP outside a P frame and
         KB outside a B frame never; and nothing runs outside the frames
         (`counts`: the whole run's launches)."""
@@ -1677,7 +1873,7 @@ class FrameLaunches:
             fail(f"{what}: frames {[k for k, _ in self.per_frame]}")
         for i, (kind, c) in enumerate(self.per_frame):
             print(f"  frame {i} {kind} launches: {c}")
-            want = {"K1": int(cabac),
+            want = {"K1": int(cabac), "KR": int(cabac),
                     "K2": n_waves if kind == "IDR" else 0, "K2_blocks": 0,
                     "K3_blocks": 0, "K4_lines": 0,
                     "KP": int(kind == "P"), "KB": int(kind == "B")}
@@ -2703,8 +2899,8 @@ def phase_entry() -> dict:
     for k in ("K2", "K3", "K4"):
         if counts[k] <= 0:
             fail(f"entry: {k} was not launched")
-    if any(counts[k] for k in ("K1", "KP", "KB", "KF", "KS", "K2_blocks",
-                               "K3_blocks", "K4_lines")):
+    if any(counts[k] for k in ("K1", "KR", "KP", "KB", "KF", "KS",
+                               "K2_blocks", "K3_blocks", "K4_lines")):
         fail(f"entry: launches {counts} outside K2, K3 and K4")
     return counts
 
@@ -2717,8 +2913,9 @@ def phase_dryrun(card: str) -> dict:
     encoder's recons (the function raises otherwise); each lane's SHA-256,
     bytes, frame sizes and QPs held to the golden `dryrun_multichip_4`
     from the reference's dry run -> the launch counts of encode and
-    decode (K1, K2, K3, KP, KB, K4, KF and KS each at least once; KF and
-    KS once a list of every P and B band picture)."""
+    decode (K1, KR, K2, K3, KP, KB, K4, KF and KS each at least once; KF
+    and KS once a list of every P and B band picture, KR once a band
+    picture)."""
     from tpu264_torch.runtime.dryrun import dryrun_multichip
     g = golden("dryrun_multichip_4")
     reset_counts()
@@ -2746,9 +2943,12 @@ def phase_dryrun(card: str) -> dict:
           f"(first run), decode on the card {res['decode_seconds']:.3f} s = "
           f"{1e3 * res['decode_seconds'] / n_mbs:.4f} ms a MB, every frame "
           f"equal to the recon; launches {counts}")
-    for k in ("K1", "K2", "K3", "KP", "KB", "K4", "KF", "KS"):
+    for k in ("K1", "KR", "K2", "K3", "KP", "KB", "K4", "KF", "KS"):
         if counts[k] <= 0:
             fail(f"dryrun: {k} was not launched")
+    if counts["KR"] != counts["K1"]:
+        fail(f"dryrun: KR ran {counts['KR']} times for {counts['K1']} CABAC "
+             f"band pictures")
     lists = counts["KP"] + 2 * counts["KB"]
     if counts["KF"] != lists or counts["KS"] != lists:
         fail(f"dryrun: KF ran {counts['KF']} and KS {counts['KS']} times "
@@ -2818,6 +3018,7 @@ def phase_tiled(name: str, what: str) -> dict:
     for i, (kind, c) in enumerate(per_frame):
         print(f"  frame {i} {kind} launches: {c}")
         want = {"K1": n_bands * int(te.cabac),
+                "KR": n_bands * int(te.cabac),
                 "K2": n_bands * n_waves if kind == "i" else 0,
                 "KP": n_bands * int(kind == "p"),
                 "KB": n_bands * int(kind == "b"),
@@ -2885,7 +3086,11 @@ def main() -> int:
     results = {}
     results.update(check_dct(dev, rng))
     results.update(check_deblock_lines(dev, rng))
-    k1_result, wave, deblock_case = check_cabac(dev, frames)
+    # the CABAC pictures that the K1, KP and KB cases below make: KR's
+    records_calls = RecordsCalls()
+    with records_calls:
+        records_calls.at = "720p"
+        k1_result, wave, deblock_case = check_cabac(dev, frames)
     results.update(k1_result)
     results.update(check_i4x4_wave(dev, wave))
     results.update(check_wave_body(dev, wave))
@@ -2898,7 +3103,9 @@ def main() -> int:
         me.at = "720p P picture, default tools"
         p_cases.append(p_frame_case(dev, Tools(True, True, True)))
         me.at = "ippp_720p_wp_sei first P picture (weighted reference)"
-        wp_case = wp_frame_case(dev)
+        with records_calls:
+            records_calls.at = "ippp_720p_wp_sei"
+            wp_case = wp_frame_case(dev)
     results.update(check_p_wave(dev, p_cases))
     del p_cases
     weighted = check_p_wave_weighted(dev, wp_case)["KP"]
@@ -2914,8 +3121,9 @@ def main() -> int:
         b_cases = []
         for is_ref, label in ((False, "1080p B picture"),
                               (True, "1080p Bref picture")):
-            me.at = label
-            b_cases.append(b_frame_case(dev, is_ref))
+            me.at = records_calls.at = label
+            with records_calls:
+                b_cases.append(b_frame_case(dev, is_ref))
     results.update(check_b_wave(dev, b_cases))
     with me:
         me.at = "17-row band B picture"
@@ -2926,6 +3134,8 @@ def main() -> int:
     del b_cases
     results.update(check_me(dev, me))
     del me
+    results.update(check_kr(dev, records_calls.calls))
+    del records_calls
     for k, extra in check_batched_intra(dev).items():
         results[k].update(extra, err=max(results[k]["err"], extra["err"]))
     wrong = {k: r["err"] for k, r in sorted(results.items()) if r["err"]}
@@ -2996,7 +3206,9 @@ def main() -> int:
                       "bound_ms_grids_720p", "ms_grids_1080p",
                       "plain_ms_grids_1080p", "bound_ms_grids_1080p",
                       "ms_chunk4", "plain_ms_chunk4", "bound_ms_chunk4",
-                      "ms_one_picture"):
+                      "ms_one_picture", "ms_720p_i", "plain_ms_720p_i",
+                      "bound_ms_720p_i", "ms_inputs", "device_ms",
+                      "kernel_launches", "records"):
             if extra in r:
                 row[extra] = r[extra]
         rows.append(row)

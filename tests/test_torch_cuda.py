@@ -29,6 +29,7 @@ from tpu264_torch.kernels import deblock_wave as k4w
 from tpu264_torch.kernels import i16_chroma_wave as k3w
 from tpu264_torch.kernels import i4x4_wave as k2w
 from tpu264_torch.kernels import b_wave as kb
+from tpu264_torch.kernels import cabac_records as kcr
 from tpu264_torch.kernels import interp as kint
 from tpu264_torch.kernels import me_search as kme_search
 from tpu264_torch.kernels import me_subpel as kme_subpel
@@ -38,7 +39,7 @@ from tpu264_torch.ref import deblock as rd
 from tpu264_torch.ref.transform import chroma_qp
 from tpu264_torch.entropy import cabac_binarize as tcb
 from tpu264_torch.entropy import cabac_engine_cuda as k1
-from tpu264_torch.tools.synth_inputs import random_b_wave, \
+from tpu264_torch.tools.synth_inputs import random_b_mbs, random_b_wave, \
     random_deblock_picture, random_decode_deblock, random_mbs, random_p_wave, \
     random_p_wave_tools, random_wave, random_wave_chunk
 
@@ -1317,3 +1318,116 @@ def test_cuda_me_wrappers_reject_bad_input():
         kme_subpel.subpel(y, planes, 24, mv, 4, 6, 4,
                           [(("16x16", "top", "bot"), (0, 0, 0), (0, 0, 0),
                             16, 4)])
+
+
+def _records_both(mb, wm, hm, rows, kind, cap):
+    """KR on the card and its plain version on the same card tensors ->
+    ((records, counts), (records, counts)) on the host."""
+    got = kcr.records(mb, *kcr.inputs(mb, wm, hm, rows, kind), wm, hm, rows,
+                      kind, cap)
+    want = kcr.records_plain(mb, wm, hm, rows, kind, cap)
+    return [tuple(t.cpu() for t in x) for x in (got, want)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["i", "p", "b"])
+def test_cuda_records_match_plain(kind):
+    """KR (CABAC binarize + compact, `kernels/cabac_records.py`) equals
+    `records_plain` on seeded 1280x720 MB dicts: every tool set of the
+    slice kind, 1 and 3 slices, and levels scaled by 37 (QP-0-like: the
+    Exp-Golomb escapes) with a cap of 4 records a MB, so that every slice
+    is over it and the rows are as wide as the largest slice; one KR run
+    a picture."""
+    dev = cuda_device()
+    wm, hm = 80, 45
+    tool_sets = {"i": [(), ("t8",)],
+                 "p": [(), ("ptype",), ("ptype", "mvq"),
+                       ("ptype", "mvq", "t8")],
+                 "b": [(), ("parts",), ("parts", "t8")]}[kind]
+    before = kcr.launches["KR"]
+    calls = 0
+    for t, tools in enumerate(tool_sets):
+        for slices in (1, 3):
+            for scale, per_mb in ((1, 768), (37, 4)):
+                seed = 100 * t + 10 * slices + scale
+                if kind == "b":
+                    mb = random_b_mbs(seed, wm, hm, "parts" in tools,
+                                      "t8" in tools)
+                else:
+                    mb = random_mbs(seed, wm, hm, p_slice=kind == "p",
+                                    tools=tools)
+                for key in ("luma_ac", "luma_dc", "chroma_dc", "chroma_ac"):
+                    mb[key] = (mb[key] * scale).astype(np.int32)
+                mb = {k: torch.as_tensor(v, device=dev) for k, v in mb.items()}
+                rows = list(range(0, hm, hm // slices))
+                cap = wm * hm // slices * per_mb
+                (recs, counts), (precs, pcounts) = _records_both(
+                    mb, wm, hm, rows, kind, cap)
+                assert recs.shape == precs.shape
+                assert_equal(counts, pcounts)
+                assert_equal(recs, precs)
+                over = int(counts.max()) > cap
+                assert over == (scale > 1)
+                calls += 1
+    assert kcr.launches["KR"] - before == calls
+
+
+@pytest.mark.cuda
+def test_cuda_encoder_records_match_plain():
+    """The MB dicts of a CIF IPPP CABAC encode with the default P tools
+    (I and P pictures) as the encoder hands them to `cabac_records` on the
+    card: KR equals `records_plain` on each, 1 and 3 slices."""
+    from tpu264_torch.coding import encoder as encoder_mod
+    dev = cuda_device()
+    enc = Encoder(EncoderConfig(width=352, height=288, qp=28,
+                                symbol_mode="CABAC", intra_period=0),
+                  device=dev)
+    seen = []
+    real = encoder_mod.cabac_records
+
+    def spy(pic, mbd, kind, cap):
+        seen.append((pic, {k: v.clone() for k, v in mbd.items()}, kind, cap))
+        return real(pic, mbd, kind, cap)
+
+    encoder_mod.cabac_records = spy
+    try:
+        enc.encode_sequence([synth_frame(352, 288, t) for t in range(3)])
+    finally:
+        encoder_mod.cabac_records = real
+    assert [k for _, _, k, _ in seen] == ["i", "p", "p"]
+    for pic, mbd, kind, cap in seen:
+        for rows in (list(pic.rows), [0, 6, 12]):
+            got = kcr.records(mbd, *kcr.inputs(mbd, pic.wm, pic.hm, rows,
+                                               kind),
+                              pic.wm, pic.hm, rows, kind, cap, pic.t8_mode)
+            want = kcr.records_plain(mbd, pic.wm, pic.hm, rows, kind, cap,
+                                     pic.t8_mode)
+            assert_equal(got[1], want[1])
+            assert_equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+def test_cuda_records_rejects_bad_input():
+    dev = cuda_device()
+    wm, hm = 11, 9
+    mb = {k: torch.as_tensor(v, device=dev)
+          for k, v in random_mbs(3, wm, hm).items()}
+    mvds, mpm = kcr.inputs(mb, wm, hm, [0], "p")
+    kcr.records(mb, mvds, mpm, wm, hm, [0], "p", 1000)
+    torch.cuda.synchronize()
+    with pytest.raises(TypeError):
+        kcr.records(dict(mb, sel16=mb["sel16"].to(torch.int32)), mvds, mpm,
+                    wm, hm, [0], "p", 1000)
+    with pytest.raises(ValueError):
+        kcr.records(mb, mvds[:5], mpm, wm, hm, [0], "p", 1000)
+    with pytest.raises(ValueError):
+        kcr.records(mb, mvds, mpm.cpu(), wm, hm, [0], "p", 1000)
+    with pytest.raises(ValueError):
+        kcr.records(mb, mvds, mpm, wm, hm, [0, 9], "p", 1000)
+    with pytest.raises(ValueError):
+        kcr.records(mb, mvds, mpm, wm, hm, [0], "x", 1000)
+    with pytest.raises(ValueError):
+        kcr.records(mb, mvds, mpm, wm, hm, [0], "i", 1000)
+    with pytest.raises(KeyError):
+        kcr.records({k: v for k, v in mb.items() if k != "mv_skip"}, mvds,
+                    mpm, wm, hm, [0], "p", 1000)

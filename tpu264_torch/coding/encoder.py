@@ -31,11 +31,11 @@ from tpu264_torch.bits import nal, sei
 from tpu264_torch.bits.params import PPS, SPS
 from tpu264_torch.bits.slicehdr import SLICE_B, SLICE_I, SLICE_P, SliceHeader
 from tpu264_torch.config import EncoderConfig
-from tpu264_torch.entropy import cabac_binarize as cbz
 from tpu264_torch.entropy import cabac_engine_cuda as k1
 from tpu264_torch.entropy import device_cavlc as dcav
 from tpu264_torch.entropy.device_cavlc import compute_cbp, luma_tc_grid
 from tpu264_torch.entropy.slice_writer import trailing_skip_run
+from tpu264_torch.kernels import cabac_records as kcr
 from tpu264_torch.kernels.deblock import make_deblocker_skewed, up4
 from tpu264_torch.ref.transform import chroma_qp
 from tpu264_torch.runtime.ratectl import RateController
@@ -246,27 +246,19 @@ class Picture:
 
 
 def cabac_records(pic: Picture, mbd, kind: str, cap: int):
-    """Binarize + compact on device a picture of slice kind `kind` ("i",
-    "p" or "b") -> packed records [S, cap], counts.
+    """Binarize + compact a picture of slice kind `kind` ("i", "p" or "b")
+    -> packed records [S, width], counts [S]: on the card kernel KR
+    (`kernels/cabac_records.py`, its mvd and most probable mode inputs
+    eager), on the CPU its plain version.
 
     In a PPS with the 8x8 transform, I_NxN MBs of I slices carry its flag
     too (a zero t8 map; B MBs send it as 0).  A slice over the record cap
-    `cap` (pathological content) keeps every record: the same record grids
-    are compacted again with room for the largest slice, so the stream is
-    the one an unbounded buffer gives (the reference re-binarizes such a
-    picture on the host)."""
-    rows = list(pic.rows)
-    if pic.t8_mode and "t8" not in mbd:
-        mbd = dict(mbd, t8=torch.zeros(pic.n_mbs, dtype=torch.bool,
-                                       device=pic.device))
-    k, a, b, v = cbz.binarize_frame(mbd, pic.wm, pic.hm, rows,
-                                    p_slice=kind == "p", b_slice=kind == "b")
-    recs, counts = cbz.compact_slices(k, a, b, v, pic.wm, rows, pic.hm, cap)
-    need = int(counts.max())
-    if need > cap:
-        recs, counts = cbz.compact_slices(k, a, b, v, pic.wm, rows, pic.hm,
-                                          need)
-    return recs, counts
+    `cap` (pathological content) keeps every record: the rows are then as
+    wide as the largest slice, so the stream is the one an unbounded
+    buffer gives (the reference re-binarizes such a picture on the
+    host)."""
+    return kcr.records(mbd, None, None, pic.wm, pic.hm, list(pic.rows), kind,
+                       cap, pic.t8_mode)
 
 
 def cabac_payloads(recs, counts, qp: int, kind: str, cap_words: int) -> list:

@@ -507,11 +507,15 @@ def mvd_16x16(mv, is_inter, wm: int, hm: int, slice_rows):
 
 
 def _slice_top_mask(hm: int, slice_rows, device):
-    """[hm, 1] bool: the MB rows that start a slice."""
-    mask = np.zeros((hm, 1), dtype=bool)
-    for r in slice_rows:
-        mask[int(r)] = True
-    return torch.as_tensor(mask, device=device)
+    """[hm, 1] bool: the MB rows that start a slice (made once a device
+    and slice layout)."""
+    rows = tuple(int(r) for r in slice_rows)
+
+    def make():
+        mask = np.zeros((hm, 1), dtype=bool)
+        mask[list(rows)] = True
+        return mask
+    return constant(("slice_top", hm) + rows, device, make)
 
 
 def _cell_grids2(ptype, mv_p0, mv_p1, use_p0, use_p1, is_inter, wm: int,

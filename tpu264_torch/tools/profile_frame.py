@@ -27,7 +27,9 @@ one JSON object with, for warm frames:
 - `profile`: `torch.profiler` over one more frame: kernel launches in
   all and by stage (`launches_by_stage`: wave loop, reorder, binarize +
   compact, deblock, K1 + payload pull; the rest is the frame's upload,
-  PSNR and bookkeeping), device busy seconds (the union of the device
+  PSNR and bookkeeping; "binarize_compact.inputs", a part of binarize +
+  compact, is the eager mvd and most-probable-mode inputs of kernel KR
+  on the card), device busy seconds (the union of the device
   events' intervals), the ten kernels with the most device time
   (`top_kernels`: name, launches, seconds), the hand-written kernels
   among all (`own_kernels`), the frame's seconds under the profiler;
@@ -121,6 +123,7 @@ from tpu264_torch.coding import inter_frame, intra_frame
 from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.config import EncoderConfig
 from tpu264_torch.entropy import cabac_binarize as cbz
+from tpu264_torch.kernels import cabac_records as kcr
 from tpu264_torch.kernels import interp as kint
 from tpu264_torch.kernels import me_search as kfs
 from tpu264_torch.kernels import me_subpel as ksp
@@ -185,8 +188,21 @@ def intra_patches(enc: Encoder) -> list:
     return [(encoder_mod, "reorder_wave_outputs", "reorder"),
             (enc, "_encode_frame", "wave_loop"),
             (encoder_mod, "cabac_records", "binarize_compact"),
+            (kcr, "inputs", BC_INPUTS),
             (encoder_mod, "recon_planes", "deblock"),
             (encoder_mod, "cabac_payloads", "k1_and_pull")]
+
+
+# a part of a stage, inside it ("stage.part"): not added to "other"'s
+# complement; binarize + compact's eager inputs of KR (mvds, most probable
+# modes)
+BC_INPUTS = "binarize_compact.inputs"
+
+
+def main_stages(by_stage: dict) -> list:
+    """The values of the stages of `by_stage` that are not a part of
+    another."""
+    return [v for k, v in by_stage.items() if "." not in k]
 
 
 # stages of a P or B frame that run inside `enc._encode_p` or
@@ -200,6 +216,7 @@ def entropy_patches(cabac: bool) -> list:
     (K1 with CABAC) and NAL assembly run in a frame's `finish`."""
     if cabac:
         entropy = [(encoder_mod, "cabac_records", "binarize_compact"),
+                   (kcr, "inputs", BC_INPUTS),
                    (encoder_mod, "cabac_payloads", "k1_and_pull"),
                    (encoder_mod, "cabac_nalus", "pull_nal")]
     else:
@@ -292,7 +309,7 @@ def p_stage_times(patches: list, job) -> dict:
         with Clock(st, "frame"):
             job()
     st = split_p_encode(st)
-    st["other"] = st.pop("frame") - sum(st.values())
+    st["other"] = st.pop("frame") - sum(main_stages(st))
     return st
 
 
@@ -333,7 +350,7 @@ def profiled_frame(patches: list, job) -> dict:
                 for name, ranges in spans.items()}
     if "inter_encode" in by_stage:
         by_stage = split_p_encode(by_stage)
-    by_stage["other"] = len(launch_at) - sum(by_stage.values())
+    by_stage["other"] = len(launch_at) - sum(main_stages(by_stage))
     busy_us, busy_until = 0.0, float("-inf")
     for lo, hi in sorted(on_device):
         busy_us += max(0.0, hi - max(lo, busy_until))
