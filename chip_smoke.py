@@ -41,12 +41,19 @@ Phases (any failure exits non-zero, before the result line):
     on the border macroblocks of a 720p picture and of the band (the
     edges of its staged windows); K2, K3 and K4 as the batched all-intra
     entry runs them, one launch a wave for a chunk of 4 and of 3 pictures
-    at 1920x1088 (`check_batched_intra`); KR (four launches a picture) on
-    every CABAC picture those cases make (the 720p I and P frames, 1 and 3
-    slices; the weighted golden's I and P pictures; the 1080p B pictures
-    with and without partitions), each also cut into 3 slices, and on
-    dense QP-0-like I, P and B pictures whose slices are over the
-    encoders' record cap (`check_kr`);
+    at 1920x1088 (`check_batched_intra`); KR (four launches a picture, its
+    mvd and most-probable-mode inputs derived in its state pass and held
+    to their plain version too) and KD (that pass alone, the CAVLC
+    serializers', one launch) on every CABAC picture those cases make (the
+    720p I and P frames, 1 and 3 slices; the weighted golden's I and P
+    pictures; the 1080p B pictures with and without partitions), each
+    also cut into 3 slices, and on dense QP-0-like I, P and B pictures
+    whose slices are over the encoders' record cap; then the queue half
+    of a CABAC P and a B picture (`queue_entropy`) under sync debug mode
+    "error", and a CIF IPPP CABAC encode and one band of `TiledEncoder`
+    at a cap of one record a MB, whose emits into wider rows run after
+    the next frame's work is queued, against the streams at the default
+    cap (`check_kr`);
  4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
     28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
@@ -61,7 +68,9 @@ Phases (any failure exits non-zero, before the result line):
     1920x1088, six frames through the batched entry (chunks of 4 and 2,
     254 launches each of K2, K3 and K4 a chunk) and the per-frame path,
     both against the golden `intra1080_cavlc_batched`, and both warm in
-    one call (seconds a frame);
+    one call (seconds a frame); the same frames with a slice a MB row (68
+    slices, 272 in a chunk of 4) through both, the streams equal, KD once
+    a chunk and its modes equal their plain version's;
  6. config 2: CIF IPPP CAVLC (1 IDR + 2 P, deblock, full-search and
     quarter-pel ME, no partitions) against its golden;
  7. IPPP at 720p: the same at 1280x720 against its golden, with the
@@ -151,11 +160,15 @@ picture's list 0 with the partitions, `ms_720p_p` (with `plain_ms_720p_p`,
 chunk of four 1920x1088 pictures in one launch, and K2's and K3's
 `ms_one_picture` that wave of one of them); KR's `ms`, `plain_ms`,
 `bound_ms` are the 1080p B picture that allows partitions, one call of
-the wrapper (its one host read included), with `device_ms` its four
-kernels under `torch.profiler`, `kernel_launches` their launches,
-`ms_inputs` the eager mvd and most-probable-mode inputs, `records` its
-count, and `ms_720p_i`, `ms_720p_p`, `ms_weighted` (with their
-`plain_ms_*`, `bound_ms_*`) the other pictures; the last line is
+`records` (the host's wait for the largest count included; `ms_queue`
+the queue half alone, back to back; `host_ms_queue` the host's time in
+the queue half alone, its host half outside the clock, as the encoders
+run it), with `device_ms` its four kernels
+under `torch.profiler`, `kernel_launches` their launches, `ms_inputs`
+the plain version of its derived inputs, `records` its count, and
+`ms_720p_i`, `ms_720p_p`, `ms_weighted` (with their `plain_ms_*`,
+`bound_ms_*`, `device_ms_*`) the other pictures; KD's the same pictures
+(`plain_ms` the plain version `preds_plain`); the last line is
 {"ok": true, "device": {...}}.
 
 `bound_ms` of a kernel is the larger of its bytes (each input read once,
@@ -169,10 +182,12 @@ both halves too (`bytes_ms`, `operations_ms`).  K1 to K4,
 KP and KB are bound by neither but by a chain of dependent steps, which
 `PERF.md` models; K1's row also carries `bins`, counted from this run's
 records.  KR is bound by its bytes (`kr_bound`: the MB dict's tensors
-that it reads, and the records that it produces; K1 reads none of the
-rows' zeros).
+that it reads, the motion keys and modes of its derived inputs included,
+and the records that it produces; K1 reads none of the rows' zeros), KD
+by its bytes (`kd_bound`).
 `library_ms` is null throughout: no single PyTorch call computes a CABAC
-binarizer, a CABAC coder, an H.264 intra search, the H.264 integer transform with its
+binarizer, an H.264 mv predictor or most probable mode, a CABAC coder,
+an H.264 intra search, the H.264 integer transform with its
 quantiser, the deblocking filter, the quadrant SSD maps of a full search
 with the first-minimum argmin, or a SATD sub-pel search.
 """
@@ -225,9 +240,15 @@ KERNELS = {
     "KS": ("me_subpel", "tpu264_torch/csrc/me_subpel.cu",
            "none: jnp tpu264/kernels/me.py:214", False),
     # CABAC binarize + compact, jnp in the reference: one call (four
-    # launches) a CABAC picture
+    # launches) a CABAC picture, its mvd and most-probable-mode inputs
+    # derived inside
     "KR": ("cabac_records", "tpu264_torch/csrc/cabac_records.cu",
            "none: jnp tpu264/entropy/cabac_binarize_j.py:241,839", True),
+    # KR's state pass without its state: the mvds and most probable modes
+    # of a CAVLC picture, jnp in the reference; one launch a CAVLC picture
+    # (or batched chunk)
+    "KD": ("mb_preds", "tpu264_torch/csrc/cabac_records.cu",
+           "none: jnp tpu264/entropy/device_cavlc.py:258,527,650", False),
 }
 BW, BH = 1920, 1088             # config 4 (`bench.py:56-58`)
 # streams the decode phase decodes: golden name -> (stream, the encoder's
@@ -1480,37 +1501,52 @@ def dense_mbs(dev, kind: str, seed: int, wm: int, hm: int) -> dict:
     return {k: torch.as_tensor(v, device=dev) for k, v in mb.items()}
 
 
-def kr_bound(mbd, kind, mvds, mpm, counts, n_records: int) -> dict:
+def kr_bound(mbd, kind, counts, n_records: int) -> dict:
     """KR's least time: the bytes of the MB dict's tensors that it reads
-    (`read_keys`), the mvds, the most probable modes and the 167-word
-    table read once and the records that it produces (`n_records`; K1
-    reads no word past a slice's count, so the rows' zeros are not
-    counted) and the counts written once, against one int32 operation a
-    coefficient (its test for zero) and eight a record (its fields and
-    its packing)."""
+    (`read_keys`: with the motion keys and modes from which its state pass
+    derives the mvds and the most probable modes) and the 167-word table
+    read once and the records that it produces (`n_records`; K1 reads no
+    word past a slice's count, so the rows' zeros are not counted) and
+    the counts written once, against one int32 operation a coefficient
+    (its test for zero) and eight a record (its fields and its
+    packing)."""
     from tpu264_torch.kernels import cabac_records as kcr
     n_in = sum(mbd[k].numel() * mbd[k].element_size()
-               for k in kcr.read_keys(mbd, kind)) \
-        + (0 if mvds is None else 4 * mvds.numel()) + 4 * mpm.numel() \
-        + 4 * 167
+               for k in kcr.read_keys(mbd, kind)) + 4 * 167
     n_coef = sum(mbd[k].numel() for k in ("luma_ac", "luma_dc",
                                           "chroma_dc", "chroma_ac"))
     return bound(n_in + 4 * n_records + 4 * counts.numel(),
                  n_coef + 8 * n_records)
 
 
-def kr_device_ms(fn) -> tuple:
-    """One call of `fn` (a KR call) under `torch.profiler` -> (device ms of
-    KR's kernels, {kernel: launches})."""
+def kd_bound(mbd, kind, mvds, mpm) -> dict:
+    """KD's least time: the dict's tensors that the derivation reads
+    (`mb_preds.derive_keys`) and the mvds and most probable modes written
+    once, against one int32 operation a word written."""
+    from tpu264_torch.kernels import mb_preds
+    n_in = sum(mbd[k].numel() * mbd[k].element_size()
+               for k in mb_preds.derive_keys(mbd, kind))
+    n_out = mpm.numel() + (0 if mvds is None else mvds.numel())
+    return bound(n_in + 4 * n_out, n_out)
+
+
+def kr_device_ms(fn, names=("state_kernel", "count_kernel", "scan_kernel",
+                            "emit_kernel")) -> tuple:
+    """One call of `fn` (a KR or KD call) under `torch.profiler` ->
+    (device ms of the kernels `names`, {kernel: launches}).  A trace with
+    no device event at all (the profiler now and then records none) is
+    taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = ("state_kernel", "count_kernel", "scan_kernel", "emit_kernel")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     us, launches = 0.0, {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in events:
         for n in names:
             if f"::{n}(" in e.name:
                 us += e.time_range.end - e.time_range.start
@@ -1518,24 +1554,147 @@ def kr_device_ms(fn) -> tuple:
     return (1e-3 * us if launches else None), launches
 
 
-def check_kr(dev, calls) -> dict:
-    """KR (`kernels/cabac_records.py` `records`) against its plain version
-    `records_plain` on the card, packed records (zeros past each count
-    and the rows' width included) and counts, tolerance 0: every CABAC
-    picture that `RecordsCalls` caught (the 720p I frame and the 720p P
-    frame with the default P tools, 1 and 3 slices; the I and the weighted
-    P picture of `ippp_720p_wp_sei`; the 1920x1088 B pictures of config 4
-    with and without partitions), each of them also cut into 3 slices,
-    and dense QP-0-like MB dicts (`dense_mbs`, I at 720p, P and B at
-    1920x1088, 1 and 3 slices) whose slices are over the encoders' cap, so
-    that the rows are as wide as the largest slice.  Times KR (its
-    wrapper, one host read of the largest count included) and the plain
-    version with CUDA events, and KR's four kernels under the profiler ->
-    the KR row: the 1080p B picture with partitions, `ms_720p_i`,
-    `ms_720p_p`, `ms_weighted` (each with its `plain_ms_*`), `ms_inputs`
-    (the eager mvd and most-probable-mode inputs of the B picture),
-    `device_ms` and `kernel_launches` (one call's kernels)."""
+def derived_err(got, want) -> int:
+    """Max abs err of derived (mvds, mpm) against the plain version's."""
+    if (got[0] is None) != (want[0] is None):
+        fail("KR/KD: the derived mvds are missing or extra")
+    return max(max_abs_err(g, w) for g, w in zip(got, want)
+               if w is not None)
+
+
+def check_queue_reads_nothing(calls) -> None:
+    """The queue half of a CABAC P and of a B picture as the encoders run
+    it (`encoder.queue_entropy`: KR, its inputs derived inside), after one
+    warm call, under `torch.cuda.set_sync_debug_mode("error")`: it reads
+    nothing back from the card; the host half's records then equal the
+    plain version's."""
+    from tpu264_torch.coding import encoder as encoder_mod
     from tpu264_torch.kernels import cabac_records as kcr
+    picked = {}
+    for at, pic, mbd, kind, cap in calls:
+        if kind in ("p", "b") and len(pic.rows) == 1:
+            picked.setdefault(kind, (at, pic, mbd, cap))
+    for kind in ("p", "b"):
+        if kind not in picked:
+            fail(f"KR: no CABAC {kind.upper()} picture to queue")
+        at, pic, mbd, cap = picked[kind]
+        encoder_mod.queue_entropy(pic, mbd, kind, True, cap, 1 << 20)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            queued = encoder_mod.queue_entropy(pic, mbd, kind, True, cap,
+                                               1 << 20)
+        except RuntimeError as e:
+            fail(f"KR {at} {kind.upper()}: the queue half read from the "
+                 f"card: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        recs, counts = queued
+        want = kcr.records_plain(mbd, pic.wm, pic.hm, list(pic.rows), kind,
+                                 cap, pic.t8_mode)
+        e = max(max_abs_err(recs, want[0]), max_abs_err(counts, want[1]))
+        if recs.shape != want[0].shape or e:
+            fail(f"KR {at} {kind.upper()}: the queued records differ from "
+                 f"the plain version's (max abs err {e})")
+        print(f"KR {at} {kind.upper()} picture: queue_entropy under sync "
+              f"debug mode 'error' read nothing back; records equal the "
+              f"plain version's")
+
+
+def host_ms_queue(queue, reps: int) -> float:
+    """Mean host time of the queue half `queue()` (a `Queued`), the card
+    idle before each call and its host half (`result()`) outside the
+    clock, as the encoders run it."""
+    queue().result()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = queue()
+        total += time.perf_counter() - t0
+        q.result()
+    return 1e3 * total / reps
+
+
+def check_over_cap_pipeline(dev) -> None:
+    """CIF IPPP CABAC (an IDR and two P frames) through `encode_sequence`,
+    which pulls frame k after frame k+1's device work is queued, and
+    through one band of `TiledEncoder`, which pulls every band after all
+    are queued, at a cap of one record a MB: every slice is over it, so
+    each picture's emit into rows as wide as the largest slice runs
+    behind the later work; the streams equal those at the default
+    cap."""
+    from tpu264_torch.coding import encoder as encoder_mod
+    from tpu264_torch.coding.encoder import Encoder
+    from tpu264_torch.config import EncoderConfig
+    from tpu264_torch.media.synth import synth_frame
+    from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
+    frames = [synth_frame(352, 288, t) for t in range(3)]
+
+    def cfg():
+        return EncoderConfig(width=352, height=288, qp=28,
+                             symbol_mode="CABAC", intra_period=0)
+
+    def tiled():
+        return TiledEncoder(cfg(), make_mesh(1, gop=1, devices=[dev])) \
+            .encode_sequence([frames])[0]
+
+    want = (Encoder(cfg(), device=dev).encode_sequence(frames), tiled())
+    widths = []
+    real = encoder_mod.cabac_payloads
+
+    def spy(recs, counts, *a):
+        widths.append((recs.shape[1], int(counts.max())))
+        return real(recs, counts, *a)
+
+    default_cap = encoder_mod.RECORDS_PER_MB
+    encoder_mod.cabac_payloads = spy
+    try:
+        got = (Encoder(cfg(), device=dev, records_per_mb=1)
+               .encode_sequence(frames),)
+        encoder_mod.RECORDS_PER_MB = 1
+        got += (tiled(),)
+    finally:
+        encoder_mod.cabac_payloads = real
+        encoder_mod.RECORDS_PER_MB = default_cap
+    if len(widths) != 6 or any(w != most or most <= 396
+                               for w, most in widths):
+        fail(f"KR over the cap in the pipeline: rows and largest counts "
+             f"{widths}, cap 396")
+    for what, g, w in zip(("encode_sequence", "TiledEncoder"), got, want):
+        if g != w:
+            fail(f"KR over the cap in the pipeline: the {what} stream "
+                 f"differs from the one at the default cap")
+    print(f"KR over the cap in the pipeline (CIF IPPP CABAC, cap 396): "
+          f"rows as wide as the largest slice {[w for w, _ in widths]}; "
+          f"encode_sequence and TiledEncoder streams equal those at the "
+          f"default cap")
+
+
+def check_kr(dev, calls) -> dict:
+    """KR (`kernels/cabac_records.py` `queue` / `records`) against its
+    plain version `records_plain` on the card, packed records (zeros past
+    each count and the rows' width included) and counts, tolerance 0, and
+    the mvds and most probable modes that its state pass derives, and
+    KD's (`kernels/mb_preds.py` `preds`, the CAVLC serializers' pass),
+    against their plain version `preds_plain`: every CABAC picture that
+    `RecordsCalls` caught (the 720p I frame and the 720p P frame with the
+    default P tools, 1 and 3 slices; the I and the weighted P picture of
+    `ippp_720p_wp_sei`; the 1920x1088 B pictures of config 4 with and
+    without partitions), each of them also cut into 3 slices, and dense
+    QP-0-like MB dicts (`dense_mbs`, I at 720p, P and B at 1920x1088, 1
+    and 3 slices) whose slices are over the encoders' cap, so that the
+    rows are as wide as the largest slice.  Then the queue half reads
+    nothing back (`check_queue_reads_nothing`).  Times KR (a call of
+    `records`, the host's wait for the largest count included; `ms_queue`
+    the queue half back to back) and the plain version with CUDA events,
+    and KR's four kernels under the profiler -> the KR row: the 1080p B
+    picture with partitions, `ms_720p_i`, `ms_720p_p`, `ms_weighted` (each
+    with its `plain_ms_*`), `ms_inputs` (the plain version of the derived
+    inputs of the B picture), `device_ms` and `kernel_launches` (one
+    call's kernels); and the KD row on the same pictures."""
+    from tpu264_torch.kernels import cabac_records as kcr
+    from tpu264_torch.kernels import mb_preds
     cases = {}
     for at, pic, mbd, kind, cap in calls:
         key = (at, kind, tuple(pic.rows))
@@ -1551,49 +1710,78 @@ def check_kr(dev, calls) -> dict:
         for rows in ((0,), (0, hm // 3, 2 * hm // 3)):
             cases[("dense QP-0-like", kind, rows)] = (
                 mbd, wm, hm, wm * hm // len(rows) * 768, kind != "i")
-    err, timed, over = 0, {}, 0
+    err, kd_err, timed, over = 0, 0, {}, 0
     for (at, kind, rows), (mbd, wm, hm, cap, t8) in cases.items():
         rows = list(rows)
-        ins = kcr.inputs(mbd, wm, hm, rows, kind)
-        got = kcr.records(mbd, *ins, wm, hm, rows, kind, cap, t8)
+        ins = mb_preds.preds_plain(mbd, wm, hm, rows, kind)
+        queued = kcr.queue(mbd, wm, hm, rows, kind, cap, t8)
+        e_in = derived_err((queued.mvds, queued.mpm), ins)
+        e_kd = derived_err(mb_preds.preds(mbd, wm, hm, rows, kind), ins)
+        got = tuple(queued)
         want = kcr.records_plain(mbd, wm, hm, rows, kind, cap, t8)
         torch.cuda.synchronize()
         if got[0].shape != want[0].shape:
             fail(f"KR {at} {kind.upper()} {len(rows)} slices: records "
                  f"{tuple(got[0].shape)}, plain {tuple(want[0].shape)}")
-        e = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        e = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
+                e_in)
         err = max(err, e)
+        kd_err = max(kd_err, e_kd)
         counts = got[1].tolist()
         over += max(counts) > cap
         print(f"KR {at} {kind.upper()} picture {wm}x{hm} MBs, "
               f"{len(rows)} slices: records {counts} (cap {cap}), max abs "
-              f"err {e}")
+              f"err {e} (derived mvds and modes {e_in}, KD's {e_kd})")
         if len(rows) == 1 and at != "dense QP-0-like":
-            args = (mbd, *ins, wm, hm, rows, kind, cap, t8)
+            args = (mbd, wm, hm, rows, kind, cap, t8)
             ms = time_ms(lambda: kcr.records(*args), 10)
-            pms = time_ms(lambda: kcr.records_plain(mbd, wm, hm, rows, kind,
-                                                    cap, t8), 3)
-            ims = time_ms(lambda: kcr.inputs(mbd, wm, hm, rows, kind), 10)
+            qms = time_ms(lambda: kcr.queue(*args), 10)
+            pms = time_ms(lambda: kcr.records_plain(*args), 3)
+            hqms = host_ms_queue(lambda: kcr.queue(*args), 20)
+            ims = time_ms(lambda: mb_preds.preds_plain(mbd, wm, hm, rows,
+                                                       kind), 10)
             dms, kl = kr_device_ms(lambda: kcr.records(*args))
-            b = kr_bound(mbd, kind, ins[0], ins[1], got[1], sum(counts))
-            timed[(at, kind)] = dict(ms=ms, plain_ms=pms, ms_inputs=ims,
-                                     device_ms=dms, kernel_launches=kl,
-                                     records=sum(counts), **b)
-            print(f"KR {at} {kind.upper()} picture: {ms:.4f} ms a call "
-                  f"(kernels {dms} ms on the card, launches {kl}), plain "
-                  f"{pms:.2f} ms, eager inputs {ims:.3f} ms; bound "
-                  f"{b['bound_ms']:.6f} ms ({b['bound_by']})")
+            b = kr_bound(mbd, kind, got[1], sum(counts))
+            dargs = (mbd, wm, hm, rows, kind)
+            d_ms = time_ms(lambda: mb_preds.preds(*dargs), 10)
+            d_dms, d_kl = kr_device_ms(lambda: mb_preds.preds(*dargs),
+                                       ("state_kernel",))
+            db = kd_bound(mbd, kind, *ins)
+            timed[(at, kind)] = dict(
+                ms=ms, ms_queue=qms, host_ms_queue=hqms, plain_ms=pms,
+                ms_inputs=ims,
+                device_ms=dms, kernel_launches=kl, records=sum(counts), **b)
+            timed[("KD", at, kind)] = dict(
+                ms=d_ms, plain_ms=ims, device_ms=d_dms, kernel_launches=d_kl,
+                **db)
+            print(f"KR {at} {kind.upper()} picture: {ms:.4f} ms a call, "
+                  f"queue half {qms:.4f} ms (host {hqms:.4f} ms; kernels "
+                  f"{dms} ms on the card, "
+                  f"launches {kl}), plain {pms:.2f} ms; bound "
+                  f"{b['bound_ms']:.6f} ms ({b['bound_by']}); KD {d_ms:.4f} "
+                  f"ms a call (kernel {d_dms} ms, launches {d_kl}), its plain "
+                  f"version (`preds_plain`) {ims:.3f} ms, bound "
+                  f"{db['bound_ms']:.6f} ms ({db['bound_by']})")
     if over < 6:
         fail(f"KR: only {over} cases went over the cap")
-    if any(sum(t["kernel_launches"].values()) > 4 for t in timed.values()):
-        fail("KR: more than four launches a picture")
-    row = dict(timed[("1080p B picture", "b")], err=err)
-    for name, key in (("720p_i", ("720p", "i")), ("720p_p", ("720p", "p")),
-                      ("weighted", ("ippp_720p_wp_sei", "p"))):
-        row[f"ms_{name}"] = timed[key]["ms"]
-        row[f"plain_ms_{name}"] = timed[key]["plain_ms"]
-        row[f"bound_ms_{name}"] = timed[key]["bound_ms"]
-    return {"KR": row}
+    if any(not 1 <= sum(t["kernel_launches"].values()) <= 4
+           for k, t in timed.items() if k[0] != "KD"):
+        fail("KR: not one to four launches a picture")
+    if any(sum(timed[k]["kernel_launches"].values()) != 1
+           for k in timed if k[0] == "KD"):
+        fail("KD: not one launch a picture")
+    check_queue_reads_nothing(calls)
+    check_over_cap_pipeline(dev)
+    out = {}
+    for kid, first, e in (("KR", (), err), ("KD", ("KD",), kd_err)):
+        row = dict(timed[first + ("1080p B picture", "b")], err=e)
+        for name, key in (("720p_i", ("720p", "i")),
+                          ("720p_p", ("720p", "p")),
+                          ("weighted", ("ippp_720p_wp_sei", "p"))):
+            for f in ("ms", "plain_ms", "bound_ms", "device_ms"):
+                row[f"{f}_{name}"] = timed[first + key][f]
+        out[kid] = row
+    return out
 
 
 def launch_counts() -> list:
@@ -1601,11 +1789,11 @@ def launch_counts() -> list:
     from tpu264_torch.entropy import cabac_engine_cuda as k1
     from tpu264_torch.kernels import b_wave as kb, cabac_records as kcr, \
         dct_quant as dq, deblock_lines as dl, deblock_wave as k4w, \
-        i16_chroma_wave as k3w, i4x4_wave as k2w, me_search as kfs, \
-        me_subpel as ksp, p_wave as kp
+        i16_chroma_wave as k3w, i4x4_wave as k2w, mb_preds, \
+        me_search as kfs, me_subpel as ksp, p_wave as kp
     return [k1.launches, k2w.launches, k3w.launches, kp.launches,
             kb.launches, k4w.launches, dq.launches, dl.launches,
-            kfs.launches, ksp.launches, kcr.launches]
+            kfs.launches, ksp.launches, kcr.launches, mb_preds.launches]
 
 
 def reset_counts() -> None:
@@ -1734,10 +1922,11 @@ def check_intra_launches(what: str, counts: dict, n: int, n_waves: int,
                          deblock: bool) -> None:
     """An all-intra CAVLC run of `n` chunks (the batched entry) or `n`
     frames (the per-frame path): K2 and K3 once a wave of each, K4 once a
-    wave with deblocking and never without, and no other kernel."""
+    wave with deblocking and never without, KD (the serializer's most
+    probable modes) once each, and no other kernel."""
     want = {k: 0 for k in counts}
     want.update(K2=n * n_waves, K3=n * n_waves,
-                K4=n * n_waves if deblock else 0)
+                K4=n * n_waves if deblock else 0, KD=n)
     wrong = {k: (counts[k], want[k]) for k in counts if counts[k] != want[k]}
     if wrong:
         fail(f"{what}: launches (ran, expected) {wrong} for {n} chunks or "
@@ -1805,7 +1994,52 @@ def phase_intra1080(card: str) -> dict:
           f"{secs['per frame']}; launches a frame batched "
           f"{sum(counts.values()) / n_frames:g}, per frame "
           f"{sum(counts_1.values()) / n_frames:g} (K2 + K3 + K4)")
+    check_many_slices(name, frames)
     return counts
+
+
+def check_many_slices(name: str, frames) -> None:
+    """Golden `name`'s all-intra CAVLC frames with a slice a MB row (68
+    slices a 1920x1088 picture, 272 in a chunk of 4, more than a picture
+    may have on the card) through the batched entry and the per-frame
+    path: the streams equal; KD runs once a chunk, and its derived modes
+    over the chunk equal their plain version's."""
+    from tpu264_torch.coding.encoder import Encoder
+    from tpu264_torch.config import EncoderConfig
+    from tpu264_torch.kernels import mb_preds
+    cfg = dict(golden(name)["config"], slices_per_frame=68)
+    real = mb_preds.preds
+    chunks = []
+
+    def spy(mbd, wm, hm, rows, kind, pics=1):
+        got = real(mbd, wm, hm, rows, kind, pics)
+        want = mb_preds.preds_plain(mbd, wm, hm, rows, kind, pics)
+        chunks.append((len(rows) * pics, derived_err(got, want)))
+        return got
+
+    streams = []
+    for batch in (4, 1):
+        reset_counts()
+        mb_preds.preds = spy
+        try:
+            streams.append(Encoder(EncoderConfig(**cfg), intra_batch=batch)
+                           .encode_sequence(frames))
+        finally:
+            mb_preds.preds = real
+        kd = read_counts()["KD"]
+        want = -(-len(frames) // batch)
+        if kd != want:
+            fail(f"{name}, 68 slices, chunks of {batch}: KD ran {kd} times, "
+                 f"not {want}")
+    if streams[0] != streams[1]:
+        fail(f"{name}, 68 slices: the batched and the per-frame streams "
+             f"differ")
+    if max(c for c, _ in chunks) <= mb_preds.MAX_SLICES \
+            or any(e for _, e in chunks):
+        fail(f"{name}, 68 slices: KD's (slices, max abs err) {chunks}")
+    print(f"{name}, 68 slices a picture: batched (KD's slices a launch "
+          f"{[c for c, _ in chunks]}) and per-frame streams equal, "
+          f"{len(streams[0])} bytes; KD's modes equal their plain version's")
 
 
 def phase_config2() -> None:
@@ -1864,7 +2098,8 @@ class FrameLaunches:
         wave; a P frame KP once (the whole picture) and K4 at most once a
         wave; a B frame KB once and K4 at most once a wave; KF and KS once
         a list (a P frame once, a B frame twice, an IDR frame never); K1
-        and KR once a frame with CABAC and never with CAVLC; the slab
+        and KR once a frame with CABAC and never with CAVLC, KD once a
+        frame with CAVLC and never with CABAC; the slab
         entries, K2
         and K3's wave forms outside an IDR frame, KP outside a P frame and
         KB outside a B frame never; and nothing runs outside the frames
@@ -1873,7 +2108,7 @@ class FrameLaunches:
             fail(f"{what}: frames {[k for k, _ in self.per_frame]}")
         for i, (kind, c) in enumerate(self.per_frame):
             print(f"  frame {i} {kind} launches: {c}")
-            want = {"K1": int(cabac), "KR": int(cabac),
+            want = {"K1": int(cabac), "KR": int(cabac), "KD": int(not cabac),
                     "K2": n_waves if kind == "IDR" else 0, "K2_blocks": 0,
                     "K3_blocks": 0, "K4_lines": 0,
                     "KP": int(kind == "P"), "KB": int(kind == "B")}
@@ -2899,9 +3134,11 @@ def phase_entry() -> dict:
     for k in ("K2", "K3", "K4"):
         if counts[k] <= 0:
             fail(f"entry: {k} was not launched")
+    if counts["KD"] != 1:
+        fail(f"entry: KD ran {counts['KD']} times for one CAVLC frame")
     if any(counts[k] for k in ("K1", "KR", "KP", "KB", "KF", "KS",
                                "K2_blocks", "K3_blocks", "K4_lines")):
-        fail(f"entry: launches {counts} outside K2, K3 and K4")
+        fail(f"entry: launches {counts} outside K2, K3, K4 and KD")
     return counts
 
 
@@ -2946,9 +3183,9 @@ def phase_dryrun(card: str) -> dict:
     for k in ("K1", "KR", "K2", "K3", "KP", "KB", "K4", "KF", "KS"):
         if counts[k] <= 0:
             fail(f"dryrun: {k} was not launched")
-    if counts["KR"] != counts["K1"]:
+    if counts["KR"] != counts["K1"] or counts["KD"]:
         fail(f"dryrun: KR ran {counts['KR']} times for {counts['K1']} CABAC "
-             f"band pictures")
+             f"band pictures, KD {counts['KD']}")
     lists = counts["KP"] + 2 * counts["KB"]
     if counts["KF"] != lists or counts["KS"] != lists:
         fail(f"dryrun: KF ran {counts['KF']} and KS {counts['KS']} times "
@@ -3019,6 +3256,7 @@ def phase_tiled(name: str, what: str) -> dict:
         print(f"  frame {i} {kind} launches: {c}")
         want = {"K1": n_bands * int(te.cabac),
                 "KR": n_bands * int(te.cabac),
+                "KD": n_bands * int(not te.cabac),
                 "K2": n_bands * n_waves if kind == "i" else 0,
                 "KP": n_bands * int(kind == "p"),
                 "KB": n_bands * int(kind == "b"),
@@ -3208,7 +3446,10 @@ def main() -> int:
                       "ms_chunk4", "plain_ms_chunk4", "bound_ms_chunk4",
                       "ms_one_picture", "ms_720p_i", "plain_ms_720p_i",
                       "bound_ms_720p_i", "ms_inputs", "device_ms",
-                      "kernel_launches", "records"):
+                      "kernel_launches", "records", "ms_queue",
+                      "host_ms_queue",
+                      "device_ms_720p_i", "device_ms_720p_p",
+                      "device_ms_weighted"):
             if extra in r:
                 row[extra] = r[extra]
         rows.append(row)

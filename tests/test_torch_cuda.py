@@ -30,6 +30,7 @@ from tpu264_torch.kernels import i16_chroma_wave as k3w
 from tpu264_torch.kernels import i4x4_wave as k2w
 from tpu264_torch.kernels import b_wave as kb
 from tpu264_torch.kernels import cabac_records as kcr
+from tpu264_torch.kernels import mb_preds
 from tpu264_torch.kernels import interp as kint
 from tpu264_torch.kernels import me_search as kme_search
 from tpu264_torch.kernels import me_subpel as kme_subpel
@@ -427,24 +428,31 @@ def test_cuda_batched_entry_equals_cpu():
     """Config 1 (five QCIF all-intra CAVLC frames, 1 and 3 slices) through
     the batched entry on the card equals the same on the CPU: stream,
     frame sizes and recons; a chunk of 4 (and the short one of 1)
-    launches K2, K3 and K4 once a wave, as one frame does."""
+    launches K2, K3 and K4 once a wave, as one frame does, and KD once.
+    So does a 32x1088 picture with a slice a MB row (68 slices), whose
+    chunk of 4 has 272 slices, more than a picture may have on the card."""
     dev = cuda_device()
     for slices in (1, 3):
         _check_batched_entry(dev, slices)
+    _check_batched_entry(dev, 68, 32, 1088)
 
 
-def _check_batched_entry(dev, slices):
-    cfg = EncoderConfig(width=176, height=144, qp=28, symbol_mode="CAVLC",
+def _check_batched_entry(dev, slices, w=176, h=144):
+    cfg = EncoderConfig(width=w, height=h, qp=28, symbol_mode="CAVLC",
                         intra_period=1, deblock=True,
                         slices_per_frame=slices)
-    frames = [synth_frame(176, 144, t) for t in range(5)]
-    before = {**k2w.launches, **k3w.launches, **k4w.launches}
+    frames = [synth_frame(w, h, t) for t in range(5)]
+    before = {**k2w.launches, **k3w.launches, **k4w.launches,
+              **mb_preds.launches}
     enc = Encoder(cfg, device=dev)
     got = enc.encode_sequence(frames)
     n_waves = enc.sched.n_waves
+    ran = {k: v - before[k] for k, v in {
+        **k2w.launches, **k3w.launches, **k4w.launches,
+        **mb_preds.launches}.items()}
     for k in ("K2", "K3", "K4"):
-        ran = {**k2w.launches, **k3w.launches, **k4w.launches}[k] - before[k]
-        assert ran == 2 * n_waves, k
+        assert ran[k] == 2 * n_waves, k
+    assert ran["KD"] == 2
     cpu = Encoder(cfg, device="cpu")
     assert got == cpu.encode_sequence(frames)
     assert [s.bits for s in enc.stats] == [s.bits for s in cpu.stats]
@@ -1320,12 +1328,24 @@ def test_cuda_me_wrappers_reject_bad_input():
                             16, 4)])
 
 
-def _records_both(mb, wm, hm, rows, kind, cap):
+def _records_both(mb, wm, hm, rows, kind, cap, t8_mode=False):
     """KR on the card and its plain version on the same card tensors ->
-    ((records, counts), (records, counts)) on the host."""
-    got = kcr.records(mb, *kcr.inputs(mb, wm, hm, rows, kind), wm, hm, rows,
-                      kind, cap)
-    want = kcr.records_plain(mb, wm, hm, rows, kind, cap)
+    ((records, counts), (records, counts)) on the host; KR's derived mvds
+    and most probable modes, and those of the CAVLC serializers' pass KD,
+    equal their plain version's."""
+    want_in = mb_preds.preds_plain(mb, wm, hm, rows, kind)
+    before = mb_preds.launches["KD"]
+    for got_in in (kcr.queue(mb, wm, hm, rows, kind, cap, t8_mode),
+                   mb_preds.preds(mb, wm, hm, rows, kind)):
+        got_in = (got_in.mvds, got_in.mpm) if hasattr(got_in, "mpm") \
+            else got_in
+        for g, w in zip(got_in, want_in):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert_equal(g.cpu(), w.cpu())
+    assert mb_preds.launches["KD"] - before == 1
+    got = kcr.records(mb, wm, hm, rows, kind, cap, t8_mode)
+    want = kcr.records_plain(mb, wm, hm, rows, kind, cap, t8_mode)
     return [tuple(t.cpu() for t in x) for x in (got, want)]
 
 
@@ -1336,8 +1356,9 @@ def test_cuda_records_match_plain(kind):
     `records_plain` on seeded 1280x720 MB dicts: every tool set of the
     slice kind, 1 and 3 slices, and levels scaled by 37 (QP-0-like: the
     Exp-Golomb escapes) with a cap of 4 records a MB, so that every slice
-    is over it and the rows are as wide as the largest slice; one KR run
-    a picture."""
+    is over it and the rows are as wide as the largest slice; KR's
+    derived mvds and most probable modes equal `preds_plain`; one KR run a
+    picture."""
     dev = cuda_device()
     wm, hm = 80, 45
     tool_sets = {"i": [(), ("t8",)],
@@ -1368,7 +1389,7 @@ def test_cuda_records_match_plain(kind):
                 assert_equal(recs, precs)
                 over = int(counts.max()) > cap
                 assert over == (scale > 1)
-                calls += 1
+                calls += 2
     assert kcr.launches["KR"] - before == calls
 
 
@@ -1376,7 +1397,16 @@ def test_cuda_records_match_plain(kind):
 def test_cuda_encoder_records_match_plain():
     """The MB dicts of a CIF IPPP CABAC encode with the default P tools
     (I and P pictures) as the encoder hands them to `cabac_records` on the
-    card: KR equals `records_plain` on each, 1 and 3 slices."""
+    card: KR equals `records_plain` on each, 1 and 3 slices, its derived
+    inputs `preds_plain`.  After a warm call, the queue half of a CABAC P
+    and of a B picture (`queue_entropy`: KR, with the derivation inside)
+    reads nothing back from the card (sync debug mode "error"), and the
+    host half's records are the plain version's.  With a cap of one
+    record a MB, every slice is over it, and the emit into wider rows
+    runs only after the next frame's device work is queued (the pipelined
+    IPPP path, and one band of `TiledEncoder`, whose host halves run
+    after every band is queued): the streams equal those at the default
+    cap."""
     from tpu264_torch.coding import encoder as encoder_mod
     dev = cuda_device()
     enc = Encoder(EncoderConfig(width=352, height=288, qp=28,
@@ -1389,21 +1419,70 @@ def test_cuda_encoder_records_match_plain():
         seen.append((pic, {k: v.clone() for k, v in mbd.items()}, kind, cap))
         return real(pic, mbd, kind, cap)
 
+    frames = [synth_frame(352, 288, t) for t in range(3)]
     encoder_mod.cabac_records = spy
     try:
-        enc.encode_sequence([synth_frame(352, 288, t) for t in range(3)])
+        stream = enc.encode_sequence(frames)
     finally:
         encoder_mod.cabac_records = real
     assert [k for _, _, k, _ in seen] == ["i", "p", "p"]
     for pic, mbd, kind, cap in seen:
         for rows in (list(pic.rows), [0, 6, 12]):
-            got = kcr.records(mbd, *kcr.inputs(mbd, pic.wm, pic.hm, rows,
-                                               kind),
-                              pic.wm, pic.hm, rows, kind, cap, pic.t8_mode)
-            want = kcr.records_plain(mbd, pic.wm, pic.hm, rows, kind, cap,
-                                     pic.t8_mode)
+            got, want = _records_both(mbd, pic.wm, pic.hm, rows, kind, cap,
+                                      pic.t8_mode)
             assert_equal(got[1], want[1])
             assert_equal(got[0], want[0])
+    b_mbd = {k: torch.as_tensor(v, device=dev)
+             for k, v in random_b_mbs(5, 22, 18, True, True).items()}
+    b_pic = encoder_mod.Picture(22, 18, (0,), True, dev)
+    for pic, mbd, kind, cap in (seen[-1], (b_pic, b_mbd, "b", 22 * 18 * 768)):
+        encoder_mod.queue_entropy(pic, mbd, kind, True, cap, 1 << 16)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            queued = encoder_mod.queue_entropy(pic, mbd, kind, True, cap,
+                                               1 << 16)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        recs, counts = queued
+        want = kcr.records_plain(mbd, pic.wm, pic.hm, list(pic.rows), kind,
+                                 cap, pic.t8_mode)
+        assert_equal(counts.cpu(), want[1].cpu())
+        assert_equal(recs.cpu(), want[0].cpu())
+    _check_over_cap_streams(dev, frames, stream)
+
+
+def _check_over_cap_streams(dev, frames, stream):
+    from tpu264_torch.coding import encoder as encoder_mod
+    from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
+    widths = []
+    real = encoder_mod.cabac_payloads
+
+    def spy(recs, counts, *a):
+        widths.append((recs.shape[1], int(counts.max())))
+        return real(recs, counts, *a)
+
+    def cfg():
+        return EncoderConfig(width=352, height=288, qp=28,
+                             symbol_mode="CABAC", intra_period=0)
+
+    def tiled():
+        enc = TiledEncoder(cfg(), make_mesh(1, gop=1, devices=[dev]))
+        return enc.encode_sequence([frames])[0]
+
+    want_tiled = tiled()
+    encoder_mod.cabac_payloads = spy
+    default_cap = encoder_mod.RECORDS_PER_MB
+    try:
+        assert Encoder(cfg(), device=dev, records_per_mb=1) \
+            .encode_sequence(frames) == stream
+        encoder_mod.RECORDS_PER_MB = 1
+        assert tiled() == want_tiled
+    finally:
+        encoder_mod.cabac_payloads = real
+        encoder_mod.RECORDS_PER_MB = default_cap
+    assert len(widths) == 6
+    assert all(w == most > 396 for w, most in widths)
 
 
 @pytest.mark.cuda
@@ -1412,22 +1491,25 @@ def test_cuda_records_rejects_bad_input():
     wm, hm = 11, 9
     mb = {k: torch.as_tensor(v, device=dev)
           for k, v in random_mbs(3, wm, hm).items()}
-    mvds, mpm = kcr.inputs(mb, wm, hm, [0], "p")
-    kcr.records(mb, mvds, mpm, wm, hm, [0], "p", 1000)
+    kcr.records(mb, wm, hm, [0], "p", 1000)
+    mb_preds.preds(mb, wm, hm, [0], "p")
     torch.cuda.synchronize()
-    with pytest.raises(TypeError):
-        kcr.records(dict(mb, sel16=mb["sel16"].to(torch.int32)), mvds, mpm,
-                    wm, hm, [0], "p", 1000)
-    with pytest.raises(ValueError):
-        kcr.records(mb, mvds[:5], mpm, wm, hm, [0], "p", 1000)
-    with pytest.raises(ValueError):
-        kcr.records(mb, mvds, mpm.cpu(), wm, hm, [0], "p", 1000)
-    with pytest.raises(ValueError):
-        kcr.records(mb, mvds, mpm, wm, hm, [0, 9], "p", 1000)
-    with pytest.raises(ValueError):
-        kcr.records(mb, mvds, mpm, wm, hm, [0], "x", 1000)
-    with pytest.raises(ValueError):
-        kcr.records(mb, mvds, mpm, wm, hm, [0], "i", 1000)
+    for fn in (kcr.records, lambda *a: mb_preds.preds(*a[:5])):
+        with pytest.raises(TypeError):
+            fn(dict(mb, sel16=mb["sel16"].to(torch.int32)), wm, hm, [0], "p",
+               1000)
+        with pytest.raises(ValueError):
+            fn(dict(mb, mvq=mb["mvq"][:, :3].contiguous()), wm, hm, [0],
+               "p", 1000)
+        with pytest.raises(ValueError):
+            fn(dict(mb, mv2=mb["mv2"].cpu()), wm, hm, [0], "p", 1000)
+        with pytest.raises(ValueError):
+            fn(mb, wm, hm, [0, 9], "p", 1000)
+        with pytest.raises(ValueError):
+            fn(mb, wm, hm, [0], "x", 1000)
+        with pytest.raises(KeyError):
+            fn({k: v for k, v in mb.items() if k != "mv"}, wm, hm, [0], "p",
+               1000)
     with pytest.raises(KeyError):
-        kcr.records({k: v for k, v in mb.items() if k != "mv_skip"}, mvds,
-                    mpm, wm, hm, [0], "p", 1000)
+        kcr.records({k: v for k, v in mb.items() if k != "mv_skip"}, wm, hm,
+                    [0], "p", 1000)

@@ -248,8 +248,9 @@ class Picture:
 def cabac_records(pic: Picture, mbd, kind: str, cap: int):
     """Binarize + compact a picture of slice kind `kind` ("i", "p" or "b")
     -> packed records [S, width], counts [S]: on the card kernel KR
-    (`kernels/cabac_records.py`, its mvd and most probable mode inputs
-    eager), on the CPU its plain version.
+    (`kernels/cabac_records.py`), queued with nothing read back (a
+    `Queued`, which unpacks to the pair once the host waits for it), on
+    the CPU its plain version.
 
     In a PPS with the 8x8 transform, I_NxN MBs of I slices carry its flag
     too (a zero t8 map; B MBs send it as 0).  A slice over the record cap
@@ -257,8 +258,8 @@ def cabac_records(pic: Picture, mbd, kind: str, cap: int):
     wide as the largest slice, so the stream is the one an unbounded
     buffer gives (the reference re-binarizes such a picture on the
     host)."""
-    return kcr.records(mbd, None, None, pic.wm, pic.hm, list(pic.rows), kind,
-                       cap, pic.t8_mode)
+    return kcr.queue(mbd, pic.wm, pic.hm, list(pic.rows), kind, cap,
+                     pic.t8_mode)
 
 
 def cabac_payloads(recs, counts, qp: int, kind: str, cap_words: int) -> list:
@@ -347,9 +348,10 @@ def queue_entropy(pic: Picture, mbd, kind: str, cabac: bool,
 
 def entropy_nalus(pic: Picture, queued, qp: int, kind: str, cabac: bool,
                   cap_words: int, hdr, nal_ref_idc, nal_type) -> list:
-    """The host half of `queue_entropy`: K1 on the records (CABAC) or the
-    pull of the words and the skip map (CAVLC) -> the picture's NAL
-    units, each slice after its header `hdr(s)`."""
+    """The host half of `queue_entropy`: K1 on the records (CABAC; on the
+    card once KR's largest count has reached the host) or the pull of
+    the words and the skip map (CAVLC) -> the picture's NAL units, each
+    slice after its header `hdr(s)`."""
     if cabac:
         return cabac_nalus(cabac_payloads(*queued, qp, kind, cap_words), hdr,
                            nal_ref_idc, nal_type)

@@ -10,25 +10,42 @@
 // (thousands of slots a macroblock, most of them invalid), then compacts
 // it slice by slice; eagerly that is thousands of launches a picture.
 //
-// Here a macroblock is one thread, and its records are what a walk of its
-// syntax in the plain version's slot order emits (`walk_mb`, one routine
-// for the count and the emit pass, templated on its sink, so the two
-// cannot drift apart):
-//  (a) `state_kernel`: what a neighbour reads of a macroblock (its kind,
-//      coded_block_pattern, coded_block_flag bits, 8x8 flag, chroma
-//      prediction bit and the |mvd| of its boundary 4x4 cells), one
-//      record of `kStateWords` words a macroblock;
+// A macroblock is one warp.  Its records are what a walk of its syntax in
+// the plain version's slot order emits, cut into 32 pieces, one a lane:
+// lane 0 the header (mb_skip_flag to mb_qp_delta), lanes 1-31 the 31
+// residual blocks in coding order (the I16x16 luma DC, 16 luma 4x4, 4
+// luma 8x8, 2 chroma DC, 8 chroma AC), lane 31 also end_of_slice_flag.  A
+// lane's piece is a run of the records, so a warp exclusive scan of the
+// lanes' counts gives each piece its offset in the macroblock.  One walk
+// routine per piece (`walk_lane`), templated on its sink, serves the count
+// and the emit pass, so offsets and records cannot disagree.  The lanes
+// load the macroblock's 408 coefficients coalesced into shared memory and
+// take every block's significance mask from 13 `__ballot_sync`s.
+//  (a) `state_kernel`: the derived inputs (each partition's mvd against
+//      its spec 8.4.1.3 predictor, and each 4x4 block's most probable
+//      Intra4x4 mode: stencils over the finished decisions of the
+//      macroblock and its left, top, top-right and top-left neighbours,
+//      `derive_mvds`, `mpm_of`) into `mvds` and `mpm`; then what a
+//      neighbour reads of a macroblock (its kind, coded_block_pattern,
+//      coded_block_flag bits, 8x8 flag, chroma prediction bit and the
+//      |mvd| of its boundary 4x4 cells), one record of `kStateWords`
+//      words a macroblock.  Without a state buffer it derives the inputs
+//      only: that is the CAVLC serializers' pass (`tpu264_mb_preds`);
 //  (b) `count_kernel`: the walk with a counting sink -> records a
-//      macroblock;
+//      macroblock, and each lane's offset in it (a warp scan);
 //  (c) `scan_kernel`: one block, each slice's exclusive scan of those
 //      counts -> each macroblock's offset in its slice, the slices'
 //      counts and the largest;
 //  (d) `emit_kernel`: the walk with a writing sink at those offsets
-//      (kind << 30 | a << 14 | b, as `pack_records`), and zeros from each
-//      slice's count to the row's end.
-// No slot grid is written.  The host launches (a)-(c), reads the largest
-// count, sizes the rows to hold it (at least the caller's cap) and then
-// launches (d) (`tpu264_cabac_records`, `emit`).
+//      (kind << 30 | a << 14 | b, as `pack_records`), no record past a
+//      row's end, and zeros from each slice's count to the row's end.
+// No slot grid is written.  The host launches (a)-(d) with rows as wide
+// as the caller's cap and reads nothing; it launches (d) again into wider
+// rows only for a slice over the cap (`tpu264_cabac_records`).
+//
+// Bound: bytes (the MB dict read once, the records written once); the
+// walk's branches and the serial level rows of a block keep it far above
+// that (PERF.md, KR's row).
 //
 // Exactness: the plain version's record of a macroblock is its valid
 // slots in slot order, and the walk visits the syntax elements in that
@@ -36,7 +53,11 @@
 // `binarize_frame`; inside a residual block the coded_block_flag, the
 // significance / last pairs, then six rows a coefficient from the last
 // one down).  Slices are whole macroblock rows, so a left neighbour is
-// missing only in column 0 and a top one in a slice's first row.
+// missing only in column 0 and a top one in a slice's first row.  The
+// derived inputs follow `entropy/device_cavlc.py` `mvd_16x16`,
+// `_partition_mvds_core`, `b_list_mvds` and `mpm_grid` (the reference's
+// `_partition_mvds_core_j`, `_mpm_grid_j`) on every macroblock, whether
+// its mvds or modes are coded or not.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -45,27 +66,41 @@ namespace {
 
 constexpr int kMaxSlices = 256;
 constexpr int kStateWords = 16;
-constexpr int kMbThreads = 32;        // threads (macroblocks) a block
+constexpr int kWarps = 4;             // macroblocks (warps) a block
 constexpr int kScanThreads = 1024;
+constexpr unsigned kFull = 0xffffffffu;
 
-// the context tables, `kernels/cabac_records.py` `tables()`: the port's
-// `entropy/cabac_ctx.py`, `coding/b_mbtypes.py` and `coding/wavefront.py`
-constexpr int T_CBF = 0;              // CBF_CAT_OFF [5]
-constexpr int T_SIG = 5;              // SIG_CAT_OFF [5]
-constexpr int T_LVL = 10;             // LVL_CAT_OFF [6]
-constexpr int T_SIG8 = 16;            // SIG8_MAP [63]
-constexpr int T_LAST8 = 79;           // LAST8_MAP[:63]
-constexpr int T_COMBO = 142;          // COMBO_IDX [9]
-constexpr int T_BLK = 151;            // BLK_ORDER as by * 4 + bx [16]
+// a macroblock's coefficients in shared memory: luma AC [16][16], chroma
+// AC [2][4][16], luma DC [16], chroma DC [2][4]
+constexpr int C_LAC = 0, C_CAC = 256, C_LDC = 384, C_CDC = 400;
+constexpr int kCoefWords = 408;
+constexpr int kMaskWords = (kCoefWords + 31) / 32;
+
+// the tables: first the derivation's, `kernels/mb_preds.py` `tables()`
+// (the port's `coding/b_mbtypes.py` and `coding/wavefront.py`), all that
+// KD is given; then KR's context tables, `kernels/cabac_records.py`
+// `tables()` (the port's `entropy/cabac_ctx.py`)
+constexpr int T_COMBO = 0;            // COMBO_IDX [9]
+constexpr int T_BLK = 9;              // BLK_ORDER as by * 4 + bx [16]
+constexpr int kPredTableWords = 25;
+constexpr int T_CBF = 25;             // CBF_CAT_OFF [5]
+constexpr int T_SIG = 30;             // SIG_CAT_OFF [5]
+constexpr int T_LVL = 35;             // LVL_CAT_OFF [6]
+constexpr int T_SIG8 = 41;            // SIG8_MAP [63]
+constexpr int T_LAST8 = 104;          // LAST8_MAP[:63]
 constexpr int kTableWords = 167;
 
 // macroblock kinds a neighbour reads (`cabac_ctx` K_*)
 constexpr int K_SKIP = 0, K_INTER = 1, K_I4 = 2, K_I16 = 3, K_DIRECT = 4;
 constexpr int SL_I = 0, SL_P = 1, SL_B = 2;
+// the ref map codes of `coding/mvpred.py`
+constexpr int UNAVAIL = -2, INTRA = -1;
 
 struct Params {
   int wm, hm, kind, t8_mode, parts, p8x8, n_slices;
   int rows[kMaxSlices + 1];           // slice start rows, then hm
+  int pics;                           // pictures of this layout, one after
+                                      // the other (KD; KR codes one)
 };
 
 struct Io {
@@ -86,12 +121,21 @@ struct Io {
   const int32_t* c0;                  // [n] (B with partitions)
   const int32_t* c1;
   const int32_t* bptype;
-  const int32_t* mvds;                // [n, 2 lists, 4 parts, 2] (P, B)
-  const int32_t* mpm;                 // [n, 16]
-  const int32_t* tables;              // [kTableWords]
-  int32_t* state;                     // [n, kStateWords]
+  const int32_t* mv2;                 // [n, 2] (P with partitions)
+  const int32_t* mvq;                 // [n, 4, 2] (P_8x8)
+  const uint8_t* use0;                // [n] bool (B)
+  const uint8_t* use1;
+  const int32_t* mv0;                 // [n, 2] (B)
+  const int32_t* mv1;
+  const int32_t* mv0b;                // [n, 2] (B with partitions)
+  const int32_t* mv1b;
+  const int32_t* tables;              // [kTableWords]; KD: [kPredTableWords]
+  int32_t* mvds;                      // [n, 2 lists, 4 parts, 2] (P, B)
+  int32_t* mpm;                       // [n, 16]
+  int32_t* state;                     // [n, kStateWords]; null: derive only
   int32_t* mb_count;                  // [n]
   int32_t* mb_off;                    // [n]
+  int32_t* lane_off;                  // [n, 32]: each lane's piece in its MB
   int32_t* counts;                    // [n_slices + 1]: counts, the largest
 };
 
@@ -100,6 +144,243 @@ __device__ __forceinline__ int bitlen_m1(unsigned v) {   // v >= 1
 }
 
 __device__ __forceinline__ int iabs(int v) { return v < 0 ? -v : v; }
+
+// the slice of MB row r
+__device__ int slice_of(const Params& P, int r) {
+  int s = 0;
+  while (s + 1 < P.n_slices && P.rows[s + 1] <= r) ++s;
+  return s;
+}
+
+// ---- the derived inputs: mvds and most probable modes ----
+
+struct Cell {
+  int x, y, ref;                      // mv (components 0, 1), ref code
+};
+
+__device__ __forceinline__ Cell unavail() { return {0, 0, UNAVAIL}; }
+
+// what the mvd derivation reads of MB j for list l (`_cell_grids2`'s
+// inputs): its partition type, the partitions' vectors and list use
+struct Motion {
+  int ptype;
+  bool inter;                         // the MB is inter (with partitions)
+  bool use_p0, use_p1;
+  bool quads;                         // P_8x8 with its quadrant vectors
+  int p0[2], p1[2];
+};
+
+__device__ Motion motion_of(const Io& io, const Params& P, int j, int l) {
+  Motion o;
+  o.quads = false;
+  o.p1[0] = o.p1[1] = 0;
+  o.use_p1 = false;
+  const int32_t* mv = P.kind == SL_P ? io.mv : (l ? io.mv1 : io.mv0);
+  o.p0[0] = mv[2 * j];
+  o.p0[1] = mv[2 * j + 1];
+  const bool use = P.kind == SL_P ? io.is_inter[j] != 0
+                                  : (l ? io.use1[j] : io.use0[j]) != 0;
+  if (!P.parts) {                     // one 16x16 partition (`mvd_16x16`)
+    o.ptype = 0;
+    o.inter = true;
+    o.use_p0 = use;
+    return o;
+  }
+  const int32_t* mvb = P.kind == SL_P ? io.mv2 : (l ? io.mv1b : io.mv0b);
+  o.p1[0] = mvb[2 * j];
+  o.p1[1] = mvb[2 * j + 1];
+  if (P.kind == SL_P) {
+    o.ptype = io.ptype[j];
+    o.inter = use;
+    o.use_p0 = o.use_p1 = true;
+    o.quads = P.p8x8 && o.ptype == 3;
+  } else {
+    const int bt = io.btype[j];
+    const int c1 = io.c1[j];
+    o.ptype = io.bptype[j];
+    o.inter = bt != 4;
+    o.use_p0 = use;
+    o.use_p1 = bt == 5 ? (l ? c1 != 0 : c1 != 1) : use;
+  }
+  return o;
+}
+
+// MB j's boundary cell k of list l (0 tr, 1 bl, 2 br: the partition
+// covering it; on P_8x8 quadrant 1, 2, 3), (0, INTRA) where that
+// partition does not use the list or the MB is intra
+__device__ Cell cell_of(const Io& io, const Params& P, int j, int l, int k) {
+  const Motion o = motion_of(io, P, j, l);
+  const bool sel = k == 0 ? o.ptype == 2 : (k == 1 ? o.ptype == 1
+                                                   : o.ptype > 0);
+  int x = sel ? o.p1[0] : o.p0[0], y = sel ? o.p1[1] : o.p0[1];
+  if (o.quads) {
+    x = io.mvq[8 * j + 2 * (k + 1)];
+    y = io.mvq[8 * j + 2 * (k + 1) + 1];
+  }
+  if (!((sel ? o.use_p1 : o.use_p0) && o.inter)) return {0, 0, INTRA};
+  return {x, y, 0};
+}
+
+// the neighbours' cells that list l's derivation reads, one a lane of
+// the state pass: i = 0 A (left tr), 1 B (top bl), 2 C (top-right bl), 3
+// D (top-left br), 4 the top MB's br, 5 the left MB's br
+constexpr int kNbCells = 6;
+
+// neighbour cell i of list l of MB m: unavailable outside the picture
+// and, for the rows above, across a slice start
+__device__ Cell nb_cell(const Io& io, const Params& P, int m, bool top_ok,
+                        int l, int i) {
+  const int dr = (i == 0 || i == 5) ? 0 : -1;
+  const int dc = (i == 0 || i == 3 || i == 5) ? -1 : (i == 2 ? 1 : 0);
+  const int k = i == 0 ? 0 : (i <= 2 ? 1 : 2);
+  const int rr = m / P.wm + dr, cc = m % P.wm + dc;
+  if (rr < 0 || cc < 0 || cc >= P.wm || (dr && !top_ok)) return unavail();
+  return cell_of(io, P, rr * P.wm + cc, l, k);
+}
+
+// the median predictor (`mvpred.predict_mv`): C already D-substituted
+__device__ void pred_mv(const Cell& a, const Cell& b, const Cell& c,
+                        int out[2]) {
+  const bool only_a = b.ref == UNAVAIL && c.ref == UNAVAIL &&
+                      a.ref != UNAVAIL;
+  const int same = (a.ref == 0) + (b.ref == 0) + (c.ref == 0);
+  if (only_a || (same == 1 && a.ref == 0)) {
+    out[0] = a.x;
+    out[1] = a.y;
+  } else if (same == 1) {
+    out[0] = b.ref == 0 ? b.x : c.x;
+    out[1] = b.ref == 0 ? b.y : c.y;
+  } else {
+    out[0] = max(min(max(a.x, b.x), c.x), min(a.x, b.x));
+    out[1] = max(min(max(a.y, b.y), c.y), min(a.y, b.y));
+  }
+}
+
+// list l's mvds of MB m in `mb_preds.preds`' layout: part 0, part 1
+// (P_8x8: q0, q1), then q2, q3; zeros where the layout has no partition.
+// `nb`: the list's neighbour cells (`nb_cell`)
+__device__ void derive_mvds(const Io& io, const Params& P, int m, int l,
+                            const Cell* nb, int d[4][2]) {
+  for (int q = 0; q < 4; ++q) d[q][0] = d[q][1] = 0;
+  if (P.kind == SL_P && l == 1) return;
+  const Cell A = nb[0], B = nb[1], C = nb[2], D = nb[3];
+  const Cell C16 = C.ref == UNAVAIL ? D : C;
+  const Motion o = motion_of(io, P, m, l);
+  int pred16[2];
+  pred_mv(A, B, C16, pred16);
+  if (!P.parts) {
+    d[0][0] = o.p0[0] - pred16[0];
+    d[0][1] = o.p0[1] - pred16[1];
+    return;
+  }
+  // 8x16 left half: C is the top MB's col-2 cell (br), D-substituted
+  const Cell TBR = nb[4];
+  const Cell C0 = TBR.ref == UNAVAIL ? D : TBR;
+  int pred0[2];
+  if (o.ptype == 2) {
+    if (A.ref == 0) {
+      pred0[0] = A.x;
+      pred0[1] = A.y;
+    } else {
+      pred_mv(A, B, C0, pred0);
+    }
+  } else if (o.ptype == 1 && B.ref == 0) {
+    pred0[0] = B.x;
+    pred0[1] = B.y;
+  } else {
+    pred0[0] = pred16[0];
+    pred0[1] = pred16[1];
+  }
+  // part 1: its own part 0 as a neighbour (mv zeroed unless it uses the
+  // list)
+  const int p0_ref = (o.inter && o.use_p0) ? 0 : INTRA;
+  const Cell own0 = p0_ref == 0 ? Cell{o.p0[0], o.p0[1], 0}
+                                : Cell{0, 0, p0_ref};
+  const Cell LBR = nb[5];
+  const Cell C1 = C.ref == UNAVAIL ? B : C;
+  int pred1[2];
+  if (o.ptype == 1) {                 // 16x8 bottom: A = left rows 2-3
+    if (LBR.ref == 0) {
+      pred1[0] = LBR.x;
+      pred1[1] = LBR.y;
+    } else {
+      pred_mv(LBR, own0, A, pred1);
+    }
+  } else {                            // 8x16 right: shortcut on C
+    if (C1.ref == 0) {
+      pred1[0] = C1.x;
+      pred1[1] = C1.y;
+    } else {
+      pred_mv(own0, TBR, C1, pred1);
+    }
+  }
+  for (int k = 0; k < 2; ++k) {
+    d[0][k] = o.p0[k] - pred0[k];
+    d[1][k] = o.p1[k] - pred1[k];
+  }
+  if (!(P.kind == SL_P && P.p8x8)) return;
+  // P_8x8 quadrants: the general rule with raster-order siblings (ref 0)
+  const int32_t* mq = io.mvq + 8 * m;
+  const Cell q0{mq[0], mq[1], 0}, q1{mq[2], mq[3], 0};
+  const Cell q2{mq[4], mq[5], 0}, q3{mq[6], mq[7], 0};
+  int pq[4][2];
+  pred_mv(A, B, C0, pq[0]);
+  pred_mv(q0, TBR, C1, pq[1]);
+  pred_mv(LBR, q0, q1, pq[2]);
+  pred_mv(q2, q1, q0, pq[3]);
+  const Cell* qs[4] = {&q0, &q1, &q2, &q3};
+  int dq[4][2];
+  for (int q = 0; q < 4; ++q) {
+    dq[q][0] = qs[q]->x - pq[q][0];
+    dq[q][1] = qs[q]->y - pq[q][1];
+  }
+  for (int k = 0; k < 2; ++k) {
+    if (o.ptype == 3) {
+      d[0][k] = dq[0][k];
+      d[1][k] = dq[1][k];
+    }
+    d[2][k] = dq[2][k];
+    d[3][k] = dq[3][k];
+  }
+}
+
+__device__ __forceinline__ bool is_i4_mb(const Io& io, const Params& P,
+                                         int j) {
+  const bool inter = P.kind == SL_P   ? io.is_inter[j] != 0
+                     : P.kind == SL_B ? io.btype[j] != 4
+                                      : false;
+  return io.sel16[j] == 0 && !inter;
+}
+
+// the zig-zag index of the 4x4 block at (by, bx) (`BLK_ORDER`'s inverse)
+__device__ __forceinline__ int zz_of(int by, int bx) {
+  return 8 * (by >> 1) + 4 * (bx >> 1) + 2 * (by & 1) + (bx & 1);
+}
+
+// the mode grid of `mpm_grid`: MB j's mode at (by, bx), -1 where MB j is
+// not Intra4x4
+__device__ __forceinline__ int mode_at(const Io& io, const Params& P, int j,
+                                       int by, int bx) {
+  return is_i4_mb(io, P, j) ? io.modes[16 * j + zz_of(by, bx)] : -1;
+}
+
+// the most probable mode of block `idx` (zig-zag) of MB m (spec 8.3.1.1,
+// `mpm_grid`): DC where a neighbour is not Intra4x4, DC where one is not
+// available (the picture's left edge, the top of a slice)
+__device__ int mpm_of(const Io& io, const Params& P, int m, int idx,
+                      bool top_ok, const int32_t* tab) {
+  const int pos = tab[T_BLK + idx];
+  const int by = pos >> 2, bx = pos & 3;
+  const int c = m % P.wm;
+  const int left = bx > 0 ? mode_at(io, P, m, by, bx - 1)
+                   : c > 0 ? mode_at(io, P, m - 1, by, 3)
+                           : UNAVAIL;
+  const int top = by > 0   ? mode_at(io, P, m, by - 1, bx)
+                  : top_ok ? mode_at(io, P, m - P.wm, 3, bx)
+                           : UNAVAIL;
+  const int a = left == -1 ? 2 : left, b = top == -1 ? 2 : top;
+  return (a < 0 || b < 0) ? 2 : min(a, b);
+}
 
 // ---- the macroblock's own flags (the state pass and the walk) ----
 
@@ -112,16 +393,9 @@ struct Mb {
   int btype;
 };
 
-__device__ bool any_nz(const int32_t* p, int n) {
-  for (int i = 0; i < n; ++i)
-    if (p[i] != 0) return true;
-  return false;
-}
-
-// `st`: the MB's state record, whose coded_block_pattern is the whole one
-// (a skipped MB has none); null in the state pass, which derives it
-__device__ Mb mb_flags(const Io& io, const Params& P, int m,
-                       const int32_t* st) {
+// (cl, cc): the MB's whole coded_block_pattern (a skipped MB has none)
+__device__ Mb mb_flags(const Io& io, const Params& P, int m, int cl,
+                       int cc) {
   Mb b;
   b.btype = 0;
   b.partd = false;
@@ -152,21 +426,7 @@ __device__ Mb mb_flags(const Io& io, const Params& P, int m,
     b.is_inter = false;
   }
   b.sel16 = io.sel16[m] != 0 && !b.is_inter;
-  int cl, cc;
-  if (st != nullptr) {
-    cl = (st[0] >> 4) & 15;
-    cc = (st[0] >> 8) & 3;
-  } else {
-    // coded_block_pattern (`compute_cbp`): every position of every block
-    const int32_t* lac = io.luma_ac + (size_t)m * 256;
-    cl = 0;
-    for (int b8 = 0; b8 < 4; ++b8)
-      if (any_nz(lac + b8 * 64, 64)) cl |= 1 << b8;
-    if (b.sel16 && cl > 0) cl = 15;
-    cc = any_nz(io.chroma_ac + (size_t)m * 128, 128) ? 2
-         : any_nz(io.chroma_dc + (size_t)m * 8, 8)   ? 1
-                                                     : 0;
-  }
+  if (b.sel16 && cl > 0) cl = 15;
   b.cbp_luma = cl;
   b.cbp_chroma = cc;
   b.cbp = cl | (cc << 4);
@@ -191,101 +451,181 @@ __device__ Mb mb_flags(const Io& io, const Params& P, int m,
   return b;
 }
 
-// |mvd| of the partitions of list `l`: a[part][comp], 0 where not coded
-struct Amvd {
-  int a[4][2];
-  bool on[4];
-};
-
-__device__ Amvd mvd_abs(const Io& io, const Params& P, const Mb& b, int m,
-                        int l) {
-  Amvd r;
-  const int32_t* d = io.mvds + (size_t)m * 16 + l * 8;
+// the partitions of list `l` whose mvd is coded
+__device__ void mvd_on(const Params& P, const Mb& b, int l, bool on[4]) {
   if (P.kind == SL_P) {
-    r.on[0] = b.coded && b.is_inter;
-    r.on[1] = r.on[0] && b.ptype > 0;
-    r.on[2] = r.on[3] = P.p8x8 && r.on[0] && b.ptype == 3;
+    on[0] = l == 0 && b.coded && b.is_inter;
+    on[1] = on[0] && b.ptype > 0;
+    on[2] = on[3] = P.p8x8 && on[0] && b.ptype == 3;
   } else {
-    r.on[0] = b.coded && b.exp[l];
-    r.on[1] = b.coded && b.exp_b[l] && b.partd;
-    r.on[2] = r.on[3] = false;
+    on[0] = b.coded && b.exp[l];
+    on[1] = b.coded && b.exp_b[l] && b.partd;
+    on[2] = on[3] = false;
   }
+}
+
+// |mvd| of the partitions of list `l` (`d`: its mvds), 0 where not coded
+__device__ void mvd_abs(const Params& P, const Mb& b, int l, const int* d,
+                        int a[4][2]) {
+  bool on[4];
+  mvd_on(P, b, l, on);
   for (int q = 0; q < 4; ++q)
-    for (int c = 0; c < 2; ++c) r.a[q][c] = r.on[q] ? iabs(d[2 * q + c]) : 0;
-  return r;
+    for (int c = 0; c < 2; ++c) a[q][c] = on[q] ? iabs(d[2 * q + c]) : 0;
 }
 
 // the boundary cells tr, bl, br of a list: the partition covering each
-__device__ void cells(const Params& P, const Mb& b, const Amvd& a,
+__device__ void cells(const Params& P, const Mb& b, const int a[4][2],
                       int out[3][2]) {
   const int pt = b.ptype;
   for (int c = 0; c < 2; ++c) {
     if (P.kind == SL_P) {
-      out[0][c] = (pt == 2 || pt == 3) ? a.a[1][c] : a.a[0][c];
-      out[1][c] = pt == 1 ? a.a[1][c] : a.a[0][c];
-      out[2][c] = pt > 0 ? a.a[1][c] : a.a[0][c];
+      out[0][c] = (pt == 2 || pt == 3) ? a[1][c] : a[0][c];
+      out[1][c] = pt == 1 ? a[1][c] : a[0][c];
+      out[2][c] = pt > 0 ? a[1][c] : a[0][c];
       if (P.p8x8 && pt == 3) {
-        out[1][c] = a.a[2][c];
-        out[2][c] = a.a[3][c];
+        out[1][c] = a[2][c];
+        out[2][c] = a[3][c];
       }
     } else {
-      out[0][c] = pt == 2 ? a.a[1][c] : a.a[0][c];
-      out[1][c] = pt == 1 ? a.a[1][c] : a.a[0][c];
-      out[2][c] = pt > 0 ? a.a[1][c] : a.a[0][c];
+      out[0][c] = pt == 2 ? a[1][c] : a[0][c];
+      out[1][c] = pt == 1 ? a[1][c] : a[0][c];
+      out[2][c] = pt > 0 ? a[1][c] : a[0][c];
     }
   }
 }
 
-// ---- (a) the state pass ----
+// ---- a macroblock's coefficients in shared memory and their masks ----
+
+// the coefficient at word i of the shared layout (C_*)
+__device__ __forceinline__ int32_t coef_src(const Io& io, int m, int i) {
+  if (i < C_CAC) return io.luma_ac[(size_t)m * 256 + i];
+  if (i < C_LDC) return io.chroma_ac[(size_t)m * 128 + (i - C_CAC)];
+  if (i < C_CDC) return io.luma_dc[(size_t)m * 16 + (i - C_LDC)];
+  return io.chroma_dc[(size_t)m * 8 + (i - C_CDC)];
+}
+
+// a warp's MB in shared memory: its coefficients and their masks
+struct MbShared {
+  int32_t coef[kCoefWords];           // the C_* layout
+  unsigned mask[kMaskWords];          // bit lane of word k: coef[32 k + lane]
+};
+
+// the warp loads MB m's coefficients (neighbouring lanes on neighbouring
+// words) into `sh` and takes the nonzero mask of each 32 of them
+__device__ void load_mb(const Io& io, int m, MbShared& sh, int lane) {
+#pragma unroll
+  for (int k = 0; k < kMaskWords; ++k) {
+    const int i = 32 * k + lane;
+    const int32_t v = i < kCoefWords ? coef_src(io, m, i) : 0;
+    if (i < kCoefWords) sh.coef[i] = v;
+    const unsigned bits = __ballot_sync(kFull, v != 0);
+    if (lane == 0) sh.mask[k] = bits;
+  }
+  __syncwarp();
+}
+
+// the 16-bit nonzero mask of luma 4x4 block i and of chroma AC block j
+__device__ __forceinline__ unsigned luma_mask(const unsigned* mask, int i) {
+  return (mask[i >> 1] >> (16 * (i & 1))) & 0xffffu;
+}
+__device__ __forceinline__ unsigned cac_mask(const unsigned* mask, int j) {
+  return (mask[8 + (j >> 1)] >> (16 * (j & 1))) & 0xffffu;
+}
+__device__ __forceinline__ unsigned ldc_mask(const unsigned* mask) {
+  return mask[12] & 0xffffu;
+}
+__device__ __forceinline__ unsigned cdc_mask(const unsigned* mask, int comp) {
+  return (mask[12] >> (16 + 4 * comp)) & 0xfu;
+}
+
+// coded_block_pattern (`compute_cbp`) before the I16x16 rule
+__device__ void cbp_of(const unsigned* mask, int& cl, int& cc) {
+  cl = 0;
+  for (int b8 = 0; b8 < 4; ++b8)
+    if (mask[2 * b8] | mask[2 * b8 + 1]) cl |= 1 << b8;
+  cc = (mask[8] | mask[9] | mask[10] | mask[11]) ? 2
+       : ((mask[12] >> 16) & 0xffu)              ? 1
+                                                 : 0;
+}
+
+// ---- (a) the state pass (and the CAVLC serializers' derive pass) ----
 // word 0: kind | t8v << 3 | cbp_luma << 4 | cbp_chroma << 8 | chroma
 //   pred bit << 10 | luma DC cbf << 11 | chroma DC
 //   cbf << 12 + comp | chroma AC cbf << 14 + 4 comp + idx;
 // word 1: the 16 luma 4x4 cbf bits by position by * 4 + bx;
 // words 2 + 6 l + 2 cell + comp: |mvd| of list l's cell (tr, bl, br),
 //   at most 255 (its contexts only ask < 3 and <= 32 of a sum).
-__global__ void state_kernel(Io io, Params P) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n = P.wm * P.hm;
-  if (m >= n) return;
-  const Mb b = mb_flags(io, P, m, nullptr);
-  const int32_t* lac = io.luma_ac + (size_t)m * 256;
+// Lanes 2-13 fetch the neighbours' cells of both lists, then lanes 0 and
+// 1 derive list 0's and list 1's mvds; lanes 16-31 the most probable
+// modes of blocks 0-15.
+__global__ void __launch_bounds__(kWarps * 32) state_kernel(Io io, Params P) {
+  __shared__ MbShared mb_s[kWarps];
+  __shared__ Cell cell_s[kWarps][2][kNbCells];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kWarps + warp;
+  if (m >= P.wm * P.hm * P.pics) return;  // whole warps: no block barrier
+  const int r = m / P.wm % P.hm;      // the row in its picture
+  const bool top_ok = r > P.rows[slice_of(P, r)];
+  const int nl = P.kind == SL_B ? 2 : (P.kind == SL_P ? 1 : 0);
+  if (lane >= 2 && lane < 2 + nl * kNbCells) {
+    const int l = (lane - 2) / kNbCells, i = (lane - 2) % kNbCells;
+    cell_s[warp][l][i] = nb_cell(io, P, m, top_ok, l, i);
+  }
+  __syncwarp();
+  int d[4][2];
+  const bool mvd_lane = lane < 2 && P.kind != SL_I;
+  if (mvd_lane) {
+    derive_mvds(io, P, m, lane, cell_s[warp][lane], d);
+    int32_t* o = io.mvds + (size_t)m * 16 + lane * 8;
+    for (int q = 0; q < 4; ++q)
+      for (int c = 0; c < 2; ++c) o[2 * q + c] = d[q][c];
+  }
+  if (lane >= 16)
+    io.mpm[(size_t)m * 16 + lane - 16] =
+        mpm_of(io, P, m, lane - 16, top_ok, io.tables);
+  if (io.state == nullptr) return;
+  load_mb(io, m, mb_s[warp], lane);
+  const unsigned* mask = mb_s[warp].mask;
+  int cl, cc;
+  cbp_of(mask, cl, cc);
+  const Mb b = mb_flags(io, P, m, cl, cc);
+  int32_t* st = io.state + (size_t)m * kStateWords;
+  if (lane < 2) {
+    int c3[3][2] = {{0, 0}, {0, 0}, {0, 0}};
+    if (mvd_lane) {
+      int a[4][2];
+      mvd_abs(P, b, lane, &d[0][0], a);
+      cells(P, b, a, c3);
+    }
+    for (int k = 0; k < 3; ++k)
+      for (int comp = 0; comp < 2; ++comp)
+        st[2 + 6 * lane + 2 * k + comp] = min(c3[k][comp], 255);
+  }
+  if (lane != 0) return;
   // a skipped MB's cbp is 0: the neighbours' (0 where not coded) and the
   // whole one are the same
   int w0 = b.kind | (b.t8v << 3) | (b.cbp_luma << 4) | (b.cbp_chroma << 8);
   if (!b.is_inter && io.cmode[m] != 0) w0 |= 1 << 10;
-  if (b.sel16 && b.coded && any_nz(io.luma_dc + (size_t)m * 16, 16))
-    w0 |= 1 << 11;
+  if (b.sel16 && b.coded && ldc_mask(mask)) w0 |= 1 << 11;
   for (int comp = 0; comp < 2; ++comp) {
-    if (any_nz(io.chroma_dc + (size_t)m * 8 + comp * 4, 4) &&
-        b.cbp_chroma >= 1 && b.coded)
+    if (cdc_mask(mask, comp) && b.cbp_chroma >= 1 && b.coded)
       w0 |= 1 << (12 + comp);
     for (int idx = 0; idx < 4; ++idx)
-      if (b.cbp_chroma == 2 && b.coded &&
-          any_nz(io.chroma_ac + (size_t)m * 128 + (comp * 4 + idx) * 16 + 1,
-                 15))
+      if (b.cbp_chroma == 2 && b.coded && (cac_mask(mask, comp * 4 + idx) >> 1))
         w0 |= 1 << (14 + 4 * comp + idx);
   }
   int w1 = 0;
   for (int idx = 0; idx < 16; ++idx) {
     const bool bit8 = (b.cbp_luma >> (idx / 4)) & 1;
-    bool l4 = b.sel16 ? any_nz(lac + idx * 16 + 1, 15) && b.cbp_luma > 0
-                      : any_nz(lac + idx * 16, 16) && bit8;
+    const unsigned blk = luma_mask(mask, idx);
+    bool l4 = b.sel16 ? (blk >> 1) != 0 && b.cbp_luma > 0 : blk != 0 && bit8;
     l4 = l4 && b.coded;
     if (b.t8v) l4 = bit8;
     if (l4) w1 |= 1 << io.tables[T_BLK + idx];
   }
-  int32_t* st = io.state + (size_t)m * kStateWords;
   st[0] = w0;
   st[1] = w1;
-  for (int l = 0; l < 2; ++l) {
-    int c[3][2] = {{0, 0}, {0, 0}, {0, 0}};
-    if (P.kind != SL_I && (l == 0 || P.kind == SL_B))
-      cells(P, b, mvd_abs(io, P, b, m, l), c);
-    for (int k = 0; k < 3; ++k)
-      for (int comp = 0; comp < 2; ++comp)
-        st[2 + 6 * l + 2 * k + comp] = min(c[k][comp], 255);
-  }
-  for (int w = 14; w < kStateWords; ++w) st[w] = 0;
+  st[14] = st[15] = 0;
 }
 
 // ---- the sinks and the record rows ----
@@ -360,18 +700,16 @@ __device__ void level_rows(Emit<S>& e, uint64_t nz, const Get& get,
   }
 }
 
-// a 4x4-style block of `mc` coefficients at p[0..mc) (`_residual_group`)
+// a 4x4-style block of `mc` coefficients at p[0..mc) whose nonzero
+// positions are `nz` (`_residual_group`)
 template <class S>
-__device__ void residual(Emit<S>& e, const int32_t* p, int mc, int sig,
-                         int last_b, int lvl, int cbf_ctx, bool coded,
-                         bool cdc_inc) {
-  uint64_t nz = 0;
-  if (coded)
-    for (int i = 0; i < mc; ++i)
-      if (p[i] != 0) nz |= 1ull << i;
+__device__ void residual(Emit<S>& e, const int32_t* p, int mc, unsigned nz,
+                         int sig, int last_b, int lvl, int cbf_ctx,
+                         bool coded, bool cdc_inc) {
+  if (!coded) nz = 0;
   e.ctx(cbf_ctx, nz != 0, coded);
   if (!coded || nz == 0) return;
-  const int last = 63 - __clzll((long long)nz);
+  const int last = 31 - __clz((int)nz);
   for (int i = 0; i < 15 && i <= last && i <= mc - 2; ++i) {
     const int inc = cdc_inc ? min(i, 2) : i;
     const bool s = (nz >> i) & 1;
@@ -384,14 +722,16 @@ __device__ void residual(Emit<S>& e, const int32_t* p, int mc, int sig,
 // a cat-5 luma 8x8 block (`_residual_group8`): position 4 k + i is
 // coefficient k of the 4x4 block 4 b8 + i
 template <class S>
-__device__ void residual8(Emit<S>& e, const int32_t* lac, int b8, bool on,
-                          const int32_t* tab) {
+__device__ void residual8(Emit<S>& e, const int32_t* sh, const unsigned* mask,
+                          int b8, bool on, const int32_t* tab) {
   if (!on) return;
-  const int32_t* base = lac + b8 * 64;
+  const int32_t* base = sh + C_LAC + b8 * 64;
   auto get = [base](int q) { return base[(q & 3) * 16 + (q >> 2)]; };
+  unsigned sub[4];
+  for (int i = 0; i < 4; ++i) sub[i] = luma_mask(mask, 4 * b8 + i);
   uint64_t nz = 0;
   for (int q = 0; q < 64; ++q)
-    if (get(q) != 0) nz |= 1ull << q;
+    nz |= (uint64_t)((sub[q & 3] >> (q >> 2)) & 1u) << q;
   if (nz == 0) return;
   const int last = 63 - __clzll((long long)nz);
   for (int i = 0; i < 63 && i <= last; ++i) {
@@ -423,41 +763,44 @@ __device__ void mvd_rows(Emit<S>& e, const int32_t* d, const int s[2],
   }
 }
 
-struct Nb {
-  bool av_l, av_t;
-  const int32_t* l;                   // left neighbour's state
-  const int32_t* t;                   // top neighbour's state
-};
-
 __device__ __forceinline__ int kind_of(int w0) { return w0 & 7; }
 
-// one macroblock's records in the plain version's slot order
+// what every lane of a macroblock's warp knows of it
+struct MbCtx {
+  int m;
+  bool av_l, av_t, last_of_slice;
+  const int32_t* own;                 // the MB's state
+  const int32_t* l;                   // left neighbour's state
+  const int32_t* t;                   // top neighbour's state
+  int lw0, tw0, lk, tk;
+  Mb b;
+  const int32_t* sh;                  // the coefficients (C_* layout)
+  const unsigned* mask;               // their nonzero masks
+};
+
+// lane 0's piece: the header, mb_skip_flag to mb_qp_delta
 template <class S>
-__device__ void walk_mb(Emit<S>& e, const Io& io, const Params& P,
-                        const int32_t* tab, int m, const Nb& nb,
-                        bool last_of_slice) {
-  const int32_t* own = io.state + (size_t)m * kStateWords;
-  const Mb b = mb_flags(io, P, m, own);
-  const int lw0 = nb.av_l ? nb.l[0] : 0, tw0 = nb.av_t ? nb.t[0] : 0;
-  const int lk = nb.av_l ? kind_of(lw0) : -1;
-  const int tk = nb.av_t ? kind_of(tw0) : -1;
+__device__ void walk_header(Emit<S>& e, const Io& io, const Params& P,
+                            const int32_t* tab, const MbCtx& x) {
+  const Mb& b = x.b;
+  const int m = x.m, lw0 = x.lw0, tw0 = x.tw0, lk = x.lk, tk = x.tk;
   const bool is_i4 = !b.sel16 && !b.is_inter;
   const bool intra_coded = b.coded && !b.is_inter;
-  const int t8_inc = (nb.av_l ? (lw0 >> 3) & 1 : 0) +
-                     (nb.av_t ? (tw0 >> 3) & 1 : 0);
+  const int t8_inc = (x.av_l ? (lw0 >> 3) & 1 : 0) +
+                     (x.av_t ? (tw0 >> 3) & 1 : 0);
 
   // ---- mb_skip_flag ----
   if (P.kind != SL_I)
-    e.ctx((P.kind == SL_B ? 24 : 11) + (nb.av_l && lk != K_SKIP) +
-              (nb.av_t && tk != K_SKIP),
+    e.ctx((P.kind == SL_B ? 24 : 11) + (x.av_l && lk != K_SKIP) +
+              (x.av_t && tk != K_SKIP),
           b.skipped, true);
 
   // ---- mb_type ----
   int first_ctx, rest[5];
   if (P.kind == SL_B) {
     const bool explicit_ = b.coded && !b.is_direct;
-    const int nd = (nb.av_l && lk != K_SKIP && lk != K_DIRECT) +
-                   (nb.av_t && tk != K_SKIP && tk != K_DIRECT);
+    const int nd = (x.av_l && lk != K_SKIP && lk != K_DIRECT) +
+                   (x.av_t && tk != K_SKIP && tk != K_DIRECT);
     e.ctx(27 + nd, !b.is_direct, b.coded);
     const bool one_list =
         explicit_ && b.is_inter && (b.btype == 0 || b.btype == 1);
@@ -519,7 +862,7 @@ __device__ void walk_mb(Emit<S>& e, const Io& io, const Params& P,
 
   // ---- intra_chroma_pred_mode ----
   const int cmode = io.cmode[m];
-  e.ctx(64 + (nb.av_l ? (lw0 >> 10) & 1 : 0) + (nb.av_t ? (tw0 >> 10) & 1 : 0),
+  e.ctx(64 + (x.av_l ? (lw0 >> 10) & 1 : 0) + (x.av_t ? (tw0 >> 10) & 1 : 0),
         cmode != 0, intra_coded);
   e.ctx(67, cmode > 1, intra_coded && cmode != 0);
   e.ctx(67, cmode == 3, intra_coded && cmode > 1);
@@ -528,24 +871,27 @@ __device__ void walk_mb(Emit<S>& e, const Io& io, const Params& P,
   // and q3; the contexts sum the |mvd| of the left and top 4x4 cells ----
   if (P.kind != SL_I) {
     for (int l = 0; l < (P.kind == SL_B ? 2 : 1); ++l) {
-      const Amvd a = mvd_abs(io, P, b, m, l);
       const int32_t* d = io.mvds + (size_t)m * 16 + l * 8;
-      const int* lc = nb.l + 2 + 6 * l;    // left cells tr, bl, br
-      const int* tc = nb.t + 2 + 6 * l;
+      bool on[4];
+      mvd_on(P, b, l, on);
+      int a[4][2];
+      mvd_abs(P, b, l, d, a);
+      const int* lc = x.l + 2 + 6 * l;    // left cells tr, bl, br
+      const int* tc = x.t + 2 + 6 * l;
       int s[2];
       for (int c = 0; c < 2; ++c)
-        s[c] = (nb.av_l ? lc[0 + c] : 0) + (nb.av_t ? tc[2 + c] : 0);
-      mvd_rows(e, d, s, a.on[0]);
+        s[c] = (x.av_l ? lc[0 + c] : 0) + (x.av_t ? tc[2 + c] : 0);
+      mvd_rows(e, d, s, on[0]);
       for (int c = 0; c < 2; ++c)
-        s[c] = b.ptype == 1 ? (nb.av_l ? lc[4 + c] : 0) + a.a[0][c]
-                            : a.a[0][c] + (nb.av_t ? tc[4 + c] : 0);
-      mvd_rows(e, d + 2, s, a.on[1]);
+        s[c] = b.ptype == 1 ? (x.av_l ? lc[4 + c] : 0) + a[0][c]
+                            : a[0][c] + (x.av_t ? tc[4 + c] : 0);
+      mvd_rows(e, d + 2, s, on[1]);
       if (P.kind == SL_P && P.p8x8) {
         for (int c = 0; c < 2; ++c)
-          s[c] = (nb.av_l ? lc[4 + c] : 0) + a.a[0][c];
-        mvd_rows(e, d + 4, s, a.on[2]);
-        for (int c = 0; c < 2; ++c) s[c] = a.a[2][c] + a.a[1][c];
-        mvd_rows(e, d + 6, s, a.on[3]);
+          s[c] = (x.av_l ? lc[4 + c] : 0) + a[0][c];
+        mvd_rows(e, d + 4, s, on[2]);
+        for (int c = 0; c < 2; ++c) s[c] = a[2][c] + a[1][c];
+        mvd_rows(e, d + 6, s, on[3]);
       }
     }
   }
@@ -553,16 +899,16 @@ __device__ void walk_mb(Emit<S>& e, const Io& io, const Params& P,
   // ---- coded_block_pattern ----
   const bool on_cbp = b.coded && !b.sel16;
   const int lcl = (lw0 >> 4) & 15, tcl = (tw0 >> 4) & 15;
-  auto cond_l = [&](int bit) { return nb.av_l && !((lcl >> bit) & 1); };
-  auto cond_t = [&](int bit) { return nb.av_t && !((tcl >> bit) & 1); };
+  auto cond_l = [&](int bit) { return x.av_l && !((lcl >> bit) & 1); };
+  auto cond_t = [&](int bit) { return x.av_t && !((tcl >> bit) & 1); };
   auto own_z = [&](int bit) { return (int)!((b.cbp >> bit) & 1); };
   e.ctx(73 + cond_l(1) + 2 * cond_t(2), b.cbp & 1, on_cbp);
   e.ctx(73 + own_z(0) + 2 * cond_t(3), (b.cbp >> 1) & 1, on_cbp);
   e.ctx(73 + cond_l(3) + 2 * own_z(0), (b.cbp >> 2) & 1, on_cbp);
   e.ctx(73 + own_z(2) + 2 * own_z(1), (b.cbp >> 3) & 1, on_cbp);
   const int cc = b.cbp >> 4;
-  const int lcc = nb.av_l ? (lw0 >> 8) & 3 : 0;
-  const int tcc = nb.av_t ? (tw0 >> 8) & 3 : 0;
+  const int lcc = x.av_l ? (lw0 >> 8) & 3 : 0;
+  const int tcc = x.av_t ? (tw0 >> 8) & 3 : 0;
   e.ctx(77 + (lcc != 0) + 2 * (tcc != 0), cc != 0, on_cbp);
   e.ctx(81 + (lcc == 2) + 2 * (tcc == 2), max(cc - 1, 0), on_cbp && cc != 0);
 
@@ -572,90 +918,108 @@ __device__ void walk_mb(Emit<S>& e, const Io& io, const Params& P,
 
   // ---- mb_qp_delta (always 0 in this encoder) ----
   e.ctx(60, 0, b.coded && (b.sel16 || b.cbp > 0));
+}
 
-  // ---- residual blocks; an unavailable neighbour counts as coded for an
-  // intra MB and as not coded for an inter one ----
+// the piece of lane `lane` of a macroblock's warp, in the plain version's
+// slot order: 0 the header; 1 the I16x16 luma DC; 2-17 the 16 luma
+// blocks in coding order; 18-21 the luma 8x8 blocks; 22-23 chroma DC;
+// 24-31 chroma AC, and after it on lane 31 end_of_slice_flag.  An
+// unavailable neighbour counts as coded for an intra MB and as not coded
+// for an inter one.
+template <class S>
+__device__ void walk_lane(S& sink, const Io& io, const Params& P,
+                          const int32_t* tab, const MbCtx& x, int lane) {
+  Emit<S> e{sink};
+  if (lane == 0) {
+    walk_header(e, io, P, tab, x);
+    return;
+  }
+  const Mb& b = x.b;
+  const int lw0 = x.lw0, tw0 = x.tw0;
   const int ic = !b.is_inter;
-  const int32_t* lac = io.luma_ac + (size_t)m * 256;
-  {  // I16 luma DC (cat 0)
-    const int ca = nb.av_l ? (lk == K_I16 ? (lw0 >> 11) & 1 : 0) : 1;
-    const int cb = nb.av_t ? (tk == K_I16 ? (tw0 >> 11) & 1 : 0) : 1;
-    residual(e, io.luma_dc + (size_t)m * 16, 16, 105 + tab[T_SIG + 0],
+  if (lane == 1) {  // I16 luma DC (cat 0)
+    const int ca = x.av_l ? (x.lk == K_I16 ? (lw0 >> 11) & 1 : 0) : 1;
+    const int cb = x.av_t ? (x.tk == K_I16 ? (tw0 >> 11) & 1 : 0) : 1;
+    residual(e, x.sh + C_LDC, 16, ldc_mask(x.mask), 105 + tab[T_SIG + 0],
              166 + tab[T_SIG + 0], 227 + tab[T_LVL + 0],
              85 + tab[T_CBF + 0] + ca + 2 * cb, b.coded && b.sel16, false);
-  }
-  {  // 16 luma blocks in coding order (a t8 MB's come in its 8x8 groups)
+  } else if (lane < 18) {  // luma blocks (a t8 MB's come in its 8x8 groups)
+    const int idx = lane - 2;
     const int cat = b.sel16 ? 1 : 2;
-    const int w1 = own[1];
-    const int lw1 = nb.av_l ? nb.l[1] : 0, tw1 = nb.av_t ? nb.t[1] : 0;
-    for (int idx = 0; idx < 16; ++idx) {
-      const int pos = tab[T_BLK + idx];
-      const int by = pos >> 2, bx = pos & 3;
-      const int ca = bx > 0 ? (w1 >> (pos - 1)) & 1
-                     : nb.av_l ? (lw1 >> (by * 4 + 3)) & 1 : ic;
-      const int cb = by > 0 ? (w1 >> (pos - 4)) & 1
-                     : nb.av_t ? (tw1 >> (12 + bx)) & 1 : ic;
-      const bool coded_blk =
-          b.coded && !b.t8v &&
-          ((b.sel16 && b.cbp_luma > 0) ||
-           (!b.sel16 && ((b.cbp_luma >> (idx / 4)) & 1)));
-      residual(e, lac + idx * 16 + (b.sel16 ? 1 : 0), b.sel16 ? 15 : 16,
-               105 + tab[T_SIG + cat], 166 + tab[T_SIG + cat],
-               227 + tab[T_LVL + cat], 85 + tab[T_CBF + cat] + ca + 2 * cb,
-               coded_blk, false);
-    }
-  }
-  if (P.t8_mode)
-    for (int b8 = 0; b8 < 4; ++b8)
-      residual8(e, lac, b8, b.t8v && ((b.cbp_luma >> b8) & 1), tab);
-  for (int comp = 0; comp < 2; ++comp) {  // chroma DC (cat 3)
-    const int ca = nb.av_l ? (lcc != 0 ? (lw0 >> (12 + comp)) & 1 : 0) : ic;
-    const int cb = nb.av_t ? (tcc != 0 ? (tw0 >> (12 + comp)) & 1 : 0) : ic;
-    residual(e, io.chroma_dc + (size_t)m * 8 + comp * 4, 4,
+    const int w1 = x.own[1];
+    const int lw1 = x.av_l ? x.l[1] : 0, tw1 = x.av_t ? x.t[1] : 0;
+    const int pos = tab[T_BLK + idx];
+    const int by = pos >> 2, bx = pos & 3;
+    const int ca = bx > 0 ? (w1 >> (pos - 1)) & 1
+                   : x.av_l ? (lw1 >> (by * 4 + 3)) & 1 : ic;
+    const int cb = by > 0 ? (w1 >> (pos - 4)) & 1
+                   : x.av_t ? (tw1 >> (12 + bx)) & 1 : ic;
+    const bool coded_blk =
+        b.coded && !b.t8v &&
+        ((b.sel16 && b.cbp_luma > 0) ||
+         (!b.sel16 && ((b.cbp_luma >> (idx / 4)) & 1)));
+    const unsigned nz = luma_mask(x.mask, idx);
+    residual(e, x.sh + C_LAC + idx * 16 + (b.sel16 ? 1 : 0),
+             b.sel16 ? 15 : 16, b.sel16 ? nz >> 1 : nz,
+             105 + tab[T_SIG + cat], 166 + tab[T_SIG + cat],
+             227 + tab[T_LVL + cat], 85 + tab[T_CBF + cat] + ca + 2 * cb,
+             coded_blk, false);
+  } else if (lane < 22) {
+    const int b8 = lane - 18;
+    if (P.t8_mode)
+      residual8(e, x.sh, x.mask, b8, b.t8v && ((b.cbp_luma >> b8) & 1), tab);
+  } else if (lane < 24) {  // chroma DC (cat 3)
+    const int comp = lane - 22;
+    const int lcc = x.av_l ? (lw0 >> 8) & 3 : 0;
+    const int tcc = x.av_t ? (tw0 >> 8) & 3 : 0;
+    const int ca = x.av_l ? (lcc != 0 ? (lw0 >> (12 + comp)) & 1 : 0) : ic;
+    const int cb = x.av_t ? (tcc != 0 ? (tw0 >> (12 + comp)) & 1 : 0) : ic;
+    residual(e, x.sh + C_CDC + comp * 4, 4, cdc_mask(x.mask, comp),
              105 + tab[T_SIG + 3], 166 + tab[T_SIG + 3], 227 + tab[T_LVL + 3],
              85 + tab[T_CBF + 3] + ca + 2 * cb,
              b.coded && b.cbp_chroma >= 1, true);
-  }
-  const int w0 = own[0];
-  for (int comp = 0; comp < 2; ++comp) {  // chroma AC (cat 4)
+  } else {  // chroma AC (cat 4)
+    const int j = lane - 24, comp = j >> 2, idx = j & 3;
+    const int w0 = x.own[0];
     const int sh = 14 + 4 * comp;
-    for (int idx = 0; idx < 4; ++idx) {
-      const int by = idx >> 1, bx = idx & 1;
-      const int ca = bx > 0 ? (w0 >> (sh + idx - 1)) & 1
-                     : nb.av_l ? (lw0 >> (sh + idx + 1)) & 1 : ic;
-      const int cb = by > 0 ? (w0 >> (sh + idx - 2)) & 1
-                     : nb.av_t ? (tw0 >> (sh + idx + 2)) & 1 : ic;
-      residual(e, io.chroma_ac + (size_t)m * 128 + (comp * 4 + idx) * 16 + 1,
-               15, 105 + tab[T_SIG + 4], 166 + tab[T_SIG + 4],
-               227 + tab[T_LVL + 4], 85 + tab[T_CBF + 4] + ca + 2 * cb,
-               b.coded && b.cbp_chroma == 2, false);
-    }
+    const int by = idx >> 1, bx = idx & 1;
+    const int ca = bx > 0 ? (w0 >> (sh + idx - 1)) & 1
+                   : x.av_l ? (lw0 >> (sh + idx + 1)) & 1 : ic;
+    const int cb = by > 0 ? (w0 >> (sh + idx - 2)) & 1
+                   : x.av_t ? (tw0 >> (sh + idx + 2)) & 1 : ic;
+    residual(e, x.sh + C_CAC + j * 16 + 1, 15, cac_mask(x.mask, j) >> 1,
+             105 + tab[T_SIG + 4], 166 + tab[T_SIG + 4],
+             227 + tab[T_LVL + 4], 85 + tab[T_CBF + 4] + ca + 2 * cb,
+             b.coded && b.cbp_chroma == 2, false);
+    // ---- end_of_slice_flag ----
+    if (lane == 31) e.term(x.last_of_slice, true);
   }
-
-  // ---- end_of_slice_flag ----
-  e.term(last_of_slice, true);
 }
 
-// the slice of MB row r
-__device__ int slice_of(const Params& P, int r) {
-  int s = 0;
-  while (s + 1 < P.n_slices && P.rows[s + 1] <= r) ++s;
-  return s;
-}
-
-template <class S>
-__device__ void walk(S& sink, const Io& io, const Params& P,
-                     const int32_t* tab, int m, int s) {
+// the warp of MB m (slice s) loads its coefficients and its neighbours'
+// state -> what every lane walks from
+__device__ MbCtx mb_ctx(const Io& io, const Params& P, int m, int s,
+                        MbShared& sh, int lane) {
+  load_mb(io, m, sh, lane);
+  MbCtx x;
+  x.m = m;
   const int r = m / P.wm, c = m % P.wm;
-  Nb nb;
-  nb.av_l = c > 0;
-  nb.av_t = r > P.rows[s];
+  x.av_l = c > 0;
+  x.av_t = r > P.rows[s];
+  x.last_of_slice = m == P.rows[s + 1] * P.wm - 1;
   // an unavailable neighbour's state is never read; point at our own
-  const int32_t* own = io.state + (size_t)m * kStateWords;
-  nb.l = nb.av_l ? own - kStateWords : own;
-  nb.t = nb.av_t ? own - (size_t)P.wm * kStateWords : own;
-  Emit<S> e{sink};
-  walk_mb(e, io, P, tab, m, nb, m == P.rows[s + 1] * P.wm - 1);
+  x.own = io.state + (size_t)m * kStateWords;
+  x.l = x.av_l ? x.own - kStateWords : x.own;
+  x.t = x.av_t ? x.own - (size_t)P.wm * kStateWords : x.own;
+  x.lw0 = x.av_l ? x.l[0] : 0;
+  x.tw0 = x.av_t ? x.t[0] : 0;
+  x.lk = x.av_l ? kind_of(x.lw0) : -1;
+  x.tk = x.av_t ? kind_of(x.tw0) : -1;
+  const int w0 = x.own[0];
+  x.b = mb_flags(io, P, m, (w0 >> 4) & 15, (w0 >> 8) & 3);
+  x.sh = sh.coef;
+  x.mask = sh.mask;
+  return x;
 }
 
 __device__ const int32_t* load_tables(const Io& io, int32_t* sh) {
@@ -666,14 +1030,23 @@ __device__ const int32_t* load_tables(const Io& io, int32_t* sh) {
 }
 
 // ---- (b) the count pass ----
-__global__ void count_kernel(Io io, Params P) {
+__global__ void __launch_bounds__(kWarps * 32) count_kernel(Io io, Params P) {
   __shared__ int32_t tab_s[kTableWords];
+  __shared__ MbShared mb_s[kWarps];
   const int32_t* tab = load_tables(io, tab_s);
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kWarps + warp;
   if (m >= P.wm * P.hm) return;
+  const MbCtx x = mb_ctx(io, P, m, slice_of(P, m / P.wm), mb_s[warp], lane);
   Counter cnt;
-  walk(cnt, io, P, tab, m, slice_of(P, m / P.wm));
-  io.mb_count[m] = cnt.n;
+  walk_lane(cnt, io, P, tab, x, lane);
+  int incl = cnt.n;                   // the warp's inclusive scan
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  io.lane_off[(size_t)m * 32 + lane] = incl - cnt.n;
+  if (lane == 31) io.mb_count[m] = incl;
 }
 
 // ---- (c) each slice's exclusive scan (one block) ----
@@ -690,7 +1063,7 @@ __global__ void scan_kernel(Io io, Params P) {
       const int v = m < hi ? io.mb_count[m] : 0;
       int x = v;                            // inclusive scan in the warp
       for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, d);
+        const int y = __shfl_up_sync(kFull, x, d);
         if (lane >= d) x += y;
       }
       if (lane == 31) warp_sums[warp] = x;
@@ -698,7 +1071,7 @@ __global__ void scan_kernel(Io io, Params P) {
       if (warp == 0) {
         int w = warp_sums[lane];
         for (int d = 1; d < 32; d <<= 1) {
-          const int y = __shfl_up_sync(0xffffffffu, w, d);
+          const int y = __shfl_up_sync(kFull, w, d);
           if (lane >= d) w += y;
         }
         warp_sums[lane] = w;                // inclusive over warps
@@ -718,39 +1091,32 @@ __global__ void scan_kernel(Io io, Params P) {
 }
 
 // ---- (d) the emit pass and the zeros past each slice's count ----
-__global__ void emit_kernel(Io io, Params P, int32_t* recs, int stride) {
+// Each lane writes its piece at its MB's offset plus its own (the count
+// pass's warp scan); no record lands past a row's end.
+__global__ void __launch_bounds__(kWarps * 32)
+    emit_kernel(Io io, Params P, int32_t* recs, int stride) {
   __shared__ int32_t tab_s[kTableWords];
+  __shared__ MbShared mb_s[kWarps];
   const int32_t* tab = load_tables(io, tab_s);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n = P.wm * P.hm;
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  const int m = blockIdx.x * kWarps + warp;
   if (m < n) {
     const int s = slice_of(P, m / P.wm);
-    const int off = io.mb_off[m];
+    const MbCtx x = mb_ctx(io, P, m, s, mb_s[warp], lane);
+    const int off = io.mb_off[m] + io.lane_off[(size_t)m * 32 + lane];
     Writer w{recs + (size_t)s * stride + off, 0, stride - off};
-    walk(w, io, P, tab, m, s);
+    walk_lane(w, io, P, tab, x, lane);
   }
-  const size_t total = (size_t)P.n_slices * stride;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int s = (int)(i / stride), k = (int)(i % stride);
-    if (k >= io.counts[s]) recs[i] = 0;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int threads = gridDim.x * blockDim.x;
+  for (int s = 0; s < P.n_slices; ++s) {
+    int32_t* row = recs + (size_t)s * stride;
+    for (int k = io.counts[s] + tid; k < stride; k += threads) row[k] = 0;
   }
 }
 
-}  // namespace
-
-// `ptrs`: the `kPtrs` device pointers of `Io` in its order (a null
-// pointer for an input the slice kind does not have); `params`: the host
-// int32 array of `kernels/cabac_records.py` `pack_params` (wm, hm, slice
-// kind, t8 mode, partitions, P_8x8, n_slices, then the n_slices + 1 row
-// bounds).  `emit` 0: launch the state, count and scan passes (`recs`
-// unused); `emit` 1: launch the emit pass into `recs` [n_slices, stride]
-// on the offsets and counts of the last scan, `stride` at least the
-// largest count.
-extern "C" int tpu264_cabac_records(void* const* ptrs, const int32_t* params,
-                                    int32_t* recs, int stride, int emit,
-                                    void* stream) {
-  Params p;
+int parse(void* const* ptrs, const int32_t* params, Io& io, Params& p) {
   const int32_t* q = params;
   p.wm = *q++;
   p.hm = *q++;
@@ -760,14 +1126,14 @@ extern "C" int tpu264_cabac_records(void* const* ptrs, const int32_t* params,
   p.p8x8 = *q++;
   p.n_slices = *q++;
   if (p.n_slices < 1 || p.n_slices > kMaxSlices || p.kind < SL_I ||
-      p.kind > SL_B || stride < 0)
+      p.kind > SL_B)
     return (int)cudaErrorInvalidValue;
   for (int s = 0; s <= p.n_slices; ++s) p.rows[s] = q[s];
   if (p.rows[0] != 0 || p.rows[p.n_slices] != p.hm)
     return (int)cudaErrorInvalidValue;
   for (int s = 0; s < p.n_slices; ++s)
     if (p.rows[s + 1] <= p.rows[s]) return (int)cudaErrorInvalidValue;
-  Io io;
+  p.pics = 1;
   void* const* a = ptrs;
   io.sel16 = (const uint8_t*)a[0];
   io.is_inter = (const uint8_t*)a[1];
@@ -786,28 +1152,92 @@ extern "C" int tpu264_cabac_records(void* const* ptrs, const int32_t* params,
   io.c0 = (const int32_t*)a[14];
   io.c1 = (const int32_t*)a[15];
   io.bptype = (const int32_t*)a[16];
-  io.mvds = (const int32_t*)a[17];
-  io.mpm = (const int32_t*)a[18];
-  io.tables = (const int32_t*)a[19];
-  io.state = (int32_t*)a[20];
-  io.mb_count = (int32_t*)a[21];
-  io.mb_off = (int32_t*)a[22];
-  io.counts = (int32_t*)a[23];
+  io.mv2 = (const int32_t*)a[17];
+  io.mvq = (const int32_t*)a[18];
+  io.use0 = (const uint8_t*)a[19];
+  io.use1 = (const uint8_t*)a[20];
+  io.mv0 = (const int32_t*)a[21];
+  io.mv1 = (const int32_t*)a[22];
+  io.mv0b = (const int32_t*)a[23];
+  io.mv1b = (const int32_t*)a[24];
+  io.tables = (const int32_t*)a[25];
+  io.mvds = (int32_t*)a[26];
+  io.mpm = (int32_t*)a[27];
+  io.state = (int32_t*)a[28];
+  io.mb_count = (int32_t*)a[29];
+  io.mb_off = (int32_t*)a[30];
+  io.lane_off = (int32_t*)a[31];
+  io.counts = (int32_t*)a[32];
+  return 0;
+}
+
+int mb_blocks(const Params& p) {
+  return (p.wm * p.hm * p.pics + kWarps - 1) / kWarps;
+}
+
+void launch_emit(const Io& io, const Params& p, int32_t* recs, int stride,
+                 cudaStream_t s) {
+  // enough blocks for the zeros too, four words a thread at least
+  const int threads = kWarps * 32;
+  const long long words = (long long)p.n_slices * stride;
+  long long zb = (words / 4 + threads - 1) / threads;
+  zb = zb > 4096 ? 4096 : zb;
+  const int blocks = mb_blocks(p);
+  emit_kernel<<<blocks > zb ? blocks : (int)zb, threads, 0, s>>>(io, p, recs,
+                                                                 stride);
+}
+
+}  // namespace
+
+// `ptrs`: the 33 device pointers of `Io` in its order (a null pointer
+// for an input the slice kind does not have; `mvds`, `mpm`, `state`,
+// `mb_count`, `mb_off`, `lane_off` and `counts` are written); `params`:
+// the host int32 array of `kernels/mb_preds.py` `pack_params` (wm, hm,
+// slice kind, t8 mode, partitions, P_8x8, n_slices, then the n_slices + 1
+// row bounds).  `emit_only` 0: launch the state, count, scan and emit
+// passes, the emit into `recs` [n_slices, stride]; 1: launch the emit pass
+// alone on the offsets and counts of the last scan (for rows wider than
+// the first emit's, `stride` at least the largest count).  Nothing is
+// read back: the caller reads the largest count, `counts[n_slices]`.
+extern "C" int tpu264_cabac_records(void* const* ptrs, const int32_t* params,
+                                    int32_t* recs, int stride, int emit_only,
+                                    void* stream) {
+  Io io;
+  Params p;
+  if (parse(ptrs, params, io, p) != 0 || stride < 0 || io.mpm == nullptr ||
+      io.state == nullptr || (p.kind != SL_I && io.mvds == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int n = p.wm * p.hm;
   if (n <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (n + kMbThreads - 1) / kMbThreads;
-  if (!emit) {
-    state_kernel<<<blocks, kMbThreads, 0, s>>>(io, p);
-    count_kernel<<<blocks, kMbThreads, 0, s>>>(io, p);
+  if (!emit_only) {
+    const int threads = kWarps * 32;
+    state_kernel<<<mb_blocks(p), threads, 0, s>>>(io, p);
+    count_kernel<<<mb_blocks(p), threads, 0, s>>>(io, p);
     scan_kernel<<<1, kScanThreads, 0, s>>>(io, p);
-    return (int)cudaGetLastError();
   }
-  // enough blocks for the zeros too, four words a thread at least
-  const long long words = (long long)p.n_slices * stride;
-  long long zb = (words / 4 + kMbThreads - 1) / kMbThreads;
-  zb = zb > 4096 ? 4096 : zb;
-  emit_kernel<<<blocks > zb ? blocks : (int)zb, kMbThreads, 0, s>>>(
-      io, p, recs, stride);
+  launch_emit(io, p, recs, stride, s);
+  return (int)cudaGetLastError();
+}
+
+// The CAVLC serializers' pass: the state kernel without a state buffer,
+// one launch, writing `mvds` (P, B) and `mpm` alone (`ptrs` as above,
+// `state` null) for `pics` pictures of the layout `params`, one after the
+// other in every input and output (a chunk of the batched all-intra
+// entry: at most kMaxSlices slices a picture, any number in the chunk).
+extern "C" int tpu264_mb_preds(void* const* ptrs, const int32_t* params,
+                               int pics, void* stream) {
+  Io io;
+  Params p;
+  if (parse(ptrs, params, io, p) != 0 || io.mpm == nullptr ||
+      io.state != nullptr || (p.kind != SL_I && io.mvds == nullptr) ||
+      pics < 1)
+    return (int)cudaErrorInvalidValue;
+  p.pics = pics;
+  if ((long long)p.wm * p.hm * pics > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  const int n = p.wm * p.hm;
+  if (n <= 0) return (int)cudaGetLastError();
+  state_kernel<<<mb_blocks(p), kWarps * 32, 0, (cudaStream_t)stream>>>(io, p);
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,7 @@ from tpu264_torch.bits.expgolomb import write_ue
 from tpu264_torch.coding import mvpred
 from tpu264_torch.coding.b_mbtypes import COMBO_IDX
 from tpu264_torch.coding.wavefront import BLK_ORDER
+from tpu264_torch.kernels import mb_preds
 from tpu264_torch.kernels.transform import constant, on
 from . import cavlc_tables as tbl
 from . import mb_syntax
@@ -393,13 +394,11 @@ def _residual_slots(mb, sel16, cbp_luma, cbp_chroma, wm, hm, slice_rows):
     return out[0], out[1]
 
 
-def _i4_mode_slots(vals, lens, slot0, mb, is_i4, wm, hm, slice_rows):
-    dev = is_i4.device
+def _i4_mode_slots(vals, lens, slot0, mb, is_i4, mpm):
+    """The 16 prev_intra4x4_pred_mode / rem_intra4x4_pred_mode slots of
+    the Intra4x4 MBs `is_i4`, from slot `slot0` on, against the most
+    probable modes `mpm` [n, 16] (`mb_preds.preds`)."""
     modes = mb["modes"].to(I32)
-    rows, cols = blk_grid_index(wm, hm, dev)
-    modes_grid = torch.full((hm * 4, wm * 4), -1, dtype=I32, device=dev)
-    modes_grid[rows, cols] = torch.where(is_i4[:, None], modes, -1)
-    mpm = mpm_grid(modes_grid, [r * 4 for r in slice_rows])[rows, cols]
     is_mpm = modes == mpm
     rem = modes - (modes > mpm).to(I32)
     v = torch.where(is_mpm, 1, rem)
@@ -426,6 +425,9 @@ def serialize_frame(mb, wm: int, hm: int, slice_rows,
     neighbour of the nC grids or of the most probable mode reaches across
     two pictures (a slice's top row has no top neighbour, and a left
     neighbour lies in the same row)."""
+    # the most probable modes: kernel KD on the card (one launch for the
+    # chunk), the plain helpers on the CPU
+    _, mpm = mb_preds.preds(mb, wm, hm, slice_rows, "i", frames)
     slice_rows = [f * hm + int(r) for f in range(frames) for r in slice_rows]
     hm = frames * hm
     n = wm * hm
@@ -444,7 +446,7 @@ def serialize_frame(mb, wm: int, hm: int, slice_rows,
     if t8_mode:
         lens[1] = (~sel16).to(I32)              # the flag, 0 for I_NxN
 
-    _i4_mode_slots(vals, lens, 1 + ioff, mb, ~sel16, wm, hm, slice_rows)
+    _i4_mode_slots(vals, lens, 1 + ioff, mb, ~sel16, mpm)
 
     vals[17 + ioff], lens[17 + ioff] = ue_code(mb["cmode"].to(I32))
 
@@ -729,13 +731,12 @@ def serialize_frame_p(mb, wm: int, hm: int, slice_rows):
         sel16, mb["luma_ac"], mb["chroma_dc"], mb["chroma_ac"])
 
     mv = mb["mv"].to(I32)
-    if parts_mode:
-        ptype = mb["ptype"].to(I32)
-        mvds = _partition_mvds(mb, wm, hm, slice_rows)
-        mvd, mvd1 = mvds[:2]
-    else:
-        ptype = torch.zeros(n, dtype=I32, device=dev)
-        mvd = mvd_16x16(mv, is_inter, wm, hm, slice_rows)
+    # list 0's mvds (part 0 / q0, part 1 / q1, q2, q3) and the most
+    # probable modes: kernel KD on the card, the plain helpers on the CPU
+    mvds, mpm = mb_preds.preds(mb, wm, hm, slice_rows, "p")
+    mvds = mvds[:, 0].unbind(1)
+    ptype = (mb["ptype"].to(I32) if parts_mode
+             else torch.zeros(n, dtype=I32, device=dev))
 
     mv_skip = mb["mv_skip"].to(I32)
     skipped = (is_inter & (ptype == 0) & (mv == mv_skip).all(dim=1)
@@ -759,16 +760,16 @@ def serialize_frame_p(mb, wm: int, hm: int, slice_rows):
     if t8_mode:
         lens[2 + poff] = is_i4.to(I32)          # the flag, 0 for I_NxN
     h = ioff + poff                  # slots added before the mode slots
-    _i4_mode_slots(vals, lens, 2 + h, mb, is_i4, wm, hm, slice_rows)
+    _i4_mode_slots(vals, lens, 2 + h, mb, is_i4, mpm)
 
     _ue_slots(vals, lens, 18 + h, mb["cmode"].to(I32), coded & ~is_inter)
     # mvds (x then y): part0's, then with partitions part1's (q1 on
     # P_8x8), then with P_8x8 q2's and q3's
-    mvd_slots = [(mvd, inter_coded)]
+    mvd_slots = [(mvds[0], inter_coded)]
     if parts_mode:
-        mvd_slots.append((mvd1, inter_coded & (ptype > 0)))
+        mvd_slots.append((mvds[1], inter_coded & (ptype > 0)))
     if p8x8_mode:
-        mvd_slots += [(mvds[2][:, 2], on8), (mvds[2][:, 3], on8)]
+        mvd_slots += [(mvds[2], on8), (mvds[3], on8)]
     slot = 19 + h
     for d, on in mvd_slots:
         for comp in (1, 0):
@@ -884,16 +885,20 @@ def serialize_frame_b(mb, wm: int, hm: int, slice_rows):
     is_i4 = coded & ~is_inter & ~sel16
     if t8_mode:
         lens[2] = is_i4.to(I32)                # the flag, 0 for I_NxN
-    _i4_mode_slots(vals, lens, 2 + ioff, mb, is_i4, wm, hm, slice_rows)
+    # each list's mvds (part 0, part 1) and the most probable modes: kernel
+    # KD on the card, the plain helpers on the CPU
+    mvds, mpm = mb_preds.preds(mb, wm, hm, slice_rows, "b")
+    _i4_mode_slots(vals, lens, 2 + ioff, mb, is_i4, mpm)
     _ue_slots(vals, lens, 18 + ioff, mb["cmode"].to(I32), coded & ~is_inter)
 
     # mvds (x then y): list 0's partition 0 (and 1), then list 1's
     slot = 19 + ioff
-    for lx, (d0, d1) in enumerate(b_list_mvds(mb, wm, hm, slice_rows)):
-        for d, on in ((d0, coded & exp[lx]),
-                      (d1, coded & exp_b[lx] if parts_mode else None)):
-            if d is None:
+    for lx in range(2):
+        for part, on in ((0, coded & exp[lx]),
+                         (1, coded & exp_b[lx] if parts_mode else None)):
+            if on is None:
                 continue
+            d = mvds[:, lx, part]
             for comp in (1, 0):
                 _ue_slots(vals, lens, slot, se_to_ue(d[:, comp]), on)
                 slot += 1

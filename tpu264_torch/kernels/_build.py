@@ -4,7 +4,7 @@ All kernels (K1 CABAC engine, K2 I4x4 wave body, K3 I16x16 + chroma wave
 body, KP P wave body and KB B wave body (one launch a picture each), K4
 deblock wave, KF integer full search and KS sub-pel refinement (one launch
 a list of a picture each), KR CABAC binarize + compact (four launches a
-picture), and the K2/K3 DCT + quant and K4 luma line filter entries on
+picture) with KD, its derive pass for the CAVLC serializers, and the K2/K3 DCT + quant and K4 luma line filter entries on
 slabs) are CUDA C++ under
 `tpu264_torch/csrc/` with a plain C interface.  At first use `nvcc` compiles each source to an object
 file, all sources at once in parallel, links them into one shared library,
@@ -65,8 +65,10 @@ _SIGNATURES = {
     "tpu264_cabac_engine": [P, I, P, P, P, P, I, P, I, P],
     # (orig, ref_pad, out, params*, stream)
     "tpu264_me_search": [P, P, P, P, P],
-    # (ptrs[24]*, params*, recs, stride, emit, stream)
+    # (ptrs[33]*, params*, recs, stride, emit_only, stream)
     "tpu264_cabac_records": [P, P, P, I, I, P],
+    # (ptrs[33]*, params*, pics, stream)
+    "tpu264_mb_preds": [P, P, I, P],
     # (orig, planes, mv_int, out, params*, stream)
     "tpu264_me_subpel": [P, P, P, P, P, P],
 }
