@@ -53,7 +53,10 @@ Phases (any failure exits non-zero, before the result line):
     "error", and a CIF IPPP CABAC encode and one band of `TiledEncoder`
     at a cap of one record a MB, whose emits into wider rows run after
     the next frame's work is queued, against the streams at the default
-    cap (`check_kr`);
+    cap (`check_kr`); KV (CAVLC serialize + pack, four launches a picture
+    after KD's) on the same MB dicts, each also cut into 3 slices, and on
+    dense QP-0-like I, P and B pictures at the encoders' word cap, which
+    every slice is over (`check_kv`);
  4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
     28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
@@ -70,7 +73,14 @@ Phases (any failure exits non-zero, before the result line):
     both against the golden `intra1080_cavlc_batched`, and both warm in
     one call (seconds a frame); the same frames with a slice a MB row (68
     slices, 272 in a chunk of 4) through both, the streams equal, KD once
-    a chunk and its modes equal their plain version's;
+    a chunk and its modes equal their plain version's; KD and KV once a
+    chunk or frame throughout, and KV held to its plain version (`check_kv`)
+    on every CAVLC picture, band and chunk of phases 5-8 and 8b (config 1,
+    `intra1080` with 1 and 68 slices, config 2, IPPP at 720p without and
+    with the tools, config 2 at `bench.py`'s settings), each one-slice
+    picture also cut into 3 (1088 rows: 4) slices, and timed on the
+    batched chunk of four 1080p pictures, a 1080p picture, the 720p P
+    pictures and (phase 3) the 1080p B picture;
  6. config 2: CIF IPPP CAVLC (1 IDR + 2 P, deblock, full-search and
     quarter-pel ME, no partitions) against its golden;
  7. IPPP at 720p: the same at 1280x720 against its golden, with the
@@ -81,6 +91,8 @@ Phases (any failure exits non-zero, before the result line):
     1 IDR + 3 P) and IPPP at 720p with the default P tools (1 IDR + 2 P),
     each against its golden with the launches of every frame asserted as
     in 7;
+ 8b. QCIF IPPP CAVLC through `TiledEncoder` with three bands on the card,
+    equal to the same run on the CPU, KD and KV once a band picture;
  9. IPPP with CABAC at 720p (the default P tools, 1 IDR + 2 P) against its
     golden, the launches of every frame asserted as in 7 but with K1 once
     a frame; and at CIF with JVT-G012 rate control at 1 Mb/s (1 IDR + 5
@@ -136,8 +148,8 @@ Phases (any failure exits non-zero, before the result line):
 The line before the last is a JSON object with one entry per kernel
 (`launches`: the sum over the four 720p main paths, config 4 and its two
 tiled paths, the weighted 720p path, config 5, the decode, `entry`, the
-dry run and the batched 1080p all-intra path, phases 4, 5, 7, 8, 9, 10,
-11, 12, 14, 15 and 16, each driven
+dry run, the batched 1080p all-intra path and the tiled QCIF CAVLC path,
+phases 4, 5, 7, 8, 8b, 9, 10, 11, 12, 14, 15 and 16, each driven
 with the counts set to 0 just before and read just after;
 `launches_by_path` splits it; KP's `ms`, `plain_ms` and `bound_ms` are
 a 720p P picture of the default P tools (one launch; `waves` of them,
@@ -168,7 +180,12 @@ under `torch.profiler`, `kernel_launches` their launches, `ms_inputs`
 the plain version of its derived inputs, `records` its count, and
 `ms_720p_i`, `ms_720p_p`, `ms_weighted` (with their `plain_ms_*`,
 `bound_ms_*`, `device_ms_*`) the other pictures; KD's the same pictures
-(`plain_ms` the plain version `preds_plain`); the last line is
+(`plain_ms` the plain version `preds_plain`); KV's `ms`, `plain_ms`,
+`bound_ms` and `device_ms` (its four kernels under the profiler) are the
+batched chunk of four 1920x1088 pictures (one slice each), with `bits`
+its bit count and `*_1080p_i` one such picture, `*_720p_p` and
+`*_720p_p_tools_off` the 720p P pictures of IPPP with and without the
+default P tools, `*_b_1080p` the 1080p B picture; the last line is
 {"ok": true, "device": {...}}.
 
 `bound_ms` of a kernel is the larger of its bytes (each input read once,
@@ -184,9 +201,11 @@ KP and KB are bound by neither but by a chain of dependent steps, which
 records.  KR is bound by its bytes (`kr_bound`: the MB dict's tensors
 that it reads, the motion keys and modes of its derived inputs included,
 and the records that it produces; K1 reads none of the rows' zeros), KD
-by its bytes (`kd_bound`).
+by its bytes (`kd_bound`), KV by its bytes (`kv_bound`: the MB dict's
+tensors that it reads, KD's mvds and modes, and the words that hold the
+slices' bits, the bit counts and the skip map written).
 `library_ms` is null throughout: no single PyTorch call computes a CABAC
-binarizer, an H.264 mv predictor or most probable mode, a CABAC coder,
+binarizer, CAVLC, an H.264 mv predictor or most probable mode, a CABAC coder,
 an H.264 intra search, the H.264 integer transform with its
 quantiser, the deblocking filter, the quadrant SSD maps of a full search
 with the first-minimum argmin, or a SATD sub-pel search.
@@ -249,6 +268,11 @@ KERNELS = {
     # (or batched chunk)
     "KD": ("mb_preds", "tpu264_torch/csrc/cabac_records.cu",
            "none: jnp tpu264/entropy/device_cavlc.py:258,527,650", False),
+    # CAVLC serialize + pack, jnp in the reference: one run (four
+    # launches) a CAVLC picture, band or batched chunk, after KD's launch
+    "KV": ("cavlc_slices", "tpu264_torch/csrc/cavlc_slices.cu",
+           "none: jnp tpu264/entropy/device_cavlc.py:88,373,669,819,985",
+           False),
 }
 BW, BH = 1920, 1088             # config 4 (`bench.py:56-58`)
 # streams the decode phase decodes: golden name -> (stream, the encoder's
@@ -1531,26 +1555,27 @@ def kd_bound(mbd, kind, mvds, mpm) -> dict:
 
 
 def kr_device_ms(fn, names=("state_kernel", "count_kernel", "scan_kernel",
-                            "emit_kernel")) -> tuple:
-    """One call of `fn` (a KR or KD call) under `torch.profiler` ->
+                            "emit_kernel"), every: bool = False) -> tuple:
+    """One call of `fn` (a KR, KD or KV call) under `torch.profiler` ->
     (device ms of the kernels `names`, {kernel: launches}).  A trace with
-    no device event at all (the profiler now and then records none) is
-    taken again, up to three times."""
+    no device event at all (the profiler now and then records none, or
+    with `every` lacks one of `names`: it now and then drops some) is
+    taken again, up to three times (with `every`, five)."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(5 if every else 3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+        us, launches = 0.0, {}
+        for e in events:
+            for n in names:
+                if f"::{n}(" in e.name:
+                    us += e.time_range.end - e.time_range.start
+                    launches[n] = launches.get(n, 0) + 1
+        if events and (not every or len(launches) == len(names)):
             break
-    us, launches = 0.0, {}
-    for e in events:
-        for n in names:
-            if f"::{n}(" in e.name:
-                us += e.time_range.end - e.time_range.start
-                launches[n] = launches.get(n, 0) + 1
     return (1e-3 * us if launches else None), launches
 
 
@@ -1784,16 +1809,202 @@ def check_kr(dev, calls) -> dict:
     return out
 
 
+class SerializeCalls:
+    """While entered, the encoders' `serialize` calls (CAVLC serialize +
+    pack of a picture, a band or a batched chunk: KD and KV on the card)
+    are recorded under the label `at` with the picture, the MB dict (the
+    encoders make it anew for each picture and then only read it; a
+    chunk's flattened to F n MBs), the slice kind, the word cap and the
+    chunk's pictures, at most two of each label, kind, chunk and layout,
+    then run: `calls` lists them."""
+
+    def __init__(self):
+        self.calls, self.at, self.real, self._seen = [], "", None, {}
+
+    def __enter__(self):
+        from tpu264_torch.coding import encoder as encoder_mod
+        self.real = encoder_mod.serialize
+
+        def spy(pic, mbd, kind, cap_words, frames=None):
+            key = (self.at, kind, frames, pic.wm, pic.hm, pic.rows)
+            if self._seen.get(key, 0) < 2:
+                self._seen[key] = self._seen.get(key, 0) + 1
+                flat = mbd if frames is None else {
+                    k: v.flatten(0, 1) for k, v in mbd.items()}
+                self.calls.append((self.at, pic, flat, kind, cap_words,
+                                   frames or 1))
+            return self.real(pic, mbd, kind, cap_words, frames)
+        encoder_mod.serialize = spy
+        return self
+
+    def __exit__(self, *exc):
+        from tpu264_torch.coding import encoder as encoder_mod
+        encoder_mod.serialize = self.real
+
+
+KV_KERNELS = ("kv_state_kernel", "kv_count_kernel", "kv_scan_kernel",
+              "kv_emit_kernel")
+M32 = 0xFFFFFFFF
+
+
+def kv_bound(mbd, kind: str, t8_mode: bool, nbits, cap: int) -> dict:
+    """KV's least time: the bytes of the MB dict's tensors that it reads
+    (`cavlc_slices.read_keys`: the coefficients, modes and flags), KD's
+    mvds and most probable modes and the 793-word table read once, and
+    the words that hold the slices' bits (the pull reads no word past a
+    slice's bits, so the rows' zeros are not counted), the bit counts and
+    the skip map written once, against one int32 operation a coefficient
+    (its test for zero) and one a word written."""
+    from tpu264_torch.kernels import cavlc_slices as kcv
+    n = mbd["luma_ac"].shape[0]
+    n_in = sum(mbd[k].numel() * mbd[k].element_size()
+               for k in kcv.read_keys(mbd, kind, t8_mode))
+    n_in += 4 * 793 + 4 * 16 * n * (1 + (kind != "i"))
+    words = int(torch.clamp((nbits + 31) // 32, max=cap).sum())
+    n_coef = sum(mbd[k].numel() for k in ("luma_ac", "luma_dc",
+                                          "chroma_dc", "chroma_ac"))
+    return bound(n_in + 4 * words + 8 * nbits.numel()
+                 + (n if kind != "i" else 0), n_coef + words)
+
+
+def kv_err(got, want) -> int:
+    """Max abs err of KV's (words, nbits, skipped) against the plain
+    version's, 32 bits of each word."""
+    e = max(max_abs_err(got[0].to(torch.int64) & M32, want[0] & M32),
+            max_abs_err(got[1], want[1]))
+    if (got[2] is None) != (want[2] is None):
+        fail("KV: the skip map is missing or extra")
+    return e if got[2] is None else max(e, max_abs_err(got[2], want[2]))
+
+
+def check_kv(dev, calls, timed_at=(), dense=False) -> dict:
+    """KV (`kernels/cavlc_slices.py` `serialize`, after KD's launch)
+    against its plain version `serialize_plain` on the card, tolerance 0
+    (32 bits of every word, zeros past each slice's bits and the words
+    past the cap included; the bit counts; the skip maps): every picture
+    of `calls` ((label, picture, MB dict, kind, word cap, pictures of a
+    chunk)), each one-slice picture also cut into 3 (1088 rows: 4)
+    slices, and with `dense` QP-0-like MB dicts (`dense_mbs`: I at 720p,
+    P and B at 1920x1088, 1 and 3 (4) slices) at the encoders' cap of 100
+    words a MB, which every slice is over (the words past it dropped, the
+    bits counted).  KD and KV launch once each a call.  The cases of
+    `timed_at` ((label, kind, pictures) -> name) are timed: the wrapper
+    with CUDA events (`ms`, KD's launch included), KV's four kernels under
+    the profiler (`device_ms`, `kernel_launches`), the plain version
+    (`plain_ms`) and `kv_bound` -> {"err", "over", "timed": {name: row}}."""
+    from tpu264_torch.kernels import cavlc_slices as kcv
+    from tpu264_torch.kernels import mb_preds
+    cases = {}
+    for at, pic, mbd, kind, cap, pics in calls:
+        cases.setdefault((at, kind, pics, tuple(pic.rows)),
+                         (mbd, pic.wm, pic.hm, cap, pic.t8_mode))
+        if len(pic.rows) == 1 and pics == 1:
+            k = 3 if pic.hm % 3 == 0 else 4
+            cases.setdefault(
+                (at, kind, 1, tuple(range(0, pic.hm, pic.hm // k))),
+                (mbd, pic.wm, pic.hm, cap // k, pic.t8_mode))
+    if dense:
+        for kind, wm, hm, seed in (("i", W // 16, H // 16, 81),
+                                   ("p", BW // 16, BH // 16, 82),
+                                   ("b", BW // 16, BH // 16, 83)):
+            mbd = dense_mbs(dev, kind, seed, wm, hm)
+            for k in (1, 3 if hm % 3 == 0 else 4):
+                cases[("dense QP-0-like", kind, 1,
+                       tuple(range(0, hm, hm // k)))] = (
+                    mbd, wm, hm, wm * hm // k * 100, kind == "i")
+    err, over, timed = 0, 0, {}
+    for (at, kind, pics, rows), (mbd, wm, hm, cap, t8) in cases.items():
+        rows = list(rows)
+        args = (mbd, wm, hm, rows, kind, cap, t8, pics)
+        before = (kcv.launches["KV"], mb_preds.launches["KD"])
+        got = kcv.serialize(*args)
+        if (kcv.launches["KV"], mb_preds.launches["KD"]) != \
+                (before[0] + 1, before[1] + 1):
+            fail(f"KV {at}: not one launch each of KD and KV")
+        want = kcv.serialize_plain(*args)
+        torch.cuda.synchronize()
+        if got[0].shape != want[0].shape or got[0].dtype != torch.int32:
+            fail(f"KV {at} {kind.upper()}: words {tuple(got[0].shape)} "
+                 f"{got[0].dtype}, plain {tuple(want[0].shape)}")
+        e = kv_err(got, want)
+        err = max(err, e)
+        most = int(got[1].max())
+        over += most > 32 * cap
+        print(f"KV {at} {kind.upper()} {pics} picture(s) of {wm}x{hm} MBs, "
+              f"{len(rows)} slices: {int(got[1].sum())} bits (largest slice "
+              f"{most}, cap {32 * cap}), max abs err {e}")
+        name = dict(timed_at).get((at, kind, pics))
+        if name and len(rows) == 1:
+            ms = time_ms(lambda: kcv.serialize(*args), 10)
+            pms = time_ms(lambda: kcv.serialize_plain(*args), 3)
+            dms, kl = kr_device_ms(lambda: kcv.serialize(*args), KV_KERNELS,
+                                   every=True)
+            if len(kl) != len(KV_KERNELS):
+                # the profiler's trace lacked some of KV's kernels on
+                # every try: no device time for this case
+                print(f"KV {at}: the profiler caught {kl} of KV's kernels; "
+                      f"device ms not measured")
+                dms, kl = None, None
+            b = kv_bound(mbd, kind, t8, got[1], cap)
+            timed[name] = dict(ms=ms, plain_ms=pms, device_ms=dms,
+                               kernel_launches=kl, bits=int(got[1].sum()),
+                               **b)
+            print(f"KV {at} {kind.upper()} timed: {ms:.4f} ms a call (KD "
+                  f"included; kernels {dms} ms on the card, launches {kl}), "
+                  f"plain {pms:.2f} ms; bound {b['bound_ms']:.6f} ms "
+                  f"({b['bound_by']})")
+    if err:
+        fail(f"KV differs from its plain version: max abs err {err}")
+    traced = [t["kernel_launches"] for t in timed.values()
+              if t["kernel_launches"] is not None]
+    if (timed and not traced) or any(
+            kl != {k: 1 for k in KV_KERNELS} for kl in traced):
+        fail(f"KV: not one launch of each of its four kernels a call: "
+             f"{traced}")
+    return {"err": err, "over": over, "timed": timed}
+
+
+def phase_tiled_cavlc() -> dict:
+    """QCIF IPPP CAVLC (5 frames, deblock, the default P tools) through
+    `TiledEncoder` with three bands of 3 MB rows on the one card: its
+    stream equals the same run's on the CPU, and KD and KV run once a
+    band picture -> the launch counts."""
+    from tpu264_torch.config import EncoderConfig
+    from tpu264_torch.media.synth import synth_frame
+    from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
+    frames = [synth_frame(176, 144, t) for t in range(5)]
+    cfg = EncoderConfig(width=176, height=144, qp=28, intra_period=0)
+    reset_counts()
+    te = TiledEncoder(cfg, make_mesh(
+        3, gop=1, devices=[torch.device("cuda", 0)] * 3))
+    (stream,) = te.encode_sequence([frames])
+    counts = read_counts()
+    n = 3 * len(frames)
+    print(f"QCIF IPPP CAVLC through TiledEncoder, 3 bands: {len(stream)} "
+          f"bytes, launches {counts}")
+    cpu = TiledEncoder(cfg, make_mesh(3, gop=1, devices=["cpu"] * 3))
+    if stream != cpu.encode_sequence([frames])[0]:
+        fail("QCIF IPPP CAVLC, 3 bands: the card's stream differs from "
+             "the CPU's")
+    if counts["KV"] != n or counts["KD"] != n or counts["KR"] or \
+            counts["K1"]:
+        fail(f"QCIF IPPP CAVLC, 3 bands: KV {counts['KV']}, KD "
+             f"{counts['KD']}, not {n} (a band picture), or CABAC kernels "
+             f"ran")
+    return counts
+
+
 def launch_counts() -> list:
     """The wrappers' launch counters (one dict a module)."""
     from tpu264_torch.entropy import cabac_engine_cuda as k1
     from tpu264_torch.kernels import b_wave as kb, cabac_records as kcr, \
         dct_quant as dq, deblock_lines as dl, deblock_wave as k4w, \
         i16_chroma_wave as k3w, i4x4_wave as k2w, mb_preds, \
-        me_search as kfs, me_subpel as ksp, p_wave as kp
+        me_search as kfs, me_subpel as ksp, p_wave as kp, cavlc_slices as kcv
     return [k1.launches, k2w.launches, k3w.launches, kp.launches,
             kb.launches, k4w.launches, dq.launches, dl.launches,
-            kfs.launches, ksp.launches, kcr.launches, mb_preds.launches]
+            kfs.launches, ksp.launches, kcr.launches, mb_preds.launches,
+            kcv.launches]
 
 
 def reset_counts() -> None:
@@ -1923,10 +2134,11 @@ def check_intra_launches(what: str, counts: dict, n: int, n_waves: int,
     """An all-intra CAVLC run of `n` chunks (the batched entry) or `n`
     frames (the per-frame path): K2 and K3 once a wave of each, K4 once a
     wave with deblocking and never without, KD (the serializer's most
-    probable modes) once each, and no other kernel."""
+    probable modes) and KV (the serializer and packer) once each, and no
+    other kernel."""
     want = {k: 0 for k in counts}
     want.update(K2=n * n_waves, K3=n * n_waves,
-                K4=n * n_waves if deblock else 0, KD=n)
+                K4=n * n_waves if deblock else 0, KD=n, KV=n)
     wrong = {k: (counts[k], want[k]) for k in counts if counts[k] != want[k]}
     if wrong:
         fail(f"{what}: launches (ran, expected) {wrong} for {n} chunks or "
@@ -2002,8 +2214,8 @@ def check_many_slices(name: str, frames) -> None:
     """Golden `name`'s all-intra CAVLC frames with a slice a MB row (68
     slices a 1920x1088 picture, 272 in a chunk of 4, more than a picture
     may have on the card) through the batched entry and the per-frame
-    path: the streams equal; KD runs once a chunk, and its derived modes
-    over the chunk equal their plain version's."""
+    path: the streams equal; KD and KV run once a chunk, and KD's derived
+    modes over the chunk equal their plain version's."""
     from tpu264_torch.coding.encoder import Encoder
     from tpu264_torch.config import EncoderConfig
     from tpu264_torch.kernels import mb_preds
@@ -2026,11 +2238,11 @@ def check_many_slices(name: str, frames) -> None:
                            .encode_sequence(frames))
         finally:
             mb_preds.preds = real
-        kd = read_counts()["KD"]
+        counts = read_counts()
         want = -(-len(frames) // batch)
-        if kd != want:
-            fail(f"{name}, 68 slices, chunks of {batch}: KD ran {kd} times, "
-                 f"not {want}")
+        if counts["KD"] != want or counts["KV"] != want:
+            fail(f"{name}, 68 slices, chunks of {batch}: KD ran "
+                 f"{counts['KD']} times and KV {counts['KV']}, not {want}")
     if streams[0] != streams[1]:
         fail(f"{name}, 68 slices: the batched and the per-frame streams "
              f"differ")
@@ -2098,8 +2310,8 @@ class FrameLaunches:
         wave; a P frame KP once (the whole picture) and K4 at most once a
         wave; a B frame KB once and K4 at most once a wave; KF and KS once
         a list (a P frame once, a B frame twice, an IDR frame never); K1
-        and KR once a frame with CABAC and never with CAVLC, KD once a
-        frame with CAVLC and never with CABAC; the slab
+        and KR once a frame with CABAC and never with CAVLC, KD and KV
+        once a frame with CAVLC and never with CABAC; the slab
         entries, K2
         and K3's wave forms outside an IDR frame, KP outside a P frame and
         KB outside a B frame never; and nothing runs outside the frames
@@ -2109,6 +2321,7 @@ class FrameLaunches:
         for i, (kind, c) in enumerate(self.per_frame):
             print(f"  frame {i} {kind} launches: {c}")
             want = {"K1": int(cabac), "KR": int(cabac), "KD": int(not cabac),
+                    "KV": int(not cabac),
                     "K2": n_waves if kind == "IDR" else 0, "K2_blocks": 0,
                     "K3_blocks": 0, "K4_lines": 0,
                     "KP": int(kind == "P"), "KB": int(kind == "B")}
@@ -3134,11 +3347,12 @@ def phase_entry() -> dict:
     for k in ("K2", "K3", "K4"):
         if counts[k] <= 0:
             fail(f"entry: {k} was not launched")
-    if counts["KD"] != 1:
-        fail(f"entry: KD ran {counts['KD']} times for one CAVLC frame")
+    if counts["KD"] != 1 or counts["KV"] != 1:
+        fail(f"entry: KD ran {counts['KD']} times and KV {counts['KV']} "
+             f"for one CAVLC frame")
     if any(counts[k] for k in ("K1", "KR", "KP", "KB", "KF", "KS",
                                "K2_blocks", "K3_blocks", "K4_lines")):
-        fail(f"entry: launches {counts} outside K2, K3, K4 and KD")
+        fail(f"entry: launches {counts} outside K2, K3, K4, KD and KV")
     return counts
 
 
@@ -3183,9 +3397,9 @@ def phase_dryrun(card: str) -> dict:
     for k in ("K1", "KR", "K2", "K3", "KP", "KB", "K4", "KF", "KS"):
         if counts[k] <= 0:
             fail(f"dryrun: {k} was not launched")
-    if counts["KR"] != counts["K1"] or counts["KD"]:
+    if counts["KR"] != counts["K1"] or counts["KD"] or counts["KV"]:
         fail(f"dryrun: KR ran {counts['KR']} times for {counts['K1']} CABAC "
-             f"band pictures, KD {counts['KD']}")
+             f"band pictures, KD {counts['KD']}, KV {counts['KV']}")
     lists = counts["KP"] + 2 * counts["KB"]
     if counts["KF"] != lists or counts["KS"] != lists:
         fail(f"dryrun: KF ran {counts['KF']} and KS {counts['KS']} times "
@@ -3257,6 +3471,7 @@ def phase_tiled(name: str, what: str) -> dict:
         want = {"K1": n_bands * int(te.cabac),
                 "KR": n_bands * int(te.cabac),
                 "KD": n_bands * int(not te.cabac),
+                "KV": n_bands * int(not te.cabac),
                 "K2": n_bands * n_waves if kind == "i" else 0,
                 "KP": n_bands * int(kind == "p"),
                 "KB": n_bands * int(kind == "b"),
@@ -3373,6 +3588,12 @@ def main() -> int:
     results.update(check_me(dev, me))
     del me
     results.update(check_kr(dev, records_calls.calls))
+    # KV on the CABAC pictures' MB dicts too (an MB dict does not depend
+    # on the entropy coder), at the encoders' word cap of 100 a MB
+    kv_first = check_kv(
+        dev, [(at, pic, mbd, kind, pic.n_mbs // len(pic.rows) * 100, 1)
+              for at, pic, mbd, kind, _ in records_calls.calls],
+        {("1080p B picture", "b", 1): "b_1080p"}, dense=True)
     del records_calls
     for k, extra in check_batched_intra(dev).items():
         results[k].update(extra, err=max(results[k]["err"], extra["err"]))
@@ -3382,14 +3603,41 @@ def main() -> int:
              f"{wrong}")
     print("kernels equal their plain versions (tolerance 0)")
     counts = phase_encode(frames)
-    phase_config1()
-    counts_i = phase_intra1080(card)
-    phase_config2()
-    counts_p, _ = phase_ippp("ippp_720p", "IPPP at 720p")
-    phase_ippp("config2_bench_cif", "config 2 at bench.py's settings (CIF, "
-               "default P tools)")
-    counts_t, _ = phase_ippp("ippp_720p_tools", "IPPP at 720p with the "
-                             "default P tools")
+    # the CAVLC pictures, bands and chunks of the phases below: KV's
+    kv_calls = SerializeCalls()
+    with kv_calls:
+        kv_calls.at = "config 1"
+        phase_config1()
+        kv_calls.at = "intra1080"
+        counts_i = phase_intra1080(card)
+        kv_calls.at = "config 2"
+        phase_config2()
+        kv_calls.at = "ippp_720p"
+        counts_p, _ = phase_ippp("ippp_720p", "IPPP at 720p")
+        kv_calls.at = "config2_bench_cif"
+        phase_ippp("config2_bench_cif", "config 2 at bench.py's settings "
+                   "(CIF, default P tools)")
+        kv_calls.at = "ippp_720p_tools"
+        counts_t, _ = phase_ippp("ippp_720p_tools", "IPPP at 720p with the "
+                                 "default P tools")
+        kv_calls.at = "QCIF IPPP, 3 bands"
+        counts_tc = phase_tiled_cavlc()
+    kv = check_kv(dev, kv_calls.calls,
+                  {("intra1080", "i", 4): "chunk4",
+                   ("intra1080", "i", 1): "1080p_i",
+                   ("ippp_720p_tools", "p", 1): "720p_p",
+                   ("ippp_720p", "p", 1): "720p_p_tools_off"})
+    del kv_calls
+    if kv_first["over"] < 4 or len(kv["timed"]) != 4:
+        fail(f"KV: {kv_first['over']} cases over the cap, timed "
+             f"{sorted(kv['timed'])}")
+    results["KV"] = dict(kv["timed"]["chunk4"],
+                         err=max(kv["err"], kv_first["err"]))
+    for name, row in list(kv["timed"].items()) + list(
+            kv_first["timed"].items()):
+        if name != "chunk4":
+            for f in ("ms", "plain_ms", "bound_ms", "device_ms"):
+                results["KV"][f"{f}_{name}"] = row[f]
     counts_c, _ = phase_ippp("ippp_720p_cabac", "IPPP CABAC at 720p with "
                              "the default P tools")
     phase_rate_control("ippp_cif_cabac_rc", "IPPP CABAC at CIF with rate "
@@ -3417,7 +3665,7 @@ def main() -> int:
              "tiled4_bgop_1080p": counts_t4, "ippp_720p_wp_sei": counts_w,
              "config5_4k_gop": counts_g, "decode": counts_d,
              "entry": counts_e, "dryrun_multichip_4": counts_r,
-             "intra1080_batched": counts_i}
+             "intra1080_batched": counts_i, "tiled_qcif_cavlc": counts_tc}
     rows = []
     for k in sorted(KERNELS):
         name, source, replaces, _ = KERNELS[k]
@@ -3449,7 +3697,13 @@ def main() -> int:
                       "kernel_launches", "records", "ms_queue",
                       "host_ms_queue",
                       "device_ms_720p_i", "device_ms_720p_p",
-                      "device_ms_weighted"):
+                      "device_ms_weighted", "bits", "plain_ms_b_1080p",
+                      "bound_ms_b_1080p", "device_ms_b_1080p",
+                      "ms_1080p_i", "plain_ms_1080p_i", "bound_ms_1080p_i",
+                      "device_ms_1080p_i", "ms_720p_p_tools_off",
+                      "plain_ms_720p_p_tools_off",
+                      "bound_ms_720p_p_tools_off",
+                      "device_ms_720p_p_tools_off"):
             if extra in r:
                 row[extra] = r[extra]
         rows.append(row)

@@ -30,6 +30,7 @@ from tpu264_torch.kernels import i16_chroma_wave as k3w
 from tpu264_torch.kernels import i4x4_wave as k2w
 from tpu264_torch.kernels import b_wave as kb
 from tpu264_torch.kernels import cabac_records as kcr
+from tpu264_torch.kernels import cavlc_slices as kcv
 from tpu264_torch.kernels import mb_preds
 from tpu264_torch.kernels import interp as kint
 from tpu264_torch.kernels import me_search as kme_search
@@ -1513,3 +1514,118 @@ def test_cuda_records_rejects_bad_input():
     with pytest.raises(KeyError):
         kcr.records({k: v for k, v in mb.items() if k != "mv_skip"}, wm, hm,
                     [0], "p", 1000)
+
+
+def _kv_both(mb, wm, hm, rows, kind, cap, t8_mode=False, pics=1):
+    """KV (after KD) and its plain version on the same CUDA tensors ->
+    ((words, nbits, skipped) of KV, of the plain version); one KV and one
+    KD launch."""
+    before = (kcv.launches["KV"], mb_preds.launches["KD"])
+    got = kcv.serialize(mb, wm, hm, rows, kind, cap, t8_mode, pics)
+    assert (kcv.launches["KV"], mb_preds.launches["KD"]) == \
+        (before[0] + 1, before[1] + 1)
+    want = kcv.serialize_plain(mb, wm, hm, rows, kind, cap, t8_mode, pics)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.int64
+    return got, want
+
+
+@pytest.mark.cuda
+def test_cuda_kv_matches_plain():
+    """KV (CAVLC serialize + pack, `kernels/cavlc_slices.py`) equals its
+    plain version `serialize_plain` on the card, tolerance 0 (32 bits of
+    every word, the bit counts, the skip maps): seeded 1280x720 and
+    1920x1088 MB dicts of every slice kind and tool set, 1, 3 (4 at
+    1088) and 68 slices, the 8x8 PPS of an I slice, levels scaled by 37
+    (QP-0-like: the level escapes), a cap of a few words a slice (every
+    slice over it; the bit counts keep every bit), and a chunk of four
+    68-slice 1920x1088 I pictures in one run (272 slices)."""
+    dev = cuda_device()
+    tool_sets = {"i": [(), ("t8",)],
+                 "p": [(), ("ptype",), ("ptype", "mvq"),
+                       ("ptype", "mvq", "t8"), ("t8",)],
+                 "b": [(), ("parts",), ("parts", "t8"), ("t8",)]}
+    m32 = 0xFFFFFFFF
+    cases = 0
+    for wm, hm, slice_sets in ((80, 45, (1, 3)), (120, 68, (1, 4, 68))):
+        for kind, sets in tool_sets.items():
+            for t, tools in enumerate(sets):
+                for slices in slice_sets:
+                    for scale, per_mb in ((1, 400), (37, 400), (37, 1)):
+                        if wm == 120 and t and (slices == 68 or scale > 1):
+                            continue
+                        seed = 1000 * t + 10 * slices + scale + wm
+                        if kind == "b":
+                            mb = random_b_mbs(seed, wm, hm, "parts" in tools,
+                                              "t8" in tools)
+                        else:
+                            mb = random_mbs(seed, wm, hm,
+                                            p_slice=kind == "p", tools=tools)
+                        for key in ("luma_ac", "luma_dc", "chroma_dc",
+                                    "chroma_ac"):
+                            mb[key] = (mb[key] * scale).astype(np.int32)
+                        mb = {k: torch.as_tensor(v, device=dev)
+                              for k, v in mb.items()}
+                        rows = list(range(0, hm, hm // slices))
+                        cap = wm * hm // slices * per_mb
+                        got, want = _kv_both(mb, wm, hm, rows, kind, cap,
+                                             "t8" in tools)
+                        assert_equal(got[1], want[1])
+                        assert_equal(got[0].to(torch.int64) & m32,
+                                     want[0] & m32)
+                        if kind == "i":
+                            assert got[2] is None and want[2] is None
+                        else:
+                            assert_equal(got[2], want[2])
+                        assert (int(got[1].max()) > 32 * cap) == \
+                            (per_mb == 1)
+                        cases += 1
+    assert cases > 60
+    # a chunk of four 68-slice 1920x1088 pictures in one run
+    wm, hm = 120, 68
+    pics = [random_mbs(300 + f, wm, hm, p_slice=False, tools=())
+            for f in range(4)]
+    chunk = {k: torch.as_tensor(np.concatenate([p[k] for p in pics]),
+                                device=dev) for k in pics[0]}
+    rows = list(range(hm))
+    got, want = _kv_both(chunk, wm, hm, rows, "i", wm * 100, pics=4)
+    assert got[0].shape == (4 * 68, wm * 100)
+    assert_equal(got[1], want[1])
+    assert_equal(got[0].to(torch.int64) & m32, want[0] & m32)
+    for f in range(4):
+        one = {k: v[f * wm * hm:(f + 1) * wm * hm] for k, v in chunk.items()}
+        alone = kcv.serialize(one, wm, hm, rows, "i", wm * 100)
+        assert_equal(alone[1], got[1][68 * f:68 * (f + 1)])
+        assert_equal(alone[0], got[0][68 * f:68 * (f + 1)])
+
+
+@pytest.mark.cuda
+def test_cuda_kv_rejects_bad_input():
+    dev = cuda_device()
+    wm, hm = 11, 9
+    mb = {k: torch.as_tensor(v, device=dev)
+          for k, v in random_mbs(3, wm, hm).items()}
+    kcv.serialize(mb, wm, hm, [0], "p", 1000)
+    torch.cuda.synchronize()
+    before = kcv.launches["KV"]
+    for bad, args, err in (
+            (dict(mb, sel16=mb["sel16"].to(torch.int32)), ([0], "p", 1000),
+             TypeError),
+            (dict(mb, luma_ac=mb["luma_ac"][:, :15].contiguous()),
+             ([0], "p", 1000), ValueError),
+            (dict(mb, mv_skip=mb["mv_skip"].cpu()), ([0], "p", 1000),
+             ValueError),
+            (dict(mb, mv=mb["mv"].t().contiguous().t()), ([0], "p", 1000),
+             ValueError),
+            (mb, ([0, 4], "p", 1000), ValueError),
+            (mb, ([0, 9], "p", 1000), ValueError),
+            (mb, ([0], "x", 1000), ValueError),
+            (mb, ([0], "p", -1), ValueError),
+            ({k: v for k, v in mb.items() if k != "mv_skip"},
+             ([0], "p", 1000), KeyError),
+            ({k: v for k, v in mb.items() if k != "modes"},
+             ([0], "i", 1000), KeyError)):
+        with pytest.raises(err):
+            kcv.serialize(bad, wm, hm, *args)
+    with pytest.raises(ValueError):
+        kcv.serialize(mb, wm, hm, [0], "p", 1000, pics=2)
+    assert kcv.launches["KV"] == before

@@ -36,6 +36,7 @@ from tpu264_torch.entropy import device_cavlc as dcav
 from tpu264_torch.entropy.device_cavlc import compute_cbp, luma_tc_grid
 from tpu264_torch.entropy.slice_writer import trailing_skip_run
 from tpu264_torch.kernels import cabac_records as kcr
+from tpu264_torch.kernels import cavlc_slices as kcv
 from tpu264_torch.kernels.deblock import make_deblocker_skewed, up4
 from tpu264_torch.ref.transform import chroma_qp
 from tpu264_torch.runtime.ratectl import RateController
@@ -293,29 +294,22 @@ def _flat(mbd) -> dict:
 def serialize(pic: Picture, mbd, kind: str, cap_words: int,
               frames: int | None = None):
     """CAVLC serialize + pack on device a picture of slice kind `kind`
-    ("i", "p" or "b") -> (words, nbits, skipped).  In a PPS with the 8x8
-    transform, I_NxN MBs of I slices carry its flag too.  `frames`: a
-    chunk of that many I pictures (`mbd` [F, n, ...]) in one serializer
-    and packer pass -> words [F, S, cap_words], nbits [F, S], None."""
+    ("i", "p" or "b") -> (words, nbits, skipped): on the card KD and
+    kernel KV (`kernels/cavlc_slices.py`, int32 words), nothing read
+    back; on the CPU its plain version (int64 words).  In a PPS with the
+    8x8 transform, I_NxN MBs of I slices carry its flag too.  `frames`: a
+    chunk of that many I pictures (`mbd` [F, n, ...]) in one pass ->
+    words [F, S, cap_words], nbits [F, S], None."""
     rows = list(pic.rows)
-    if frames is not None:
-        if kind != "i":
-            raise ValueError("serialize: a chunk of pictures is all-intra")
-        v, ln = dcav.serialize_frame(_flat(mbd), pic.wm, pic.hm, rows,
-                                     t8_mode=pic.t8_mode, frames=frames)
-        words, nbits = dcav.pack_slices(v, ln, frames * len(rows), cap_words)
-        return (words.unflatten(0, (frames, -1)),
-                nbits.unflatten(0, (frames, -1)), None)
-    if kind == "b":
-        v, ln, skipped = dcav.serialize_frame_b(mbd, pic.wm, pic.hm, rows)
-    elif kind == "p":
-        v, ln, skipped = dcav.serialize_frame_p(mbd, pic.wm, pic.hm, rows)
-    else:
-        v, ln = dcav.serialize_frame(mbd, pic.wm, pic.hm, rows,
-                                     t8_mode=pic.t8_mode)
-        skipped = None
-    words, nbits = dcav.pack_slices(v, ln, len(rows), cap_words)
-    return words, nbits, skipped
+    if frames is None:
+        return kcv.serialize(mbd, pic.wm, pic.hm, rows, kind, cap_words,
+                             pic.t8_mode)
+    if kind != "i":
+        raise ValueError("serialize: a chunk of pictures is all-intra")
+    words, nbits, _ = kcv.serialize(_flat(mbd), pic.wm, pic.hm, rows, "i",
+                                    cap_words, pic.t8_mode, frames)
+    return (words.unflatten(0, (frames, -1)),
+            nbits.unflatten(0, (frames, -1)), None)
 
 
 def cavlc_nalus(pic: Picture, words_np, nbits_np, skipped_np, hdr,
@@ -976,7 +970,8 @@ class Encoder:
 
 
 def _pull_words(words, nbits_np) -> np.ndarray:
-    """Device->host transfer of packed slice words [..., cap], cut to the
+    """Device->host transfer of packed slice words [..., cap] (int32 from
+    the card's KV, int64 from the plain version; 32 bits each), cut to the
     word count that covers the longest slice (the reference rounds that
     up to a power of two to bound its number of compiled slice
     programs; there are none here)."""

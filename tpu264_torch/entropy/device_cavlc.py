@@ -1,5 +1,7 @@
-"""On-device CAVLC serialization + bit packing (torch), and the per-MB
-syntax helpers shared by the CABAC binarizer and the deblocker.
+"""CAVLC serialization + bit packing in eager torch, and the per-MB
+syntax helpers shared by the CABAC binarizer and the deblocker.  The
+serializers and the packer are the plain version of kernel KV
+(`kernels/cavlc_slices.py`), which codes a CAVLC picture on the card.
 
 Counterpart of `tpu264.entropy.device_cavlc` for I, P and B slices (with
 the default P tools: partitions, P_8x8, the 8x8 transform; B 16x8 / 8x16

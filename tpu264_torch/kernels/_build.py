@@ -4,8 +4,9 @@ All kernels (K1 CABAC engine, K2 I4x4 wave body, K3 I16x16 + chroma wave
 body, KP P wave body and KB B wave body (one launch a picture each), K4
 deblock wave, KF integer full search and KS sub-pel refinement (one launch
 a list of a picture each), KR CABAC binarize + compact (four launches a
-picture) with KD, its derive pass for the CAVLC serializers, and the K2/K3 DCT + quant and K4 luma line filter entries on
-slabs) are CUDA C++ under
+picture) with KD, its derive pass for the CAVLC serializers, KV CAVLC
+serialize + pack (four launches a picture or chunk), and the K2/K3 DCT +
+quant and K4 luma line filter entries on slabs) are CUDA C++ under
 `tpu264_torch/csrc/` with a plain C interface.  At first use `nvcc` compiles each source to an object
 file, all sources at once in parallel, links them into one shared library,
 `build/tpu264_torch/libtpu264_kernels_<hash>.so` beside the package, keyed
@@ -71,6 +72,8 @@ _SIGNATURES = {
     "tpu264_mb_preds": [P, P, I, P],
     # (orig, planes, mv_int, out, params*, stream)
     "tpu264_me_subpel": [P, P, P, P, P, P],
+    # (ptrs[28]*, params*, pics, cap, stream)
+    "tpu264_cavlc_slices": [P, P, I, I, P],
 }
 
 _LIB = None

@@ -26,8 +26,10 @@ one JSON object with, for warm frames:
   binarize + compact, deblock, K1 + payload pull);
 - `profile`: `torch.profiler` over one more frame: kernel launches in
   all and by stage (`launches_by_stage`: wave loop, reorder, binarize +
-  compact, deblock, K1 + payload pull; the rest is the frame's upload,
-  PSNR and bookkeeping), device busy seconds (the union of
+  compact or serialize + pack, deblock, K1 + payload pull; the rest is
+  the frame's upload, PSNR and bookkeeping), the CAVLC serializer kernel
+  KV's device seconds and launches (`kv_device_seconds`, `kv_launches`),
+  device busy seconds (the union of
   the device events' intervals), the ten kernels with the most device time
   (`top_kernels`: name, launches, seconds), the hand-written kernels
   among all (`own_kernels`), the frame's seconds under the profiler;
@@ -83,9 +85,8 @@ CAVLC, deblocking, one slice; `Encoder(cfg, intra_batch=B)`, B from
 `TPU264_BATCH`, default 4), the counterpart of the reference's
 `tools/profile_stages.py` and `tools/profile_ser.py`, under their names:
 `stages` holds the warm seconds (mean of 3 synchronised calls) of the wave
-loop ("wavefront_s"), "reorder_s", the CAVLC serializer ("serialize_s")
-and packer ("pack_s", and their sum "serialize_pack_s"), `encode_blocks`
-alone on 17 x wm x hm zero blocks ("encode_blocks17n_s"), "deblock_s",
+loop ("wavefront_s"), "reorder_s", the CAVLC serializer and packer
+("serialize_pack_s": KD and kernel KV), "deblock_s",
 the pull of the words ("pull_s") and the host NAL assembly
 ("host_nal_s"); `profile` the launches by stage and the device time of a
 frame through the per-frame path, and `batched` the batched entry's
@@ -346,6 +347,11 @@ def profiled_frame(patches: list, job) -> dict:
            if kv[0].startswith(("(anonymous namespace)::",
                                 "void (anonymous namespace)::"))]
     return {"frame_seconds_profiled": secs, "device_events": len(on_device),
+            # the CAVLC serializer kernel KV's four passes (`kv_*`)
+            "kv_device_seconds": sum(us for name, (_, us) in own
+                                     if "::kv_" in name) * 1e-6,
+            "kv_launches": sum(n for name, (n, _) in own
+                               if "::kv_" in name),
             "device_busy_seconds": busy_us * 1e-6,
             "launches": len(launch_at), "launches_by_stage": by_stage,
             "top_kernels": [[name[:80], n, us * 1e-6]
@@ -403,7 +409,6 @@ def profile_intra1080(res: dict, batch: int) -> None:
     of a frame through the per-frame path, and the batched entry's
     seconds a frame, launches a frame and the card's idle share over one
     chunk of `batch` frames (one frame, the per-frame path, at 1)."""
-    from tpu264_torch.entropy import device_cavlc as dcav
     from tpu264_torch.kernels import deblock_wave as k4w, \
         i16_chroma_wave as k3w, i4x4_wave as k2w
     w, h = BGOP_W, BGOP_H
@@ -424,8 +429,7 @@ def profile_intra1080(res: dict, batch: int) -> None:
     res["kernel_launches"] = {k: v - before[k] for c in counters
                               for k, v in c.items()}
     res["stream"] = {"bytes": len(stream), "frame_bits": enc.stats[-1].bits}
-    wm, hm, pic = cfg.width_mbs, cfg.height_mbs, enc.pic
-    rows = list(pic.rows)
+    pic = enc.pic
     y, u, v = (torch.as_tensor(np.asarray(p), device=enc.device)
                for p in frames[0])
     st: dict = {}
@@ -433,17 +437,8 @@ def profile_intra1080(res: dict, batch: int) -> None:
         lambda: enc._encode_frame(y, u, v, QP))
     st["reorder_s"], mbd = timed(
         lambda: intra_frame.reorder_wave_outputs(enc.sched, ys))
-    st["serialize_s"], (vals, lens) = timed(
-        lambda: dcav.serialize_frame(mbd, wm, hm, rows,
-                                     t8_mode=pic.t8_mode))
-    st["pack_s"], (words, nbits) = timed(
-        lambda: dcav.pack_slices(vals, lens, len(rows), enc._cap_words))
-    st["serialize_pack_s"] = st["serialize_s"] + st["pack_s"]
-    n_blocks = 17 * wm * hm
-    g16 = torch.zeros((n_blocks, 16), dtype=torch.int32, device=enc.device)
-    nc = torch.zeros(n_blocks, dtype=torch.int32, device=enc.device)
-    st["encode_blocks17n_s"], _ = timed(
-        lambda: dcav.encode_blocks(g16, nc, 16))
+    st["serialize_pack_s"], (words, nbits, _) = timed(
+        lambda: encoder_mod.serialize(pic, mbd, "i", enc._cap_words))
     st["deblock_s"], _ = timed(
         lambda: encoder_mod.recon_planes(enc._deblock, pic, dev_out, mbd,
                                          QP))
@@ -464,7 +459,6 @@ def profile_intra1080(res: dict, batch: int) -> None:
     st["host_nal_s"], _ = timed(host_nal)
     res["stages"] = st
     res["nbits"] = nbits_np.tolist()
-    res["encode_blocks_blocks"] = n_blocks
     res["profile"] = profiled_frame(
         cavlc_intra_patches(enc), lambda: enc.encode_sequence(frames[:1]))
     secs, _ = timed(lambda: enc.encode_sequence(frames), n=2)
