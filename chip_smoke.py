@@ -42,9 +42,9 @@ Phases (any failure exits non-zero, before the result line):
     edges of its staged windows); K2, K3 and K4 as the batched all-intra
     entry runs them, one launch a wave for a chunk of 4 and of 3 pictures
     at 1920x1088 (`check_batched_intra`); KR (four launches a picture, its
-    mvd and most-probable-mode inputs derived in its state pass and held
-    to their plain version too) and KD (that pass alone, the CAVLC
-    serializers', one launch) on every CABAC picture those cases make (the
+    mvd and most-probable-mode inputs derived in its state pass, with
+    KD's device code `mb_preds.cuh`, and held to their plain version too)
+    on every CABAC picture those cases make (the
     720p I and P frames, 1 and 3 slices; the weighted golden's I and P
     pictures; the 1080p B pictures with and without partitions), each
     also cut into 3 slices, and on dense QP-0-like I, P and B pictures
@@ -53,10 +53,14 @@ Phases (any failure exits non-zero, before the result line):
     "error", and a CIF IPPP CABAC encode and one band of `TiledEncoder`
     at a cap of one record a MB, whose emits into wider rows run after
     the next frame's work is queued, against the streams at the default
-    cap (`check_kr`); KV (CAVLC serialize + pack, four launches a picture
-    after KD's) on the same MB dicts, each also cut into 3 slices, and on
-    dense QP-0-like I, P and B pictures at the encoders' word cap, which
-    every slice is over (`check_kv`);
+    cap (`check_kr`); KV (CAVLC serialize + pack, two launches a picture:
+    the state pass, which derives the mvds and most probable modes with
+    KD's device code, held to `preds_plain`, and the slices pass) on the
+    same MB dicts, each also cut into 3 slices, and on dense QP-0-like I,
+    P and B pictures at the encoders' word cap, which every slice is over
+    (`check_kv`); with `TPU264_KV_PARENT` naming another tree (a `git
+    archive` of the parent under `build/`), KV of both trees timed on the
+    same MB dicts, parent, this, this, parent (`kv_parent_times`);
  4. config 3: encode two 1280x720 frames (all-intra, CABAC, deblock, QP
     28) through `Encoder(cfg).encode_sequence` (the default device is the
     card), check that every kernel of the path was launched (K2 once a
@@ -72,9 +76,10 @@ Phases (any failure exits non-zero, before the result line):
     254 launches each of K2, K3 and K4 a chunk) and the per-frame path,
     both against the golden `intra1080_cavlc_batched`, and both warm in
     one call (seconds a frame); the same frames with a slice a MB row (68
-    slices, 272 in a chunk of 4) through both, the streams equal, KD once
-    a chunk and its modes equal their plain version's; KD and KV once a
-    chunk or frame throughout, and KV held to its plain version (`check_kv`)
+    slices, 272 in a chunk of 4) through both, the streams equal, KV once
+    a chunk and its derived modes equal their plain version's; KV (with
+    its KD derivation) once a chunk or frame throughout, and KV held to
+    its plain version (`check_kv`)
     on every CAVLC picture, band and chunk of phases 5-8 and 8b (config 1,
     `intra1080` with 1 and 68 slices, config 2, IPPP at 720p without and
     with the tools, config 2 at `bench.py`'s settings), each one-slice
@@ -92,7 +97,8 @@ Phases (any failure exits non-zero, before the result line):
     each against its golden with the launches of every frame asserted as
     in 7;
  8b. QCIF IPPP CAVLC through `TiledEncoder` with three bands on the card,
-    equal to the same run on the CPU, KD and KV once a band picture;
+    equal to the same run on the CPU, KV (with KD's derivation) once a
+    band picture;
  9. IPPP with CABAC at 720p (the default P tools, 1 IDR + 2 P) against its
     golden, the launches of every frame asserted as in 7 but with K1 once
     a frame; and at CIF with JVT-G012 rate control at 1 Mb/s (1 IDR + 5
@@ -179,13 +185,17 @@ run it), with `device_ms` its four kernels
 under `torch.profiler`, `kernel_launches` their launches, `ms_inputs`
 the plain version of its derived inputs, `records` its count, and
 `ms_720p_i`, `ms_720p_p`, `ms_weighted` (with their `plain_ms_*`,
-`bound_ms_*`, `device_ms_*`) the other pictures; KD's the same pictures
-(`plain_ms` the plain version `preds_plain`); KV's `ms`, `plain_ms`,
-`bound_ms` and `device_ms` (its four kernels under the profiler) are the
-batched chunk of four 1920x1088 pictures (one slice each), with `bits`
-its bit count and `*_1080p_i` one such picture, `*_720p_p` and
-`*_720p_p_tools_off` the 720p P pictures of IPPP with and without the
-default P tools, `*_b_1080p` the 1080p B picture; the last line is
+`bound_ms_*`, `device_ms_*`) the other pictures; KV's `ms`, `plain_ms`,
+`bound_ms` and `device_ms` (its two kernels under the profiler,
+`device_ms_by_kernel` each alone) are the batched chunk of four
+1920x1088 pictures (one slice each), with `bits` its bit count and
+`*_1080p_i` one such picture, `*_720p_p` and `*_720p_p_tools_off` the
+720p P pictures of IPPP with and without the default P tools,
+`*_b_1080p` the 1080p B picture (and, with `TPU264_KV_PARENT`,
+`parent_and_this`: both trees' `tools/time_kv.py` results); KD's `ms` is
+the device ms of KV's state pass, which holds its derivation, at the
+1080p B picture (`*_chunk4`, `*_1080p_i`, `*_720p_p*` the others),
+`plain_ms` the plain version `preds_plain`; the last line is
 {"ok": true, "device": {...}}.
 
 `bound_ms` of a kernel is the larger of its bytes (each input read once,
@@ -201,9 +211,10 @@ KP and KB are bound by neither but by a chain of dependent steps, which
 records.  KR is bound by its bytes (`kr_bound`: the MB dict's tensors
 that it reads, the motion keys and modes of its derived inputs included,
 and the records that it produces; K1 reads none of the rows' zeros), KD
-by its bytes (`kd_bound`), KV by its bytes (`kv_bound`: the MB dict's
-tensors that it reads, KD's mvds and modes, and the words that hold the
-slices' bits, the bit counts and the skip map written).
+(the derivation inside KV's state pass) by its bytes (`kd_bound`), KV by
+its bytes (`kv_bound`: the MB dict's tensors that it reads, the motion
+keys of the derivation included, and the words that hold the slices'
+bits, the bit counts and the skip map written).
 `library_ms` is null throughout: no single PyTorch call computes a CABAC
 binarizer, CAVLC, an H.264 mv predictor or most probable mode, a CABAC coder,
 an H.264 intra search, the H.264 integer transform with its
@@ -215,6 +226,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -263,13 +275,14 @@ KERNELS = {
     # derived inside
     "KR": ("cabac_records", "tpu264_torch/csrc/cabac_records.cu",
            "none: jnp tpu264/entropy/cabac_binarize_j.py:241,839", True),
-    # KR's state pass without its state: the mvds and most probable modes
-    # of a CAVLC picture, jnp in the reference; one launch a CAVLC picture
-    # (or batched chunk)
-    "KD": ("mb_preds", "tpu264_torch/csrc/cabac_records.cu",
+    # the mvds and most probable modes of a CAVLC picture, jnp in the
+    # reference: device code shared with KR's state pass, run inside KV's
+    # state pass (its first launch), once a CAVLC picture, band or chunk
+    "KD": ("mb_preds", "tpu264_torch/csrc/mb_preds.cuh",
            "none: jnp tpu264/entropy/device_cavlc.py:258,527,650", False),
-    # CAVLC serialize + pack, jnp in the reference: one run (four
-    # launches) a CAVLC picture, band or batched chunk, after KD's launch
+    # CAVLC serialize + pack, jnp in the reference: one run (two
+    # launches, the state pass with KD's derivation and the slices pass)
+    # a CAVLC picture, band or batched chunk
     "KV": ("cavlc_slices", "tpu264_torch/csrc/cavlc_slices.cu",
            "none: jnp tpu264/entropy/device_cavlc.py:88,373,669,819,985",
            False),
@@ -1555,12 +1568,14 @@ def kd_bound(mbd, kind, mvds, mpm) -> dict:
 
 
 def kr_device_ms(fn, names=("state_kernel", "count_kernel", "scan_kernel",
-                            "emit_kernel"), every: bool = False) -> tuple:
-    """One call of `fn` (a KR, KD or KV call) under `torch.profiler` ->
-    (device ms of the kernels `names`, {kernel: launches}).  A trace with
-    no device event at all (the profiler now and then records none, or
-    with `every` lacks one of `names`: it now and then drops some) is
-    taken again, up to three times (with `every`, five)."""
+                            "emit_kernel"), every: bool = False,
+                 by_kernel: dict | None = None) -> tuple:
+    """One call of `fn` (a KR or KV call) under `torch.profiler` ->
+    (device ms of the kernels `names`, {kernel: launches}); `by_kernel`,
+    a dict, receives each kernel's device ms.  A trace with no device
+    event at all (the profiler now and then records none, or with
+    `every` lacks one of `names`: it now and then drops some) is taken
+    again, up to three times (with `every`, five)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5 if every else 3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1568,14 +1583,18 @@ def kr_device_ms(fn, names=("state_kernel", "count_kernel", "scan_kernel",
             torch.cuda.synchronize()
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        us, launches = 0.0, {}
+        us, launches, each = 0.0, {}, {}
         for e in events:
             for n in names:
                 if f"::{n}(" in e.name:
-                    us += e.time_range.end - e.time_range.start
+                    t = e.time_range.end - e.time_range.start
+                    us += t
+                    each[n] = each.get(n, 0.0) + 1e-3 * t
                     launches[n] = launches.get(n, 0) + 1
         if events and (not every or len(launches) == len(names)):
             break
+    if by_kernel is not None:
+        by_kernel.update(each)
     return (1e-3 * us if launches else None), launches
 
 
@@ -1700,9 +1719,9 @@ def check_kr(dev, calls) -> dict:
     """KR (`kernels/cabac_records.py` `queue` / `records`) against its
     plain version `records_plain` on the card, packed records (zeros past
     each count and the rows' width included) and counts, tolerance 0, and
-    the mvds and most probable modes that its state pass derives, and
-    KD's (`kernels/mb_preds.py` `preds`, the CAVLC serializers' pass),
-    against their plain version `preds_plain`: every CABAC picture that
+    the mvds and most probable modes that its state pass derives
+    (`csrc/mb_preds.cuh`) against their plain version `preds_plain`:
+    every CABAC picture that
     `RecordsCalls` caught (the 720p I frame and the 720p P frame with the
     default P tools, 1 and 3 slices; the I and the weighted P picture of
     `ippp_720p_wp_sei`; the 1920x1088 B pictures of config 4 with and
@@ -1717,7 +1736,7 @@ def check_kr(dev, calls) -> dict:
     picture with partitions, `ms_720p_i`, `ms_720p_p`, `ms_weighted` (each
     with its `plain_ms_*`), `ms_inputs` (the plain version of the derived
     inputs of the B picture), `device_ms` and `kernel_launches` (one
-    call's kernels); and the KD row on the same pictures."""
+    call's kernels)."""
     from tpu264_torch.kernels import cabac_records as kcr
     from tpu264_torch.kernels import mb_preds
     cases = {}
@@ -1735,13 +1754,12 @@ def check_kr(dev, calls) -> dict:
         for rows in ((0,), (0, hm // 3, 2 * hm // 3)):
             cases[("dense QP-0-like", kind, rows)] = (
                 mbd, wm, hm, wm * hm // len(rows) * 768, kind != "i")
-    err, kd_err, timed, over = 0, 0, {}, 0
+    err, timed, over = 0, {}, 0
     for (at, kind, rows), (mbd, wm, hm, cap, t8) in cases.items():
         rows = list(rows)
         ins = mb_preds.preds_plain(mbd, wm, hm, rows, kind)
         queued = kcr.queue(mbd, wm, hm, rows, kind, cap, t8)
         e_in = derived_err((queued.mvds, queued.mpm), ins)
-        e_kd = derived_err(mb_preds.preds(mbd, wm, hm, rows, kind), ins)
         got = tuple(queued)
         want = kcr.records_plain(mbd, wm, hm, rows, kind, cap, t8)
         torch.cuda.synchronize()
@@ -1751,12 +1769,11 @@ def check_kr(dev, calls) -> dict:
         e = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]),
                 e_in)
         err = max(err, e)
-        kd_err = max(kd_err, e_kd)
         counts = got[1].tolist()
         over += max(counts) > cap
         print(f"KR {at} {kind.upper()} picture {wm}x{hm} MBs, "
               f"{len(rows)} slices: records {counts} (cap {cap}), max abs "
-              f"err {e} (derived mvds and modes {e_in}, KD's {e_kd})")
+              f"err {e} (derived mvds and modes {e_in})")
         if len(rows) == 1 and at != "dense QP-0-like":
             args = (mbd, wm, hm, rows, kind, cap, t8)
             ms = time_ms(lambda: kcr.records(*args), 10)
@@ -1767,51 +1784,34 @@ def check_kr(dev, calls) -> dict:
                                                        kind), 10)
             dms, kl = kr_device_ms(lambda: kcr.records(*args))
             b = kr_bound(mbd, kind, got[1], sum(counts))
-            dargs = (mbd, wm, hm, rows, kind)
-            d_ms = time_ms(lambda: mb_preds.preds(*dargs), 10)
-            d_dms, d_kl = kr_device_ms(lambda: mb_preds.preds(*dargs),
-                                       ("state_kernel",))
-            db = kd_bound(mbd, kind, *ins)
             timed[(at, kind)] = dict(
                 ms=ms, ms_queue=qms, host_ms_queue=hqms, plain_ms=pms,
                 ms_inputs=ims,
                 device_ms=dms, kernel_launches=kl, records=sum(counts), **b)
-            timed[("KD", at, kind)] = dict(
-                ms=d_ms, plain_ms=ims, device_ms=d_dms, kernel_launches=d_kl,
-                **db)
             print(f"KR {at} {kind.upper()} picture: {ms:.4f} ms a call, "
                   f"queue half {qms:.4f} ms (host {hqms:.4f} ms; kernels "
                   f"{dms} ms on the card, "
                   f"launches {kl}), plain {pms:.2f} ms; bound "
-                  f"{b['bound_ms']:.6f} ms ({b['bound_by']}); KD {d_ms:.4f} "
-                  f"ms a call (kernel {d_dms} ms, launches {d_kl}), its plain "
-                  f"version (`preds_plain`) {ims:.3f} ms, bound "
-                  f"{db['bound_ms']:.6f} ms ({db['bound_by']})")
+                  f"{b['bound_ms']:.6f} ms ({b['bound_by']}); the derived "
+                  f"inputs' plain version (`preds_plain`) {ims:.3f} ms")
     if over < 6:
         fail(f"KR: only {over} cases went over the cap")
     if any(not 1 <= sum(t["kernel_launches"].values()) <= 4
-           for k, t in timed.items() if k[0] != "KD"):
+           for t in timed.values()):
         fail("KR: not one to four launches a picture")
-    if any(sum(timed[k]["kernel_launches"].values()) != 1
-           for k in timed if k[0] == "KD"):
-        fail("KD: not one launch a picture")
     check_queue_reads_nothing(calls)
     check_over_cap_pipeline(dev)
-    out = {}
-    for kid, first, e in (("KR", (), err), ("KD", ("KD",), kd_err)):
-        row = dict(timed[first + ("1080p B picture", "b")], err=e)
-        for name, key in (("720p_i", ("720p", "i")),
-                          ("720p_p", ("720p", "p")),
-                          ("weighted", ("ippp_720p_wp_sei", "p"))):
-            for f in ("ms", "plain_ms", "bound_ms", "device_ms"):
-                row[f"{f}_{name}"] = timed[first + key][f]
-        out[kid] = row
-    return out
+    row = dict(timed[("1080p B picture", "b")], err=err)
+    for name, key in (("720p_i", ("720p", "i")), ("720p_p", ("720p", "p")),
+                      ("weighted", ("ippp_720p_wp_sei", "p"))):
+        for f in ("ms", "plain_ms", "bound_ms", "device_ms"):
+            row[f"{f}_{name}"] = timed[key][f]
+    return {"KR": row}
 
 
 class SerializeCalls:
     """While entered, the encoders' `serialize` calls (CAVLC serialize +
-    pack of a picture, a band or a batched chunk: KD and KV on the card)
+    pack of a picture, a band or a batched chunk: KV on the card)
     are recorded under the label `at` with the picture, the MB dict (the
     encoders make it anew for each picture and then only read it; a
     chunk's flattened to F n MBs), the slice kind, the word cap and the
@@ -1842,24 +1842,23 @@ class SerializeCalls:
         encoder_mod.serialize = self.real
 
 
-KV_KERNELS = ("kv_state_kernel", "kv_count_kernel", "kv_scan_kernel",
-              "kv_emit_kernel")
+KV_KERNELS = ("kv_state_kernel", "kv_slices_kernel")
 M32 = 0xFFFFFFFF
 
 
 def kv_bound(mbd, kind: str, t8_mode: bool, nbits, cap: int) -> dict:
     """KV's least time: the bytes of the MB dict's tensors that it reads
-    (`cavlc_slices.read_keys`: the coefficients, modes and flags), KD's
-    mvds and most probable modes and the 793-word table read once, and
-    the words that hold the slices' bits (the pull reads no word past a
-    slice's bits, so the rows' zeros are not counted), the bit counts and
-    the skip map written once, against one int32 operation a coefficient
-    (its test for zero) and one a word written."""
+    (`cavlc_slices.read_keys`: the coefficients, modes and flags, and the
+    motion keys its state pass derives the mvds from) and the 793-word
+    table read once, and the words that hold the slices' bits (the pull
+    reads no word past a slice's bits, so the rows' zeros are not
+    counted), the bit counts and the skip map written once, against one
+    int32 operation a coefficient (its test for zero) and one a word
+    written."""
     from tpu264_torch.kernels import cavlc_slices as kcv
     n = mbd["luma_ac"].shape[0]
     n_in = sum(mbd[k].numel() * mbd[k].element_size()
-               for k in kcv.read_keys(mbd, kind, t8_mode))
-    n_in += 4 * 793 + 4 * 16 * n * (1 + (kind != "i"))
+               for k in kcv.read_keys(mbd, kind, t8_mode)) + 4 * 793
     words = int(torch.clamp((nbits + 31) // 32, max=cap).sum())
     n_coef = sum(mbd[k].numel() for k in ("luma_ac", "luma_dc",
                                           "chroma_dc", "chroma_ac"))
@@ -1877,21 +1876,55 @@ def kv_err(got, want) -> int:
     return e if got[2] is None else max(e, max_abs_err(got[2], want[2]))
 
 
+def kv_parent_times(cases) -> dict:
+    """With `TPU264_KV_PARENT` naming another tree (e.g. `git archive` of
+    the parent under the gitignored `build/`), KV's wrapper of that tree
+    and of this one timed on the same saved MB dicts
+    (`tools/time_kv.py`, one process each, in the order parent, this,
+    this, parent) -> {tree: [its runs' cases]}; {} without it."""
+    parent = os.environ.get("TPU264_KV_PARENT")
+    if not parent:
+        return {}
+    from tpu264_torch.tools.time_kv import save
+    path = ROOT / "build" / "kv_timed_cases.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    save(str(path), cases)
+    tool = ROOT / "tpu264_torch" / "tools" / "time_kv.py"
+    out = {"parent": [], "this": []}
+    for tree, where in (("parent", parent), ("this", str(ROOT)),
+                        ("this", str(ROOT)), ("parent", parent)):
+        env = dict(os.environ, PYTHONPATH=where)
+        res = subprocess.run([sys.executable, str(tool), "--load",
+                              str(path)], env=env, capture_output=True,
+                             text=True, timeout=900, cwd=where)
+        if res.returncode != 0:
+            fail(f"KV timing of {tree} ({where}) failed:\n"
+                 f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        out[tree].append(got["cases"])
+        print(f"KV timed, {tree} tree ({where}): {json.dumps(got)}")
+    return out
+
+
 def check_kv(dev, calls, timed_at=(), dense=False) -> dict:
-    """KV (`kernels/cavlc_slices.py` `serialize`, after KD's launch)
-    against its plain version `serialize_plain` on the card, tolerance 0
-    (32 bits of every word, zeros past each slice's bits and the words
-    past the cap included; the bit counts; the skip maps): every picture
-    of `calls` ((label, picture, MB dict, kind, word cap, pictures of a
-    chunk)), each one-slice picture also cut into 3 (1088 rows: 4)
-    slices, and with `dense` QP-0-like MB dicts (`dense_mbs`: I at 720p,
-    P and B at 1920x1088, 1 and 3 (4) slices) at the encoders' cap of 100
-    words a MB, which every slice is over (the words past it dropped, the
-    bits counted).  KD and KV launch once each a call.  The cases of
-    `timed_at` ((label, kind, pictures) -> name) are timed: the wrapper
-    with CUDA events (`ms`, KD's launch included), KV's four kernels under
-    the profiler (`device_ms`, `kernel_launches`), the plain version
-    (`plain_ms`) and `kv_bound` -> {"err", "over", "timed": {name: row}}."""
+    """KV (`kernels/cavlc_slices.py` `serialize`) against its plain
+    version `serialize_plain` on the card, tolerance 0 (32 bits of every
+    word, zeros past each slice's bits and the words past the cap
+    included; the bit counts; the skip maps), and the mvds and most
+    probable modes that its state pass derives (KD's function) against
+    `preds_plain`: every picture of `calls` ((label, picture, MB dict,
+    kind, word cap, pictures of a chunk)), each one-slice picture also
+    cut into 3 (1088 rows: 4) slices, and with `dense` QP-0-like MB dicts
+    (`dense_mbs`: I at 720p, P and B at 1920x1088, 1 and 3 (4) slices) at
+    the encoders' cap of 100 words a MB, which every slice is over (the
+    words past it dropped, the bits counted).  A call counts one KV run
+    and one KD derivation.  The cases of `timed_at` ((label, kind,
+    pictures) -> name) are timed: the wrapper with CUDA events (`ms`),
+    KV's two kernels under the profiler (`device_ms`, each kernel's in
+    `device_ms_by_kernel`, `kernel_launches`: one each), the plain
+    version (`plain_ms`), `kv_bound`, and KD's row: the state pass's
+    device ms, `preds_plain`'s, `kd_bound` -> {"err", "kd_err", "over",
+    "timed": {name: row}, "kd": {name: row}, "cases": the timed cases}."""
     from tpu264_torch.kernels import cavlc_slices as kcv
     from tpu264_torch.kernels import mb_preds
     cases = {}
@@ -1912,56 +1945,70 @@ def check_kv(dev, calls, timed_at=(), dense=False) -> dict:
                 cases[("dense QP-0-like", kind, 1,
                        tuple(range(0, hm, hm // k)))] = (
                     mbd, wm, hm, wm * hm // k * 100, kind == "i")
-    err, over, timed = 0, 0, {}
+    err, kd_err, over, timed, kd, saved = 0, 0, 0, {}, {}, []
     for (at, kind, pics, rows), (mbd, wm, hm, cap, t8) in cases.items():
         rows = list(rows)
         args = (mbd, wm, hm, rows, kind, cap, t8, pics)
-        before = (kcv.launches["KV"], mb_preds.launches["KD"])
-        got = kcv.serialize(*args)
-        if (kcv.launches["KV"], mb_preds.launches["KD"]) != \
-                (before[0] + 1, before[1] + 1):
-            fail(f"KV {at}: not one launch each of KD and KV")
+        before = dict(kcv.launches)
+        derived = {}
+        got = kcv.serialize(*args, derived=derived)
+        if kcv.launches != {k: v + 1 for k, v in before.items()}:
+            fail(f"KV {at}: not one run of KV and one derivation of KD")
         want = kcv.serialize_plain(*args)
+        ins = mb_preds.preds_plain(mbd, wm, hm, rows, kind, pics)
         torch.cuda.synchronize()
         if got[0].shape != want[0].shape or got[0].dtype != torch.int32:
             fail(f"KV {at} {kind.upper()}: words {tuple(got[0].shape)} "
                  f"{got[0].dtype}, plain {tuple(want[0].shape)}")
         e = kv_err(got, want)
-        err = max(err, e)
+        e_kd = derived_err((derived["mvds"], derived["mpm"]), ins)
+        err, kd_err = max(err, e), max(kd_err, e_kd)
         most = int(got[1].max())
         over += most > 32 * cap
         print(f"KV {at} {kind.upper()} {pics} picture(s) of {wm}x{hm} MBs, "
               f"{len(rows)} slices: {int(got[1].sum())} bits (largest slice "
-              f"{most}, cap {32 * cap}), max abs err {e}")
+              f"{most}, cap {32 * cap}), max abs err {e}, derived mvds and "
+              f"modes (KD) {e_kd}")
         name = dict(timed_at).get((at, kind, pics))
         if name and len(rows) == 1:
             ms = time_ms(lambda: kcv.serialize(*args), 10)
             pms = time_ms(lambda: kcv.serialize_plain(*args), 3)
+            ims = time_ms(lambda: mb_preds.preds_plain(mbd, wm, hm, rows,
+                                                       kind, pics), 3)
+            by_kernel = {}
             dms, kl = kr_device_ms(lambda: kcv.serialize(*args), KV_KERNELS,
-                                   every=True)
+                                   every=True, by_kernel=by_kernel)
             if len(kl) != len(KV_KERNELS):
                 # the profiler's trace lacked some of KV's kernels on
                 # every try: no device time for this case
                 print(f"KV {at}: the profiler caught {kl} of KV's kernels; "
                       f"device ms not measured")
-                dms, kl = None, None
+                dms, kl, by_kernel = None, None, {}
             b = kv_bound(mbd, kind, t8, got[1], cap)
             timed[name] = dict(ms=ms, plain_ms=pms, device_ms=dms,
+                               device_ms_by_kernel=by_kernel,
                                kernel_launches=kl, bits=int(got[1].sum()),
                                **b)
-            print(f"KV {at} {kind.upper()} timed: {ms:.4f} ms a call (KD "
-                  f"included; kernels {dms} ms on the card, launches {kl}), "
-                  f"plain {pms:.2f} ms; bound {b['bound_ms']:.6f} ms "
-                  f"({b['bound_by']})")
-    if err:
-        fail(f"KV differs from its plain version: max abs err {err}")
+            kd[name] = dict(ms=by_kernel.get("kv_state_kernel"),
+                            plain_ms=ims, **kd_bound(mbd, kind, *ins))
+            saved.append((name, mbd, wm, hm, rows, kind, cap, t8, pics))
+            print(f"KV {at} {kind.upper()} timed: {ms:.4f} ms a call "
+                  f"(kernels {dms} ms on the card, by kernel {by_kernel}, "
+                  f"launches {kl}), plain {pms:.2f} ms; bound "
+                  f"{b['bound_ms']:.6f} ms ({b['bound_by']}); KD inside "
+                  f"the state pass, `preds_plain` {ims:.3f} ms, bound "
+                  f"{kd[name]['bound_ms']:.6f} ms")
+    if err or kd_err:
+        fail(f"KV differs from its plain version: max abs err {err}, "
+             f"derived mvds and modes {kd_err}")
     traced = [t["kernel_launches"] for t in timed.values()
               if t["kernel_launches"] is not None]
     if (timed and not traced) or any(
             kl != {k: 1 for k in KV_KERNELS} for kl in traced):
-        fail(f"KV: not one launch of each of its four kernels a call: "
+        fail(f"KV: not one launch of each of its two kernels a call: "
              f"{traced}")
-    return {"err": err, "over": over, "timed": timed}
+    return {"err": err, "kd_err": kd_err, "over": over, "timed": timed,
+            "kd": kd, "cases": saved}
 
 
 def phase_tiled_cavlc() -> dict:
@@ -1999,12 +2046,13 @@ def launch_counts() -> list:
     from tpu264_torch.entropy import cabac_engine_cuda as k1
     from tpu264_torch.kernels import b_wave as kb, cabac_records as kcr, \
         dct_quant as dq, deblock_lines as dl, deblock_wave as k4w, \
-        i16_chroma_wave as k3w, i4x4_wave as k2w, mb_preds, \
+        i16_chroma_wave as k3w, i4x4_wave as k2w, \
         me_search as kfs, me_subpel as ksp, p_wave as kp, cavlc_slices as kcv
+    # KV's counts its runs ("KV") and the derivations of its state pass
+    # ("KD")
     return [k1.launches, k2w.launches, k3w.launches, kp.launches,
             kb.launches, k4w.launches, dq.launches, dl.launches,
-            kfs.launches, ksp.launches, kcr.launches, mb_preds.launches,
-            kcv.launches]
+            kfs.launches, ksp.launches, kcr.launches, kcv.launches]
 
 
 def reset_counts() -> None:
@@ -2133,8 +2181,8 @@ def check_intra_launches(what: str, counts: dict, n: int, n_waves: int,
                          deblock: bool) -> None:
     """An all-intra CAVLC run of `n` chunks (the batched entry) or `n`
     frames (the per-frame path): K2 and K3 once a wave of each, K4 once a
-    wave with deblocking and never without, KD (the serializer's most
-    probable modes) and KV (the serializer and packer) once each, and no
+    wave with deblocking and never without, KV (the serializer and packer)
+    and its KD derivation (the most probable modes) once each, and no
     other kernel."""
     want = {k: 0 for k in counts}
     want.update(K2=n * n_waves, K3=n * n_waves,
@@ -2214,30 +2262,33 @@ def check_many_slices(name: str, frames) -> None:
     """Golden `name`'s all-intra CAVLC frames with a slice a MB row (68
     slices a 1920x1088 picture, 272 in a chunk of 4, more than a picture
     may have on the card) through the batched entry and the per-frame
-    path: the streams equal; KD and KV run once a chunk, and KD's derived
-    modes over the chunk equal their plain version's."""
+    path: the streams equal; KV runs once a chunk, and the modes its state
+    pass derives over the chunk equal their plain version's."""
     from tpu264_torch.coding.encoder import Encoder
     from tpu264_torch.config import EncoderConfig
+    from tpu264_torch.kernels import cavlc_slices as kcv
     from tpu264_torch.kernels import mb_preds
     cfg = dict(golden(name)["config"], slices_per_frame=68)
-    real = mb_preds.preds
+    real = kcv.serialize
     chunks = []
 
-    def spy(mbd, wm, hm, rows, kind, pics=1):
-        got = real(mbd, wm, hm, rows, kind, pics)
+    def spy(mbd, wm, hm, rows, kind, cap, t8=False, pics=1):
+        derived = {}
+        got = real(mbd, wm, hm, rows, kind, cap, t8, pics, derived=derived)
         want = mb_preds.preds_plain(mbd, wm, hm, rows, kind, pics)
-        chunks.append((len(rows) * pics, derived_err(got, want)))
+        chunks.append((len(rows) * pics, derived_err(
+            (derived["mvds"], derived["mpm"]), want)))
         return got
 
     streams = []
     for batch in (4, 1):
         reset_counts()
-        mb_preds.preds = spy
+        kcv.serialize = spy
         try:
             streams.append(Encoder(EncoderConfig(**cfg), intra_batch=batch)
                            .encode_sequence(frames))
         finally:
-            mb_preds.preds = real
+            kcv.serialize = real
         counts = read_counts()
         want = -(-len(frames) // batch)
         if counts["KD"] != want or counts["KV"] != want:
@@ -2248,10 +2299,12 @@ def check_many_slices(name: str, frames) -> None:
              f"differ")
     if max(c for c, _ in chunks) <= mb_preds.MAX_SLICES \
             or any(e for _, e in chunks):
-        fail(f"{name}, 68 slices: KD's (slices, max abs err) {chunks}")
-    print(f"{name}, 68 slices a picture: batched (KD's slices a launch "
+        fail(f"{name}, 68 slices: KV's (slices, derived max abs err) "
+             f"{chunks}")
+    print(f"{name}, 68 slices a picture: batched (KV's slices a run "
           f"{[c for c, _ in chunks]}) and per-frame streams equal, "
-          f"{len(streams[0])} bytes; KD's modes equal their plain version's")
+          f"{len(streams[0])} bytes; KV's derived modes equal their plain "
+          f"version's")
 
 
 def phase_config2() -> None:
@@ -3633,11 +3686,20 @@ def main() -> int:
              f"{sorted(kv['timed'])}")
     results["KV"] = dict(kv["timed"]["chunk4"],
                          err=max(kv["err"], kv_first["err"]))
+    results["KD"] = dict(kv_first["kd"]["b_1080p"],
+                         err=max(kv["kd_err"], kv_first["kd_err"]))
     for name, row in list(kv["timed"].items()) + list(
             kv_first["timed"].items()):
         if name != "chunk4":
-            for f in ("ms", "plain_ms", "bound_ms", "device_ms"):
+            for f in ("ms", "plain_ms", "bound_ms", "device_ms",
+                      "device_ms_by_kernel"):
                 results["KV"][f"{f}_{name}"] = row[f]
+    for name, row in list(kv["kd"].items()):
+        for f in ("ms", "plain_ms", "bound_ms"):
+            results["KD"][f"{f}_{name}"] = row[f]
+    parent = kv_parent_times(kv["cases"] + kv_first["cases"])
+    if parent:
+        results["KV"]["parent_and_this"] = parent
     counts_c, _ = phase_ippp("ippp_720p_cabac", "IPPP CABAC at 720p with "
                              "the default P tools")
     phase_rate_control("ippp_cif_cabac_rc", "IPPP CABAC at CIF with rate "
@@ -3703,7 +3765,13 @@ def main() -> int:
                       "device_ms_1080p_i", "ms_720p_p_tools_off",
                       "plain_ms_720p_p_tools_off",
                       "bound_ms_720p_p_tools_off",
-                      "device_ms_720p_p_tools_off"):
+                      "device_ms_720p_p_tools_off", "device_ms_by_kernel",
+                      "device_ms_by_kernel_1080p_i",
+                      "device_ms_by_kernel_720p_p",
+                      "device_ms_by_kernel_720p_p_tools_off",
+                      "device_ms_by_kernel_b_1080p", "ms_chunk4",
+                      "plain_ms_chunk4", "bound_ms_chunk4", "ms_1080p_i",
+                      "parent_and_this"):
             if extra in r:
                 row[extra] = r[extra]
         rows.append(row)

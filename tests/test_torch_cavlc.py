@@ -15,9 +15,17 @@ from tpu264_torch.coding import intra_frame as tif
 from tpu264_torch.coding.wavefront import build_schedule
 from tpu264_torch.entropy import device_cavlc as tdc
 
-from torch_util import assert_equal, t32, to_np
+from torch_util import assert_equal, eager_cached, t32, to_np
 
 W, H = 176, 144
+
+
+@pytest.fixture(autouse=True)
+def _cached_reference_ops():
+    """The reference's eager operations kept in its compilation cache
+    (`torch_util.eager_cached`)."""
+    with eager_cached():
+        yield
 
 
 def _blocks(kind: str, n: int, mc: int, seed: int) -> np.ndarray:

@@ -7,12 +7,13 @@ import dataclasses
 
 import pytest
 
-from tpu264.coding.encoder import Encoder as RefEncoder
 from tpu264.config import EncoderConfig as RefConfig
 from tpu264.media.synth import synth_frame
 
 from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.config import EncoderConfig
+
+from torch_util import reference_encoder
 
 W, H = 176, 144
 FRAMES = [synth_frame(W, H, 0)]
@@ -23,7 +24,7 @@ def test_single_frame_takes_the_per_frame_path(deblock, slices):
     ref_cfg = RefConfig(width=W, height=H, qp=28, symbol_mode="CAVLC",
                         intra_period=1, deblock=deblock,
                         slices_per_frame=slices)
-    want = RefEncoder(ref_cfg).encode_sequence(FRAMES)
+    want = reference_encoder(ref_cfg).encode_sequence(FRAMES)
     enc = Encoder(EncoderConfig.from_reference(dataclasses.asdict(ref_cfg)),
                   device="cpu")
     called = []

@@ -429,7 +429,8 @@ def test_cuda_batched_entry_equals_cpu():
     """Config 1 (five QCIF all-intra CAVLC frames, 1 and 3 slices) through
     the batched entry on the card equals the same on the CPU: stream,
     frame sizes and recons; a chunk of 4 (and the short one of 1)
-    launches K2, K3 and K4 once a wave, as one frame does, and KD once.
+    launches K2, K3 and K4 once a wave, as one frame does, and KV (its
+    state pass deriving the mvds and modes, KD's function) once.
     So does a 32x1088 picture with a slice a MB row (68 slices), whose
     chunk of 4 has 272 slices, more than a picture may have on the card."""
     dev = cuda_device()
@@ -444,16 +445,16 @@ def _check_batched_entry(dev, slices, w=176, h=144):
                         slices_per_frame=slices)
     frames = [synth_frame(w, h, t) for t in range(5)]
     before = {**k2w.launches, **k3w.launches, **k4w.launches,
-              **mb_preds.launches}
+              **kcv.launches}
     enc = Encoder(cfg, device=dev)
     got = enc.encode_sequence(frames)
     n_waves = enc.sched.n_waves
     ran = {k: v - before[k] for k, v in {
         **k2w.launches, **k3w.launches, **k4w.launches,
-        **mb_preds.launches}.items()}
+        **kcv.launches}.items()}
     for k in ("K2", "K3", "K4"):
         assert ran[k] == 2 * n_waves, k
-    assert ran["KD"] == 2
+    assert ran["KD"] == ran["KV"] == 2
     cpu = Encoder(cfg, device="cpu")
     assert got == cpu.encode_sequence(frames)
     assert [s.bits for s in enc.stats] == [s.bits for s in cpu.stats]
@@ -1331,20 +1332,26 @@ def test_cuda_me_wrappers_reject_bad_input():
 
 def _records_both(mb, wm, hm, rows, kind, cap, t8_mode=False):
     """KR on the card and its plain version on the same card tensors ->
-    ((records, counts), (records, counts)) on the host; KR's derived mvds
-    and most probable modes, and those of the CAVLC serializers' pass KD,
-    equal their plain version's."""
+    ((records, counts), (records, counts)) on the host; the mvds and most
+    probable modes that KR's state pass derives, and KV's from the same
+    device code (`csrc/mb_preds.cuh`, KD's function), equal their plain
+    version's."""
     want_in = mb_preds.preds_plain(mb, wm, hm, rows, kind)
-    before = mb_preds.launches["KD"]
-    for got_in in (kcr.queue(mb, wm, hm, rows, kind, cap, t8_mode),
-                   mb_preds.preds(mb, wm, hm, rows, kind)):
-        got_in = (got_in.mvds, got_in.mpm) if hasattr(got_in, "mpm") \
-            else got_in
+    kv_in = {}
+    before = kcv.launches["KD"]
+    queued = kcr.queue(mb, wm, hm, rows, kind, cap, t8_mode)
+    if hm % len(rows) == 0:
+        kcv.serialize(mb, wm, hm, rows, kind, 100 * wm * hm, t8_mode,
+                      derived=kv_in)
+        assert kcv.launches["KD"] - before == 1
+    for got_in in ((queued.mvds, queued.mpm),
+                   (kv_in.get("mvds"), kv_in.get("mpm"))):
+        if got_in[1] is None:
+            continue
         for g, w in zip(got_in, want_in):
             assert (g is None) == (w is None)
             if w is not None:
                 assert_equal(g.cpu(), w.cpu())
-    assert mb_preds.launches["KD"] - before == 1
     got = kcr.records(mb, wm, hm, rows, kind, cap, t8_mode)
     want = kcr.records_plain(mb, wm, hm, rows, kind, cap, t8_mode)
     return [tuple(t.cpu() for t in x) for x in (got, want)]
@@ -1493,9 +1500,9 @@ def test_cuda_records_rejects_bad_input():
     mb = {k: torch.as_tensor(v, device=dev)
           for k, v in random_mbs(3, wm, hm).items()}
     kcr.records(mb, wm, hm, [0], "p", 1000)
-    mb_preds.preds(mb, wm, hm, [0], "p")
+    kcv.serialize(mb, wm, hm, [0], "p", 1000)
     torch.cuda.synchronize()
-    for fn in (kcr.records, lambda *a: mb_preds.preds(*a[:5])):
+    for fn in (kcr.records, kcv.serialize):
         with pytest.raises(TypeError):
             fn(dict(mb, sel16=mb["sel16"].to(torch.int32)), wm, hm, [0], "p",
                1000)
@@ -1517,41 +1524,63 @@ def test_cuda_records_rejects_bad_input():
 
 
 def _kv_both(mb, wm, hm, rows, kind, cap, t8_mode=False, pics=1):
-    """KV (after KD) and its plain version on the same CUDA tensors ->
-    ((words, nbits, skipped) of KV, of the plain version); one KV and one
-    KD launch."""
-    before = (kcv.launches["KV"], mb_preds.launches["KD"])
-    got = kcv.serialize(mb, wm, hm, rows, kind, cap, t8_mode, pics)
-    assert (kcv.launches["KV"], mb_preds.launches["KD"]) == \
-        (before[0] + 1, before[1] + 1)
+    """KV and its plain version on the same CUDA tensors -> ((words,
+    nbits, skipped) of KV, of the plain version); one KV run (two
+    launches, its state pass deriving the mvds and modes); those equal
+    `preds_plain`'s."""
+    before = dict(kcv.launches)
+    derived = {}
+    got = kcv.serialize(mb, wm, hm, rows, kind, cap, t8_mode, pics,
+                        derived=derived)
+    assert kcv.launches == {k: v + 1 for k, v in before.items()}
     want = kcv.serialize_plain(mb, wm, hm, rows, kind, cap, t8_mode, pics)
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.int64
+    want_in = mb_preds.preds_plain(mb, wm, hm, rows, kind, pics)
+    for name, w in zip(("mvds", "mpm"), want_in):
+        assert (derived[name] is None) == (w is None), name
+        if w is not None:
+            assert_equal(derived[name].cpu(), w.cpu())
     return got, want
+
+
+def _kv_check(got, want, kind):
+    m32 = 0xFFFFFFFF
+    assert_equal(got[1], want[1])
+    assert_equal(got[0].to(torch.int64) & m32, want[0] & m32)
+    if kind == "i":
+        assert got[2] is None and want[2] is None
+    else:
+        assert_equal(got[2], want[2])
 
 
 @pytest.mark.cuda
 def test_cuda_kv_matches_plain():
     """KV (CAVLC serialize + pack, `kernels/cavlc_slices.py`) equals its
     plain version `serialize_plain` on the card, tolerance 0 (32 bits of
-    every word, the bit counts, the skip maps): seeded 1280x720 and
-    1920x1088 MB dicts of every slice kind and tool set, 1, 3 (4 at
-    1088) and 68 slices, the 8x8 PPS of an I slice, levels scaled by 37
-    (QP-0-like: the level escapes), a cap of a few words a slice (every
-    slice over it; the bit counts keep every bit), and a chunk of four
-    68-slice 1920x1088 I pictures in one run (272 slices)."""
+    every word, the bit counts, the skip maps, the derived mvds and
+    modes): seeded 1280x720 and 1920x1088 MB dicts of every slice kind
+    and tool set, 1, 3 (4 at 1088), 45 and 68 slices (a MB row each: its
+    tiles of 32 MBs straddle the slices), the 8x8 PPS of an I slice,
+    levels scaled by 37 (QP-0-like: the level escapes) and 160 (codes
+    wider than their length), a cap of a few words a slice (every slice
+    over it; the bit counts keep every bit), a 128x4096 picture of 256
+    slices, P and B pictures whose skipped MBs fill whole tiles and
+    whole slices, and a chunk of four 68-slice 1920x1088 I pictures in
+    one run (272 slices)."""
     dev = cuda_device()
     tool_sets = {"i": [(), ("t8",)],
                  "p": [(), ("ptype",), ("ptype", "mvq"),
                        ("ptype", "mvq", "t8"), ("t8",)],
                  "b": [(), ("parts",), ("parts", "t8"), ("t8",)]}
-    m32 = 0xFFFFFFFF
     cases = 0
-    for wm, hm, slice_sets in ((80, 45, (1, 3)), (120, 68, (1, 4, 68))):
+    for wm, hm, slice_sets in ((80, 45, (1, 3, 45)), (120, 68, (1, 4, 68))):
         for kind, sets in tool_sets.items():
             for t, tools in enumerate(sets):
                 for slices in slice_sets:
-                    for scale, per_mb in ((1, 400), (37, 400), (37, 1)):
-                        if wm == 120 and t and (slices == 68 or scale > 1):
+                    for scale, per_mb in ((1, 400), (37, 400), (37, 1),
+                                          (160, 400)):
+                        if (wm == 120 and t and (slices == 68 or scale > 1)
+                                or slices == 45 and scale > 1):
                             continue
                         seed = 1000 * t + 10 * slices + scale + wm
                         if kind == "b":
@@ -1569,17 +1598,42 @@ def test_cuda_kv_matches_plain():
                         cap = wm * hm // slices * per_mb
                         got, want = _kv_both(mb, wm, hm, rows, kind, cap,
                                              "t8" in tools)
-                        assert_equal(got[1], want[1])
-                        assert_equal(got[0].to(torch.int64) & m32,
-                                     want[0] & m32)
-                        if kind == "i":
-                            assert got[2] is None and want[2] is None
-                        else:
-                            assert_equal(got[2], want[2])
+                        _kv_check(got, want, kind)
                         assert (int(got[1].max()) > 32 * cap) == \
                             (per_mb == 1)
                         cases += 1
-    assert cases > 60
+    assert cases > 80
+    # 256 slices of one MB row; skipped MBs over whole tiles and slices
+    wm, hm = 8, 256
+    for kind in ("i", "p", "b"):
+        mb = (random_b_mbs(7, wm, hm, True, True) if kind == "b"
+              else random_mbs(7, wm, hm, p_slice=kind == "p"))
+        mb = {k: torch.as_tensor(v, device=dev) for k, v in mb.items()}
+        got, want = _kv_both(mb, wm, hm, list(range(hm)), kind, wm * 100)
+        _kv_check(got, want, kind)
+    wm, hm = 80, 45
+    for kind, tools in (("p", ("ptype", "mvq", "t8")), ("b", ("parts",))):
+        for slices, lo, hi in ((1, 100, 1000), (3, 1200, 2400),
+                               (45, 0, 3600)):
+            mb = (random_b_mbs(11, wm, hm, True, False) if kind == "b"
+                  else random_mbs(11, wm, hm, tools=tools))
+            for key in ("luma_ac", "luma_dc", "chroma_dc", "chroma_ac"):
+                mb[key][lo:hi] = 0
+            if kind == "p":
+                mb["is_inter"][lo:hi] = 1
+                mb["ptype"][lo:hi] = 0
+                mb["mv"][lo:hi] = mb["mv_skip"][lo:hi]
+            else:
+                mb["btype"][lo:hi] = 3
+                mb["bptype"][lo:hi] = 0
+            mb = {k: torch.as_tensor(v, device=dev) for k, v in mb.items()}
+            rows = list(range(0, hm, hm // slices))
+            got, want = _kv_both(mb, wm, hm, rows, kind,
+                                 wm * hm // slices * 100)
+            _kv_check(got, want, kind)
+            assert bool(got[2][lo:hi].all())
+            if slices == 3:
+                assert int(got[1][1]) == 0
     # a chunk of four 68-slice 1920x1088 pictures in one run
     wm, hm = 120, 68
     pics = [random_mbs(300 + f, wm, hm, p_slice=False, tools=())
@@ -1589,8 +1643,7 @@ def test_cuda_kv_matches_plain():
     rows = list(range(hm))
     got, want = _kv_both(chunk, wm, hm, rows, "i", wm * 100, pics=4)
     assert got[0].shape == (4 * 68, wm * 100)
-    assert_equal(got[1], want[1])
-    assert_equal(got[0].to(torch.int64) & m32, want[0] & m32)
+    _kv_check(got, want, "i")
     for f in range(4):
         one = {k: v[f * wm * hm:(f + 1) * wm * hm] for k, v in chunk.items()}
         alone = kcv.serialize(one, wm, hm, rows, "i", wm * 100)

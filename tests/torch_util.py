@@ -8,6 +8,7 @@ integer math with deterministic decisions.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -81,6 +82,24 @@ def run_engine(slices, table, qp, pad=5, out_cap=8192, device="cpu"):
 # may not be installed.
 
 _REF_PROGRAMS: dict = {}
+
+
+@contextlib.contextmanager
+def eager_cached():
+    """While entered, the reference's eager operations (hundreds of small
+    XLA programs a call of its jnp serializers, each compiled in tens of
+    ms) are kept in its persistent compilation cache
+    (`tpu264/__init__.py`), which by default keeps only programs that took
+    2 s or more to compile: with a warm cache they are loaded, not
+    compiled again."""
+    import jax
+    key = "jax_persistent_cache_min_compile_time_secs"
+    old = getattr(jax.config, key)
+    jax.config.update(key, 0)
+    try:
+        yield
+    finally:
+        jax.config.update(key, old)
 
 
 def reference_encoder(cfg):

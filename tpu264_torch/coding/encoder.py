@@ -294,8 +294,8 @@ def _flat(mbd) -> dict:
 def serialize(pic: Picture, mbd, kind: str, cap_words: int,
               frames: int | None = None):
     """CAVLC serialize + pack on device a picture of slice kind `kind`
-    ("i", "p" or "b") -> (words, nbits, skipped): on the card KD and
-    kernel KV (`kernels/cavlc_slices.py`, int32 words), nothing read
+    ("i", "p" or "b") -> (words, nbits, skipped): on the card kernel KV
+    (`kernels/cavlc_slices.py`, two launches, int32 words), nothing read
     back; on the CPU its plain version (int64 words).  In a PPS with the
     8x8 transform, I_NxN MBs of I slices carry its flag too.  `frames`: a
     chunk of that many I pictures (`mbd` [F, n, ...]) in one pass ->

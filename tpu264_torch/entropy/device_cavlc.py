@@ -399,7 +399,7 @@ def _residual_slots(mb, sel16, cbp_luma, cbp_chroma, wm, hm, slice_rows):
 def _i4_mode_slots(vals, lens, slot0, mb, is_i4, mpm):
     """The 16 prev_intra4x4_pred_mode / rem_intra4x4_pred_mode slots of
     the Intra4x4 MBs `is_i4`, from slot `slot0` on, against the most
-    probable modes `mpm` [n, 16] (`mb_preds.preds`)."""
+    probable modes `mpm` [n, 16] (`mb_preds.preds_plain`)."""
     modes = mb["modes"].to(I32)
     is_mpm = modes == mpm
     rem = modes - (modes > mpm).to(I32)
@@ -427,9 +427,8 @@ def serialize_frame(mb, wm: int, hm: int, slice_rows,
     neighbour of the nC grids or of the most probable mode reaches across
     two pictures (a slice's top row has no top neighbour, and a left
     neighbour lies in the same row)."""
-    # the most probable modes: kernel KD on the card (one launch for the
-    # chunk), the plain helpers on the CPU
-    _, mpm = mb_preds.preds(mb, wm, hm, slice_rows, "i", frames)
+    # the most probable modes, the plain helpers for the whole chunk
+    _, mpm = mb_preds.preds_plain(mb, wm, hm, slice_rows, "i", frames)
     slice_rows = [f * hm + int(r) for f in range(frames) for r in slice_rows]
     hm = frames * hm
     n = wm * hm
@@ -734,8 +733,8 @@ def serialize_frame_p(mb, wm: int, hm: int, slice_rows):
 
     mv = mb["mv"].to(I32)
     # list 0's mvds (part 0 / q0, part 1 / q1, q2, q3) and the most
-    # probable modes: kernel KD on the card, the plain helpers on the CPU
-    mvds, mpm = mb_preds.preds(mb, wm, hm, slice_rows, "p")
+    # probable modes, the plain helpers
+    mvds, mpm = mb_preds.preds_plain(mb, wm, hm, slice_rows, "p")
     mvds = mvds[:, 0].unbind(1)
     ptype = (mb["ptype"].to(I32) if parts_mode
              else torch.zeros(n, dtype=I32, device=dev))
@@ -887,9 +886,9 @@ def serialize_frame_b(mb, wm: int, hm: int, slice_rows):
     is_i4 = coded & ~is_inter & ~sel16
     if t8_mode:
         lens[2] = is_i4.to(I32)                # the flag, 0 for I_NxN
-    # each list's mvds (part 0, part 1) and the most probable modes: kernel
-    # KD on the card, the plain helpers on the CPU
-    mvds, mpm = mb_preds.preds(mb, wm, hm, slice_rows, "b")
+    # each list's mvds (part 0, part 1) and the most probable modes, the
+    # plain helpers
+    mvds, mpm = mb_preds.preds_plain(mb, wm, hm, slice_rows, "b")
     _i4_mode_slots(vals, lens, 2 + ioff, mb, is_i4, mpm)
     _ue_slots(vals, lens, 18 + ioff, mb["cmode"].to(I32), coded & ~is_inter)
 

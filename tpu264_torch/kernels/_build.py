@@ -4,8 +4,9 @@ All kernels (K1 CABAC engine, K2 I4x4 wave body, K3 I16x16 + chroma wave
 body, KP P wave body and KB B wave body (one launch a picture each), K4
 deblock wave, KF integer full search and KS sub-pel refinement (one launch
 a list of a picture each), KR CABAC binarize + compact (four launches a
-picture) with KD, its derive pass for the CAVLC serializers, KV CAVLC
-serialize + pack (four launches a picture or chunk), and the K2/K3 DCT +
+picture) and KV CAVLC serialize + pack (two launches a picture or
+chunk), both deriving their mvds and most probable modes with KD's
+device code (`mb_preds.cuh`), and the K2/K3 DCT +
 quant and K4 luma line filter entries on slabs) are CUDA C++ under
 `tpu264_torch/csrc/` with a plain C interface.  At first use `nvcc` compiles each source to an object
 file, all sources at once in parallel, links them into one shared library,
@@ -68,11 +69,9 @@ _SIGNATURES = {
     "tpu264_me_search": [P, P, P, P, P],
     # (ptrs[33]*, params*, recs, stride, emit_only, stream)
     "tpu264_cabac_records": [P, P, P, I, I, P],
-    # (ptrs[33]*, params*, pics, stream)
-    "tpu264_mb_preds": [P, P, I, P],
     # (orig, planes, mv_int, out, params*, stream)
     "tpu264_me_subpel": [P, P, P, P, P, P],
-    # (ptrs[28]*, params*, pics, cap, stream)
+    # (ptrs[34]*, params*, pics, cap, stream)
     "tpu264_cavlc_slices": [P, P, I, I, P],
 }
 

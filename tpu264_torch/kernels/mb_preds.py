@@ -2,26 +2,24 @@
 against its spec 8.4.1.3 predictor and each 4x4 block's most probable
 Intra4x4 mode, both stencils over the picture's finished MB dict.
 
-On the card they come from the state pass of kernel KR
-(`csrc/cabac_records.cu` `state_kernel`): a CABAC picture's KR run derives
-them itself (`kernels/cabac_records.py`), and the CAVLC serializers
-(`entropy/device_cavlc.py`) take them from `preds`, the same pass without
-its state buffer, one launch a picture or a chunk of pictures (kernel
-KD).  For CPU tensors `preds` runs the plain version `preds_plain`, the
-eager torch helpers of `device_cavlc` (`mpm_grid`, `mvd_16x16`,
-`_partition_mvds`, `b_list_mvds`); for CUDA tensors it launches KD or
-raises, with no fallback.  On the card a picture has at most `MAX_SLICES`
-slices; a chunk of pictures may have any number in all.
+On the card the state passes of kernels KR (`csrc/cabac_records.cu`, a
+CABAC picture, `kernels/cabac_records.py`) and KV (`csrc/cavlc_slices.cu`,
+a CAVLC picture, band or chunk of pictures, `kernels/cavlc_slices.py`)
+derive them, both from the device code of `csrc/mb_preds.cuh` (kernel
+KD's function; `launches["KD"]` of `cavlc_slices` counts it on the CAVLC
+paths).  Their plain version is `preds_plain`, the eager torch helpers
+of `device_cavlc` (`mpm_grid`, `mvd_16x16`, `_partition_mvds`,
+`b_list_mvds`), which the CPU paths and the plain serializers and
+binarizer run.  On the card a picture has at most `MAX_SLICES` slices; a
+chunk of pictures may have any number in all.
 
 No single PyTorch call computes an H.264 mv predictor or most probable
 mode, so KD has no library yardstick.
 
-Both entry points of the CUDA source parse one pointer and parameter
-layout (`Io` and `Params`), which this module packs and checks for KR's
-wrapper too.  The derivation's tables are `tables()`; KR's wrapper
-appends its CABAC context tables to them.
-
-`launches["KD"]` counts KD's launches.
+This module packs and checks the pointer and parameter layout (`Io`'s
+inputs and `Params`) that both CUDA sources parse.  The derivation's
+tables are `tables()`; KR's wrapper appends its CABAC context tables to
+them.
 """
 
 from __future__ import annotations
@@ -39,8 +37,8 @@ from .transform import constant
 I32 = torch.int32
 KINDS = {"i": 0, "p": 1, "b": 2}
 MAX_SLICES = 256
-# `Io`'s input pointers in the CUDA source, in its order; then the
-# tables, the mvds, the most probable modes and KR's scratch
+# `Io`'s input pointers in the CUDA sources, in their order; then the
+# tables, the mvds, the most probable modes and each kernel's scratch
 INPUTS = ("sel16", "is_inter", "t8", "luma_ac", "luma_dc", "chroma_dc",
           "chroma_ac", "modes", "cmode", "i16mode", "mv", "mv_skip", "ptype",
           "btype", "c0", "c1", "bptype", "mv2", "mvq", "use0", "use1", "mv0",
@@ -56,7 +54,6 @@ MOTION = {"i": (), "p": ("is_inter", "mv"),
           "b": ("btype", "use0", "use1", "mv0", "mv1")}
 PART_MOTION = {"p": ("ptype", "mv2"), "b": ("bptype", "c1", "mv0b", "mv1b")}
 
-launches = {"KD": 0}
 _PARAMS: dict = {}
 _SPECS: dict = {}
 
@@ -147,55 +144,21 @@ def tables() -> np.ndarray:
                            ]).astype(np.int32)
 
 
-def outputs(n: int, kind: str, dev):
-    """Room for the derived inputs: (mvds [n, 2, 4, 2] int32, None in an
-    I picture; mpm [n, 16] int32)."""
-    mvds = (None if kind == "i"
-            else torch.empty((n, 2, 4, 2), dtype=I32, device=dev))
-    return mvds, torch.empty((n, 16), dtype=I32, device=dev)
-
-
-def preds(mbd, wm: int, hm: int, rows, kind: str, pics: int = 1):
+def preds_plain(mbd, wm: int, hm: int, rows, kind: str, pics: int = 1):
     """The derived inputs of `pics` pictures of slice kind `kind` ("i",
     "p" or "b"), each `hm` MB rows high with slices starting at the MB
     rows `rows`, whose MBs `mbd` holds picture after picture -> (mvds
-    [pics n, 2, 4, 2] int32: list, partition, component, P's part 0 / q0,
-    part 1 / q1, q2, q3 on list 0, B's part 0 and 1 on both lists, zeros
-    elsewhere; None in an I picture; mpm [pics n, 16] int32, the most
-    probable mode of each 4x4 block in zig-zag order).  Every MB gets
-    both, whether it codes them or not.  CPU tensors: the plain version;
-    CUDA tensors: kernel KD, one launch."""
-    dev = mbd["modes"].device
-    if dev.type == "cpu":
-        return preds_plain(mbd, wm, hm, rows, kind, pics)
-    who = "mb_preds"
-    if dev.type != "cuda":
-        raise ValueError(f"{who}: CUDA or CPU tensors expected, got {dev}")
-    rows = check_layout(who, hm, rows, kind)
-    if pics < 1:
-        raise ValueError(f"{who}: {pics} pictures")
-    n = wm * hm * pics
-    parts, p8x8 = modes_of(mbd, kind)
-    ptrs = input_pointers(who, mbd, derive_keys(mbd, kind), kind, n, dev)
-    mvds, mpm = outputs(n, kind, dev)
-    ptrs += [constant(("kd_tables",), dev, tables).data_ptr(),
-             0 if mvds is None else mvds.data_ptr(), mpm.data_ptr(),
-             0, 0, 0, 0, 0]
-    launches["KD"] += 1
-    _build.check(_build.lib().tpu264_mb_preds(
-        (ctypes.c_void_p * len(ptrs))(*ptrs),
-        params(wm, hm, rows, kind, False, parts, p8x8), pics,
-        _build.stream_of(mpm)), who)
-    return mvds, mpm
-
-
-def preds_plain(mbd, wm: int, hm: int, rows, kind: str, pics: int = 1):
-    """`preds`' plain version, eager torch on any device: the helpers of
+    [pics n, 2, 4, 2] int32: list, partition, component, P's part 0 /
+    q0, part 1 / q1, q2, q3 on list 0, B's part 0 and 1 on both lists,
+    zeros elsewhere; None in an I picture; mpm [pics n, 16] int32, the
+    most probable mode of each 4x4 block in zig-zag order), every MB
+    whether it codes them or not.  The plain version of the derivation of
+    KR's and KV's state passes, eager torch on any device: the helpers of
     `device_cavlc` that the CAVLC serializers and the CABAC binarizer's
     plain version call, on the pictures stacked as one picture `pics` hm
     rows high whose slices start at every picture's slice rows, so that
     no neighbour reaches across two pictures."""
-    # imported here: device_cavlc takes `preds` from this module
+    # imported here: device_cavlc takes `preds_plain` from this module
     from tpu264_torch.entropy.device_cavlc import (_partition_mvds,
                                                    b_list_mvds,
                                                    blk_grid_index, mpm_grid,

@@ -86,7 +86,7 @@ CAVLC, deblocking, one slice; `Encoder(cfg, intra_batch=B)`, B from
 `tools/profile_stages.py` and `tools/profile_ser.py`, under their names:
 `stages` holds the warm seconds (mean of 3 synchronised calls) of the wave
 loop ("wavefront_s"), "reorder_s", the CAVLC serializer and packer
-("serialize_pack_s": KD and kernel KV), "deblock_s",
+("serialize_pack_s": kernel KV), "deblock_s",
 the pull of the words ("pull_s") and the host NAL assembly
 ("host_nal_s"); `profile` the launches by stage and the device time of a
 frame through the per-frame path, and `batched` the batched entry's
@@ -347,7 +347,7 @@ def profiled_frame(patches: list, job) -> dict:
            if kv[0].startswith(("(anonymous namespace)::",
                                 "void (anonymous namespace)::"))]
     return {"frame_seconds_profiled": secs, "device_events": len(on_device),
-            # the CAVLC serializer kernel KV's four passes (`kv_*`)
+            # the CAVLC serializer kernel KV's passes (`kv_*`)
             "kv_device_seconds": sum(us for name, (_, us) in own
                                      if "::kv_" in name) * 1e-6,
             "kv_launches": sum(n for name, (n, _) in own
