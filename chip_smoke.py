@@ -149,7 +149,9 @@ Phases (any failure exits non-zero, before the result line):
     halos) at 1280 x 128 over 2 lanes x 2 bands on the one card, 5 frames
     a lane, each lane's stream decoded on the card to the encoder's
     recons, each lane held to the golden `dryrun_multichip_4` (SHA-256,
-    frame sizes and QPs); encode and decode seconds printed.
+    frame sizes and QPs); encode and decode seconds printed; where the
+    machine shows two cards or more, again with the four devices spread
+    over them (`cuda:i % n`), held to the same golden.
 
 The line before the last is a JSON object with one entry per kernel
 (`launches`: the sum over the four 720p main paths, config 4 and its two
@@ -3419,27 +3421,13 @@ def phase_dryrun(card: str) -> dict:
     from the reference's dry run -> the launch counts of encode and
     decode (K1, KR, K2, K3, KP, KB, K4, KF and KS each at least once; KF
     and KS once a list of every P and B band picture, KR once a band
-    picture)."""
-    from tpu264_torch.runtime.dryrun import dryrun_multichip
+    picture).  Where the machine shows two cards or more, the dry run
+    then runs again with its four devices spread over them (card i % n),
+    held to the same golden."""
     g = golden("dryrun_multichip_4")
     reset_counts()
-    try:
-        res = dryrun_multichip(4, devices=["cuda"] * 4,
-                               width=g["config"]["width"])
-    except RuntimeError as e:           # a decode that differs, or lost
-        fail(str(e))
+    res = run_dryrun(g, ["cuda"] * 4, "dryrun")
     counts = read_counts()
-    if res["mesh"] != g["mesh"] or res["height"] != g["config"]["height"] \
-            or len(res["lanes"]) != len(g["lanes"]):
-        fail(f"dryrun: mesh {res['mesh']}, height {res['height']}, "
-             f"{len(res['lanes'])} lanes")
-    for i, (got, want) in enumerate(zip(res["lanes"], g["lanes"])):
-        print(f"dryrun lane {i}: {got['bytes']} bytes, sha256 "
-              f"{got['sha256']}, frame bits {got['frame_bits']}, QPs "
-              f"{got['frame_qps']}")
-        for k in ("sha256", "bytes", "frame_bits", "frame_qps"):
-            if got[k] != want[k]:
-                fail(f"dryrun lane {i}: {k} {got[k]} != golden {want[k]}")
     n_mbs = (len(res["lanes"]) * res["frames"] * res["width"]
              * res["height"] // 256)
     print(f"dryrun on {card}: {res['width']}x{res['height']}, mesh "
@@ -3459,7 +3447,41 @@ def phase_dryrun(card: str) -> dict:
              f"for {lists} lists of P and B band pictures")
     if any(counts[k] for k in ("K2_blocks", "K3_blocks", "K4_lines")):
         fail(f"dryrun: slab entries launched: {counts}")
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = [f"cuda:{i % n_cards}" for i in range(4)]
+        spread = run_dryrun(g, cards, f"dryrun over {n_cards} cards")
+        print(f"dryrun over {n_cards} cards {cards}: encode "
+              f"{spread['encode_seconds']:.3f} s, decode "
+              f"{spread['decode_seconds']:.3f} s, every lane equal to the "
+              f"golden")
+    else:
+        print("dryrun over several cards: not run (one card visible)")
     return counts
+
+
+def run_dryrun(g: dict, devices: list, what: str) -> dict:
+    """`dryrun_multichip(4, devices=devices)` at golden `g`'s width, each
+    lane's SHA-256, bytes, frame sizes and QPs held to `g` -> its
+    result."""
+    from tpu264_torch.runtime.dryrun import dryrun_multichip
+    try:
+        res = dryrun_multichip(4, devices=devices,
+                               width=g["config"]["width"])
+    except RuntimeError as e:           # a decode that differs, or lost
+        fail(f"{what}: {e}")
+    if res["mesh"] != g["mesh"] or res["height"] != g["config"]["height"] \
+            or len(res["lanes"]) != len(g["lanes"]):
+        fail(f"{what}: mesh {res['mesh']}, height {res['height']}, "
+             f"{len(res['lanes'])} lanes")
+    for i, (got, want) in enumerate(zip(res["lanes"], g["lanes"])):
+        print(f"{what} lane {i}: {got['bytes']} bytes, sha256 "
+              f"{got['sha256']}, frame bits {got['frame_bits']}, QPs "
+              f"{got['frame_qps']}")
+        for k in ("sha256", "bytes", "frame_bits", "frame_qps"):
+            if got[k] != want[k]:
+                fail(f"{what} lane {i}: {k} {got[k]} != golden {want[k]}")
+    return res
 
 
 def phase_tiled(name: str, what: str) -> dict:

@@ -4,32 +4,23 @@ and sizes in display order, at QCIF with one slice and deblocking:
 `num_b_frames=2` over 7 frames (I, P, Bref, B, P with a list-0 reordering,
 Bref, B) with CAVLC, with CABAC, and with CABAC under JVT-G012 rate control
 (every frame's QP the reference's); and `num_b_frames=1` over 5 frames
-(IbPbP).  The cases share the reference's compiled programs
-(`torch_util.reference_encoder`): the I, P and B encoders, the deblocker,
-the CAVLC serializers and the CABAC record programs of this geometry."""
+(IbPbP).  The reference's encodes are pinned
+(`torch_util.reference_run`)."""
 
 import dataclasses
 
 import pytest
 
-from tpu264.config import EncoderConfig as RefConfig
 
 from tpu264_torch.coding import encoder as encoder_mod
 from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.config import EncoderConfig
 
-from torch_util import (QCIF_H, QCIF_W, assert_same_encode, frame_qp_spy,
-                        moving_frames, record_qps, reference_encoder)
+from torch_util import assert_same_encode, reference_run
 
 KINDS = {2: ["IDR", "Bref", "B", "P", "Bref", "B", "P"],
          1: ["IDR", "B", "P", "B", "P"]}
 _REF: dict = {}
-
-
-def _cfg(nb: int, symbol_mode: str, **kw):
-    return RefConfig(width=QCIF_W, height=QCIF_H, qp=28, intra_period=0,
-                     num_b_frames=nb, symbol_mode=symbol_mode, deblock=True,
-                     **kw)
 
 
 def _reference(nb: int, symbol_mode: str, rc: bool):
@@ -37,16 +28,10 @@ def _reference(nb: int, symbol_mode: str, rc: bool):
     display order, the rate controller's QPs), once a process."""
     key = (nb, symbol_mode, rc)
     if key not in _REF:
-        n = 7 if nb == 2 else 5
-        frames = moving_frames(n)
-        cfg = _cfg(nb, symbol_mode,
-                   **(dict(rate_control=True, bitrate=256_000) if rc
-                      else {}))
-        ref = reference_encoder(cfg)
-        qps = frame_qp_spy(ref, n)
-        rc_qps = record_qps(ref) if rc else None
-        want = ref.encode_sequence(frames)
-        _REF[key] = (ref, cfg, frames, want, qps(), rc_qps)
+        run = reference_run(f"bgop/nb{nb}_{symbol_mode.lower()}"
+                            f"{'_rc' if rc else ''}")
+        _REF[key] = (run.enc, run.cfg, run.frames, run.stream, run.qps,
+                     run.rc_qps)
     return _REF[key]
 
 
@@ -96,16 +81,16 @@ def test_bgop_record_cap_overflow_equals_reference(monkeypatch):
     assert any(b and c > port._cabac_cap for b, c in seen)
 
 
-
 def test_bgop_weighted_pred_writes_reference_bytes():
     """A B GOP with `weighted_pred` asked for encodes without it, in the
     port as in the reference (explicit weights are an IPPP tool there): the
     stream is the reference's, which is its stream without the option."""
     ref, cfg, frames, want, _, _ = _reference(2, "CAVLC", False)
-    wp_cfg = dataclasses.replace(cfg, weighted_pred=True)
-    ref_wp = reference_encoder(wp_cfg)
+    run = reference_run("bgop/nb2_cavlc_wp")
+    wp_cfg, ref_wp = run.cfg, run.enc
+    assert wp_cfg == dataclasses.replace(cfg, weighted_pred=True)
     assert not ref_wp.wp_mode and ref_wp.pps.weighted_pred_flag == 0
-    assert ref_wp.encode_sequence(frames) == want
+    assert run.stream == want
     port = Encoder(EncoderConfig.from_reference(dataclasses.asdict(wp_cfg)),
                    device="cpu")
     assert not port.wp_mode and port.pps.weighted_pred_flag == 0

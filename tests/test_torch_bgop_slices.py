@@ -12,40 +12,34 @@ when every band overflows its CABAC record cap.  The reference's tiled
 encoder writes its three-slice stream in these cases (with CAVLC and
 CABAC, `tests/test_sharded.py`; with rate control as well: the lane's
 controller counts the same NAL units and the same luma MAD), so the
-cases share the reference's programs here except the CABAC record
-programs."""
+tiled cases are held to the same pinned encodes
+(`torch_util.reference_run`)."""
 
 import dataclasses
 import types
 
-from tpu264.config import EncoderConfig as RefConfig
 
 from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.config import EncoderConfig
 from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
 
-from torch_util import (QCIF_H, QCIF_W, assert_same_encode, frame_qp_spy,
-                        moving_frames, reference_encoder)
+from torch_util import (assert_same_encode, frames_sha256, reference_inputs,
+                        reference_run)
 
 KINDS = ["IDR", "Bref", "B", "P", "Bref", "B", "P"]
-FRAMES = moving_frames(7)
+FRAMES = reference_inputs("bgop3/cavlc")[1]
 _REF: dict = {}
 
 
 def _reference(symbol_mode: str, rc: bool):
     """The reference's three-slice (encoder, config, stream, per-frame
-    QPs in display order), once a process."""
+    QPs in display order) of `FRAMES`, once a process."""
     key = (symbol_mode, rc)
     if key not in _REF:
-        cfg = RefConfig(width=QCIF_W, height=QCIF_H, qp=28, intra_period=0,
-                        num_b_frames=2, symbol_mode=symbol_mode,
-                        deblock=True, slices_per_frame=3,
-                        **(dict(rate_control=True, bitrate=256_000) if rc
-                           else {}))
-        ref = reference_encoder(cfg)
-        qps = frame_qp_spy(ref, len(FRAMES))
-        want = ref.encode_sequence(FRAMES)
-        _REF[key] = (ref, cfg, want, qps())
+        run = reference_run(f"bgop3/{symbol_mode.lower()}"
+                            f"{'_rc' if rc else ''}")
+        assert frames_sha256(run.frames) == frames_sha256(FRAMES)
+        _REF[key] = (run.enc, run.cfg, run.stream, run.qps)
     return _REF[key]
 
 

@@ -7,7 +7,9 @@ reconstructs from the port's stream.  (Three slices a picture are in
 test_torch_cavlc_slices; a single frame, which both encoders send down the
 per-frame path, is in test_torch_cavlc_single.)  With rate control and a
 bitrate both encoders leave the batched entry and encode frame by frame,
-with the same stream and QPs."""
+with the same stream and QPs.  The reference's stream with deblocking is
+encoded live in every run; the others are pinned
+(`torch_util.reference_run`)."""
 
 import dataclasses
 import hashlib
@@ -20,8 +22,8 @@ from tpu264.config import EncoderConfig as RefConfig
 
 from torch_util import (assert_batched_stream_equals_reference,
                         assert_port_decodes_to_recon, assert_same_encode,
-                        cavlc_frames, cavlc_port, cavlc_ref_cfg,
-                        cavlc_reference, encode_both_rc)
+                        cavlc_port, cavlc_reference, encode_both_rc,
+                        reference_inputs)
 
 CASES = [(True, 1), (False, 1)]
 
@@ -42,7 +44,7 @@ def test_golden_config1_matches_reference_encoder():
     ref_enc, want, ref_stats, _ = cavlc_reference(True, 1)
     assert dataclasses.asdict(ref_enc.cfg) == dataclasses.asdict(
         RefConfig(**golden["config"]))
-    assert golden["frames"] == len(cavlc_frames())
+    assert golden["frames"] == len(reference_inputs("config1/deblock")[1])
     assert hashlib.sha256(want).hexdigest() == golden["sha256"]
     assert len(want) == golden["bytes"]
     assert [s.bits for s in ref_stats] == golden["frame_bits"]
@@ -65,11 +67,8 @@ def test_recon_equals_reference_decoder(deblock, slices):
 def test_rate_control_stream_equals_reference():
     """All-intra with rate control: the controller keeps every I frame at
     its initial QP (the reference's `frame_qp("I")`), and the port, like
-    the reference, takes the per-frame path, whose programs this module's
-    reference encoder already holds."""
-    cfg = dataclasses.replace(cavlc_ref_cfg(True, 1), rate_control=True,
-                              bitrate=200_000)
-    ref, want, qps, port, got = encode_both_rc(cfg, cavlc_frames())
+    the reference, takes the per-frame path."""
+    ref, want, qps, port, got = encode_both_rc("config1/rc")
     assert_same_encode(ref, want, port, got)
     assert qps == [s.qp for s in port.stats] == [28] * 5
     # a frame at a time: each frame has a time of its own

@@ -1083,7 +1083,9 @@ def test_cuda_tiled_bgop_matches_cpu(n_bands):
     """QCIF hierarchical B (`num_b_frames=2`, 7 frames, deblock, CABAC,
     rate control at 256 kb/s) through `TiledEncoder` with 1 and 3 bands
     (all on the card): the stream, QPs and recon equal the same bands on
-    the CPU; KB once a band of each B frame, K1 once a band picture."""
+    the CPU; KB once a band of each B frame, K1 once a band picture.
+    Where there are two cards or more, the 3 bands spread over them (each
+    kernel launched on its band's card) write the same stream."""
     from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
     dev = cuda_device()
     frames = [synth_frame(176, 144, t) for t in range(7)]
@@ -1104,13 +1106,19 @@ def test_cuda_tiled_bgop_matches_cpu(n_bands):
         for g, c in zip(g_rec, c_rec):
             assert g.device.type == "cuda"
             assert_equal(to_np(g), to_np(c))
+    n_cards = torch.cuda.device_count()
+    if n_bands > 1 and n_cards > 1:
+        cards = [f"cuda:{t % n_cards}" for t in range(n_bands)]
+        spread = TiledEncoder(cfg, make_mesh(n_bands, gop=1, devices=cards))
+        assert spread.encode_sequence([frames]) == [got]
 
 
 @pytest.mark.cuda
 def test_cuda_tiled_ippp_cavlc_matches_cpu():
     """QCIF IPPP CAVLC (5 frames, deblock, the default P tools) through
     `TiledEncoder` with 3 bands on the card: the stream equals the CPU
-    run's; KP once a band of each P frame."""
+    run's; KP once a band of each P frame.  Where there are two cards or
+    more, the same with the bands spread over them."""
     from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
     dev = cuda_device()
     frames = [synth_frame(176, 144, t) for t in range(5)]
@@ -1121,6 +1129,11 @@ def test_cuda_tiled_ippp_cavlc_matches_cpu():
     assert kp.launches["KP"] - before["KP"] == 4 * 3
     cpu = TiledEncoder(cfg, make_mesh(3, gop=1, devices=["cpu"] * 3))
     assert got == cpu.encode_sequence([frames])
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = [f"cuda:{t % n_cards}" for t in range(3)]
+        spread = TiledEncoder(cfg, make_mesh(3, gop=1, devices=cards))
+        assert spread.encode_sequence([frames]) == got
 
 
 def _me_inputs(dev, kind: str, w: int = 1280, h: int = 720, wp=(64, 0),

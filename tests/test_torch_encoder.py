@@ -2,55 +2,55 @@
 JAX reference encoder's byte for byte (QCIF, 2 frames, all-intra CABAC,
 deblock on and off, 1 and 3 slices, and with a slice over the CABAC
 record cap), and its recon equals what the reference decoder
-reconstructs from the port's stream.  Every port encoder here is built
-with `device="cpu"`: without it the port asks for the CUDA card."""
+reconstructs from the port's stream.  The reference's encodes are pinned
+(`torch_util.reference_run`).  Every port encoder here is built with
+`device="cpu"`: without it the port asks for the CUDA card."""
 
 import dataclasses
 
-import numpy as np
 import pytest
 
-from tpu264.coding.encoder import Encoder as RefEncoder
 from tpu264.config import EncoderConfig as RefConfig
 from tpu264.decode import Decoder
-from tpu264.media.synth import synth_frame
 
 from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.config import EncoderConfig
 
-from torch_util import assert_equal, reference_encoder, to_np
+from torch_util import (assert_equal, assert_same_plane, frames_sha256,
+                        reference_inputs, reference_run, to_np)
 
 W, H = 176, 144
-FRAMES = [synth_frame(W, H, t) for t in range(2)]
 CASES = [(True, 1), (True, 3), (False, 1), (False, 3)]
 _REF = {}
 _PORT = {}
 
 
-def _ref_cfg(deblock, slices, **kw):
-    return RefConfig(width=W, height=H, qp=28, symbol_mode="CABAC",
-                     deblock=deblock, slices_per_frame=slices, **kw)
+def _case(deblock, slices, cap=False):
+    """The name of the all-intra CABAC case of `REFERENCE_CASES`."""
+    return (f"intra_cabac/{'deblock' if deblock else 'no_deblock'}"
+            f"_{slices}{'_cap' if cap else ''}")
+
+
+FRAMES = reference_inputs(_case(True, 1))[1]
 
 
 @pytest.fixture(scope="module")
 def reference():
-    """Reference (stream, stats, recons, encoder) per case, each encoder
-    built (and its programs compiled) once for the module."""
-    def get(deblock, slices):
-        key = (deblock, slices)
+    """Reference (stream, stats, recons, encoder) per case (`cap`: its
+    record cap set to one record a MB), pinned, once for the module."""
+    def get(deblock, slices, cap=False):
+        key = (deblock, slices, cap)
         if key not in _REF:
-            enc = reference_encoder(_ref_cfg(deblock, slices))
-            stream = enc.encode_sequence(FRAMES)
-            _REF[key] = (stream, list(enc.stats),
-                         [tuple(np.asarray(p) for p in r)
-                          for r in enc.recons], enc)
+            run = reference_run(_case(deblock, slices, cap))
+            assert frames_sha256(run.frames) == frames_sha256(FRAMES)
+            _REF[key] = (run.stream, run.enc.stats, run.enc.recons, run.enc)
         return _REF[key]
     return get
 
 
 def _port_cfg(deblock, slices):
     return EncoderConfig.from_reference(
-        dataclasses.asdict(_ref_cfg(deblock, slices)))
+        dataclasses.asdict(reference_inputs(_case(deblock, slices))[0]))
 
 
 def _port(deblock, slices):
@@ -73,7 +73,7 @@ def test_stream_bytes_equal_reference(reference, deblock, slices):
             (r.psnr_y, r.psnr_u, r.psnr_v), abs=1e-9)
     for got_r, want_r in zip(enc.recons, ref_recons):
         for g, w in zip(got_r, want_r):
-            assert_equal(g, w)
+            assert_same_plane(g, w)
 
 
 @pytest.mark.parametrize("deblock,slices", [(True, 1), (False, 3)])
@@ -218,13 +218,10 @@ def test_record_cap_overflow_equals_reference(reference, deblock, slices):
     """Every slice needs more records than the cap (1 a MB): the port's
     stream equals the reference's, both from its device record path and
     from the host path the reference takes past its own cap."""
-    want, _, _, ref_enc = reference(deblock, slices)
+    want = reference(deblock, slices)[0]
     enc = Encoder(_port_cfg(deblock, slices), device="cpu", records_per_mb=1)
     got = enc.encode_sequence(FRAMES)
     assert got == want
-    cap = ref_enc._cabac_cap
-    ref_enc._cabac_cap = enc._cabac_cap
-    try:
-        assert RefEncoder.encode_sequence(ref_enc, FRAMES) == got
-    finally:
-        ref_enc._cabac_cap = cap
+    capped, _, _, ref_enc = reference(deblock, slices, cap=True)
+    assert ref_enc._cabac_cap == enc._cabac_cap
+    assert capped == got

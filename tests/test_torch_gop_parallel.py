@@ -5,15 +5,14 @@ and `init_distributed` alone: `test_torch_gop_scheduler.py`).
 - Streams: QCIF IPPP, `intra_period=3`, 9 frames (three closed GOPs, the
   geometry of `tests/test_gop_parallel.py`), through the port's encoder on
   the CPU: the 2-host gathered stream equals the 1-host stream and the
-  reference's gathered stream, byte for byte.
+  reference's gathered stream (pinned, `torch_util.reference_run`), byte
+  for byte.
 - `scaling_harness`: the reference's keys, the same stream bytes, and on a
   stand-in encoder the same results as the reference's harness but for the
   times."""
 
 import dataclasses
 
-from tpu264.config import EncoderConfig as RefConfig
-from tpu264.media.synth import synth_frame
 from tpu264.runtime import gop_scheduler as rgs
 
 from tpu264_torch.bits import nal
@@ -21,17 +20,18 @@ from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.config import EncoderConfig
 from tpu264_torch.runtime import gop_scheduler as gs
 
-from torch_util import QCIF_H, QCIF_W, reference_encoder
+from torch_util import reference_inputs, reference_run
 
+CASE = "gop_parallel/two_hosts"
 _REF: dict = {}
 
 
 def _cfg():
-    return RefConfig(width=QCIF_W, height=QCIF_H, qp=30, intra_period=3)
+    return reference_inputs(CASE)[0]
 
 
-def _frames(n=9):
-    return [synth_frame(QCIF_W, QCIF_H, t) for t in range(n)]
+def _frames():
+    return reference_inputs(CASE)[1]
 
 
 def _mk_port():
@@ -40,13 +40,11 @@ def _mk_port():
 
 
 def _reference_stream() -> bytes:
-    """The reference's 2-host gathered stream of the 9 frames, once."""
+    """The reference's 2-host gathered stream of the 9 frames
+    (`rgs.GopScheduler(9, 3, 2)`, one reference encoder for both hosts),
+    pinned, once."""
     if "stream" not in _REF:
-        enc = reference_encoder(_cfg())
-        sched = rgs.GopScheduler(9, 3, 2)
-        _REF["stream"] = rgs.gather_streams(
-            [rgs.encode_host_share(lambda: enc, _frames(), sched, h)
-             for h in range(2)])
+        _REF["stream"] = reference_run(CASE).stream
     return _REF["stream"]
 
 

@@ -5,16 +5,15 @@ QCIF with deblocking on and off (5 frames) and with a periodic IDR
 (`intra_period=3`, 7 frames: the IDR/P schedule, `frame_num` restarting
 after each IDR, `idr_pic_id` alternating by IDR count), and decodes to the
 port's recon; rate control asked for without a bitrate encodes at fixed
-QP, as the reference does.  The cases share the reference's programs, so
-they live in one module (three slices: `test_torch_ippp_slices.py`)."""
+QP, as the reference does.  The reference's encodes are pinned
+(`torch_util.reference_run`; three slices: `test_torch_ippp_slices.py`)."""
 
 import pytest
 
 from torch_util import QCIF_H as H, QCIF_W as W
 from torch_util import (assert_decodes_to_recon, assert_same_encode,
-                        encode_both, moving_frames)
+                        encode_both)
 
-FRAMES = moving_frames(5)
 _CASE = {}
 
 
@@ -23,11 +22,10 @@ def case():
     def get(name):
         if name not in _CASE:
             if name == "period":
-                _CASE[name] = encode_both(moving_frames(7), deblock=True,
-                                          slices_per_frame=1, intra_period=3)
+                _CASE[name] = encode_both("ippp/period")
             else:
-                _CASE[name] = encode_both(FRAMES, deblock=name,
-                                          slices_per_frame=1)
+                _CASE[name] = encode_both(
+                    "ippp/deblock" if name else "ippp/no_deblock")
         return _CASE[name]
     return get
 
@@ -42,7 +40,7 @@ def test_stream_bytes_equal_reference(case, deblock):
 @pytest.mark.parametrize("deblock", [True, False])
 def test_recon_equals_reference_decoder(case, deblock):
     _, _, port, got = case(deblock)
-    assert_decodes_to_recon(port, got, len(FRAMES))
+    assert_decodes_to_recon(port, got, 5)
 
 
 def test_periodic_idr_stream_equals_reference(case):
@@ -57,9 +55,8 @@ def test_rate_control_without_bitrate_is_fixed_qp():
     """`rate_control=True` with `bitrate=0` (what a JM file with
     RateControlEnable = 1 and no Bitrate parses to): the reference runs no
     rate controller, and neither does the port."""
-    ref, want, port, got = encode_both(FRAMES[:3], deblock=True,
-                                       slices_per_frame=1, rate_control=True,
-                                       bitrate=0)
+    ref, want, port, got = encode_both("ippp/rc_no_bitrate")
+    assert ref.cfg.rate_control and ref.cfg.bitrate == 0
     assert ref.rc is None
     assert_same_encode(ref, want, port, got)
 

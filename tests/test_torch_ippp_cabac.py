@@ -4,17 +4,13 @@ reference encoder's byte for byte and decodes to the port's recon; with
 JVT-G012 rate control at a bitrate where the reference's QPs move, the
 stream and every frame's QP are the reference's too.  The geometry and settings are
 those of `tests/test_ippp.py::test_p8x8_sub_mb_tree_roundtrip[CABAC]`
-(112x80, QP 30, deblock on, 5 frames), whose compiled programs the
-reference encoder here takes from the persistent compile cache; QP is a
-traced argument of those programs, so rate control compiles nothing
-new."""
+(112x80, QP 30, deblock on, 5 frames); the reference's encodes are
+pinned (`torch_util.reference_run`)."""
 
 import dataclasses
 
 import numpy as np
 
-from tpu264.config import EncoderConfig as RefConfig
-from tpu264.media.synth import synth_frame
 
 from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.coding.intra_frame import reorder_wave_outputs
@@ -22,22 +18,13 @@ from tpu264_torch.config import EncoderConfig
 
 from torch_util import (assert_decodes_to_recon, assert_same_encode,
                         assert_same_rc_encode, encode_both_rc,
-                        reference_encoder, to_np)
-
-W, H = 112, 80
-FRAMES = [synth_frame(W, H, t) for t in range(5)]
-
-
-def _cfg(**kw):
-    return RefConfig(width=W, height=H, qp=30, intra_period=0, deblock=True,
-                     symbol_mode="CABAC", **kw)
-
+                        reference_run, to_np)
 
 def test_cabac_stream_equals_reference():
-    ref = reference_encoder(_cfg())
+    run = reference_run("tools/cabac")
+    ref, want, frames = run.enc, run.stream, run.frames
     assert ref.cabac and ref.partitions and ref.p8x8 and ref.t8_mode
-    want = ref.encode_sequence(FRAMES)
-    port = Encoder(EncoderConfig.from_reference(dataclasses.asdict(_cfg())),
+    port = Encoder(EncoderConfig.from_reference(dataclasses.asdict(run.cfg)),
                    device="cpu")
     assert port.cabac and port.partitions and port.p8x8 and port.t8_mode
     chosen = []
@@ -51,10 +38,10 @@ def test_cabac_stream_equals_reference():
         return out, ys
 
     port._encode_p = spy
-    got = port.encode_sequence(FRAMES)
+    got = port.encode_sequence(frames)
     assert_same_encode(ref, want, port, got)
     assert [s.slice_type for s in port.stats] == ["IDR"] + ["P"] * 4
-    assert_decodes_to_recon(port, got, len(FRAMES))
+    assert_decodes_to_recon(port, got, len(frames))
     ptypes = np.concatenate([p for p, _ in chosen])
     t8 = np.concatenate([t for _, t in chosen])
     assert set(ptypes) == {0, 1, 2, 3}
@@ -62,5 +49,4 @@ def test_cabac_stream_equals_reference():
 
 
 def test_rate_control_stream_equals_reference():
-    assert_same_rc_encode(*encode_both_rc(
-        _cfg(rate_control=True, bitrate=100_000), FRAMES))
+    assert_same_rc_encode(*encode_both_rc("tools/cabac_rc"))

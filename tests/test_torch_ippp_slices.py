@@ -3,8 +3,8 @@ IPPP CAVLC stream equals the JAX reference encoder's byte for byte at
 QCIF with deblocking on and off (5 frames) and on static content, and
 decodes to the port's recon.  Static P frames are almost all P_Skip:
 slices that are one skip run from end to end, with no MB data from the
-device and the run written by the host after the header.  The three cases
-share the reference's programs, so they live in one module (one slice:
+device and the run written by the host after the header.  The reference's
+encodes are pinned (`torch_util.reference_run`; one slice:
 `test_torch_ippp.py`).
 
 The same streams hold the port's band-tiled encoder (`TiledEncoder`, three
@@ -12,8 +12,8 @@ bands of three MB rows on the CPU, as slices filtered inside themselves)
 and its CLI (`python -m tpu264_torch.cli.encode`, tiled and not, with
 metrics and checkpoints): the reference's tiled encoder writes the
 reference's three-slice stream (`tests/test_sharded.py`), so these cases
-build no reference program of their own.  A second sequence lane (`gop`
-axis) is held to the reference's encode of its own sequence."""
+are held to the same pins.  A second sequence lane (`gop` axis) is held
+to the reference's encode of its own sequence."""
 
 import dataclasses
 import json
@@ -22,7 +22,6 @@ import types
 import pytest
 
 from tpu264.bits.nal import split_annexb
-from tpu264.media.synth import synth_frame
 
 from tpu264_torch.cli.encode import main as cli_main
 from tpu264_torch.config import EncoderConfig
@@ -31,15 +30,10 @@ from tpu264_torch.runtime.tiled import TiledEncoder, make_mesh
 
 from torch_util import QCIF_H as H, QCIF_W as W
 from torch_util import (assert_decodes_to_recon, assert_same_encode,
-                        encode_both, moving_frames, reference_encoder)
+                        encode_both, reference_inputs, reference_run)
 
-FRAMES = moving_frames(5)
+FRAMES = reference_inputs("ippp3/deblock")[1]
 _CASE = {}
-
-
-def _static_frames(n=4):
-    f = synth_frame(W, H, 0)
-    return [tuple(p.copy() for p in f) for _ in range(n)]
 
 
 @pytest.fixture(scope="module")
@@ -47,11 +41,10 @@ def case():
     def get(name):
         if name not in _CASE:
             if name == "static":
-                _CASE[name] = encode_both(_static_frames(), deblock=True,
-                                          slices_per_frame=3)
+                _CASE[name] = encode_both("ippp3/static")
             else:
-                _CASE[name] = encode_both(FRAMES, deblock=name,
-                                          slices_per_frame=3)
+                _CASE[name] = encode_both(
+                    "ippp3/deblock" if name else "ippp3/no_deblock")
         return _CASE[name]
     return get
 
@@ -121,9 +114,9 @@ def test_two_lane_tiled_streams_equal_reference(case):
     """gop = 2: two different sequences, each lane the reference's
     three-slice stream of its own sequence."""
     ref, want, _, _ = case(True)
-    other = [synth_frame(W, H, t + 10) for t in range(len(FRAMES))]
-    ref2 = reference_encoder(ref.cfg)
-    want2 = ref2.encode_sequence(other)
+    run2 = reference_run("ippp3/other")
+    assert run2.cfg == ref.cfg
+    ref2, want2, other = run2.enc, run2.stream, run2.frames
     got, te = _tiled(ref.cfg, [FRAMES, other])
     assert got[1] != got[0]
     assert_same_encode(ref, want, _lane(te, 0), got[0])

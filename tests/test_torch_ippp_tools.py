@@ -5,35 +5,28 @@ defaults, which turn them on for IPPP) equals the JAX reference encoder's
 byte for byte, with deblocking on, and each partition type and the 8x8
 transform are chosen in it.  The geometry and settings are those of
 `tests/test_ippp.py::test_p8x8_sub_mb_tree_roundtrip` (112x80, QP 30,
-5 frames), whose compiled programs the reference encoder here takes from
-the persistent compile cache.  With JVT-G012 rate control at a bitrate
+5 frames); the reference's encodes are pinned
+(`torch_util.reference_run`).  With JVT-G012 rate control at a bitrate
 where the reference's QPs move, the stream and every frame's QP are the
-reference's too (QP is a traced argument of its programs)."""
+reference's too."""
 
 import dataclasses
 
 import numpy as np
 
-from tpu264.config import EncoderConfig as RefConfig
-from tpu264.media.synth import synth_frame
 
 from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.coding.intra_frame import reorder_wave_outputs
 from tpu264_torch.config import EncoderConfig
 
 from torch_util import assert_decodes_to_recon, assert_same_encode, \
-    assert_same_rc_encode, encode_both_rc, reference_encoder, to_np
-
-W, H = 112, 80
+    assert_same_rc_encode, encode_both_rc, reference_run, to_np
 
 
 def test_default_tools_stream_equals_reference():
-    frames = [synth_frame(W, H, t) for t in range(5)]
-    cfg = RefConfig(width=W, height=H, qp=30, intra_period=0, deblock=True,
-                    symbol_mode="CAVLC")
-    ref = reference_encoder(cfg)
+    run = reference_run("tools/cavlc")
+    cfg, frames, ref, want = run.cfg, run.frames, run.enc, run.stream
     assert ref.partitions and ref.p8x8 and ref.t8_mode
-    want = ref.encode_sequence(frames)
     port = Encoder(EncoderConfig.from_reference(dataclasses.asdict(cfg)),
                    device="cpu")
     assert port.partitions and port.p8x8 and port.t8_mode
@@ -59,7 +52,4 @@ def test_default_tools_stream_equals_reference():
 
 
 def test_rate_control_stream_equals_reference():
-    frames = [synth_frame(W, H, t) for t in range(5)]
-    cfg = RefConfig(width=W, height=H, qp=30, intra_period=0, deblock=True,
-                    symbol_mode="CAVLC", rate_control=True, bitrate=100_000)
-    assert_same_rc_encode(*encode_both_rc(cfg, frames))
+    assert_same_rc_encode(*encode_both_rc("tools/cavlc_rc"))

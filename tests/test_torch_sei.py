@@ -2,50 +2,37 @@
 the JAX reference encoder's byte for byte in all three GOP modes, with the
 SEI NAL unit (the encoder tag and a recovery point) after SPS and PPS; and
 the port's copy of `bits/sei.py` writes and parses what the reference's
-does.  QCIF, CAVLC, deblocking, QP 28, the reference's default tools: the
-reference encoders share their programs (`torch_util.reference_encoder`;
-SEI compiles nothing of its own)."""
+does.  QCIF, CAVLC, deblocking, QP 28, the reference's default tools; the
+reference's encodes are pinned (`torch_util.reference_run`)."""
 
 import dataclasses
-import os
 
 import pytest
 
 from tpu264.bits import sei as rsei
-from tpu264.config import EncoderConfig as RefConfig
 
 from tpu264_torch.bits import nal, sei
 from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.config import EncoderConfig
 
-from torch_util import QCIF_H, QCIF_W, moving_frames, reference_encoder
+from torch_util import reference_inputs, reference_run
 
-MODES = {"intra": (dict(intra_period=1), 3), "ippp": (dict(intra_period=0), 3),
-         "bgop": (dict(intra_period=0, num_b_frames=2), 4)}
+MODES = ("intra", "ippp", "bgop")
 _REF: dict = {}
 
 
 def _cfg(mode: str):
-    return RefConfig(width=QCIF_W, height=QCIF_H, qp=28, symbol_mode="CAVLC",
-                     deblock=True, sei_messages=True, **MODES[mode][0])
+    return reference_inputs(f"sei/{mode}")[0]
 
 
 def _reference(mode: str) -> bytes:
-    """The reference's stream of `mode`, once a process.  All-intra goes
-    through its per-frame path (`TPU264_BATCH=1`), whose programs the other
-    modes share; its batched entry writes the same stream."""
+    """The reference's stream of `mode` (pinned), once a process.
+    All-intra went through its per-frame path (`TPU264_BATCH=1`); its
+    batched entry writes the same stream."""
     if mode not in _REF:
-        ref = reference_encoder(_cfg(mode))
-        assert ref.gop_mode == mode
-        batch = os.environ.get("TPU264_BATCH")
-        os.environ["TPU264_BATCH"] = "1"
-        try:
-            _REF[mode] = ref.encode_sequence(moving_frames(MODES[mode][1]))
-        finally:
-            if batch is None:
-                del os.environ["TPU264_BATCH"]
-            else:
-                os.environ["TPU264_BATCH"] = batch
+        run = reference_run(f"sei/{mode}")
+        assert run.enc.gop_mode == mode
+        _REF[mode] = run.stream
     return _REF[mode]
 
 
@@ -61,7 +48,7 @@ def test_sei_stream_equals_reference(mode, port_kw):
     and a B GOP."""
     want = _reference(mode)
     port = _port(mode, **port_kw)
-    frames = moving_frames(MODES[mode][1])
+    frames = reference_inputs(f"sei/{mode}")[1]
     got = port.encode_sequence(frames)
     assert got == want
     types = [t for _, t, _ in nal.split_annexb(got)]

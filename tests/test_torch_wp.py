@@ -6,9 +6,8 @@ against the JAX reference, tolerance 0.
   QP 30, the reference's default P tools, CAVLC and CABAC: the bytes, every
   recon plane, and every P frame's (weight, offset), at least one of which
   is not the default (64, 0).  The geometry is that of
-  `tests/test_ippp.py::test_p8x8_sub_mb_tree_roundtrip`, whose other
-  programs the reference encoder shares; CAVLC and CABAC share its one
-  weighted P program (`torch_util.reference_encoder`).
+  `tests/test_ippp.py::test_p8x8_sub_mb_tree_roundtrip`; the reference's
+  encodes are pinned (`torch_util.reference_run`).
 - One weighted P wave: `wave_body_plain` (the gather, the I4x4 search and
   `p_wave_plain`, which KP is held to on the card) against the reference's
   weighted wave body composed eagerly from its parts
@@ -24,7 +23,6 @@ import numpy as np
 import pytest
 import torch
 
-from tpu264.config import EncoderConfig as RefConfig
 
 from tpu264_torch.coding import inter_frame as tinter
 from tpu264_torch.coding import intra_frame as tif
@@ -32,39 +30,20 @@ from tpu264_torch.coding.encoder import Encoder
 from tpu264_torch.config import EncoderConfig
 from tpu264_torch.kernels import p_wave as kp
 from tpu264_torch.ref.transform import chroma_qp
-from tpu264_torch.tools.synth_inputs import fade_frames
 
 from test_torch_p_wave import HM, _ref_p_wave_body, _wave, _wave_tools
 from torch_util import (assert_decodes_to_recon, assert_equal,
-                        assert_same_encode, reference_encoder, to_np)
+                        assert_same_encode, reference_run, to_np)
 
-W, H = 112, 80
 FULL = kp.Tools(True, True, True)
-
-
-def _spy_weights(enc) -> list:
-    """The (weight, offset) that `enc`'s `_estimate_wp` gives, frame by
-    frame (either package's encoder)."""
-    seen = []
-    estimate = enc._estimate_wp
-
-    def spy(*a):
-        seen.append(tuple(int(v) for v in estimate(*a)))
-        return seen[-1]
-
-    enc._estimate_wp = spy
-    return seen
 
 
 @pytest.mark.parametrize("symbol_mode", ["CAVLC", "CABAC"])
 def test_weighted_stream_equals_reference(symbol_mode):
-    frames = fade_frames(W, H, 5)
-    cfg = RefConfig(width=W, height=H, qp=30, intra_period=0, deblock=True,
-                    symbol_mode=symbol_mode, weighted_pred=True)
-    ref = reference_encoder(cfg)
+    run = reference_run(f"wp/{symbol_mode.lower()}")
+    cfg, frames, ref, ref_wp, want = (run.cfg, run.frames, run.enc, run.wp,
+                                      run.stream)
     assert ref.wp_mode and ref.partitions and ref.t8_mode
-    ref_wp = _spy_weights(ref)
-    want = ref.encode_sequence(frames)
     port = Encoder(EncoderConfig.from_reference(dataclasses.asdict(cfg)),
                    device="cpu")
     assert port.wp_mode and port.pps.weighted_pred_flag == 1

@@ -13,6 +13,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import types
 from pathlib import Path
 
 import numpy as np
@@ -123,35 +124,435 @@ def reference_encoder(cfg):
     return enc
 
 
-# ---- IPPP stream cases (`test_torch_ippp*.py`): one case = one reference
-# encoder, the port's encoder on the CPU on the same frames, and the
-# comparisons both make.  Cases of one slice layout share the reference's
-# programs (`reference_encoder`), so they go in one module.
+# ---- pinned reference encodes.  `tpu264/` is not edited, so what the
+# reference computes for a whole encode of fixed, seeded frames with a
+# fixed config is a constant.  `tests/data/torch_reference_pins.json`
+# holds it for each case of `REFERENCE_CASES` but `LIVE_CASES`: exactly
+# what the port's stream cases compare (the stream's SHA-256 and length,
+# each frame's number, type and size, the PSNRs as `repr` of the floats,
+# the SHA-256 of every recon plane, the QPs and weights that spies on the
+# reference recorded, the encoder's flags and parameter-set fields that
+# cases assert), beside the SHA-256 of the `tpu264/` tree it came from
+# and the versions of the packages it ran on (`REFERENCE_PACKAGES`).
+# Only `tests/test_torch_reference_pins.py` writes the file, from the live
+# reference (`python tests/test_torch_reference_pins.py --write`), and its
+# `slow` tests derive every pin again and compare.  A case's config and
+# frames are defined once, in `REFERENCE_CASES` (`reference_inputs`); it
+# takes its reference side from `reference_run`, which checks the tree's
+# digest, the package versions, the case's config and its input frames
+# against the pin and hands back stand-ins that the assertions read as
+# they read the live encoder and stream.
+
+PINS = Path(__file__).resolve().parent / "data" / "torch_reference_pins.json"
+REFERENCE_TREE = Path(__file__).resolve().parents[1] / "tpu264"
+QCIF = dict(width=176, height=144, qp=28)
+# what the reference's output depends on besides its own tree: its float
+# arithmetic (PSNRs, the rate controller) runs on these
+REFERENCE_PACKAGES = ("jax", "jaxlib", "numpy")
+
+
+@dataclasses.dataclass(frozen=True)
+class RefCase:
+    """How a case drives the reference: its `tpu264` EncoderConfig
+    arguments; its frames (("synth", n, t0): `synth_frame` at t0 .. t0 +
+    n - 1; ("static", n): n copies of the frame at 0; ("fade", n):
+    `synth_inputs.fade_frames`); and what the run does besides
+    `encode_sequence`: the per-frame path (`TPU264_BATCH=1`), a spy on
+    every frame's slice QP (`frame_qp_spy`), the CABAC record cap set to
+    `cabac_cap`, or GOP-parallel over `hosts` simulated hosts (the
+    gathered stream).  A rate controller's QPs and weighted prediction's
+    weights are always recorded."""
+    cfg: dict
+    frames: tuple
+    per_frame: bool = False
+    spy_qps: bool = False
+    cabac_cap: int | None = None
+    hosts: int = 0
+
+
+def _reference_cases() -> dict:
+    ippp = dict(QCIF, symbol_mode="CAVLC", intra_period=0,
+                inter_partitions=False, transform_8x8=False, deblock=True,
+                slices_per_frame=1)
+    tools = dict(width=112, height=80, qp=30, intra_period=0, deblock=True)
+    config1 = dict(QCIF, symbol_mode="CAVLC", intra_period=1, deblock=True,
+                   slices_per_frame=1)
+    bgop = dict(QCIF, intra_period=0, deblock=True, num_b_frames=2,
+                symbol_mode="CAVLC")
+    cabac = dict(QCIF, symbol_mode="CABAC")
+    sei = dict(QCIF, symbol_mode="CAVLC", deblock=True, sei_messages=True)
+    s5, s7 = ("synth", 5, 0), ("synth", 7, 0)
+    C = RefCase
+    cases = {
+        # test_torch_ippp.py
+        "ippp/deblock": C(ippp, s5),
+        "ippp/no_deblock": C(dict(ippp, deblock=False), s5),
+        "ippp/period": C(dict(ippp, intra_period=3), s7),
+        "ippp/rc_no_bitrate": C(dict(ippp, rate_control=True, bitrate=0),
+                                ("synth", 3, 0)),
+        # test_torch_ippp_slices.py
+        "ippp3/deblock": C(dict(ippp, slices_per_frame=3), s5),
+        "ippp3/no_deblock": C(dict(ippp, slices_per_frame=3,
+                                   deblock=False), s5),
+        "ippp3/static": C(dict(ippp, slices_per_frame=3), ("static", 4)),
+        "ippp3/other": C(dict(ippp, slices_per_frame=3), ("synth", 5, 10)),
+        # test_torch_ippp_tools.py, test_torch_ippp_cabac.py
+        "tools/cavlc": C(dict(tools, symbol_mode="CAVLC"), s5),
+        "tools/cavlc_rc": C(dict(tools, symbol_mode="CAVLC",
+                                 rate_control=True, bitrate=100_000), s5),
+        "tools/cabac": C(dict(tools, symbol_mode="CABAC"), s5),
+        "tools/cabac_rc": C(dict(tools, symbol_mode="CABAC",
+                                 rate_control=True, bitrate=100_000), s5),
+        # test_torch_cavlc_stream.py, _cavlc_slices.py, _cavlc_single.py
+        "config1/deblock": C(config1, s5, per_frame=True),
+        "config1/no_deblock": C(dict(config1, deblock=False), s5,
+                                per_frame=True),
+        "config1/rc": C(dict(config1, rate_control=True, bitrate=200_000),
+                        s5),
+        "config1_3/deblock": C(dict(config1, slices_per_frame=3), s5,
+                               per_frame=True),
+        "config1_3/no_deblock": C(dict(config1, slices_per_frame=3,
+                                       deblock=False), s5, per_frame=True),
+        "config1/single_deblock_1": C(config1, ("synth", 1, 0)),
+        "config1/single_no_deblock_3": C(dict(config1, deblock=False,
+                                              slices_per_frame=3),
+                                         ("synth", 1, 0)),
+        # test_torch_bgop.py, test_torch_bgop_slices.py
+        "bgop/nb2_cavlc": C(bgop, s7, spy_qps=True),
+        "bgop/nb2_cabac": C(dict(bgop, symbol_mode="CABAC"), s7,
+                            spy_qps=True),
+        "bgop/nb2_cabac_rc": C(dict(bgop, symbol_mode="CABAC",
+                                    rate_control=True, bitrate=256_000), s7,
+                               spy_qps=True),
+        "bgop/nb1_cavlc": C(dict(bgop, num_b_frames=1), s5, spy_qps=True),
+        "bgop/nb2_cavlc_wp": C(dict(bgop, weighted_pred=True), s7),
+        "bgop3/cavlc": C(dict(bgop, slices_per_frame=3), s7, spy_qps=True),
+        "bgop3/cabac_rc": C(dict(bgop, slices_per_frame=3,
+                                 symbol_mode="CABAC", rate_control=True,
+                                 bitrate=256_000), s7, spy_qps=True),
+        # test_torch_wp.py
+        "wp/cavlc": C(dict(tools, symbol_mode="CAVLC", weighted_pred=True),
+                      ("fade", 5)),
+        "wp/cabac": C(dict(tools, symbol_mode="CABAC", weighted_pred=True),
+                      ("fade", 5)),
+        # test_torch_sei.py
+        "sei/intra": C(dict(sei, intra_period=1), ("synth", 3, 0),
+                       per_frame=True),
+        "sei/ippp": C(dict(sei, intra_period=0), ("synth", 3, 0),
+                      per_frame=True),
+        "sei/bgop": C(dict(sei, intra_period=0, num_b_frames=2),
+                      ("synth", 4, 0), per_frame=True),
+        # test_torch_gop_parallel.py
+        "gop_parallel/two_hosts": C(dict(QCIF, qp=30, intra_period=3),
+                                    ("synth", 9, 0), hosts=2),
+    }
+    # test_torch_encoder.py: all-intra CABAC, 2 frames; the record cap of
+    # one record a MB, as the port's `records_per_mb=1` sets it
+    for deblock in (True, False):
+        for slices in (1, 3):
+            name = f"intra_cabac/{'deblock' if deblock else 'no_deblock'}"
+            cfg = dict(cabac, deblock=deblock, slices_per_frame=slices)
+            cases[f"{name}_{slices}"] = C(cfg, ("synth", 2, 0))
+            if deblock == (slices == 1):
+                cases[f"{name}_{slices}_cap"] = C(
+                    cfg, ("synth", 2, 0), cabac_cap=11 * 9 // slices)
+    return cases
+
+
+REFERENCE_CASES = _reference_cases()
+# run live in every Tier-1 run: the QCIF config-1 CAVLC stream
+LIVE_CASES = frozenset({"config1/deblock"})
+ENCODER_FLAGS = ("gop_mode", "cabac", "partitions", "p8x8", "t8_mode",
+                 "wp_mode", "b_partitions", "deblock_idc", "_cabac_cap")
+SPS_FIELDS = ("profile_idc", "pic_order_cnt_type", "max_num_ref_frames",
+              "num_reorder_frames")
+PPS_FIELDS = ("weighted_pred_flag", "transform_8x8_mode_flag")
+
+
+def plane_sha256(plane) -> str:
+    """SHA-256 of a sample plane's shape and values (as int64, so that
+    the dtype does not count, as in `assert_equal`)."""
+    a = to_np(plane)
+    return hashlib.sha256(repr(a.shape).encode() + np.ascontiguousarray(
+        a, dtype=np.int64).tobytes()).hexdigest()
+
+
+def frames_sha256(frames) -> str:
+    """SHA-256 of a sequence's planes, frame by frame."""
+    return hashlib.sha256("".join(plane_sha256(p) for f in frames
+                                  for p in f).encode()).hexdigest()
+
+
+class PinnedStream:
+    """A pinned stream: equal to the bytes whose SHA-256 and length it
+    holds (and to a pinned stream of those), and as long."""
+
+    def __init__(self, sha256: str, n: int):
+        self.sha256, self.n = sha256, n
+
+    def __eq__(self, other):
+        if isinstance(other, PinnedStream):
+            return (other.sha256, other.n) == (self.sha256, self.n)
+        if not isinstance(other, (bytes, bytearray)):
+            return NotImplemented
+        return (len(other) == self.n
+                and hashlib.sha256(other).hexdigest() == self.sha256)
+
+    def __len__(self):
+        return self.n
+
+    def __repr__(self):
+        return f"<pinned stream of {self.n} bytes, sha256 {self.sha256}>"
+
+
+class PinnedPlane:
+    """A pinned recon plane: its `plane_sha256`."""
+
+    def __init__(self, sha256: str):
+        self.sha256 = sha256
+
+    def __repr__(self):
+        return f"<pinned plane, sha256 {self.sha256}>"
+
+
+def assert_same_plane(got, want, what: str = "") -> None:
+    """`assert_equal` against a plane, or against a pinned plane's
+    digest."""
+    if isinstance(want, PinnedPlane):
+        assert plane_sha256(got) == want.sha256, what or want
+    else:
+        assert_equal(got, np.asarray(want), what)
+
+
+_TREE: dict = {}
+
+
+def reference_tree_sha256() -> str:
+    """SHA-256 of the reference package: the sorted paths of its `.py`
+    and `.c` files and their contents (once a process)."""
+    if "sha256" not in _TREE:
+        h = hashlib.sha256()
+        for path in sorted(REFERENCE_TREE.rglob("*")):
+            if path.suffix in (".py", ".c") and path.is_file():
+                body = path.read_bytes()
+                h.update(f"{path.relative_to(REFERENCE_TREE.parent)}\0"
+                         f"{len(body)}\0".encode() + body)
+        _TREE["sha256"] = h.hexdigest()
+    return _TREE["sha256"]
+
+
+def reference_packages() -> dict:
+    """The installed version of each of `REFERENCE_PACKAGES` (read from
+    the package metadata; nothing is imported)."""
+    from importlib.metadata import version
+    return {name: version(name) for name in REFERENCE_PACKAGES}
+
+
+_PIN_FILE: dict = {}
+
+
+def reference_pins() -> dict:
+    """Case name -> pin, from `PINS`; raises unless the pins were derived
+    from this `tpu264/` tree on these package versions."""
+    if not _PIN_FILE:
+        _PIN_FILE.update(json.loads(PINS.read_text()))
+    again = ("derive the pins again (python "
+             "tests/test_torch_reference_pins.py --write)")
+    have = reference_tree_sha256()
+    assert _PIN_FILE["tpu264_sha256"] == have, (
+        f"{PINS.name} was derived from the tpu264 tree "
+        f"{_PIN_FILE['tpu264_sha256']}, this tree is {have}: {again}")
+    have = reference_packages()
+    assert _PIN_FILE["packages"] == have, (
+        f"{PINS.name} was derived on {_PIN_FILE['packages']}, this process "
+        f"runs {have}: {again}")
+    return _PIN_FILE["cases"]
+
+
+def case_frames(case: RefCase) -> list:
+    """The input frames of `case`."""
+    from tpu264.media.synth import synth_frame
+    w, h = case.cfg["width"], case.cfg["height"]
+    kind, n, *t0 = case.frames
+    if kind == "synth":
+        return [synth_frame(w, h, t + t0[0]) for t in range(n)]
+    if kind == "static":
+        f = synth_frame(w, h, 0)
+        return [tuple(p.copy() for p in f) for _ in range(n)]
+    from tpu264_torch.tools.synth_inputs import fade_frames
+    assert kind == "fade", kind
+    return fade_frames(w, h, n)
+
+
+def weight_spy(enc) -> list:
+    """The (weight, offset) that `enc`'s `_estimate_wp` gives, frame by
+    frame (either package's encoder)."""
+    seen = []
+    estimate = enc._estimate_wp
+
+    def spy(*a):
+        seen.append(tuple(int(v) for v in estimate(*a)))
+        return seen[-1]
+
+    enc._estimate_wp = spy
+    return seen
+
+
+@contextlib.contextmanager
+def per_frame_path(on: bool = True):
+    """While entered, the reference encodes all-intra sequences frame by
+    frame (`TPU264_BATCH=1`)."""
+    batch = os.environ.get("TPU264_BATCH")
+    if on:
+        os.environ["TPU264_BATCH"] = "1"
+    try:
+        yield
+    finally:
+        if batch is None:
+            os.environ.pop("TPU264_BATCH", None)
+        else:
+            os.environ["TPU264_BATCH"] = batch
+
+
+def _run_live(case: RefCase, cfg, frames):
+    """The live reference's run of `case` on `frames` -> (enc, stream,
+    qps, rc_qps, wp)."""
+    enc = reference_encoder(cfg)
+    if case.hosts:
+        from tpu264.runtime import gop_scheduler as rgs
+        sched = rgs.GopScheduler(len(frames), cfg.intra_period, case.hosts)
+        stream = rgs.gather_streams(
+            [rgs.encode_host_share(lambda: enc, frames, sched, h)
+             for h in range(case.hosts)])
+        return types.SimpleNamespace(enc=enc, stream=stream, qps=None,
+                                     rc_qps=None, wp=None)
+    if case.cabac_cap is not None:
+        enc._cabac_cap = case.cabac_cap
+    qps = frame_qp_spy(enc, len(frames)) if case.spy_qps else None
+    rc_qps = record_qps(enc) if enc.rc is not None else None
+    wp = weight_spy(enc) if enc.wp_mode else None
+    with per_frame_path(case.per_frame):
+        stream = enc.encode_sequence(frames)
+    return types.SimpleNamespace(enc=enc, stream=stream,
+                                 qps=None if qps is None else qps(),
+                                 rc_qps=rc_qps, wp=wp)
+
+
+def _plain(v):
+    return v.item() if isinstance(v, np.generic) else v
+
+
+def pin_of(run, cfg, frames, hosts: int = 0) -> dict:
+    """The pin of a live run (`_run_live`), in JSON's types."""
+    enc = run.enc
+    pin = {"config": dataclasses.asdict(cfg),
+           "input_sha256": frames_sha256(frames),
+           "stream_sha256": hashlib.sha256(run.stream).hexdigest(),
+           "stream_bytes": len(run.stream)}
+    if not hosts:
+        pin["frames"] = [[int(s.frame), s.slice_type, int(s.bits)]
+                         for s in enc.stats]
+        pin["psnr"] = [[repr(float(s.psnr_y)), repr(float(s.psnr_u)),
+                        repr(float(s.psnr_v))] for s in enc.stats]
+        pin["recons"] = [[plane_sha256(np.asarray(p)) for p in r]
+                         for r in enc.recons]
+    pin["qps"] = run.qps
+    pin["rc_qps"] = (None if run.rc_qps is None
+                     else [int(q) for q in run.rc_qps])
+    pin["wp"] = None if run.wp is None else [list(w) for w in run.wp]
+    pin["encoder"] = {k: _plain(getattr(enc, k, None))
+                      for k in ENCODER_FLAGS}
+    pin["encoder"]["rc"] = enc.rc is not None
+    pin["sps"] = {k: _plain(getattr(enc.sps, k)) for k in SPS_FIELDS}
+    pin["pps"] = {k: _plain(getattr(enc.pps, k)) for k in PPS_FIELDS}
+    return json.loads(json.dumps(pin))
+
+
+def reference_inputs(name: str) -> tuple:
+    """Case `name` of `REFERENCE_CASES` -> (its `tpu264` EncoderConfig,
+    its input frames)."""
+    from tpu264.config import EncoderConfig as RefConfig
+    case = REFERENCE_CASES[name]
+    return RefConfig(**case.cfg), case_frames(case)
+
+
+def derive_pin(name: str) -> dict:
+    """Pin `name` derived from the live reference, on the case's own
+    config and frames."""
+    case = REFERENCE_CASES[name]
+    cfg, frames = reference_inputs(name)
+    return pin_of(_run_live(case, cfg, frames), cfg, frames, case.hosts)
+
+
+def _pinned_run(pin: dict, cfg):
+    stats = [types.SimpleNamespace(frame=f, slice_type=t, bits=b,
+                                   psnr_y=float(y), psnr_u=float(u),
+                                   psnr_v=float(v))
+             for (f, t, b), (y, u, v) in zip(pin.get("frames", []),
+                                             pin.get("psnr", []))]
+    flags = dict(pin["encoder"])
+    flags["rc"] = "a rate controller" if flags["rc"] else None
+    enc = types.SimpleNamespace(
+        cfg=cfg, stats=stats,
+        recons=[tuple(PinnedPlane(h) for h in r)
+                for r in pin.get("recons", [])],
+        sps=types.SimpleNamespace(**pin["sps"]),
+        pps=types.SimpleNamespace(**pin["pps"]), **flags)
+    return types.SimpleNamespace(
+        enc=enc, stream=PinnedStream(pin["stream_sha256"],
+                                     pin["stream_bytes"]),
+        qps=pin["qps"], rc_qps=pin["rc_qps"],
+        wp=None if pin["wp"] is None else [tuple(w) for w in pin["wp"]])
+
+
+def reference_run(name: str, live: bool = False):
+    """The reference's encode of case `name` of `REFERENCE_CASES` -> (cfg
+    and frames: its `reference_inputs`; enc, stream, qps: the spied slice
+    QPs in display order, rc_qps: the rate controller's QPs, wp: the
+    weights, each None where not recorded).  Pinned unless `live`: then
+    `enc` stands for the encoder (its stats, recons as `PinnedPlane`s,
+    config, flags and parameter-set fields) and `stream` for its bytes
+    (`PinnedStream`), after checking the pin's tree, packages, config and
+    input frames."""
+    case = REFERENCE_CASES[name]
+    cfg, frames = reference_inputs(name)
+    if live:
+        run = _run_live(case, cfg, frames)
+    else:
+        pin = reference_pins()[name]
+        want = json.loads(json.dumps(dataclasses.asdict(cfg)))
+        assert pin["config"] == want, \
+            f"pin {name}: derived with another config"
+        assert pin["input_sha256"] == frames_sha256(frames), \
+            f"pin {name}: derived from other frames"
+        run = _pinned_run(pin, cfg)
+    run.cfg, run.frames = cfg, frames
+    return run
+
+
+# ---- IPPP stream cases (`test_torch_ippp*.py`): one case = the
+# reference's pinned encode (`reference_run`), the port's encoder on the
+# CPU on the same frames, and the comparisons both make.
 
 QCIF_W, QCIF_H = 176, 144
 
 
-def moving_frames(n: int = 5):
-    from tpu264.media.synth import synth_frame
-    return [synth_frame(QCIF_W, QCIF_H, t) for t in range(n)]
-
-
-def encode_both(frames, **kw):
-    """QCIF IPPP CAVLC (QP 28, partitions and 8x8 transform off, `kw` on
-    top) -> (reference encoder, its stream, port encoder, its stream)."""
-    from tpu264.config import EncoderConfig as RefConfig
+def port_encoder(ref_cfg, **kw):
+    """The port's Encoder on the CPU with the settings of `ref_cfg` (a
+    `tpu264` EncoderConfig); `kw` goes to the Encoder."""
     from tpu264_torch.coding.encoder import Encoder
     from tpu264_torch.config import EncoderConfig
-    base = dict(width=QCIF_W, height=QCIF_H, qp=28, symbol_mode="CAVLC",
-                intra_period=0, inter_partitions=False, transform_8x8=False)
-    base.update(kw)
-    cfg = RefConfig(**base)
-    ref = reference_encoder(cfg)
-    want = ref.encode_sequence(frames)
-    port = Encoder(EncoderConfig.from_reference(dataclasses.asdict(cfg)),
-                   device="cpu")
-    got = port.encode_sequence(frames)
-    return ref, want, port, got
+    return Encoder(EncoderConfig.from_reference(dataclasses.asdict(ref_cfg)),
+                   device="cpu", **kw)
+
+
+def encode_both(pin: str):
+    """The reference's (pinned case `pin`) and the port's (on the CPU)
+    encodes of the case's frames with its config -> (reference encoder,
+    its stream, port encoder, its stream)."""
+    ref = reference_run(pin)
+    port = port_encoder(ref.cfg)
+    return ref.enc, ref.stream, port, port.encode_sequence(ref.frames)
 
 
 def assert_same_encode(ref, want, port, got):
@@ -164,7 +565,7 @@ def assert_same_encode(ref, want, port, got):
             (r.psnr_y, r.psnr_u, r.psnr_v), abs=1e-9)
     for got_r, want_r in zip(port.recons, ref.recons):
         for g, w in zip(got_r, want_r):
-            assert_equal(g, np.asarray(w))
+            assert_same_plane(g, w)
 
 
 def record_qps(enc) -> list:
@@ -208,19 +609,14 @@ def frame_qp_spy(enc, n_frames: int):
     return in_display_order
 
 
-def encode_both_rc(ref_cfg, frames, **port_kw):
-    """The reference's and the port's (on the CPU) encodes of `frames` with
-    `ref_cfg`, which asks for rate control -> (reference encoder, its
-    stream, the QPs its rate controller chose, port encoder, its
-    stream)."""
-    from tpu264_torch.coding.encoder import Encoder
-    from tpu264_torch.config import EncoderConfig
-    ref = reference_encoder(ref_cfg)
-    qps = record_qps(ref)
-    want = ref.encode_sequence(frames)
-    port = Encoder(EncoderConfig.from_reference(dataclasses.asdict(ref_cfg)),
-                   device="cpu", **port_kw)
-    return ref, want, qps, port, port.encode_sequence(frames)
+def encode_both_rc(pin: str):
+    """`encode_both` of a case that asks for rate control -> (reference
+    encoder, its stream, the QPs its rate controller chose, port encoder,
+    its stream)."""
+    ref = reference_run(pin)
+    port = port_encoder(ref.cfg)
+    return (ref.enc, ref.stream, ref.rc_qps, port,
+            port.encode_sequence(ref.frames))
 
 
 def assert_same_rc_encode(ref, want, qps, port, got):
@@ -280,52 +676,39 @@ def decode_both(stream: bytes):
 # compiles a program of its own for each deblock setting and slice
 # layout, gives the same stream (the golden "config1_qcif" is its
 # output, and `test_golden_config1_matches_reference_encoder` holds the
-# per-frame stream to it).
+# per-frame stream to it).  One slice with deblocking is the live
+# whole-encode comparison of every Tier-1 run; the other layouts are
+# pinned.
 
 _CAVLC: dict = {}
 
 
-def cavlc_frames():
-    from tpu264.media.synth import synth_frame
-    return [synth_frame(QCIF_W, QCIF_H, t) for t in range(5)]
-
-
-def cavlc_ref_cfg(deblock: bool, slices: int):
-    from tpu264.config import EncoderConfig as RefConfig
-    return RefConfig(width=QCIF_W, height=QCIF_H, qp=28, symbol_mode="CAVLC",
-                     intra_period=1, deblock=deblock, slices_per_frame=slices)
+def cavlc_case(deblock: bool, slices: int) -> str:
+    """The name of the config-1 case of `REFERENCE_CASES`."""
+    return (f"config1{'_3' if slices == 3 else ''}/"
+            f"{'deblock' if deblock else 'no_deblock'}")
 
 
 def cavlc_reference(deblock: bool, slices: int):
-    """The reference's (encoder, 5-frame stream, stats, recons)."""
+    """The reference's (encoder, 5-frame stream, stats, recons): live for
+    one slice with deblocking, else pinned."""
     key = ("ref", deblock, slices)
     if key not in _CAVLC:
-        enc = reference_encoder(cavlc_ref_cfg(deblock, slices))
-        batch = os.environ.get("TPU264_BATCH")
-        os.environ["TPU264_BATCH"] = "1"
-        try:
-            stream = enc.encode_sequence(cavlc_frames())
-        finally:
-            if batch is None:
-                del os.environ["TPU264_BATCH"]
-            else:
-                os.environ["TPU264_BATCH"] = batch
-        _CAVLC[key] = (enc, stream, list(enc.stats),
-                       [tuple(np.asarray(p) for p in r) for r in enc.recons])
+        name = cavlc_case(deblock, slices)
+        run = reference_run(name, live=name in LIVE_CASES)
+        _CAVLC[key] = (run.enc, run.stream, list(run.enc.stats),
+                       list(run.enc.recons))
     return _CAVLC[key]
 
 
 def cavlc_port(deblock: bool, slices: int, **kw):
     """The port's (5-frame stream, encoder) on the CPU; `kw` goes to its
     Encoder (e.g. `intra_batch`)."""
-    from tpu264_torch.coding.encoder import Encoder
-    from tpu264_torch.config import EncoderConfig
     key = ("port", deblock, slices, tuple(sorted(kw.items())))
     if key not in _CAVLC:
-        cfg = EncoderConfig.from_reference(
-            dataclasses.asdict(cavlc_ref_cfg(deblock, slices)))
-        enc = Encoder(cfg, device="cpu", **kw)
-        _CAVLC[key] = (enc.encode_sequence(cavlc_frames()), enc)
+        cfg, frames = reference_inputs(cavlc_case(deblock, slices))
+        enc = port_encoder(cfg, **kw)
+        _CAVLC[key] = (enc.encode_sequence(frames), enc)
     return _CAVLC[key]
 
 
@@ -342,7 +725,7 @@ def assert_batched_stream_equals_reference(deblock: bool, slices: int):
             (r.psnr_y, r.psnr_u, r.psnr_v), abs=1e-9)
     for got_r, want_r in zip(enc.recons, ref_recons):
         for g, w in zip(got_r, want_r):
-            assert_equal(g, w)
+            assert_same_plane(g, w)
     # 4 + 1 frames in chunks of 4 -> two distinct times
     secs = [s.seconds for s in enc.stats]
     assert len(set(secs[:4])) == 1 and all(t > 0 for t in secs)

@@ -64,6 +64,7 @@
 // picture of a chunk starts a slice.  A slice's trailing skipped MBs add
 // no bits (the host appends their run from the skip map).
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -1162,10 +1163,21 @@ extern "C" int tpu264_cavlc_slices(void* const* ptrs, const int32_t* params,
       (p.kind == SL_P && p.t8_mode && io.t8 == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kv_slices_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(TileShared));
-  if (attr != cudaSuccess) return (int)attr;
+  // The slices pass's shared-memory size is an attribute of the current
+  // card's copy of the kernel: set once a card.
+  constexpr int kMaxCards = 64;
+  static std::atomic<bool> attr_set[kMaxCards];
+  int card = 0;
+  cudaError_t e = cudaGetDevice(&card);
+  if (e != cudaSuccess) return (int)e;
+  if (card < 0 || card >= kMaxCards) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[card].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(kv_slices_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sizeof(TileShared));
+    if (e != cudaSuccess) return (int)e;
+    attr_set[card].store(true, std::memory_order_release);
+  }
   kv_state_kernel<<<(int)((n + kStateWarps - 1) / kStateWarps),
                     kStateWarps * 32, 0, s>>>(io, p);
   kv_slices_kernel<<<(int)((n + kTileMbs - 1) / kTileMbs), kWarps * 32,

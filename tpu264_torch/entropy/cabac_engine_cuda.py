@@ -74,12 +74,12 @@ def encode_slices(records: torch.Tensor, counts: torch.Tensor,
         nbytes = torch.empty(n_slices, dtype=torch.int32,
                              device=records.device)
         launches["K1"] += 1
-        err = _build.lib().tpu264_cabac_engine(
+        err = _build.launch(
+            "tpu264_cabac_engine", records,
             _build.ptr(records), records.shape[1], _build.ptr(counts),
             _build.ptr(init),
             _build.host_i32(_RANGE_LPS + _TRANS_MPS + _TRANS_LPS),
-            _build.ptr(words), out_cap_words, _build.ptr(nbytes), n_slices,
-            _build.stream_of(records))
+            _build.ptr(words), out_cap_words, _build.ptr(nbytes), n_slices)
         _build.check(err, "tpu264_cabac_engine")
     else:
         raise ValueError(f"encode_slices: unsupported device "

@@ -182,9 +182,9 @@ def launch_frame(entry: str, a: FrameArgs, like) -> None:
     it."""
     grid, _ = frame_grid(a.bmax, co_resident(entry, like.device))
     ptrs = [0 if t is None else t.data_ptr() for t in a.tensors]
-    err = getattr(lib(), entry)(
-        (ctypes.c_void_p * len(ptrs))(*ptrs), a.params, a.i4params,
-        host_i32(a.geom), a.bmax, *a.waves, grid, stream_of(like))
+    err = launch(entry, like, (ctypes.c_void_p * len(ptrs))(*ptrs),
+                 a.params, a.i4params, host_i32(a.geom), a.bmax, *a.waves,
+                 grid)
     check(err, entry)
 
 
@@ -252,6 +252,17 @@ def host_i64(values) -> ctypes.Array:
 def stream_of(t) -> ctypes.c_void_p:
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def launch(entry: str, like, *args) -> int:
+    """Call the library's `entry` with `args` and then the current stream
+    of the card that tensor `like` lies on, with that card current: CUDA
+    refuses a launch into another card's stream, and what an entry sets
+    on its own (a kernel's shared-memory attribute) belongs to the current
+    card -> the entry's error code."""
+    import torch
+    with torch.cuda.device(like.device):
+        return getattr(lib(), entry)(*args, stream_of(like))
 
 
 def ptr(t) -> ctypes.c_void_p:

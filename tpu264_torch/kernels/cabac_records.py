@@ -174,9 +174,9 @@ class Queued:
             if need > recs.shape[1]:
                 recs = torch.empty((recs.shape[0], need), dtype=I32,
                                    device=recs.device)
-                _build.check(_build.lib().tpu264_cabac_records(
-                    self._ptrs, self._params, _build.ptr(recs), need, 1,
-                    _build.stream_of(recs)), "cabac_records")
+                _build.check(_build.launch(
+                    "tpu264_cabac_records", recs, self._ptrs, self._params,
+                    _build.ptr(recs), need, 1), "cabac_records")
             self._done = (recs, self._counts[:-1])
             self._keep = self._ptrs = None
         return self._done
@@ -214,9 +214,8 @@ def queue(mbd, wm: int, hm: int, rows, kind: str, cap: int,
     params = mp.params(wm, hm, rows, kind, t8_mode, parts, p8x8)
     recs = torch.empty((len(rows), cap), dtype=I32, device=dev)
     launches["KR"] += 1
-    _build.check(_build.lib().tpu264_cabac_records(
-        c_ptrs, params, _build.ptr(recs), cap, 0, _build.stream_of(recs)),
-        who)
+    _build.check(_build.launch("tpu264_cabac_records", recs, c_ptrs,
+                               params, _build.ptr(recs), cap, 0), who)
     return Queued([mbd[k] for k in keys] + [tab, work], c_ptrs, params,
                   recs, counts, mvds, mpm)
 

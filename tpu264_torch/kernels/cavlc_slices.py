@@ -189,10 +189,10 @@ def serialize(mbd, wm: int, hm: int, rows, kind: str, cap_words: int,
     parts, p8x8 = mp.modes_of(mbd, kind)
     launches["KV"] += 1
     launches["KD"] += 1
-    _build.check(_build.lib().tpu264_cavlc_slices(
-        (ctypes.c_void_p * len(ptrs))(*ptrs),
-        mp.params(wm, hm, rows, kind, t8, parts, p8x8), pics, cap_words,
-        _build.stream_of(words)), who)
+    _build.check(_build.launch(
+        "tpu264_cavlc_slices", words, (ctypes.c_void_p * len(ptrs))(*ptrs),
+        mp.params(wm, hm, rows, kind, t8, parts, p8x8), pics, cap_words),
+        who)
     if derived is not None:
         def part(name, shape):
             at = offs[name]

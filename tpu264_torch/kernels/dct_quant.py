@@ -54,9 +54,8 @@ def _launch(x: torch.Tensor, qp: int | None, intra: bool) -> torch.Tensor:
         args = (_build.host_i32(kt.MF_TABLE[qp % 6].reshape(16).tolist()),
                 _build.host_i32(kt.LIMIT_AC[qp].reshape(16).tolist()),
                 (1 << qbits) // (3 if intra else 6), qbits)
-    err = _build.lib().tpu264_dct_quant(
-        _build.ptr(x), _build.ptr(out), n, int(qp is not None), *args,
-        _build.stream_of(x))
+    err = _build.launch("tpu264_dct_quant", x, _build.ptr(x),
+                        _build.ptr(out), n, int(qp is not None), *args)
     _build.check(err, "tpu264_dct_quant")
     return out
 

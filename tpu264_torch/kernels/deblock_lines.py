@@ -99,9 +99,9 @@ def filter_luma_lines(win, bs, alpha: int, beta: int, tc0_row):
     out = torch.empty_like(win)
     tc0 = [int(v) for v in tc0_row]
     launches["K4_lines"] += 1
-    err = _build.lib().tpu264_deblock_luma(
-        _build.ptr(win), _build.ptr(bs_lines), _build.ptr(out),
-        win.numel() // 8, int(alpha), int(beta), _build.host_i32(tc0),
-        _build.stream_of(win))
+    err = _build.launch(
+        "tpu264_deblock_luma", win, _build.ptr(win), _build.ptr(bs_lines),
+        _build.ptr(out), win.numel() // 8, int(alpha), int(beta),
+        _build.host_i32(tc0))
     _build.check(err, "tpu264_deblock_luma")
     return out

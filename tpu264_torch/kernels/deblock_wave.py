@@ -65,9 +65,9 @@ def deblock_wave(y, u, v, bs_v, bs_h, cp: int, qp_y, qp_c, off_a: int = 0,
     if n == 0:
         return
     launches["K4"] += 1
-    err = _build.lib().tpu264_deblock_wave(
-        _build.ptr(y), _build.ptr(u), _build.ptr(v), _build.ptr(bs_v),
-        _build.ptr(bs_h), _build.ptr(qp_y), _build.ptr(qp_c), wm, hm, cp, r0,
-        n, lead[0] if lead else 1, int(off_a), int(off_b),
-        _build.stream_of(y))
+    err = _build.launch(
+        "tpu264_deblock_wave", y, _build.ptr(y), _build.ptr(u),
+        _build.ptr(v), _build.ptr(bs_v), _build.ptr(bs_h), _build.ptr(qp_y),
+        _build.ptr(qp_c), wm, hm, cp, r0, n, lead[0] if lead else 1,
+        int(off_a), int(off_b))
     _build.check(err, "tpu264_deblock_wave")

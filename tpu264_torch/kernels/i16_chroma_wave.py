@@ -168,7 +168,8 @@ def i16_chroma_wave(bd: dict, coords, avail, gy, gu, gv, mb4, modebuf,
                _build.host_i64(st * t.element_size()
                                for st, t in zip(steps, tensors)))
     launches["K3"] += 1
-    err = _build.lib().tpu264_i16_chroma_wave(
-        ptrs, pack_params(int(qp), int(cqp), blk_order), b, wm,
-        1 if nf is None else nf, fstride, _build.stream_of(gy))
+    err = _build.launch(
+        "tpu264_i16_chroma_wave", gy, ptrs,
+        pack_params(int(qp), int(cqp), blk_order), b, wm,
+        1 if nf is None else nf, fstride)
     _build.check(err, "tpu264_i16_chroma_wave")

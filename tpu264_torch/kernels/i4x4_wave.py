@@ -105,12 +105,12 @@ def i4x4_wave(orig, ltop, lleft, modes_top, modes_left, at, al, atl, atr,
     coeffs = torch.empty((b, 16, 16), dtype=I32, device=dev)
     cost = torch.empty((b,), dtype=I32, device=dev)
     launches["K2"] += 1
-    err = _build.lib().tpu264_i4x4_wave(
-        _build.ptr(orig), _build.ptr(ltop), _build.ptr(lleft),
-        _build.ptr(modes_top), _build.ptr(modes_left), *flags,
-        pack_params(int(qp), int(lam4), int(lam24), rules),
+    err = _build.launch(
+        "tpu264_i4x4_wave", orig, _build.ptr(orig), _build.ptr(ltop),
+        _build.ptr(lleft), _build.ptr(modes_top), _build.ptr(modes_left),
+        *flags, pack_params(int(qp), int(lam4), int(lam24), rules),
         _build.ptr(recon), _build.ptr(mode_grid), _build.ptr(modes_zz),
-        _build.ptr(coeffs), _build.ptr(cost), b, _build.stream_of(orig))
+        _build.ptr(coeffs), _build.ptr(cost), b)
     _build.check(err, "tpu264_i4x4_wave")
     return recon, mode_grid, modes_zz, coeffs, cost
 
@@ -153,13 +153,14 @@ def i4x4_wave_bd(orig, bd: dict, coords, avail, qp: int, lam4: int,
             [o_step, row_y, col_y, modes_row, modes_col, recon.stride(0),
              mode_grid.stride(0), z_step, coeffs.stride(0), cost.stride(0)])
     launches["K2"] += 1
-    err = _build.lib().tpu264_i4x4_wave_bd(
+    err = _build.launch(
+        "tpu264_i4x4_wave_bd", orig,
         _build.ptr(orig), _build.ptr(bd["row_y"]), _build.ptr(bd["col_y"]),
         _build.ptr(bd["modes_row"]), _build.ptr(bd["modes_col"]),
         _build.ptr(coords), _build.ptr(avail), wm,
         pack_params(int(qp), int(lam4), int(lam24), rules),
         _build.ptr(recon), _build.ptr(mode_grid), _build.ptr(modes_zz),
         _build.ptr(coeffs), _build.ptr(cost), b, 1 if nf is None else nf,
-        fstride, _build.stream_of(orig))
+        fstride)
     _build.check(err, "tpu264_i4x4_wave_bd")
     return recon, mode_grid, modes_zz, coeffs, cost

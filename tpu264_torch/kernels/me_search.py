@@ -101,8 +101,8 @@ def full_search(orig_y, ref_pad, pad: int, search_range: int, lam: int,
     if key not in _PARAMS:
         _PARAMS[key] = _build.host_i32(pack_params(*key))
     launches["KF"] += 1
-    err = _build.lib().tpu264_me_search(
-        _build.ptr(orig_y), _build.ptr(ref_pad), _build.ptr(out),
-        _PARAMS[key], _build.stream_of(orig_y))
+    err = _build.launch(
+        "tpu264_me_search", orig_y, _build.ptr(orig_y), _build.ptr(ref_pad),
+        _build.ptr(out), _PARAMS[key])
     _build.check(err, who)
     return out

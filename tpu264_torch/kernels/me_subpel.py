@@ -133,8 +133,8 @@ def subpel(orig_y, planes, pad: int, mv_int, lam: int, width_mbs: int,
     if key not in _PARAMS:
         _PARAMS[key] = _build.host_i32(pack_params(*key))
     launches["KS"] += 1
-    err = _build.lib().tpu264_me_subpel(
-        _build.ptr(orig_y), _build.ptr(planes), _build.ptr(mv_int),
-        _build.ptr(out), _PARAMS[key], _build.stream_of(orig_y))
+    err = _build.launch(
+        "tpu264_me_subpel", orig_y, _build.ptr(orig_y), _build.ptr(planes),
+        _build.ptr(mv_int), _build.ptr(out), _PARAMS[key])
     _build.check(err, who)
     return out

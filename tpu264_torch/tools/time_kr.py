@@ -3,9 +3,8 @@ a seeded 1920x1088 B picture with partitions and the 8x8 PPS
 (`synth_inputs.random_b_mbs`, one slice, a cap that no slice reaches):
 
 - `host_ms_queue`: the host's time in the part of a call that the
-  encoders queue before the next frame, the card idle before each call:
-  `queue` where the wrapper has one, else the whole of `records`, which
-  then reads the largest count back itself;
+  encoders queue before the next frame (`queue`), the card idle before
+  each call;
 - `ms`: `records` back to back, CUDA events around them, as
   `chip_smoke.py` times KR.
 
@@ -15,15 +14,12 @@ call can hold two trees against each other:
     python -m tpu264_torch.tools.time_kr
     PYTHONPATH=<other tree> python <this file>
 
-A wrapper whose `records` still takes the mvds and most probable modes
-gets them from its `inputs`, outside the clock.  Prints the card's name
-and power limit, then one JSON object.
+Prints the card's name and power limit, then one JSON object.
 """
 
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import time
 
@@ -47,18 +43,12 @@ def main() -> None:
     mbd = {k: torch.as_tensor(v, device=dev)
            for k, v in random_b_mbs(args.seed, WM, HM, True, True).items()}
     rows, cap = [0], WM * HM * 768
-    if "mvds" in inspect.signature(kcr.records).parameters:
-        derived = kcr.inputs(mbd, WM, HM, rows, "b")
 
-        def call():
-            return kcr.records(mbd, *derived, WM, HM, rows, "b", cap, True)
-        queue = call
-    else:
-        def call():
-            return kcr.records(mbd, WM, HM, rows, "b", cap, True)
+    def call():
+        return kcr.records(mbd, WM, HM, rows, "b", cap, True)
 
-        def queue():
-            return kcr.queue(mbd, WM, HM, rows, "b", cap, True)
+    def queue():
+        return kcr.queue(mbd, WM, HM, rows, "b", cap, True)
     for _ in range(10):
         tuple(queue())
     host = 0.0
